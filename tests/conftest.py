@@ -47,6 +47,8 @@ def pytest_configure(config):
         "markers",
         "slow: long-running kill-9 chaos/torture tests (tier-1 runs "
         "with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skips elsewhere")
 
 
 # ---------------------------------------------------------------------------

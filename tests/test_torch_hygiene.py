@@ -1,0 +1,92 @@
+"""Rules of the PyTorch port that the other tests do not show.
+
+* No module of `tidb_tpu_torch/`, and not `chip_smoke.py`, imports `jax`
+  or anything of `tidb_tpu` (checked on the AST, so an import inside a
+  function counts too).
+* The entry points run on the card unless the caller asks for the CPU:
+  `CopClient()` without CUDA raises; nothing moves to the CPU on its own.
+* A kernel wrapper given a CUDA tensor launches its kernel or raises; it
+  never takes the plain version. Here there is no CUDA and no nvcc, so a
+  stand-in "CUDA tensor" must reach the build and fail there.
+"""
+
+import ast
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from tidb_tpu_torch.copr import _kernels
+from tidb_tpu_torch.copr import streamseg as TSS
+from tidb_tpu_torch.copr.client import CopClient
+from tidb_tpu_torch.device import resolve_device
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "tidb_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "tidb_tpu"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_has_the_kernel_sources():
+    assert (ROOT / "tidb_tpu_torch/csrc/streamseg.cu").is_file()
+    assert sorted(p.stem for p in _kernels.SRC_DIR.glob("*.cu")) == \
+        sorted(_kernels._SIGNATURES)
+
+
+def test_client_needs_cuda_unless_cpu_is_asked():
+    with mock.patch.object(torch.cuda, "is_available", lambda: False):
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            CopClient()
+        with pytest.raises(RuntimeError, match="CUDA device requested"):
+            CopClient("cuda")
+        assert CopClient("cpu").device == torch.device("cpu")
+    with mock.patch.object(torch.cuda, "is_available", lambda: True):
+        assert resolve_device() == torch.device("cuda")
+
+
+def test_cuda_wrapper_raises_without_a_built_kernel(tmp_path, monkeypatch):
+    # an empty build directory and no nvcc anywhere
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_kernels, "_libs", {})
+    monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cuda_vals = mock.MagicMock(spec=torch.Tensor)
+    cuda_vals.is_cuda = True
+    meta = TSS.rank_meta([np.array([0, 0, 1, 1, 1, 2])])
+    assert not meta["identity"]
+    before = dict(_kernels.LAUNCHES)
+    with mock.patch.object(TSS, "rank_sums_plain",
+                           side_effect=AssertionError("fell back")):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            TSS.rank_sums(cuda_vals, mock.MagicMock(spec=torch.Tensor), meta)
+    assert _kernels.LAUNCHES == before
+
+
+def test_cpu_tensors_take_the_plain_version():
+    meta = TSS.rank_meta([np.array([0, 0, 1, 1, 1, 2])])
+    vals = torch.ones((2, 6))
+    f = torch.from_numpy(meta["f"])
+    with mock.patch.object(_kernels, "streamseg_rank_sums",
+                           side_effect=AssertionError("kernel on CPU")):
+        out = TSS.rank_sums(vals, f, meta)
+    assert out[:, :3].tolist() == [[2.0, 3.0, 1.0]] * 2

@@ -1,0 +1,330 @@
+"""The port's coprocessor slice vs the JAX reference, request by request.
+
+TPC-H lineitem (SF0.02, seed 42) is loaded into a reference `Session`.
+Each query runs there; `unittest.mock` wraps the reference's
+`CopClient.execute` and `copr.fragment.execute_fragment` to capture the
+request, the snapshot(s) and the answer the coprocessor gave. The request
+and snapshots then cross over with `tidb_tpu_torch.convert` and run
+through the port on the CPU.
+
+Tolerance: exact. The coprocessor answers in its partial layout
+[group cols..., (val, cnt) per aggregate] of exact int64 sums, and the
+engine tags must be the same strings. Rows are compared sorted: the order
+of groups is not part of the contract (the HAVING candidate buffer is
+filled by approx_max_k in the reference and by torch.topk in the port).
+Where the reference leaves the device for its host interpreter, the port
+must raise `NotInSlice` with the reference's own reason.
+"""
+
+import dataclasses
+from unittest import mock
+
+import numpy as np
+import pytest
+
+from tidb_tpu.bench.tpch_data import generate_tpch as ref_generate_tpch
+from tidb_tpu.bench.tpch_data import load_tpch
+from tidb_tpu.bench.tpch_queries import TPCH_QUERIES
+from tidb_tpu.copr import client as JC
+from tidb_tpu.copr import fragment as JF
+from tidb_tpu.plan.fragment import FragmentDAG as RefFragmentDAG
+from tidb_tpu.session import Session
+from tidb_tpu_torch import NotInSlice
+from tidb_tpu_torch.bench import tpch_data as TD
+from tidb_tpu_torch.bench import tpch_requests as TR
+from tidb_tpu_torch.convert import (request_from_reference,
+                                    snapshot_from_reference)
+from tidb_tpu_torch.copr.client import CopClient
+from tidb_tpu_torch.copr.fragment import execute_fragment
+from tidb_tpu_torch.plan.expr import AggDesc
+from tidb_tpu_torch.plan.fragment import FragmentDAG
+
+SF, SEED = 0.02, 42
+Q18_INNER = ("select l_orderkey, sum(l_quantity) from lineitem "
+             "group by l_orderkey having sum(l_quantity) > 300")
+SLICE = {"q6": (TPCH_QUERIES["q6"], "dag", "device"),
+         "q1": (TPCH_QUERIES["q1"], "dag", "device"),
+         "q18_inner": (Q18_INNER, "frag", "device[hc]")}
+
+
+@pytest.fixture(scope="module")
+def session():
+    s = Session()
+    load_tpch(s, sf=SF, seed=SEED, tables=["lineitem"])
+    return s
+
+
+def _capture(session, sql):
+    """[(kind, request, snapshot(s), reference result)] per coprocessor
+    call the statement made."""
+    calls = []
+    run_dag, run_frag = JC.CopClient.execute, JF.execute_fragment
+
+    def dag_call(self, dag, snap):
+        r = run_dag(self, dag, snap)
+        calls.append(("dag", dag, snap, r))
+        return r
+
+    def frag_call(cop, frag, snaps):
+        r = run_frag(cop, frag, snaps)
+        calls.append(("frag", frag, snaps, r))
+        return r
+
+    with mock.patch.object(JC.CopClient, "execute", dag_call), \
+            mock.patch.object(JF, "execute_fragment", frag_call):
+        session.query(sql)
+    return calls
+
+
+def _port(kind, req, snaps, cop=None):
+    cop = cop or CopClient("cpu")
+    if kind == "dag":
+        return cop.execute(request_from_reference(req),
+                           snapshot_from_reference(snaps))
+    return execute_fragment(cop, request_from_reference(req),
+                            {tid: snapshot_from_reference(s)
+                             for tid, s in snaps.items()})
+
+
+def _one_call(session, sql):
+    calls = _capture(session, sql)
+    assert len(calls) == 1, [c[0] for c in calls]
+    return calls[0]
+
+
+@pytest.mark.parametrize("name", sorted(SLICE))
+def test_slice_query_matches_reference(session, name):
+    sql, kind, tag = SLICE[name]
+    k, req, snaps, ref = _one_call(session, sql)
+    assert k == kind and ref.engine == tag
+    got = _port(kind, req, snaps)
+    assert got.engine == ref.engine
+    assert got.is_partial_agg and ref.is_partial_agg
+    rows = TR.partial_rows(got.chunks)
+    assert rows and rows == TR.partial_rows(ref.chunks)
+
+
+@pytest.mark.parametrize("name", ["q6", "q1"])
+def test_tiled_epoch_matches_reference(session, name):
+    # 121k rows in 40k-row tiles: 4 tiles padded to one shape bucket
+    _, req, snap, _ = _one_call(session, SLICE[name][0])
+    ref_cop = JC.CopClient()
+    ref_cop.TILE_ROWS = 40_000
+    ref = ref_cop.execute(req, snap)
+    cop = CopClient("cpu")
+    cop.TILE_ROWS = 40_000
+    got = _port("dag", req, snap, cop)
+    assert got.engine == ref.engine == "device"
+    assert TR.partial_rows(got.chunks) == TR.partial_rows(ref.chunks)
+
+
+def _without_agg_names(obj):
+    """Request tree with AggDesc.name (the SQL text of the call, for
+    display only) blanked."""
+    if isinstance(obj, AggDesc):
+        return dataclasses.replace(obj, name="",
+                                   arg=_without_agg_names(obj.arg))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _without_agg_names(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, list):
+        return [_without_agg_names(x) for x in obj]
+    return obj
+
+
+@pytest.mark.parametrize("name", sorted(SLICE))
+def test_hand_built_request_equals_planner(session, name):
+    _, req, snaps, _ = _one_call(session, SLICE[name][0])
+    planner = _without_agg_names(request_from_reference(req))
+    tid = req.scan.table_id if name != "q18_inner" else \
+        req.tables[0].table.id
+    table = TR.lineitem_table(tid)
+    assert request_from_reference(
+        (snaps if name != "q18_inner" else snaps[tid]).table) == table
+    built = {"q6": TR.q6_dag, "q1": TR.q1_dag,
+             "q18_inner": TR.q18_inner_frag}[name](table)
+    assert _without_agg_names(built) == planner
+
+
+@pytest.mark.parametrize("table", ["lineitem", "orders", "part", "customer",
+                                   "supplier", "partsupp", "nation",
+                                   "region"])
+def test_generator_matches_reference(table):
+    ours = TD.generate_tpch(SF, SEED)[table]
+    ref = ref_generate_tpch(SF, SEED)[table]
+    assert ours.keys() == ref.keys()
+    for col, v in ref.items():
+        if isinstance(v, tuple):
+            assert list(ours[col][0]) == list(v[0]), col
+            assert np.array_equal(ours[col][1], v[1]), col
+        else:
+            assert np.array_equal(ours[col], v), col
+
+
+@pytest.mark.parametrize("name", sorted(SLICE))
+def test_port_matches_numpy_oracle(name):
+    li = TD.generate_tpch(SF, SEED)["lineitem"]
+    table = TR.lineitem_table(5)
+    snap = TR.load_table(table, li).snapshot()
+    cop = CopClient("cpu")
+    if name == "q18_inner":
+        r = execute_fragment(cop, TR.q18_inner_frag(table), {5: snap})
+        want = TR.q18_inner_oracle(li)
+    else:
+        r = cop.execute(getattr(TR, f"{name}_dag")(table), snap)
+        want = getattr(TR, f"{name}_oracle")(li)
+    assert r.engine == SLICE[name][2]
+    assert want and TR.partial_rows(r.chunks) == want
+
+
+# ---- wider single-table shapes on the same two entry points ------------------
+# (SQL, outcome): "same" = identical rows and engine tag; otherwise the
+# NotInSlice reason the port must raise
+SHAPES = {
+    # a string ordering compare keeps the filter on the host above a row
+    # scan: the row path is a later slice
+    "row_scan": (
+        "select sum(l_quantity) from lineitem where l_shipmode > 'AIR'",
+        "row and TopN paths"),
+    "max_per_dict_group": (
+        "select l_shipmode, max(l_extendedprice) from lineitem "
+        "group by l_shipmode", "same"),
+    "like_and_min_avg": (
+        "select l_linenumber, l_shipmode, sum(l_quantity), avg(l_discount), "
+        "min(l_shipdate) from lineitem where l_comment like '%ly%' "
+        "group by l_linenumber, l_shipmode", "same"),
+    "in_list_not": (
+        "select count(*) from lineitem where l_shipinstruct in "
+        "('NONE', 'COLLECT COD') and not (l_tax = 0)", "same"),
+    "computed_key": (
+        "select l_suppkey % 7, sum(l_quantity) from lineitem "
+        "group by l_suppkey % 7", "same"),
+    "year_key": (
+        "select year(l_shipdate), sum(l_tax) from lineitem "
+        "group by year(l_shipdate)", "same"),
+    # dense gate rejects l_orderkey; lifted to a run-ordered fragment
+    "all_groups_lift": (
+        "select l_orderkey, count(*) from lineitem group by l_orderkey",
+        "same"),
+    "all_groups_lift_filtered": (
+        "select l_orderkey, sum(l_extendedprice), count(l_tax) from lineitem "
+        "where l_discount > 0.03 group by l_orderkey", "same"),
+    # 201 dense segments over 121k rows: the one-hot (einsum) strategy
+    "einsum_strategy": (
+        "select l_suppkey, sum(l_quantity), count(*) from lineitem "
+        "group by l_suppkey", "same"),
+    # nine value arrays exceed streamseg's K <= 8: the reference takes its
+    # sorted-run body over the run-ordered epoch, a later slice
+    "streamseg_k_gate": (
+        "select l_orderkey, sum(l_extendedprice), sum(l_tax), "
+        "sum(l_discount), count(*) from lineitem group by l_orderkey",
+        "hc sorted-run body"),
+    # the reference's host gate: the port raises its reason
+    "not_decomposable": (
+        "select sum(l_extendedprice * l_extendedprice * l_extendedprice * "
+        "l_quantity) from lineitem", "host"),
+    # the int64-accumulator gate (|bound| x rows >= 2^62) that also sends
+    # Q1's sum_charge to the host at SF10
+    "int64_accumulator_gate": (
+        "select sum(l_extendedprice * l_extendedprice) from lineitem",
+        "host"),
+    # not run-ordered: the reference's sorted-run hc body, a later slice
+    "sorted_run_body": (
+        "select l_partkey, sum(l_quantity) from lineitem group by l_partkey",
+        "hc sorted-run body"),
+    # three segment keys that pack into one int32 operand, not run-ordered
+    "three_keys_one_pack": (
+        "select l_orderkey, l_quantity, l_linenumber, count(*) from lineitem "
+        "group by l_orderkey, l_quantity, l_linenumber",
+        "hc sorted-run body"),
+    # three segment keys needing three int32 operands: the packing gate
+    # rejects the sorted-run path and the reference goes to the host
+    "three_keys_no_pack": (
+        "select l_partkey * 100000, l_suppkey * 100000, l_orderkey, count(*) "
+        "from lineitem group by l_partkey * 100000, l_suppkey * 100000, "
+        "l_orderkey", "host"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_single_table_shapes(session, name):
+    sql, outcome = SHAPES[name]
+    kind, req, snaps, ref = _one_call(session, sql)
+    if outcome == "same":
+        got = _port(kind, req, snaps)
+        assert got.engine == ref.engine
+        assert TR.partial_rows(got.chunks) == TR.partial_rows(ref.chunks)
+        return
+    if outcome == "host":
+        assert ref.engine.startswith("host(")
+        outcome = ref.engine[len("host("):-1]
+    with pytest.raises(NotInSlice) as ei:
+        _port(kind, req, snaps)
+    assert ei.value.reason == outcome
+
+
+def test_group_overflow_gate_matches_reference(session):
+    # a 256-group HAVING buffer: the ~290 passing orders exhaust it, and
+    # the reference concedes to its host interpreter
+    _, frag, snaps, _ = _one_call(session, Q18_INNER)
+    with mock.patch.object(RefFragmentDAG, "HAVING_CAP", 256):
+        ref = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    assert ref.engine == "host(fragment:group-overflow)"
+    with mock.patch.object(FragmentDAG, "HAVING_CAP", 256), \
+            pytest.raises(NotInSlice) as ei:
+        _port("frag", frag, snaps)
+    assert ei.value.reason == "group-overflow"
+
+
+# ---- NULLs and floats: a small table of every staged width ------------------
+
+NULLABLE_DDL = ("create table t (k bigint not null, d double, "
+                "x decimal(10,2), s varchar(10), b tinyint)")
+NULLABLE_QUERIES = {
+    "fsum_avg_max_by_key": "select k, sum(d), avg(x), count(x), max(d), "
+                           "min(x) from t group by k",
+    "by_string_with_nulls": "select s, count(*), sum(x) from t "
+                            "where x is not null or d > 0 group by s",
+    "by_nullable_int": "select b, sum(k), count(d) from t group by b",
+    "no_group": "select sum(d), sum(x), count(*) from t where b < 3",
+}
+
+
+@pytest.fixture(scope="module")
+def nullable_session():
+    rng = np.random.default_rng(9)
+    n = 5000
+    s = Session()
+    s.execute(NULLABLE_DDL)
+    info = s.catalog.table(s.current_db, "t")
+    store = s.storage.table_store(info.id)
+    d = store.dictionaries[3]
+    words = np.array([d.encode(w) for w in ("ab", "cd", "ef", "gh")])
+    store.bulk_load(
+        [np.sort(rng.integers(0, 40, n)), rng.random(n) * 100,
+         rng.integers(-99999, 99999, n), words[rng.integers(0, 4, n)],
+         rng.integers(-5, 6, n)],
+        [None, rng.random(n) > 0.1, rng.random(n) > 0.2,
+         rng.random(n) > 0.05, rng.random(n) > 0.3])
+    return s
+
+
+@pytest.mark.parametrize("name", sorted(NULLABLE_QUERIES))
+def test_nulls_and_floats_match_reference(nullable_session, name):
+    kind, req, snaps, ref = _one_call(nullable_session,
+                                      NULLABLE_QUERIES[name])
+    assert ref.engine == "device"
+    got = _port(kind, req, snaps)
+    assert got.engine == ref.engine
+    rows, want = TR.partial_rows(got.chunks), TR.partial_rows(ref.chunks)
+    assert len(rows) == len(want)
+    for r, w in zip(rows, want):
+        # float sums: f32 block partials summed on the host in f64, in
+        # another order than the reference's (rtol 1e-6; the doubles are
+        # positive so sums do not cancel); all else exact
+        for a, b in zip(r, w):
+            if isinstance(b, float):
+                assert a == pytest.approx(b, rel=1e-6)
+            else:
+                assert a == b

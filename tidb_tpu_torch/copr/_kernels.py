@@ -1,0 +1,170 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into
+`build/kernels/lib<name>.so` at the root of the checkout, at first use,
+and binds through a plain C function loaded with `ctypes` (no PyTorch
+headers, so a build takes seconds). `build_all` starts one `nvcc` per
+source, all at once.
+
+Every wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with torch, launches on the current stream, raises
+when the C function returns a CUDA error, and adds one to its entry in
+`LAUNCHES` for each launch. There is no fallback: a wrapper that cannot
+build or launch its kernel raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel wrapper; read (and reset) by chip_smoke.py to show
+# that the main path went through each kernel
+LAUNCHES: dict[str, int] = {"streamseg.rank_sums": 0}
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+# C signature of each source's entry point: (function, argtypes)
+_SIGNATURES = {
+    "streamseg": ("streamseg_rank_sums",
+                  [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL, _LL,
+                   _LL, _VP]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of tidb_tpu_torch "
+                       "build with the CUDA toolkit on the card's machine")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    src = SRC_DIR / f"{name}.cu"
+    return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile the named sources (default: every csrc/*.cu that is stale),
+    one nvcc process per source, all started together. Returns each
+    source's compiler output (ptxas register/shared-memory report);
+    raises if any build fails."""
+    if names is None:
+        names = [p.stem for p in sorted(SRC_DIR.glob("*.cu"))]
+    names = [n for n in names if _stale(n)]
+    if not names:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def _library(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if _stale(name):
+                build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
+           device: torch.device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{what} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{what} must be {dim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+TILE_ROWS = 4096  # rows per block of the streamseg kernel (csrc TILE)
+
+
+def streamseg_rank_sums(vals: torch.Tensor, f: torch.Tensor, nd: int,
+                        nd_pad: int) -> torch.Tensor:
+    """CUDA kernel for `streamseg.rank_sums`: vals f32[K, n],
+    change flags f int32[nf] (rows >= nf have flag 0) -> f32[K, nd_pad]
+    with out[k, r] = sum of vals[k, row] over rows of rank r < nd."""
+    lib = _library("streamseg")
+    dev = vals.device
+    _check(vals, "vals", torch.float32, 2, dev)
+    _check(f, "f", torch.int32, 1, dev)
+    K, n = vals.shape
+    if K < 1:
+        raise ValueError("streamseg: vals has no arrays")
+    if n >= 2**31 - TILE_ROWS:
+        raise ValueError(f"streamseg: n={n} rows exceeds int32 ranks")
+    out = torch.zeros((K, nd_pad), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    ntiles = -(-n // TILE_ROWS)
+    counts = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    offsets = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.streamseg_rank_sums(
+            vals.data_ptr(), f.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), offsets.data_ptr(), K, n,
+            min(f.shape[0], n), nd, nd_pad, stream)
+    if err != 0:
+        raise RuntimeError(f"streamseg kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["streamseg.rank_sums"] += 1
+    return out
