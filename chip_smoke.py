@@ -8,13 +8,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. the card: `nvidia-smi` name and power limit, torch's device name;
    exits 1 at once when torch sees no CUDA device;
 2. build every CUDA kernel of the port from the sources in the checkout
-   (one nvcc per source, started together), with the build seconds;
+   (one nvcc per source, started together, always, even where a library is
+   up to date, so that ptxas's register and spill report is read on every
+   run: a spill fails it), with the build seconds, and the streamseg
+   kernel's persistent launch (blocks per SM x SMs);
 3. each kernel against its plain PyTorch version on the card, exactly
    (the kernels sum integers below 2^24 in f32, so any order is exact):
-   ragged shapes, then the shapes the main path gives it at SF10; times
-   with CUDA events for the kernel, the plain version, one PyTorch
-   library call computing the same function, and the bound from bytes
-   moved / operations done over the H100's published peaks;
+   ragged shapes (each output handed a freed NaN-filled block first, so an
+   element the kernel skips shows), then the shapes the main path gives
+   it at SF10 and at Q18-inner's SF1; times with CUDA events for the
+   kernel, the plain version and two PyTorch library calls computing the
+   same function (`index_add_` and `segment_reduce`), and the bound from
+   bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card: TPC-H Q6
    (SF10) and Q1 (SF5; at SF10 the reference's int64-accumulator gate,
    |bound| * rows >= 2^62, sends Q1's sum_charge to its host path) through
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +59,7 @@ from tidb_tpu_torch.copr.sumexact import limbs_of
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+L2_BYTES = 50e6
 
 
 def _device_line() -> str:
@@ -89,45 +96,52 @@ def _run_keys(rng, n: int, max_run: int):
 
 # (rows, longest run, K, pad rows past the flags): K = 1, 4, 8, the
 # identity case (runs of 1), runs of the 4096-row gate maximum, rows past
-# len(f), and sizes that are multiples of no block
+# len(f) (with values: they join the last rank), a tail of pad rows that
+# fills whole tiles, rows of vals that start unaligned (n % 4 != 0), and
+# sizes that are multiples of no block
 RAGGED = ((1, 1, 1, 0), (4095, 7, 4, 0), (4097, 20, 8, 3),
           (100_003, 300, 4, 1021), (1_000_003, 4096, 8, 0),
-          (777_777, 1, 4, 5))
+          (777_777, 1, 4, 5), (6000, 7, 4, 3500), (9999, 13, 2, 0))
 
 
-def _kernel_phase(li10, seed: int, sf: str) -> dict:
-    """streamseg.rank_sums against its plain version; timings at the
-    main path's shapes at scale factor `sf`."""
+def _ragged_phase(seed: int) -> None:
+    """streamseg.rank_sums against its plain version at RAGGED shapes."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     for n, max_run, K, extra in RAGGED:
         name = f"n={n} runs<={max_run} K={K} pad={extra}"
         keys = _run_keys(rng, n, max_run)
-        n_pad = n + extra
         meta = SS.rank_meta([keys])
         assert meta is not None, name
-        vals = np.zeros((K, n_pad), np.float32)
-        vals[:, :len(keys)] = rng.integers(-2048, 4096, (K, len(keys)))
+        vals = rng.integers(-2048, 4096, (K, n + extra)).astype(np.float32)
         v = torch.as_tensor(vals, device=dev)
         f = torch.as_tensor(meta["f"], device=dev)
-        got = _kernels.streamseg_rank_sums(v, f, meta["nd"], meta["nd_pad"])
-        want = SS.rank_sums_plain(v, f, meta["nd"], meta["nd_pad"])
+        nd, nd_pad = meta["nd"], meta["nd_pad"]
+        # the kernel's output starts empty: free a NaN-filled block of its
+        # size first, so the caching allocator hands that block back
+        torch.full((K, nd_pad), float("nan"), device=dev)
+        got = _kernels.streamseg_rank_sums(v, f, nd, nd_pad)
+        want = SS.rank_sums_plain(v, f, nd, nd_pad)
         torch.cuda.synchronize()
         ok = torch.equal(got, want)
         print(f"  streamseg {name}: identity={meta['identity']} "
-              f"nd={meta['nd']} exact={ok}")
+              f"nd={nd} exact={ok}")
         if not ok:
             raise SystemExit(f"streamseg kernel != plain at {name}")
 
-    # the shapes Q18's inner block gives the kernel: K = 4 arrays
-    # (row mask, count mask, two 12-bit limbs of l_quantity) over the
-    # whole staged lineitem epoch, ranks = orders
+
+def _shape_phase(li, label: str) -> dict:
+    """streamseg.rank_sums at the shape Q18's inner block gives it on
+    lineitem `li`: K = 4 arrays (row mask, count mask, two 12-bit limbs of
+    l_quantity) over the whole staged epoch, ranks = orders. Exactness
+    against the plain version and both library calls, then times."""
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    meta = SS.rank_meta([li10["l_orderkey"]])
+    meta = SS.rank_meta([li["l_orderkey"]])
     n0, nd, nd_pad = meta["n0"], meta["nd"], meta["nd_pad"]
     n_pad = _bucket(n0)
     qty = torch.zeros(n_pad, dtype=torch.int32, device=dev)
-    qty[:n0] = torch.as_tensor(li10["l_quantity"].astype(np.int32),
+    qty[:n0] = torch.as_tensor(li["l_quantity"].astype(np.int32),
                                device=dev)
     live = torch.arange(n_pad, device=dev) < n0
     lo, hi = limbs_of(qty, 2)
@@ -135,36 +149,70 @@ def _kernel_phase(li10, seed: int, sf: str) -> dict:
                         hi.float()]).contiguous()
     f = torch.as_tensor(meta["f"], device=dev)
     K = vals.shape[0]
-    print(f"  {sf} shape: K={K} n0={n0} n_pad={n_pad} nd={nd} "
-          f"maxd={meta['maxd']} (host setup {time.perf_counter()-t0:.1f}s)")
-    got = _kernels.streamseg_rank_sums(vals, f, nd, nd_pad)
-    want = SS.rank_sums_plain(vals, f, nd, nd_pad)
+    # library inputs, built outside the timed region: per-row ranks for
+    # index_add_, per-rank run lengths (pad rows join the last run) for
+    # segment_reduce
+    rank64 = torch.cumsum(torch.cat([f, f.new_zeros(n_pad - n0)]), 0)
+    lens = np.diff(np.append(meta["r0"][:nd].astype(np.int64), n0))
+    lens[-1] += n_pad - n0
+    L = torch.as_tensor(lens, device=dev).expand(K, nd).contiguous()
+    print(f"  {label} shape: K={K} n0={n0} n_pad={n_pad} nd={nd} "
+          f"nd_pad={nd_pad} maxd={meta['maxd']} "
+          f"(setup {time.perf_counter() - t0:.1f}s)")
+
+    def kernel():
+        return _kernels.streamseg_rank_sums(vals, f, nd, nd_pad)
+
+    def plain():
+        return SS.rank_sums_plain(vals, f, nd, nd_pad)
+
+    def index_add():
+        return torch.zeros(K, nd_pad, device=dev).index_add_(1, rank64, vals)
+
+    def segment_reduce():
+        return torch.segment_reduce(vals, "sum", lengths=L, axis=1)
+
+    want = plain()
+    got = kernel()
+    seg = torch.nn.functional.pad(segment_reduce(), (0, nd_pad - nd))
+    idx = index_add()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise SystemExit(f"streamseg kernel != plain at {sf} (max err {err})")
-    rank64 = torch.cumsum(torch.cat([f, f.new_zeros(n_pad - n0)]), 0)
-    ms = _cuda_ms(lambda: _kernels.streamseg_rank_sums(vals, f, nd, nd_pad),
-                  20)
-    plain_ms = _cuda_ms(lambda: SS.rank_sums_plain(vals, f, nd, nd_pad), 5)
-    library_ms = _cuda_ms(lambda: torch.zeros(
-        K, nd_pad, device=dev).index_add_(1, rank64, vals), 5)
+    for what, res in (("kernel", got), ("segment_reduce", seg),
+                      ("index_add_", idx)):
+        if not torch.equal(res, want):
+            raise SystemExit(f"streamseg {what} != plain at {label}")
+    del got, seg, idx
+    ms = _cuda_ms(kernel, 20)
+    plain_ms = _cuda_ms(plain, 5)
+    lib_ms = {"index_add_": _cuda_ms(index_add, 5),
+              "segment_reduce": _cuda_ms(segment_reduce, 10)}
+    library_call = min(lib_ms, key=lib_ms.get)
     nbytes = vals.numel() * 4 + f.numel() * 4 + K * nd_pad * 4
     ops = vals.numel()  # one add per value
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
-    print(f"  streamseg {sf}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library index_add_ {library_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e9:.3f} GB), "
-          f"exact=True")
-    return {"name": "streamseg.rank_sums", "route": "cuda",
-            "source": "tidb_tpu_torch/csrc/streamseg.cu",
-            "replaces": "tidb_tpu/copr/streamseg.py:194",
-            "launches": 0, "max_abs_err": err, "exact": True,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+    bound_ms = max(bytes_ms, ops_ms)
+    warm = ""
+    if nbytes < 10 * L2_BYTES:
+        warm = (f"; {nbytes / 1e6:.1f} MB is only {nbytes / L2_BYTES:.1f}x "
+                f"the 50 MB L2, so back-to-back launches leave it partly "
+                f"warm")
+    print(f"  streamseg {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, index_add_ {lib_ms['index_add_']:.4f} ms, segment_reduce "
+          f"{lib_ms['segment_reduce']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e9:.4f} GB), {bound_ms / ms:.1%} of the bound, "
+          f"exact=True{warm}")
+    return {"shape": label, "n_pad": n_pad, "nf": f.numel(), "nd": nd,
+            "nd_pad": nd_pad, "K": K, "bytes": nbytes, "max_abs_err": err,
+            "exact": True, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "bound_share": bound_ms / ms,
+            "library_ms": lib_ms[library_call],
+            "library_call": library_call,
+            "index_add_ms": lib_ms["index_add_"],
+            "segment_reduce_ms": lib_ms["segment_reduce"]}
 
 
 def _load(sf: float, seed: int, table_id: int):
@@ -199,21 +247,31 @@ def main(argv=None) -> int:
 
     print("== 2. build")
     t0 = time.perf_counter()
-    logs = _kernels.build_all()
-    print(f"  built {sorted(logs) or 'nothing (up to date)'} in "
-          f"{time.perf_counter() - t0:.1f}s")
+    logs = _kernels.build_all(force=True)
+    print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f}s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and (int(m[1]) or int(m[2])):
+                raise SystemExit(f"{name}: ptxas spills registers: "
+                                 f"{line.strip()}")
+    cfg = _kernels.streamseg_launch_config(4)
+    print(f"  streamseg launch (K=4): {cfg['blocks_per_sm']} blocks/SM x "
+          f"{cfg['sms']} SMs, {cfg['smem_bytes']} B shared memory a block, "
+          f"{cfg['tile_rows']}-row tiles")
 
     print("== 3. kernels vs plain")
+    _ragged_phase(args.seed)
     li10, t10, snap10 = _load(args.sf, args.seed, 1)
-    kern = _kernel_phase(li10, args.seed, f"SF{args.sf:g}")
+    li1, t1, snap1 = _load(args.q18_sf, args.seed, 3)
+    shapes = [_shape_phase(li10, f"SF{args.sf:g}"),
+              _shape_phase(li1, f"SF{args.q18_sf:g}")]
 
     print("== 4. main path")
     li5, t5, snap5 = _load(args.q1_sf, args.seed, 2)
-    li1, t1, snap1 = _load(args.q18_sf, args.seed, 3)
     cop = CopClient()
     queries = [
         ("Q6", f"SF{args.sf:g}", "device", len(li10["l_orderkey"]),
@@ -261,7 +319,16 @@ def main(argv=None) -> int:
               f"runs_ms={[round(t * 1e3, 2) for t in times]}")
 
     print("== 5. result")
-    kern["launches"] = launches["streamseg.rank_sums"]
+    # top-level numbers at the first (SF10) shape; every shape's in "shapes"
+    top = shapes[0]
+    kern = {"name": "streamseg.rank_sums", "route": "cuda",
+            "source": "tidb_tpu_torch/csrc/streamseg.cu",
+            "replaces": "tidb_tpu/copr/streamseg.py:194",
+            "launches": launches["streamseg.rank_sums"],
+            **{k: top[k] for k in (
+                "max_abs_err", "exact", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "library_ms", "library_call")},
+            "shape": top["shape"], "shapes": shapes}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

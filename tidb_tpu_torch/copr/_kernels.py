@@ -36,11 +36,16 @@ LAUNCHES: dict[str, int] = {"streamseg.rank_sums": 0}
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
-# C signature of each source's entry point: (function, argtypes)
+# C functions of each source: {function: argtypes}; each returns an int,
+# a CUDA error code (0 = success) unless its comment in the source says
+# otherwise
 _SIGNATURES = {
-    "streamseg": ("streamseg_rank_sums",
-                  [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL, _LL,
-                   _LL, _VP]),
+    "streamseg": {
+        "streamseg_rank_sums": [_VP, _VP, _VP, _VP, ctypes.c_int, _LL, _LL,
+                                _LL, _LL, _VP],
+        "streamseg_scratch_words": [ctypes.c_int, _LL],
+        "streamseg_launch_config": [ctypes.c_int, _VP],
+    },
 }
 
 _lock = threading.Lock()
@@ -73,14 +78,15 @@ def _stale(name: str) -> bool:
     return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def build_all(names=None) -> dict[str, str]:
-    """Compile the named sources (default: every csrc/*.cu that is stale),
-    one nvcc process per source, all started together. Returns each
-    source's compiler output (ptxas register/shared-memory report);
-    raises if any build fails."""
+def build_all(names=None, force: bool = False) -> dict[str, str]:
+    """Compile the named sources (default: every csrc/*.cu), those that are
+    stale unless `force`, one nvcc process per source, all started
+    together. Returns each built source's compiler output (ptxas register,
+    spill and shared-memory report); raises if any build fails."""
     if names is None:
         names = [p.stem for p in sorted(SRC_DIR.glob("*.cu"))]
-    names = [n for n in names if _stale(n)]
+    if not force:
+        names = [n for n in names if _stale(n)]
     if not names:
         return {}
     nvcc = _nvcc()
@@ -113,10 +119,10 @@ def _library(name: str) -> ctypes.CDLL:
             if _stale(name):
                 build_all([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -134,35 +140,56 @@ def _check(t: torch.Tensor, what: str, dtype: torch.dtype, dim: int,
         raise ValueError(f"{what} must be contiguous")
 
 
-TILE_ROWS = 4096  # rows per block of the streamseg kernel (csrc TILE)
+def streamseg_launch_config(K: int, device=None) -> dict[str, int]:
+    """The streamseg kernel's launch for K arrays on a CUDA device, for
+    reports: blocks per SM, SM count, dynamic shared memory per block and
+    rows per tile (the grid is blocks_per_sm * sms persistent blocks)."""
+    lib = _library("streamseg")
+    buf = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device("cuda" if device is None
+                                        else device)):
+        err = lib.streamseg_launch_config(K, ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"streamseg launch config for K={K} failed: "
+                           f"CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "sms", "smem_bytes", "tile_rows"),
+                    buf))
 
 
 def streamseg_rank_sums(vals: torch.Tensor, f: torch.Tensor, nd: int,
                         nd_pad: int) -> torch.Tensor:
     """CUDA kernel for `streamseg.rank_sums`: vals f32[K, n],
     change flags f int32[nf] (rows >= nf have flag 0) -> f32[K, nd_pad]
-    with out[k, r] = sum of vals[k, row] over rows of rank r < nd."""
+    with out[k, r] = sum of vals[k, row] over rows of rank r < nd.
+
+    One launch, after one zero fill of the look-back scratch (its size and
+    layout are the kernel's: per tile a status word and K tail words, and
+    the tile counter). The kernel writes every output element, so `out`
+    starts empty."""
     lib = _library("streamseg")
     dev = vals.device
     _check(vals, "vals", torch.float32, 2, dev)
     _check(f, "f", torch.int32, 1, dev)
     K, n = vals.shape
-    if K < 1:
-        raise ValueError("streamseg: vals has no arrays")
-    if n >= 2**31 - TILE_ROWS:
-        raise ValueError(f"streamseg: n={n} rows exceeds int32 ranks")
-    out = torch.zeros((K, nd_pad), dtype=torch.float32, device=dev)
+    if not 1 <= K <= 8:
+        raise ValueError(f"streamseg: K={K} arrays, the kernel takes 1..8")
+    if n >= 2**31 or K * nd_pad >= 2**31:
+        raise ValueError(f"streamseg: n={n} rows or K*nd_pad={K * nd_pad} "
+                         f"exceeds int32 indices")
+    if nd_pad % 4:
+        raise ValueError(f"streamseg: nd_pad={nd_pad} is not a multiple of 4 "
+                         f"(the kernel stores 16-byte groups of ranks)")
     if n == 0:
-        return out
-    ntiles = -(-n // TILE_ROWS)
-    counts = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    offsets = torch.empty(ntiles, dtype=torch.int32, device=dev)
+        return torch.zeros((K, nd_pad), dtype=torch.float32, device=dev)
+    out = torch.empty((K, nd_pad), dtype=torch.float32, device=dev)
+    scratch = torch.zeros(lib.streamseg_scratch_words(K, n),
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.streamseg_rank_sums(
             vals.data_ptr(), f.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), offsets.data_ptr(), K, n,
-            min(f.shape[0], n), nd, nd_pad, stream)
+            scratch.data_ptr(), K, n, min(f.shape[0], n), nd, nd_pad,
+            stream)
     if err != 0:
         raise RuntimeError(f"streamseg kernel launch failed: CUDA error "
                            f"{err}")
