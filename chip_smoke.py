@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tidb_tpu_torch on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py            # TPC-H Q6 at SF10, Q1 at SF5, Q18 at SF1
+    python3 chip_smoke.py     # TPC-H at SF10 (Q1 at SF5, Q18's blocks at SF1)
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
@@ -20,15 +20,27 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel, the plain version and two PyTorch library calls computing the
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
-4. the main path through the port's entry points on the card: TPC-H Q6
-   (SF10) and Q1 (SF5; at SF10 the reference's int64-accumulator gate,
-   |bound| * rows >= 2^62, sends Q1's sum_charge to its host path) through
-   `CopClient.execute`, and Q18's inner GROUP BY ... HAVING (SF1; at SF10
-   its ~150k passing groups overflow the reference's 65,536-group HAVING
-   buffer) through `execute_fragment`. Each result is checked exactly
-   against its numpy oracle, the engine tags must be device, device and
-   device[hc], and every kernel's launch counter must have risen; then the
-   p50 wall time of 5 runs, each ending in torch.cuda.synchronize();
+4. the main path through the port's entry points on the card, in two
+   parts, each with the launch counters set to 0 just before it and read
+   just after (every kernel must have launched in each):
+   a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
+      reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
+      Q1's sum_charge to its host path) through `CopClient.execute`, and
+      Q18's inner GROUP BY ... HAVING (SF1; at SF10 its ~150k passing
+      groups overflow the reference's 65,536-group HAVING buffer) through
+      `execute_fragment`;
+   b. gather joins through `execute_fragment`: Q12, Q14 and Q5 (dense
+      aggregation, SF10), Q17's outer block (rows, SF10), Q18's outer
+      block (rows, SF1: every lineitem row) and `q18_join_having` (GROUP
+      BY o_orderkey HAVING over lineitem joined to orders, SF1 for the same
+      buffer reason as Q18-inner; it must launch streamseg itself), then
+      the peak device memory.
+   Each result is checked exactly against its numpy oracle (row results
+   column by column, in order) with the reference's engine tag; then the
+   first (cold) run and the p50 wall time of 5 warm runs, each ending in
+   torch.cuda.synchronize(), and the device-busy share of one more warm
+   run under torch.profiler (traced kernel and copy time over its wall
+   time);
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -47,6 +59,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench import tpch_requests as TR
@@ -215,14 +229,146 @@ def _shape_phase(li, label: str) -> dict:
             "segment_reduce_ms": lib_ms["segment_reduce"]}
 
 
-def _load(sf: float, seed: int, table_id: int):
+def _load(sf: float, seed: int, names, first_table_id: int):
+    """Generate TPC-H at `sf` and load the named tables: -> (generated
+    arrays of those tables, name -> TableInfo, table id -> snapshot)."""
     t0 = time.perf_counter()
-    li = TD.generate_tpch(sf, seed)["lineitem"]
-    table = TR.lineitem_table(table_id)
-    snap = TR.load_table(table, li).snapshot()
-    print(f"  generated + loaded lineitem SF{sf:g}: {len(li['l_orderkey'])}"
-          f" rows in {time.perf_counter() - t0:.1f}s")
-    return li, table, snap
+    data = TD.generate_tpch(sf, seed)
+    data = {n: data[n] for n in names}
+    tables, snaps = TR.load_tables(data, names, first_table_id)
+    print(f"  generated + loaded SF{sf:g} {', '.join(names)} "
+          f"({len(data['lineitem']['l_orderkey'])} lineitem rows) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return data, tables, snaps
+
+
+def _same_columns(got: list, want: list) -> bool:
+    return len(got) == len(want) and \
+        all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _device_busy(run) -> str:
+    """One more warm run under torch.profiler: the summed time of the CUDA
+    kernels and copies it traced against the run's wall time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if busy_ms == 0:
+        return "device_busy=not measured (no device event traced)"
+    return (f"device_busy_ms={busy_ms:.2f} of profiled_wall_ms={wall_ms:.2f} "
+            f"({busy_ms / wall_ms:.1%} busy)")
+
+
+def _drive(label: str, queries: list) -> dict:
+    """One checked run of each query, with the launch counters set to 0
+    just before this part of the main path and read just after, then the
+    p50 of 5 warm runs and one profiled run. queries: [(name, scale, tag,
+    rows in, run, check, kernels this query must launch itself)]. -> the
+    launch counts."""
+    _kernels.reset_launches()
+    firsts, results = [], []
+    for name, sf, tag, n_in, run, check, must in queries:
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        firsts.append(time.perf_counter() - t0)
+        if r.engine != tag:
+            raise SystemExit(f"{name}: engine {r.engine!r}, want {tag!r}")
+        if not check(r):
+            raise SystemExit(f"{name}: result differs from the oracle")
+        for k in must:
+            if _kernels.LAUNCHES[k] == before[k]:
+                raise SystemExit(f"{name} did not launch kernel {k}")
+        results.append(r)
+    launches = dict(_kernels.LAUNCHES)
+    for k, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {k} was not launched on the {label}")
+    print(f"  launches on the {label}: {launches}")
+    for (name, sf, _, n_in, run, _, _), first, r in zip(queries, firsts,
+                                                        results):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        nrows = sum(c.num_rows for c in r.chunks)
+        print(f"  {name} {sf}: engine={r.engine} rows_in={n_in} "
+              f"result_rows={nrows} exact=True first_ms={first*1e3:.1f} "
+              f"p50_ms={statistics.median(times)*1e3:.2f} "
+              f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+        print(f"    {_device_busy(run)}")
+        if r.is_partial_agg and nrows <= 8:
+            print(f"    rows: {TR.partial_rows(r.chunks)}")
+    return launches
+
+
+def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
+    """Phase 4 through `cop`: at_sf and at_q18_sf are `_load` results at
+    --sf and --q18-sf. -> kernel launches over both parts."""
+    d10, t10, s10 = at_sf
+    d1, t1, s1 = at_q18_sf
+    li10, li1 = d10["lineitem"], d1["lineitem"]
+    d5, t5, s5 = _load(args.q1_sf, args.seed, ("lineitem",), 21)
+    li5 = d5["lineitem"]
+    sf10, sf1 = f"SF{args.sf:g}", f"SF{args.q18_sf:g}"
+
+    def agg_check(oracle):
+        return lambda r: TR.partial_rows(r.chunks) == oracle()
+
+    def rows_check(oracle):
+        return lambda r: _same_columns(TR.row_columns(r.chunks), oracle())
+
+    lt10, lt1 = t10["lineitem"], t1["lineitem"]
+    single = [
+        ("Q6", sf10, "device", len(li10["l_orderkey"]),
+         lambda: cop.execute(TR.q6_dag(lt10), s10[lt10.id]),
+         agg_check(lambda: TR.q6_oracle(li10)), ()),
+        ("Q1", f"SF{args.q1_sf:g}", "device", len(li5["l_orderkey"]),
+         lambda: cop.execute(TR.q1_dag(t5["lineitem"]),
+                             s5[t5["lineitem"].id]),
+         agg_check(lambda: TR.q1_oracle(li5)), ()),
+        ("Q18-inner", sf1, "device[hc]", len(li1["l_orderkey"]),
+         lambda: execute_fragment(cop, TR.q18_inner_frag(lt1),
+                                  {lt1.id: s1[lt1.id]}),
+         agg_check(lambda: TR.q18_inner_oracle(li1)), ()),
+    ]
+
+    def join(name, label, tag, tables, snaps, data, must=()):
+        frag = TR.JOIN_REQUESTS[name](tables)
+        fsnaps = {t.table.id: snaps[t.table.id] for t in frag.tables}
+        oracle = getattr(TR, f"{name}_oracle")
+        check = (agg_check if frag.agg is not None else rows_check)(
+            lambda: oracle(data))
+        return (name, label, tag, len(data["lineitem"]["l_orderkey"]),
+                lambda: execute_fragment(cop, frag, fsnaps), check, must)
+
+    joins = [
+        join("q12", sf10, "device[agg]", t10, s10, d10),
+        join("q14", sf10, "device[agg]", t10, s10, d10),
+        join("q5", sf10, "device[agg]", t10, s10, d10),
+        join("q17_outer", sf10, "device[rows]", t10, s10, d10),
+        join("q18_outer", sf1, "device[rows]", t1, s1, d1),
+        join("q18_join_having", sf1, "device[hc]", t1, s1, d1,
+             must=("streamseg.rank_sums",)),
+    ]
+    print("  -- a. single-table requests")
+    launches = _drive("single-table path", single)
+    torch.cuda.reset_peak_memory_stats()
+    print("  -- b. gather joins")
+    for k, n in _drive("join path", joins).items():
+        launches[k] += n
+    print(f"  device memory after the join path: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB during it")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -265,61 +411,21 @@ def main(argv=None) -> int:
 
     print("== 3. kernels vs plain")
     _ragged_phase(args.seed)
-    li10, t10, snap10 = _load(args.sf, args.seed, 1)
-    li1, t1, snap1 = _load(args.q18_sf, args.seed, 3)
+    d10, t10, s10 = _load(args.sf, args.seed, (
+        "lineitem", "orders", "customer", "supplier", "nation", "region",
+        "part"), 1)
+    d1, t1, s1 = _load(args.q18_sf, args.seed,
+                       ("lineitem", "orders", "customer"), 11)
+    li10, li1 = d10["lineitem"], d1["lineitem"]
     shapes = [_shape_phase(li10, f"SF{args.sf:g}"),
               _shape_phase(li1, f"SF{args.q18_sf:g}")]
 
     print("== 4. main path")
-    li5, t5, snap5 = _load(args.q1_sf, args.seed, 2)
-    cop = CopClient()
-    queries = [
-        ("Q6", f"SF{args.sf:g}", "device", len(li10["l_orderkey"]),
-         lambda: cop.execute(TR.q6_dag(t10), snap10),
-         lambda: TR.q6_oracle(li10)),
-        ("Q1", f"SF{args.q1_sf:g}", "device", len(li5["l_orderkey"]),
-         lambda: cop.execute(TR.q1_dag(t5), snap5),
-         lambda: TR.q1_oracle(li5)),
-        ("Q18-inner", f"SF{args.q18_sf:g}", "device[hc]",
-         len(li1["l_orderkey"]),
-         lambda: execute_fragment(cop, TR.q18_inner_frag(t1),
-                                  {t1.id: snap1}),
-         lambda: TR.q18_inner_oracle(li1)),
-    ]
-    # one checked run of each query, with the launch counters read around
-    # exactly this run of the main path
-    _kernels.reset_launches()
-    firsts = []
-    for name, sf, tag, n_in, run, oracle in queries:
-        t0 = time.perf_counter()
-        r = run()
-        torch.cuda.synchronize()
-        firsts.append(time.perf_counter() - t0)
-        rows = TR.partial_rows(r.chunks)
-        if r.engine != tag:
-            raise SystemExit(f"{name}: engine {r.engine!r}, want {tag!r}")
-        if rows != oracle():
-            raise SystemExit(f"{name}: result differs from the oracle")
-    launches = dict(_kernels.LAUNCHES)
-    for k, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"kernel {k} was not launched on the main path")
-    print(f"  launches on the main path: {launches}")
-    for (name, sf, tag, n_in, run, oracle), first in zip(queries, firsts):
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            r = run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        nrows = sum(c.num_rows for c in r.chunks)
-        print(f"  {name} {sf}: engine={r.engine} rows_in={n_in} "
-              f"result_rows={nrows} exact=True first_ms={first*1e3:.1f} "
-              f"p50_ms={statistics.median(times)*1e3:.2f} "
-              f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+    launches = _main_path(args, CopClient(), (d10, t10, s10), (d1, t1, s1))
 
     print("== 5. result")
-    # top-level numbers at the first (SF10) shape; every shape's in "shapes"
+    # top-level numbers at the first (SF10) shape; every shape's in
+    # "shapes"; launches over both parts of the main path
     top = shapes[0]
     kern = {"name": "streamseg.rank_sums", "route": "cuda",
             "source": "tidb_tpu_torch/csrc/streamseg.cu",

@@ -1,0 +1,288 @@
+"""Gather-join fragments: the port's fragment executor vs the JAX reference.
+
+TPC-H (SF0.02, seed 42, all eight tables) is loaded into a reference
+`Session`. Each query runs there; `unittest.mock` wraps the reference's
+`copr.fragment.execute_fragment` to capture every fragment, its snapshots
+and the answer the reference's coprocessor gave. Fragment and snapshots
+then cross over with `tidb_tpu_torch.convert` and run through the port on
+the CPU.
+
+Tolerance: exact, engine tag included. Aggregations are compared as
+sorted partial-layout rows (the order of groups is not part of the
+contract); row fragments column by column in the order returned (probe-row
+order, tile by tile). Where the reference serves a fragment on its host
+interpreter, or on a device path of a later slice, the port must raise
+`NotInSlice` with the reference's reason or the slice's own.
+"""
+
+import dataclasses
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from tidb_tpu.bench.tpch_data import load_tpch
+from tidb_tpu.bench.tpch_queries import TPCH_QUERIES
+from tidb_tpu.copr import client as JC
+from tidb_tpu.copr import fragment as JF
+from tidb_tpu.plan import expr as JE
+from tidb_tpu.session import Session
+from tidb_tpu_torch import NotInSlice
+from tidb_tpu_torch.bench import tpch_requests as TR
+from tidb_tpu_torch.convert import (request_from_reference,
+                                    snapshot_from_reference)
+from tidb_tpu_torch.copr import fragment as PF
+from tidb_tpu_torch.copr.client import CopClient
+
+SF, SEED = 0.02, 42
+JOIN_HAVING = ("select o_orderkey, o_orderdate, sum(l_quantity) from "
+               "lineitem, orders where l_orderkey = o_orderkey group by "
+               "o_orderkey, o_orderdate having sum(l_quantity) > 250")
+JOIN_GROUP = ("select o_orderkey, o_orderdate, count(*) from lineitem, orders "
+              "where l_orderkey = o_orderkey and l_discount > 0.05 "
+              "group by o_orderkey, o_orderdate")
+Q18_JOIN_HAVING = ("select o_orderkey, sum(l_quantity) from lineitem, orders "
+                   "where l_orderkey = o_orderkey group by o_orderkey "
+                   "having sum(l_quantity) > 300")
+CUST_HAVING = ("select c_custkey, sum(l_quantity) from lineitem, orders, "
+               "customer where l_orderkey = o_orderkey and o_custkey = "
+               "c_custkey group by c_custkey having sum(l_quantity) > 1000")
+
+# name: (SQL, position among the statement's fragment calls, outcome):
+# a device tag the port must give as the reference does, or the NotInSlice
+# reason the port must raise
+FRAGMENTS = {
+    "q5": (TPCH_QUERIES["q5"], 0, "device[agg]"),
+    "q8": (TPCH_QUERIES["q8"], 0, "device[agg]"),
+    "q12": (TPCH_QUERIES["q12"], 0, "device[agg]"),
+    "q14": (TPCH_QUERIES["q14"], 0, "device[agg]"),
+    "q11_second": (TPCH_QUERIES["q11"], 1, "device[agg]"),
+    # the first Q11 fragment groups partsupp by ps_partkey, which is
+    # run-ordered in storage: the reference takes the rank path
+    # (all-groups mode), and so does the port
+    "q11_first": (TPCH_QUERIES["q11"], 0, "device[group]"),
+    "q9": (TPCH_QUERIES["q9"], 0, "device[rows]"),
+    "q17": (TPCH_QUERIES["q17"], 0, "device[rows]"),
+    "q18_outer": (TPCH_QUERIES["q18"], 0, "device[rows]"),
+    # o_orderkey is the join's unique build key: l_orderkey stands for it
+    "join_having": (JOIN_HAVING, 0, "device[hc]"),
+    "join_group": (JOIN_GROUP, 0, "device[group]"),
+    # the reference's fused join+agg+TopN cut (device[fat])
+    "q3": (TPCH_QUERIES["q3"], 0, "hc TopN consumer"),
+    "q10": (TPCH_QUERIES["q10"], 0, "hc TopN consumer"),
+    # c_custkey is not run-ordered in lineitem: the sorted-run body
+    "cust_having": (CUST_HAVING, 0, "hc sorted-run body"),
+    "q4": (TPCH_QUERIES["q4"], 0, "semi-joins"),
+    "q16": (TPCH_QUERIES["q16"], 0, "semi-joins"),
+}
+
+
+@pytest.fixture(scope="module")
+def session():
+    s = Session()
+    load_tpch(s, sf=SF, seed=SEED)
+    return s
+
+
+def _frag_calls(session, sql):
+    """[(fragment, snapshots, reference result)] per fragment the
+    statement dispatched."""
+    calls = []
+    run = JF.execute_fragment
+
+    def frag_call(cop, frag, snaps):
+        r = run(cop, frag, snaps)
+        calls.append((frag, snaps, r))
+        return r
+
+    with mock.patch.object(JF, "execute_fragment", frag_call):
+        session.query(sql)
+    return calls
+
+
+def _fragment(session, name):
+    sql, pos, _ = FRAGMENTS[name]
+    return _frag_calls(session, sql)[pos]
+
+
+def _port(frag, snaps, cop=None):
+    return PF.execute_fragment(
+        cop or CopClient("cpu"), request_from_reference(frag),
+        {tid: snapshot_from_reference(s) for tid, s in snaps.items()})
+
+
+def _assert_same(got, ref, rows_mode):
+    assert got.engine == ref.engine
+    assert got.is_partial_agg == ref.is_partial_agg == (not rows_mode)
+    if rows_mode:
+        cols, want = TR.row_columns(got.chunks), TR.row_columns(ref.chunks)
+        assert len(cols) == len(want) and len(want[0])
+        for a, b in zip(cols, want):
+            assert np.array_equal(a, b)
+    else:
+        rows = TR.partial_rows(got.chunks)
+        assert rows and rows == TR.partial_rows(ref.chunks)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (_, _, out) in FRAGMENTS.items() if out.startswith("device")))
+def test_join_fragment_matches_reference(session, name):
+    frag, snaps, ref = _fragment(session, name)
+    assert ref.engine == FRAGMENTS[name][2]
+    _assert_same(_port(frag, snaps), ref, frag.agg is None)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (_, _, out) in FRAGMENTS.items() if not out.startswith("device")))
+def test_join_fragment_not_in_slice(session, name):
+    frag, snaps, ref = _fragment(session, name)
+    # the reference serves every one of these on a device path
+    assert ref.engine.startswith("device[")
+    with pytest.raises(NotInSlice) as ei:
+        _port(frag, snaps)
+    assert ei.value.reason == FRAGMENTS[name][2]
+
+
+# ---- gates: each gives the reference's host reason through the port ---------
+
+def _ref_host_reason(frag, snaps) -> str:
+    r = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    assert r.engine.startswith("host(fragment:")
+    return r.engine[len("host(fragment:"):-1]
+
+
+def _port_reason(frag, snaps) -> str:
+    with pytest.raises(NotInSlice) as ei:
+        _port(frag, snaps)
+    return ei.value.reason
+
+
+def test_key_span_gate(session):
+    frag, snaps, _ = _fragment(session, "q12")
+    # o_orderkey spans ~80k keys at SF0.02
+    with mock.patch.object(JF, "FRAG_SPAN_CAP", 1000), \
+            mock.patch.object(PF, "FRAG_SPAN_CAP", 1000):
+        assert _ref_host_reason(frag, snaps) == "key-span"
+        assert _port_reason(frag, snaps) == "key-span"
+
+
+def _replace_epoch(snap, **changes):
+    return dataclasses.replace(
+        snap, epoch=dataclasses.replace(snap.epoch, **changes))
+
+
+def test_int64_build_column_gate(session):
+    frag, snaps, _ = _fragment(session, "q18_outer")
+    orders = frag.tables[1].table.id
+    cols = list(snaps[orders].epoch.columns)
+    price = cols[3].copy()  # o_totalprice, staged as int32 on the device
+    price[7] = 2**40
+    cols[3] = price
+    snaps = dict(snaps)
+    snaps[orders] = _replace_epoch(snaps[orders], columns=cols)
+    assert _ref_host_reason(frag, snaps) == "int64-column"
+    assert _port_reason(frag, snaps) == "int64-column"
+
+
+def test_build_overlay_gate():
+    s = Session()
+    load_tpch(s, sf=SF, seed=SEED, tables=["lineitem", "orders"])
+    s.execute("begin")
+    s.execute("insert into orders values (99999999, 1, 'O', 1.00, "
+              "'1995-01-01', '1-URGENT', 'Clerk#1', 0, 'x')")
+    frag, snaps, ref = _frag_calls(s, Q18_JOIN_HAVING)[0]
+    s.execute("rollback")
+    assert ref.engine == "host(fragment:build-overlay)"
+    assert _port_reason(frag, snaps) == "build-overlay"
+
+
+# ---- tiles, per-query gathers, cache rebuild ---------------------------------
+
+@pytest.mark.parametrize("name", ["q5", "q12", "q9", "q18_outer"])
+def test_tiled_join_matches_reference(session, name):
+    # 121k lineitem rows in 40k-row tiles: 4 tiles of one shape bucket
+    frag, snaps, _ = _fragment(session, name)
+    ref_cop = JC.CopClient()
+    ref_cop.TILE_ROWS = 40_000
+    ref = JF.execute_fragment(ref_cop, frag, snaps)
+    cop = CopClient("cpu")
+    cop.TILE_ROWS = 40_000
+    _assert_same(_port(frag, snaps, cop), ref, frag.agg is None)
+    # every tile's aligned build columns are cached under its own tag
+    tags = {k[-1] for k in cop._col_cache if k[1:2] == ("aligned",)}
+    assert tags == {("tile", ti) for ti in range(4)}
+
+
+@pytest.mark.parametrize("name", ["q12", "q17"])
+def test_computed_probe_key_gathers_per_query(session, name):
+    # l_orderkey + 1 (l_partkey + 1): a Call probe key is not aligned; the
+    # program gathers it per query (and the row replay evaluates it again)
+    frag, snaps, _ = _fragment(session, name)
+    frag = dataclasses.replace(frag, joins=list(frag.joins))
+    key = frag.joins[0].probe_key
+    frag.joins[0] = dataclasses.replace(frag.joins[0], probe_key=JE.Call(
+        "add", [key, JE.Const(1, key.ftype)], key.ftype))
+    ref = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    assert ref.engine == FRAGMENTS[name][2]
+    cop = CopClient("cpu")
+    _assert_same(_port(frag, snaps, cop), ref, frag.agg is None)
+    assert not [k for k in cop._col_cache if k[1:2] == ("aligned",)]
+
+
+def test_aligned_cache_rebuilt_after_new_build_epoch(session):
+    frag, snaps, _ = _fragment(session, "q12")
+    orders = frag.tables[1].table.id
+    pfrag = request_from_reference(frag)
+    psnaps = {tid: snapshot_from_reference(s) for tid, s in snaps.items()}
+    cop = CopClient("cpu")
+    before = PF.execute_fragment(cop, pfrag, psnaps)
+    old_epoch = snaps[orders].epoch.epoch_id
+    assert [k for k in cop._col_cache
+            if k[1:2] == ("aligned",) and k[2] == old_epoch]
+
+    # a new orders epoch: every order becomes 1-URGENT
+    cols = list(snaps[orders].epoch.columns)
+    d = snaps[orders].dictionaries[5]
+    cols[5] = np.full_like(cols[5], d.lookup("1-URGENT"))
+    new = dict(snaps)
+    new[orders] = _replace_epoch(snaps[orders], columns=cols,
+                                 epoch_id=old_epoch + 10_000)
+    psnaps[orders] = snapshot_from_reference(new[orders])
+    after = PF.execute_fragment(cop, pfrag, psnaps)
+    ref = JF.execute_fragment(JC.CopClient(), frag, new)
+    _assert_same(after, ref, False)
+    assert TR.partial_rows(after.chunks) != TR.partial_rows(before.chunks)
+    aligned = [k[2] for k in cop._col_cache if k[1:2] == ("aligned",)]
+    assert aligned == [old_epoch + 10_000]
+
+
+# ---- the row-mode bitmask ------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 7, 8, 1001, 4096])
+def test_packbits_matches_numpy(n):
+    mask = np.random.default_rng(n).random(n) < 0.3
+    packed = PF.packbits(torch.from_numpy(mask)).numpy()
+    assert packed.dtype == np.uint8
+    assert np.array_equal(packed, np.packbits(mask))
+    assert np.array_equal(np.unpackbits(packed)[:n].astype(bool), mask)
+
+
+def test_empty_row_result_matches_reference(session):
+    # no part is Brand#99: the row fragment returns one empty chunk of the
+    # output schema
+    frag, snaps, _ = _fragment(session, "q17")
+    part = dataclasses.replace(frag.tables[1], filters=list(
+        frag.tables[1].filters))
+    brand = part.filters[0]
+    part.filters[0] = dataclasses.replace(brand, args=[
+        brand.args[0], dataclasses.replace(brand.args[1], value="Brand#99")])
+    frag = dataclasses.replace(frag, tables=[frag.tables[0], part])
+    ref = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    got = _port(frag, snaps)
+    assert got.engine == ref.engine == "device[rows]"
+    assert not got.is_partial_agg
+    for chunks in (got.chunks, ref.chunks):
+        assert len(chunks) == 1 and chunks[0].num_rows == 0
+    assert [c.ftype for c in got.chunks[0].columns] == \
+        [request_from_reference(c.ftype) for c in ref.chunks[0].columns]

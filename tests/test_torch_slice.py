@@ -133,8 +133,49 @@ def _without_agg_names(obj):
     return obj
 
 
-@pytest.mark.parametrize("name", sorted(SLICE))
-def test_hand_built_request_equals_planner(session, name):
+# join fragments built by hand in tpch_requests: (SQL, position among the
+# statement's fragment calls, engine tag)
+JOINS = {
+    "q12": (TPCH_QUERIES["q12"], 0, "device[agg]"),
+    "q14": (TPCH_QUERIES["q14"], 0, "device[agg]"),
+    "q5": (TPCH_QUERIES["q5"], 0, "device[agg]"),
+    "q17_outer": (TPCH_QUERIES["q17"], 0, "device[rows]"),
+    "q18_outer": (TPCH_QUERIES["q18"], 0, "device[rows]"),
+    "q18_join_having": (
+        "select o_orderkey, sum(l_quantity) from lineitem, orders where "
+        "l_orderkey = o_orderkey group by o_orderkey "
+        "having sum(l_quantity) > 300", 0, "device[hc]"),
+}
+
+
+@pytest.fixture(scope="module")
+def tpch_session():
+    s = Session()
+    load_tpch(s, sf=SF, seed=SEED)
+    return s
+
+
+def _join_request_equals_planner(session, name):
+    sql, pos, _ = JOINS[name]
+    _, frag, snaps, _ = [c for c in _capture(session, sql)
+                         if c[0] == "frag"][pos]
+    tables = {}
+    for t in frag.tables:
+        ref = snaps[t.table.id].table
+        tables[ref.name] = TR.tpch_table(ref.name, ref.id, ref.columns[0].id)
+        assert request_from_reference(ref) == tables[ref.name]
+    built = TR.JOIN_REQUESTS[name](tables)
+    assert _without_agg_names(built) == \
+        _without_agg_names(request_from_reference(frag))
+
+
+@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS))
+def test_hand_built_request_equals_planner(request, name):
+    if name in JOINS:
+        _join_request_equals_planner(request.getfixturevalue("tpch_session"),
+                                     name)
+        return
+    session = request.getfixturevalue("session")
     _, req, snaps, _ = _one_call(session, SLICE[name][0])
     planner = _without_agg_names(request_from_reference(req))
     tid = req.scan.table_id if name != "q18_inner" else \
@@ -162,8 +203,27 @@ def test_generator_matches_reference(table):
             assert np.array_equal(ours[col], v), col
 
 
-@pytest.mark.parametrize("name", sorted(SLICE))
+def _join_matches_numpy_oracle(name):
+    data = TD.generate_tpch(SF, SEED)
+    tables, snaps = TR.load_tables(data, TR.JOIN_TABLES[name])
+    frag = TR.JOIN_REQUESTS[name](tables)
+    r = execute_fragment(CopClient("cpu"), frag, snaps)
+    assert r.engine == JOINS[name][2]
+    want = getattr(TR, f"{name}_oracle")(data)
+    if frag.agg is not None:
+        assert want and TR.partial_rows(r.chunks) == want
+        return
+    got = TR.row_columns(r.chunks)
+    assert len(got) == len(want) and len(want[0])
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS))
 def test_port_matches_numpy_oracle(name):
+    if name in JOINS:
+        _join_matches_numpy_oracle(name)
+        return
     li = TD.generate_tpch(SF, SEED)["lineitem"]
     table = TR.lineitem_table(5)
     snap = TR.load_table(table, li).snapshot()

@@ -1,4 +1,4 @@
-"""TPC-H Q6, Q1 and Q18's inner block as coprocessor requests, with oracles.
+"""TPC-H requests to the coprocessor, built by hand, with numpy oracles.
 
 The SQL tier (parser, planner) is a later slice of the port, so these
 requests are built by hand with the port's dataclasses, exactly as the
@@ -11,14 +11,26 @@ two are equal):
 * Q1: the pricing summary report (TPC-H spec 2.4.1) -> a `CopDAG`;
 * Q18's inner block: `select l_orderkey, sum(l_quantity) from lineitem
   group by l_orderkey having sum(l_quantity) > 300` -> a single-table
-  `FragmentDAG` with `having` set.
+  `FragmentDAG` with `having` set;
+* join fragments (`FragmentDAG`s with gather joins), as the planner cuts
+  them out of the TPC-H queries: Q12 (lineitem -> orders, GROUP BY
+  l_shipmode), Q14 (lineitem -> part), Q5 (lineitem -> orders -> customer,
+  supplier -> nation -> region, GROUP BY n_name), Q17's outer block
+  (lineitem -> part, rows), Q18's outer block (lineitem -> orders ->
+  customer, rows) and `q18_join_having`: `select o_orderkey,
+  sum(l_quantity) from lineitem, orders where l_orderkey = o_orderkey group
+  by o_orderkey having sum(l_quantity) > 300`.
 
-Each oracle computes, in numpy from the generated arrays, the rows the
-coprocessor must return in its partial layout [group cols..., (val, cnt)
-per aggregate], in the form `partial_rows` gives a result chunk.
+Each oracle computes, in numpy from the generated arrays, what the
+coprocessor must return: aggregations in its partial layout [group
+cols..., (val, cnt) per aggregate], in the form `partial_rows` gives a
+result chunk; row fragments as the output columns in probe-row order, in
+the form `row_columns` gives the result chunks.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -27,38 +39,45 @@ from ..chunk.chunk import Chunk
 from ..plan.dag import CopDAG, DAGAggregation, DAGScan, DAGSelection
 from ..plan.expr import (AggDesc, Call, Col, Const, agg_result_type,
                          arith_result_type, bool_call)
-from ..plan.fragment import FragmentDAG, FragTable
+from ..plan.fragment import FragJoin, FragmentDAG, FragTable
 from ..store.table_store import TableStore
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import parse_date
+from .tpch_data import TPCH_DDL
 
-# lineitem DDL (TPC-H spec 1.4), every column NOT NULL
 _BIGINT = FieldType(TypeKind.BIGINT, nullable=False)
-_MONEY = FieldType(TypeKind.DECIMAL, flen=15, scale=2, nullable=False)
 _DATE = FieldType(TypeKind.DATE, nullable=False)
+_MONEY = FieldType(TypeKind.DECIMAL, flen=15, scale=2, nullable=False)
+_STR = FieldType(TypeKind.VARCHAR, nullable=False)  # a string literal
+_KINDS = {"bigint": TypeKind.BIGINT, "decimal": TypeKind.DECIMAL,
+          "date": TypeKind.DATE, "char": TypeKind.CHAR,
+          "varchar": TypeKind.VARCHAR}
 
 
-def _char(n: int) -> FieldType:
-    return FieldType(TypeKind.CHAR, flen=n, nullable=False)
-
-
-LINEITEM_COLUMNS = [
-    ("l_orderkey", _BIGINT), ("l_partkey", _BIGINT),
-    ("l_suppkey", _BIGINT), ("l_linenumber", _BIGINT),
-    ("l_quantity", _MONEY), ("l_extendedprice", _MONEY),
-    ("l_discount", _MONEY), ("l_tax", _MONEY),
-    ("l_returnflag", _char(1)), ("l_linestatus", _char(1)),
-    ("l_shipdate", _DATE), ("l_commitdate", _DATE),
-    ("l_receiptdate", _DATE), ("l_shipinstruct", _char(25)),
-    ("l_shipmode", _char(10)),
-    ("l_comment", FieldType(TypeKind.VARCHAR, flen=44, nullable=False)),
-]
+def tpch_table(name: str, table_id: int, first_column_id: int = 1
+               ) -> TableInfo:
+    """TableInfo of a TPC-H table from `tpch_data.TPCH_DDL`, as the
+    reference catalog makes it: every column NOT NULL, the BIGINT primary
+    key (where the table has one) as the row handle. Column ids count up
+    from `first_column_id` (the catalog numbers them across tables)."""
+    cols = []
+    pk = None
+    body = TPCH_DDL[name].strip().split("(", 1)[1].rsplit(")", 1)[0]
+    for off, line in enumerate(body.strip().splitlines()):
+        m = re.match(r"\s*(\w+) (\w+)(?:\((\d+)(?:,(\d+))?\))?(.*)", line)
+        cname, kind, flen, scale, rest = m.groups()
+        ft = FieldType(_KINDS[kind], flen=int(flen) if flen else -1,
+                       scale=int(scale or 0), nullable="not null" not in rest)
+        primary = "primary key" in rest
+        if primary and ft.kind == TypeKind.BIGINT:
+            pk = off
+        cols.append(ColumnInfo(first_column_id + off, cname, ft, offset=off,
+                               is_primary=primary))
+    return TableInfo(table_id, name, cols, pk_handle_offset=pk)
 
 
 def lineitem_table(table_id: int = 1) -> TableInfo:
-    return TableInfo(table_id, "lineitem", [
-        ColumnInfo(i + 1, name, ft, offset=i)
-        for i, (name, ft) in enumerate(LINEITEM_COLUMNS)])
+    return tpch_table("lineitem", table_id)
 
 
 def load_table(table: TableInfo, data: dict[str, object]) -> TableStore:
@@ -78,6 +97,18 @@ def load_table(table: TableInfo, data: dict[str, object]) -> TableStore:
             cols.append(np.asarray(v))
     store.bulk_load(cols)
     return store
+
+
+def load_tables(data: dict, names, first_table_id: int = 1
+                ) -> tuple[dict, dict]:
+    """Load the named tables of `generate_tpch(...)` output: -> (name ->
+    TableInfo, table id -> TableSnapshot with every row visible)."""
+    tables, snaps = {}, {}
+    for i, name in enumerate(names):
+        t = tpch_table(name, first_table_id + i)
+        tables[name] = t
+        snaps[t.id] = load_table(t, data[name]).snapshot()
+    return tables, snaps
 
 
 def _col(table: TableInfo, off: int, idx: int) -> Col:
@@ -156,6 +187,161 @@ def q18_inner_frag(table: TableInfo) -> FragmentDAG:
     return frag
 
 
+# ---- join fragments -----------------------------------------------------------
+# tables: name -> TableInfo for every table a request reads. Filters are in
+# each table's local column space and name their column; the combined
+# space (joins, selection, aggregation) is unnamed, as the planner
+# leaves it.
+
+def _frag(tables: dict, spec: list, joins: list) -> FragmentDAG:
+    """spec: [(table name, offsets, filters(local cols))]; joins:
+    [(build table position, probe key combined index)] on the build's
+    first column (its key)."""
+    ftabs = []
+    for name, offs, filt in spec:
+        t = tables[name]
+        local = [_col(t, off, i) for i, off in enumerate(offs)]
+        ftabs.append(FragTable(t, list(offs), filt(*local) if filt else [],
+                               [c.ftype for c in local]))
+    types = [ft for t in ftabs for ft in t.col_types]
+    return FragmentDAG(ftabs, [FragJoin(b, Col(k, types[k], ""), 0)
+                               for b, k in joins])
+
+
+def _combined(frag: FragmentDAG, idx: int) -> Col:
+    return Col(idx, frag.combined_types()[idx], "")
+
+
+def _set_agg(frag: FragmentDAG, group_by: list, aggs: list) -> None:
+    frag.agg = DAGAggregation(group_by, aggs)
+    frag.output_types = [g.ftype for g in group_by] + _partial_types(aggs)
+
+
+def _set_rows(frag: FragmentDAG, out_map: list[int]) -> None:
+    types = frag.combined_types()
+    frag.out_map = list(out_map)
+    frag.output_types = [types[i] for i in out_map]
+
+
+def _date_range(c: Col, lo: str, hi: str) -> list:
+    return [bool_call("ge", [c, Const(parse_date(lo), _DATE)]),
+            bool_call("lt", [c, Const(parse_date(hi), _DATE)])]
+
+
+def _disc_price(price: Col, disc: Col) -> Call:
+    """l_extendedprice * (1 - l_discount)"""
+    one_minus = Call("sub", [Const(1, _BIGINT), disc],
+                     arith_result_type("sub", _BIGINT, disc.ftype))
+    return Call("mul", [price, one_minus],
+                arith_result_type("mul", price.ftype, one_minus.ftype))
+
+
+def q12_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q12: shipping modes and order priority (1994, MAIL/SHIP)."""
+    def li_filters(okey, ship, commit, receipt, mode):
+        return [bool_call("in_values", [mode], ["MAIL", "SHIP"]),
+                bool_call("lt", [commit, receipt]),
+                bool_call("lt", [ship, commit])] + \
+            _date_range(receipt, "1994-01-01", "1995-01-01")
+    frag = _frag(tables, [("lineitem", [0, 10, 11, 12, 14], li_filters),
+                          ("orders", [0, 5], None)], [(1, 0)])
+    prio = _combined(frag, 6)
+
+    def count_if(op, join):
+        cond = bool_call(join, [
+            bool_call(op, [prio, Const("1-URGENT", _STR)]),
+            bool_call(op, [prio, Const("2-HIGH", _STR)])])
+        return _agg("sum", Call("case", [cond, Const(1, _BIGINT),
+                                         Const(0, _BIGINT)], _BIGINT))
+    _set_agg(frag, [_combined(frag, 4)],
+             [count_if("eq", "or"), count_if("ne", "and")])
+    return frag
+
+
+def q14_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q14: promotion effect (September 1995)."""
+    frag = _frag(tables, [
+        ("lineitem", [1, 5, 6, 10],
+         lambda pk, price, disc, ship: _date_range(ship, "1995-09-01",
+                                                   "1995-10-01")),
+        ("part", [0, 4], None)], [(1, 0)])
+    rev = _disc_price(_combined(frag, 1), _combined(frag, 2))
+    promo = bool_call("like", [_combined(frag, 5)], "PROMO%")
+    _set_agg(frag, [], [
+        _agg("sum", Call("case", [promo, rev, Const(0, _BIGINT)],
+                         rev.ftype)),
+        _agg("sum", rev)])
+    return frag
+
+
+def q5_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q5: local supplier volume (ASIA, 1994)."""
+    frag = _frag(tables, [
+        ("lineitem", [0, 2, 5, 6], None),
+        ("orders", [0, 1, 4],
+         lambda okey, cust, date: _date_range(date, "1994-01-01",
+                                              "1995-01-01")),
+        ("customer", [0, 3], None),
+        ("supplier", [0, 3], None),
+        ("nation", [0, 1, 2], None),
+        ("region", [0, 1],
+         lambda rkey, name: [bool_call("eq", [name, Const("ASIA", _STR)])]),
+    ], [(1, 0), (2, 5), (3, 1), (4, 10), (5, 13)])
+    # c_nationkey = s_nationkey
+    frag.selection = [bool_call("eq", [_combined(frag, 8),
+                                       _combined(frag, 10)])]
+    _set_agg(frag, [_combined(frag, 12)],
+             [_agg("sum", _disc_price(_combined(frag, 2),
+                                      _combined(frag, 3)))])
+    return frag
+
+
+def q17_outer_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q17's outer block: the lineitem rows of Brand#23 MED BOX
+    parts (the correlated avg(l_quantity) runs above it)."""
+    frag = _frag(tables, [
+        ("lineitem", [1, 4, 5], None),
+        ("part", [0, 3, 6],
+         lambda pk, brand, cont: [
+             bool_call("eq", [brand, Const("Brand#23", _STR)]),
+             bool_call("eq", [cont, Const("MED BOX", _STR)])])],
+        [(1, 0)])
+    _set_rows(frag, [0, 1, 2, 3, 4, 5])
+    return frag
+
+
+def q18_outer_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q18's outer block: every lineitem row with its order and
+    customer (the IN (inner block) semi-join runs above it)."""
+    frag = _frag(tables, [("lineitem", [0, 4], None),
+                          ("orders", [0, 1, 3, 4], None),
+                          ("customer", [0, 1], None)], [(1, 0), (2, 3)])
+    _set_rows(frag, [6, 7, 2, 3, 4, 5, 0, 1])
+    return frag
+
+
+def q18_join_having_frag(tables: dict) -> FragmentDAG:
+    """GROUP BY o_orderkey ... HAVING sum(l_quantity) > 300 over lineitem
+    joined to orders: o_orderkey is the join's unique build key, so the
+    run-ordered l_orderkey stands for it and the rank path serves it."""
+    frag = _frag(tables, [("lineitem", [0, 4], None),
+                          ("orders", [0], None)], [(1, 0)])
+    _set_agg(frag, [_combined(frag, 2)], [_agg("sum", _combined(frag, 1))])
+    frag.having = [(0, "gt", Q18_THRESHOLD)]
+    return frag
+
+
+JOIN_REQUESTS = {"q12": q12_frag, "q14": q14_frag, "q5": q5_frag,
+                 "q17_outer": q17_outer_frag, "q18_outer": q18_outer_frag,
+                 "q18_join_having": q18_join_having_frag}
+JOIN_TABLES = {"q12": ("lineitem", "orders"), "q14": ("lineitem", "part"),
+               "q5": ("lineitem", "orders", "customer", "supplier", "nation",
+                      "region"),
+               "q17_outer": ("lineitem", "part"),
+               "q18_outer": ("lineitem", "orders", "customer"),
+               "q18_join_having": ("lineitem", "orders")}
+
+
 # ---- results as comparable rows ---------------------------------------------
 
 def partial_rows(chunks: list[Chunk]) -> list[tuple]:
@@ -224,3 +410,128 @@ def q18_inner_oracle(li: dict) -> list[tuple]:
     ok = sv > np.float32(Q18_THRESHOLD) - eps
     return sorted(zip(keys[ok].tolist(), sums[ok].tolist(),
                       counts[ok].tolist()))
+
+
+# ---- join oracles --------------------------------------------------------------
+# data: generate_tpch(...) output, table name -> column name -> array (or
+# (vocabulary, codes) for strings). Keys are dense small integers, so
+# key -> row maps are plain arrays indexed by key.
+
+def _strings(v) -> np.ndarray:
+    vocab, codes = v
+    return np.asarray(vocab, dtype=object)[codes]
+
+
+def _row_of(keys: np.ndarray) -> np.ndarray:
+    """key -> row index (-1 where absent)."""
+    out = np.full(int(keys.max()) + 1, -1, dtype=np.int64)
+    out[keys] = np.arange(len(keys))
+    return out
+
+
+def q12_oracle(data: dict) -> list[tuple]:
+    li, o = data["lineitem"], data["orders"]
+    mode = _strings(li["l_shipmode"])
+    m = (np.isin(mode, ["MAIL", "SHIP"])
+         & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"])
+         & (li["l_receiptdate"] >= parse_date("1994-01-01"))
+         & (li["l_receiptdate"] < parse_date("1995-01-01")))
+    prio = _strings(o["o_orderpriority"])[
+        _row_of(o["o_orderkey"])[li["l_orderkey"][m]]]
+    high = np.isin(prio, ["1-URGENT", "2-HIGH"])
+    rows = []
+    for md in np.unique(mode[m]):
+        g = mode[m] == md
+        n = int(g.sum())
+        h = int((high & g).sum())
+        rows.append((md, h, n, n - h, n))
+    return sorted(rows)
+
+
+def q14_oracle(data: dict) -> list[tuple]:
+    li, p = data["lineitem"], data["part"]
+    m = ((li["l_shipdate"] >= parse_date("1995-09-01"))
+         & (li["l_shipdate"] < parse_date("1995-10-01")))
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    ptype = _strings(p["p_type"])[_row_of(p["p_partkey"])[li["l_partkey"][m]]]
+    promo = np.array([t.startswith("PROMO") for t in ptype], dtype=bool)
+    n = int(m.sum())
+    if n == 0:
+        return []
+    return [(int(rev[promo].sum()), n, int(rev.sum()), n)]
+
+
+def q5_oracle(data: dict) -> list[tuple]:
+    """Exact (nation, revenue at scale 4, rows) for TPC-H Q5 (ASIA, 1994)."""
+    li, o = data["lineitem"], data["orders"]
+    c, sp = data["customer"], data["supplier"]
+    nat, reg = data["nation"], data["region"]
+    asia = reg["r_regionkey"][_strings(reg["r_name"]) == "ASIA"]
+    nat_ok = np.zeros(int(nat["n_nationkey"].max()) + 1, bool)
+    nat_ok[nat["n_nationkey"][np.isin(nat["n_regionkey"], asia)]] = True
+    c_nat = np.full(int(c["c_custkey"].max()) + 1, -1, np.int64)
+    c_nat[c["c_custkey"]] = c["c_nationkey"]
+    s_nat = np.full(int(sp["s_suppkey"].max()) + 1, -1, np.int64)
+    s_nat[sp["s_suppkey"]] = sp["s_nationkey"]
+    o_ok = ((o["o_orderdate"] >= parse_date("1994-01-01"))
+            & (o["o_orderdate"] < parse_date("1995-01-01")))
+    o_cnat = np.full(int(o["o_orderkey"].max()) + 1, -1, np.int64)
+    o_cnat[o["o_orderkey"][o_ok]] = c_nat[o["o_custkey"][o_ok]]
+    lnat = s_nat[li["l_suppkey"]]
+    m = (lnat >= 0) & (lnat == o_cnat[li["l_orderkey"]]) & \
+        nat_ok[np.clip(lnat, 0, None)]
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    span = len(nat_ok)
+    counts = np.bincount(lnat[m], minlength=span)
+    sums = np.zeros(span, np.int64)
+    np.add.at(sums, lnat[m], rev)
+    names = _strings(nat["n_name"])[_row_of(nat["n_nationkey"])]
+    return sorted((names[k], int(sums[k]), int(counts[k]))
+                  for k in np.nonzero(counts)[0])
+
+
+def q17_outer_oracle(data: dict) -> list[np.ndarray]:
+    li, p = data["lineitem"], data["part"]
+    prow = _row_of(p["p_partkey"])[li["l_partkey"]]
+    brand, cont = _strings(p["p_brand"]), _strings(p["p_container"])
+    ok = (brand == "Brand#23") & (cont == "MED BOX")
+    m = ok[prow]
+    r = prow[m]
+    return [li["l_partkey"][m], li["l_quantity"][m], li["l_extendedprice"][m],
+            p["p_partkey"][r], brand[r], cont[r]]
+
+
+def q18_outer_oracle(data: dict) -> list[np.ndarray]:
+    """Every lineitem row (each has its order, each order its customer)."""
+    li, o, c = data["lineitem"], data["orders"], data["customer"]
+    orow = _row_of(o["o_orderkey"])[li["l_orderkey"]]
+    crow = _row_of(c["c_custkey"])[o["o_custkey"][orow]]
+    return [c["c_custkey"][crow], _strings(c["c_name"])[crow],
+            o["o_orderkey"][orow], o["o_custkey"][orow],
+            o["o_totalprice"][orow], o["o_orderdate"][orow],
+            li["l_orderkey"], li["l_quantity"]]
+
+
+def q18_join_having_oracle(data: dict) -> list[tuple]:
+    """Every lineitem row joins its order, so the groups are Q18-inner's."""
+    return q18_inner_oracle(data["lineitem"])
+
+
+def row_columns(chunks: list[Chunk]) -> list[np.ndarray]:
+    """Row-mode result chunks -> one array per output column, rows in the
+    order returned: dictionary codes decoded to strings (object arrays),
+    NULL as None, everything else its physical value."""
+    parts: list[list[np.ndarray]] = []
+    for ch in chunks:
+        for ci, c in enumerate(ch.columns):
+            a = np.asarray(c.data)
+            if c.dictionary is not None:
+                a = np.asarray(c.dictionary.values, dtype=object)[a]
+            if c.valid is not None and not c.valid.all():
+                a = a.astype(object)
+                a[~c.valid] = None
+            if ci == len(parts):
+                parts.append([])
+            parts[ci].append(a)
+    return [np.concatenate(p) for p in parts]

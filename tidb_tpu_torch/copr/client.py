@@ -1,6 +1,8 @@
 """CopClient: the coprocessor — executes CopDAG requests as PyTorch programs.
 
-Port of the single-table aggregation path of `tidb_tpu/copr/client.py`.
+Port of the single-table aggregation path of `tidb_tpu/copr/client.py`,
+and of the staging the fragment executor (`copr/fragment.py`) uses for its
+build tables (`_stage_build_table`, `_place_build_array`, one device).
 What stays as in the reference:
 
 * the host-side resolution (`_prepare`): string constants to dictionary
@@ -25,7 +27,6 @@ same reason; row, TopN, index-ranged, overlay and HLL requests raise
 
 from __future__ import annotations
 
-import hashlib
 import threading
 from dataclasses import dataclass
 from typing import Any, Optional, Union
@@ -119,6 +120,8 @@ class CopClient:
                 return
 
             def stale(k) -> bool:  # plain or "tile"-prefixed cache keys
+                if len(k) > 2 and k[1] == "aligned" and k[2] == old:
+                    return True  # build-side epoch of an aligned join
                 return k[0] == old or (k[0] == "tile" and k[1] == old)
 
             for cache in (self._col_cache, self._mask_cache):
@@ -500,7 +503,7 @@ class CopClient:
         epoch = snap.epoch
         n = epoch.num_rows
         if n <= self.TILE_ROWS:
-            cols, vis = self._stage_inputs(dag, snap)
+            cols, vis, _, _ = self._stage_inputs(dag, snap)
             return [(cols, vis, n)]
         T = self.TILE_ROWS
         b = _bucket(T)
@@ -508,7 +511,7 @@ class CopClient:
             cacheable = self._live_epochs.get(dag.scan.table_id) \
                 == epoch.epoch_id
         tiles = []
-        vis_digest = _mask_digest(snap.base_visible)
+        vis_digest = snap.visible_digest
         with self._lock:
             # one live visibility digest per (epoch, bucket)
             for k in [k for k in self._mask_cache
@@ -548,8 +551,9 @@ class CopClient:
 
     def _stage_inputs(self, dag: CopDAG, snap: TableSnapshot):
         """Pad + upload the whole epoch's scan columns as 32-bit (or
-        narrower) device tensors; returns [(data, valid)] and the
-        row-visibility mask."""
+        narrower) device tensors; returns the device (data, valid) pairs,
+        the device row-visibility mask, the host (data, valid) views and
+        the host visibility mask."""
         epoch = snap.epoch
         n = epoch.num_rows
         b = _bucket(n)
@@ -557,13 +561,14 @@ class CopClient:
             cacheable = self._live_epochs.get(dag.scan.table_id) \
                 == epoch.epoch_id
         dev_cols = []
+        host_cols = []
         for off in dag.scan.col_offsets:
             key = (epoch.epoch_id, off, b)
+            valid = epoch.valids[off]
+            vfull = np.ones(n, bool) if valid is None else valid
             with self._lock:
                 cached = self._col_cache.get(key)
             if cached is None:
-                valid = epoch.valids[off]
-                vfull = np.ones(n, bool) if valid is None else valid
                 cached = (self._place(_pad(_narrow_stats(
                               epoch.columns[off], self._col_stats(snap, off)),
                               b)),
@@ -572,7 +577,8 @@ class CopClient:
                     with self._lock:
                         self._col_cache[key] = cached
             dev_cols.append(cached)
-        vis_digest = _mask_digest(snap.base_visible)
+            host_cols.append((epoch.columns[off], vfull))
+        vis_digest = snap.visible_digest
         vis_key = (epoch.epoch_id, b, vis_digest)
         with self._lock:
             vis = self._mask_cache.get(vis_key)
@@ -585,7 +591,18 @@ class CopClient:
                               and k[2] != vis_digest]:
                         del self._mask_cache[k]
                     self._mask_cache[vis_key] = vis
-        return dev_cols, vis
+        return dev_cols, vis, host_cols, snap.base_visible
+
+    # ---- fragment placement hooks: a single device stages every build
+    # table whole and places its arrays as they are ----
+    def _stage_build_table(self, facade: CopDAG, snap: TableSnapshot):
+        return self._stage_inputs(facade, snap)
+
+    def _place_build_array(self, arr: torch.Tensor) -> torch.Tensor:
+        return arr
+
+    def _frag_engine(self, mode: str) -> str:
+        return f"device[{mode}]"
 
     # ---- aggregation path ---------------------------------------------------
     def _run_agg(self, dag, snap, prepared, tiles) -> list[Chunk]:
@@ -872,12 +889,6 @@ def _lex_runs_ordered(snap, offsets) -> bool:
                 return False
             tie = tie & (a == b)
     return True
-
-
-def _mask_digest(m: np.ndarray) -> str:
-    if m.all():
-        return "all"
-    return hashlib.md5(np.packbits(m).tobytes()).hexdigest()[:16]
 
 
 def _like_to_regex(pattern: str) -> str:

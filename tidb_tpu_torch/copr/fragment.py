@@ -1,23 +1,38 @@
-"""Fragment executor: the single-table FragmentDAG paths.
+"""Fragment executor: gather-join trees as PyTorch programs on one device.
 
-Port of the part of `tidb_tpu/copr/fragment.py` that serves a one-table
-fragment with an aggregation:
+Port of the single-device half of `tidb_tpu/copr/fragment.py`:
 
-* mode "agg": the dense-segment aggregation of `client.agg_partials` over
-  the probe's filtered rows, tiled like the single-table path;
-* mode "hc" over a run-ordered epoch: `_hc_rank_body`, which turns the
-  per-row masked value arrays into exact per-group sums in rank space with
-  `streamseg.rank_sums` (the CUDA kernel on the card), then keeps the
-  groups that pass the HAVING predicates (HAVING consumer, e.g. TPC-H
-  Q18's inner block) or every group (all-groups "group" mode, e.g. a
-  lifted single-table GROUP BY whose group space is too wide to be dense).
+* build (dimension) tables are staged whole on the device, beside an int32
+  permutation table perm[key - lo] -> epoch row (-1 = absent) that the host
+  builds once per (epoch, key column, visibility) and the device caches;
+* the probe (fact) table streams through in tiles. A join maps its key
+  through perm (`idx = perm[key - lo]`, `found = idx >= 0`) and gathers the
+  build columns per probe row; a join whose probe key is a plain column
+  runs its gathers once per (probe epoch, build epoch, tile) and keeps the
+  ALIGNED build columns cached, so later queries over the same epochs only
+  apply their build filters. Chained joins (a gathered column as the next
+  join's key) cost one gather each;
+* three modes follow the joins:
+  - "agg": the dense-segment aggregation of `client.agg_partials`;
+  - "rows": a packed probe-row bitmask (8 rows a byte, first row in the
+    most significant bit); the host replays the gathers for the passing
+    rows and returns them in probe-row order (`out_map` columns);
+  - "hc" over a run-ordered probe epoch: `_hc_rank_body`, which turns the
+    per-row masked value arrays into exact per-group sums in rank space
+    with `streamseg.rank_sums` (the CUDA kernel on the card), then keeps
+    the groups that pass the HAVING predicates (HAVING consumer, e.g.
+    TPC-H Q18's inner block) or every group (all-groups "group" mode). A
+    group key that is a join's unique build key stands for the join's
+    probe key (o_orderkey -> l_orderkey), so join fragments take the rank
+    path too.
 
 Gates decide exactly as the reference's: where the reference raises its
 `_Fallback(reason)` and serves the fragment on the host, this executor
-raises `NotInSlice(reason)`. Joins, semi-joins, row and TopN modes, a TopN
-consumer of the hc path, and the sorted-run hc body (for epochs that are
-not run-ordered or fail a streamseg gate) raise `NotInSlice` until their
-slice lands.
+raises `NotInSlice(reason)`. Paths of later slices raise `NotInSlice` too:
+semi-joins ("semi-joins"), a TopN consumer of the row mode ("fragment TopN
+mode") or of the hc mode ("hc TopN consumer"), the sorted-run hc body for
+epochs that are not run-ordered or fail a streamseg gate ("hc sorted-run
+body"), and overlay rows on the probe table ("overlay rows").
 """
 
 from __future__ import annotations
@@ -53,6 +68,9 @@ from .client import (
 )
 from .eval import CompileError, eval_expr, selection_mask
 
+# widest admissible build-key span: a perm table of 64M int32 = 256 MB
+FRAG_SPAN_CAP = 1 << 26
+
 
 class _Fallback(Exception):
     """Raised by a device gate; carries the gate's reason."""
@@ -76,63 +94,99 @@ def execute_fragment(cop: CopClient, frag: FragmentDAG, snaps: dict
 # ==================== device path ====================
 
 def _device_fragment(cop, frag, snaps) -> CopResult:
-    if frag.joins:
-        raise NotInSlice("joins")
-    if frag.semis:
-        raise NotInSlice("semi-joins")
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
 
-    # ---- eligibility over this snapshot ----
-    b = cop._scan_bounds(_facade_dag(probe), psnap)
-    for ci, off in enumerate(probe.col_offsets):
-        if psnap.epoch.columns[off].dtype == np.int64 and \
-                not fits_int32(b[ci]):
-            raise _Fallback("int64-column")
-    dicts = [psnap.dictionaries[off] for off in probe.col_offsets]
-    cop._evict_stale(probe.table.id, psnap.epoch.epoch_id)
-    comb_bounds = list(b)
-    comb_dicts = list(dicts)
+    # ---- eligibility over these snapshots ----
+    tab_bounds = []
+    tab_dicts = []
+    for ti, t in enumerate(frag.tables):
+        snap = snaps[t.table.id]
+        if ti > 0 and len(snap.overlay_handles) > 0:
+            raise _Fallback("build-overlay")  # uncommitted build rows
+        b = cop._scan_bounds(_facade_dag(t), snap)
+        for ci, off in enumerate(t.col_offsets):
+            if snap.epoch.columns[off].dtype == np.int64 and \
+                    not fits_int32(b[ci]):
+                raise _Fallback("int64-column")
+        tab_bounds.append(b)
+        tab_dicts.append([snap.dictionaries[off] for off in t.col_offsets])
+        cop._evict_stale(t.table.id, snap.epoch.epoch_id)
+    comb_bounds = [x for b in tab_bounds for x in b]
+    comb_dicts = [d for ds in tab_dicts for d in ds]
 
     prepared: dict[Any, Any] = {"__col_bounds__": comb_bounds}
 
-    for c in probe.filters:
-        cop._prepare_expr(c, dicts, prepared)
-        if not expr_device_safe(c, b):
-            raise _Fallback("filter-unsafe")
+    # per-table filters resolve against their own dictionaries
+    for ti, t in enumerate(frag.tables):
+        for c in t.filters:
+            cop._prepare_expr(c, tab_dicts[ti], prepared)
+            if not expr_device_safe(c, tab_bounds[ti]):
+                raise _Fallback("filter-unsafe")
     for c in frag.selection:
         cop._prepare_expr(c, comb_dicts, prepared)
         if not expr_device_safe(c, comb_bounds):
             raise _Fallback("selection-unsafe")
-    if frag.agg is None:
-        raise NotInSlice("fragment row and TopN modes")
-    # group keys and aggregate arguments can embed string predicates
-    for g in frag.agg.group_by:
-        cop._prepare_expr(g, comb_dicts, prepared)
-    for d in frag.agg.aggs:
-        if d.arg is not None:
-            cop._prepare_expr(d.arg, comb_dicts, prepared)
+    if frag.agg is not None:
+        # group keys and aggregate arguments can embed string predicates
+        for g in frag.agg.group_by:
+            cop._prepare_expr(g, comb_dicts, prepared)
+        for d in frag.agg.aggs:
+            if d.arg is not None:
+                cop._prepare_expr(d.arg, comb_dicts, prepared)
 
-    mode = "agg"
-    n_rows = psnap.epoch.num_rows + len(psnap.overlay_handles)
-    facade = _agg_facade(frag)
-    err = cop._prepare_agg(facade, comb_dicts, comb_bounds, prepared,
-                           n_rows)
-    if err is not None:
-        # dense segment space rejected (or skipped by the sparse-occupancy
-        # gate): the sorted-run candidate machinery covers the rest
-        if len(psnap.overlay_handles) > 0 or \
-                not _prepare_hc(frag, comb_bounds, prepared, n_rows):
-            if not err.startswith("sparse segment space") or \
-                    cop._prepare_agg(facade, comb_dicts, comb_bounds,
-                                     prepared, n_rows,
-                                     sparse_gate=False) is not None:
-                raise _Fallback("group-space")
-            # the dense einsum still serves the query on device
-        else:
-            mode = "hc"
-            if frag.hc is None and not frag.having:
-                prepared["__hc_all__"] = True
+    # join key spans: the perm table covers the build key's [lo, hi]
+    spans = []
+    for j in frag.joins:
+        kb = tab_bounds[j.build][j.build_key_local]
+        pb = expr_bounds(j.probe_key, comb_bounds)
+        if kb is None or pb is None or not fits_int32(pb):
+            raise _Fallback("key-width")
+        lo, hi = kb
+        span = hi - lo + 1
+        if span > FRAG_SPAN_CAP:
+            raise _Fallback("key-span")
+        spans.append((lo, span))
+
+    # semi/anti membership edges: the reference's gates, then NotInSlice
+    # below (the membership bitmaps are a later slice)
+    for sm in frag.semis:
+        snap = snaps[sm.table.table.id]
+        if len(snap.overlay_handles) > 0:
+            raise _Fallback("build-overlay")
+        cop._evict_stale(sm.table.table.id, snap.epoch.epoch_id)
+        cop._prepare_expr(sm.probe_key, comb_dicts, prepared)
+        if not expr_device_safe(sm.probe_key, comb_bounds):
+            raise _Fallback("key-width")
+        kb = cop._col_stats(snap, sm.table.col_offsets[sm.build_key_local])
+        pb = expr_bounds(sm.probe_key, comb_bounds)
+        if kb is None or pb is None or not fits_int32(pb):
+            raise _Fallback("key-width")
+        if kb[1] - kb[0] + 1 > FRAG_SPAN_CAP:
+            raise _Fallback("key-span")
+
+    mode = "agg" if frag.agg is not None else "rows"
+    if frag.agg is not None:
+        n_rows = psnap.epoch.num_rows + len(psnap.overlay_handles)
+        facade = _agg_facade(frag)
+        err = cop._prepare_agg(facade, comb_dicts, comb_bounds, prepared,
+                               n_rows)
+        if err is not None:
+            # dense segment space rejected (or skipped by the sparse-
+            # occupancy gate): the sorted-run candidate machinery covers
+            # the rest
+            if len(psnap.overlay_handles) > 0 or \
+                    not _prepare_hc(frag, comb_bounds, prepared, n_rows):
+                if not err.startswith("sparse segment space") or \
+                        cop._prepare_agg(facade, comb_dicts, comb_bounds,
+                                         prepared, n_rows,
+                                         sparse_gate=False) is not None:
+                    raise _Fallback("group-space")
+                # the dense einsum still serves the query on device
+            else:
+                mode = "hc"
+                if frag.hc is None and not frag.having:
+                    prepared["__hc_all__"] = True
 
     if mode == "hc":
         # run-ordered fast path: storage order already groups the segment
@@ -153,20 +207,41 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
                 meta = cop._rank_meta(psnap, segcols)
                 if meta is not None:
                     prepared["__rank_meta__"] = meta
-        if frag.hc is not None:
-            raise NotInSlice("hc TopN consumer")
-        if prepared.get("__rank_meta__") is None:
-            raise NotInSlice("hc sorted-run body")
 
+    # ---- paths of later slices ----
+    if frag.semis:
+        raise NotInSlice("semi-joins")
+    if mode == "rows" and frag.topn is not None:
+        # the reference packs the ORDER BY into one int32 (topnpack) and
+        # returns the top rows per tile
+        raise NotInSlice("fragment TopN mode")
+    if mode == "hc" and frag.hc is not None:
+        raise NotInSlice("hc TopN consumer")
+    if mode == "hc" and prepared.get("__rank_meta__") is None:
+        raise NotInSlice("hc sorted-run body")
     if len(psnap.overlay_handles) > 0:
         raise NotInSlice("overlay rows")
+
+    # ---- build staging: whole build tables + perm tables ----
+    builds = []
+    for j, (lo, span) in zip(frag.joins, spans):
+        t = frag.tables[j.build]
+        snap = snaps[t.table.id]
+        cols, vis, _, _ = cop._stage_build_table(_facade_dag(t), snap)
+        key_off = t.col_offsets[j.build_key_local]
+        perm = cop._place_build_array(
+            _perm_array(cop, snap, key_off, lo, span))
+        builds.append({"cols": cols, "vis": vis, "perm": perm})
+
     chunks: list[Chunk] = []
     if psnap.epoch.num_rows > 0:
-        chunks.extend(_run_frag_batch(cop, frag, snaps, prepared, mode))
+        chunks.extend(_run_frag_batch(cop, frag, snaps, prepared, spans,
+                                      builds, mode))
     if not chunks:
         chunks = [_empty_chunk(frag, comb_dicts)]
     emode = "group" if prepared.get("__hc_all__") else mode
-    return CopResult(chunks, is_partial_agg=True, engine=f"device[{emode}]")
+    return CopResult(chunks, is_partial_agg=frag.agg is not None,
+                     engine=cop._frag_engine(emode))
 
 
 def lift_group_dag(dag, snap) -> Optional[FragmentDAG]:
@@ -202,24 +277,151 @@ def _agg_facade(frag):
                   agg=frag.agg, output_types=list(frag.output_types))
 
 
-def _run_frag_batch(cop, frag, snaps, prepared, mode) -> list[Chunk]:
+def _perm_array(cop, snap, key_off: int, lo: int, span: int
+                ) -> torch.Tensor:
+    """key -> epoch row index (device int32, -1 absent), visible rows with
+    a valid key only. Built on the host and cached on the device per
+    (epoch, key column, lo, span, visibility); the epoch id leads the key
+    so that `_evict_stale` frees it with the epoch."""
+    key = (snap.epoch.epoch_id, "perm", key_off, lo, span,
+           snap.visible_digest)
+    with cop._lock:
+        hit = cop._col_cache.get(key)
+        cacheable = cop._live_epochs.get(snap.table.id) \
+            == snap.epoch.epoch_id
+    if hit is not None:
+        return hit
+    keys = snap.epoch.columns[key_off]
+    valid = snap.epoch.valids[key_off]
+    sel = snap.base_visible.copy()
+    if valid is not None:
+        sel &= valid
+    idx = np.nonzero(sel)[0]
+    perm = np.full(span, -1, dtype=np.int32)
+    perm[keys[idx].astype(np.int64) - lo] = idx.astype(np.int32)
+    dev = cop._place(perm)
+    if cacheable:
+        with cop._lock:
+            cop._col_cache[key] = dev
+    return dev
+
+
+def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
+                    ) -> list[Chunk]:
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
-    kernel = _build_frag_kernel(frag, prepared, mode)
+    # big epochs stream through tiles exactly like the single-table path;
+    # the rank-space hc path stages the whole epoch (rank metadata and key
+    # runs are per epoch)
+    if mode in ("agg", "rows") and psnap.epoch.num_rows > cop.TILE_ROWS:
+        return _run_frag_tiled(cop, frag, snaps, prepared, spans, builds,
+                               mode)
+    pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap)
+    # the first query over an epoch pair pays the gathers; later ones
+    # read the cached aligned build columns
+    kern_builds = _stage_aligned(cop, frag, snaps, spans, builds, pcols)
+    aux = _stage_rank_aux(cop, psnap, prepared) if mode == "hc" else None
+    kernel = _build_frag_kernel(frag, prepared, spans, mode)
+    out = fetch([kernel(pcols, pvis, kern_builds, aux)])[0]
+    if mode == "hc":
+        chunk = _decode_hc(frag, snaps, prepared, out)
+        return [] if chunk is None else [chunk]
     if mode == "agg":
-        # big epochs stream through tiles exactly like the single-table
-        # path; per-tile partials merge host-side
-        tiles = cop._stage_tiles(_facade_dag(probe), psnap)
-        outs = fetch([kernel(cols, vis) for cols, vis, _ in tiles])
+        return _decode_frag_agg(frag, snaps, prepared, out)
+    # row mode: the device returned a packed probe-row bitmask; the host
+    # replays the gathers for the passing rows only
+    n_rows = phost[0][0].shape[0] if phost else 0
+    mask = np.unpackbits(out["bits"])[:n_rows].astype(bool)
+    return _host_rows_for(frag, snaps, np.nonzero(mask)[0], prepared)
+
+
+def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
+                    ) -> list[Chunk]:
+    """Stream the probe through shape-bucketed tiles: one program serves
+    every tile, aligned join columns are cached per (epoch pair, tile),
+    per-tile agg partials merge exactly on the host and per-tile row
+    bitmasks become global epoch row indices."""
+    probe = frag.tables[0]
+    psnap = snaps[probe.table.id]
+    tiles = cop._stage_tiles(_facade_dag(probe), psnap)
+    kernel = _build_frag_kernel(frag, prepared, spans, mode)
+    devs = []
+    for ti, (cols, vis, _) in enumerate(tiles):
+        kb = _stage_aligned(cop, frag, snaps, spans, builds, cols,
+                            tag=("tile", ti))
+        devs.append(kernel(cols, vis, kb))
+    outs = fetch(devs)
+    if mode == "agg":
         out = _merge_tile_outs(outs, prepared["__agg_sched__"])
         return _decode_frag_agg(frag, snaps, prepared, out)
-    # the rank-space hc path stages the whole epoch: rank metadata and
-    # key runs are per epoch
-    pcols, pvis = cop._stage_inputs(_facade_dag(probe), psnap)
-    aux = _stage_rank_aux(cop, psnap, prepared)
-    out = fetch([kernel(pcols, pvis, aux)])[0]
-    chunk = _decode_hc(frag, snaps, prepared, out)
-    return [] if chunk is None else [chunk]
+    T = cop.TILE_ROWS
+    idx_parts = []
+    for ti, (out, (_, _, cnt)) in enumerate(zip(outs, tiles)):
+        local = np.nonzero(np.unpackbits(out["bits"])[:cnt])[0]
+        if len(local):
+            idx_parts.append(local + ti * T)
+    idx = np.concatenate(idx_parts) if idx_parts else np.zeros(0, np.int64)
+    return _host_rows_for(frag, snaps, idx, prepared)
+
+
+def _stage_aligned(cop, frag, snaps, spans, builds, pcols, tag=None):
+    """Build columns ALIGNED to the padded probe rows, cached per epoch.
+
+    The perm lookup and the per-row column gathers are the same for every
+    query over an epoch pair; only the filters and aggregates change. So
+    the gathers run once per (probe epoch, build epoch, tile) and their
+    results (one probe-length column per build column, and a `found` mask)
+    stay on the device.
+
+    Returns a per-join list: {'acols': ((data, valid), ...), 'found': m}
+    for each join it could align (probe key a plain Col over the probe
+    columns or an earlier aligned column), else the builds entry as it is
+    (the program gathers that one per query)."""
+    probe = frag.tables[0]
+    psnap = snaps[probe.table.id]
+    pep = psnap.epoch.epoch_id
+    bucket = pcols[0][0].shape[0] if pcols else 0
+    # combined index -> (data, valid) device pair, or None where the slot
+    # belongs to a join the program gathers itself
+    combined: list = list(pcols)
+    out = []
+    for ji, (j, (lo, span), b) in enumerate(zip(frag.joins, spans, builds)):
+        t = frag.tables[j.build]
+        key_e = j.probe_key
+        src = None
+        if isinstance(key_e, Col) and key_e.idx < len(combined):
+            src = combined[key_e.idx]
+        if src is None:
+            out.append(b)
+            combined.extend([None] * len(t.col_offsets))
+            continue
+        bsnap = snaps[t.table.id]
+        bep = bsnap.epoch.epoch_id
+        ckey = (pep, "aligned", bep, t.table.id, ji, key_e.idx, bucket,
+                lo, span, tuple(t.col_offsets),
+                psnap.visible_digest, bsnap.visible_digest, tag)
+        with cop._lock:
+            hit = cop._col_cache.get(ckey)
+            cacheable = (cop._live_epochs.get(probe.table.id) == pep
+                         and cop._live_epochs.get(t.table.id) == bep)
+        if hit is None:
+            kd, kv = src
+            k = kd.to(torch.int32) - lo  # widened first: int8 keys wrap
+            ridx = torch.index_select(b["perm"], 0,
+                                      torch.clamp(k, 0, span - 1))
+            gidx = torch.clamp(ridx, min=0)
+            found = (k >= 0) & (k < span) & (ridx >= 0) & kv & \
+                torch.index_select(b["vis"], 0, gidx)
+            acols = tuple((torch.index_select(d, 0, gidx),
+                           torch.index_select(v, 0, gidx) & found)
+                          for d, v in b["cols"])
+            hit = {"acols": acols, "found": found}
+            if cacheable:
+                with cop._lock:
+                    cop._col_cache[ckey] = hit
+        out.append(hit)
+        combined.extend(hit["acols"])
+    return out
 
 
 def _decode_frag_agg(frag, snaps, prepared, out) -> list[Chunk]:
@@ -275,35 +477,48 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
         spans_.append(b[1] - b[0])
 
     # ---- segment-key selection (functional dependencies) ----
-    # sort only by group keys that DETERMINE the rest: the table's PK
-    # handle column determines every other column (the reference also
-    # follows unique joins; a fragment here has one table and no joins)
-    probe = frag.tables[0]
-    all_cols = set(range(len(probe.col_offsets)))
-    off = getattr(probe.table, "pk_handle_offset", None)
-    pk = probe.col_offsets.index(off) \
-        if off is not None and off in probe.col_offsets else None
+    # sort only by group keys that DETERMINE the rest: a build table
+    # reached through a unique join whose key is determined contributes
+    # all its columns (Q3 groups by l_orderkey, o_orderdate,
+    # o_shippriority: the orders columns are functions of l_orderkey)
+    bases = []
+    acc = 0
+    for t in frag.tables:
+        bases.append((acc, acc + len(t.col_offsets)))
+        acc += len(t.col_offsets)
 
-    def cols_of(e) -> set:
-        out = set()
-
-        def walk(x):
-            if isinstance(x, Col):
-                out.add(x.idx)
-            elif hasattr(x, "args"):
-                for a in x.args:
-                    walk(a)
-        walk(e)
-        return out
+    # a table's PK handle column determines every other column of that
+    # table (Q10's c_custkey, c_name, c_acctbal, ... are one segment key)
+    pk_comb: dict[int, int] = {}
+    for ti, t in enumerate(frag.tables):
+        off = getattr(t.table, "pk_handle_offset", None)
+        if off is not None and off in t.col_offsets:
+            pk_comb[ti] = bases[ti][0] + t.col_offsets.index(off)
 
     def closure(det: set) -> set:
-        return det | all_cols if pk in det else set(det)
+        det = set(det)
+        changed = True
+        while changed:
+            changed = False
+            for j in frag.joins:
+                rng = set(range(*bases[j.build]))
+                if rng <= det:
+                    continue
+                if _cols_of(j.probe_key) <= det:
+                    det |= rng
+                    changed = True
+            for ti, pc in pk_comb.items():
+                rng = set(range(*bases[ti]))
+                if pc in det and not rng <= det:
+                    det |= rng
+                    changed = True
+        return det
 
     order = sorted(range(len(frag.agg.group_by)),
                    key=lambda gi: -spans_[gi])
     all_needed: set = set()
     for g in frag.agg.group_by:
-        all_needed |= cols_of(g)
+        all_needed |= _cols_of(g)
     # one plain key that determines every group column sorts alone
     seg_keys: list[int] = []
     for gi in order:
@@ -315,7 +530,7 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
         det: set = set()
         for gi in order:
             g = frag.agg.group_by[gi]
-            need = cols_of(g)
+            need = _cols_of(g)
             if need and not need <= closure(det):
                 seg_keys.append(gi)
                 # only a PLAIN column key determines its column
@@ -372,20 +587,39 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
         })
     prepared["__hc_nulls__"] = nulls
     prepared["__hc_sched__"] = sched
-    # run-order eligibility: every segment key must be a plain column
+    # run-order eligibility: every segment key must resolve to a plain
+    # PROBE column. A group key that IS the unique build key of a join
+    # (o_orderkey) stands for the join's probe key (l_orderkey): equal
+    # wherever the inner join matches, and unmatched runs are gated out by
+    # their zero row count
+    n_probe = len(frag.tables[0].col_offsets)
+
+    def probe_local_of(e) -> Optional[int]:
+        if not isinstance(e, Col):
+            return None
+        if e.idx < n_probe:
+            return e.idx
+        for j in frag.joins:
+            if e.idx == bases[j.build][0] + j.build_key_local and \
+                    isinstance(j.probe_key, Col) and \
+                    j.probe_key.idx < n_probe:
+                return j.probe_key.idx
+        return None
+
     segcols: Optional[list[int]] = []
     for gi in seg_keys:
-        g = frag.agg.group_by[gi]
-        if not isinstance(g, Col):
+        local = probe_local_of(frag.agg.group_by[gi])
+        if local is None:
             segcols = None
             break
-        segcols.append(probe.col_offsets[g.idx])
+        segcols.append(frag.tables[0].col_offsets[local])
     prepared["__hc_segcols__"] = segcols
     return True
 
 
-def _build_frag_kernel(frag, prepared, mode):
-    """(probe cols, visibility[, rank aux]) -> device partials."""
+def _build_frag_kernel(frag, prepared, spans, mode):
+    """(probe cols, visibility, builds[, rank aux]) -> device outputs:
+    agg partials, hc candidates, or {"bits": packed row mask}."""
     agg = frag.agg
     if mode == "agg":
         cards = prepared["__dense_cards__"]
@@ -393,19 +627,67 @@ def _build_frag_kernel(frag, prepared, mode):
         for c in cards:
             segments *= max(c, 1)
 
-    def kernel(pcols, pvis, aux=None):
+    def kernel(pcols, pvis, builds, aux=None):
         cols = widen32(list(pcols))
         mask = pvis
         if frag.tables[0].filters:
+            # probe filters (local space == combined prefix) gate rows
+            # before any gather
             mask = selection_mask(frag.tables[0].filters, cols, prepared,
                                   mask)
+        for j, (lo, span), b in zip(frag.joins, spans, builds):
+            t = frag.tables[j.build]
+            if "acols" in b:
+                # aligned join: the columns already sit in probe-row
+                # order; only the query's build filters remain
+                found = b["found"]
+                acols = widen32(list(b["acols"]))
+                if t.filters:
+                    found = selection_mask(t.filters, acols, prepared, found)
+                for d, v in acols:
+                    cols.append((d, v & found))
+                mask = mask & found
+                continue
+            key_v, key_vl = eval_expr(j.probe_key, cols, prepared)
+            k = key_v.to(torch.int32) - lo
+            ridx = torch.index_select(b["perm"], 0,
+                                      torch.clamp(k, 0, span - 1))
+            found = (k >= 0) & (k < span) & (ridx >= 0) & key_vl
+            gidx = torch.clamp(ridx, min=0)
+            # build visibility and filters over the FULL build columns,
+            # gathered per probe row
+            bcols = widen32(list(b["cols"]))
+            bmask = b["vis"]
+            if t.filters:
+                bmask = selection_mask(t.filters, bcols, prepared, bmask)
+            found = found & torch.index_select(bmask, 0, gidx)
+            for d, v in bcols:
+                cols.append((torch.index_select(d, 0, gidx),
+                             torch.index_select(v, 0, gidx) & found))
+            mask = mask & found
         if frag.selection:
             mask = selection_mask(frag.selection, cols, prepared, mask)
         if mode == "agg":
             return agg_partials(agg, prepared, cards, segments, cols, mask)
-        return _hc_rank_body(frag, prepared, cols, mask, aux)
+        if mode == "hc":
+            return _hc_rank_body(frag, prepared, cols, mask, aux)
+        return {"bits": packbits(mask)}
 
     return kernel
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits(mask: torch.Tensor) -> torch.Tensor:
+    """bool[n] -> uint8[ceil(n / 8)], 8 rows a byte with the first in the
+    most significant bit (zero-padded), as `np.packbits` packs and
+    `np.unpackbits` reads."""
+    pad = -mask.shape[0] % 8
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
+    return (mask.view(-1, 8).to(torch.int32) * w).sum(dim=1).to(torch.uint8)
 
 
 def _hc_rank_body(frag, prepared, cols, mask, aux):
@@ -578,8 +860,117 @@ def _decode_hc_rows(frag, snaps, prepared, out, picked) -> Chunk:
     return Chunk(columns)
 
 
+# ==================== row-mode replay ====================
+
+def _host_rows_for(frag, snaps, probe_idx, prepared) -> list[Chunk]:
+    """Joined output rows (`out_map` order) for the given probe rows."""
+    cols, valids, dicts = _host_join(frag, snaps, probe_idx, prepared)
+    if cols is None:
+        return []
+    return _rows_chunk(frag, cols, valids, dicts)
+
+
+def _rows_chunk(frag, cols, valids, dicts) -> list[Chunk]:
+    columns = []
+    for pos, comb in enumerate(frag.out_map):
+        ft = frag.output_types[pos]
+        v = valids[comb]
+        columns.append(Column(ft, cols[comb].astype(ft.np_dtype),
+                              None if v.all() else v, dicts[comb]))
+    return [Chunk(columns)]
+
+
+def _host_join(frag, snaps, probe_idx, prepared):
+    """Replay the joins on the host for the probe rows the device passed,
+    with NO further filtering (the device already applied every filter).
+    Returns (cols, valids, dicts) in combined order, or (None, None, None)
+    when no row passed. Build tables carry no overlay rows (the
+    build-overlay gate), so a build's rows are its visible epoch rows."""
+    probe = frag.tables[0]
+    psnap = snaps[probe.table.id]
+    nrows = len(probe_idx)
+    if nrows == 0:
+        return None, None, None
+    cols, valids = [], []
+    for off in probe.col_offsets:
+        d, v = psnap.epoch.columns[off], psnap.epoch.valids[off]
+        cols.append(d[probe_idx])
+        valids.append(np.ones(nrows, bool) if v is None else v[probe_idx])
+    dicts = [psnap.dictionaries[off] for off in probe.col_offsets]
+
+    for j in frag.joins:
+        t = frag.tables[j.build]
+        snap = snaps[t.table.id]
+        vis = snap.base_visible
+        bcols = [(snap.epoch.columns[off][vis],
+                  None if snap.epoch.valids[off] is None
+                  else snap.epoch.valids[off][vis]) for off in t.col_offsets]
+        # unique-key mapping via sorted search
+        kd, kv = bcols[j.build_key_local]
+        bidx = np.nonzero(np.ones(len(kd), bool) if kv is None else kv)[0]
+        bkeys = kd[bidx].astype(np.int64)
+        order = np.argsort(bkeys, kind="stable")
+        skeys = bkeys[order]
+        srows = bidx[order]
+
+        pk, pkv = _host_eval(j.probe_key, cols, valids, prepared)
+        pos = np.searchsorted(skeys, pk)
+        pos_safe = np.clip(pos, 0, max(len(skeys) - 1, 0))
+        found = np.zeros(nrows, bool) if len(skeys) == 0 else (
+            (pos < len(skeys)) & (skeys[pos_safe] == pk))
+        found &= pkv
+        rows = srows[pos_safe] if len(skeys) else np.zeros(nrows, np.int64)
+        safe_rows = np.where(found, rows, 0)
+        for d, v in bcols:
+            cols.append(d[safe_rows])
+            valids.append((np.ones(nrows, bool) if v is None
+                           else v[safe_rows]) & found)
+        dicts.extend(snap.dictionaries[off] for off in t.col_offsets)
+    return cols, valids, dicts
+
+
+def _host_eval(e, cols, valids, prepared):
+    """Evaluate a join's probe key over replayed host rows with the same
+    `eval_expr` the device ran, on CPU tensors at the device dtypes (the
+    int64-column and key-width gates hold every value inside int32).
+    -> (int64 values, bool validity) numpy arrays."""
+    need = _cols_of(e) | {0}  # column 0 gives a constant its length
+
+    def as_tensor(a):
+        if a.dtype.kind == "f":
+            return torch.from_numpy(a.astype(np.float32))
+        if a.dtype == np.bool_:
+            return torch.from_numpy(a)
+        return torch.from_numpy(a.astype(np.int32))
+
+    tcols = [(as_tensor(cols[i]), torch.from_numpy(valids[i]))
+             if i in need else None for i in range(len(cols))]
+    v, vl = eval_expr(e, tcols, prepared)
+    return v.numpy().astype(np.int64), vl.numpy()
+
+
+def _cols_of(e) -> set:
+    """Combined column indices an expression reads."""
+    out = set()
+
+    def walk(x):
+        if isinstance(x, Col):
+            out.add(x.idx)
+        elif hasattr(x, "args"):
+            for a in x.args:
+                walk(a)
+    walk(e)
+    return out
+
+
 def _empty_chunk(frag: FragmentDAG, comb_dicts) -> Chunk:
     columns = []
+    if frag.agg is None:
+        for pos, comb in enumerate(frag.out_map):
+            ft = frag.output_types[pos]
+            columns.append(Column(ft, np.empty(0, ft.np_dtype), None,
+                                  comb_dicts[comb]))
+        return Chunk(columns)
     for g in frag.agg.group_by:
         dictionary = comb_dicts[g.idx] \
             if g.ftype.is_string and isinstance(g, Col) else None

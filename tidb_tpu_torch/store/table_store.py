@@ -10,6 +10,8 @@ reference does), and the coprocessor raises `NotInSlice` for them.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import itertools
 from dataclasses import dataclass
 from typing import Optional
@@ -58,6 +60,17 @@ class TableSnapshot:
     overlay_handles: np.ndarray  # int64[m] rows added/updated after fold_ts
     overlay_columns: list[np.ndarray]
     overlay_valids: list[Optional[np.ndarray]]
+
+    @functools.cached_property
+    def visible_digest(self) -> str:
+        """Digest of base_visible ("all" when every row is visible), the
+        visibility part of the coprocessor's device cache keys. Computed
+        once per snapshot: a join query asks for it once per tile and
+        table, and each ask would otherwise scan the whole mask."""
+        m = self.base_visible
+        if m.all():
+            return "all"
+        return hashlib.md5(np.packbits(m).tobytes()).hexdigest()[:16]
 
 
 class TableStore:
