@@ -20,7 +20,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel, the plain version and two PyTorch library calls computing the
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
-4. the main path through the port's entry points on the card, in two
+4. the main path through the port's entry points on the card, in three
    parts, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
@@ -34,13 +34,21 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       block (rows, SF1: every lineitem row) and `q18_join_having` (GROUP
       BY o_orderkey HAVING over lineitem joined to orders, SF1 for the same
       buffer reason as Q18-inner; it must launch streamseg itself), then
-      the peak device memory.
+      the peak device memory;
+   c. TopN consumers through `execute_fragment`, all at SF10: Q3 (the
+      fused join+agg+TopN cut over the run-ordered l_orderkey; it must
+      launch streamseg itself) and Q10 (the fused cut over the sorted-run
+      body, c_custkey), both `device[fat]`; `join_topn` (`device[topn]`,
+      each of the 15 probe tiles' top 100 rows, checked chunk by chunk);
+      `cust_having` (`device[hc]`, the sorted-run body's HAVING over all
+      ~60M rows), then the peak device memory and the time of
+      `cust_having`'s top-65,536 candidate selection alone.
    Each result is checked exactly against its numpy oracle (row results
    column by column, in order) with the reference's engine tag; then the
    first (cold) run and the p50 wall time of 5 warm runs, each ending in
    torch.cuda.synchronize(), and the device-busy share of one more warm
    run under torch.profiler (traced kernel and copy time over its wall
-   time);
+   time; in part c also the 8 kernels that took the most of it);
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -66,9 +74,11 @@ from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.copr import _kernels
 from tidb_tpu_torch.copr import streamseg as SS
+from tidb_tpu_torch.copr import topnpack as TP
 from tidb_tpu_torch.copr.client import CopClient, _bucket
 from tidb_tpu_torch.copr.fragment import execute_fragment
 from tidb_tpu_torch.copr.sumexact import limbs_of
+from tidb_tpu_torch.plan.fragment import FragmentDAG
 
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -247,29 +257,38 @@ def _same_columns(got: list, want: list) -> bool:
         all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
-def _device_busy(run) -> str:
+def _device_busy(run, top: int = 0) -> str:
     """One more warm run under torch.profiler: the summed time of the CUDA
-    kernels and copies it traced against the run's wall time."""
+    kernels and copies it traced against the run's wall time, and with
+    `top` the `top` kernels that took the most of it (name, launches, ms)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
     if busy_ms == 0:
         return "device_busy=not measured (no device event traced)"
-    return (f"device_busy_ms={busy_ms:.2f} of profiled_wall_ms={wall_ms:.2f} "
-            f"({busy_ms / wall_ms:.1%} busy)")
+    out = (f"device_busy_ms={busy_ms:.2f} of profiled_wall_ms={wall_ms:.2f} "
+           f"({busy_ms / wall_ms:.1%} busy)")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        out += f"\n      {us / 1e3:9.2f} ms in {n:4d} x {name[:100]}"
+    return out
 
 
-def _drive(label: str, queries: list) -> dict:
+def _drive(label: str, queries: list, top: int = 0) -> dict:
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
-    p50 of 5 warm runs and one profiled run. queries: [(name, scale, tag,
-    rows in, run, check, kernels this query must launch itself)]. -> the
-    launch counts."""
+    p50 of 5 warm runs and one profiled run (with its `top` costliest CUDA
+    kernels). queries: [(name, scale, tag, rows in, run, check, kernels
+    this query must launch itself)]. -> the launch counts."""
     _kernels.reset_launches()
     firsts, results = [], []
     for name, sf, tag, n_in, run, check, must in queries:
@@ -304,7 +323,7 @@ def _drive(label: str, queries: list) -> dict:
               f"result_rows={nrows} exact=True first_ms={first*1e3:.1f} "
               f"p50_ms={statistics.median(times)*1e3:.2f} "
               f"runs_ms={[round(t * 1e3, 2) for t in times]}")
-        print(f"    {_device_busy(run)}")
+        print(f"    {_device_busy(run, top)}")
         if r.is_partial_agg and nrows <= 8:
             print(f"    rows: {TR.partial_rows(r.chunks)}")
     return launches
@@ -312,7 +331,7 @@ def _drive(label: str, queries: list) -> dict:
 
 def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
     """Phase 4 through `cop`: at_sf and at_q18_sf are `_load` results at
-    --sf and --q18-sf. -> kernel launches over both parts."""
+    --sf and --q18-sf. -> kernel launches over the three parts."""
     d10, t10, s10 = at_sf
     d1, t1, s1 = at_q18_sf
     li10, li1 = d10["lineitem"], d1["lineitem"]
@@ -341,12 +360,13 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
          agg_check(lambda: TR.q18_inner_oracle(li1)), ()),
     ]
 
-    def join(name, label, tag, tables, snaps, data, must=()):
+    def join(name, label, tag, tables, snaps, data, must=(), check=None):
         frag = TR.JOIN_REQUESTS[name](tables)
         fsnaps = {t.table.id: snaps[t.table.id] for t in frag.tables}
         oracle = getattr(TR, f"{name}_oracle")
-        check = (agg_check if frag.agg is not None else rows_check)(
-            lambda: oracle(data))
+        if check is None:
+            check = (agg_check if frag.agg is not None else rows_check)(
+                lambda: oracle(data))
         return (name, label, tag, len(data["lineitem"]["l_orderkey"]),
                 lambda: execute_fragment(cop, frag, fsnaps), check, must)
 
@@ -359,6 +379,21 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
         join("q18_join_having", sf1, "device[hc]", t1, s1, d1,
              must=("streamseg.rank_sums",)),
     ]
+
+    def tiles_check(r):
+        """Row TopN: one chunk per probe tile, each the tile's top rows."""
+        n_tiles = -(-len(li10["l_orderkey"]) // cop.TILE_ROWS)
+        return len(r.chunks) == n_tiles and _same_columns(
+            TR.row_columns(r.chunks), TR.join_topn_oracle(d10, cop.TILE_ROWS))
+
+    topn = [
+        join("q3", sf10, "device[fat]", t10, s10, d10,
+             must=("streamseg.rank_sums",)),
+        join("q10", sf10, "device[fat]", t10, s10, d10),
+        join("join_topn", sf10, "device[topn]", t10, s10, d10,
+             check=tiles_check),
+        join("cust_having", sf10, "device[hc]", t10, s10, d10),
+    ]
     print("  -- a. single-table requests")
     launches = _drive("single-table path", single)
     torch.cuda.reset_peak_memory_stats()
@@ -368,6 +403,27 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
     print(f"  device memory after the join path: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB during it")
+    torch.cuda.reset_peak_memory_stats()
+    print("  -- c. TopN consumers")
+    for k, n in _drive("TopN path", topn, top=8).items():
+        launches[k] += n
+    print(f"  device memory after the TopN path: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB during it")
+    # the HAVING / all-groups candidate selection of the sorted-run body,
+    # alone, at cust_having's shape: the top HAVING_CAP of n_pad row
+    # scores, the passing groups' 1.0 among -inf
+    n_pad = _bucket(len(li10["l_orderkey"]))
+    name, _, _, _, run, _, _ = topn[-1]
+    assert name == "cust_having"
+    n_pass = sum(c.num_rows for c in run().chunks)
+    score = torch.full((n_pad,), float("-inf"), device="cuda")
+    score[torch.randperm(n_pad, device="cuda")[:n_pass]] = 1.0
+    ms = _cuda_ms(lambda: TP.topk_desc(score, FragmentDAG.HAVING_CAP), 5)
+    print(f"  cust_having's candidate selection alone: topk_desc k="
+          f"{FragmentDAG.HAVING_CAP} over {n_pad} scores ({n_pass} at 1.0): "
+          f"{ms:.2f} ms")
+    del score
     return launches
 
 
@@ -425,7 +481,7 @@ def main(argv=None) -> int:
 
     print("== 5. result")
     # top-level numbers at the first (SF10) shape; every shape's in
-    # "shapes"; launches over both parts of the main path
+    # "shapes"; launches over the three parts of the main path
     top = shapes[0]
     kern = {"name": "streamseg.rank_sums", "route": "cuda",
             "source": "tidb_tpu_torch/csrc/streamseg.cu",

@@ -68,11 +68,17 @@ FRAGMENTS = {
     # o_orderkey is the join's unique build key: l_orderkey stands for it
     "join_having": (JOIN_HAVING, 0, "device[hc]"),
     "join_group": (JOIN_GROUP, 0, "device[group]"),
-    # the reference's fused join+agg+TopN cut (device[fat])
-    "q3": (TPCH_QUERIES["q3"], 0, "hc TopN consumer"),
-    "q10": (TPCH_QUERIES["q10"], 0, "hc TopN consumer"),
+    # the fused join+agg+TopN cut: Q3 over the run-ordered l_orderkey
+    # (streamseg rank path), Q10 over c_custkey through the sorted body
+    "q3": (TPCH_QUERIES["q3"], 0, "device[fat]"),
+    "q10": (TPCH_QUERIES["q10"], 0, "device[fat]"),
     # c_custkey is not run-ordered in lineitem: the sorted-run body
-    "cust_having": (CUST_HAVING, 0, "hc sorted-run body"),
+    "cust_having": (CUST_HAVING, 0, "device[hc]"),
+    # all-groups mode through the sorted body: Q2's min(ps_supplycost)
+    # rides the sort as its extra operand; Q7's three keys (two nation
+    # names and a year) pack into the sort operands
+    "q2_group": (TPCH_QUERIES["q2"], 1, "device[group]"),
+    "q7": (TPCH_QUERIES["q7"], 0, "device[group]"),
     "q4": (TPCH_QUERIES["q4"], 0, "semi-joins"),
     "q16": (TPCH_QUERIES["q16"], 0, "semi-joins"),
 }
@@ -142,6 +148,33 @@ def test_join_fragment_not_in_slice(session, name):
     with pytest.raises(NotInSlice) as ei:
         _port(frag, snaps)
     assert ei.value.reason == FRAGMENTS[name][2]
+
+
+# single-table requests of the TPC-H queries that the dense gate rejects
+# and the coprocessor lifts into the all-groups fragment mode: (SQL,
+# position among the statement's CopClient.execute calls, engine tag).
+# Q20's sum(l_quantity) GROUP BY l_partkey, l_suppkey sorts by both keys.
+LIFTED = {"q20": (TPCH_QUERIES["q20"], 0, "device[group]")}
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_group_request_matches_reference(session, name):
+    sql, pos, tag = LIFTED[name]
+    calls = []
+    run = JC.CopClient.execute
+
+    def dag_call(self, dag, snap):
+        r = run(self, dag, snap)
+        calls.append((dag, snap, r))
+        return r
+
+    with mock.patch.object(JC.CopClient, "execute", dag_call):
+        session.query(sql)
+    dag, snap, ref = calls[pos]
+    assert ref.engine == tag
+    got = CopClient("cpu").execute(request_from_reference(dag),
+                                   snapshot_from_reference(snap))
+    _assert_same(got, ref, False)
 
 
 # ---- gates: each gives the reference's host reason through the port ---------

@@ -145,6 +145,17 @@ JOINS = {
         "select o_orderkey, sum(l_quantity) from lineitem, orders where "
         "l_orderkey = o_orderkey group by o_orderkey "
         "having sum(l_quantity) > 300", 0, "device[hc]"),
+    "q3": (TPCH_QUERIES["q3"], 0, "device[fat]"),
+    "q10": (TPCH_QUERIES["q10"], 0, "device[fat]"),
+    "join_topn": (
+        "select l_orderkey, l_linenumber, o_orderdate, o_orderpriority, "
+        "l_quantity from lineitem, orders where l_orderkey = o_orderkey and "
+        "l_shipdate > '1995-03-15' order by o_orderdate desc, "
+        "o_orderpriority, l_quantity desc limit 100", 0, "device[topn]"),
+    "cust_having": (
+        "select c_custkey, sum(l_quantity) from lineitem, orders, customer "
+        "where l_orderkey = o_orderkey and o_custkey = c_custkey group by "
+        "c_custkey having sum(l_quantity) > 2700", 0, "device[hc]"),
 }
 
 
@@ -274,12 +285,12 @@ SHAPES = {
     "einsum_strategy": (
         "select l_suppkey, sum(l_quantity), count(*) from lineitem "
         "group by l_suppkey", "same"),
-    # nine value arrays exceed streamseg's K <= 8: the reference takes its
-    # sorted-run body over the run-ordered epoch, a later slice
+    # nine value arrays exceed streamseg's K <= 8: the sorted-run body
+    # over the run-ordered epoch (raw key-change bounds, no sort)
     "streamseg_k_gate": (
         "select l_orderkey, sum(l_extendedprice), sum(l_tax), "
         "sum(l_discount), count(*) from lineitem group by l_orderkey",
-        "hc sorted-run body"),
+        "same"),
     # the reference's host gate: the port raises its reason
     "not_decomposable": (
         "select sum(l_extendedprice * l_extendedprice * l_extendedprice * "
@@ -289,15 +300,19 @@ SHAPES = {
     "int64_accumulator_gate": (
         "select sum(l_extendedprice * l_extendedprice) from lineitem",
         "host"),
-    # not run-ordered: the reference's sorted-run hc body, a later slice
+    # not run-ordered: the sorted-run hc body sorts by l_partkey
     "sorted_run_body": (
         "select l_partkey, sum(l_quantity) from lineitem group by l_partkey",
-        "hc sorted-run body"),
-    # three segment keys that pack into one int32 operand, not run-ordered
+        "same"),
+    # three segment keys folded into two int32 sort operands, not
+    # run-ordered (the filter keeps the ~22k groups inside the 65,536-group
+    # buffer; unfiltered, every one of the 121k rows is a group and the
+    # reference concedes group-overflow)
     "three_keys_one_pack": (
         "select l_orderkey, l_quantity, l_linenumber, count(*) from lineitem "
+        "where l_quantity < 10 "
         "group by l_orderkey, l_quantity, l_linenumber",
-        "hc sorted-run body"),
+        "same"),
     # three segment keys needing three int32 operands: the packing gate
     # rejects the sorted-run path and the reference goes to the host
     "three_keys_no_pack": (

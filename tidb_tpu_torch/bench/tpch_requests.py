@@ -19,13 +19,18 @@ two are equal):
   (lineitem -> part, rows), Q18's outer block (lineitem -> orders ->
   customer, rows) and `q18_join_having`: `select o_orderkey,
   sum(l_quantity) from lineitem, orders where l_orderkey = o_orderkey group
-  by o_orderkey having sum(l_quantity) > 300`.
+  by o_orderkey having sum(l_quantity) > 300`;
+* TopN and high-cardinality consumers: Q3 and Q10 (GROUP BY ... ORDER BY
+  revenue LIMIT k, the fused cut), `join_topn` (lineitem -> orders rows
+  ORDER BY o_orderdate DESC, o_orderpriority, l_quantity DESC LIMIT 100)
+  and `cust_having` (GROUP BY c_custkey HAVING sum(l_quantity) > 2700).
 
 Each oracle computes, in numpy from the generated arrays, what the
 coprocessor must return: aggregations in its partial layout [group
 cols..., (val, cnt) per aggregate], in the form `partial_rows` gives a
-result chunk; row fragments as the output columns in probe-row order, in
-the form `row_columns` gives the result chunks.
+result chunk (TopN consumers: the k groups the fused cut keeps); row
+fragments as the output columns in probe-row order (TopN rows: each tile's
+top rows in order), in the form `row_columns` gives the result chunks.
 """
 
 from __future__ import annotations
@@ -36,10 +41,11 @@ import numpy as np
 
 from ..catalog.schema import ColumnInfo, TableInfo
 from ..chunk.chunk import Chunk
-from ..plan.dag import CopDAG, DAGAggregation, DAGScan, DAGSelection
+from ..copr.client import CopClient
+from ..plan.dag import CopDAG, DAGAggregation, DAGScan, DAGSelection, DAGTopN
 from ..plan.expr import (AggDesc, Call, Col, Const, agg_result_type,
                          arith_result_type, bool_call)
-from ..plan.fragment import FragJoin, FragmentDAG, FragTable
+from ..plan.fragment import FragJoin, FragmentDAG, FragTable, HCTopN
 from ..store.table_store import TableStore
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import parse_date
@@ -331,15 +337,111 @@ def q18_join_having_frag(tables: dict) -> FragmentDAG:
     return frag
 
 
+Q3_CUTOFF = "1995-03-15"
+
+
+def q3_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q3: shipping priority (BUILDING, 1995-03-15): GROUP BY
+    l_orderkey, o_orderdate, o_shippriority ORDER BY revenue DESC,
+    o_orderdate LIMIT 10. l_orderkey determines the orders columns, so it
+    is the one segment key, and lineitem is run-ordered by it."""
+    cutoff = Const(parse_date(Q3_CUTOFF), _DATE)
+    frag = _frag(tables, [
+        ("lineitem", [0, 5, 6, 10],
+         lambda okey, price, disc, ship: [bool_call("gt", [ship, cutoff])]),
+        ("orders", [0, 1, 4, 7],
+         lambda okey, cust, date, prio: [bool_call("lt", [date, cutoff])]),
+        ("customer", [0, 6],
+         lambda ckey, seg: [bool_call("eq", [seg,
+                                             Const("BUILDING", _STR)])]),
+    ], [(1, 0), (2, 5)])
+    _set_agg(frag, [_combined(frag, 0), _combined(frag, 6),
+                    _combined(frag, 7)],
+             [_agg("sum", _disc_price(_combined(frag, 1),
+                                      _combined(frag, 2)))])
+    frag.hc = HCTopN(("agg", 0), True, 10,
+                     [("agg", 0, True), ("group", 1, False)])
+    return frag
+
+
+def q10_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q10: returned item reporting (1993-10-01 .. 1994-01-01):
+    GROUP BY the customer's columns and n_name ORDER BY revenue DESC LIMIT
+    20. c_custkey (the customer's primary key) determines the rest; it is
+    reached through orders, so lineitem is not run-ordered by it and the
+    sorted-run body serves the fragment."""
+    frag = _frag(tables, [
+        ("lineitem", [0, 5, 6, 8],
+         lambda okey, price, disc, flag: [
+             bool_call("eq", [flag, Const("R", _STR)])]),
+        ("orders", [0, 1, 4],
+         lambda okey, cust, date: _date_range(date, "1993-10-01",
+                                              "1994-01-01")),
+        ("customer", [0, 1, 2, 3, 4, 5, 7], None),
+        ("nation", [0, 1], None),
+    ], [(1, 0), (2, 5), (3, 10)])
+    _set_agg(frag, [_combined(frag, i) for i in (7, 8, 12, 11, 15, 9, 13)],
+             [_agg("sum", _disc_price(_combined(frag, 1),
+                                      _combined(frag, 2)))])
+    frag.hc = HCTopN(("agg", 0), True, 20, [("agg", 0, True)])
+    return frag
+
+
+JOIN_TOPN_N = 100
+
+
+def join_topn_frag(tables: dict) -> FragmentDAG:
+    """`select l_orderkey, l_linenumber, o_orderdate, o_orderpriority,
+    l_quantity from lineitem, orders where l_orderkey = o_orderkey and
+    l_shipdate > '1995-03-15' order by o_orderdate desc, o_orderpriority,
+    l_quantity desc limit 100`: a row fragment with a TopN consumer whose
+    three keys pack into one int32 (o_orderpriority through its
+    dictionary's rank table)."""
+    cutoff = Const(parse_date(Q3_CUTOFF), _DATE)
+    frag = _frag(tables, [
+        ("lineitem", [0, 3, 4, 10],
+         lambda okey, line, qty, ship: [bool_call("gt", [ship, cutoff])]),
+        ("orders", [0, 4, 5], None)], [(1, 0)])
+    _set_rows(frag, list(range(7)))
+    frag.topn = DAGTopN([(_combined(frag, 5), True),
+                         (_combined(frag, 6), False),
+                         (_combined(frag, 2), True)], JOIN_TOPN_N)
+    return frag
+
+
+# sum(l_quantity) > 2700 at the DECIMAL's scale 2: ~1.4k customers pass at
+# SF1 and ~14k at SF10 (the HAVING buffer holds 65,536)
+CUST_HAVING_THRESHOLD = 2700 * 100
+
+
+def cust_having_frag(tables: dict) -> FragmentDAG:
+    """`select c_custkey, sum(l_quantity) from lineitem, orders, customer
+    where l_orderkey = o_orderkey and o_custkey = c_custkey group by
+    c_custkey having sum(l_quantity) > 2700`: c_custkey is not run-ordered
+    in lineitem, so the sorted-run body sorts every row by it."""
+    frag = _frag(tables, [("lineitem", [0, 4], None),
+                          ("orders", [0, 1], None),
+                          ("customer", [0], None)], [(1, 0), (2, 3)])
+    _set_agg(frag, [_combined(frag, 4)], [_agg("sum", _combined(frag, 1))])
+    frag.having = [(0, "gt", CUST_HAVING_THRESHOLD)]
+    return frag
+
+
 JOIN_REQUESTS = {"q12": q12_frag, "q14": q14_frag, "q5": q5_frag,
                  "q17_outer": q17_outer_frag, "q18_outer": q18_outer_frag,
-                 "q18_join_having": q18_join_having_frag}
+                 "q18_join_having": q18_join_having_frag, "q3": q3_frag,
+                 "q10": q10_frag, "join_topn": join_topn_frag,
+                 "cust_having": cust_having_frag}
 JOIN_TABLES = {"q12": ("lineitem", "orders"), "q14": ("lineitem", "part"),
                "q5": ("lineitem", "orders", "customer", "supplier", "nation",
                       "region"),
                "q17_outer": ("lineitem", "part"),
                "q18_outer": ("lineitem", "orders", "customer"),
-               "q18_join_having": ("lineitem", "orders")}
+               "q18_join_having": ("lineitem", "orders"),
+               "q3": ("lineitem", "orders", "customer"),
+               "q10": ("lineitem", "orders", "customer", "nation"),
+               "join_topn": ("lineitem", "orders"),
+               "cust_having": ("lineitem", "orders", "customer")}
 
 
 # ---- results as comparable rows ---------------------------------------------
@@ -516,6 +618,100 @@ def q18_outer_oracle(data: dict) -> list[np.ndarray]:
 def q18_join_having_oracle(data: dict) -> list[tuple]:
     """Every lineitem row joins its order, so the groups are Q18-inner's."""
     return q18_inner_oracle(data["lineitem"])
+
+
+def _group_sums(keys: np.ndarray, vals: np.ndarray):
+    """Exact int64 per-key sums: -> (distinct keys, sums, row counts)."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv, vals.astype(np.int64))
+    return uniq, sums, np.bincount(inv, minlength=len(uniq))
+
+
+def q3_oracle(data: dict) -> list[tuple]:
+    """The 10 groups of TPC-H Q3 (revenue DESC, o_orderdate) in the
+    partial layout: (l_orderkey, o_orderdate, o_shippriority, revenue at
+    scale 4, rows)."""
+    li, o, c = data["lineitem"], data["orders"], data["customer"]
+    cutoff = parse_date(Q3_CUTOFF)
+    cust_ok = np.zeros(int(c["c_custkey"].max()) + 1, bool)
+    cust_ok[c["c_custkey"][_strings(c["c_mktsegment"]) == "BUILDING"]] = True
+    orow = _row_of(o["o_orderkey"])[li["l_orderkey"]]
+    m = ((li["l_shipdate"] > cutoff) & (o["o_orderdate"][orow] < cutoff)
+         & cust_ok[o["o_custkey"][orow]])
+    keys, sums, counts = _group_sums(
+        li["l_orderkey"][m],
+        li["l_extendedprice"][m] * (100 - li["l_discount"][m]))
+    r = _row_of(o["o_orderkey"])[keys]
+    odate, sprio = o["o_orderdate"][r], o["o_shippriority"][r]
+    top = np.lexsort((odate, -sums))[:10]
+    return sorted((int(keys[i]), int(odate[i]), int(sprio[i]), int(sums[i]),
+                   int(counts[i])) for i in top)
+
+
+def q10_oracle(data: dict) -> list[tuple]:
+    """The 20 groups of TPC-H Q10 (revenue DESC) in the partial layout:
+    (c_custkey, c_name, c_acctbal, c_phone, n_name, c_address, c_comment,
+    revenue at scale 4, rows)."""
+    li, o, c, n = (data["lineitem"], data["orders"], data["customer"],
+                   data["nation"])
+    orow = _row_of(o["o_orderkey"])[li["l_orderkey"]]
+    odate = o["o_orderdate"][orow]
+    m = ((_strings(li["l_returnflag"]) == "R")
+         & (odate >= parse_date("1993-10-01"))
+         & (odate < parse_date("1994-01-01")))
+    keys, sums, counts = _group_sums(
+        o["o_custkey"][orow[m]],
+        li["l_extendedprice"][m] * (100 - li["l_discount"][m]))
+    top = np.argsort(-sums, kind="stable")[:20]
+    crow = _row_of(c["c_custkey"])[keys[top]]
+    nrow = _row_of(n["n_nationkey"])[c["c_nationkey"][crow]]
+    cols = [c["c_custkey"][crow], _strings(c["c_name"])[crow],
+            c["c_acctbal"][crow], _strings(c["c_phone"])[crow],
+            _strings(n["n_name"])[nrow], _strings(c["c_address"])[crow],
+            _strings(c["c_comment"])[crow], sums[top], counts[top]]
+    return sorted(tuple(x if isinstance(x, str) else int(x) for x in row)
+                  for row in zip(*cols))
+
+
+def join_topn_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS
+                     ) -> list[np.ndarray]:
+    """Each probe tile's top 100 rows of `join_topn_frag` in order (larger
+    o_orderdate, then smaller o_orderpriority by string order, then larger
+    l_quantity, then the lower row), the tiles one after another, as the
+    output columns (l_orderkey, l_linenumber, l_quantity, l_shipdate,
+    o_orderkey, o_orderdate, o_orderpriority)."""
+    li, o = data["lineitem"], data["orders"]
+    orow = _row_of(o["o_orderkey"])[li["l_orderkey"]]
+    vocab, codes = o["o_orderpriority"]
+    rank_of = np.argsort(np.argsort(np.asarray(vocab, dtype=object),
+                                    kind="stable"))
+    prank = rank_of[np.asarray(codes)][orow]
+    date, qty = o["o_orderdate"][orow], li["l_quantity"]
+    ok = li["l_shipdate"] > parse_date(Q3_CUTOFF)
+    parts = []
+    for lo in range(0, len(ok), tile_rows):
+        sel = lo + np.nonzero(ok[lo:lo + tile_rows])[0]
+        order = np.lexsort((sel, -qty[sel], prank[sel], -date[sel]))
+        parts.append(sel[order[:JOIN_TOPN_N]])
+    rows = np.concatenate(parts)
+    return [li["l_orderkey"][rows], li["l_linenumber"][rows], qty[rows],
+            li["l_shipdate"][rows], o["o_orderkey"][orow[rows]],
+            date[rows], _strings(o["o_orderpriority"])[orow[rows]]]
+
+
+def cust_having_oracle(data: dict) -> list[tuple]:
+    """Customers passing the coprocessor's widened HAVING test (as
+    q18_inner_oracle: quantity sums are multiples of 100, so the widened
+    and the exact test agree): (c_custkey, sum(l_quantity), rows)."""
+    li, o = data["lineitem"], data["orders"]
+    cust = o["o_custkey"][_row_of(o["o_orderkey"])[li["l_orderkey"]]]
+    keys, sums, counts = _group_sums(cust, li["l_quantity"])
+    sv = sums.astype(np.float32)
+    eps = np.abs(sv) * np.float32(2.0 ** -18) + np.float32(2.0)
+    ok = sv > np.float32(CUST_HAVING_THRESHOLD) - eps
+    return sorted(zip(keys[ok].tolist(), sums[ok].tolist(),
+                      counts[ok].tolist()))
 
 
 def row_columns(chunks: list[Chunk]) -> list[np.ndarray]:

@@ -12,27 +12,32 @@ Port of the single-device half of `tidb_tpu/copr/fragment.py`:
   ALIGNED build columns cached, so later queries over the same epochs only
   apply their build filters. Chained joins (a gathered column as the next
   join's key) cost one gather each;
-* three modes follow the joins:
+* four modes follow the joins:
   - "agg": the dense-segment aggregation of `client.agg_partials`;
   - "rows": a packed probe-row bitmask (8 rows a byte, first row in the
     most significant bit); the host replays the gathers for the passing
     rows and returns them in probe-row order (`out_map` columns);
-  - "hc" over a run-ordered probe epoch: `_hc_rank_body`, which turns the
-    per-row masked value arrays into exact per-group sums in rank space
-    with `streamseg.rank_sums` (the CUDA kernel on the card), then keeps
-    the groups that pass the HAVING predicates (HAVING consumer, e.g.
-    TPC-H Q18's inner block) or every group (all-groups "group" mode). A
-    group key that is a join's unique build key stands for the join's
-    probe key (o_orderkey -> l_orderkey), so join fragments take the rank
-    path too.
+  - "topn": rows with a TopN consumer whose ORDER BY packs into one int32
+    composite (topnpack.py); each tile returns its top n rows, output
+    columns gathered on the device, in composite order (ties: lower row
+    first). An unpackable key set stays in "rows" mode;
+  - "hc" (high-cardinality GROUP BY): per-group sums and a candidate
+    buffer of groups, for a HAVING consumer, for a TopN consumer, or for
+    every group (all-groups "group" mode). Over a run-ordered probe epoch
+    `_hc_rank_body` sums in rank space with `streamseg.rank_sums` (the
+    CUDA kernel on the card); otherwise `_hc_body` sorts by the segment
+    keys (hcagg.py), or, run-ordered but outside streamseg's gates, takes
+    raw key-change bounds. A group key that is a join's unique build key
+    stands for the join's probe key (o_orderkey -> l_orderkey). When every
+    ORDER BY item of a TopN consumer resolves to a group key or an exact
+    SUM/COUNT/AVG, `_maybe_fused_cut` sorts the candidates by the complete
+    ORDER BY on the device and ships k+1 of them ("fat" engine tag).
 
 Gates decide exactly as the reference's: where the reference raises its
 `_Fallback(reason)` and serves the fragment on the host, this executor
 raises `NotInSlice(reason)`. Paths of later slices raise `NotInSlice` too:
-semi-joins ("semi-joins"), a TopN consumer of the row mode ("fragment TopN
-mode") or of the hc mode ("hc TopN consumer"), the sorted-run hc body for
-epochs that are not run-ordered or fail a streamseg gate ("hc sorted-run
-body"), and overlay rows on the probe table ("overlay rows").
+semi-joins ("semi-joins") and overlay rows on the probe table ("overlay
+rows").
 """
 
 from __future__ import annotations
@@ -49,7 +54,10 @@ from ..plan.dag import CopDAG, DAGScan
 from ..plan.expr import Col
 from ..plan.fragment import FragmentDAG, FragTable
 from ..types.field_type import FieldType, TypeKind
+from ..types.value import Decimal
+from . import hcagg as HC
 from . import sumexact as SE
+from . import topnpack as TP
 from .bounds import (
     decompose_terms,
     expr_bounds,
@@ -166,6 +174,22 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
             raise _Fallback("key-span")
 
     mode = "agg" if frag.agg is not None else "rows"
+    if mode == "rows" and frag.topn is not None:
+        # join+topn: the consumer's ORDER BY packs into one int32
+        # composite, so each tile returns only its top-n rows. An
+        # unpackable key set stays in the row-bitmask mode.
+        try:
+            for e, _ in frag.topn.items:
+                cop._prepare_expr(e, comb_dicts, prepared)
+            specs, _ = TP.plan_pack(frag.topn.items, comb_bounds,
+                                    comb_dicts)
+        except CompileError:
+            specs = None
+        if specs is not None:
+            TP.stage_rank_tables(specs, prepared, cop.device)
+            prepared["__topn_pack__"] = specs
+            mode = "topn"
+
     if frag.agg is not None:
         n_rows = psnap.epoch.num_rows + len(psnap.overlay_handles)
         facade = _agg_facade(frag)
@@ -197,6 +221,7 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
                      for s in prepared["__hc_sched__"])
         if segcols is not None and not has_mm and \
                 cop._runs_ordered(psnap, segcols):
+            prepared["__hc_runordered__"] = True
             # streamseg eligibility: K value arrays within the kernel's
             # cap, per-key row counts within its f32 exactness bound
             from . import streamseg as SS
@@ -208,17 +233,12 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
                 if meta is not None:
                     prepared["__rank_meta__"] = meta
 
+    if mode == "hc" and frag.hc is not None and frag.hc.items:
+        _elect_fused_cut(frag, prepared, comb_dicts, n_rows, cop.device)
+
     # ---- paths of later slices ----
     if frag.semis:
         raise NotInSlice("semi-joins")
-    if mode == "rows" and frag.topn is not None:
-        # the reference packs the ORDER BY into one int32 (topnpack) and
-        # returns the top rows per tile
-        raise NotInSlice("fragment TopN mode")
-    if mode == "hc" and frag.hc is not None:
-        raise NotInSlice("hc TopN consumer")
-    if mode == "hc" and prepared.get("__rank_meta__") is None:
-        raise NotInSlice("hc sorted-run body")
     if len(psnap.overlay_handles) > 0:
         raise NotInSlice("overlay rows")
 
@@ -239,9 +259,47 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
                                       builds, mode))
     if not chunks:
         chunks = [_empty_chunk(frag, comb_dicts)]
-    emode = "group" if prepared.get("__hc_all__") else mode
+    emode = "fat" if prepared.get("__hc_fused__") else (
+        "group" if prepared.get("__hc_all__") else mode)
     return CopResult(chunks, is_partial_agg=frag.agg is not None,
                      engine=cop._frag_engine(emode))
+
+
+def _elect_fused_cut(frag, prepared, comb_dicts, n_rows, device) -> None:
+    """join+agg+topn fused final cut: every ORDER BY item resolved to a
+    group key / SUM / COUNT / AVG, so the program can sort the candidate
+    buffer by the EXACT multi-key order (limb-pair digits; dictionary
+    ranks for string group keys) and ship only k+1 rows; the +1 row proves
+    the cut boundary tie-free at decode time. Sets `__hc_fused__` when
+    every item qualifies."""
+    for kind, idx, _desc in frag.hc.items:
+        if kind == "agg":
+            entry = prepared["__hc_sched__"][idx]
+            if not TP.digits_fit(entry) or \
+                    TP.count_pairs(entry) > TP.MAX_DIGIT_PAIRS:
+                return
+            d_ = frag.agg.aggs[idx]
+            if d_.func == "avg":
+                # AVG compares as the host's ROUNDED decimal (arg scale +
+                # div_precincrement); the long division is int32-exact
+                # only under the count cap
+                at_, ot_ = d_.arg.ftype, d_.ftype
+                src_sc = at_.scale if at_.is_decimal else 0
+                out_sc = ot_.scale if ot_.is_decimal else 0
+                if ot_.is_float or out_sc != src_sc + 4 or \
+                        n_rows >= TP.AVG_CNT_CAP:
+                    return
+        else:
+            g = frag.agg.group_by[idx]
+            if g.ftype.is_string and (not isinstance(g, Col)
+                                      or comb_dicts[g.idx] is None):
+                return
+    prepared["__hc_fused__"] = True
+    for kind, idx, _desc in frag.hc.items:
+        g = frag.agg.group_by[idx] if kind == "group" else None
+        if g is not None and g.ftype.is_string:
+            TP.stage_rank_table(prepared, ("hc_rank", idx),
+                                comb_dicts[g.idx], g.ftype.is_ci, device)
 
 
 def lift_group_dag(dag, snap) -> Optional[FragmentDAG]:
@@ -311,16 +369,19 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
     # big epochs stream through tiles exactly like the single-table path;
-    # the rank-space hc path stages the whole epoch (rank metadata and key
-    # runs are per epoch)
-    if mode in ("agg", "rows") and psnap.epoch.num_rows > cop.TILE_ROWS:
+    # the hc paths stage the whole epoch (a group must not split across
+    # tiles; rank metadata and key runs are per epoch)
+    if mode in ("agg", "rows", "topn") and \
+            psnap.epoch.num_rows > cop.TILE_ROWS:
         return _run_frag_tiled(cop, frag, snaps, prepared, spans, builds,
                                mode)
     pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap)
     # the first query over an epoch pair pays the gathers; later ones
     # read the cached aligned build columns
     kern_builds = _stage_aligned(cop, frag, snaps, spans, builds, pcols)
-    aux = _stage_rank_aux(cop, psnap, prepared) if mode == "hc" else None
+    aux = None
+    if mode == "hc" and prepared.get("__rank_meta__") is not None:
+        aux = _stage_rank_aux(cop, psnap, prepared)
     kernel = _build_frag_kernel(frag, prepared, spans, mode)
     out = fetch([kernel(pcols, pvis, kern_builds, aux)])[0]
     if mode == "hc":
@@ -328,6 +389,9 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
         return [] if chunk is None else [chunk]
     if mode == "agg":
         return _decode_frag_agg(frag, snaps, prepared, out)
+    if mode == "topn":
+        chunk = _decode_frag_topn(frag, snaps, out)
+        return [] if chunk is None else [chunk]
     # row mode: the device returned a packed probe-row bitmask; the host
     # replays the gathers for the passing rows only
     n_rows = phost[0][0].shape[0] if phost else 0
@@ -339,8 +403,9 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
                     ) -> list[Chunk]:
     """Stream the probe through shape-bucketed tiles: one program serves
     every tile, aligned join columns are cached per (epoch pair, tile),
-    per-tile agg partials merge exactly on the host and per-tile row
-    bitmasks become global epoch row indices."""
+    per-tile agg partials merge exactly on the host, per-tile row
+    bitmasks become global epoch row indices and per-tile TopN rows stay
+    one chunk per tile (the host Sort/Limit above merge them)."""
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
     tiles = cop._stage_tiles(_facade_dag(probe), psnap)
@@ -354,6 +419,9 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
     if mode == "agg":
         out = _merge_tile_outs(outs, prepared["__agg_sched__"])
         return _decode_frag_agg(frag, snaps, prepared, out)
+    if mode == "topn":
+        chunks = (_decode_frag_topn(frag, snaps, out) for out in outs)
+        return [c for c in chunks if c is not None]
     T = cop.TILE_ROWS
     idx_parts = []
     for ti, (out, (_, _, cnt)) in enumerate(zip(outs, tiles)):
@@ -442,6 +510,39 @@ def _decode_frag_agg(frag, snaps, prepared, out) -> list[Chunk]:
     return [] if chunk is None else [chunk]
 
 
+def _decode_frag_topn(frag, snaps, out) -> Optional[Chunk]:
+    """Fetched top-n candidate rows -> one tree-order chunk; the host
+    Sort/Limit above merge the candidate chunks of the tiles exactly.
+    String columns come back as dictionary codes."""
+    ints = out["ints"]
+    flts = out.get("flts")
+    picked = ints[1].astype(bool)
+    if not picked.any():
+        return None
+    comb_dicts = []
+    for t in frag.tables:
+        snap = snaps[t.table.id]
+        comb_dicts.extend(snap.dictionaries[off] for off in t.col_offsets)
+    columns = []
+    ii = fi = 0
+    for pos, comb in enumerate(frag.out_map):
+        ft = frag.output_types[pos]
+        if ft.is_float:
+            data = flts[fi][picked]
+            valid = flts[fi + 1][picked] > 0
+            fi += 2
+        else:
+            data = ints[2 + ii][picked]
+            valid = ints[2 + ii + 1][picked].astype(bool)
+            ii += 2
+        columns.append(Column(
+            ft, data.astype(ft.np_dtype),
+            None if valid.all() else valid, comb_dicts[comb]))
+    if not columns:
+        return None
+    return Chunk(columns)
+
+
 def _stage_rank_aux(cop, snap, prepared):
     """Device-resident epoch arrays for the streamseg rank kernel: change
     flags f and first-row-per-rank r0 (cached per epoch)."""
@@ -465,6 +566,7 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
     aggregates must be additive (count / int-decomposable sum / avg)."""
     nulls: list[int] = []
     spans_ = []
+    los: list[int] = []
     for g in frag.agg.group_by:
         if g.ftype.is_float:
             return False
@@ -475,6 +577,7 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
             return False
         nulls.append(b[1] + 1)
         spans_.append(b[1] - b[0])
+        los.append(b[0])
 
     # ---- segment-key selection (functional dependencies) ----
     # sort only by group keys that DETERMINE the rest: a build table
@@ -538,20 +641,30 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
                     det |= need
     if not seg_keys:
         seg_keys = [0]
+    segpack = None
     if len(seg_keys) > 2:
-        # the reference's group-key packing gate: the segment keys must
-        # fold into at most two int32 operands, each a product of
-        # (span+2) code spaces
-        packs, prod = 1, 1
+        # group-key packing: fold several segment keys into one int32 sort
+        # operand when their (span+2) code-space products fit, at most two
+        # operands. Packing is a bijection on the key tuples, which is all
+        # segment_bounds needs.
+        groups: list[list[int]] = []
+        cur: list[int] = []
+        prod = 1
         for gi in seg_keys:
             card = spans_[gi] + 2
             if card > 2**31 - 2:
                 return False
-            if prod * card > 2**31 - 2 and prod > 1:
-                packs, prod = packs + 1, 1
+            if prod * card > 2**31 - 2 and cur:
+                groups.append(cur)
+                cur, prod = [], 1
+            cur.append(gi)
             prod *= card
-        if packs > 2:
+        groups.append(cur)
+        if len(groups) > 2:
             return False
+        segpack = [[(gi, los[gi], spans_[gi] + 2) for gi in g]
+                   for g in groups]
+    prepared["__hc_segpack__"] = segpack
     sched: list[dict] = []
     n_minmax = 0
     for d in frag.agg.aggs:
@@ -586,7 +699,9 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
                       for t, s in terms],
         })
     prepared["__hc_nulls__"] = nulls
+    prepared["__hc_los__"] = los
     prepared["__hc_sched__"] = sched
+    prepared["__hc_segkeys__"] = seg_keys
     # run-order eligibility: every segment key must resolve to a plain
     # PROBE column. A group key that IS the unique build key of a join
     # (o_orderkey) stands for the join's probe key (l_orderkey): equal
@@ -607,13 +722,16 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
         return None
 
     segcols: Optional[list[int]] = []
+    segprobe: list[int] = []
     for gi in seg_keys:
         local = probe_local_of(frag.agg.group_by[gi])
         if local is None:
             segcols = None
             break
+        segprobe.append(local)
         segcols.append(frag.tables[0].col_offsets[local])
     prepared["__hc_segcols__"] = segcols
+    prepared["__hc_segprobe__"] = segprobe if segcols else None
     return True
 
 
@@ -670,10 +788,39 @@ def _build_frag_kernel(frag, prepared, spans, mode):
         if mode == "agg":
             return agg_partials(agg, prepared, cards, segments, cols, mask)
         if mode == "hc":
-            return _hc_rank_body(frag, prepared, cols, mask, aux)
+            return _hc_body(frag, prepared, cols, mask, aux)
+        if mode == "topn":
+            return _topn_rows(frag, prepared, cols, mask)
         return {"bits": packbits(mask)}
 
     return kernel
+
+
+def _topn_rows(frag, prepared, cols, mask):
+    """Fused multi-key TopN: ONE int32 composite ranks the joined rows and
+    the n winners' output columns gather on the device, so the candidate
+    rows are the only bytes fetched. -> {"ints": int32[2 + 2 * n_int, k]
+    (row, picked, then (data, valid) per integer column), "flts":
+    f32[2 * n_float, k]}."""
+    comp = TP.composite_score(prepared["__topn_pack__"], cols, prepared,
+                              eval_expr)
+    score = torch.where(mask, comp, TP.I32_MIN)
+    k = min(frag.topn.n, score.shape[0])
+    idx = TP.topk_desc(score, k)
+    int_rows = [idx.to(torch.int32), mask[idx].to(torch.int32)]
+    flt_rows = []
+    for pos, comb in enumerate(frag.out_map):
+        d, v = cols[comb]
+        pvk = d[idx]
+        pvlk = (v & mask)[idx]
+        if frag.output_types[pos].is_float:
+            flt_rows += [pvk.to(torch.float32), pvlk.to(torch.float32)]
+        else:
+            int_rows += [pvk.to(torch.int32), pvlk.to(torch.int32)]
+    res = {"ints": torch.stack(int_rows)}
+    if flt_rows:
+        res["flts"] = torch.stack(flt_rows)
+    return res
 
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
@@ -695,23 +842,18 @@ def _hc_rank_body(frag, prepared, cols, mask, aux):
 
     `streamseg.rank_sums` turns per-row masked value arrays into exact
     per-GROUP sums indexed by rank (= position among distinct key runs);
-    the HAVING score and the candidate buffer then work on the rank axis.
-    Group keys for candidates are gathered at each rank's first row (r0):
-    within a run every group key is constant, so any row serves;
-    fully-masked runs are gated by a zero row count."""
+    the score and the candidate buffer then work on the rank axis. Group
+    keys for candidates are gathered at each rank's first row (r0): within
+    a run every group key is constant, so any row serves; fully-masked
+    runs are gated by a zero row count."""
     from . import streamseg as SS
 
     agg = frag.agg
+    hc = frag.hc
     nulls = prepared["__hc_nulls__"]
     sched = prepared["__hc_sched__"]
     meta = prepared["__rank_meta__"]
-
-    encs = []
-    for gi, g in enumerate(agg.group_by):
-        v, vl = eval_expr(g, cols, prepared)
-        if v.dtype == torch.bool:
-            v = v.to(torch.int32)
-        encs.append(torch.where(vl, v.to(torch.int32), nulls[gi]))
+    encs = _group_encs(agg, cols, prepared, nulls)
 
     arrs = [mask.to(torch.float32)]
     cnt_ix: list[int] = []
@@ -746,48 +888,336 @@ def _hc_rank_body(frag, prepared, cols, mask, aux):
     r0 = aux["r0"]
 
     def agg_f32(ai):
-        """Approximate f32 value of aggregate ai per rank."""
+        """(approximate f32 value, count) of aggregate ai per rank."""
         cnt = tot[cnt_ix[ai]]
         if sched[ai]["kind"] == "count":
-            return cnt
+            return cnt, cnt
         sv = torch.zeros_like(cnt)
         for shift, limb_ids in term_ix[ai]:
             t = torch.zeros_like(cnt)
             for pos, ix in enumerate(limb_ids):
                 t = t + tot[ix] * float(1 << (SE.LIMB_BITS * pos))
             sv = sv + t * float(1 << shift)
-        return sv
+        return sv, cnt
 
-    # HAVING-filtered groups: a safely WIDENED predicate (f32 relative
-    # error margin) — completeness is what matters; the host Selection
-    # above re-applies it exactly. All-groups mode passes every group.
-    pass_m = gate
-    for (ai, op, thr) in (frag.having or ()):
-        sv = agg_f32(ai)
-        eps = torch.abs(sv) * 2.0 ** -18 + 2.0
-        thr_f = float(np.float32(thr))  # the threshold as an f32 value
-        if op == "gt":
-            ok = sv > thr_f - eps
-        elif op == "ge":
-            ok = sv >= thr_f - eps
-        elif op == "lt":
-            ok = sv < thr_f + eps
+    if hc is None:
+        # HAVING-filtered groups (all-groups mode passes every group)
+        pass_m = gate
+        for (ai, op, thr) in (frag.having or ()):
+            pass_m = pass_m & _having_ok(agg_f32(ai)[0], op, thr)
+        score = torch.where(pass_m, 1.0, float("-inf"))
+        # exact top-k by score (the reference's approx_max_k at recall
+        # 1.0): every passing rank scores 1.0, so whenever fewer than
+        # k_cap ranks pass, the candidate set holds all of them
+        k_cap = min(FragmentDAG.HAVING_CAP, score.shape[0])
+        cand = TP.topk_desc(score, k_cap)
+        rows_of = r0[cand]
+        res = {"picked": pass_m[cand].to(torch.int32), "score": score[cand]}
+        for gi in range(len(agg.group_by)):
+            res[f"gk{gi}"] = encs[gi][rows_of]
+        _emit_pairs(res, sched, term_ix, cnt_ix, tot, cand)
+        return res
+
+    # ---- candidate selection by (approximate) primary sort score ----
+    kind, idx = hc.score
+    if kind == "group":
+        enc_r = encs[idx][r0]
+        sv = enc_r.to(torch.float32)
+        score_null = enc_r == nulls[idx]
+    else:
+        d = agg.aggs[idx]
+        sv, cnt = agg_f32(idx)
+        if sched[idx]["kind"] == "count":
+            score_null = torch.zeros_like(gate)
         else:
-            ok = sv <= thr_f + eps
-        pass_m = pass_m & ok
-    score = torch.where(pass_m, 1.0, float("-inf"))
-    # exact top-k by score: every passing rank scores 1.0, so whenever
-    # fewer than k_cap ranks pass, the candidate set holds all of them
-    # (the reference's approx_max_k at recall 1.0 keeps the same set);
-    # which non-passing ranks fill the rest does not matter (picked = 0)
-    k_cap = min(FragmentDAG.HAVING_CAP, score.shape[0])
-    cand = torch.topk(score, k_cap).indices
-    rows_of = r0[cand].long()
-    res = {"picked": pass_m[cand].to(torch.int32), "score": score[cand]}
+            if d.func == "avg":
+                sv = sv / torch.clamp(cnt, min=1.0)
+            score_null = cnt == 0
+    score = _topn_score(sv, score_null, gate, hc.desc)
+    k_cap = min(hc.cap, score.shape[0])
+    cand = TP.topk_desc(score, k_cap)
+    rows_of = r0[cand]
+    res = {"picked": gate[cand].to(torch.int32), "score": score[cand]}
     for gi in range(len(agg.group_by)):
         res[f"gk{gi}"] = encs[gi][rows_of]
     _emit_pairs(res, sched, term_ix, cnt_ix, tot, cand)
-    return res
+    return _maybe_fused_cut(frag, prepared, res)
+
+
+def _having_ok(sv, op, thr):
+    """A safely WIDENED HAVING predicate over f32 aggregate values (f32
+    relative error margin): completeness is what matters; the host
+    Selection above re-applies it exactly."""
+    eps = torch.abs(sv) * 2.0 ** -18 + 2.0
+    thr_f = float(np.float32(thr))  # the threshold as an f32 value
+    if op == "gt":
+        return sv > thr_f - eps
+    if op == "ge":
+        return sv >= thr_f - eps
+    if op == "lt":
+        return sv < thr_f + eps
+    return sv <= thr_f + eps
+
+
+def _topn_score(sv, score_null, gate, desc):
+    """Signed f32 candidate score of a TopN consumer. MySQL NULL ordering:
+    first in ASC, last in DESC. ASC -> +inf makes a NULL group a sure
+    candidate; DESC uses a FINITE floor (below any real sum) so NULL groups
+    still outrank non-groups (-inf), which keeps "not every slot picked" a
+    proof that every group is a candidate."""
+    signed = sv if desc else -sv
+    signed = torch.where(score_null, -1e38 if desc else float("inf"),
+                         signed)
+    return torch.where(gate, signed, float("-inf"))
+
+
+def _group_encs(agg, cols, prepared, nulls) -> list[torch.Tensor]:
+    """int32 group-key codes per row, NULL as the key's code nulls[gi]."""
+    encs = []
+    for gi, g in enumerate(agg.group_by):
+        v, vl = eval_expr(g, cols, prepared)
+        encs.append(torch.where(vl, v.to(torch.int32), nulls[gi]))
+    return encs
+
+
+def _hc_body(frag, prepared, cols, mask, aux=None):
+    """Sorted-run candidate aggregation (hcagg.py).
+
+    Sorts by the SEGMENT keys only (`_prepare_hc` proved the other group
+    keys constant within a segment); a run-ordered epoch outside
+    streamseg's gates keeps storage order and takes raw key-change bounds
+    instead. Per-row prefix pair sums give every segment's exact sums at
+    its start row; the candidate buffer is the top rows by an f32 score
+    recombined from them. Run-ordered epochs with rank metadata go to the
+    streamseg rank-space body."""
+    if aux is not None and prepared.get("__rank_meta__") is not None:
+        return _hc_rank_body(frag, prepared, cols, mask, aux)
+    agg = frag.agg
+    hc = frag.hc
+    nulls = prepared["__hc_nulls__"]
+    sched = prepared["__hc_sched__"]
+    seg_keys = prepared["__hc_segkeys__"]
+    runord = bool(prepared.get("__hc_runordered__"))
+    n = mask.shape[0]
+    encs = _group_encs(agg, cols, prepared, nulls)
+
+    # min/max rides the sort: one extra ascending operand (complement for
+    # max) after the segment keys, so each segment's first row holds the
+    # aggregate; NULL/dropped rows take the I32_MAX sentinel and sort last
+    # within their segment (gated by cnt at decode)
+    mm_ai = next((ai for ai, s_ in enumerate(sched)
+                  if s_["kind"] in ("min", "max")), None)
+    mm_enc = None
+    if mm_ai is not None:
+        assert not runord  # _device_fragment keeps min/max on the sort
+        mv, mvl = eval_expr(agg.aggs[mm_ai].arg, cols, prepared)
+        mv32 = mv.to(torch.int32)
+        if sched[mm_ai]["kind"] == "max":
+            mv32 = -1 - mv32  # order-reversing, wrap-free
+        mm_enc = torch.where(mask & mvl, mv32, HC._I32_MAX)
+    if runord:
+        # storage order already groups the segment keys: boundaries are
+        # raw key-change points of the PROBE columns; rows dropped by the
+        # mask stay in place and add zero to every sum, and a segment whose
+        # rows were ALL dropped is gated out by its row count below
+        perm = None
+        sk = [cols[i][0].to(torch.int32)
+              for i in prepared["__hc_segprobe__"]]
+        is_start, end_idx = HC.segment_bounds(
+            sk, torch.ones(n, dtype=torch.bool, device=mask.device))
+        valid = None
+    else:
+        segpack = prepared.get("__hc_segpack__")
+        if segpack is not None:
+            # packed operands: Horner over the NULL-encoded shifted codes,
+            # a bijection on the key tuples
+            operands = []
+            for grp in segpack:
+                k = None
+                for gi, lo, card in grp:
+                    code = encs[gi] - lo
+                    k = code if k is None else k * card + code
+                operands.append(k)
+        else:
+            operands = [encs[gi] for gi in seg_keys]
+        sort_keys = [torch.where(mask, operands[0], HC._I32_MAX)] + \
+            operands[1:]
+        n_seg_ops = len(sort_keys)
+        if mm_enc is not None:
+            sort_keys.append(mm_enc)
+        sk, perm = HC.sort_by_keys(sort_keys)
+        valid = sk[0] != HC._I32_MAX
+        is_start, end_idx = HC.segment_bounds(sk[:n_seg_ops], valid)
+    iota = torch.arange(n, dtype=torch.int32, device=mask.device)
+
+    def pair_stack(values_i32, n_limbs):
+        """-> int32[n_limbs, 2, n] per-row segment pair sums."""
+        v_sorted = values_i32 if perm is None else values_i32[perm]
+        outs = []
+        for li in SE.limbs_of(v_sorted, n_limbs):
+            hi, lo = HC.seg_sum_pairs(li, iota, end_idx)
+            outs.append(torch.stack([hi, lo]))
+        return torch.stack(outs)
+
+    def pairs_to_f32(pairs):
+        """[L, 2, n] pair sums -> approximate per-row f32 value (the
+        reference's order of operations)."""
+        total = torch.zeros(n, dtype=torch.float32, device=mask.device)
+        for li in range(pairs.shape[0]):
+            v = pairs[li, 0].to(torch.float32) * 4096.0 + \
+                pairs[li, 1].to(torch.float32)
+            total = total + v * float(1 << (SE.LIMB_BITS * li))
+        return total
+
+    def sum_f32(ai):
+        sv = torch.zeros(n, dtype=torch.float32, device=mask.device)
+        for ti, (_t, shift, _L) in enumerate(sched[ai]["terms"]):
+            sv = sv + pairs_to_f32(out[f"hc_s{ai}_{ti}"]) * float(1 << shift)
+        return sv
+
+    out = {"hc_rows": pair_stack(mask.to(torch.int32), 1)}
+    for ai, (d, s) in enumerate(zip(agg.aggs, sched)):
+        if s["kind"] == "count":
+            if d.arg is not None:
+                _, vl = eval_expr(d.arg, cols, prepared)
+                out[f"hc_cnt{ai}"] = pair_stack((mask & vl).to(torch.int32),
+                                                1)
+            else:
+                out[f"hc_cnt{ai}"] = out["hc_rows"]
+            continue
+        _, vl = eval_expr(d.arg, cols, prepared)
+        contrib = mask & vl
+        out[f"hc_cnt{ai}"] = pair_stack(contrib.to(torch.int32), 1)
+        if s["kind"] in ("min", "max"):
+            continue  # the value is the sorted mm operand below
+        for ti, (t, shift, L) in enumerate(s["terms"]):
+            tv, _ = eval_expr(t, cols, prepared)
+            tv32 = torch.where(contrib, tv.to(torch.int32), 0)
+            out[f"hc_s{ai}_{ti}"] = pair_stack(tv32, L)
+
+    # a raw segment whose rows were ALL filtered out is not a group at all
+    # (run-ordered only; the sort path moves dropped rows to the end)
+    if runord:
+        rp = out["hc_rows"]
+        seg_rows = rp[0, 0].to(torch.float32) * 4096.0 + \
+            rp[0, 1].to(torch.float32)  # exact: counts < 2^24
+        gate = is_start & (seg_rows > 0)
+    else:
+        gate = is_start & valid
+
+    if hc is None:
+        # all-groups mode / HAVING: every surviving group is a candidate
+        # (score 1.0), HAVING predicates widened; the decode checks the
+        # buffer was not exhausted
+        pass_m = gate
+        for (ai, op, thr) in (frag.having or ()):
+            sv_h = pairs_to_f32(out[f"hc_cnt{ai}"]) \
+                if sched[ai]["kind"] == "count" else sum_f32(ai)
+            pass_m = pass_m & _having_ok(sv_h, op, thr)
+        score = torch.where(pass_m, 1.0, float("-inf"))
+        k_cap = min(FragmentDAG.HAVING_CAP, n)
+    else:
+        kind, idx = hc.score
+        if kind == "group":
+            enc = encs[idx] if perm is None else encs[idx][perm]
+            sv = enc.to(torch.float32)
+            score_null = enc == nulls[idx]
+        elif sched[idx]["kind"] == "count":
+            sv = pairs_to_f32(out[f"hc_cnt{idx}"])
+            score_null = torch.zeros(n, dtype=torch.bool, device=mask.device)
+        else:
+            sv = sum_f32(idx)
+            cnt = pairs_to_f32(out[f"hc_cnt{idx}"])
+            if agg.aggs[idx].func == "avg":
+                sv = sv / torch.clamp(cnt, min=1.0)
+            score_null = cnt == 0  # SUM/AVG over no valid rows is NULL
+        score = _topn_score(sv, score_null, gate, hc.desc)
+        k_cap = min(hc.cap, n)
+
+    # exact selection by score, ties to the lower row (the reference's
+    # approx_max_k at recall 1.0)
+    cand = TP.topk_desc(score, k_cap)
+    res = {"picked": (gate if hc is not None else pass_m)[cand].to(
+               torch.int32),
+           "score": score[cand]}
+    rows_of = cand if perm is None else perm[cand]
+    for gi in range(len(agg.group_by)):
+        res[f"gk{gi}"] = encs[gi][rows_of]
+    for ai, s in enumerate(sched):
+        res[f"cnt{ai}"] = out[f"hc_cnt{ai}"][:, :, cand]
+        for ti in range(len(s.get("terms", ()))):
+            res[f"s{ai}_{ti}"] = out[f"hc_s{ai}_{ti}"][:, :, cand]
+    if mm_ai is not None:
+        res[f"mm{mm_ai}"] = sk[-1][cand]
+    return _maybe_fused_cut(frag, prepared, res)
+
+
+def _maybe_fused_cut(frag, prepared, res):
+    """Exact final ordering for the fused join+agg+topn mode: sort the
+    candidate buffer by the COMPLETE ORDER BY (exact limb-pair digits for
+    SUM/COUNT/AVG items, rank/complement codes for group keys, MySQL NULL
+    placement, candidate order as the final tie-break), then cut the heavy
+    arrays to k+1 rows. `picked` and `score` stay cap-long in sorted order:
+    the decode's soundness check needs the whole buffer."""
+    if not prepared.get("__hc_fused__"):
+        return res
+    sched = prepared["__hc_sched__"]
+    nulls = prepared["__hc_nulls__"]
+    los = prepared["__hc_los__"]
+    cap = res["picked"].shape[0]
+    keys = [1 - res["picked"]]  # picked candidates lead
+    for kind, idx, desc in frag.hc.items:
+        if kind == "group":
+            enc = res[f"gk{idx}"]
+            isnull = enc == nulls[idx]
+            table = prepared.get(("hc_rank", idx))
+            val = table[torch.clamp(enc, 0, table.shape[0] - 1)] \
+                if table is not None else enc
+            # DESC reverses with -1 - val (order-reversing and wrap-free
+            # over int32). NULL folds into the value operand when the
+            # sentinel cannot collide with a real value (lo > I32_MIN);
+            # otherwise a separate flag operand leads
+            safe = table is not None or los[idx] > TP.I32_MIN
+            if desc:  # NULL last; larger value first
+                rev = -1 - val
+                if safe:
+                    keys.append(torch.where(isnull, TP.I32_MAX, rev))
+                else:
+                    keys += [isnull.to(torch.int32),
+                             torch.where(isnull, 0, rev)]
+            else:     # NULL first; smaller value first
+                if safe:
+                    keys.append(torch.where(isnull, TP.I32_MIN, val))
+                else:
+                    keys += [(~isnull).to(torch.int32),
+                             torch.where(isnull, 0, val)]
+            continue
+        s_ = sched[idx]
+        if s_["kind"] == "count":
+            contribs = [(0, res[f"cnt{idx}"])]
+            isnull = None  # COUNT is never NULL
+        else:
+            contribs = [(sh, res[f"s{idx}_{ti}"])
+                        for ti, (_t, sh, _L) in enumerate(s_["terms"])]
+            cntp = res[f"cnt{idx}"]
+            cnt = cntp[0, 0] * 4096 + cntp[0, 1]
+            isnull = cnt == 0  # SUM/AVG over no valid rows is NULL
+        if s_["kind"] != "count" and frag.agg.aggs[idx].func == "avg":
+            keys.extend(TP.avg_sort_keys(TP.pair_digits(contribs), cnt,
+                                         isnull, desc))
+            continue
+        dks = TP.digit_sort_keys(TP.pair_digits(contribs), desc)
+        if isnull is not None:
+            # the signed head is carry-bounded well inside int32, so the
+            # NULL sentinel folds into it (first-ASC / last-DESC)
+            sent = TP.I32_MAX if desc else TP.I32_MIN
+            dks = [torch.where(isnull, sent, dks[0])] + \
+                [torch.where(isnull, 0, dk) for dk in dks[1:]]
+        keys.extend(dks)
+    perm = HC.lexsort_perm(keys)
+    kcut = min(cap, frag.hc.k + 1)
+    return {name: v[perm] if name in ("picked", "score")
+            else v[..., perm[:kcut]] for name, v in res.items()}
 
 
 def _emit_pairs(res, sched, term_ix, cnt_ix, tot, cand):
@@ -807,16 +1237,82 @@ def _emit_pairs(res, sched, term_ix, cnt_ix, tot, cand):
 
 
 def _decode_hc(frag, snaps, prepared, out) -> Optional[Chunk]:
-    """Candidate partials -> partial-layout chunk (the groups passing the
-    widened HAVING, or every group in all-groups mode)."""
+    """Candidate partials -> partial-layout chunk: the groups passing the
+    widened HAVING, every group in all-groups mode, or the TopN
+    candidates (the final k after the fused cut); the host HashAgg(final)
+    + Sort + Limit above rank them exactly."""
     picked = out["picked"].astype(bool)
     if not picked.any():
         return None
-    # sound iff the candidate buffer was not exhausted (every passing
-    # group fit it); one candidate block on a single device
-    if picked.all():
-        raise _Fallback("group-overflow")
+    if frag.hc is None:
+        # sound iff the candidate buffer was not exhausted (every passing
+        # group fit it)
+        if picked.all():
+            raise _Fallback("group-overflow")
+        return _decode_hc_rows(frag, snaps, prepared, out, picked)
+    # one candidate block on a single device
+    if not HC.candidate_blocks_sound(picked, out["score"], frag.hc.k, 1):
+        raise _Fallback("hc-boundary")
+    if prepared.get("__hc_fused__"):
+        return _decode_fat(frag, snaps, prepared, out)
     return _decode_hc_rows(frag, snaps, prepared, out, picked)
+
+
+def _decode_fat(frag, snaps, prepared, out) -> Optional[Chunk]:
+    """Fused-cut candidates -> the final k groups.
+
+    The program shipped the candidates in EXACT final order with the heavy
+    arrays cut to k+1 rows; take the first min(picked, k) rows and check
+    the cut boundary is tie-free on every ORDER BY item (row k-1 must
+    differ from row k): an all-key tie is ambiguous against the host's
+    stable sort, and the reference concedes it to its host interpreter."""
+    k = frag.hc.k
+    npicked = int(out["picked"].astype(bool).sum())
+    probe = out.get("gk0")
+    if probe is None:
+        probe = out.get("cnt0")
+    kcut = probe.shape[-1]
+
+    def row_key(p: int) -> tuple:
+        vals: list = []
+        for kind, idx, _desc in frag.hc.items:
+            if kind == "group":
+                vals.append(int(out[f"gk{idx}"][p]))
+                continue
+            s_ = prepared["__hc_sched__"][idx]
+            cnt = int(SE.combine_partials(
+                out[f"cnt{idx}"][:, :, p:p + 1])[0])
+            if s_["kind"] == "count":
+                vals.append(cnt)
+                continue
+            v = 0
+            for ti, (_t, sh, _L) in enumerate(s_["terms"]):
+                v += int(SE.combine_partials(
+                    out[f"s{idx}_{ti}"][:, :, p:p + 1])[0]) << sh
+            if frag.agg.aggs[idx].func == "avg":
+                # the item compares as the host's rounded decimal: the
+                # tie check uses the SAME value
+                if cnt == 0:
+                    vals.append((True, 0))
+                    continue
+                at_ = frag.agg.aggs[idx].arg.ftype
+                sc = at_.scale if at_.is_decimal else 0
+                q = Decimal(v, sc).div(Decimal.from_int(cnt))
+                vals.append((False, q.unscaled))
+                continue
+            vals.append((cnt == 0, v))  # NULL flag + exact value
+        return tuple(vals)
+
+    if npicked > k and kcut > k and row_key(k - 1) == row_key(k):
+        raise _Fallback("fat-boundary")
+    take = min(npicked, k, kcut)
+    if take == 0:
+        return None
+    sel = np.zeros(kcut, dtype=bool)
+    sel[:take] = True
+    heavy = {name: v for name, v in out.items()
+             if name not in ("picked", "score")}
+    return _decode_hc_rows(frag, snaps, prepared, heavy, sel)
 
 
 def _decode_hc_rows(frag, snaps, prepared, out, picked) -> Chunk:
@@ -847,6 +1343,12 @@ def _decode_hc_rows(frag, snaps, prepared, out, picked) -> Chunk:
         val_t = frag.output_types[len(agg.group_by) + 2 * ai]
         if s["kind"] == "count":
             vcol = Column(val_t, cnt.astype(np.int64))
+        elif s["kind"] in ("min", "max"):
+            enc = out[f"mm{ai}"][sel].astype(np.int64)
+            val = enc if s["kind"] == "min" else -1 - enc
+            val = np.where(cnt > 0, val, 0)  # sentinel-filled when empty
+            vcol = Column(val_t, val.astype(val_t.np_dtype),
+                          None if (cnt > 0).all() else (cnt > 0))
         else:
             total = np.zeros(len(picked), dtype=np.int64)
             for ti, (_, shift, _) in enumerate(s["terms"]):
