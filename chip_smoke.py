@@ -20,7 +20,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel, the plain version and two PyTorch library calls computing the
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
-4. the main path through the port's entry points on the card, in three
+4. the main path through the port's entry points on the card, in four
    parts, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
@@ -42,13 +42,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       each of the 15 probe tiles' top 100 rows, checked chunk by chunk);
       `cust_having` (`device[hc]`, the sorted-run body's HAVING over all
       ~60M rows), then the peak device memory and the time of
-      `cust_having`'s top-65,536 candidate selection alone.
+      `cust_having`'s top-65,536 candidate selection alone;
+   d. semi-joins, rows and scan TopN, all at SF10: Q4 (`device[agg+semi]`,
+      an EXISTS bitmap over lineitem's late rows), Q16 and Q20's partsupp
+      block (`device[rows+semi]`: NOT IN, IN; 8M partsupp rows),
+      `semi_having` (`device[hc+semi]`: Q18-inner over the 1-URGENT
+      orders' lineitems; it must launch streamseg itself) through
+      `execute_fragment`; Q21's `lineitem l3` selection, Q13's bare orders
+      scan, `row_proj` (a projection the host evaluates), `scan_topn` and
+      `scan_topn3` (15 per-tile chunks each) through `CopClient.execute`,
+      all `device`; then the peak device memory.
    Each result is checked exactly against its numpy oracle (row results
    column by column, in order) with the reference's engine tag; then the
    first (cold) run and the p50 wall time of 5 warm runs, each ending in
    torch.cuda.synchronize(), and the device-busy share of one more warm
    run under torch.profiler (traced kernel and copy time over its wall
-   time; in part c also the 8 kernels that took the most of it);
+   time; in parts c and d also the 8 kernels that took the most of it);
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -331,7 +340,7 @@ def _drive(label: str, queries: list, top: int = 0) -> dict:
 
 def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
     """Phase 4 through `cop`: at_sf and at_q18_sf are `_load` results at
-    --sf and --q18-sf. -> kernel launches over the three parts."""
+    --sf and --q18-sf. -> kernel launches over the four parts."""
     d10, t10, s10 = at_sf
     d1, t1, s1 = at_q18_sf
     li10, li1 = d10["lineitem"], d1["lineitem"]
@@ -362,13 +371,24 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
 
     def join(name, label, tag, tables, snaps, data, must=(), check=None):
         frag = TR.JOIN_REQUESTS[name](tables)
-        fsnaps = {t.table.id: snaps[t.table.id] for t in frag.tables}
+        fsnaps = {t.table.id: snaps[t.table.id]
+                  for t in frag.tables + [sm.table for sm in frag.semis]}
         oracle = getattr(TR, f"{name}_oracle")
         if check is None:
             check = (agg_check if frag.agg is not None else rows_check)(
                 lambda: oracle(data))
-        return (name, label, tag, len(data["lineitem"]["l_orderkey"]),
+        return (name, label, tag,
+                fsnaps[frag.tables[0].table.id].epoch.num_rows,
                 lambda: execute_fragment(cop, frag, fsnaps), check, must)
+
+    def dag(name, check=None):
+        """A single-table row or TopN request at --sf."""
+        req = TR.DAG_REQUESTS[name](t10)
+        snap = s10[req.scan.table_id]
+        if check is None:
+            check = rows_check(lambda: getattr(TR, f"{name}_oracle")(d10))
+        return (name, sf10, "device", snap.epoch.num_rows,
+                lambda: cop.execute(req, snap), check, ())
 
     joins = [
         join("q12", sf10, "device[agg]", t10, s10, d10),
@@ -380,19 +400,31 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
              must=("streamseg.rank_sums",)),
     ]
 
-    def tiles_check(r):
+    def tiles_check(oracle):
         """Row TopN: one chunk per probe tile, each the tile's top rows."""
         n_tiles = -(-len(li10["l_orderkey"]) // cop.TILE_ROWS)
-        return len(r.chunks) == n_tiles and _same_columns(
-            TR.row_columns(r.chunks), TR.join_topn_oracle(d10, cop.TILE_ROWS))
+        return lambda r: len(r.chunks) == n_tiles and _same_columns(
+            TR.row_columns(r.chunks), oracle(d10, cop.TILE_ROWS))
 
     topn = [
         join("q3", sf10, "device[fat]", t10, s10, d10,
              must=("streamseg.rank_sums",)),
         join("q10", sf10, "device[fat]", t10, s10, d10),
         join("join_topn", sf10, "device[topn]", t10, s10, d10,
-             check=tiles_check),
+             check=tiles_check(TR.join_topn_oracle)),
         join("cust_having", sf10, "device[hc]", t10, s10, d10),
+    ]
+    rows = [
+        join("q4", sf10, "device[agg+semi]", t10, s10, d10),
+        join("q16", sf10, "device[rows+semi]", t10, s10, d10),
+        join("q20_semi", sf10, "device[rows+semi]", t10, s10, d10),
+        join("semi_having", sf10, "device[hc+semi]", t10, s10, d10,
+             must=("streamseg.rank_sums",)),
+        dag("q21_rows"),
+        dag("q13_orders_scan"),
+        dag("row_proj"),
+        dag("scan_topn", check=tiles_check(TR.scan_topn_oracle)),
+        dag("scan_topn3", check=tiles_check(TR.scan_topn3_oracle)),
     ]
     print("  -- a. single-table requests")
     launches = _drive("single-table path", single)
@@ -408,6 +440,13 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
     for k, n in _drive("TopN path", topn, top=8).items():
         launches[k] += n
     print(f"  device memory after the TopN path: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB during it")
+    torch.cuda.reset_peak_memory_stats()
+    print("  -- d. semi-joins, rows and scan TopN")
+    for k, n in _drive("semi/row path", rows, top=8).items():
+        launches[k] += n
+    print(f"  device memory after the semi/row path: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB during it")
     # the HAVING / all-groups candidate selection of the sorted-run body,
@@ -469,7 +508,7 @@ def main(argv=None) -> int:
     _ragged_phase(args.seed)
     d10, t10, s10 = _load(args.sf, args.seed, (
         "lineitem", "orders", "customer", "supplier", "nation", "region",
-        "part"), 1)
+        "part", "partsupp"), 1)
     d1, t1, s1 = _load(args.q18_sf, args.seed,
                        ("lineitem", "orders", "customer"), 11)
     li10, li1 = d10["lineitem"], d1["lineitem"]
@@ -481,7 +520,7 @@ def main(argv=None) -> int:
 
     print("== 5. result")
     # top-level numbers at the first (SF10) shape; every shape's in
-    # "shapes"; launches over the three parts of the main path
+    # "shapes"; launches over the four parts of the main path
     top = shapes[0]
     kern = {"name": "streamseg.rank_sums", "route": "cuda",
             "source": "tidb_tpu_torch/csrc/streamseg.cu",

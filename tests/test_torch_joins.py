@@ -33,6 +33,7 @@ from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.convert import (request_from_reference,
                                     snapshot_from_reference)
 from tidb_tpu_torch.copr import fragment as PF
+from tidb_tpu_torch.copr import streamseg as PSS
 from tidb_tpu_torch.copr.client import CopClient
 
 SF, SEED = 0.02, 42
@@ -48,10 +49,13 @@ Q18_JOIN_HAVING = ("select o_orderkey, sum(l_quantity) from lineitem, orders "
 CUST_HAVING = ("select c_custkey, sum(l_quantity) from lineitem, orders, "
                "customer where l_orderkey = o_orderkey and o_custkey = "
                "c_custkey group by c_custkey having sum(l_quantity) > 1000")
+SEMI_HAVING = ("select l_orderkey, sum(l_quantity) from lineitem where exists "
+               "(select * from orders where o_orderkey = l_orderkey and "
+               "o_orderpriority = '1-URGENT') group by l_orderkey "
+               "having sum(l_quantity) > 300")
 
-# name: (SQL, position among the statement's fragment calls, outcome):
-# a device tag the port must give as the reference does, or the NotInSlice
-# reason the port must raise
+# name: (SQL, position among the statement's fragment calls, device tag
+# the port must give as the reference does)
 FRAGMENTS = {
     "q5": (TPCH_QUERIES["q5"], 0, "device[agg]"),
     "q8": (TPCH_QUERIES["q8"], 0, "device[agg]"),
@@ -79,8 +83,13 @@ FRAGMENTS = {
     # names and a year) pack into the sort operands
     "q2_group": (TPCH_QUERIES["q2"], 1, "device[group]"),
     "q7": (TPCH_QUERIES["q7"], 0, "device[group]"),
-    "q4": (TPCH_QUERIES["q4"], 0, "semi-joins"),
-    "q16": (TPCH_QUERIES["q16"], 0, "semi-joins"),
+    # semi/anti membership edges: Q4's EXISTS (SEMI, dense agg), Q16's NOT
+    # IN (NULL-aware ANTI_NULL, rows), Q20's ps_partkey IN (...) block
+    "q4": (TPCH_QUERIES["q4"], 0, "device[agg+semi]"),
+    "q16": (TPCH_QUERIES["q16"], 0, "device[rows+semi]"),
+    "q20_semi": (TPCH_QUERIES["q20"], 1, "device[rows+semi]"),
+    # a SEMI edge in front of the run-ordered HAVING: the rank path
+    "semi_having": (SEMI_HAVING, 0, "device[hc+semi]"),
 }
 
 
@@ -131,23 +140,36 @@ def _assert_same(got, ref, rows_mode):
         assert rows and rows == TR.partial_rows(ref.chunks)
 
 
-@pytest.mark.parametrize("name", sorted(
-    n for n, (_, _, out) in FRAGMENTS.items() if out.startswith("device")))
+@pytest.mark.parametrize("name", sorted(FRAGMENTS))
 def test_join_fragment_matches_reference(session, name):
     frag, snaps, ref = _fragment(session, name)
     assert ref.engine == FRAGMENTS[name][2]
     _assert_same(_port(frag, snaps), ref, frag.agg is None)
 
 
-@pytest.mark.parametrize("name", sorted(
-    n for n, (_, _, out) in FRAGMENTS.items() if not out.startswith("device")))
-def test_join_fragment_not_in_slice(session, name):
-    frag, snaps, ref = _fragment(session, name)
-    # the reference serves every one of these on a device path
-    assert ref.engine.startswith("device[")
-    with pytest.raises(NotInSlice) as ei:
-        _port(frag, snaps)
-    assert ei.value.reason == FRAGMENTS[name][2]
+def test_semi_having_takes_the_rank_path(session):
+    # the SEMI gate masks rows in front of streamseg's rank sums: the
+    # run-ordered l_orderkey keeps the rank path, as in the reference
+    frag, snaps, ref = _fragment(session, "semi_having")
+    with mock.patch.object(PSS, "rank_sums", wraps=PSS.rank_sums) as rs:
+        got = _port(frag, snaps)
+    assert rs.call_count == 1
+    _assert_same(got, ref, False)
+
+
+def test_join_fragment_not_in_slice():
+    # uncommitted probe rows: the reference runs a second (overlay) batch
+    # on its device path; that path is a later slice of the port
+    s = Session()
+    load_tpch(s, sf=SF, seed=SEED, tables=["lineitem", "orders"])
+    s.execute("begin")
+    s.execute("insert into lineitem values (1, 1, 1, 9, 5.00, 100.00, 0.05, "
+              "0.01, 'N', 'O', '1996-01-01', '1996-01-02', '1996-01-03', "
+              "'NONE', 'MAIL', 'x')")
+    frag, snaps, ref = _frag_calls(s, TPCH_QUERIES["q12"])[0]
+    s.execute("rollback")
+    assert ref.engine == "device[agg]"
+    assert _port_reason(frag, snaps) == "overlay rows"
 
 
 # single-table requests of the TPC-H queries that the dense gate rejects
@@ -319,3 +341,106 @@ def test_empty_row_result_matches_reference(session):
         assert len(chunks) == 1 and chunks[0].num_rows == 0
     assert [c.ftype for c in got.chunks[0].columns] == \
         [request_from_reference(c.ftype) for c in ref.chunks[0].columns]
+
+
+# ---- semi/anti membership edges (the corpus of tests/test_group_semi_device.py)
+
+N_SEMI_FACT = 9_000
+N_SEMI_DIM = 2_000
+
+SEMI_QUERIES = [
+    # IN over a filtered subquery key (nullable build key: NULLs in the
+    # set never match a SEMI probe)
+    "select k, a from f where a in (select kk from d2 where x > 5) "
+    "order by k limit 80",
+    # correlated EXISTS (decorrelates to the same SEMI shape)
+    "select k from f where exists (select * from d2 "
+    "where d2.kk = f.a and d2.x > 5) order by k limit 80",
+    # NULL probe keys (b) are filtered by IN
+    "select k from f where b in (select kk from d2 where x > 5) "
+    "order by k limit 80",
+    # NOT EXISTS -> plain ANTI (NULL probe keys kept)
+    "select k from f where not exists (select * from d2 "
+    "where d2.kk = f.a) order by k limit 80",
+    # NULL-aware NOT IN: the build set contains NULL -> empty result
+    "select k from f where a not in (select kk from d2 where x > 5) "
+    "order by k limit 80",
+    # NOT IN over a NULL-free filtered set
+    "select k from f where a not in (select kk from d2 "
+    "where x > 5 and kk is not null) order by k limit 80",
+    # NOT IN (empty set) is TRUE for every row, NULL probe keys included
+    "select k from f where b not in (select kk from d2 where x > 9000) "
+    "order by k limit 80",
+    # fused agg over a semi gate (dense groups -> mode agg+semi)
+    "select c, count(*) from f where exists (select * from d2 "
+    "where d2.kk = f.a and d2.x > 5) group by c order by c",
+    # wide groups over a semi gate -> group+semi
+    "select a, count(*) from f where exists (select * from d2 "
+    "where d2.kk = f.a and d2.x > 5) group by a order by a",
+]
+SEMI_ENGINES = ["device[rows+semi]"] * 7 + ["device[agg+semi]",
+                                            "device[group+semi]"]
+
+
+def _bulk(session, name, ddl, cols, valids=None):
+    session.execute(ddl)
+    info = session.catalog.table("test", name)
+    session.storage.table_store(info.id).bulk_load(cols, valids)
+
+
+@pytest.fixture(scope="module")
+def semi_corpus():
+    """The reference's semi corpus, drawn in its order from its seed."""
+    rng = np.random.default_rng(41)
+    s = Session(cop=JC.CopClient())
+    n = N_SEMI_FACT
+    k = np.arange(n, dtype=np.int64)
+    a = rng.integers(0, 50_000, n)
+    b = rng.integers(0, 30_000, n)
+    b_valid = rng.random(n) > 0.15
+    v = rng.integers(-40_000, 40_000, n)
+    w = rng.integers(-500, 500, n)
+    w_valid = rng.random(n) > 0.2
+    c = rng.integers(0, 5, n)
+    g = rng.integers(0, N_SEMI_DIM, n)
+    _bulk(s, "f", "create table f (k bigint primary key, a int, b int, "
+          "v decimal(9,2), w int, c int, g int)", [k, a, b, v, w, c, g],
+          [None, None, b_valid, None, w_valid, None, None])
+    _bulk(s, "d", "create table d (g bigint primary key, x int)",
+          [np.arange(N_SEMI_DIM, dtype=np.int64),
+           rng.integers(0, 60_000, N_SEMI_DIM)])
+    kk = rng.integers(0, 50_000, N_SEMI_DIM)
+    kk_valid = rng.random(N_SEMI_DIM) > 0.1
+    _bulk(s, "d2", "create table d2 (id bigint primary key, kk int, x int)",
+          [np.arange(N_SEMI_DIM, dtype=np.int64), kk,
+           rng.integers(0, 100, N_SEMI_DIM)], [None, kk_valid, None])
+    return s
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["epoch", "tiled"])
+@pytest.mark.parametrize("qi", range(len(SEMI_QUERIES)))
+def test_semi_corpus_matches_reference(semi_corpus, qi, tiled):
+    calls = _frag_calls(semi_corpus, SEMI_QUERIES[qi])
+    assert len(calls) == 1
+    frag, snaps, ref = calls[0]
+    cop = CopClient("cpu")
+    if tiled:
+        # the fact table's 9,000 rows stream as 5 tiles on both clients
+        # (the group mode stages the whole epoch)
+        ref_cop = JC.CopClient()
+        ref_cop.TILE_ROWS = cop.TILE_ROWS = 2048
+        ref = JF.execute_fragment(ref_cop, frag, snaps)
+    assert ref.engine == SEMI_ENGINES[qi]
+    got = _port(frag, snaps, cop)
+    assert got.engine == ref.engine
+    if frag.agg is not None:
+        rows = TR.partial_rows(got.chunks)
+        assert rows and rows == TR.partial_rows(ref.chunks)
+        return
+    # row results may be empty (NOT IN over a set holding NULL)
+    assert len(got.chunks) == len(ref.chunks)
+    cols, want = TR.row_columns(got.chunks), TR.row_columns(ref.chunks)
+    assert len(cols) == len(want)
+    for x, y in zip(cols, want):
+        assert np.array_equal(x, y)
+    assert (len(want[0]) == 0) == (qi == 4)

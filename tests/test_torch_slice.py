@@ -156,6 +156,30 @@ JOINS = {
         "select c_custkey, sum(l_quantity) from lineitem, orders, customer "
         "where l_orderkey = o_orderkey and o_custkey = c_custkey group by "
         "c_custkey having sum(l_quantity) > 2700", 0, "device[hc]"),
+    # semi/anti membership edges
+    "q4": (TPCH_QUERIES["q4"], 0, "device[agg+semi]"),
+    "q16": (TPCH_QUERIES["q16"], 0, "device[rows+semi]"),
+    "q20_semi": (TPCH_QUERIES["q20"], 1, "device[rows+semi]"),
+    "semi_having": (
+        "select l_orderkey, sum(l_quantity) from lineitem where exists "
+        "(select * from orders where o_orderkey = l_orderkey and "
+        "o_orderpriority = '1-URGENT') group by l_orderkey "
+        "having sum(l_quantity) > 300", 0, "device[hc+semi]"),
+}
+
+# single-table row and TopN requests built by hand in tpch_requests: (SQL,
+# position among the statement's CopClient.execute calls, engine tag)
+DAGS = {
+    "q21_rows": (TPCH_QUERIES["q21"], 1, "device"),
+    "q13_orders_scan": (TPCH_QUERIES["q13"], 1, "device"),
+    "row_proj": ("select l_orderkey, l_extendedprice * (1 - l_discount) "
+                 "from lineitem where l_quantity < 5", 0, "device"),
+    "scan_topn": ("select l_orderkey, l_linenumber, l_extendedprice from "
+                  "lineitem where l_shipdate >= date '1995-01-01' order by "
+                  "l_extendedprice desc limit 100", 0, "device"),
+    "scan_topn3": ("select l_orderkey, l_shipdate, l_quantity from lineitem "
+                   "where l_discount > 0.05 order by l_shipdate desc, "
+                   "l_quantity, l_linenumber desc limit 100", 0, "device"),
 }
 
 
@@ -171,8 +195,8 @@ def _join_request_equals_planner(session, name):
     _, frag, snaps, _ = [c for c in _capture(session, sql)
                          if c[0] == "frag"][pos]
     tables = {}
-    for t in frag.tables:
-        ref = snaps[t.table.id].table
+    for t in list(frag.tables) + [sm.table for sm in frag.semis]:
+        ref = t.table
         tables[ref.name] = TR.tpch_table(ref.name, ref.id, ref.columns[0].id)
         assert request_from_reference(ref) == tables[ref.name]
     built = TR.JOIN_REQUESTS[name](tables)
@@ -180,8 +204,24 @@ def _join_request_equals_planner(session, name):
         _without_agg_names(request_from_reference(frag))
 
 
-@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS))
+def _dag_request_equals_planner(session, name):
+    sql, pos, tag = DAGS[name]
+    _, dag, snap, ref = [c for c in _capture(session, sql)
+                         if c[0] == "dag"][pos]
+    assert ref.engine == tag
+    t = snap.table
+    table = TR.tpch_table(t.name, t.id, t.columns[0].id)
+    assert request_from_reference(t) == table
+    built = TR.DAG_REQUESTS[name]({t.name: table})
+    assert built == request_from_reference(dag)
+
+
+@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS) + sorted(DAGS))
 def test_hand_built_request_equals_planner(request, name):
+    if name in DAGS:
+        _dag_request_equals_planner(request.getfixturevalue("tpch_session"),
+                                    name)
+        return
     if name in JOINS:
         _join_request_equals_planner(request.getfixturevalue("tpch_session"),
                                      name)
@@ -230,8 +270,23 @@ def _join_matches_numpy_oracle(name):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS))
+def _dag_matches_numpy_oracle(name):
+    data = TD.generate_tpch(SF, SEED)
+    tables, snaps = TR.load_tables(data, TR.DAG_TABLES[name])
+    dag = TR.DAG_REQUESTS[name](tables)
+    r = CopClient("cpu").execute(dag, snaps[dag.scan.table_id])
+    assert r.engine == DAGS[name][2] and not r.is_partial_agg
+    got, want = TR.row_columns(r.chunks), getattr(TR, f"{name}_oracle")(data)
+    assert len(got) == len(want) and len(want[0])
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(SLICE) + sorted(JOINS) + sorted(DAGS))
 def test_port_matches_numpy_oracle(name):
+    if name in DAGS:
+        _dag_matches_numpy_oracle(name)
+        return
     if name in JOINS:
         _join_matches_numpy_oracle(name)
         return
@@ -253,11 +308,38 @@ def test_port_matches_numpy_oracle(name):
 # (SQL, outcome): "same" = identical rows and engine tag; otherwise the
 # NotInSlice reason the port must raise
 SHAPES = {
-    # a string ordering compare keeps the filter on the host above a row
-    # scan: the row path is a later slice
+    # a string ordering compare keeps the filter on the host above a bare
+    # row scan (no selection, no projection: no device program runs)
     "row_scan": (
         "select sum(l_quantity) from lineitem where l_shipmode > 'AIR'",
-        "row and TopN paths"),
+        "same"),
+    # rows: plain projections of every visible row
+    "row_bare_projected": (
+        "select l_orderkey, l_comment from lineitem", "same"),
+    # rows: a selection on the device (one packed bitmask per tile)
+    "row_selection": (
+        "select l_orderkey, l_quantity from lineitem "
+        "where l_discount > 0.05 and l_shipmode = 'MAIL'", "same"),
+    # rows: computed projections, evaluated on the host (NumpyEval)
+    "row_projection": (
+        "select l_orderkey + 1, l_quantity * 2, l_shipdate from lineitem "
+        "where l_tax < 0.02", "same"),
+    # rows: LIMIT cuts the selected rows, and a bare scan's
+    "row_limit": (
+        "select l_orderkey, l_partkey from lineitem where l_quantity > 45 "
+        "limit 17", "same"),
+    "row_limit_scan": ("select l_orderkey from lineitem limit 5", "same"),
+    # TopN: a packed two-key composite over the selected rows
+    "topn_two_keys": (
+        "select l_orderkey, l_tax from lineitem where l_quantity < 3 "
+        "order by l_tax, l_orderkey desc limit 20", "same"),
+    # TopN gates: the key, or a projection, outgrows int32
+    "topn_key_expression_too_wide": (
+        "select l_orderkey from lineitem "
+        "order by l_extendedprice * l_quantity desc limit 5", "host"),
+    "topn_projection_too_wide": (
+        "select l_orderkey, l_extendedprice * l_extendedprice from lineitem "
+        "order by l_orderkey limit 5", "host"),
     "max_per_dict_group": (
         "select l_shipmode, max(l_extendedprice) from lineitem "
         "group by l_shipmode", "same"),
@@ -322,14 +404,28 @@ SHAPES = {
 }
 
 
+def _assert_same(got, ref):
+    """Same engine tag and answer: partial rows compared sorted, row results
+    column by column in the order returned, chunk for chunk (TopN: one
+    chunk per tile)."""
+    assert got.engine == ref.engine
+    assert got.is_partial_agg == ref.is_partial_agg
+    if ref.is_partial_agg:
+        assert TR.partial_rows(got.chunks) == TR.partial_rows(ref.chunks)
+        return
+    assert len(got.chunks) == len(ref.chunks)
+    cols, want = TR.row_columns(got.chunks), TR.row_columns(ref.chunks)
+    assert len(cols) == len(want) and len(want[0])
+    for a, b in zip(cols, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_single_table_shapes(session, name):
     sql, outcome = SHAPES[name]
     kind, req, snaps, ref = _one_call(session, sql)
     if outcome == "same":
-        got = _port(kind, req, snaps)
-        assert got.engine == ref.engine
-        assert TR.partial_rows(got.chunks) == TR.partial_rows(ref.chunks)
+        _assert_same(_port(kind, req, snaps), ref)
         return
     if outcome == "host":
         assert ref.engine.startswith("host(")
@@ -403,3 +499,111 @@ def test_nulls_and_floats_match_reference(nullable_session, name):
                 assert a == pytest.approx(b, rel=1e-6)
             else:
                 assert a == b
+
+
+# ---- single-table TopN: NULLs, floats, signed zeros, the key gates ------------
+# Each tile returns its top n rows in score order, ties to the lower row:
+# compared chunk by chunk and row by row with the reference's candidates.
+# NULLs sort first in ASC and last in DESC; ASC float keys score -v, so a
+# column of zeros turns into -0.0 scores, and both packages rank -0.0 below
+# +0.0 (IEEE total order).
+
+NULLABLE_TOPN = {
+    # 500 NULL d's lead the ASC order; the cut falls among the values
+    "float_asc": "select k, d from t order by d limit 600",
+    "float_desc": "select k, d from t order by d desc limit 60",
+    # 1,500 NULL b's; b ties heavily (11 values): the cut is a tie
+    "int_asc": "select k, b from t order by b limit 1600",
+    "int_desc": "select k, b, s from t where d > 10 order by b desc limit 70",
+    "decimal_desc": "select k, x from t order by x desc limit 30",
+    "two_keys": "select k, b, x from t order by b desc, x limit 25",
+}
+
+ZERO_TOPN = {
+    # NULLs first, then the zeros: the cut falls among -0.0 / +0.0 ties
+    "zeros_asc": "select id, f from z order by f limit 700",
+    # the positives, then the zeros
+    "zeros_desc": "select id, f from z order by f desc limit 2000",
+    # non-positive g: the zeros lead DESC, NULLs trail it
+    "zeros_desc_first": "select id, g from z order by g desc limit 700",
+    "negatives_asc": "select id, g from z order by g limit 700",
+}
+
+
+@pytest.fixture(scope="module")
+def zeros_session():
+    rng = np.random.default_rng(12)
+    n = 3000
+    s = Session()
+    s.execute("create table z (id bigint primary key, f double, g double, "
+              "w bigint)")
+    info = s.catalog.table(s.current_db, "z")
+    w = rng.integers(-1000, 1000, n)
+    w[7] = -(2**31)  # -w overflows int32: the TopN key gate
+    s.storage.table_store(info.id).bulk_load(
+        [np.arange(n, dtype=np.int64),
+         rng.choice(np.array([0.0, -0.0, 1.5, 2.25]), n),
+         rng.choice(np.array([0.0, -0.0, -1.5, -3.0]), n), w],
+        [None, rng.random(n) > 0.1, rng.random(n) > 0.1, None])
+    return s
+
+
+def _topn_case(request, name):
+    if name in NULLABLE_TOPN:
+        return request.getfixturevalue("nullable_session"), \
+            NULLABLE_TOPN[name]
+    return request.getfixturevalue("zeros_session"), ZERO_TOPN[name]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["epoch", "tiled"])
+@pytest.mark.parametrize("name", sorted(NULLABLE_TOPN) + sorted(ZERO_TOPN))
+def test_scan_topn_matches_reference(request, name, tiled):
+    session, sql = _topn_case(request, name)
+    kind, req, snap, ref = _one_call(session, sql)
+    assert kind == "dag" and req.topn is not None
+    cop = CopClient("cpu")
+    if tiled:
+        # 5,000 (3,000) rows in 1,024-row tiles: one candidate chunk each
+        ref_cop = JC.CopClient()
+        ref_cop.TILE_ROWS = cop.TILE_ROWS = 1024
+        ref = ref_cop.execute(req, snap)
+        assert len(ref.chunks) == -(-snap.epoch.num_rows // 1024)
+    assert ref.engine == "device"
+    _assert_same(_port(kind, req, snap, cop), ref)
+
+
+def test_topn_key_too_wide_gate(zeros_session):
+    kind, req, snap, ref = _one_call(
+        zeros_session, "select id, w from z order by w limit 5")
+    assert ref.engine == "host(TopN key too wide for int32 device)"
+    with pytest.raises(NotInSlice) as ei:
+        _port(kind, req, snap)
+    assert ei.value.reason == "TopN key too wide for int32 device"
+
+
+@pytest.mark.parametrize("sql", [
+    "select id, w * 3 from z order by id limit 5",
+    "select id from z order by w * w limit 5"], ids=["output", "key"])
+def test_topn_expression_too_wide_gate(zeros_session, sql):
+    # w reaches -2^31: a product of it leaves int32, in an output column or
+    # in the sort key (the planner projects the key, so it is an output too)
+    kind, req, snap, ref = _one_call(zeros_session, sql)
+    assert ref.engine == "host(TopN expression too wide for int32 device)"
+    with pytest.raises(NotInSlice) as ei:
+        _port(kind, req, snap)
+    assert ei.value.reason == "TopN expression too wide for int32 device"
+
+
+def test_string_topn_key_gate(nullable_session):
+    # the planner keeps a string ORDER BY on the host; a request whose one
+    # key is a string projection gates out on both sides
+    _, req, snap, _ = _one_call(nullable_session,
+                                "select k, s from t order by k limit 5")
+    key = req.projections[1]
+    req = dataclasses.replace(req, topn=dataclasses.replace(
+        req.topn, items=[(dataclasses.replace(key, idx=1), False)]))
+    ref = JC.CopClient().execute(req, snap)
+    assert ref.engine == "host(string TopN key is host-side)"
+    with pytest.raises(NotInSlice) as ei:
+        _port("dag", req, snap)
+    assert ei.value.reason == "string TopN key is host-side"

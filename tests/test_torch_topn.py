@@ -14,7 +14,10 @@
     FAT_QUERIES[2] without its tie-breaking key), an
     unpackable TopN key set (row-bitmask mode), the non-fused hc TopN
     (`MAX_DIGIT_PAIRS = 0` in both packages) and the sorted body's
-    `group-overflow`.
+    `group-overflow`;
+(h) the corpus's single-table TopN requests (the reference's SCAN_QUERIES:
+    mixed directions, NULL ordering, ties at the cut) through
+    `CopClient.execute`, whole-epoch and in 2,048-row tiles.
 
 All inputs are made from seeds with numpy. Tolerance: exact, engine tag
 included; row fragments compare column by column in the order returned,
@@ -251,6 +254,18 @@ def test_sort_by_keys_sorts_as_reference(n_keys):
 N_FACT = 12_000
 N_DIM = 3_000
 
+SCAN_QUERIES = [
+    # mixed directions, NULLs in b (first in ASC, last in DESC), ties
+    "select k, b, c from f where c > -40 "
+    "order by b desc, c, k desc limit 9",
+    "select k, b, c from f where c > -40 "
+    "order by b, c desc limit 6",
+    # LIMIT beyond the survivor count
+    "select k, b, c from f where c > 93 order by b desc, c limit 50",
+    # tie-heavy keys: the cut resolves by row order
+    "select k, b from f order by b desc limit 11",
+]
+
 JOIN_QUERIES = [
     "select k, x, b from f, dim where fg = dg "
     "order by x desc, b, k limit 7",
@@ -441,3 +456,50 @@ def test_sorted_body_group_overflow_matches_reference(corpus):
     assert ref.engine == "host(fragment:group-overflow)"
     with mock.patch.object(FragmentDAG, "HAVING_CAP", 256):
         _assert_same(frag, snaps, ref)
+
+
+# ---- (h) single-table TopN requests (CopClient.execute) ------------------------
+
+_CAPTURED_DAGS: dict = {}
+
+
+def _capture_dag(corpus, sql):
+    """(CopDAG, snapshot, reference result) of the statement's one
+    single-table request."""
+    if sql not in _CAPTURED_DAGS:
+        calls = []
+        run = JC.CopClient.execute
+
+        def dag_call(self, dag, snap):
+            r = run(self, dag, snap)
+            calls.append((dag, snap, r))
+            return r
+
+        with mock.patch.object(JC.CopClient, "execute", dag_call):
+            corpus.query(sql)
+        assert len(calls) == 1, sql
+        _CAPTURED_DAGS[sql] = calls[0]
+    return _CAPTURED_DAGS[sql]
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["epoch", "tiled"])
+@pytest.mark.parametrize("qi", range(len(SCAN_QUERIES)))
+def test_scan_topn_matches_reference(corpus, qi, tiled):
+    dag, snap, ref = _capture_dag(corpus, SCAN_QUERIES[qi])
+    assert dag.topn is not None
+    cop = CopClient("cpu")
+    if tiled:
+        # 12,000 rows in 2,048-row tiles: one candidate chunk per tile
+        ref_cop = JC.CopClient()
+        ref_cop.TILE_ROWS = cop.TILE_ROWS = 2048
+        ref = ref_cop.execute(dag, snap)
+        assert len(ref.chunks) == 6
+    assert ref.engine == "device"
+    got = cop.execute(request_from_reference(dag),
+                      snapshot_from_reference(snap))
+    assert got.engine == ref.engine and not got.is_partial_agg
+    assert len(got.chunks) == len(ref.chunks)
+    cols, want = TR.row_columns(got.chunks), TR.row_columns(ref.chunks)
+    assert len(cols) == len(want) and len(want[0])
+    for a, b in zip(cols, want):
+        assert np.array_equal(a, b)

@@ -23,14 +23,23 @@ two are equal):
 * TopN and high-cardinality consumers: Q3 and Q10 (GROUP BY ... ORDER BY
   revenue LIMIT k, the fused cut), `join_topn` (lineitem -> orders rows
   ORDER BY o_orderdate DESC, o_orderpriority, l_quantity DESC LIMIT 100)
-  and `cust_having` (GROUP BY c_custkey HAVING sum(l_quantity) > 2700).
+  and `cust_having` (GROUP BY c_custkey HAVING sum(l_quantity) > 2700);
+* semi/anti membership edges: Q4 (orders EXISTS late lineitem, count per
+  priority), Q16's fragment (partsupp -> part, NOT IN the complaining
+  suppliers), Q20's partsupp block (IN the 'forest%' parts) and
+  `semi_having` (Q18-inner over the lineitems of 1-URGENT orders);
+* single-table row and TopN `CopDAG`s (`DAG_REQUESTS`): Q21's `lineitem
+  l3` selection, Q13's bare orders scan, `row_proj` (a computed
+  projection), `scan_topn` (one key) and `scan_topn3` (three keys packed
+  into one int32).
 
 Each oracle computes, in numpy from the generated arrays, what the
 coprocessor must return: aggregations in its partial layout [group
 cols..., (val, cnt) per aggregate], in the form `partial_rows` gives a
 result chunk (TopN consumers: the k groups the fused cut keeps); row
-fragments as the output columns in probe-row order (TopN rows: each tile's
-top rows in order), in the form `row_columns` gives the result chunks.
+results as the output columns in probe-row order (TopN rows: each tile's
+top rows in order, ties to the lower row), in the form `row_columns` gives
+the result chunks.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ from ..copr.client import CopClient
 from ..plan.dag import CopDAG, DAGAggregation, DAGScan, DAGSelection, DAGTopN
 from ..plan.expr import (AggDesc, Call, Col, Const, agg_result_type,
                          arith_result_type, bool_call)
-from ..plan.fragment import FragJoin, FragmentDAG, FragTable, HCTopN
+from ..plan.fragment import (FragJoin, FragmentDAG, FragSemi, FragTable,
+                             HCTopN)
 from ..store.table_store import TableStore
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import parse_date
@@ -117,9 +127,11 @@ def load_tables(data: dict, names, first_table_id: int = 1
     return tables, snaps
 
 
-def _col(table: TableInfo, off: int, idx: int) -> Col:
+def _col(table: TableInfo, off: int, idx: int, alias: str = "") -> Col:
+    """Column `off` of `table` at position `idx`, named as the planner
+    names it (`alias.column` where the query aliases the table)."""
     c = table.columns[off]
-    return Col(idx, c.ftype, c.name)
+    return Col(idx, c.ftype, f"{alias}.{c.name}" if alias else c.name)
 
 
 def _agg(func: str, arg) -> AggDesc:
@@ -427,11 +439,96 @@ def cust_having_frag(tables: dict) -> FragmentDAG:
     return frag
 
 
+def _semi(tables: dict, name: str, offs: list, filt, probe: Col,
+          kind: str) -> FragSemi:
+    """Membership edge over a bare scan of `name` (key: its first
+    column); filters in the build table's local column space."""
+    t = tables[name]
+    local = [_col(t, off, i) for i, off in enumerate(offs)]
+    return FragSemi(FragTable(t, list(offs), filt(*local) if filt else [],
+                              [c.ftype for c in local]), probe, 0, kind)
+
+
+def q4_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q4: order priority checking (1993-07-01 .. 1993-10-01): the
+    orders with a late lineitem (EXISTS, a SEMI edge whose build filter
+    l_commitdate < l_receiptdate runs on the host), counted per
+    o_orderpriority."""
+    frag = _frag(tables, [
+        ("orders", [0, 4, 5],
+         lambda okey, date, prio: _date_range(date, "1993-07-01",
+                                              "1993-10-01"))], [])
+    frag.semis = [_semi(
+        tables, "lineitem", [0, 11, 12],
+        lambda okey, commit, receipt: [bool_call("lt", [commit, receipt])],
+        _combined(frag, 0), "SEMI")]
+    _set_agg(frag, [_combined(frag, 2)], [_agg("count", None)])
+    return frag
+
+
+Q16_SIZES = [49, 14, 23, 45, 19, 3, 36, 9]
+
+
+def q16_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q16's fragment: partsupp joined to the parts that are not
+    Brand#45, not MEDIUM POLISHED and of eight sizes, whose supplier is NOT
+    IN the suppliers with customer complaints (a NULL-aware ANTI_NULL
+    edge; the LIKE build filter runs on the host). Rows; the COUNT(DISTINCT)
+    above runs on the host."""
+    frag = _frag(tables, [
+        ("partsupp", [0, 1], None),
+        ("part", [0, 3, 4, 5],
+         lambda pk, brand, ptype, size: [
+             bool_call("ne", [brand, Const("Brand#45", _STR)]),
+             bool_call("not", [bool_call("like", [ptype],
+                                         "MEDIUM POLISHED%")]),
+             bool_call("in_values", [size], list(Q16_SIZES))])],
+        [(1, 0)])
+    frag.semis = [_semi(
+        tables, "supplier", [0, 6],
+        lambda sk, comment: [bool_call("like", [comment],
+                                       "%Customer%Complaints%")],
+        _combined(frag, 1), "ANTI_NULL")]
+    _set_rows(frag, list(range(6)))
+    return frag
+
+
+def q20_semi_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q20's partsupp block: the partsupp rows of 'forest%' parts
+    (ps_partkey IN (...), a SEMI edge with a host LIKE build filter)."""
+    frag = _frag(tables, [("partsupp", [0, 1, 2], None)], [])
+    frag.semis = [_semi(
+        tables, "part", [0, 1],
+        lambda pk, pname: [bool_call("like", [pname], "forest%")],
+        _combined(frag, 0), "SEMI")]
+    _set_rows(frag, [0, 1, 2])
+    return frag
+
+
+def semi_having_frag(tables: dict) -> FragmentDAG:
+    """`select l_orderkey, sum(l_quantity) from lineitem where exists
+    (select * from orders where o_orderkey = l_orderkey and o_orderpriority
+    = '1-URGENT') group by l_orderkey having sum(l_quantity) > 300`: a SEMI
+    edge in front of the run-ordered HAVING (streamseg's rank path); about
+    a fifth of Q18-inner's passing orders are 1-URGENT."""
+    frag = _frag(tables, [("lineitem", [0, 4], None)], [])
+    frag.semis = [_semi(
+        tables, "orders", [0, 5],
+        lambda okey, prio: [bool_call("eq", [prio,
+                                             Const("1-URGENT", _STR)])],
+        _combined(frag, 0), "SEMI")]
+    _set_agg(frag, [_combined(frag, 0)], [_agg("sum", _combined(frag, 1))])
+    frag.having = [(0, "gt", Q18_THRESHOLD)]
+    return frag
+
+
 JOIN_REQUESTS = {"q12": q12_frag, "q14": q14_frag, "q5": q5_frag,
                  "q17_outer": q17_outer_frag, "q18_outer": q18_outer_frag,
                  "q18_join_having": q18_join_having_frag, "q3": q3_frag,
                  "q10": q10_frag, "join_topn": join_topn_frag,
-                 "cust_having": cust_having_frag}
+                 "cust_having": cust_having_frag, "q4": q4_frag,
+                 "q16": q16_frag, "q20_semi": q20_semi_frag,
+                 "semi_having": semi_having_frag}
 JOIN_TABLES = {"q12": ("lineitem", "orders"), "q14": ("lineitem", "part"),
                "q5": ("lineitem", "orders", "customer", "supplier", "nation",
                       "region"),
@@ -441,7 +538,95 @@ JOIN_TABLES = {"q12": ("lineitem", "orders"), "q14": ("lineitem", "part"),
                "q3": ("lineitem", "orders", "customer"),
                "q10": ("lineitem", "orders", "customer", "nation"),
                "join_topn": ("lineitem", "orders"),
-               "cust_having": ("lineitem", "orders", "customer")}
+               "cust_having": ("lineitem", "orders", "customer"),
+               "q4": ("orders", "lineitem"),
+               "q16": ("partsupp", "part", "supplier"),
+               "q20_semi": ("partsupp", "part"),
+               "semi_having": ("lineitem", "orders")}
+
+
+# ---- single-table row and TopN requests (CopDAG, no aggregation) -------------
+
+def q21_rows_dag(tables: dict) -> CopDAG:
+    """TPC-H Q21's `lineitem l3` scan: the late lineitems (l_receiptdate >
+    l_commitdate) of the NOT EXISTS subquery, shipped as rows."""
+    t = tables["lineitem"]
+    cols = [_col(t, off, i, "l3") for i, off in enumerate((0, 2, 11, 12))]
+    return CopDAG(scan=DAGScan(t.id, [0, 2, 11, 12]),
+                  selection=DAGSelection([bool_call("gt", [cols[3],
+                                                           cols[2]])]),
+                  output_types=[c.ftype for c in cols])
+
+
+def q13_orders_scan_dag(tables: dict) -> CopDAG:
+    """TPC-H Q13's orders scan: a bare scan of (o_orderkey, o_custkey,
+    o_comment); the outer join and the NOT LIKE run on the host."""
+    t = tables["orders"]
+    return CopDAG(scan=DAGScan(t.id, [0, 1, 8]),
+                  output_types=[t.columns[off].ftype for off in (0, 1, 8)])
+
+
+def row_proj_dag(tables: dict) -> CopDAG:
+    """`select l_orderkey, l_extendedprice * (1 - l_discount) from lineitem
+    where l_quantity < 5`: rows with a computed projection, which the host
+    evaluates over the selected rows."""
+    t = tables["lineitem"]
+    okey, qty, price, disc = (_col(t, off, i)
+                              for i, off in enumerate((0, 4, 5, 6)))
+    rev = _disc_price(price, disc)
+    return CopDAG(scan=DAGScan(t.id, [0, 4, 5, 6]),
+                  selection=DAGSelection([bool_call("lt", [
+                      qty, Const(500, _MONEY)])]),
+                  projections=[okey, rev],
+                  output_types=[okey.ftype, rev.ftype])
+
+
+SCAN_TOPN_N = 100
+
+
+def scan_topn_dag(tables: dict) -> CopDAG:
+    """`select l_orderkey, l_linenumber, l_extendedprice from lineitem
+    where l_shipdate >= date '1995-01-01' order by l_extendedprice desc
+    limit 100`: a single-key TopN, scored as the int32 price."""
+    t = tables["lineitem"]
+    okey, line, price, ship = (_col(t, off, i)
+                               for i, off in enumerate((0, 3, 5, 10)))
+    return CopDAG(scan=DAGScan(t.id, [0, 3, 5, 10]),
+                  selection=DAGSelection([bool_call("ge", [
+                      ship, Const(parse_date("1995-01-01"), _DATE)])]),
+                  topn=DAGTopN([(price, True)], SCAN_TOPN_N),
+                  projections=[okey, line, price],
+                  output_types=[okey.ftype, line.ftype, price.ftype])
+
+
+def scan_topn3_dag(tables: dict) -> CopDAG:
+    """`select l_orderkey, l_shipdate, l_quantity from lineitem where
+    l_discount > 0.05 order by l_shipdate desc, l_quantity, l_linenumber
+    desc limit 100`: three keys packed into one int32 composite (the sort
+    items read the projection's outputs; l_linenumber is a hidden fourth
+    output)."""
+    t = tables["lineitem"]
+    okey, line, qty, disc, ship = (_col(t, off, i)
+                                   for i, off in enumerate((0, 3, 4, 6, 10)))
+    proj = [okey, ship, qty, line]
+    items = [(Col(1, ship.ftype, ship.name), True),
+             (Col(2, qty.ftype, qty.name), False),
+             (Col(3, line.ftype), True)]
+    return CopDAG(scan=DAGScan(t.id, [0, 3, 4, 6, 10]),
+                  selection=DAGSelection([bool_call("gt", [
+                      disc, Const(5, _MONEY)])]),
+                  topn=DAGTopN(items, SCAN_TOPN_N),
+                  projections=proj,
+                  output_types=[c.ftype for c in proj])
+
+
+DAG_REQUESTS = {"q21_rows": q21_rows_dag,
+                "q13_orders_scan": q13_orders_scan_dag,
+                "row_proj": row_proj_dag, "scan_topn": scan_topn_dag,
+                "scan_topn3": scan_topn3_dag}
+DAG_TABLES = {"q21_rows": ("lineitem",), "q13_orders_scan": ("orders",),
+              "row_proj": ("lineitem",), "scan_topn": ("lineitem",),
+              "scan_topn3": ("lineitem",)}
 
 
 # ---- results as comparable rows ---------------------------------------------
@@ -712,6 +897,126 @@ def cust_having_oracle(data: dict) -> list[tuple]:
     ok = sv > np.float32(CUST_HAVING_THRESHOLD) - eps
     return sorted(zip(keys[ok].tolist(), sums[ok].tolist(),
                       counts[ok].tolist()))
+
+
+def _like_mask(v, pattern: str) -> np.ndarray:
+    """Per-row SQL LIKE over a generated string column (vocabulary,
+    codes): '%' any run, '_' one character, matched once per word."""
+    vocab, codes = v
+    rx = re.compile("".join(".*" if ch == "%" else "." if ch == "_"
+                            else re.escape(ch) for ch in pattern), re.DOTALL)
+    hit = np.array([rx.fullmatch(s) is not None for s in vocab], dtype=bool)
+    return hit[np.asarray(codes)]
+
+
+def q4_oracle(data: dict) -> list[tuple]:
+    """(o_orderpriority, count, count) over the 1993-Q3 orders that have a
+    lineitem with l_commitdate < l_receiptdate."""
+    li, o = data["lineitem"], data["orders"]
+    late = np.zeros(int(o["o_orderkey"].max()) + 1, bool)
+    late[li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]] = True
+    date = o["o_orderdate"]
+    m = ((date >= parse_date("1993-07-01")) & (date < parse_date("1993-10-01"))
+         & late[o["o_orderkey"]])
+    prio = _strings(o["o_orderpriority"])[m]
+    return sorted((p, int(n), int(n))
+                  for p, n in zip(*np.unique(prio, return_counts=True)))
+
+
+def q16_oracle(data: dict) -> list[np.ndarray]:
+    """partsupp rows (in storage order) of the admitted parts whose
+    supplier has no complaint, as (ps_partkey, ps_suppkey, p_partkey,
+    p_brand, p_type, p_size). NOT IN over a NULL-free set: NULL cannot
+    occur, the set is non-empty at every scale (the generator plants
+    complaints)."""
+    ps, p, s = data["partsupp"], data["part"], data["supplier"]
+    prow = _row_of(p["p_partkey"])[ps["ps_partkey"]]
+    brand, ptype = _strings(p["p_brand"]), _strings(p["p_type"])
+    ok = ((brand != "Brand#45") & ~_like_mask(p["p_type"], "MEDIUM POLISHED%")
+          & np.isin(p["p_size"], Q16_SIZES))
+    bad = s["s_suppkey"][_like_mask(s["s_comment"], "%Customer%Complaints%")]
+    m = ok[prow] & ~np.isin(ps["ps_suppkey"], bad)
+    r = prow[m]
+    return [ps["ps_partkey"][m], ps["ps_suppkey"][m], p["p_partkey"][r],
+            brand[r], ptype[r], p["p_size"][r]]
+
+
+def q20_semi_oracle(data: dict) -> list[np.ndarray]:
+    """partsupp rows of 'forest%' parts: (ps_partkey, ps_suppkey,
+    ps_availqty) in storage order."""
+    ps, p = data["partsupp"], data["part"]
+    forest = p["p_partkey"][_like_mask(p["p_name"], "forest%")]
+    m = np.isin(ps["ps_partkey"], forest)
+    return [ps["ps_partkey"][m], ps["ps_suppkey"][m], ps["ps_availqty"][m]]
+
+
+def semi_having_oracle(data: dict) -> list[tuple]:
+    """Q18-inner's widened HAVING over the lineitems of 1-URGENT orders:
+    (l_orderkey, sum(l_quantity), rows)."""
+    li, o = data["lineitem"], data["orders"]
+    urgent = np.zeros(int(o["o_orderkey"].max()) + 1, bool)
+    urgent[o["o_orderkey"][_strings(o["o_orderpriority"]) == "1-URGENT"]] = \
+        True
+    m = urgent[li["l_orderkey"]]
+    return q18_inner_oracle({"l_orderkey": li["l_orderkey"][m],
+                             "l_quantity": li["l_quantity"][m]})
+
+
+def q21_rows_oracle(data: dict) -> list[np.ndarray]:
+    li = data["lineitem"]
+    m = li["l_receiptdate"] > li["l_commitdate"]
+    return [li[c][m] for c in ("l_orderkey", "l_suppkey", "l_commitdate",
+                               "l_receiptdate")]
+
+
+def q13_orders_scan_oracle(data: dict) -> list[np.ndarray]:
+    o = data["orders"]
+    return [o["o_orderkey"], o["o_custkey"], _strings(o["o_comment"])]
+
+
+def row_proj_oracle(data: dict) -> list[np.ndarray]:
+    """(l_orderkey, l_extendedprice * (1 - l_discount) at scale 4) of the
+    rows with l_quantity < 5."""
+    li = data["lineitem"]
+    m = li["l_quantity"] < 500
+    return [li["l_orderkey"][m],
+            li["l_extendedprice"][m] * (100 - li["l_discount"][m])]
+
+
+def _tile_tops(ok: np.ndarray, keys: list, tile_rows: int) -> np.ndarray:
+    """Each tile's first SCAN_TOPN_N passing rows by `keys` (most
+    significant first, ascending; negate for DESC), ties to the lower row,
+    the tiles one after another."""
+    parts = []
+    for lo in range(0, len(ok), tile_rows):
+        sel = lo + np.nonzero(ok[lo:lo + tile_rows])[0]
+        order = np.lexsort([sel] + [k[sel] for k in reversed(keys)])
+        parts.append(sel[order[:SCAN_TOPN_N]])
+    return np.concatenate(parts)
+
+
+def scan_topn_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS
+                     ) -> list[np.ndarray]:
+    """Each tile's top 100 rows by l_extendedprice DESC among l_shipdate >=
+    1995-01-01: (l_orderkey, l_linenumber, l_extendedprice)."""
+    li = data["lineitem"]
+    rows = _tile_tops(li["l_shipdate"] >= parse_date("1995-01-01"),
+                      [-li["l_extendedprice"]], tile_rows)
+    return [li[c][rows] for c in ("l_orderkey", "l_linenumber",
+                                  "l_extendedprice")]
+
+
+def scan_topn3_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS
+                      ) -> list[np.ndarray]:
+    """Each tile's top 100 rows by (l_shipdate DESC, l_quantity, l_linenumber
+    DESC) among l_discount > 0.05: (l_orderkey, l_shipdate, l_quantity,
+    l_linenumber)."""
+    li = data["lineitem"]
+    rows = _tile_tops(li["l_discount"] > 5,
+                      [-li["l_shipdate"], li["l_quantity"],
+                       -li["l_linenumber"]], tile_rows)
+    return [li[c][rows] for c in ("l_orderkey", "l_shipdate", "l_quantity",
+                                  "l_linenumber")]
 
 
 def row_columns(chunks: list[Chunk]) -> list[np.ndarray]:

@@ -1,8 +1,9 @@
 """CopClient: the coprocessor — executes CopDAG requests as PyTorch programs.
 
-Port of the single-table aggregation path of `tidb_tpu/copr/client.py`,
-and of the staging the fragment executor (`copr/fragment.py`) uses for its
-build tables (`_stage_build_table`, `_place_build_array`, one device).
+Port of the single-table paths of `tidb_tpu/copr/client.py` (aggregation;
+rows: scan, selection, projection, limit; TopN), and of the staging the
+fragment executor (`copr/fragment.py`) uses for its build tables
+(`_stage_build_table`, `_place_build_array`, one device).
 What stays as in the reference:
 
 * the host-side resolution (`_prepare`): string constants to dictionary
@@ -15,14 +16,20 @@ What stays as in the reference:
 * tiling: epochs above TILE_ROWS stream as tiles padded to one shape
   bucket, and per-tile partials merge exactly on the host;
 * the partial layout [group cols..., (val, cnt) per agg] returned to the
-  final merge.
+  final merge;
+* the row path: a selection runs on the device and ships one packed
+  bitmask per tile, and the host projects the selected rows (`NumpyEval`);
+  a bare scan runs no device program at all;
+* the TopN path: each tile returns its top n rows, output columns gathered
+  on the device (one int32 score, or the packed multi-key composite of
+  topnpack.py; ties to the lower row).
 
 What differs: the programs run eagerly on `self.device` (no jit cache),
 staged columns are cached per epoch as device tensors, and there is no
 host fallback. Where the reference would serve a request on the host
 (`host(<reason>)`), this client raises `NotInSlice(<reason>)` with the
-same reason; row, TopN, index-ranged, overlay and HLL requests raise
-`NotInSlice` too, until their slice lands.
+same reason; index-ranged, overlay and HLL requests raise `NotInSlice`
+too, until their slice lands.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..plan.fragment import FragmentDAG
 from ..store.table_store import TableSnapshot
 from ..types.field_type import FieldType, TypeKind
 from . import sumexact as SE
+from . import topnpack as TP
 from .bounds import (
     Bound,
     decompose_terms,
@@ -53,6 +61,7 @@ from .bounds import (
     limbs_for,
 )
 from .eval import CompileError, eval_expr, selection_mask
+from .npeval import NumpyEval
 
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31) + 1
@@ -135,8 +144,6 @@ class CopClient:
         if dag.scan.ranges is not None:
             # the reference serves index-ranged scans host-side
             raise NotInSlice("ranged")
-        if dag.agg is None or dag.topn is not None:
-            raise NotInSlice("row and TopN paths")
         self._evict_stale(dag.scan.table_id, snap.epoch.epoch_id)
         prepared, fallback = self._prepare(dag, snap)
         if fallback is not None:
@@ -154,11 +161,33 @@ class CopClient:
             raise NotInSlice("overlay rows")
         chunks: list[Chunk] = []
         if snap.epoch.num_rows > 0:
-            tiles = self._stage_tiles(dag, snap)
-            chunks.extend(self._run_agg(dag, snap, prepared, tiles))
+            chunks.extend(self._run_batch(dag, snap, prepared))
         if not chunks:
             chunks = [self._empty_chunk(dag, snap)]
-        return CopResult(chunks, is_partial_agg=True, engine="device")
+        return CopResult(chunks, is_partial_agg=dag.agg is not None,
+                         engine="device")
+
+    def _run_batch(self, dag: CopDAG, snap: TableSnapshot,
+                   prepared: dict[Any, Any]) -> list[Chunk]:
+        """The base epoch through the request's path: aggregation, TopN or
+        rows. A bare row scan stages nothing: no device program reads it."""
+        if dag.agg is None and dag.topn is None and dag.selection is None:
+            return self._run_rows(dag, snap, prepared, None)
+        tiles = self._stage_tiles(dag, snap)
+        if dag.agg is not None:
+            return self._run_agg(dag, snap, prepared, tiles)
+        if dag.topn is not None:
+            return self._run_topn(dag, snap, prepared, tiles)
+        return self._run_rows(dag, snap, prepared, tiles)
+
+    def _host_view(self, dag: CopDAG, snap: TableSnapshot):
+        """Host numpy views of the epoch's scan columns (the row path's
+        projection input); validity stays None where a column has no NULLs,
+        so big epochs allocate no ones-masks per request."""
+        epoch = snap.epoch
+        host_cols = [(epoch.columns[off], epoch.valids[off])
+                     for off in dag.scan.col_offsets]
+        return host_cols, snap.base_visible
 
     def _try_group_fragment(self, dag: CopDAG, snap: TableSnapshot,
                             reason: str) -> Optional[CopResult]:
@@ -166,7 +195,7 @@ class CopClient:
         as a degenerate one-table fragment (copr/fragment.py) before
         conceding. Returns None when the shape is ineligible or the
         fragment path gates out."""
-        if dag.topn is not None or dag.limit is not None:
+        if dag.agg is None or dag.topn is not None or dag.limit is not None:
             return None
         if not (reason.startswith("group keys not dense-encodable")
                 or reason.startswith("sparse segment space")
@@ -272,10 +301,15 @@ class CopClient:
             exprs: list[PlanExpr] = []
             if dag.selection:
                 exprs.extend(dag.selection.conditions)
-            exprs.extend(dag.agg.group_by)
-            for d in dag.agg.aggs:
-                if d.arg is not None:
-                    exprs.append(d.arg)
+            if dag.agg:
+                exprs.extend(dag.agg.group_by)
+                for d in dag.agg.aggs:
+                    if d.arg is not None:
+                        exprs.append(d.arg)
+            if dag.topn:
+                exprs.extend(e for e, _ in dag.topn.items)
+                if dag.projections:
+                    exprs.extend(dag.projections)
             for e in exprs:
                 self._prepare_expr(e, dicts, prepared)
         except CompileError as ce:
@@ -286,13 +320,57 @@ class CopClient:
                 if not expr_device_safe(c, col_bounds):
                     return None, "filter condition too wide for int32 device"
 
-        err = self._prepare_agg(
-            dag, dicts, col_bounds, prepared,
-            snap.epoch.num_rows + len(snap.overlay_handles),
-            sparse_gate=sparse_gate)
-        if err is not None:
-            return None, err
+        if dag.agg is not None:
+            err = self._prepare_agg(
+                dag, dicts, col_bounds, prepared,
+                snap.epoch.num_rows + len(snap.overlay_handles),
+                sparse_gate=sparse_gate)
+            if err is not None:
+                return None, err
+        if dag.topn is not None:
+            err = self._prepare_topn(dag, col_bounds, prepared)
+            if err is not None:
+                return None, err
         return prepared, None
+
+    def _prepare_topn(self, dag, col_bounds, prepared) -> Optional[str]:
+        # the program gathers the projection outputs of the k winners
+        if dag.projections:
+            for x in dag.projections:
+                if x.ftype.is_string:
+                    continue
+                if not x.ftype.is_float and \
+                        not expr_device_safe(x, col_bounds):
+                    return "TopN expression too wide for int32 device"
+        items = dag.topn.items
+        if len(items) == 1:
+            e = items[0][0]
+            if e.ftype.is_string:
+                return "string TopN key is host-side"
+            # the sort key reads the projection's output schema: substitute
+            # so that the bounds analysis sees scan-column indices
+            key = _subst_proj_cols(e, dag.projections) \
+                if dag.projections else e
+            if not e.ftype.is_float:
+                if not expr_device_safe(key, col_bounds):
+                    return "TopN expression too wide for int32 device"
+                b = expr_bounds(key, col_bounds)
+                # the negated scores of ASC must fit too
+                if b is None or not fits_int32(b) or \
+                        not fits_int32((-b[1], -b[0])):
+                    return "TopN key too wide for int32 device"
+            return None
+        # multi-key: the bounded mixed-direction keys pack into ONE int32
+        # lexicographic composite (topnpack.py); ties resolve by row order
+        keys = [(_subst_proj_cols(e, dag.projections)
+                 if dag.projections else e, desc)
+                for e, desc in items]
+        specs, reason = TP.plan_pack(keys, col_bounds)
+        if specs is None:
+            return reason
+        TP.stage_rank_tables(specs, prepared, self.device)
+        prepared["__topn_pack__"] = specs
+        return None
 
     def _prepare_agg(self, dag, dicts, col_bounds, prepared,
                      n_rows: int, sparse_gate: bool = True
@@ -639,25 +717,176 @@ class CopClient:
 
         return kernel
 
+    # ---- row path (scan/selection/projection/limit) -------------------------
+    def _run_rows(self, dag, snap, prepared, tiles) -> list[Chunk]:
+        """The device evaluates the selection and returns ONLY a packed
+        bitmask, one small buffer per tile; the host projects the selected
+        rows (numpy over the epoch's host columns). A bare scan's rows are
+        the visible ones: no device program runs."""
+        host_cols, host_mask = self._host_view(dag, snap)
+        if dag.selection is None:
+            idx = np.nonzero(host_mask)[0]
+        else:
+            body = self._rowmask_body(dag, prepared)
+            packs = [body(cols, vis) for cols, vis, _ in tiles]
+            parts = [np.unpackbits(p.cpu().numpy())[:cnt].astype(bool)
+                     for p, (_, _, cnt) in zip(packs, tiles)]
+            idx = np.nonzero(np.concatenate(parts))[0]
+        if dag.limit is not None and len(idx) > dag.limit.n:
+            idx = idx[: dag.limit.n]
+        return self._host_rows(dag, snap, host_cols, idx)
+
+    def _rowmask_body(self, dag, prepared):
+        sel = dag.selection
+
+        def kernel(cols, row_mask):
+            cols = widen32(cols)
+            return packbits(selection_mask(sel.conditions, cols, prepared,
+                                           row_mask))
+
+        return kernel
+
+    def _host_rows(self, dag, snap, host_cols, idx) -> list[Chunk]:
+        """Project the selected rows on the host (numpy)."""
+        columns = []
+        k = len(idx)
+        if dag.projections is not None:
+            sub = [(d[idx], np.ones(k, bool) if v is None else v[idx])
+                   for d, v in host_cols]
+            ev = NumpyEval(sub, self._scan_dicts(dag, snap), k)
+            for pi, e in enumerate(dag.projections):
+                v, vl = ev.eval(e)
+                ft = dag.output_types[pi]
+                dictionary = None
+                if ft.is_string and isinstance(e, Col):
+                    dictionary = snap.dictionaries[dag.scan.col_offsets[e.idx]]
+                columns.append(Column(
+                    ft, np.asarray(v).astype(ft.np_dtype),
+                    None if vl.all() else np.asarray(vl), dictionary))
+        else:
+            for ci, off in enumerate(dag.scan.col_offsets):
+                data, vfull = host_cols[ci]
+                v = None if vfull is None else vfull[idx]
+                columns.append(Column(
+                    dag.output_types[ci], data[idx],
+                    None if v is None or v.all() else v,
+                    snap.dictionaries[off]))
+        if not columns:
+            return []
+        return [Chunk(columns)]
+
+    # ---- TopN path ----------------------------------------------------------
+    def _run_topn(self, dag, snap, prepared, tiles) -> list[Chunk]:
+        """Per-tile top-n candidates; the host Sort/Limit above merge the
+        tiles' chunks exactly."""
+        body = self._topn_body(dag, prepared)
+        outs = fetch([body(cols, vis) for cols, vis, _ in tiles])
+        chunks = (self._topn_decode(dag, snap, out) for out in outs)
+        return [c for c in chunks if c is not None]
+
+    def _out_exprs(self, dag) -> list[PlanExpr]:
+        if dag.projections is not None:
+            return dag.projections
+        return [Col(ci, ft) for ci, ft in enumerate(dag.output_types)]
+
+    def _topn_decode(self, dag, snap, out) -> Optional[Chunk]:
+        dicts = [snap.dictionaries[dag.scan.col_offsets[e.idx]]
+                 if ft.is_string and isinstance(e, Col) else None
+                 for e, ft in zip(self._out_exprs(dag), dag.output_types)]
+        columns = TP.top_columns(out, dag.output_types, dicts)
+        return Chunk(columns) if columns else None
+
+    def _topn_body(self, dag, prepared):
+        sel = dag.selection
+        expr, desc = dag.topn.items[0]
+        if dag.projections is not None:
+            # sort items were resolved against the projection's output
+            # schema; substitute so the key computes over projected values
+            expr = _subst_proj_cols(expr, dag.projections)
+        exprs = self._out_exprs(dag)
+        out_types = dag.output_types
+        pack = prepared.get("__topn_pack__")
+
+        def kernel(cols, row_mask):
+            cols = widen32(cols)
+            mask = row_mask
+            if sel is not None:
+                mask = selection_mask(sel.conditions, cols, prepared, mask)
+            if pack is not None:
+                score = TP.packed_score(pack, cols, prepared, mask, eval_expr)
+            else:
+                v, vl = eval_expr(expr, cols, prepared)
+                # dropped rows score strictly below NULL-key rows (DESC
+                # sorts NULLs last, but they still belong in the result)
+                if v.is_floating_point():
+                    null_score = float("inf") if not desc else \
+                        -torch.finfo(torch.float32).max
+                    score = torch.where(vl, v if desc else -v, null_score)
+                    score = torch.where(mask, score, float("-inf"))
+                else:
+                    v32 = v.to(torch.int32)
+                    null_score = _I32_MAX if not desc else _I32_MIN
+                    score = torch.where(vl, v32 if desc else -v32,
+                                        null_score)
+                    score = torch.where(mask, score, TP.I32_MIN)
+            outs = []
+            for e, ft in zip(exprs, out_types):
+                pv, pvl = eval_expr(e, cols, prepared)
+                outs.append((pv, pvl, ft.is_float))
+            return TP.top_rows(score, mask, dag.topn.n, outs)
+
+        return kernel
+
     def _empty_chunk(self, dag: CopDAG, snap: TableSnapshot) -> Chunk:
         columns = []
-        for g in dag.agg.group_by:
+        if dag.agg is not None:
+            for g in dag.agg.group_by:
+                dictionary = None
+                if isinstance(g, Col) and g.ftype.is_string:
+                    dictionary = snap.dictionaries[
+                        dag.scan.col_offsets[g.idx]]
+                columns.append(Column(
+                    g.ftype, np.empty(0, g.ftype.np_dtype), None, dictionary))
+            starts = agg_partial_starts(dag.agg.aggs, len(dag.agg.group_by))
+            for ai, d in enumerate(dag.agg.aggs):
+                for j in range(agg_partial_width(d)):
+                    vt = dag.output_types[starts[ai] + j]
+                    columns.append(Column(vt, np.empty(0, vt.np_dtype)))
+            return Chunk(columns)
+        for i, ft in enumerate(dag.output_types):
             dictionary = None
-            if isinstance(g, Col) and g.ftype.is_string:
-                dictionary = snap.dictionaries[dag.scan.col_offsets[g.idx]]
-            columns.append(Column(
-                g.ftype, np.empty(0, g.ftype.np_dtype), None, dictionary))
-        starts = agg_partial_starts(dag.agg.aggs, len(dag.agg.group_by))
-        for ai, d in enumerate(dag.agg.aggs):
-            for j in range(agg_partial_width(d)):
-                vt = dag.output_types[starts[ai] + j]
-                columns.append(Column(vt, np.empty(0, vt.np_dtype)))
+            if ft.is_string:
+                src = None
+                if dag.projections is not None:
+                    e = dag.projections[i]
+                    if isinstance(e, Col):
+                        src = dag.scan.col_offsets[e.idx]
+                else:
+                    src = dag.scan.col_offsets[i]
+                dictionary = snap.dictionaries[src] if src is not None \
+                    else None
+            columns.append(Column(ft, np.empty(0, ft.np_dtype), None,
+                                  dictionary))
         return Chunk(columns)
 
 
 def fetch(outs: list[dict]) -> list[dict]:
     """Device partials -> host numpy, one dict per tile."""
     return [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits(mask: torch.Tensor) -> torch.Tensor:
+    """bool[n] -> uint8[ceil(n / 8)], 8 rows a byte with the first in the
+    most significant bit (zero-padded), as `np.packbits` packs and
+    `np.unpackbits` reads."""
+    pad = -mask.shape[0] % 8
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
+    return (mask.view(-1, 8).to(torch.int32) * w).sum(dim=1).to(torch.uint8)
 
 
 def _merge_tile_outs(outs: list[dict], sched) -> dict:
@@ -889,6 +1118,16 @@ def _lex_runs_ordered(snap, offsets) -> bool:
                 return False
             tie = tie & (a == b)
     return True
+
+
+def _subst_proj_cols(e: PlanExpr, projections: list[PlanExpr]) -> PlanExpr:
+    """Rewrite Col refs (projection-output indices) to the projected exprs."""
+    if isinstance(e, Col):
+        return projections[e.idx]
+    if isinstance(e, Call):
+        return Call(e.op, [_subst_proj_cols(a, projections) for a in e.args],
+                    e.ftype, e.extra)
+    return e
 
 
 def _like_to_regex(pattern: str) -> str:

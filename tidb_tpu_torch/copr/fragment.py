@@ -31,13 +31,18 @@ Port of the single-device half of `tidb_tpu/copr/fragment.py`:
     stands for the join's probe key (o_orderkey -> l_orderkey). When every
     ORDER BY item of a TopN consumer resolves to a group key or an exact
     SUM/COUNT/AVG, `_maybe_fused_cut` sorts the candidates by the complete
-    ORDER BY on the device and ships k+1 of them ("fat" engine tag).
+    ORDER BY on the device and ships k+1 of them ("fat" engine tag);
+* semi/anti membership edges (EXISTS, IN, NOT EXISTS, NULL-aware NOT IN)
+  gate the rows of every mode after the joins: the host builds a
+  bool[span] bitmap of the build side's filter-passing keys (build filters
+  through the host `NumpyEval`, as in the reference), the device caches it
+  per epoch, and the program looks each probe key up in it. The engine
+  tag gains "+semi".
 
 Gates decide exactly as the reference's: where the reference raises its
 `_Fallback(reason)` and serves the fragment on the host, this executor
-raises `NotInSlice(reason)`. Paths of later slices raise `NotInSlice` too:
-semi-joins ("semi-joins") and overlay rows on the probe table ("overlay
-rows").
+raises `NotInSlice(reason)`. Overlay rows on the probe table, a path of a
+later slice, raise `NotInSlice("overlay rows")`.
 """
 
 from __future__ import annotations
@@ -72,9 +77,11 @@ from .client import (
     agg_partials,
     decode_agg_partials,
     fetch,
+    packbits,
     widen32,
 )
 from .eval import CompileError, eval_expr, selection_mask
+from .npeval import NumpyEval, _truthy
 
 # widest admissible build-key span: a perm table of 64M int32 = 256 MB
 FRAG_SPAN_CAP = 1 << 26
@@ -156,8 +163,10 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
             raise _Fallback("key-span")
         spans.append((lo, span))
 
-    # semi/anti membership edges: the reference's gates, then NotInSlice
-    # below (the membership bitmaps are a later slice)
+    # semi/anti membership edges: the probe key must compute on the device;
+    # the build side only needs a bounded integer key span (its bitmap is
+    # built on the host, so build filters never face device gates)
+    semi_spans = []
     for sm in frag.semis:
         snap = snaps[sm.table.table.id]
         if len(snap.overlay_handles) > 0:
@@ -170,8 +179,11 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
         pb = expr_bounds(sm.probe_key, comb_bounds)
         if kb is None or pb is None or not fits_int32(pb):
             raise _Fallback("key-width")
-        if kb[1] - kb[0] + 1 > FRAG_SPAN_CAP:
+        lo, span = kb[0], kb[1] - kb[0] + 1
+        if span > FRAG_SPAN_CAP:
             raise _Fallback("key-span")
+        semi_spans.append((lo, span))
+    prepared["__semi_spans__"] = semi_spans
 
     mode = "agg" if frag.agg is not None else "rows"
     if mode == "rows" and frag.topn is not None:
@@ -236,9 +248,7 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     if mode == "hc" and frag.hc is not None and frag.hc.items:
         _elect_fused_cut(frag, prepared, comb_dicts, n_rows, cop.device)
 
-    # ---- paths of later slices ----
-    if frag.semis:
-        raise NotInSlice("semi-joins")
+    # ---- a path of a later slice ----
     if len(psnap.overlay_handles) > 0:
         raise NotInSlice("overlay rows")
 
@@ -252,6 +262,15 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
         perm = cop._place_build_array(
             _perm_array(cop, snap, key_off, lo, span))
         builds.append({"cols": cols, "vis": vis, "perm": perm})
+    # membership bitmaps ride behind the join builds; their host-side
+    # (has_null, empty) facts decide the NOT IN gates' form
+    semi_flags = []
+    for sm, (lo, span) in zip(frag.semis, semi_spans):
+        entry = _stage_semi_bitmap(cop, sm, snaps[sm.table.table.id], lo,
+                                   span)
+        semi_flags.append((entry["has_null"], entry["empty"]))
+        builds.append({"bm": entry["bm"]})
+    prepared["__semi_flags__"] = semi_flags
 
     chunks: list[Chunk] = []
     if psnap.epoch.num_rows > 0:
@@ -261,6 +280,8 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
         chunks = [_empty_chunk(frag, comb_dicts)]
     emode = "fat" if prepared.get("__hc_fused__") else (
         "group" if prepared.get("__hc_all__") else mode)
+    if frag.semis:
+        emode = f"{emode}+semi"
     return CopResult(chunks, is_partial_agg=frag.agg is not None,
                      engine=cop._frag_engine(emode))
 
@@ -364,6 +385,62 @@ def _perm_array(cop, snap, key_off: int, lo: int, span: int
     return dev
 
 
+def _semi_build_facts(bcols, dicts, t, key_local: int, keep0: np.ndarray):
+    """NULL-aware membership facts of a semi/anti BUILD side, over its
+    (data, valid) column pairs and the initial row mask `keep0` (the
+    visibility): -> (keep, has_null, key_data, ok) where `keep` marks the
+    filter-passing rows (the SET, NULL-keyed members included), `has_null`
+    whether the set holds a NULL key, and `ok` the valid-key member rows.
+    The build filters run through the host `NumpyEval`, as in the
+    reference: never through a device gate or the device's 32-bit
+    evaluation, which could change the set."""
+    n = len(keep0)
+    keep = keep0.copy()
+    if t.filters and n:
+        ev = NumpyEval([(d, np.ones(n, bool) if v is None else v)
+                        for d, v in bcols], dicts, n)
+        for c in t.filters:
+            fv, fvl = ev.eval(c)
+            keep &= _truthy(np.asarray(fv)) & fvl
+    kd, kv = bcols[key_local]
+    has_null = bool(np.any(keep & ~kv)) if kv is not None else False
+    ok = keep if kv is None else (keep & kv)
+    return keep, has_null, kd, ok
+
+
+def _stage_semi_bitmap(cop, sm, snap, lo: int, span: int) -> dict:
+    """Device membership bitmap of a semi/anti edge: bool[span], entry
+    [key - lo] set iff some visible, filter-passing build row carries that
+    key. Built on the host and cached on the device per (epoch, key column,
+    span, visibility, filter set); the epoch id leads the key so that
+    `_evict_stale` frees it with the epoch. The NULL facts of the
+    NULL-aware NOT IN ride along as host constants."""
+    t = sm.table
+    key_off = t.col_offsets[sm.build_key_local]
+    ck = (snap.epoch.epoch_id, "semibm", key_off, lo, span,
+          snap.visible_digest, repr(t.filters))
+    with cop._lock:
+        hit = cop._col_cache.get(ck)
+        cacheable = cop._live_epochs.get(t.table.id) == snap.epoch.epoch_id
+    if hit is not None:
+        return hit
+    bcols = [(snap.epoch.columns[off], snap.epoch.valids[off])
+             for off in t.col_offsets]
+    keep, has_null, kd, ok = _semi_build_facts(
+        bcols, [snap.dictionaries[off] for off in t.col_offsets],
+        t, sm.build_key_local, snap.base_visible)
+    bm = np.zeros(span, dtype=bool)
+    idx = np.nonzero(ok)[0]
+    if len(idx):
+        bm[kd[idx].astype(np.int64) - lo] = True
+    entry = {"bm": cop._place_build_array(cop._place(bm)),
+             "has_null": has_null, "empty": not bool(keep.any())}
+    if cacheable:
+        with cop._lock:
+            cop._col_cache[ck] = entry
+    return entry
+
+
 def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
                     ) -> list[Chunk]:
     probe = frag.tables[0]
@@ -377,8 +454,10 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
                                mode)
     pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap)
     # the first query over an epoch pair pays the gathers; later ones
-    # read the cached aligned build columns
-    kern_builds = _stage_aligned(cop, frag, snaps, spans, builds, pcols)
+    # read the cached aligned build columns (membership bitmaps follow)
+    nj = len(frag.joins)
+    kern_builds = _stage_aligned(cop, frag, snaps, spans, builds[:nj],
+                                 pcols) + builds[nj:]
     aux = None
     if mode == "hc" and prepared.get("__rank_meta__") is not None:
         aux = _stage_rank_aux(cop, psnap, prepared)
@@ -411,9 +490,10 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
     tiles = cop._stage_tiles(_facade_dag(probe), psnap)
     kernel = _build_frag_kernel(frag, prepared, spans, mode)
     devs = []
+    nj = len(frag.joins)
     for ti, (cols, vis, _) in enumerate(tiles):
-        kb = _stage_aligned(cop, frag, snaps, spans, builds, cols,
-                            tag=("tile", ti))
+        kb = _stage_aligned(cop, frag, snaps, spans, builds[:nj], cols,
+                            tag=("tile", ti)) + builds[nj:]
         devs.append(kernel(cols, vis, kb))
     outs = fetch(devs)
     if mode == "agg":
@@ -514,33 +594,15 @@ def _decode_frag_topn(frag, snaps, out) -> Optional[Chunk]:
     """Fetched top-n candidate rows -> one tree-order chunk; the host
     Sort/Limit above merge the candidate chunks of the tiles exactly.
     String columns come back as dictionary codes."""
-    ints = out["ints"]
-    flts = out.get("flts")
-    picked = ints[1].astype(bool)
-    if not picked.any():
+    if not out["ints"][1].any():
         return None
     comb_dicts = []
     for t in frag.tables:
         snap = snaps[t.table.id]
         comb_dicts.extend(snap.dictionaries[off] for off in t.col_offsets)
-    columns = []
-    ii = fi = 0
-    for pos, comb in enumerate(frag.out_map):
-        ft = frag.output_types[pos]
-        if ft.is_float:
-            data = flts[fi][picked]
-            valid = flts[fi + 1][picked] > 0
-            fi += 2
-        else:
-            data = ints[2 + ii][picked]
-            valid = ints[2 + ii + 1][picked].astype(bool)
-            ii += 2
-        columns.append(Column(
-            ft, data.astype(ft.np_dtype),
-            None if valid.all() else valid, comb_dicts[comb]))
-    if not columns:
-        return None
-    return Chunk(columns)
+    columns = TP.top_columns(out, frag.output_types,
+                             [comb_dicts[comb] for comb in frag.out_map])
+    return Chunk(columns) if columns else None
 
 
 def _stage_rank_aux(cop, snap, prepared):
@@ -744,6 +806,8 @@ def _build_frag_kernel(frag, prepared, spans, mode):
         segments = 1
         for c in cards:
             segments *= max(c, 1)
+    semi_spans = prepared.get("__semi_spans__", ())
+    semi_flags = prepared.get("__semi_flags__", ())
 
     def kernel(pcols, pvis, builds, aux=None):
         cols = widen32(list(pcols))
@@ -783,6 +847,30 @@ def _build_frag_kernel(frag, prepared, spans, mode):
                 cols.append((torch.index_select(d, 0, gidx),
                              torch.index_select(v, 0, gidx) & found))
             mask = mask & found
+        # semi/anti membership gates: bitmap lookups over the combined
+        # columns (after every gather, so keys from build tables work),
+        # NULL-aware for the NOT IN (ANTI_NULL) form
+        for si, sm in enumerate(frag.semis):
+            has_null, empty = semi_flags[si]
+            if sm.kind == "ANTI_NULL" and empty:
+                continue  # NOT IN (empty set) keeps every row
+            if sm.kind == "ANTI_NULL" and has_null:
+                # a NULL in the subquery's set: no row qualifies
+                mask = torch.zeros_like(mask)
+                continue
+            lo_s, span_s = semi_spans[si]
+            kv_s, kvl_s = eval_expr(sm.probe_key, cols, prepared)
+            ks = kv_s.to(torch.int32) - lo_s
+            inr = (ks >= 0) & (ks < span_s)
+            bm = builds[len(frag.joins) + si]["bm"]
+            hit = torch.index_select(bm, 0, torch.clamp(ks, 0, span_s - 1)) \
+                & inr & kvl_s
+            if sm.kind == "SEMI":
+                mask = mask & hit
+            elif sm.kind == "ANTI":
+                mask = mask & ~hit  # a NULL probe key never matches: kept
+            else:  # ANTI_NULL over a NULL-free set: NULL probe key filtered
+                mask = mask & kvl_s & ~hit
         if frag.selection:
             mask = selection_mask(frag.selection, cols, prepared, mask)
         if mode == "agg":
@@ -799,42 +887,12 @@ def _build_frag_kernel(frag, prepared, spans, mode):
 def _topn_rows(frag, prepared, cols, mask):
     """Fused multi-key TopN: ONE int32 composite ranks the joined rows and
     the n winners' output columns gather on the device, so the candidate
-    rows are the only bytes fetched. -> {"ints": int32[2 + 2 * n_int, k]
-    (row, picked, then (data, valid) per integer column), "flts":
-    f32[2 * n_float, k]}."""
-    comp = TP.composite_score(prepared["__topn_pack__"], cols, prepared,
-                              eval_expr)
-    score = torch.where(mask, comp, TP.I32_MIN)
-    k = min(frag.topn.n, score.shape[0])
-    idx = TP.topk_desc(score, k)
-    int_rows = [idx.to(torch.int32), mask[idx].to(torch.int32)]
-    flt_rows = []
-    for pos, comb in enumerate(frag.out_map):
-        d, v = cols[comb]
-        pvk = d[idx]
-        pvlk = (v & mask)[idx]
-        if frag.output_types[pos].is_float:
-            flt_rows += [pvk.to(torch.float32), pvlk.to(torch.float32)]
-        else:
-            int_rows += [pvk.to(torch.int32), pvlk.to(torch.int32)]
-    res = {"ints": torch.stack(int_rows)}
-    if flt_rows:
-        res["flts"] = torch.stack(flt_rows)
-    return res
-
-
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
-
-def packbits(mask: torch.Tensor) -> torch.Tensor:
-    """bool[n] -> uint8[ceil(n / 8)], 8 rows a byte with the first in the
-    most significant bit (zero-padded), as `np.packbits` packs and
-    `np.unpackbits` reads."""
-    pad = -mask.shape[0] % 8
-    if pad:
-        mask = torch.cat([mask, mask.new_zeros(pad)])
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
-    return (mask.view(-1, 8).to(torch.int32) * w).sum(dim=1).to(torch.uint8)
+    rows are the only bytes fetched (topnpack.top_rows)."""
+    score = TP.packed_score(prepared["__topn_pack__"], cols, prepared, mask,
+                            eval_expr)
+    outs = [(*cols[comb], frag.output_types[pos].is_float)
+            for pos, comb in enumerate(frag.out_map)]
+    return TP.top_rows(score, mask, frag.topn.n, outs)
 
 
 def _hc_rank_body(frag, prepared, cols, mask, aux):

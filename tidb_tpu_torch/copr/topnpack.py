@@ -34,6 +34,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..chunk.column import Column
 from ..plan.expr import Col
 from .bounds import expr_bounds, expr_device_safe
 
@@ -138,6 +139,60 @@ def composite_score(specs, cols, prepared, eval_fn) -> torch.Tensor:
         comp = code if comp is None else comp * s["card"] + code
     assert comp is not None
     return comp
+
+
+def packed_score(specs, cols, prepared, mask, eval_fn) -> torch.Tensor:
+    """The composite of `composite_score`, with the rows the mask drops at
+    the int32 floor (every packed score is >= 0)."""
+    return torch.where(mask, composite_score(specs, cols, prepared, eval_fn),
+                       I32_MIN)
+
+
+def top_rows(score, mask, n: int, outs) -> dict:
+    """One tile's n best rows in order (`topk_desc`), their output columns
+    gathered on the device so that the k rows are the only bytes fetched.
+    Serves the single-table TopN (client.py) and the fragment's "topn"
+    mode alike. outs: [(data, valid, is_float)] per output column.
+    -> {"ints": int32[2 + 2 * n_int, k] (row, picked, then (data, valid)
+    per integer column), "flts": f32[2 * n_float, k]}."""
+    k = min(n, score.shape[0])
+    idx = topk_desc(score, k)
+    picked = mask[idx]
+    int_rows = [idx.to(torch.int32), picked.to(torch.int32)]
+    flt_rows = []
+    for d, v, is_float in outs:
+        pvk = d[idx]
+        pvlk = v[idx] & picked
+        if is_float:
+            flt_rows += [pvk.to(torch.float32), pvlk.to(torch.float32)]
+        else:
+            int_rows += [pvk.to(torch.int32), pvlk.to(torch.int32)]
+    res = {"ints": torch.stack(int_rows)}
+    if flt_rows:
+        res["flts"] = torch.stack(flt_rows)
+    return res
+
+
+def top_columns(out: dict, types, dicts) -> list:
+    """Fetched `top_rows` output -> the picked rows' result columns, one
+    per output type (floats as the f32 values the device shipped; string
+    columns as dictionary codes with their dictionary)."""
+    ints, flts = out["ints"], out.get("flts")
+    picked = ints[1].astype(bool)
+    columns = []
+    ii = fi = 0
+    for ft, dictionary in zip(types, dicts):
+        if ft.is_float:
+            data = flts[fi][picked]
+            valid = flts[fi + 1][picked] > 0
+            fi += 2
+        else:
+            data = ints[2 + ii][picked]
+            valid = ints[2 + ii + 1][picked].astype(bool)
+            ii += 2
+        columns.append(Column(ft, data.astype(ft.np_dtype),
+                              None if valid.all() else valid, dictionary))
+    return columns
 
 
 def topk_desc(score: torch.Tensor, k: int) -> torch.Tensor:
