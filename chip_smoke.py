@@ -20,9 +20,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel, the plain version and two PyTorch library calls computing the
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
-4. the main path through the port's entry points on the card, in four
+4. the main path through the port's entry points on the card, in five
    parts, each with the launch counters set to 0 just before it and read
-   just after (every kernel must have launched in each):
+   just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
       Q1's sum_charge to its host path) through `CopClient.execute`, and
@@ -52,12 +52,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       scan, `row_proj` (a projection the host evaluates), `scan_topn` and
       `scan_topn3` (15 per-tile chunks each) through `CopClient.execute`,
       all `device`; then the peak device memory.
+   e. the coprocessor's remaining one-device paths, through the same
+      client (the default, `cuda`), at SF10 unless said otherwise:
+      e1. overlay rows: lineitem and orders snapshots with 8,192 unfolded
+          deltas each (the reference store's compaction threshold: 4,096
+          updates, 2,048 deletes, 2,048 inserts; `--seed`), Q6 and
+          `scan_topn` through `CopClient.execute` (`device`, a base and an
+          overlay batch), Q12 with the overlay on its probe (`device[agg]`)
+          and on its build (`host(fragment:build-overlay)`);
+      e2. the host interpreter where the reference's gates send it at this
+          scale: Q1 (`host(sum magnitude exceeds int64 accumulator)`) and
+          Q18-inner (`host(fragment:group-overflow)`: it first takes the
+          rank path, so it must launch streamseg, then its ~150k passing
+          groups overflow the 65,536-group buffer; the host answers every
+          order's group);
+      e3. grouped approx_count_distinct (`device`; the register words equal
+          the host twin's), then `device_column_stats` over every lineitem
+          column (count, min and max exact; registers and NDV equal to the
+          host twin's);
+      e4. index-ranged scans of orders with indexes on o_custkey and
+          o_orderdate (`ranged`): 1,000 seeded customer points and one
+          month, over the plain and the overlay snapshot;
+      e5. Q7's fragment at SF1 (`device[agg]`): the einsum strategy over
+          5,408 dense slots, which builds no one-hot; its strategy, slots
+          and the part's peak device memory.
+      Part e launches no hand-written kernel except where a request takes
+      the rank path (Q18-inner); its launch count is printed, and the
+      check that every kernel launched stays on parts a-d.
    Each result is checked exactly against its numpy oracle (row results
    column by column, in order) with the reference's engine tag; then the
    first (cold) run and the p50 wall time of 5 warm runs, each ending in
    torch.cuda.synchronize(), and the device-busy share of one more warm
    run under torch.profiler (traced kernel and copy time over its wall
-   time; in parts c and d also the 8 kernels that took the most of it);
+   time; in parts c and d also the 8 kernels that took the most of it).
+   A host-tier request (`host(...)`, `ranged`) takes 3 warm runs, the
+   third of them the profiled one;
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -67,12 +96,14 @@ Data comes from the port's seeded TPC-H generator (`--seed`).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -82,7 +113,9 @@ from torch.profiler import ProfilerActivity, profile
 from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.copr import _kernels
+from tidb_tpu_torch.copr import analyze as AN
 from tidb_tpu_torch.copr import streamseg as SS
+from tidb_tpu_torch.copr import sumexact as SE
 from tidb_tpu_torch.copr import topnpack as TP
 from tidb_tpu_torch.copr.client import CopClient, _bucket
 from tidb_tpu_torch.copr.fragment import execute_fragment
@@ -266,10 +299,11 @@ def _same_columns(got: list, want: list) -> bool:
         all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
-def _device_busy(run, top: int = 0) -> str:
+def _device_busy(run, top: int = 0) -> tuple[str, float]:
     """One more warm run under torch.profiler: the summed time of the CUDA
     kernels and copies it traced against the run's wall time, and with
-    `top` the `top` kernels that took the most of it (name, launches, ms)."""
+    `top` the `top` kernels that took the most of it (name, launches, ms).
+    -> (that text, the profiled run's wall ms)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -283,21 +317,32 @@ def _device_busy(run, top: int = 0) -> str:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     if busy_ms == 0:
-        return "device_busy=not measured (no device event traced)"
+        return (f"device_busy=not measured (no device event traced) in "
+                f"profiled_wall_ms={wall_ms:.2f}", wall_ms)
     out = (f"device_busy_ms={busy_ms:.2f} of profiled_wall_ms={wall_ms:.2f} "
            f"({busy_ms / wall_ms:.1%} busy)")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         out += f"\n      {us / 1e3:9.2f} ms in {n:4d} x {name[:100]}"
-    return out
+    return out, wall_ms
 
 
-def _drive(label: str, queries: list, top: int = 0) -> dict:
+def _host_tier(engine: str) -> bool:
+    """Requests the reference serves on the host by design: its host
+    interpreter (`host(<reason>)`) and index-ranged scans (`ranged`)."""
+    return engine.startswith("host(") or engine == "ranged"
+
+
+def _drive(label: str, queries: list, top: int = 0,
+           every_kernel: bool = True) -> dict:
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
     p50 of 5 warm runs and one profiled run (with its `top` costliest CUDA
-    kernels). queries: [(name, scale, tag, rows in, run, check, kernels
-    this query must launch itself)]. -> the launch counts."""
+    kernels). A host-tier request takes 3 warm runs, the third of them
+    profiled (a run of seconds of numpy, which the profiler does not
+    trace). queries: [(name, scale, tag, rows in, run, check, kernels this
+    query must launch itself)]. `every_kernel`: each kernel must launch
+    in this part. -> the launch counts."""
     _kernels.reset_launches()
     firsts, results = [], []
     for name, sf, tag, n_in, run, check, must in queries:
@@ -316,24 +361,29 @@ def _drive(label: str, queries: list, top: int = 0) -> dict:
         results.append(r)
     launches = dict(_kernels.LAUNCHES)
     for k, n in launches.items():
-        if n == 0:
+        if n == 0 and every_kernel:
             raise SystemExit(f"kernel {k} was not launched on the {label}")
     print(f"  launches on the {label}: {launches}")
     for (name, sf, _, n_in, run, _, _), first, r in zip(queries, firsts,
                                                         results):
+        host = _host_tier(r.engine)
         times = []
-        for _ in range(5):
+        for _ in range(2 if host else 5):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        busy, wall = _device_busy(run, top)
+        if host:
+            times.append(wall / 1e3)
         nrows = sum(c.num_rows for c in r.chunks)
         print(f"  {name} {sf}: engine={r.engine} rows_in={n_in} "
               f"result_rows={nrows} exact=True first_ms={first*1e3:.1f} "
               f"p50_ms={statistics.median(times)*1e3:.2f} "
               f"runs_ms={[round(t * 1e3, 2) for t in times]}")
-        print(f"    {_device_busy(run, top)}")
-        if r.is_partial_agg and nrows <= 8:
+        print(f"    {busy}")
+        if r.is_partial_agg and nrows <= 8 and \
+                len(r.chunks[0].columns) <= 20:
             print(f"    rows: {TR.partial_rows(r.chunks)}")
     return launches
 
@@ -466,6 +516,233 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
     return launches
 
 
+def _q18_groups_check(li):
+    """Q18-inner's host answer: every order's group (the HAVING runs above
+    the coprocessor), as (l_orderkey, sum(l_quantity), rows) columns;
+    lineitem is stored in l_orderkey runs."""
+    def check(r) -> bool:
+        if len(r.chunks) != 1:
+            return False
+        key, val, cnt = (c.data for c in r.chunks[0].columns)
+        order = np.argsort(key, kind="stable")
+        keys, start, counts = np.unique(li["l_orderkey"], return_index=True,
+                                        return_counts=True)
+        sums = np.add.reduceat(li["l_quantity"], start)
+        return all(np.array_equal(a[order], b) for a, b in
+                   ((key, keys), (val, sums), (cnt, counts)))
+    return check
+
+
+def _distinct(col: np.ndarray) -> np.ndarray:
+    """The distinct values of an integer column (one pass over a table of
+    its value range)."""
+    lo = int(col.min())
+    present = np.zeros(int(col.max()) - lo + 1, dtype=bool)
+    present[col - lo] = True
+    return lo + np.nonzero(present)[0]
+
+
+def _analyze(cop, snap, label: str) -> None:
+    """`device_column_stats` over every column of `snap`: the cold run,
+    the p50 of 5 warm runs and the device-busy share; count, min and max
+    exact against numpy, and each column's registers (from the same
+    per-tile reductions over the cached tiles) and NDV equal to the host
+    twin's. The twin reads each column's distinct values: a register is a
+    max over values, so repeats cannot change it."""
+    from tidb_tpu_torch.copr.client import widen32
+    from tidb_tpu_torch.plan.dag import CopDAG, DAGScan
+    offsets = list(range(snap.table.num_columns))
+
+    def run():
+        return AN.device_column_stats(cop, snap, offsets)
+
+    t0 = time.perf_counter()
+    stats = run()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    tiles = cop._stage_tiles(CopDAG(scan=DAGScan(snap.table.id, offsets)),
+                             snap)
+    n = snap.epoch.num_rows
+    for off in offsets:
+        col = snap.epoch.columns[off]
+        regs = None
+        for cols, vis, _ in tiles:
+            (d, v), = widen32([cols[off]])
+            r = AN._column_partials(d, v & vis)["regs"].cpu().numpy()
+            regs = r if regs is None else np.maximum(regs, r)
+        vals = _distinct(col)
+        want = AN.hll_group_registers_host(
+            AN.hll_hash_src_int(vals), np.ones(len(vals), bool),
+            np.zeros(len(vals), np.int64), 1)[0]
+        cnt, mn, mx, ndv = stats[off]
+        ok = (cnt == n and int(mn) == int(col.min())
+              and int(mx) == int(col.max())
+              and np.array_equal(regs, want)
+              and ndv == AN.hll_ndv(want, float(n)))
+        if not ok:
+            raise SystemExit(f"ANALYZE column {off}: {stats[off]} differs "
+                             f"from the host twin")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    busy, _ = _device_busy(run)
+    print(f"  ANALYZE {label}: {len(stats)} columns exact (count, min, max, "
+          f"256 registers, NDV) first_ms={first*1e3:.1f} "
+          f"p50_ms={statistics.median(times)*1e3:.2f} "
+          f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+    print(f"    {busy}")
+    print(f"    ndv: {[stats[off][3] for off in offsets]}")
+
+
+def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
+    """Phase 4 part e through `cop` (see the module docstring): overlay
+    rows, the host tier, HLL and ANALYZE, index-ranged scans, and Q7's
+    einsum. -> the part's kernel launches."""
+    d10, t10, s10 = at_sf
+    d1, t1, s1 = at_q18_sf
+    li10, o10 = d10["lineitem"], d10["orders"]
+    lt, ot = t10["lineitem"], t10["orders"]
+    sf10, sf1 = f"SF{args.sf:g}", f"SF{args.q18_sf:g}"
+    n_li = len(li10["l_orderkey"])
+    t0 = time.perf_counter()
+    l_ov, l_vis, l_rows = TR.overlay_snapshot(s10[lt.id], li10, args.seed)
+    o_ov, _, o_rows = TR.overlay_snapshot(s10[ot.id], o10, args.seed + 1)
+    print(f"  overlay snapshots of lineitem and orders: "
+          f"{len(l_ov.overlay_handles)} overlay rows of 8192 deltas each "
+          f"({time.perf_counter() - t0:.1f}s)")
+    cols6 = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+             "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode")
+
+    def li_base():
+        """The visible base rows of the lineitem overlay snapshot."""
+        return TR.rows_of({c: li10[c] for c in cols6}, l_vis)
+
+    def agg_check(oracle):
+        return lambda r: TR.partial_rows(r.chunks) == oracle()
+
+    def rows_check(oracle):
+        return lambda r: _same_columns(TR.row_columns(r.chunks), oracle())
+
+    n_tiles = -(-n_li // cop.TILE_ROWS)
+
+    def topn_check(r):
+        base = TR.scan_topn_oracle(d10, cop.TILE_ROWS, visible=l_vis)
+        ov = TR.scan_topn_oracle({"lineitem": l_rows},
+                                 len(l_ov.overlay_handles))
+        return len(r.chunks) == n_tiles + 1 and _same_columns(
+            TR.row_columns(r.chunks),
+            [np.concatenate([a, b]) for a, b in zip(base, ov)])
+
+    q12 = TR.q12_frag(t10)
+    topn_dag = TR.scan_topn_dag(t10)
+    overlay = [
+        ("Q6 overlay", sf10, "device", n_li,
+         lambda: cop.execute(TR.q6_dag(lt), l_ov),
+         agg_check(lambda: sorted(TR.q6_oracle(li_base())
+                                  + TR.q6_oracle(l_rows))), ()),
+        ("scan_topn overlay", sf10, "device", n_li,
+         lambda: cop.execute(topn_dag, l_ov), topn_check, ()),
+        ("Q12 probe overlay", sf10, "device[agg]", n_li,
+         lambda: execute_fragment(cop, q12, {lt.id: l_ov,
+                                             ot.id: s10[ot.id]}),
+         agg_check(lambda: sorted(
+             TR.q12_oracle({"lineitem": li_base(), "orders": o10})
+             + TR.q12_oracle({"lineitem": l_rows, "orders": o10}))), ()),
+        ("Q12 build overlay", sf10, "host(fragment:build-overlay)", n_li,
+         lambda: execute_fragment(cop, q12, {lt.id: s10[lt.id],
+                                             ot.id: o_ov}),
+         agg_check(lambda: TR.q12_oracle({
+             "lineitem": li10,
+             "orders": TR.visible_rows(o_ov, o10, o_rows)[0]})), ()),
+    ]
+    host = [
+        ("Q1", sf10, "host(sum magnitude exceeds int64 accumulator)", n_li,
+         lambda: cop.execute(TR.q1_dag(lt), s10[lt.id]),
+         agg_check(lambda: TR.q1_oracle(li10)), ()),
+        ("Q18-inner", sf10, "host(fragment:group-overflow)", n_li,
+         lambda: execute_fragment(cop, TR.q18_inner_frag(lt),
+                                  {lt.id: s10[lt.id]}),
+         _q18_groups_check(li10), ("streamseg.rank_sums",)),
+    ]
+    hll = [("approx_count_distinct", sf10, "device", n_li,
+            lambda: cop.execute(TR.hll_dag(lt), s10[lt.id]),
+            agg_check(lambda: TR.hll_oracle(li10)), ())]
+    ot_idx = TR.orders_indexed_table(ot.id)
+    rng = np.random.default_rng(args.seed)
+    custs = rng.choice(np.unique(o10["o_custkey"]), 1000, replace=False)
+    ranged = []
+    for label, snap, ov in (("", s10[ot.id], None),
+                            (" overlay", o_ov, o_rows)):
+        snap = dataclasses.replace(snap, table=ot_idx)
+
+        def seen(snap=snap, ov=ov):
+            return TR.visible_rows(snap, o10, ov)
+
+        points = TR.ranged_points_dag({"orders": ot_idx}, custs)
+        month = TR.ranged_interval_dag({"orders": ot_idx})
+        ranged += [
+            (f"ranged 1000 points{label}", sf10, "ranged",
+             snap.num_visible_rows,
+             lambda snap=snap, dag=points: cop.execute(dag, snap),
+             rows_check(lambda seen=seen: TR.ranged_points_oracle(
+                 *seen(), custs)), ()),
+            (f"ranged one month{label}", sf10, "ranged",
+             snap.num_visible_rows,
+             lambda snap=snap, dag=month: cop.execute(dag, snap),
+             rows_check(lambda seen=seen: TR.ranged_interval_oracle(
+                 *seen())), ())]
+    q7 = TR.q7_frag(t1)
+    q7_snaps = {t.table.id: s1[t.table.id] for t in q7.tables}
+    einsum = [("Q7", sf1, "device[agg]",
+               q7_snaps[q7.tables[0].table.id].epoch.num_rows,
+               lambda: execute_fragment(cop, q7, q7_snaps),
+               agg_check(lambda: TR.q7_oracle(d1)), ())]
+
+    launches = {k: 0 for k in _kernels.LAUNCHES}
+    for title, label, queries in (
+            ("e1. overlay rows", "overlay part", overlay),
+            ("e2. the host interpreter", "host part", host),
+            ("e3. approx_count_distinct and ANALYZE", "HLL part", hll),
+            ("e4. index-ranged scans", "ranged part", ranged)):
+        torch.cuda.reset_peak_memory_stats()
+        print(f"  -- {title}")
+        for k, n in _drive(label, queries, every_kernel=False).items():
+            launches[k] += n
+        if queries is hll:
+            _analyze(cop, s10[lt.id], f"lineitem {sf10}")
+        print(f"  peak device memory during {label}: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+              f"({torch.cuda.memory_allocated() / 1e9:.3f} GB held after)")
+    print("  -- e5. the einsum strategy at its real size")
+    seen_calls = []
+    plain = SE.seg_sum_partials
+
+    def recorded(v, seg, segments, n_limbs, strategy="loop"):
+        seen_calls.append((segments, strategy, v.shape[0]))
+        return plain(v, seg, segments, n_limbs, strategy)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(SE, "seg_sum_partials", recorded):
+        for k, n in _drive("einsum part", einsum,
+                           every_kernel=False).items():
+            launches[k] += n
+    strategies = sorted(set((seg, strat) for seg, strat, _ in seen_calls))
+    if strategies != [(5408, "einsum")]:
+        raise SystemExit(f"Q7: strategies {strategies}, want einsum over "
+                         f"5408 slots")
+    print(f"  Q7 strategy: einsum over 5408 dense slots, tiles of "
+          f"{max(rows for _, _, rows in seen_calls)} rows (one-hot it no "
+          f"longer builds: {max(rows for _, _, rows in seen_calls) * 5408 * 4 / 1e9:.1f} GB a tile); "
+          f"peak device memory during the part: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print(f"  launches on part e: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -510,13 +787,16 @@ def main(argv=None) -> int:
         "lineitem", "orders", "customer", "supplier", "nation", "region",
         "part", "partsupp"), 1)
     d1, t1, s1 = _load(args.q18_sf, args.seed,
-                       ("lineitem", "orders", "customer"), 11)
+                       ("lineitem", "orders", "customer", "supplier",
+                        "nation"), 11)
     li10, li1 = d10["lineitem"], d1["lineitem"]
     shapes = [_shape_phase(li10, f"SF{args.sf:g}"),
               _shape_phase(li1, f"SF{args.q18_sf:g}")]
 
     print("== 4. main path")
-    launches = _main_path(args, CopClient(), (d10, t10, s10), (d1, t1, s1))
+    cop = CopClient()
+    launches = _main_path(args, cop, (d10, t10, s10), (d1, t1, s1))
+    _part_e(args, cop, (d10, t10, s10), (d1, t1, s1))
 
     print("== 5. result")
     # top-level numbers at the first (SF10) shape; every shape's in

@@ -11,8 +11,8 @@ Tolerance: exact, engine tag included. Aggregations are compared as
 sorted partial-layout rows (the order of groups is not part of the
 contract); row fragments column by column in the order returned (probe-row
 order, tile by tile). Where the reference serves a fragment on its host
-interpreter, or on a device path of a later slice, the port must raise
-`NotInSlice` with the reference's reason or the slice's own.
+interpreter, so does the port: the same rows, tagged
+`host(fragment:<reason>)` with the reference's reason.
 """
 
 import dataclasses
@@ -28,7 +28,6 @@ from tidb_tpu.copr import client as JC
 from tidb_tpu.copr import fragment as JF
 from tidb_tpu.plan import expr as JE
 from tidb_tpu.session import Session
-from tidb_tpu_torch import NotInSlice
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.convert import (request_from_reference,
                                     snapshot_from_reference)
@@ -158,18 +157,19 @@ def test_semi_having_takes_the_rank_path(session):
 
 
 def test_join_fragment_not_in_slice():
-    # uncommitted probe rows: the reference runs a second (overlay) batch
-    # on its device path; that path is a later slice of the port
+    # uncommitted probe rows: a second (overlay) batch on the device path,
+    # in the reference and in the port; the row passes Q12's filters
     s = Session()
     load_tpch(s, sf=SF, seed=SEED, tables=["lineitem", "orders"])
     s.execute("begin")
     s.execute("insert into lineitem values (1, 1, 1, 9, 5.00, 100.00, 0.05, "
-              "0.01, 'N', 'O', '1996-01-01', '1996-01-02', '1996-01-03', "
+              "0.01, 'N', 'O', '1994-03-01', '1994-03-05', '1994-03-09', "
               "'NONE', 'MAIL', 'x')")
     frag, snaps, ref = _frag_calls(s, TPCH_QUERIES["q12"])[0]
     s.execute("rollback")
     assert ref.engine == "device[agg]"
-    assert _port_reason(frag, snaps) == "overlay rows"
+    assert len(ref.chunks) == 2  # the base epoch's and the overlay's
+    _assert_same(_port(frag, snaps), ref, False)
 
 
 # single-table requests of the TPC-H queries that the dense gate rejects
@@ -199,18 +199,14 @@ def test_lifted_group_request_matches_reference(session, name):
     _assert_same(got, ref, False)
 
 
-# ---- gates: each gives the reference's host reason through the port ---------
+# ---- gates: each gives the reference's host answer through the port ---------
 
-def _ref_host_reason(frag, snaps) -> str:
-    r = JF.execute_fragment(JC.CopClient(), frag, snaps)
-    assert r.engine.startswith("host(fragment:")
-    return r.engine[len("host(fragment:"):-1]
-
-
-def _port_reason(frag, snaps) -> str:
-    with pytest.raises(NotInSlice) as ei:
-        _port(frag, snaps)
-    return ei.value.reason
+def _assert_same_host(frag, snaps, reason) -> None:
+    """The reference's host interpreter answers for `reason`, and the port's
+    gives the same rows and tag."""
+    ref = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    assert ref.engine == f"host(fragment:{reason})"
+    _assert_same(_port(frag, snaps), ref, frag.agg is None)
 
 
 def test_key_span_gate(session):
@@ -218,8 +214,7 @@ def test_key_span_gate(session):
     # o_orderkey spans ~80k keys at SF0.02
     with mock.patch.object(JF, "FRAG_SPAN_CAP", 1000), \
             mock.patch.object(PF, "FRAG_SPAN_CAP", 1000):
-        assert _ref_host_reason(frag, snaps) == "key-span"
-        assert _port_reason(frag, snaps) == "key-span"
+        _assert_same_host(frag, snaps, "key-span")
 
 
 def _replace_epoch(snap, **changes):
@@ -236,8 +231,7 @@ def test_int64_build_column_gate(session):
     cols[3] = price
     snaps = dict(snaps)
     snaps[orders] = _replace_epoch(snaps[orders], columns=cols)
-    assert _ref_host_reason(frag, snaps) == "int64-column"
-    assert _port_reason(frag, snaps) == "int64-column"
+    _assert_same_host(frag, snaps, "int64-column")
 
 
 def test_build_overlay_gate():
@@ -249,7 +243,7 @@ def test_build_overlay_gate():
     frag, snaps, ref = _frag_calls(s, Q18_JOIN_HAVING)[0]
     s.execute("rollback")
     assert ref.engine == "host(fragment:build-overlay)"
-    assert _port_reason(frag, snaps) == "build-overlay"
+    _assert_same(_port(frag, snaps), ref, False)
 
 
 # ---- tiles, per-query gathers, cache rebuild ---------------------------------

@@ -1,7 +1,12 @@
 """tidb_tpu_torch sumexact and eval vs the JAX reference's, on the CPU.
 
 The same numpy inputs (made from a seed) go through the reference's jnp
-function and the port's torch function.
+function and the port's torch function. The einsum strategy's partials
+are held to the reference's one-hot product and to the port's own former
+one-hot product (up to 8,192 segments, masked rows included), and TPC-H
+Q7, the request that takes that strategy at SF1, to the reference: its
+hand-built fragment, its rows at SF0.01, and its gate decision at SF1's
+row count.
 
 Tolerances, with their reasons:
 * exact (`==`) for limbs, limb partials and every integer/decimal/bool
@@ -15,18 +20,31 @@ Tolerances, with their reasons:
   under 1e-6 at these sizes).
 """
 
+import dataclasses
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tidb_tpu.bench.tpch_data import load_tpch
+from tidb_tpu.bench.tpch_queries import TPCH_QUERIES
+from tidb_tpu.copr import client as JC
 from tidb_tpu.copr import eval as JE
+from tidb_tpu.copr import fragment as JF
 from tidb_tpu.copr import sumexact as JS
 from tidb_tpu.plan.expr import Call, Col, Const
+from tidb_tpu.session import Session
 from tidb_tpu.types.field_type import FieldType, TypeKind
-from tidb_tpu_torch.convert import request_from_reference
+from tidb_tpu_torch.bench import tpch_data as TD
+from tidb_tpu_torch.bench import tpch_requests as TR
+from tidb_tpu_torch.convert import (request_from_reference,
+                                    snapshot_from_reference)
 from tidb_tpu_torch.copr import eval as TE
+from tidb_tpu_torch.copr import fragment as PF
 from tidb_tpu_torch.copr import sumexact as TS
+from tidb_tpu_torch.copr.client import CopClient
 
 
 def _t(a):
@@ -73,17 +91,53 @@ def test_seg_sum_partials_loop_equal(n, segments, n_limbs, lo, hi):
 @pytest.mark.parametrize("n,segments,n_limbs", [(5000, 65, 2), (2048, 300, 1),
                                                 (7777, 1024, 3)])
 def test_seg_sum_partials_einsum_equal(n, segments, n_limbs):
-    # values inside what n_limbs covers (bounds.limbs_for's contract)
+    # values inside what n_limbs covers (bounds.limbs_for's contract); the
+    # reference's one-hot product against the port's blocked scatter-add
     half = 2 ** (12 * n_limbs - 2)
     v, seg = _seg_inputs(n + 1, n, segments, -half, half)
     j_oh = JS.make_one_hot(jnp.asarray(seg), segments)
-    t_oh = TS.make_one_hot(_t(seg), segments)
-    assert np.array_equal(t_oh.numpy(), np.asarray(j_oh))
     want = np.asarray(JS.seg_sum_partials(jnp.asarray(v), jnp.asarray(seg),
                                           segments, n_limbs, one_hot=j_oh))
-    got = TS.seg_sum_partials(_t(v), _t(seg), segments, n_limbs,
-                              one_hot=t_oh)
+    got = TS.seg_sum_partials(_t(v), _t(seg), segments, n_limbs, "einsum")
+    assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
+
+
+def _one_hot_einsum(v, seg, segments, n_limbs):
+    """The port's einsum strategy before it stopped building a one-hot:
+    f32[blocks, 2048, segments] one-hot, one full-f32 product per limb."""
+    n = v.shape[0]
+    nblk = -(-n // TS.EINSUM_BLOCK)
+    pad = nblk * TS.EINSUM_BLOCK - n
+    seg2 = TS._pad1(seg, pad, -1).reshape(nblk, TS.EINSUM_BLOCK)
+    one_hot = (seg2[..., None] == torch.arange(segments, dtype=seg.dtype)
+               ).to(torch.float32)
+    outs = []
+    for li in TS.limbs_of(v, n_limbs):
+        lb = TS._pad1(li.to(torch.float32), pad).reshape(nblk,
+                                                          TS.EINSUM_BLOCK)
+        outs.append(TS._two_level(torch.einsum("cb,cbk->ck", lb, one_hot)))
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("n,segments,n_limbs", [
+    (3000, 65, 1), (4097, 2500, 3), (6144, 5408, 2), (2049, 8192, 3)])
+def test_einsum_partials_equal_the_one_hot_product(n, segments, n_limbs):
+    # every block gets rows of segment -1 (masked), full-width limbs, and
+    # blocks whose rows all land in few segments (the largest per-cell sums)
+    rng = np.random.default_rng(segments)
+    half = min(2 ** (12 * n_limbs - 2), 2**30)  # int32 values
+    v = rng.integers(-half, half, n).astype(np.int32)
+    seg = rng.integers(-1, segments, n).astype(np.int32)
+    seg[: n // 3] = rng.integers(-1, 3, n // 3)
+    v[: n // 3] = half - 1
+    want = _one_hot_einsum(_t(v), _t(seg), segments, n_limbs)
+    got = TS.seg_sum_partials(_t(v), _t(seg), segments, n_limbs, "einsum")
+    assert torch.equal(got, want)
+    assert np.array_equal(
+        got.numpy(), np.asarray(JS.seg_sum_partials(
+            jnp.asarray(v), jnp.asarray(seg), segments, n_limbs,
+            one_hot=JS.make_one_hot(jnp.asarray(seg), segments))))
 
 
 @pytest.mark.parametrize("n,segments", [(100, 1), (50000, 5), (12345, 9)])
@@ -240,3 +294,89 @@ def test_decimal_division_is_not_on_device_in_both():
     with pytest.raises(TE.CompileError, match="decimal division"):
         TE.eval_expr(request_from_reference(e),
                      [(_t(d), _t(v)) for d, v in cols], {})
+
+
+# ---- TPC-H Q7: the request that takes the einsum strategy at SF1 ------------
+
+@pytest.fixture(scope="module")
+def q7_call():
+    """(reference fragment, snapshots, answer) of TPC-H Q7 at SF0.01."""
+    s = Session()
+    load_tpch(s, sf=0.01, seed=42)
+    calls = []
+    run = JF.execute_fragment
+
+    def frag_call(cop, frag, snaps):
+        r = run(cop, frag, snaps)
+        calls.append((frag, snaps, r))
+        return r
+
+    with mock.patch.object(JF, "execute_fragment", frag_call):
+        s.query(TPCH_QUERIES["q7"])
+    assert len(calls) == 1
+    return calls[0]
+
+
+def _blank_agg_names(frag):
+    """AggDesc.name is the SQL text of the call, for display only."""
+    agg = dataclasses.replace(frag.agg, aggs=[
+        dataclasses.replace(d, name="") for d in frag.agg.aggs])
+    return dataclasses.replace(frag, agg=agg)
+
+
+def test_q7_frag_matches_reference(q7_call):
+    # at SF0.01 the 5,408-slot space holds ~11 rows a slot: the sparse
+    # gate sends it to the sorted-run group mode, in both packages
+    frag, snaps, ref = q7_call
+    assert ref.engine == "device[group]"
+    tables = {}
+    for t in frag.tables:
+        tables[t.table.name] = TR.tpch_table(t.table.name, t.table.id,
+                                             t.table.columns[0].id)
+    built = TR.q7_frag(tables)
+    assert _blank_agg_names(built) == \
+        _blank_agg_names(request_from_reference(frag))
+    psnaps = {tid: snapshot_from_reference(s) for tid, s in snaps.items()}
+    got = PF.execute_fragment(CopClient("cpu"), built, psnaps)
+    assert got.engine == ref.engine
+    rows = TR.partial_rows(got.chunks)
+    assert rows and rows == TR.partial_rows(ref.chunks)
+    assert rows == TR.q7_oracle(TD.generate_tpch(0.01, 42))
+
+
+def test_q7_at_sf1_rows_takes_the_einsum_as_reference(q7_call):
+    # lineitem repeated 100 times (SF1's ~6M rows; every bound the same):
+    # >= 128 rows a slot, so the dense gate keeps the 5,408-slot einsum.
+    # Both packages decide it in their gates; the programs do not run
+    frag, snaps, _ = q7_call
+    probe = frag.tables[0]
+    li = snaps[probe.table.id]
+    n = li.epoch.num_rows * 100
+    cols = [np.tile(c, 100) if off in probe.col_offsets
+            else np.zeros(n, c.dtype)
+            for off, c in enumerate(li.epoch.columns)]
+    epoch = dataclasses.replace(
+        li.epoch, handles=np.arange(1, n + 1, dtype=np.int64), columns=cols,
+        valids=[None] * len(cols), handle_pos=None)
+    snaps = dict(snaps)
+    snaps[probe.table.id] = dataclasses.replace(
+        li, epoch=epoch, base_visible=np.ones(n, bool))
+    seen = {}
+
+    def no_run(cop, frag_, snaps_, prepared, spans, builds, mode, **kw):
+        seen["mode"], seen["prepared"] = mode, prepared
+        return []
+
+    with mock.patch.object(JF, "_run_frag_batch", no_run):
+        ref = JF.execute_fragment(JC.CopClient(), frag, snaps)
+    assert ref.engine == "device[agg]" and seen["mode"] == "agg"
+    assert seen["prepared"]["__strategy__"] == "einsum"
+    seen.clear()
+    with mock.patch.object(PF, "_run_frag_batch", no_run):
+        got = PF.execute_fragment(
+            CopClient("cpu"), request_from_reference(frag),
+            {tid: snapshot_from_reference(s) for tid, s in snaps.items()})
+    assert got.engine == ref.engine and seen["mode"] == "agg"
+    prepared = seen["prepared"]
+    assert prepared["__strategy__"] == "einsum"
+    assert int(np.prod(prepared["__dense_cards__"])) == 5408

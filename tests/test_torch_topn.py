@@ -22,7 +22,8 @@
 All inputs are made from seeds with numpy. Tolerance: exact, engine tag
 included; row fragments compare column by column in the order returned,
 aggregations as sorted partial-layout rows. Where the reference concedes
-to its host interpreter, the port raises `NotInSlice` with its reason.
+to its host interpreter, so does the port: the same rows, tagged
+`host(fragment:<reason>)`.
 """
 
 from unittest import mock
@@ -39,7 +40,6 @@ from tidb_tpu.copr import topnpack as JT
 from tidb_tpu.plan.fragment import FragmentDAG as RefFragmentDAG
 from tidb_tpu.session import Session
 from tidb_tpu.types.value import Decimal
-from tidb_tpu_torch import NotInSlice
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.convert import (request_from_reference,
                                     snapshot_from_reference)
@@ -379,13 +379,8 @@ def _port(frag, snaps, cop=None):
 
 
 def _assert_same(frag, snaps, ref, cop=None):
-    """The port gives the reference's chunks and tag, or raises its host
-    reason."""
-    if ref.engine.startswith("host(fragment:"):
-        with pytest.raises(NotInSlice) as ei:
-            _port(frag, snaps, cop)
-        assert ei.value.reason == ref.engine[len("host(fragment:"):-1]
-        return
+    """The port gives the reference's chunks and tag (on a device path or
+    the host interpreter's)."""
     got = _port(frag, snaps, cop)
     assert got.engine == ref.engine
     if frag.agg is None:
@@ -419,12 +414,11 @@ def test_corpus_matches_reference(corpus, qi, tiled):
 
 def test_fat_boundary_tie_concedes_as_reference(corpus):
     # coarse 0/1 sums tie at the 7th/8th group: the reference's host
-    # reason is fat-boundary, and so is the port's
+    # reason is fat-boundary, and so is the port's, with the host
+    # interpreter's rows
     frag, snaps, ref = _capture(corpus, FAT_TIE)
     assert ref.engine == "host(fragment:fat-boundary)"
-    with pytest.raises(NotInSlice) as ei:
-        _port(frag, snaps)
-    assert ei.value.reason == "fat-boundary"
+    _assert_same(frag, snaps, ref)
 
 
 def test_unpackable_topn_stays_in_row_mode(corpus):

@@ -10,8 +10,10 @@ what it needs from host-only modules is copied in. Entry points:
 * `copr.fragment.execute_fragment(cop, frag, snaps)` for a fragment
   request (`plan.fragment.FragmentDAG`).
 
-Requests that the reference serves with its host interpreter, or with a
-device path not ported yet, raise `errors.NotInSlice(reason)`.
+Where the reference's gates send a request to its host tier, the port's
+host tier answers it too (`copr/host_exec.py`, the fragment's host
+interpreter), with the reference's engine tag. `errors.NotInSlice` is left
+for a registry builtin (`fx:` op) that pushdown never sends.
 """
 
 from .device import resolve_device

@@ -44,19 +44,24 @@ the result chunks.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
 
-from ..catalog.schema import ColumnInfo, TableInfo
+from ..catalog.schema import ColumnInfo, IndexInfo, TableInfo
 from ..chunk.chunk import Chunk
+from ..copr.analyze import (hll_group_registers_host, hll_hash_src_int,
+                            hll_pack_words)
 from ..copr.client import CopClient
-from ..plan.dag import CopDAG, DAGAggregation, DAGScan, DAGSelection, DAGTopN
+from ..plan.dag import (HLL_WORDS, CopDAG, DAGAggregation, DAGScan,
+                        DAGSelection, DAGTopN)
 from ..plan.expr import (AggDesc, Call, Col, Const, agg_result_type,
                          arith_result_type, bool_call)
 from ..plan.fragment import (FragJoin, FragmentDAG, FragSemi, FragTable,
                              HCTopN)
-from ..store.table_store import TableStore
+from ..plan.ranger import ScanRanges
+from ..store.table_store import TableSnapshot, TableStore
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import parse_date
 from .tpch_data import TPCH_DDL
@@ -140,11 +145,16 @@ def _agg(func: str, arg) -> AggDesc:
 
 def _partial_types(aggs: list[AggDesc]) -> list[FieldType]:
     """(val, cnt) per aggregate: SUM/AVG ship the sum at the argument's
-    SUM type, COUNT its count; cnt is a non-null BIGINT."""
+    SUM type, COUNT its count; APPROX_COUNT_DISTINCT ships HLL_WORDS
+    register words in place of val; cnt is a non-null BIGINT."""
     out = []
     for d in aggs:
-        val = agg_result_type("sum", d.arg) if d.func == "avg" else d.ftype
-        out += [val, _BIGINT]
+        if d.func == "approx_count_distinct":
+            out += [_BIGINT] * HLL_WORDS
+        else:
+            out.append(agg_result_type("sum", d.arg) if d.func == "avg"
+                       else d.ftype)
+        out.append(_BIGINT)
     return out
 
 
@@ -309,6 +319,37 @@ def q5_frag(tables: dict) -> FragmentDAG:
     frag.selection = [bool_call("eq", [_combined(frag, 8),
                                        _combined(frag, 10)])]
     _set_agg(frag, [_combined(frag, 12)],
+             [_agg("sum", _disc_price(_combined(frag, 2),
+                                      _combined(frag, 3)))])
+    return frag
+
+
+def q7_frag(tables: dict) -> FragmentDAG:
+    """TPC-H Q7: volume shipping (FRANCE / GERMANY, 1995-1996): lineitem ->
+    supplier -> nation n1 and lineitem -> orders -> customer -> nation n2,
+    GROUP BY n1.n_name, n2.n_name, year(l_shipdate). Its dense space is
+    26 x 26 x (year span + 1) = 5,408 slots, so at SF1 and above (>= 128
+    rows a slot) the dense gate keeps the einsum strategy."""
+    frag = _frag(tables, [
+        ("lineitem", [0, 2, 5, 6, 10],
+         lambda okey, supp, price, disc, ship: [
+             bool_call("ge", [ship, Const(parse_date("1995-01-01"), _DATE)]),
+             bool_call("le", [ship, Const(parse_date("1996-12-31"), _DATE)])]),
+        ("supplier", [0, 3], None),
+        ("orders", [0, 1], None),
+        ("customer", [0, 3], None),
+        ("nation", [0, 1], None),
+        ("nation", [0, 1], None),
+    ], [(1, 1), (2, 0), (3, 8), (4, 6), (5, 10)])
+    n1, n2 = _combined(frag, 12), _combined(frag, 14)
+
+    def pair(a, b):
+        return bool_call("and", [bool_call("eq", [n1, Const(a, _STR)]),
+                                 bool_call("eq", [n2, Const(b, _STR)])])
+    frag.selection = [bool_call("or", [pair("FRANCE", "GERMANY"),
+                                       pair("GERMANY", "FRANCE")])]
+    year = Call("year", [_combined(frag, 4)], FieldType(TypeKind.BIGINT))
+    _set_agg(frag, [n1, n2, year],
              [_agg("sum", _disc_price(_combined(frag, 2),
                                       _combined(frag, 3)))])
     return frag
@@ -523,6 +564,7 @@ def semi_having_frag(tables: dict) -> FragmentDAG:
 
 
 JOIN_REQUESTS = {"q12": q12_frag, "q14": q14_frag, "q5": q5_frag,
+                 "q7": q7_frag,
                  "q17_outer": q17_outer_frag, "q18_outer": q18_outer_frag,
                  "q18_join_having": q18_join_having_frag, "q3": q3_frag,
                  "q10": q10_frag, "join_topn": join_topn_frag,
@@ -532,6 +574,8 @@ JOIN_REQUESTS = {"q12": q12_frag, "q14": q14_frag, "q5": q5_frag,
 JOIN_TABLES = {"q12": ("lineitem", "orders"), "q14": ("lineitem", "part"),
                "q5": ("lineitem", "orders", "customer", "supplier", "nation",
                       "region"),
+               "q7": ("lineitem", "supplier", "orders", "customer",
+                      "nation"),
                "q17_outer": ("lineitem", "part"),
                "q18_outer": ("lineitem", "orders", "customer"),
                "q18_join_having": ("lineitem", "orders"),
@@ -629,6 +673,135 @@ DAG_TABLES = {"q21_rows": ("lineitem",), "q13_orders_scan": ("orders",),
               "scan_topn3": ("lineitem",)}
 
 
+# ---- APPROX_COUNT_DISTINCT, index-ranged scans, overlay rows -----------------
+
+def hll_dag(table: TableInfo) -> CopDAG:
+    """`select l_returnflag, l_linestatus, approx_count_distinct(
+    l_orderkey), approx_count_distinct(l_suppkey), count(*) from lineitem
+    group by l_returnflag, l_linestatus`: per-group HLL registers."""
+    okey, supp, rf, ls = (_col(table, off, i)
+                          for i, off in enumerate((0, 2, 8, 9)))
+    aggs = [_agg("approx_count_distinct", okey),
+            _agg("approx_count_distinct", supp), _agg("count", None)]
+    return CopDAG(scan=DAGScan(table.id, [0, 2, 8, 9]),
+                  agg=DAGAggregation([rf, ls], aggs),
+                  output_types=[rf.ftype, ls.ftype] + _partial_types(aggs))
+
+
+def orders_indexed_table(table_id: int) -> TableInfo:
+    """orders with two secondary indexes: on o_custkey (points) and on
+    o_orderdate (intervals)."""
+    t = tpch_table("orders", table_id)
+    t.indices = [IndexInfo(1, "i_custkey", [1]),
+                 IndexInfo(2, "i_orderdate", [4])]
+    return t
+
+
+def ranged_points_dag(tables: dict, custkeys) -> CopDAG:
+    """`select o_orderkey, o_totalprice from orders where o_custkey in
+    (...)` through the o_custkey index, one point per key (the planner
+    keeps the condition as the selection too)."""
+    t = tables["orders"]
+    okey, cust, price = (_col(t, off, i) for i, off in enumerate((0, 1, 3)))
+    keys = [int(k) for k in custkeys]
+    return CopDAG(scan=DAGScan(t.id, [0, 1, 3], ScanRanges(
+                      t.indices[0], [(k,) for k in keys])),
+                  selection=DAGSelection([bool_call("in_values", [cust],
+                                                    keys)]),
+                  projections=[okey, price],
+                  output_types=[okey.ftype, price.ftype])
+
+
+RANGED_MONTH = ("1995-03-01", "1995-04-01")
+
+
+def ranged_interval_dag(tables: dict) -> CopDAG:
+    """`select o_orderkey, o_custkey, o_totalprice from orders where
+    o_orderdate >= '1995-03-01' and o_orderdate < '1995-04-01'` through the
+    o_orderdate index: one interval."""
+    t = tables["orders"]
+    okey, cust, price, date = (_col(t, off, i)
+                               for i, off in enumerate((0, 1, 3, 4)))
+    lo, hi = (parse_date(d) for d in RANGED_MONTH)
+    return CopDAG(scan=DAGScan(t.id, [0, 1, 3, 4], ScanRanges(
+                      t.indices[1], [], (lo, hi, True, False))),
+                  selection=DAGSelection(_date_range(date, *RANGED_MONTH)),
+                  projections=[okey, cust, price],
+                  output_types=[okey.ftype, cust.ftype, price.ftype])
+
+
+# 8,192 deltas: the reference store's compaction threshold
+# (`TableStore.COMPACT_THRESHOLD`), the most unfolded rows a snapshot
+# carries before compaction folds them into a new epoch
+OVERLAY_UPDATES, OVERLAY_DELETES, OVERLAY_INSERTS = 4096, 2048, 2048
+
+
+def overlay_snapshot(snap: TableSnapshot, data: dict, seed: int):
+    """`snap`'s table with 8,192 unfolded deltas made from `seed`: 4,096
+    updates (a base row keeps its primary-key columns and takes every other
+    column from a random donor row), 2,048 deletes and 2,048 inserts (donor
+    rows under new handles; a primary-key handle column gets new keys above
+    the largest). `data`: the table's generated arrays
+    (`generate_tpch(...)[name]`), which `snap` holds. String values keep the
+    snapshot's dictionaries (the same codes).
+
+    -> (snapshot, visible base-row mask, overlay rows as generated arrays,
+    updates first, then inserts)."""
+    table = snap.table
+    rng = np.random.default_rng(seed)
+    n = snap.epoch.num_rows
+    picked = rng.choice(n, OVERLAY_UPDATES + OVERLAY_DELETES, replace=False)
+    upd = picked[:OVERLAY_UPDATES]
+    donor_u = rng.integers(0, n, OVERLAY_UPDATES)
+    donor_i = rng.integers(0, n, OVERLAY_INSERTS)
+    visible = np.ones(n, bool)
+    visible[picked] = False
+    ov, ov_cols = {}, []
+    for c in table.columns:
+        v = data[c.name]
+        vals = np.asarray(v[1] if isinstance(v, tuple) else v)
+        ins = vals[donor_i]
+        if c.offset == table.pk_handle_offset:
+            ins = vals.max() + 1 + np.arange(OVERLAY_INSERTS, dtype=vals.dtype)
+        rows = np.concatenate([vals[upd] if c.is_primary else vals[donor_u],
+                               ins])
+        if isinstance(v, tuple):
+            ov[c.name] = (v[0], rows)
+            d = snap.dictionaries[c.offset]
+            remap = np.array([d.lookup(w) for w in v[0]], dtype=np.int64)
+            ov_cols.append(remap[rows].astype(c.ftype.np_dtype))
+        else:
+            ov[c.name] = rows
+            ov_cols.append(rows.astype(c.ftype.np_dtype))
+    top = int(snap.epoch.handles.max()) if n else 0
+    handles = np.concatenate([snap.epoch.handles[upd],
+                              top + 1 + np.arange(OVERLAY_INSERTS)])
+    out = dataclasses.replace(
+        snap, base_visible=visible, overlay_handles=handles.astype(np.int64),
+        overlay_columns=ov_cols, overlay_valids=[None] * len(ov_cols))
+    return out, visible, ov
+
+
+def rows_of(data: dict, rows) -> dict:
+    """The generated arrays of one table at `rows` (a mask or indices)."""
+    return {k: (v[0], np.asarray(v[1])[rows]) if isinstance(v, tuple)
+            else np.asarray(v)[rows] for k, v in data.items()}
+
+
+def visible_rows(snap: TableSnapshot, data: dict, overlay=None):
+    """The rows a snapshot shows, as generated arrays: its visible base
+    rows, then its overlay rows (`overlay_snapshot`'s third result) ->
+    (rows, their handles)."""
+    rows = rows_of(data, snap.base_visible)
+    handles = snap.epoch.handles[snap.base_visible]
+    if overlay is not None:
+        rows = {k: (v[0], np.concatenate([v[1], overlay[k][1]]))
+                if isinstance(v, tuple) else np.concatenate([v, overlay[k]])
+                for k, v in rows.items()}
+        handles = np.concatenate([handles, snap.overlay_handles])
+    return rows, handles
+
+
 # ---- results as comparable rows ---------------------------------------------
 
 def partial_rows(chunks: list[Chunk]) -> list[tuple]:
@@ -716,16 +889,26 @@ def _row_of(keys: np.ndarray) -> np.ndarray:
     return out
 
 
+def _find(keys: np.ndarray, probe: np.ndarray) -> np.ndarray:
+    """Row of each probe value among the unique `keys`, -1 where absent
+    (an inner join drops those probe rows)."""
+    size = int(max(keys.max(initial=0), probe.max(initial=0))) + 1
+    out = np.full(size, -1, dtype=np.int64)
+    out[keys] = np.arange(len(keys))
+    return out[probe]
+
+
 def q12_oracle(data: dict) -> list[tuple]:
     li, o = data["lineitem"], data["orders"]
     mode = _strings(li["l_shipmode"])
+    orow = _find(o["o_orderkey"], li["l_orderkey"])
     m = (np.isin(mode, ["MAIL", "SHIP"])
          & (li["l_commitdate"] < li["l_receiptdate"])
          & (li["l_shipdate"] < li["l_commitdate"])
          & (li["l_receiptdate"] >= parse_date("1994-01-01"))
-         & (li["l_receiptdate"] < parse_date("1995-01-01")))
-    prio = _strings(o["o_orderpriority"])[
-        _row_of(o["o_orderkey"])[li["l_orderkey"][m]]]
+         & (li["l_receiptdate"] < parse_date("1995-01-01"))
+         & (orow >= 0))
+    prio = _strings(o["o_orderpriority"])[orow[m]]
     high = np.isin(prio, ["1-URGENT", "2-HIGH"])
     rows = []
     for md in np.unique(mode[m]):
@@ -776,6 +959,37 @@ def q5_oracle(data: dict) -> list[tuple]:
     names = _strings(nat["n_name"])[_row_of(nat["n_nationkey"])]
     return sorted((names[k], int(sums[k]), int(counts[k]))
                   for k in np.nonzero(counts)[0])
+
+
+def _years(days: np.ndarray) -> np.ndarray:
+    """Calendar year of day numbers (days since 1970-01-01)."""
+    d = np.datetime64("1970-01-01", "D") + days.astype("timedelta64[D]")
+    return d.astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def q7_oracle(data: dict) -> list[tuple]:
+    """Exact (supp_nation, cust_nation, l_year, revenue at scale 4, rows)
+    for TPC-H Q7 (FRANCE / GERMANY, 1995-1996)."""
+    li, o, c = data["lineitem"], data["orders"], data["customer"]
+    sp, nat = data["supplier"], data["nation"]
+    names = _strings(nat["n_name"])[_row_of(nat["n_nationkey"])]
+    ship = li["l_shipdate"]
+    m = (ship >= parse_date("1995-01-01")) & (ship <= parse_date("1996-12-31"))
+    s_nat = sp["s_nationkey"][_row_of(sp["s_suppkey"])[li["l_suppkey"][m]]]
+    cust = o["o_custkey"][_row_of(o["o_orderkey"])[li["l_orderkey"][m]]]
+    c_nat = c["c_nationkey"][_row_of(c["c_custkey"])[cust]]
+    n1, n2 = names[s_nat], names[c_nat]
+    ok = (((n1 == "FRANCE") & (n2 == "GERMANY"))
+          | ((n1 == "GERMANY") & (n2 == "FRANCE")))
+    rev = (li["l_extendedprice"][m] * (100 - li["l_discount"][m]))[ok]
+    year = _years(ship[m][ok])
+    rows = []
+    for a, b in (("FRANCE", "GERMANY"), ("GERMANY", "FRANCE")):
+        pair = (n1[ok] == a) & (n2[ok] == b)
+        for y in np.unique(year[pair]):
+            g = pair & (year == y)
+            rows.append((a, b, int(y), int(rev[g].sum()), int(g.sum())))
+    return sorted(rows)
 
 
 def q17_outer_oracle(data: dict) -> list[np.ndarray]:
@@ -995,13 +1209,16 @@ def _tile_tops(ok: np.ndarray, keys: list, tile_rows: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
-def scan_topn_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS
-                     ) -> list[np.ndarray]:
+def scan_topn_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS,
+                     visible=None) -> list[np.ndarray]:
     """Each tile's top 100 rows by l_extendedprice DESC among l_shipdate >=
-    1995-01-01: (l_orderkey, l_linenumber, l_extendedprice)."""
+    1995-01-01 (and, where given, the `visible` rows): (l_orderkey,
+    l_linenumber, l_extendedprice)."""
     li = data["lineitem"]
-    rows = _tile_tops(li["l_shipdate"] >= parse_date("1995-01-01"),
-                      [-li["l_extendedprice"]], tile_rows)
+    ok = li["l_shipdate"] >= parse_date("1995-01-01")
+    if visible is not None:
+        ok &= visible
+    rows = _tile_tops(ok, [-li["l_extendedprice"]], tile_rows)
     return [li[c][rows] for c in ("l_orderkey", "l_linenumber",
                                   "l_extendedprice")]
 
@@ -1017,6 +1234,54 @@ def scan_topn3_oracle(data: dict, tile_rows: int = CopClient.TILE_ROWS
                        -li["l_linenumber"]], tile_rows)
     return [li[c][rows] for c in ("l_orderkey", "l_shipdate", "l_quantity",
                                   "l_linenumber")]
+
+
+def hll_oracle(li: dict) -> list[tuple]:
+    """`hll_dag`'s partial rows from the host twin of the device sketch:
+    (l_returnflag, l_linestatus, 32 register words of l_orderkey, rows, 32
+    of l_suppkey, rows, count, count)."""
+    rf_vocab, rf = li["l_returnflag"]
+    ls_vocab, ls = li["l_linestatus"]
+    key = np.asarray(rf) * len(ls_vocab) + np.asarray(ls)
+    groups, inv = np.unique(key, return_inverse=True)
+    inv = inv.reshape(-1)
+    live = np.ones(len(key), bool)
+    words = [hll_pack_words(hll_group_registers_host(
+        hll_hash_src_int(li[c]), live, inv, len(groups)))
+        for c in ("l_orderkey", "l_suppkey")]
+    counts = np.bincount(inv, minlength=len(groups))
+    rows = []
+    for g, k in enumerate(groups):
+        n = int(counts[g])
+        rows.append((rf_vocab[k // len(ls_vocab)], ls_vocab[k % len(ls_vocab)],
+                     *words[0][g].tolist(), n, *words[1][g].tolist(), n,
+                     n, n))
+    return sorted(rows)
+
+
+def _by_handle(rows: dict, handles: np.ndarray, m: np.ndarray,
+               names) -> list[np.ndarray]:
+    """The selected rows' columns in handle order (a ranged scan's)."""
+    order = np.argsort(handles[m], kind="stable")
+    return [np.asarray(rows[c])[m][order] for c in names]
+
+
+def ranged_points_oracle(rows: dict, handles: np.ndarray, custkeys
+                         ) -> list[np.ndarray]:
+    """`ranged_points_dag` over the rows a snapshot shows
+    (`visible_rows`): (o_orderkey, o_totalprice) in handle order."""
+    m = np.isin(rows["o_custkey"], np.asarray(custkeys))
+    return _by_handle(rows, handles, m, ("o_orderkey", "o_totalprice"))
+
+
+def ranged_interval_oracle(rows: dict, handles: np.ndarray
+                           ) -> list[np.ndarray]:
+    """`ranged_interval_dag` over the rows a snapshot shows: (o_orderkey,
+    o_custkey, o_totalprice) in handle order."""
+    lo, hi = (parse_date(d) for d in RANGED_MONTH)
+    date = rows["o_orderdate"]
+    return _by_handle(rows, handles, (date >= lo) & (date < hi),
+                      ("o_orderkey", "o_custkey", "o_totalprice"))
 
 
 def row_columns(chunks: list[Chunk]) -> list[np.ndarray]:

@@ -1,13 +1,14 @@
 """Table and column metadata read by the coprocessor.
 
 The subset of the reference catalog (`tidb_tpu/catalog/schema.py`) that
-requests and snapshots carry: `TableInfo` and `ColumnInfo`. Indexes,
-partitions, foreign keys and the catalog itself belong to the SQL tier.
+requests and snapshots carry: `TableInfo`, `ColumnInfo` and `IndexInfo`
+(index-ranged scans read the index's columns). Partitions, foreign keys
+and the catalog itself belong to the SQL tier.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from ..types.field_type import FieldType
@@ -29,10 +30,23 @@ class ColumnInfo:
 
 
 @dataclass
+class IndexInfo:
+    id: int
+    name: str
+    col_offsets: list[int]
+    unique: bool = False
+    primary: bool = False
+    # False while the index is being built online: the planner must not
+    # read it yet
+    visible: bool = True
+
+
+@dataclass
 class TableInfo:
     id: int
     name: str
     columns: list[ColumnInfo]
+    indices: list[IndexInfo] = field(default_factory=list)
     # offset of an integer PRIMARY KEY column used directly as the row
     # handle; None means rows get auto-allocated handles
     pk_handle_offset: Optional[int] = None

@@ -6,11 +6,13 @@ reference is imported. Two parts:
 * `snapshot_from_reference(snap)`: a reference `TableSnapshot` -> a port
   `TableSnapshot` over the same numpy arrays (epoch columns, validity,
   handles, visibility, overlay), with the dictionaries copied value for
-  value so that codes stay the same;
+  value so that codes stay the same, and a port `TableStore` behind it
+  that holds the table (its indexes too) and the snapshot's epoch;
 * `request_from_reference(obj)`: a reference `CopDAG` or `FragmentDAG`
   tree (and everything inside it: `DAGScan`, `Col`, `Const`, `Call`,
-  `AggDesc`, `FieldType`, `TypeKind`, `TableInfo`, ...) -> the port's
-  classes, matched by class name and dataclass field.
+  `AggDesc`, `FieldType`, `TypeKind`, `TableInfo`, `IndexInfo`,
+  `ScanRanges`, ...) -> the port's classes, matched by class name and
+  dataclass field.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import enum
 
 from .catalog import schema
 from .chunk.column import Dictionary, EnumDictionary
-from .plan import dag, expr, fragment
-from .store.table_store import ColumnEpoch, TableSnapshot
+from .plan import dag, expr, fragment, ranger
+from .store.table_store import ColumnEpoch, TableSnapshot, TableStore
 from .types import field_type
 
 _CLASSES = {
@@ -32,6 +34,7 @@ _CLASSES = {
         fragment.FragSemi, fragment.HCTopN,
         expr.Col, expr.Const, expr.Call, expr.AggDesc,
         field_type.FieldType, schema.TableInfo, schema.ColumnInfo,
+        schema.IndexInfo, ranger.ScanRanges,
     )
 }
 _ENUMS = {"TypeKind": field_type.TypeKind}
@@ -75,11 +78,16 @@ def snapshot_from_reference(snap) -> TableSnapshot:
     epoch = ColumnEpoch(epoch_id=ep.epoch_id, fold_ts=ep.fold_ts,
                         handles=ep.handles, columns=list(ep.columns),
                         valids=list(ep.valids))
+    table = request_from_reference(snap.table)
+    store = TableStore(table)
+    store.epoch = epoch
+    store.dictionaries = [_dictionary(d, memo) for d in snap.dictionaries]
     return TableSnapshot(
-        table=request_from_reference(snap.table),
-        dictionaries=[_dictionary(d, memo) for d in snap.dictionaries],
+        table=table,
+        dictionaries=store.dictionaries,
         epoch=epoch,
         base_visible=snap.base_visible,
         overlay_handles=snap.overlay_handles,
         overlay_columns=list(snap.overlay_columns),
-        overlay_valids=list(snap.overlay_valids))
+        overlay_valids=list(snap.overlay_valids),
+        store=store)

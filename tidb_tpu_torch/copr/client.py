@@ -24,12 +24,19 @@ What stays as in the reference:
   on the device (one int32 score, or the packed multi-key composite of
   topnpack.py; ties to the lower row).
 
+* overlay rows (committed or buffered after the epoch) run as a second
+  batch through the same prepared program, one small tile; the gates
+  decide over the epoch and the overlay together (`_scan_bounds`);
+* where a gate rejects the device, `host_exec.execute_host` answers on the
+  host, tagged `host(<reason>)`; index-ranged scans go to
+  `host_exec.execute_ranged`, tagged `ranged`; APPROX_COUNT_DISTINCT
+  ships per-group HLL registers (`analyze.py`), merged across tiles by
+  max.
+
 What differs: the programs run eagerly on `self.device` (no jit cache),
-staged columns are cached per epoch as device tensors, and there is no
-host fallback. Where the reference would serve a request on the host
-(`host(<reason>)`), this client raises `NotInSlice(<reason>)` with the
-same reason; index-ranged, overlay and HLL requests raise `NotInSlice`
-too, until their slice lands.
+and staged columns are cached per epoch as device tensors. The host tier
+is the reference's own answer for those requests, not a fallback from a
+device error: no torch or CUDA error is caught.
 """
 
 from __future__ import annotations
@@ -44,12 +51,14 @@ import torch
 from ..chunk.chunk import Chunk
 from ..chunk.column import Column, Dictionary
 from ..device import resolve_device
-from ..errors import NotInSlice
-from ..plan.dag import CopDAG, agg_partial_starts, agg_partial_width
+from ..plan.dag import (HLL_WORDS, CopDAG, agg_partial_starts,
+                        agg_partial_width)
 from ..plan.expr import Call, Col, Const, PlanExpr
 from ..plan.fragment import FragmentDAG
 from ..store.table_store import TableSnapshot
 from ..types.field_type import FieldType, TypeKind
+from . import analyze as AN
+from . import host_exec
 from . import sumexact as SE
 from . import topnpack as TP
 from .bounds import (
@@ -95,7 +104,8 @@ class CopResult:
 
     chunks: list[Chunk]
     is_partial_agg: bool
-    # which engine served it: "device" or "device[<mode>]"
+    # which engine served it: "device", "device[<mode>]", "host(<reason>)"
+    # or "ranged"
     engine: str = "device"
 
 
@@ -142,8 +152,11 @@ class CopClient:
     # ==================== public entry ====================
     def execute(self, dag: CopDAG, snap: TableSnapshot) -> CopResult:
         if dag.scan.ranges is not None:
-            # the reference serves index-ranged scans host-side
-            raise NotInSlice("ranged")
+            # index-ranged scan: the index permutation resolves a (small)
+            # handle set, and the DAG runs on the host over those rows
+            r = host_exec.execute_ranged(dag, snap)
+            r.engine = "ranged"
+            return r
         self._evict_stale(dag.scan.table_id, snap.epoch.epoch_id)
         prepared, fallback = self._prepare(dag, snap)
         if fallback is not None:
@@ -156,29 +169,39 @@ class CopClient:
                 prepared, fallback = self._prepare(dag, snap,
                                                    sparse_gate=False)
         if fallback is not None:
-            raise NotInSlice(fallback)
-        if len(snap.overlay_handles) > 0:
-            raise NotInSlice("overlay rows")
+            r = host_exec.execute_host(dag, snap, fallback)
+            r.engine = f"host({fallback})"
+            return r
         chunks: list[Chunk] = []
         if snap.epoch.num_rows > 0:
-            chunks.extend(self._run_batch(dag, snap, prepared))
+            chunks.extend(self._run_batch(dag, snap, prepared, overlay=False))
+        if len(snap.overlay_handles) > 0:
+            chunks.extend(self._run_batch(dag, snap, prepared, overlay=True))
         if not chunks:
             chunks = [self._empty_chunk(dag, snap)]
         return CopResult(chunks, is_partial_agg=dag.agg is not None,
                          engine="device")
 
     def _run_batch(self, dag: CopDAG, snap: TableSnapshot,
-                   prepared: dict[Any, Any]) -> list[Chunk]:
-        """The base epoch through the request's path: aggregation, TopN or
-        rows. A bare row scan stages nothing: no device program reads it."""
-        if dag.agg is None and dag.topn is None and dag.selection is None:
-            return self._run_rows(dag, snap, prepared, None)
-        tiles = self._stage_tiles(dag, snap)
+                   prepared: dict[Any, Any], overlay: bool) -> list[Chunk]:
+        """One batch through the request's path (aggregation, TopN or
+        rows): the base epoch in tiles, or the overlay rows as one small
+        tile. A bare row scan of the base epoch stages nothing: no device
+        program reads it."""
+        bare = dag.agg is None and dag.topn is None and dag.selection is None
+        if overlay:
+            cols, vis, host_cols, host_mask = self._stage_inputs(
+                dag, snap, overlay=True)
+            tiles = [(cols, vis, len(snap.overlay_handles))]
+        else:
+            tiles = None if bare else self._stage_tiles(dag, snap)
+            host_cols, host_mask = self._host_view(dag, snap)
         if dag.agg is not None:
             return self._run_agg(dag, snap, prepared, tiles)
         if dag.topn is not None:
             return self._run_topn(dag, snap, prepared, tiles)
-        return self._run_rows(dag, snap, prepared, tiles)
+        return self._run_rows(dag, snap, prepared, tiles, host_cols,
+                              host_mask)
 
     def _host_view(self, dag: CopDAG, snap: TableSnapshot):
         """Host numpy views of the epoch's scan columns (the row path's
@@ -424,10 +447,11 @@ class CopClient:
                 sched.append({"kind": d.func, "float": is_f})
                 needs_loop = True
             elif d.func == "approx_count_distinct":
+                # hashes the exact int32 value; the planner already kept
+                # floats/strings host-side
                 if is_f or not expr_device_safe(d.arg, col_bounds):
                     return "approx_count_distinct arg not int32-hashable"
-                # the reference serves it on device with HLL registers
-                raise NotInSlice("approx_count_distinct")
+                sched.append({"kind": "hll"})
             else:
                 return f"agg {d.func} not on device"
 
@@ -581,7 +605,7 @@ class CopClient:
         epoch = snap.epoch
         n = epoch.num_rows
         if n <= self.TILE_ROWS:
-            cols, vis, _, _ = self._stage_inputs(dag, snap)
+            cols, vis, _, _ = self._stage_inputs(dag, snap, overlay=False)
             return [(cols, vis, n)]
         T = self.TILE_ROWS
         b = _bucket(T)
@@ -627,11 +651,27 @@ class CopClient:
             tiles.append((dev_cols, vis, cnt))
         return tiles
 
-    def _stage_inputs(self, dag: CopDAG, snap: TableSnapshot):
-        """Pad + upload the whole epoch's scan columns as 32-bit (or
-        narrower) device tensors; returns the device (data, valid) pairs,
-        the device row-visibility mask, the host (data, valid) views and
-        the host visibility mask."""
+    def _stage_inputs(self, dag: CopDAG, snap: TableSnapshot,
+                      overlay: bool):
+        """Pad + upload scan columns as 32-bit (or narrower) device
+        tensors: the whole epoch (cached), or the overlay rows (staged per
+        request, padded to their own bucket). Returns the device (data,
+        valid) pairs, the device row mask, the host (data, valid) views
+        and the host row mask."""
+        if overlay:
+            n = len(snap.overlay_handles)
+            b = _bucket(n)
+            host_cols, dev_cols = [], []
+            for off in dag.scan.col_offsets:
+                data = snap.overlay_columns[off]
+                valid = snap.overlay_valids[off]
+                vfull = np.ones(n, bool) if valid is None else valid
+                host_cols.append((data, vfull))
+                dev_cols.append((self._place(_pad(_narrow(data), b)),
+                                 self._place(_pad_bool(vfull, b))))
+            mask = np.zeros(b, bool)
+            mask[:n] = True
+            return dev_cols, self._place(mask), host_cols, mask[:n]
         epoch = snap.epoch
         n = epoch.num_rows
         b = _bucket(n)
@@ -674,7 +714,7 @@ class CopClient:
     # ---- fragment placement hooks: a single device stages every build
     # table whole and places its arrays as they are ----
     def _stage_build_table(self, facade: CopDAG, snap: TableSnapshot):
-        return self._stage_inputs(facade, snap)
+        return self._stage_inputs(facade, snap, overlay=False)
 
     def _place_build_array(self, arr: torch.Tensor) -> torch.Tensor:
         return arr
@@ -718,12 +758,12 @@ class CopClient:
         return kernel
 
     # ---- row path (scan/selection/projection/limit) -------------------------
-    def _run_rows(self, dag, snap, prepared, tiles) -> list[Chunk]:
+    def _run_rows(self, dag, snap, prepared, tiles, host_cols,
+                  host_mask) -> list[Chunk]:
         """The device evaluates the selection and returns ONLY a packed
         bitmask, one small buffer per tile; the host projects the selected
-        rows (numpy over the epoch's host columns). A bare scan's rows are
+        rows (numpy over the batch's host columns). A bare scan's rows are
         the visible ones: no device program runs."""
-        host_cols, host_mask = self._host_view(dag, snap)
         if dag.selection is None:
             idx = np.nonzero(host_mask)[0]
         else:
@@ -892,18 +932,20 @@ def packbits(mask: torch.Tensor) -> torch.Tensor:
 def _merge_tile_outs(outs: list[dict], sched) -> dict:
     """Merge per-tile agg partials host-side. Int limb partials are
     additive (summed in int64); float block partials concatenate along the
-    block axis; min/max merge elementwise against their sentinels."""
+    block axis; min/max merge elementwise against their sentinels, and HLL
+    registers by elementwise max (the sketches' union)."""
     if len(outs) == 1:
         return outs[0]
     minmax = {f"m{ai}": s["kind"] for ai, s in enumerate(sched)
               if s["kind"] in ("min", "max")}
+    hll_keys = {f"h{ai}" for ai, s in enumerate(sched) if s["kind"] == "hll"}
     merged: dict[str, np.ndarray] = {}
     for k in outs[0]:
         vals = [np.asarray(o[k]) for o in outs]
         kind = minmax.get(k)
         if kind == "min":
             merged[k] = np.minimum.reduce(vals)
-        elif kind == "max":
+        elif kind == "max" or k in hll_keys:
             merged[k] = np.maximum.reduce(vals)
         elif k.startswith("f"):
             merged[k] = np.concatenate(vals, axis=0)
@@ -937,34 +979,33 @@ def agg_partials(agg, prepared, cards, segments, cols, mask):
     sched = prepared["__agg_sched__"]
     strategy = prepared["__strategy__"]
     seg = segment_ids(agg, cards, offsets, cols, prepared, mask)
-    one_hot = SE.make_one_hot(seg, segments) \
-        if strategy == "einsum" else None
     ones = mask.to(torch.int32)
-    out = {"rows": SE.seg_sum_partials(ones, seg, segments, 1,
-                                       one_hot=one_hot)}
+    out = {"rows": SE.seg_sum_partials(ones, seg, segments, 1, strategy)}
     for ai, (d, s) in enumerate(zip(agg.aggs, sched)):
         if s["kind"] == "count":
             if d.arg is not None:
                 _, vl = eval_expr(d.arg, cols, prepared)
-                cseg = torch.where(vl, seg, -1)
                 out[f"cnt{ai}"] = SE.seg_sum_partials(
-                    ones, cseg, segments, 1, one_hot=None
-                    if one_hot is None else SE.make_one_hot(cseg, segments))
+                    ones, torch.where(vl, seg, -1), segments, 1, strategy)
             continue
         if s["kind"] == "isum":
             _, vl = eval_expr(d.arg, cols, prepared)
             vseg = torch.where(vl, seg, -1)
-            voh = SE.make_one_hot(vseg, segments) \
-                if one_hot is not None else None
             out[f"cnt{ai}"] = SE.seg_sum_partials(
-                ones, vseg, segments, 1, one_hot=voh)
+                ones, vseg, segments, 1, strategy)
             for ti, (t, shift, L) in enumerate(s["terms"]):
                 tv, _ = eval_expr(t, cols, prepared)
                 out[f"s{ai}_{ti}"] = SE.seg_sum_partials(
-                    tv.to(torch.int32), vseg, segments, L, one_hot=voh)
+                    tv.to(torch.int32), vseg, segments, L, strategy)
             continue
         v, vl = eval_expr(d.arg, cols, prepared)
         vseg = torch.where(vl, seg, -1)
+        if s["kind"] == "hll":
+            out[f"cnt{ai}"] = SE.seg_sum_partials(
+                ones, vseg, segments, 1, strategy)
+            v32 = v.to(torch.int32) if v.dtype == torch.bool else v
+            out[f"h{ai}"] = AN.hll_group_registers(v32, vseg, segments)
+            continue
         out[f"cnt{ai}"] = SE.seg_sum_partials(ones, vseg, segments, 1)
         if s["kind"] == "fsum":
             out[f"f{ai}"] = SE.float_seg_sums(
@@ -1021,6 +1062,19 @@ def decode_agg_partials(agg, prepared, cards, out, group_dicts,
         cnt = SE.combine_partials(out[f"cnt{ai}"])[seg_idx] \
             if f"cnt{ai}" in out else rows_per_seg[seg_idx]
         val_t = val_types[starts[ai]]
+        if s["kind"] == "hll":
+            # HLL_WORDS byte-packed register words, then cnt: the final
+            # merge unpacks and maxes them, so overlay batches and
+            # host-tier partials union correctly
+            words = AN.hll_pack_words(np.asarray(out[f"h{ai}"])[seg_idx])
+            for w in range(HLL_WORDS):
+                columns.append(Column(
+                    FieldType(TypeKind.BIGINT, nullable=False),
+                    words[:, w].copy()))
+            columns.append(Column(
+                FieldType(TypeKind.BIGINT, nullable=False),
+                cnt.astype(np.int64)))
+            continue
         if s["kind"] == "count":
             vcol = Column(val_t, cnt.astype(np.int64))
         elif s["kind"] == "isum":

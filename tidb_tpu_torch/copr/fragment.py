@@ -39,10 +39,17 @@ Port of the single-device half of `tidb_tpu/copr/fragment.py`:
   per epoch, and the program looks each probe key up in it. The engine
   tag gains "+semi".
 
+Overlay rows of the probe table (committed or buffered after its epoch)
+run as a second batch through the same program, gathering per query; an
+overlay on a build or semi table, or on a group-space request (a group
+split across batches would break the candidate buffer's guarantee), goes
+to the host as in the reference.
+
 Gates decide exactly as the reference's: where the reference raises its
-`_Fallback(reason)` and serves the fragment on the host, this executor
-raises `NotInSlice(reason)`. Overlay rows on the probe table, a path of a
-later slice, raise `NotInSlice("overlay rows")`.
+`_Fallback(reason)`, the fragment runs on the port's host interpreter
+(`_host_fragment`, numpy: the joins, semi/anti edges, selection and
+aggregation over every visible row), tagged `host(fragment:<reason>)`.
+No torch or CUDA error is caught.
 """
 
 from __future__ import annotations
@@ -54,7 +61,6 @@ import torch
 
 from ..chunk.chunk import Chunk
 from ..chunk.column import Column
-from ..errors import NotInSlice
 from ..plan.dag import CopDAG, DAGScan
 from ..plan.expr import Col
 from ..plan.fragment import FragmentDAG, FragTable
@@ -101,9 +107,10 @@ def execute_fragment(cop: CopClient, frag: FragmentDAG, snaps: dict
     try:
         return _device_fragment(cop, frag, snaps)
     except (_Fallback, CompileError) as e:
-        # the reference serves these on its host interpreter, tagged
-        # host(fragment:<reason>)
-        raise NotInSlice(getattr(e, "reason", None) or "compile") from e
+        reason = getattr(e, "reason", None) or "compile"
+    r = _host_fragment(frag, snaps)
+    r.engine = f"host(fragment:{reason})"
+    return r
 
 
 # ==================== device path ====================
@@ -248,10 +255,6 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     if mode == "hc" and frag.hc is not None and frag.hc.items:
         _elect_fused_cut(frag, prepared, comb_dicts, n_rows, cop.device)
 
-    # ---- a path of a later slice ----
-    if len(psnap.overlay_handles) > 0:
-        raise NotInSlice("overlay rows")
-
     # ---- build staging: whole build tables + perm tables ----
     builds = []
     for j, (lo, span) in zip(frag.joins, spans):
@@ -275,7 +278,12 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     chunks: list[Chunk] = []
     if psnap.epoch.num_rows > 0:
         chunks.extend(_run_frag_batch(cop, frag, snaps, prepared, spans,
-                                      builds, mode))
+                                      builds, mode, overlay=False))
+    if len(psnap.overlay_handles) > 0:
+        # the hc modes gated overlay rows out above: a group split across
+        # batches would break the candidate buffer's superset guarantee
+        chunks.extend(_run_frag_batch(cop, frag, snaps, prepared, spans,
+                                      builds, mode, overlay=True))
     if not chunks:
         chunks = [_empty_chunk(frag, comb_dicts)]
     emode = "fat" if prepared.get("__hc_fused__") else (
@@ -441,23 +449,29 @@ def _stage_semi_bitmap(cop, sm, snap, lo: int, span: int) -> dict:
     return entry
 
 
-def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
-                    ) -> list[Chunk]:
+def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode,
+                    overlay: bool) -> list[Chunk]:
+    """One probe batch through the fragment's program: the epoch (tiled
+    above TILE_ROWS in the agg, rows and topn modes), or the overlay rows
+    as one small tile whose joins gather per query."""
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
     # big epochs stream through tiles exactly like the single-table path;
     # the hc paths stage the whole epoch (a group must not split across
     # tiles; rank metadata and key runs are per epoch)
-    if mode in ("agg", "rows", "topn") and \
+    if mode in ("agg", "rows", "topn") and not overlay and \
             psnap.epoch.num_rows > cop.TILE_ROWS:
         return _run_frag_tiled(cop, frag, snaps, prepared, spans, builds,
                                mode)
-    pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap)
+    pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap,
+                                              overlay=overlay)
     # the first query over an epoch pair pays the gathers; later ones
     # read the cached aligned build columns (membership bitmaps follow)
-    nj = len(frag.joins)
-    kern_builds = _stage_aligned(cop, frag, snaps, spans, builds[:nj],
-                                 pcols) + builds[nj:]
+    kern_builds = builds
+    if not overlay:
+        nj = len(frag.joins)
+        kern_builds = _stage_aligned(cop, frag, snaps, spans, builds[:nj],
+                                     pcols) + builds[nj:]
     aux = None
     if mode == "hc" and prepared.get("__rank_meta__") is not None:
         aux = _stage_rank_aux(cop, psnap, prepared)
@@ -475,7 +489,7 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode
     # replays the gathers for the passing rows only
     n_rows = phost[0][0].shape[0] if phost else 0
     mask = np.unpackbits(out["bits"])[:n_rows].astype(bool)
-    return _host_rows_for(frag, snaps, np.nonzero(mask)[0], prepared)
+    return _host_rows_for(frag, snaps, np.nonzero(mask)[0], overlay)
 
 
 def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
@@ -509,7 +523,7 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
         if len(local):
             idx_parts.append(local + ti * T)
     idx = np.concatenate(idx_parts) if idx_parts else np.zeros(0, np.int64)
-    return _host_rows_for(frag, snaps, idx, prepared)
+    return _host_rows_for(frag, snaps, idx, overlay=False)
 
 
 def _stage_aligned(cop, frag, snaps, spans, builds, pcols, tag=None):
@@ -1420,11 +1434,12 @@ def _decode_hc_rows(frag, snaps, prepared, out, picked) -> Chunk:
     return Chunk(columns)
 
 
-# ==================== row-mode replay ====================
+# ==================== row-mode replay and the host interpreter ==========
 
-def _host_rows_for(frag, snaps, probe_idx, prepared) -> list[Chunk]:
-    """Joined output rows (`out_map` order) for the given probe rows."""
-    cols, valids, dicts = _host_join(frag, snaps, probe_idx, prepared)
+def _host_rows_for(frag, snaps, probe_idx, overlay: bool) -> list[Chunk]:
+    """Joined output rows (`out_map` order) for the given probe rows of
+    one batch (the epoch's, or the overlay's)."""
+    cols, valids, dicts = _host_join(frag, snaps, probe_idx, overlay)
     if cols is None:
         return []
     return _rows_chunk(frag, cols, valids, dicts)
@@ -1437,76 +1452,239 @@ def _rows_chunk(frag, cols, valids, dicts) -> list[Chunk]:
         v = valids[comb]
         columns.append(Column(ft, cols[comb].astype(ft.np_dtype),
                               None if v.all() else v, dicts[comb]))
+    if not columns:
+        return []
     return [Chunk(columns)]
 
 
-def _host_join(frag, snaps, probe_idx, prepared):
-    """Replay the joins on the host for the probe rows the device passed,
-    with NO further filtering (the device already applied every filter).
-    Returns (cols, valids, dicts) in combined order, or (None, None, None)
-    when no row passed. Build tables carry no overlay rows (the
-    build-overlay gate), so a build's rows are its visible epoch rows."""
+def _host_fragment(frag: FragmentDAG, snaps: dict) -> CopResult:
+    """The same FragmentDAG interpreted in numpy over every visible row —
+    the reference's answer when a snapshot fails a device gate. The same
+    chunks as the device path: partial agg layout or `out_map` rows."""
+    cols, valids, dicts = _host_join(frag, snaps, None)
+    if cols is None:
+        return CopResult([], is_partial_agg=frag.agg is not None)
+    if frag.agg is None:
+        return CopResult(_rows_chunk(frag, cols, valids, dicts),
+                         is_partial_agg=False)
+    chunk = _host_agg(frag, cols, valids, dicts)
+    return CopResult([] if chunk is None else [chunk], is_partial_agg=True)
+
+
+def _full_host_cols(snap, col_offsets):
+    """(data, valid) per column over the visible epoch rows, then the
+    overlay rows."""
+    vis = snap.base_visible
+    n_o = len(snap.overlay_handles)
+    out = []
+    for off in col_offsets:
+        d = snap.epoch.columns[off][vis]
+        v = snap.epoch.valids[off]
+        v = None if v is None else v[vis]
+        if n_o:
+            od = snap.overlay_columns[off]
+            ov = snap.overlay_valids[off]
+            d = np.concatenate([d, od])
+            if v is not None or ov is not None:
+                va = np.ones(len(d) - n_o, bool) if v is None else v
+                vb = np.ones(n_o, bool) if ov is None else ov
+                v = np.concatenate([va, vb])
+        out.append((d, v))
+    return out
+
+
+def _host_join(frag, snaps, probe_idx, overlay: bool = False):
+    """Vectorized host join: -> (cols, valids, dicts) in combined order for
+    the surviving rows, or (None, None, None) when none survives.
+
+    With `probe_idx` (the row mode's replay) the rows are those probe rows
+    of one batch, the epoch's or the overlay's, with NO further filtering:
+    the device already applied every filter and gate. Without it (the host
+    interpreter) the probe rows are every visible row, and the filters,
+    joins, semi/anti edges and the selection all apply here. Builds are
+    their visible rows plus their overlay rows (the device path gates
+    build overlays out, so a replay sees the epoch's visible rows)."""
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
-    nrows = len(probe_idx)
-    if nrows == 0:
-        return None, None, None
-    cols, valids = [], []
-    for off in probe.col_offsets:
-        d, v = psnap.epoch.columns[off], psnap.epoch.valids[off]
-        cols.append(d[probe_idx])
-        valids.append(np.ones(nrows, bool) if v is None else v[probe_idx])
+    filtered = probe_idx is None
+    if filtered:
+        base = _full_host_cols(psnap, probe.col_offsets)
+    else:
+        base = []
+        for off in probe.col_offsets:
+            if overlay:
+                d, v = psnap.overlay_columns[off], psnap.overlay_valids[off]
+            else:
+                d, v = psnap.epoch.columns[off], psnap.epoch.valids[off]
+            base.append((d[probe_idx], None if v is None else v[probe_idx]))
+    cols = [d for d, _ in base]
+    valids = [np.ones(len(d), bool) if v is None else v.copy()
+              for d, v in base]
     dicts = [psnap.dictionaries[off] for off in probe.col_offsets]
+    nrows = len(cols[0]) if cols else 0
+    keep = np.ones(nrows, bool)
+
+    if filtered and probe.filters:
+        ev = NumpyEval(list(zip(cols, valids)), dicts, nrows)
+        for c in probe.filters:
+            fv, fvl = ev.eval(c)
+            keep &= _truthy(np.asarray(fv)) & fvl
 
     for j in frag.joins:
         t = frag.tables[j.build]
         snap = snaps[t.table.id]
-        vis = snap.base_visible
-        bcols = [(snap.epoch.columns[off][vis],
-                  None if snap.epoch.valids[off] is None
-                  else snap.epoch.valids[off][vis]) for off in t.col_offsets]
+        bcols = _full_host_cols(snap, t.col_offsets)
+        bn = len(bcols[0][0]) if bcols else 0
+        bkeep = np.ones(bn, bool)
+        bdicts = [snap.dictionaries[off] for off in t.col_offsets]
+        if filtered and t.filters:
+            bev = NumpyEval([(d, np.ones(bn, bool) if v is None else v)
+                             for d, v in bcols], bdicts, bn)
+            for c in t.filters:
+                fv, fvl = bev.eval(c)
+                bkeep &= _truthy(np.asarray(fv)) & fvl
         # unique-key mapping via sorted search
         kd, kv = bcols[j.build_key_local]
-        bidx = np.nonzero(np.ones(len(kd), bool) if kv is None else kv)[0]
+        ok = bkeep if kv is None else bkeep & kv
+        bidx = np.nonzero(ok)[0]
         bkeys = kd[bidx].astype(np.int64)
         order = np.argsort(bkeys, kind="stable")
         skeys = bkeys[order]
         srows = bidx[order]
 
-        pk, pkv = _host_eval(j.probe_key, cols, valids, prepared)
+        pk, pkv = NumpyEval(list(zip(cols, valids)), dicts,
+                            nrows).eval(j.probe_key)
+        pk = np.asarray(pk).astype(np.int64)
         pos = np.searchsorted(skeys, pk)
         pos_safe = np.clip(pos, 0, max(len(skeys) - 1, 0))
         found = np.zeros(nrows, bool) if len(skeys) == 0 else (
             (pos < len(skeys)) & (skeys[pos_safe] == pk))
-        found &= pkv
+        found &= np.asarray(pkv)
         rows = srows[pos_safe] if len(skeys) else np.zeros(nrows, np.int64)
+        keep &= found
         safe_rows = np.where(found, rows, 0)
         for d, v in bcols:
             cols.append(d[safe_rows])
             valids.append((np.ones(nrows, bool) if v is None
                            else v[safe_rows]) & found)
-        dicts.extend(snap.dictionaries[off] for off in t.col_offsets)
+        dicts.extend(bdicts)
+
+    if filtered and nrows:
+        # semi/anti membership edges (the device twin: the bitmap lookups
+        # of _build_frag_kernel)
+        for sm in frag.semis:
+            snap = snaps[sm.table.table.id]
+            bcols = _full_host_cols(snap, sm.table.col_offsets)
+            bn = len(bcols[0][0]) if bcols else 0
+            bkeep, has_null, kd, ok = _semi_build_facts(
+                bcols, [snap.dictionaries[off]
+                        for off in sm.table.col_offsets],
+                sm.table, sm.build_key_local, np.ones(bn, bool))
+            skeys = np.unique(kd[ok].astype(np.int64))
+            pk, pkv = NumpyEval(list(zip(cols, valids)), dicts,
+                                nrows).eval(sm.probe_key)
+            pkv = np.asarray(pkv)
+            found = np.isin(np.asarray(pk).astype(np.int64), skeys) & pkv
+            if sm.kind == "SEMI":
+                keep &= found
+            elif sm.kind == "ANTI":
+                keep &= ~found
+            elif bkeep.any():  # ANTI_NULL: NULL-aware NOT IN
+                # a NULL in the set keeps no row; NOT IN (empty set)
+                # keeps every row
+                keep &= False if has_null else (pkv & ~found)
+
+    if filtered and frag.selection and nrows:
+        ev = NumpyEval(list(zip(cols, valids)), dicts, nrows)
+        for c in frag.selection:
+            fv, fvl = ev.eval(c)
+            keep &= _truthy(np.asarray(fv)) & fvl
+
+    if filtered:
+        idx = np.nonzero(keep)[0]
+        if len(idx) == 0:
+            return None, None, None
+        cols = [c[idx] for c in cols]
+        valids = [v[idx] for v in valids]
+    elif nrows == 0:
+        return None, None, None
     return cols, valids, dicts
 
 
-def _host_eval(e, cols, valids, prepared):
-    """Evaluate a join's probe key over replayed host rows with the same
-    `eval_expr` the device ran, on CPU tensors at the device dtypes (the
-    int64-column and key-width gates hold every value inside int32).
-    -> (int64 values, bool validity) numpy arrays."""
-    need = _cols_of(e) | {0}  # column 0 gives a constant its length
+def _host_agg(frag, cols, valids, dicts) -> Optional[Chunk]:
+    """Partial-layout aggregation over joined host rows (numpy)."""
+    agg = frag.agg
+    n = len(cols[0]) if cols else 0
+    if n == 0:
+        return None
+    ev = NumpyEval(list(zip(cols, valids)), dicts, n)
+    keys = []
+    for g in agg.group_by:
+        gv, gvl = ev.eval(g)
+        gv = np.asarray(gv)
+        enc = gv.astype(np.float64).view(np.int64) \
+            if np.issubdtype(gv.dtype, np.floating) else gv.astype(np.int64)
+        keys.append((np.where(gvl, enc, np.int64(-(2**62))), gv, gvl))
+    if keys:
+        stacked = np.stack([k[0] for k in keys], axis=1)
+        _, first, inv = np.unique(stacked, axis=0, return_index=True,
+                                  return_inverse=True)
+        inv = inv.reshape(-1)
+    else:
+        first = np.zeros(1, np.int64)
+        inv = np.zeros(n, np.int64)
+    n_seg = len(first)
 
-    def as_tensor(a):
-        if a.dtype.kind == "f":
-            return torch.from_numpy(a.astype(np.float32))
-        if a.dtype == np.bool_:
-            return torch.from_numpy(a)
-        return torch.from_numpy(a.astype(np.int32))
-
-    tcols = [(as_tensor(cols[i]), torch.from_numpy(valids[i]))
-             if i in need else None for i in range(len(cols))]
-    v, vl = eval_expr(e, tcols, prepared)
-    return v.numpy().astype(np.int64), vl.numpy()
+    columns: list[Column] = []
+    for gi, g in enumerate(agg.group_by):
+        _, gv, gvl = keys[gi]
+        vl = gvl[first]
+        dictionary = dicts[g.idx] \
+            if g.ftype.is_string and isinstance(g, Col) else None
+        columns.append(Column(g.ftype, gv[first].astype(g.ftype.np_dtype),
+                              None if vl.all() else vl, dictionary))
+    for ai, d in enumerate(agg.aggs):
+        val_t = frag.output_types[len(agg.group_by) + 2 * ai]
+        if d.arg is None:
+            cnt = np.bincount(inv, minlength=n_seg).astype(np.int64)
+            vcol = Column(val_t, cnt)
+        else:
+            av, avl = ev.eval(d.arg)
+            av = np.asarray(av)
+            avl = np.asarray(avl)
+            cnt = np.bincount(inv, weights=avl.astype(np.float64),
+                              minlength=n_seg).astype(np.int64)
+            if d.func == "count":
+                vcol = Column(val_t, cnt)
+            elif d.func in ("sum", "avg"):
+                if np.issubdtype(av.dtype, np.floating):
+                    s = np.bincount(inv, weights=np.where(avl, av, 0.0),
+                                    minlength=n_seg)
+                else:
+                    s = np.zeros(n_seg, np.int64)
+                    np.add.at(s, inv, np.where(avl, av.astype(np.int64), 0))
+                vcol = Column(val_t, s.astype(val_t.np_dtype),
+                              None if (cnt > 0).all() else (cnt > 0))
+            elif d.func in ("min", "max"):
+                if np.issubdtype(av.dtype, np.floating):
+                    sent = np.inf if d.func == "min" else -np.inf
+                    vv = np.where(avl, av, sent)
+                else:
+                    sent = np.int64(2**62) if d.func == "min" \
+                        else np.int64(-(2**62))
+                    vv = np.where(avl, av.astype(np.int64), sent)
+                s = np.full(n_seg, sent, dtype=vv.dtype)
+                red = np.minimum if d.func == "min" else np.maximum
+                red.at(s, inv, vv)
+                s = np.where(cnt > 0, s, 0)
+                vcol = Column(val_t, s.astype(val_t.np_dtype),
+                              None if (cnt > 0).all() else (cnt > 0))
+            else:
+                raise CompileError(f"host fragment agg {d.func}")
+        columns.append(vcol)
+        columns.append(Column(FieldType(TypeKind.BIGINT, nullable=False),
+                              cnt.astype(np.int64)))
+    return Chunk(columns)
 
 
 def _cols_of(e) -> set:

@@ -22,8 +22,6 @@ value = sum_i p_i << (12*i).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -31,7 +29,7 @@ LIMB_BITS = 12
 _LIMB_MASK = (1 << LIMB_BITS) - 1
 _L2 = 1 << LIMB_BITS  # second-level split base
 BLOCK = 4096  # rows per exact f32 block: 4096 * (2^12-1) < 2^24
-EINSUM_BLOCK = 2048  # rows per one-hot einsum block
+EINSUM_BLOCK = 2048  # rows per block of the einsum strategy
 
 
 def _pad1(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:
@@ -66,39 +64,28 @@ def _two_level(part: torch.Tensor) -> torch.Tensor:
                         (p & _LIMB_MASK).sum(dim=0, dtype=torch.int32)])
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Full-f32 matrix products: TF32 keeps 10 mantissa bits and would
-    round 12-bit limb sums (the reference runs this product at
-    Precision.HIGHEST for the same reason)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        assert not torch.backends.cuda.matmul.allow_tf32
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def seg_sum_partials(
     v: torch.Tensor,
     seg: torch.Tensor,
     segments: int,
     n_limbs: int,
-    one_hot: torch.Tensor | None = None,
+    strategy: str = "loop",
 ) -> torch.Tensor:
     """Exact per-segment sums of int32 v -> int32[n_limbs, 2, segments].
 
     seg: int32 segment id per row, -1 = excluded (masked/padded rows).
-    Without `one_hot` the masked-reduction ("loop") form is used; with
-    it, the one-hot f32 product (pass the shared `one_hot` to amortize it
-    across values).
+    "loop" takes one masked block reduction per segment; "einsum" (the
+    reference's one-hot product, up to 8192 segments) scatter-adds each
+    limb into f32[blocks of EINSUM_BLOCK rows, segments]. Both give the
+    reference's partials: every block cell is an integer sum of at most
+    4096 twelve-bit limbs, below 2^24, so f32 adds it exactly in any order,
+    and the einsum form's memory is blocks x segments, not rows x segments.
     """
     n = v.shape[0]
     limbs = limbs_of(v, n_limbs)
     outs = []
-    if one_hot is None:
-        # loop strategy: per-segment masked block sums
+    if strategy == "loop":
+        # per-segment masked block sums
         nblk = -(-n // BLOCK)
         pad = nblk * BLOCK - n
         seg_b = _pad1(seg, pad, -1).reshape(nblk, BLOCK)
@@ -111,26 +98,20 @@ def seg_sum_partials(
                 per_seg.append(_two_level(part[:, None])[:, 0])
             outs.append(torch.stack(per_seg, dim=-1))  # [2, segments]
     else:
-        # einsum strategy: one_hot is f32[blocks, EINSUM_BLOCK, segments]
+        # excluded rows add 0 to cell 0: no negative index reaches the
+        # scatter (a CUDA scatter with one kills the context)
+        nblk = -(-n // EINSUM_BLOCK)
+        live = seg >= 0
+        blk = torch.arange(n, dtype=torch.int64, device=seg.device) \
+            // EINSUM_BLOCK
+        cell = torch.where(live, blk * segments + seg, 0)
         for li in limbs:
-            nblk = one_hot.shape[0]
-            pad = nblk * EINSUM_BLOCK - n
-            lb = _pad1(li.to(torch.float32), pad).reshape(
-                nblk, EINSUM_BLOCK)
-            with _full_f32_matmul():
-                part = torch.einsum("cb,cbk->ck", lb, one_hot)
-            outs.append(_two_level(part))
+            part = torch.zeros(nblk * segments, dtype=torch.float32,
+                               device=v.device)
+            part.index_add_(0, cell, torch.where(live, li.to(torch.float32),
+                                                 0.0))
+            outs.append(_two_level(part.view(nblk, segments)))
     return torch.stack(outs)  # int32[n_limbs, 2, segments]
-
-
-def make_one_hot(seg: torch.Tensor, segments: int) -> torch.Tensor:
-    """Shared f32 one-hot for the einsum path; -1 rows vanish (all-zero)."""
-    n = seg.shape[0]
-    nblk = -(-n // EINSUM_BLOCK)
-    pad = nblk * EINSUM_BLOCK - n
-    seg2 = _pad1(seg, pad, -1).reshape(nblk, EINSUM_BLOCK)
-    ids = torch.arange(segments, dtype=seg2.dtype, device=seg2.device)
-    return (seg2[..., None] == ids).to(torch.float32)
 
 
 def merge_additive(vals) -> np.ndarray:

@@ -2,12 +2,11 @@
 
 
 class NotInSlice(Exception):
-    """The request needs a path that is not ported yet.
+    """The request needs a part of the reference that is not ported.
 
-    Raised where the reference leaves the device path for its host
-    interpreter (`reason` is the reference's own gate reason, e.g.
-    "group-overflow") and where the reference takes a device path the
-    port does not have yet (joins, TopN, the sorted-run hc body)."""
+    Raised only for a registry builtin (`fx:` op) in an expression the
+    host evaluates: the reference's registry belongs to its SQL tier, and
+    pushdown never sends one to the coprocessor."""
 
     def __init__(self, reason: str) -> None:
         super().__init__(reason)

@@ -145,7 +145,7 @@ def arith_result_type(op: str, a: FieldType, b: FieldType) -> FieldType:
 def agg_result_type(func: str, arg: Optional[PlanExpr]) -> FieldType:
     """Result type of the aggregates the coprocessor computes (the
     reference types the rest of MySQL's aggregate family too)."""
-    if func == "count":
+    if func in ("count", "approx_count_distinct"):
         return FieldType(TypeKind.BIGINT, nullable=False)
     assert arg is not None
     at = arg.ftype

@@ -2,10 +2,13 @@
 
 The read side of the reference's MVCC store (`tidb_tpu/store/table_store.py`):
 a `ColumnEpoch` of flat column arrays, and a `TableSnapshot` over it with a
-visibility mask and an (empty) overlay of rows committed after the epoch.
-Deltas, compaction and the KV layer are a later slice; a snapshot handed to
-the coprocessor may still carry overlay rows (one converted from the
-reference does), and the coprocessor raises `NotInSlice` for them.
+visibility mask and an overlay of rows committed (or buffered) after the
+epoch, which the coprocessor runs as a second batch. Deltas, compaction and
+the KV layer are a later slice: `TableStore.snapshot` gives every base row
+and no overlay, and a snapshot with overlay rows is built by its caller
+(one converted from the reference, or `bench/tpch_requests.py`'s
+`overlay_snapshot`). The store keeps the index sort orders
+(`store/index.py`) of its epochs.
 """
 
 from __future__ import annotations
@@ -13,13 +16,13 @@ from __future__ import annotations
 import functools
 import hashlib
 import itertools
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 
 from ..catalog.schema import TableInfo
-from ..chunk.column import Dictionary, EnumDictionary
+from ..chunk.column import Column, Dictionary, EnumDictionary
 from ..types.field_type import TypeKind
 
 _epoch_ids = itertools.count(1)
@@ -33,6 +36,54 @@ def _column_dictionary(ftype) -> Optional[Dictionary]:
     return Dictionary() if ftype.is_string else None
 
 
+class HandleIndex:
+    """handle -> row-position map over an epoch's handle array, built at
+    the first lookup: contiguous handles (the bulk-load shape) answer with
+    arithmetic, anything else argsorts once and binary-searches."""
+
+    __slots__ = ("_handles", "_mode", "_base", "_sorted", "_order")
+
+    def __init__(self, handles: np.ndarray) -> None:
+        self._handles = handles
+        self._mode: Optional[str] = None
+
+    def _resolve(self) -> None:
+        h = self._handles
+        n = len(h)
+        if n == 0:
+            self._mode = "empty"
+            return
+        base = int(h[0])
+        if int(h[-1]) - base == n - 1 and bool(
+                (h == np.arange(base, base + n, dtype=np.int64)).all()):
+            self._base = base
+            self._mode = "contig"
+            return
+        self._order = np.argsort(h, kind="stable")
+        self._sorted = h[self._order]
+        self._mode = "sorted"
+
+    def positions(self, handles: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        """-> (row position per handle, found): positions where not found
+        are 0."""
+        if self._mode is None:
+            self._resolve()
+        handles = np.asarray(handles, dtype=np.int64)
+        if self._mode == "empty":
+            return (np.zeros(len(handles), np.int64),
+                    np.zeros(len(handles), bool))
+        if self._mode == "contig":
+            pos = handles - self._base
+            found = (pos >= 0) & (pos < len(self._handles))
+        else:
+            j = np.searchsorted(self._sorted, handles)
+            jc = np.minimum(j, len(self._sorted) - 1)
+            found = self._sorted[jc] == handles
+            pos = self._order[jc]
+        return np.where(found, pos, 0), found
+
+
 @dataclass
 class ColumnEpoch:
     """Immutable columnar snapshot of all rows folded up to fold_ts."""
@@ -42,6 +93,12 @@ class ColumnEpoch:
     handles: np.ndarray  # int64[n]
     columns: list[np.ndarray]  # physical data per table column
     valids: list[Optional[np.ndarray]]  # None = all valid
+    # handle -> row position; built lazily from handles
+    handle_pos: Optional[HandleIndex] = None
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.handle_pos, HandleIndex):
+            self.handle_pos = HandleIndex(self.handles)
 
     @property
     def num_rows(self) -> int:
@@ -60,6 +117,81 @@ class TableSnapshot:
     overlay_handles: np.ndarray  # int64[m] rows added/updated after fold_ts
     overlay_columns: list[np.ndarray]
     overlay_valids: list[Optional[np.ndarray]]
+    # backref for index lookups (the epoch sort-order cache lives on the
+    # store)
+    store: Any = field(default=None, repr=False)
+
+    @property
+    def num_visible_rows(self) -> int:
+        return int(self.base_visible.sum()) + len(self.overlay_handles)
+
+    def gather(self, handles: np.ndarray, offsets: list[int]):
+        """Rows for the given (visible) handles as per-offset (data, valid)
+        arrays, in handle-argument order; an overlay row shadows its base
+        row. The index-lookup read path: O(k), never materializes the
+        table."""
+        handles = np.asarray(handles, dtype=np.int64)
+        k = len(handles)
+        oh = self.overlay_handles
+        from_overlay = np.zeros(k, dtype=bool)
+        ov_rows = np.zeros(k, dtype=np.int64)
+        if len(oh) and k:
+            order = np.argsort(oh, kind="stable")
+            j = np.minimum(np.searchsorted(oh[order], handles), len(oh) - 1)
+            from_overlay = oh[order][j] == handles
+            ov_rows = np.where(from_overlay, order[j], 0)
+        base_rows, found = self.epoch.handle_pos.positions(handles)
+        base_rows = np.where(from_overlay, 0, base_rows)
+        bad = ~from_overlay & ~(found & self.base_visible[base_rows]
+                                if self.epoch.num_rows else found)
+        if bad.any():
+            raise ValueError(
+                f"gather of non-visible handle {int(handles[bad][0])}")
+        out = []
+        for off in offsets:
+            dt = self.table.columns[off].ftype.np_dtype
+            if self.epoch.num_rows:
+                data = self.epoch.columns[off][base_rows].astype(dt, copy=True)
+            else:
+                data = np.zeros(k, dtype=dt)
+            valid = np.ones(k, dtype=bool)
+            bv = self.epoch.valids[off]
+            if bv is not None and self.epoch.num_rows:
+                valid &= bv[base_rows] | from_overlay
+            if from_overlay.any():
+                data[from_overlay] = self.overlay_columns[off][
+                    ov_rows[from_overlay]]
+                ovv = self.overlay_valids[off]
+                if ovv is not None:
+                    valid[from_overlay] = ovv[ov_rows[from_overlay]]
+            out.append((data, valid))
+        return out
+
+    def column(self, offset: int) -> Column:
+        """One full visible column: the visible base rows, then the
+        overlay rows (the host interpreter's input). Where every base row
+        is visible and there is no overlay, the epoch's own (immutable)
+        arrays."""
+        ft = self.table.columns[offset].ftype
+        if self.visible_digest == "all" and not len(self.overlay_handles):
+            return Column(ft, self.epoch.columns[offset],
+                          self.epoch.valids[offset],
+                          self.dictionaries[offset])
+        base_data = self.epoch.columns[offset][self.base_visible]
+        base_valid = self.epoch.valids[offset]
+        if base_valid is not None:
+            base_valid = base_valid[self.base_visible]
+        data = np.concatenate([base_data, self.overlay_columns[offset]])
+        ov_valid = self.overlay_valids[offset]
+        if base_valid is None and ov_valid is None:
+            valid = None
+        else:
+            bv = base_valid if base_valid is not None \
+                else np.ones(len(base_data), bool)
+            ov = ov_valid if ov_valid is not None else np.ones(
+                len(self.overlay_columns[offset]), bool)
+            valid = np.concatenate([bv, ov])
+        return Column(ft, data, valid, self.dictionaries[offset])
 
     @functools.cached_property
     def visible_digest(self) -> str:
@@ -78,6 +210,9 @@ class TableStore:
 
     def __init__(self, table: TableInfo) -> None:
         self.table = table
+        # (epoch_id, index id or ("col", offset)) -> sort order; see
+        # store/index.py
+        self._index_orders: dict = {}
         self.dictionaries: list[Optional[Dictionary]] = [
             _column_dictionary(c.ftype) for c in table.columns
         ]
@@ -133,4 +268,5 @@ class TableStore:
             overlay_handles=np.empty(0, dtype=np.int64),
             overlay_columns=[np.empty(0, dtype=c.ftype.np_dtype)
                              for c in self.table.columns],
-            overlay_valids=[None] * ncols)
+            overlay_valids=[None] * ncols,
+            store=self)
