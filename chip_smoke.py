@@ -79,14 +79,39 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       Part e launches no hand-written kernel except where a request takes
       the rank path (Q18-inner); its launch count is printed, and the
       check that every kernel launched stays on parts a-d.
-   Each result is checked exactly against its numpy oracle (row results
-   column by column, in order) with the reference's engine tag; then the
-   first (cold) run and the p50 wall time of 5 warm runs, each ending in
-   torch.cuda.synchronize(), and the device-busy share of one more warm
-   run under torch.profiler (traced kernel and copy time over its wall
-   time; in parts c and d also the 8 kernels that took the most of it).
-   A host-tier request (`host(...)`, `ranged`) takes 3 warm runs, the
-   third of them the profiled one;
+   f. the SQL read path: TPC-H query text through the port's `Session`
+      (parser, planner, root executor, the coprocessor on the card),
+      after the earlier parts' client and snapshots are dropped:
+      f1. all eight SF10 tables (the arrays generated for parts a-e)
+          bulk-loaded into a `Session()` (load seconds), ANALYZE TABLE of
+          all eight (device ANALYZE from 2M rows up; seconds), then Q6,
+          Q14, Q12, Q5, Q3, Q10 and Q4 as SQL text through
+          `Session.query`: each query's final rows equal to the numpy
+          answer (`tpch_requests.sql_oracle`: the partial oracles
+          finished as the root finishes them), its `last_engines` equal
+          to the tag its coprocessor request carries in parts a-d, and Q3
+          must launch streamseg; then each one's cold run, warm p50 of 5,
+          device-busy share of one profiled run, parse+plan ms and
+          root-operator ms (from the session's stage recorder), the p50
+          of 5 runs of the same coprocessor requests sent directly to the
+          session's client with its snapshots (what the SQL layers add),
+          and the part's peak device memory;
+      f2. all 22 queries at SF1 (the arrays of the SF1 load) through a
+          card `Session()` and a `Session(device="cpu")`, loaded and
+          analyzed alike: rows equal exactly (in order where the query
+          has ORDER BY), engine tags equal, Q18 must launch streamseg;
+          the card's cold run and warm p50 of 3, and the CPU's seconds.
+          Q19 runs at SF0.003 (seed 1) instead: the reference plans it as
+          a cross join of lineitem and part whose OR filter the root
+          evaluates over every pair (1.2e12 pairs at SF1).
+   Each result of parts a-e is checked exactly against its numpy oracle
+   (row results column by column, in order) with the reference's engine
+   tag; then the first (cold) run and the p50 wall time of 5 warm runs,
+   each ending in torch.cuda.synchronize(), and the device-busy share of
+   one more warm run under torch.profiler (traced kernel and copy time
+   over its wall time; in parts c and d also the 8 kernels that took the
+   most of it). A host-tier request (`host(...)`, `ranged`) takes 2 warm
+   runs, the second of them the profiled one;
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -97,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -120,7 +146,9 @@ from tidb_tpu_torch.copr import topnpack as TP
 from tidb_tpu_torch.copr.client import CopClient, _bucket
 from tidb_tpu_torch.copr.fragment import execute_fragment
 from tidb_tpu_torch.copr.sumexact import limbs_of
+from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from tidb_tpu_torch.plan.fragment import FragmentDAG
+from tidb_tpu_torch.session import Session
 
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -285,8 +313,7 @@ def _load(sf: float, seed: int, names, first_table_id: int):
     """Generate TPC-H at `sf` and load the named tables: -> (generated
     arrays of those tables, name -> TableInfo, table id -> snapshot)."""
     t0 = time.perf_counter()
-    data = TD.generate_tpch(sf, seed)
-    data = {n: data[n] for n in names}
+    data = TD.generate_tpch(sf, seed)  # all eight tables: part f loads them
     tables, snaps = TR.load_tables(data, names, first_table_id)
     print(f"  generated + loaded SF{sf:g} {', '.join(names)} "
           f"({len(data['lineitem']['l_orderkey'])} lineitem rows) in "
@@ -338,7 +365,7 @@ def _drive(label: str, queries: list, top: int = 0,
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
     p50 of 5 warm runs and one profiled run (with its `top` costliest CUDA
-    kernels). A host-tier request takes 3 warm runs, the third of them
+    kernels). A host-tier request takes 2 warm runs, the second of them
     profiled (a run of seconds of numpy, which the profiler does not
     trace). queries: [(name, scale, tag, rows in, run, check, kernels this
     query must launch itself)]. `every_kernel`: each kernel must launch
@@ -368,7 +395,7 @@ def _drive(label: str, queries: list, top: int = 0,
                                                         results):
         host = _host_tier(r.engine)
         times = []
-        for _ in range(2 if host else 5):
+        for _ in range(1 if host else 5):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -388,9 +415,10 @@ def _drive(label: str, queries: list, top: int = 0,
     return launches
 
 
-def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
+def _main_path(args, cop, at_sf, at_q18_sf) -> tuple[dict, dict]:
     """Phase 4 through `cop`: at_sf and at_q18_sf are `_load` results at
-    --sf and --q18-sf. -> kernel launches over the four parts."""
+    --sf and --q18-sf. -> (kernel launches over the four parts, request
+    name -> the engine tag it was checked against)."""
     d10, t10, s10 = at_sf
     d1, t1, s1 = at_q18_sf
     li10, li1 = d10["lineitem"], d1["lineitem"]
@@ -513,7 +541,8 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> dict:
           f"{FragmentDAG.HAVING_CAP} over {n_pad} scores ({n_pass} at 1.0): "
           f"{ms:.2f} ms")
     del score
-    return launches
+    tags = {q[0]: q[2] for q in single + joins + topn + rows}
+    return launches, tags
 
 
 def _q18_groups_check(li):
@@ -743,6 +772,188 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
     return launches
 
 
+# TPC-H query -> the parts a-d request that carries its coprocessor work
+F1_REQUESTS = {"q6": "Q6", "q14": "q14", "q12": "q12", "q5": "q5",
+               "q3": "q3", "q10": "q10", "q4": "q4"}
+# coprocessor reads in the executor's operator labels (engine.py); every
+# other operator frame is root work on the host
+COPR_OPS = {"fragment", "scan", "scan+agg", "scan+topn"}
+# Q19's scale and seed in part f2: the reference plans Q19 as a cross join
+# whose OR filter the root evaluates over every lineitem x part pair; at
+# SF0.003 no lineitem passes the filter with seeds 7 and 42, with seed 1
+# some do
+Q19_SF, Q19_SEED = 0.003, 1
+
+
+def _sql_load(sessions, data, label: str) -> None:
+    """Bulk-load all eight tables of `data` into each session, table by
+    table in the same order, then ANALYZE them; prints the seconds."""
+    for s in sessions:
+        t0 = time.perf_counter()
+        for name in TD.TPCH_DDL:
+            TD.load_table(s, name, data[name])
+        t1 = time.perf_counter()
+        s.execute("analyze table " + ", ".join(TD.TPCH_DDL))
+        _sync()
+        print(f"  {label} {s.cop.device}: {len(data['lineitem']['l_orderkey'])}"
+              f" lineitem rows, bulk load {t1 - t0:.2f}s, ANALYZE TABLE of "
+              f"all eight {time.perf_counter() - t1:.2f}s")
+
+
+def _sync() -> None:
+    torch.cuda.synchronize()
+
+
+def _sql_run(s, sql: str) -> tuple[list, float]:
+    """One statement on `s`, ending in a synchronize: -> (rows, seconds)."""
+    t0 = time.perf_counter()
+    rows = s.query(sql)
+    _sync()
+    return rows, time.perf_counter() - t0
+
+
+def _sql_split(s) -> str:
+    """The last statement's parse+plan and root-operator milliseconds
+    (the session's stage recorder)."""
+    plan = sum(s.last_stages.get(k, 0.0) for k in ("parse", "plan_build"))
+    root = sum(v for k, v in s.last_op_wall.items() if k not in COPR_OPS)
+    copr = sum(v for k, v in s.last_op_wall.items() if k in COPR_OPS)
+    return (f"parse+plan_ms={plan * 1e3:.2f} root_ms={root * 1e3:.2f} "
+            f"coprocessor_ms={copr * 1e3:.2f}")
+
+
+def _captured_reads(s, sql: str) -> list:
+    """Run `sql` once on `s`, capturing its coprocessor reads: -> a
+    callable per read that sends the same request with the same
+    snapshots straight to the session's client."""
+    from tidb_tpu_torch.copr import fragment as FR
+    reads = []
+    run_dag, run_frag = CopClient.execute, FR.execute_fragment
+
+    def dag_call(cop, dag, snap):
+        reads.append(lambda: run_dag(cop, dag, snap))
+        return run_dag(cop, dag, snap)
+
+    def frag_call(cop, frag, snaps):
+        reads.append(lambda: run_frag(cop, frag, snaps))
+        return run_frag(cop, frag, snaps)
+
+    with mock.patch.object(CopClient, "execute", dag_call), \
+            mock.patch.object(FR, "execute_fragment", frag_call):
+        s.query(sql)
+    return reads
+
+
+def _part_f1(args, d10, tags) -> dict:
+    """Part f1 (module docstring). -> the part's kernel launches."""
+    sf10 = f"SF{args.sf:g}"
+    torch.cuda.reset_peak_memory_stats()
+    s = Session()
+    _sql_load([s], d10, sf10)
+    _kernels.reset_launches()
+    firsts = {}
+    for q, req in F1_REQUESTS.items():
+        before = dict(_kernels.LAUNCHES)
+        rows, first = _sql_run(s, TPCH_QUERIES[q])
+        if s.last_engines != [tags[req]]:
+            raise SystemExit(f"{q}: engines {s.last_engines}, want "
+                             f"[{tags[req]!r}] (parts a-d's {req})")
+        if TR.sql_cells(rows) != TR.sql_oracle(q, d10):
+            raise SystemExit(f"{q}: SQL rows differ from the oracle")
+        if q == "q3" and _kernels.LAUNCHES["streamseg.rank_sums"] == \
+                before["streamseg.rank_sums"]:
+            raise SystemExit("q3 did not launch kernel streamseg.rank_sums")
+        firsts[q] = (first, len(rows), s.last_engines)
+    launches = dict(_kernels.LAUNCHES)
+    for k, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {k} was not launched on the SQL path")
+    print(f"  launches on the SQL path at {sf10}: {launches}")
+    for q, (first, nrows, engines) in firsts.items():
+        sql = TPCH_QUERIES[q]
+        times = [_sql_run(s, sql)[1] for _ in range(5)]
+        split = _sql_split(s)
+        busy, _ = _device_busy(lambda: s.query(sql))
+        reads = _captured_reads(s, sql)
+        direct = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for read in reads:
+                read()
+            _sync()
+            direct.append(time.perf_counter() - t0)
+        print(f"  {q.upper()} {sf10} SQL: engines={engines} rows={nrows} "
+              f"exact=True first_ms={first * 1e3:.1f} "
+              f"p50_ms={statistics.median(times) * 1e3:.2f} "
+              f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+        print(f"    {split} direct_requests_p50_ms="
+              f"{statistics.median(direct) * 1e3:.2f}")
+        print(f"    {busy}")
+    print(f"  peak device memory during f1: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"({torch.cuda.memory_allocated() / 1e9:.3f} GB held after)")
+    return launches
+
+
+def _rows_equal(q: str, got: list, want: list) -> bool:
+    a, b = TR.sql_cells(got), TR.sql_cells(want)
+    if "order by" not in TPCH_QUERIES[q].lower():
+        a, b = sorted(a, key=repr), sorted(b, key=repr)
+    return a == b
+
+
+def _part_f2(args, d1) -> dict:
+    """Part f2 (module docstring). -> the part's kernel launches."""
+    sf1 = f"SF{args.q18_sf:g}"
+    torch.cuda.reset_peak_memory_stats()
+    queries = sorted(TPCH_QUERIES, key=lambda q: int(q[1:]))
+    small = TD.generate_tpch(Q19_SF, Q19_SEED)
+    card, cpu = Session(), Session(device="cpu")
+    card19, cpu19 = Session(), Session(device="cpu")
+    _sql_load([card, cpu], d1, sf1)
+    _sql_load([card19, cpu19], small, f"SF{Q19_SF:g} (Q19)")
+    _kernels.reset_launches()
+    out = {}
+    for q in queries:
+        c, h = (card19, cpu19) if q == "q19" else (card, cpu)
+        sql = TPCH_QUERIES[q]
+        before = dict(_kernels.LAUNCHES)
+        rows, first = _sql_run(c, sql)
+        engines = list(c.last_engines)
+        want, cpu_s = _sql_run(h, sql)
+        if engines != h.last_engines:
+            raise SystemExit(f"{q}: card engines {engines}, CPU "
+                             f"{h.last_engines}")
+        if not _rows_equal(q, rows, want):
+            raise SystemExit(f"{q}: card rows differ from the CPU's")
+        if q == "q18" and _kernels.LAUNCHES["streamseg.rank_sums"] == \
+                before["streamseg.rank_sums"]:
+            raise SystemExit("q18 did not launch kernel streamseg.rank_sums")
+        out[q] = (first, cpu_s, len(rows), engines)
+    launches = dict(_kernels.LAUNCHES)
+    for k, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {k} was not launched on the SQL path")
+    print(f"  launches on the 22-query SQL path: {launches}")
+    total_card = total_cpu = 0.0
+    for q, (first, cpu_s, nrows, engines) in out.items():
+        c = card19 if q == "q19" else card
+        times = [_sql_run(c, TPCH_QUERIES[q])[1] for _ in range(3)]
+        p50 = statistics.median(times)
+        total_card += p50
+        total_cpu += cpu_s
+        scale = f"SF{Q19_SF:g}" if q == "q19" else sf1
+        print(f"  {q.upper()} {scale}: rows={nrows} card==cpu engines="
+              f"{engines} card first_ms={first * 1e3:.1f} "
+              f"p50_ms={p50 * 1e3:.2f} runs_ms="
+              f"{[round(t * 1e3, 2) for t in times]} cpu_s={cpu_s:.3f} "
+              f"{_sql_split(c)}")
+    print(f"  22 queries: card warm p50s sum to {total_card:.2f}s, the CPU "
+          f"session's runs to {total_cpu:.2f}s; peak device memory during "
+          f"f2: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -795,12 +1006,22 @@ def main(argv=None) -> int:
 
     print("== 4. main path")
     cop = CopClient()
-    launches = _main_path(args, cop, (d10, t10, s10), (d1, t1, s1))
+    launches, tags = _main_path(args, cop, (d10, t10, s10), (d1, t1, s1))
     _part_e(args, cop, (d10, t10, s10), (d1, t1, s1))
+    # part f reuses the generated arrays; the earlier parts' client (and
+    # its device caches) and snapshots go first
+    del cop, t10, s10, t1, s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  -- f. the SQL read path (device memory held before it: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB)")
+    sql_launches = {"f1": _part_f1(args, d10, tags),
+                    "f2": _part_f2(args, d1)}
 
     print("== 5. result")
     # top-level numbers at the first (SF10) shape; every shape's in
-    # "shapes"; launches over the four parts of the main path
+    # "shapes"; launches over the four parts of the main path, and over
+    # each SQL part
     top = shapes[0]
     kern = {"name": "streamseg.rank_sums", "route": "cuda",
             "source": "tidb_tpu_torch/csrc/streamseg.cu",
@@ -809,7 +1030,9 @@ def main(argv=None) -> int:
             **{k: top[k] for k in (
                 "max_abs_err", "exact", "ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_share", "library_ms", "library_call")},
-            "shape": top["shape"], "shapes": shapes}
+            "shape": top["shape"], "shapes": shapes,
+            "sql_launches": {k: v["streamseg.rank_sums"]
+                             for k, v in sql_launches.items()}}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

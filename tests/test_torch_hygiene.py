@@ -4,7 +4,9 @@
   or anything of `tidb_tpu` (checked on the AST, so an import inside a
   function counts too).
 * The entry points run on the card unless the caller asks for the CPU:
-  `CopClient()` without CUDA raises; nothing moves to the CPU on its own.
+  `CopClient()` without CUDA raises, and so does a `Session()` at its
+  first statement that needs the coprocessor; nothing moves to the CPU
+  on its own.
 * A kernel wrapper given a CUDA tensor launches its kernel or raises; it
   never takes the plain version. Here there is no CUDA and no nvcc, so a
   stand-in "CUDA tensor" must reach the build and fail there.
@@ -22,6 +24,7 @@ from tidb_tpu_torch.copr import _kernels
 from tidb_tpu_torch.copr import streamseg as TSS
 from tidb_tpu_torch.copr.client import CopClient
 from tidb_tpu_torch.device import resolve_device
+from tidb_tpu_torch.session import Session
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tidb_tpu_torch").rglob("*.py")) + \
@@ -61,6 +64,20 @@ def test_client_needs_cuda_unless_cpu_is_asked():
         assert CopClient("cpu").device == torch.device("cpu")
     with mock.patch.object(torch.cuda, "is_available", lambda: True):
         assert resolve_device() == torch.device("cuda")
+
+
+def test_session_needs_cuda_unless_cpu_is_asked():
+    with mock.patch.object(torch.cuda, "is_available", lambda: False):
+        for dev in (None, "cuda"):
+            s = Session(device=dev)
+            s.execute("create table t (a int primary key)")
+            with pytest.raises(RuntimeError, match="CUDA device requested"):
+                s.query("select a from t")
+            assert s._cop is None
+        s = Session(device="cpu")
+        s.execute("create table t (a int primary key)")
+        assert s.query("select a from t") == []
+        assert s.cop.device == torch.device("cpu")
 
 
 def test_cuda_wrapper_raises_without_a_built_kernel(tmp_path, monkeypatch):

@@ -1,10 +1,14 @@
-"""TiTPU's coprocessor tier on PyTorch and CUDA.
+"""TiTPU on PyTorch and CUDA.
 
-A port of `tidb_tpu`'s device layer to one NVIDIA Hopper card. It keeps
-the JAX package's module paths and function names so that every function
-here has a findable counterpart, and it imports nothing of `tidb_tpu`:
-what it needs from host-only modules is copied in. Entry points:
+A port of `tidb_tpu` to one NVIDIA Hopper card. It keeps the JAX package's
+module paths and function names so that every function here has a
+findable counterpart, and it imports nothing of `tidb_tpu`: what it needs
+from host-only modules is copied in. Entry points:
 
+* `session.Session(device=None).execute(sql)` / `.query(sql)`: SQL text,
+  parsed (`sql/`), planned as the reference plans it (`plan/`), run by the
+  root executor (`executor/engine.py`) over a read-only `store.storage.
+  Storage` of bulk-loaded tables (`bench/tpch_data.load_table`);
 * `copr.client.CopClient(device).execute(dag, snap)` for a single-table
   pushdown request (`plan.dag.CopDAG`);
 * `copr.fragment.execute_fragment(cop, frag, snaps)` for a fragment
@@ -12,8 +16,9 @@ what it needs from host-only modules is copied in. Entry points:
 
 Where the reference's gates send a request to its host tier, the port's
 host tier answers it too (`copr/host_exec.py`, the fragment's host
-interpreter), with the reference's engine tag. `errors.NotInSlice` is left
-for a registry builtin (`fx:` op) that pushdown never sends.
+interpreter), with the reference's engine tag. `errors.NotInSlice` marks
+what is not ported yet: writes and the statements other than the read
+path's, registry builtins (`fx:` ops), partitioned tables.
 """
 
 from .device import resolve_device

@@ -16,11 +16,14 @@ encoding, so even SF1 loads are fast.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
 from ..types.value import parse_date
+
+if TYPE_CHECKING:
+    from ..session import Session
 
 # ---------------------------------------------------------------------------
 # DDL (schema per TPC-H spec 1.4; types mapped to our MySQL-compatible set)
@@ -437,3 +440,37 @@ def _dedup(strings: list[str]) -> tuple[list[str], np.ndarray]:
 def _vocab_codes(vocab: list[str], rng: np.random.Generator,
                  n: int) -> tuple[list[str], np.ndarray]:
     return vocab, rng.integers(0, len(vocab), n, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# loading into the engine
+# ---------------------------------------------------------------------------
+
+def load_table(session: "Session", name: str,
+               data: dict[str, object]) -> None:
+    """Create `name` from TPCH_DDL and bulk-load generated arrays."""
+    session.execute(f"drop table if exists {name}")
+    session.execute(TPCH_DDL[name])
+    info = session.catalog.table(session.current_db, name)
+    store = session.storage.table_store(info.id)
+    cols = []
+    for c in info.columns:
+        v = data[c.name]
+        if isinstance(v, tuple):
+            vocab, codes = v
+            d = store.dictionaries[c.offset]
+            remap = np.array([d.encode(s) for s in vocab], dtype=np.int64)
+            cols.append(remap[codes])
+        else:
+            cols.append(np.asarray(v))
+    store.bulk_load(cols)
+
+
+def load_tpch(session: "Session", sf: float = 0.01, seed: int = 42,
+              tables: Optional[list[str]] = None) -> dict[str, dict[str, object]]:
+    """Generate + load the whole TPC-H database; returns the raw arrays
+    (useful for loading the same data into an oracle engine)."""
+    data = generate_tpch(sf, seed)
+    for name in tables or TPCH_TABLES:
+        load_table(session, name, data[name])
+    return data

@@ -1,9 +1,10 @@
 """TPC-H requests to the coprocessor, built by hand, with numpy oracles.
 
-The SQL tier (parser, planner) is a later slice of the port, so these
-requests are built by hand with the port's dataclasses, exactly as the
-reference planner builds them for the SQL below (the tests check that the
-two are equal):
+These requests drive the coprocessor's entry points directly, without a
+Session, so that each path is timed and checked on its own. They are
+built by hand with the port's dataclasses, exactly as the reference
+planner builds them for the SQL below (the tests check that the two are
+equal):
 
 * Q6: `select sum(l_extendedprice * l_discount) from lineitem where
   l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01' and
@@ -39,7 +40,8 @@ cols..., (val, cnt) per aggregate], in the form `partial_rows` gives a
 result chunk (TopN consumers: the k groups the fused cut keeps); row
 results as the output columns in probe-row order (TopN rows: each tile's
 top rows in order, ties to the lower row), in the form `row_columns` gives
-the result chunks.
+the result chunks. `sql_oracle` finishes seven of them as the root does,
+into the final rows a Session returns for the query text.
 """
 
 from __future__ import annotations
@@ -1301,3 +1303,70 @@ def row_columns(chunks: list[Chunk]) -> list[np.ndarray]:
                 parts.append([])
             parts[ci].append(a)
     return [np.concatenate(p) for p in parts]
+
+
+# ---- final rows of the SQL text ----------------------------------------------
+# What a Session returns for the TPC-H query text (bench/tpch_queries.py):
+# the partial oracles above, finished as the root does it (the final merge,
+# the arithmetic over aggregates, ORDER BY, LIMIT), in numpy and Python ints.
+# Rows are in the query's ORDER BY order, each value as `sql_cells` gives
+# it, so that they compare exactly with a session's rows.
+
+def sql_cells(rows: list[tuple]) -> list[tuple]:
+    """Session rows -> comparable tuples: a Decimal as ("dec", unscaled,
+    scale), a float by its exact hex form, a date as its day number."""
+    import datetime
+
+    def cell(v):
+        if type(v).__name__ == "Decimal":
+            return ("dec", v.unscaled, v.scale)
+        if isinstance(v, float):
+            return ("float", v.hex())
+        if isinstance(v, datetime.date):
+            return (v - datetime.date(1970, 1, 1)).days
+        return v
+    return [tuple(cell(v) for v in r) for r in rows]
+
+
+def _dec(unscaled: int, scale: int) -> tuple:
+    return ("dec", int(unscaled), scale)
+
+
+def _div_round(num: int, den: int) -> int:
+    """num / den rounded half away from zero (MySQL decimal division)."""
+    q, r = divmod(abs(num), abs(den))
+    q += 2 * r >= abs(den)
+    return q if (num < 0) == (den < 0) else -q
+
+
+def sql_oracle(name: str, data: dict) -> list[tuple]:
+    """Final rows of TPC-H query `name` ("q3", "q4", "q5", "q6", "q10",
+    "q12", "q14") over the generated arrays."""
+    if name == "q6":
+        (val, _), = q6_oracle(data["lineitem"])
+        return [(_dec(val, 4),)]  # price (scale 2) * discount (scale 2)
+    if name == "q14":
+        (promo, _, total, _), = q14_oracle(data)
+        # 100.00 * promo: scale 2 + 4; the quotient gains 4 digits (MySQL's
+        # div_precision_increment): scale 10
+        return [(_dec(_div_round(10000 * promo * 10 ** 8, total), 10),)]
+    if name == "q12":
+        return [(mode, high, n - high)
+                for mode, high, n, _, _ in q12_oracle(data)]
+    if name == "q5":
+        rows = [(nat, _dec(rev, 4)) for nat, rev, _ in q5_oracle(data)]
+        return sorted(rows, key=lambda r: -r[1][1])
+    if name == "q3":
+        rows = sorted(q3_oracle(data), key=lambda r: (-r[3], r[1]))
+        return [(key, _dec(rev, 4), day, prio)
+                for key, day, prio, rev, _ in rows]
+    if name == "q10":
+        rows = sorted(q10_oracle(data), key=lambda r: -r[7])
+        return [(ck, cn, _dec(rev, 4), _dec(bal, 2), nn, addr, phone, cmt)
+                for ck, cn, bal, phone, nn, addr, cmt, rev, _ in rows]
+    if name == "q4":
+        return [(prio, n) for prio, n, _ in q4_oracle(data)]
+    raise KeyError(name)
+
+
+SQL_ORACLES = ("q3", "q4", "q5", "q6", "q10", "q12", "q14")

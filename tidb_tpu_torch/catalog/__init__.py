@@ -1,1 +1,1 @@
-"""Table and column metadata (the subset the coprocessor reads)."""
+"""Catalog: schemas, tables, columns, indexes and id allocation."""

@@ -21,6 +21,7 @@ from typing import Any, Iterable, Optional, Sequence
 
 import numpy as np
 
+from ..errno import ER_INVALID_JSON_TEXT, WARN_DATA_TRUNCATED, CodedError
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import (
     Decimal,
@@ -149,12 +150,16 @@ class EnumDictionary(Dictionary):
 
 
 
-class TruncateError(ValueError):
+class TruncateError(CodedError, ValueError):
     """Value does not fit the column's domain (ENUM/SET membership)."""
 
+    errno = WARN_DATA_TRUNCATED
+    sqlstate = "01000"
 
-class InvalidJSONError(ValueError):
-    """Text is not a valid JSON document."""
+
+class InvalidJSONError(CodedError, ValueError):
+    errno = ER_INVALID_JSON_TEXT
+    sqlstate = "22032"
 
 
 @dataclass

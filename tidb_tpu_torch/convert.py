@@ -34,7 +34,8 @@ _CLASSES = {
         fragment.FragSemi, fragment.HCTopN,
         expr.Col, expr.Const, expr.Call, expr.AggDesc,
         field_type.FieldType, schema.TableInfo, schema.ColumnInfo,
-        schema.IndexInfo, ranger.ScanRanges,
+        schema.IndexInfo, schema.PartitionInfo, schema.PartitionDef,
+        schema.FKInfo, ranger.ScanRanges,
     )
 }
 _ENUMS = {"TypeKind": field_type.TypeKind}

@@ -42,6 +42,7 @@ device error: no torch or CUDA error is caught.
 from __future__ import annotations
 
 import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
@@ -148,6 +149,18 @@ class CopClient:
                     del cache[k]
             for k in [k for k in self._stats if k[0] == old]:
                 del self._stats[k]
+
+    # ---- placement hooks of the executor (one device: no-ops) -----------
+    def placement_scope(self, snap):
+        """Context the executor opens around each dispatch; the
+        reference's mesh client pins a shard placement here, one device
+        has nothing to pin."""
+        return nullcontext()
+
+    def take_mesh_note(self):
+        """Per-shard dispatch accounting of the reference's mesh client;
+        None on one device."""
+        return None
 
     # ==================== public entry ====================
     def execute(self, dag: CopDAG, snap: TableSnapshot) -> CopResult:

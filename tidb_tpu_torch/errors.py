@@ -1,12 +1,13 @@
-"""Errors raised by the port's coprocessor tier."""
+"""Errors raised by the port where the reference would go on."""
 
 
 class NotInSlice(Exception):
-    """The request needs a part of the reference that is not ported.
-
-    Raised only for a registry builtin (`fx:` op) in an expression the
-    host evaluates: the reference's registry belongs to its SQL tier, and
-    pushdown never sends one to the coprocessor."""
+    """The statement or request needs a part of the reference that is not
+    ported. `reason` names it: a statement kind the read-only Session does
+    not run ("InsertStmt", "BeginStmt", ...), "writes", "registry builtin"
+    (an `fx:` op: the reference's function registry), "partitioned table",
+    "PARTITION BY", "EXPLAIN ANALYZE", "FOR UPDATE", "INTO OUTFILE",
+    "session variables and functions"."""
 
     def __init__(self, reason: str) -> None:
         super().__init__(reason)

@@ -1,0 +1,137 @@
+"""Per-statement attribution: dispatch stages, operator wall time, engines.
+
+The part of the reference's observability plane (`tidb_tpu/obs.py`) that
+the SQL read path calls, under the same names: `stage` times one named
+stage EXCLUSIVE of the stages nested in it, `operator` records one plan
+operator's exclusive wall time, `note_engine` appends a coprocessor read's
+engine tag, and the session installs one `StageRecorder` per statement
+(`install_stage_recorder` / `active_stage_recorder`). Metrics, spans,
+the slow log and the rest of the plane are not ported.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+_stage_tls = threading.local()
+_op_tls = threading.local()
+
+
+class StageRecorder:
+    """One statement's attribution: `totals` (exclusive seconds per
+    stage), `op_wall` (exclusive wall seconds per plan operator) and
+    `engines` (the engine tag of each coprocessor read, in call order)."""
+
+    __slots__ = ("totals", "op_wall", "engines")
+
+    def __init__(self) -> None:
+        self.totals: dict[str, float] = {}
+        self.op_wall: dict[str, float] = {}
+        self.engines: list[str] = []
+
+    def add(self, name: str, seconds: float) -> None:
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+
+    def add_op_wall(self, op: str, seconds: float) -> None:
+        self.op_wall[op] = self.op_wall.get(op, 0.0) + seconds
+
+    def snapshot(self) -> dict[str, float]:
+        return dict(self.totals)
+
+    def delta_since(self, before: dict[str, float]) -> dict[str, float]:
+        out = {}
+        for k, v in self.totals.items():
+            d = v - before.get(k, 0.0)
+            if d > 0:
+                out[k] = d
+        return out
+
+
+def install_stage_recorder(rec: Optional[StageRecorder]) -> None:
+    _stage_tls.rec = rec
+
+
+def active_stage_recorder() -> Optional[StageRecorder]:
+    return getattr(_stage_tls, "rec", None)
+
+
+def note_engine(tag: Optional[str]) -> None:
+    """Record which engine served a coprocessor read on the statement's
+    recorder."""
+    if not tag:
+        return
+    rec = getattr(_stage_tls, "rec", None)
+    if rec is not None:
+        rec.engines.append(tag)
+
+
+class _OpCtx:
+    """One plan-operator frame: records its EXCLUSIVE wall seconds
+    (nested operator frames are subtracted) on the active recorder."""
+
+    __slots__ = ("label", "t0", "rec")
+
+    def __init__(self, label: str) -> None:
+        self.label = label
+        self.t0 = 0.0
+        self.rec = None
+
+    def __enter__(self) -> "_OpCtx":
+        self.rec = getattr(_stage_tls, "rec", None)
+        if self.rec is not None:
+            stack = getattr(_op_tls, "stack", None)
+            if stack is None:
+                stack = _op_tls.stack = []
+            stack.append(0.0)  # accumulates nested-frame wall time
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.rec is not None:
+            dt = time.perf_counter() - self.t0
+            stack = _op_tls.stack
+            child = stack.pop()
+            if stack:
+                stack[-1] += dt
+            self.rec.add_op_wall(self.label, max(dt - child, 0.0))
+
+
+def operator(label: str) -> _OpCtx:
+    """`with obs.operator("join"):` — attribute the enclosed wall time
+    to one plan operator."""
+    return _OpCtx(label)
+
+
+class _StageCtx:
+    """Times one stage, EXCLUSIVE of the stages nested in it, onto the
+    active recorder."""
+
+    __slots__ = ("stage", "t0", "rec")
+
+    def __init__(self, stage: str) -> None:
+        self.stage = stage
+        self.rec = getattr(_stage_tls, "rec", None)
+        self.t0 = 0.0
+
+    def __enter__(self) -> None:
+        stack = getattr(_stage_tls, "stack", None)
+        if stack is None:
+            stack = _stage_tls.stack = []
+        stack.append(0.0)  # accumulates nested-stage wall time
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self.t0
+        stack = _stage_tls.stack
+        child = stack.pop()
+        if stack:
+            stack[-1] += dt
+        if self.rec is not None:
+            self.rec.add(self.stage, max(dt - child, 0.0))
+
+
+def stage(name: str) -> _StageCtx:
+    """`with obs.stage("plan_build"):` — one named stage."""
+    return _StageCtx(name)

@@ -1,1 +1,2 @@
-"""Request IR shipped to the coprocessor: expressions, CopDAG, FragmentDAG."""
+"""Planning: logical plans from the AST, physical plans, and the request
+IR shipped to the coprocessor (expressions, CopDAG, FragmentDAG)."""

@@ -13,7 +13,7 @@ reference expression/expression.go:921).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from ..types.field_type import FieldType, TypeKind, boolean_type
@@ -74,6 +74,21 @@ class Call(PlanExpr):
         if self.extra is not None:
             return f"{self.op}({inner}; {self.extra!r})"
         return f"{self.op}({inner})"
+
+
+@dataclass
+class ScalarSubq(PlanExpr):
+    """Uncorrelated scalar subquery. Materialized to a Const once per
+    statement before execution (counterpart of the reference's scalar
+    subquery rewrite, planner/core/expression_rewriter.go — which also
+    evaluates uncorrelated subqueries eagerly)."""
+
+    logical: Any  # LogicalPlan (typed loosely to avoid an import cycle)
+    ftype: FieldType
+    phys: Any = None  # PhysicalPlan, filled during optimize()
+
+    def __repr__(self) -> str:
+        return "scalar_subquery()"
 
 
 @dataclass
@@ -143,12 +158,30 @@ def arith_result_type(op: str, a: FieldType, b: FieldType) -> FieldType:
 
 
 def agg_result_type(func: str, arg: Optional[PlanExpr]) -> FieldType:
-    """Result type of the aggregates the coprocessor computes (the
-    reference types the rest of MySQL's aggregate family too)."""
     if func in ("count", "approx_count_distinct"):
+        # reference: executor/aggfuncs/builder.go:63 buildApproxCountDistinct
+        # -> BIGINT, never NULL (0 on empty input), like COUNT
         return FieldType(TypeKind.BIGINT, nullable=False)
     assert arg is not None
     at = arg.ftype
+    if func in ("std", "stddev", "stddev_pop", "stddev_samp",
+                "variance", "var_pop", "var_samp"):
+        # reference: executor/aggfuncs/func_varpop.go family -> DOUBLE
+        return FieldType(TypeKind.DOUBLE)
+    if func in ("bit_and", "bit_or", "bit_xor"):
+        # reference: executor/aggfuncs/func_bitfuncs.go -> BIGINT UNSIGNED
+        return FieldType(TypeKind.BIGINT, nullable=False)
+    if func in ("any_value", "approx_percentile"):
+        # reference: executor/aggfuncs/builder.go:110
+        # buildApproxPercentile -> the argument's type
+        return at
+    if func == "group_concat":
+        # reference: executor/aggfuncs/func_group_concat.go -> TEXT
+        return FieldType(TypeKind.VARCHAR, flen=1024)
+    if func in ("json_arrayagg", "json_objectagg"):
+        # reference: executor/aggfuncs/func_json_arrayagg.go /
+        # func_json_objectagg.go -> JSON
+        return FieldType(TypeKind.JSON)
     if func in ("min", "max"):
         return at
     if func == "sum":
@@ -169,6 +202,21 @@ def agg_result_type(func: str, arg: Optional[PlanExpr]) -> FieldType:
             return FieldType(TypeKind.DOUBLE)
         raise ExprError(f"AVG over non-numeric {at!r}")
     raise ExprError(f"unknown aggregate {func}")
+
+
+def comparable(a: FieldType, b: FieldType) -> bool:
+    if is_numeric(a) and is_numeric(b):
+        return True
+    if a.is_string and b.is_string:
+        return True
+    if a.is_temporal and (b.is_temporal or b.is_string):
+        return True
+    if b.is_temporal and a.is_string:
+        return True
+    from ..types.field_type import TypeKind as _TK
+    if a.kind == _TK.SET and b.kind == _TK.SET:
+        return True  # bitmask compare after const coercion
+    return False
 
 
 def bool_call(op: str, args: list[PlanExpr], extra: Any = None) -> Call:

@@ -1,1 +1,1 @@
-"""Columnar table storage read by the coprocessor."""
+"""Columnar table storage and the read-only Storage over it."""

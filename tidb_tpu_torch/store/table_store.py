@@ -63,6 +63,20 @@ class HandleIndex:
         self._sorted = h[self._order]
         self._mode = "sorted"
 
+    def get(self, handle: int, default=None):
+        """Row position of one handle, or `default`."""
+        if self._mode is None:
+            self._resolve()
+        if self._mode == "empty":
+            return default
+        if self._mode == "contig":
+            i = handle - self._base
+            return int(i) if 0 <= i < len(self._handles) else default
+        j = int(np.searchsorted(self._sorted, handle))
+        if j < len(self._sorted) and int(self._sorted[j]) == handle:
+            return int(self._order[j])
+        return default
+
     def positions(self, handles: np.ndarray
                   ) -> tuple[np.ndarray, np.ndarray]:
         """-> (row position per handle, found): positions where not found
@@ -124,6 +138,15 @@ class TableSnapshot:
     @property
     def num_visible_rows(self) -> int:
         return int(self.base_visible.sum()) + len(self.overlay_handles)
+
+    def has_handle(self, handle: int) -> bool:
+        """True if a live row with this handle is visible at the snapshot
+        (the point-get path's membership test)."""
+        if len(self.overlay_handles) and bool(
+                (self.overlay_handles == handle).any()):
+            return True
+        pos = self.epoch.handle_pos.get(handle)
+        return pos is not None and bool(self.base_visible[pos])
 
     def gather(self, handles: np.ndarray, offsets: list[int]):
         """Rows for the given (visible) handles as per-offset (data, valid)
@@ -210,6 +233,10 @@ class TableStore:
 
     def __init__(self, table: TableInfo) -> None:
         self.table = table
+        # rows touched since creation: the auto-analyze delta feed
+        # (stats/handle.py)
+        self.modify_count = 0
+        self._snapshot: Optional[TableSnapshot] = None
         # (epoch_id, index id or ("col", offset)) -> sort order; see
         # store/index.py
         self._index_orders: dict = {}
@@ -250,6 +277,7 @@ class TableStore:
                 raise ValueError(
                     f"bulk_load: valids[{ci}] has {len(v)} rows, "
                     f"expected {n}")
+        self.modify_count += n
         self.epoch = ColumnEpoch(
             epoch_id=next(_epoch_ids), fold_ts=0,
             handles=np.arange(1, n + 1, dtype=np.int64),
@@ -258,9 +286,14 @@ class TableStore:
             valids=valids)
 
     def snapshot(self) -> TableSnapshot:
-        """Every base row visible, no overlay rows."""
+        """Every base row visible, no overlay rows. One snapshot object
+        per epoch: it is immutable, and its visibility digest is then
+        computed once, not once per statement."""
+        snap = self._snapshot
+        if snap is not None and snap.epoch is self.epoch:
+            return snap
         ncols = self.table.num_columns
-        return TableSnapshot(
+        self._snapshot = TableSnapshot(
             table=self.table,
             dictionaries=self.dictionaries,
             epoch=self.epoch,
@@ -270,3 +303,4 @@ class TableStore:
                              for c in self.table.columns],
             overlay_valids=[None] * ncols,
             store=self)
+        return self._snapshot
