@@ -100,17 +100,62 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           card `Session()` and a `Session(device="cpu")`, loaded and
           analyzed alike: rows equal exactly (in order where the query
           has ORDER BY), engine tags equal, Q18 must launch streamseg;
-          the card's cold run and warm p50 of 3, and the CPU's seconds.
+          the card's cold run and one warm run, and the CPU's seconds.
           Q19 runs at SF0.003 (seed 1) instead: the reference plans it as
           a cross join of lineitem and part whose OR filter the root
           evaluates over every pair (1.2e12 pairs at SF1).
+   g. the write path (after f1 and after f2, on their sessions), with the
+      launch counters set to 0 before g1, before g1' and before g2:
+      g1. on f1's card session at SF10: TPC-H RF1 (`bench/
+          tpch_refresh.py`: SF x 1,500 new orders and their 1-7
+          lineitems from the generator's distributions, as autocommit
+          1,000-row INSERTs, orders first; each must take the `point`
+          fast path) and RF2 (SF x 1,500 seeded orders and their
+          lineitems deleted by DELETE ... IN, lineitem first, each
+          statement below 8,192 rows: a commit of N >= 8,192 mutations
+          costs the reference's commit path N^2 delta visits); Q6, Q3,
+          Q5, Q12 and Q18
+          as SQL after RF2, and Q6 mid-RF1 (lineitem deltas below the
+          8,192 threshold, as overlay) and after RF1 (orders' overlay
+          sends the four joins to the host tier there, ~120 s at SF10 per
+          point, more than the time limit leaves: g1' reads them), each
+          exact against the
+          numpy answer over the arrays as modified, with its tags,
+          streamseg's launches, cold run, warm p50 (3 runs; a host-tier
+          read, seconds of numpy at this scale, only its cold run),
+          device-busy share; then one explicit
+          transaction (BEGIN, 1,000 lineitem INSERTs, Q6 must see them,
+          ROLLBACK, Q6 as before); per statement kind (INSERT, DELETE,
+          commits that compacted) p50 and max ms, the device memory held
+          after each compacting commit and the part's peak. At least one
+          read must launch streamseg over a lineitem epoch that
+          compaction rebuilt (checked at the end of part g);
+      g1'. the same at SF1 on f2's card and CPU sessions, with all five
+          queries read mid-RF1 and after RF1 too (the four joins on the
+          host tier's build-overlay path): every statement's affected
+          count and tags, and every read's rows and tags, equal between
+          the two;
+      g2. the reference's HTAP mix (`bench.py` flight_htap_mixed), in
+          this process (not over the MySQL wire; the store is in memory,
+          not durable): sbtest (id bigint primary key, k bigint, c
+          varchar(64)) with 100,000 rows by 2,000-row INSERTs and
+          lineitem at SF1 bulk-loaded in one Storage; the point SELECT
+          and UPDATE must take the `point` fast path; then 6 s with 4
+          point readers and 1 writer, and 6 s with 4 readers, 8 writers
+          and 1 session scanning Q6 and Q1 (each exact against its numpy
+          answer); sum(k) through the coprocessor on the card must equal
+          the initial sum plus the acknowledged UPDATEs; point read and
+          update p50/p99, QPS, scans per second, sbtest's compactions,
+          the peak device memory.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the p50 wall time of 5 warm runs,
    each ending in torch.cuda.synchronize(), and the device-busy share of
    one more warm run under torch.profiler (traced kernel and copy time
    over its wall time; in parts c and d also the 8 kernels that took the
-   most of it). A host-tier request (`host(...)`, `ranged`) takes 2 warm
+   most of it). A `host(...)` request takes its cold run only (seconds
+   of numpy; 2 warm runs before part g needed the room, as part f2's
+   queries went from 3 warm runs to 1); a `ranged` one takes 2 warm
    runs, the second of them the profiled one;
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
@@ -128,6 +173,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -137,6 +183,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tidb_tpu_torch.bench import tpch_data as TD
+from tidb_tpu_torch.bench import tpch_refresh as RF
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.copr import _kernels
 from tidb_tpu_torch.copr import analyze as AN
@@ -360,16 +407,29 @@ def _host_tier(engine: str) -> bool:
     return engine.startswith("host(") or engine == "ranged"
 
 
+def _timing(first: float, times: list) -> str:
+    """The cold run, then the p50 and every warm run, a lone warm run
+    as such, or none."""
+    out = f"first_ms={first * 1e3:.1f}"
+    if not times:
+        return f"{out} (cold run only)"
+    if len(times) == 1:
+        return f"{out} warm_ms={times[0] * 1e3:.2f}"
+    return (f"{out} p50_ms={statistics.median(times) * 1e3:.2f} "
+            f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+
+
 def _drive(label: str, queries: list, top: int = 0,
            every_kernel: bool = True) -> dict:
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
     p50 of 5 warm runs and one profiled run (with its `top` costliest CUDA
-    kernels). A host-tier request takes 2 warm runs, the second of them
-    profiled (a run of seconds of numpy, which the profiler does not
-    trace). queries: [(name, scale, tag, rows in, run, check, kernels this
-    query must launch itself)]. `every_kernel`: each kernel must launch
-    in this part. -> the launch counts."""
+    kernels). A `host(...)` request takes its cold run only (seconds of
+    numpy, which the profiler does not trace), a `ranged` one 2 warm
+    runs, the second of them profiled. queries: [(name, scale, tag, rows
+    in, run, check, kernels this query must launch itself)].
+    `every_kernel`: each kernel must launch in this part. -> the launch
+    counts."""
     _kernels.reset_launches()
     firsts, results = [], []
     for name, sf, tag, n_in, run, check, must in queries:
@@ -394,20 +454,22 @@ def _drive(label: str, queries: list, top: int = 0,
     for (name, sf, _, n_in, run, _, _), first, r in zip(queries, firsts,
                                                         results):
         host = _host_tier(r.engine)
-        times = []
-        for _ in range(1 if host else 5):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        busy, wall = _device_busy(run, top)
-        if host:
-            times.append(wall / 1e3)
+        if r.engine.startswith("host("):
+            times = []
+            busy = "device busy: not measured (host tier, cold run only)"
+        else:
+            times = []
+            for _ in range(1 if host else 5):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            busy, wall = _device_busy(run, top)
+            if host:
+                times.append(wall / 1e3)
         nrows = sum(c.num_rows for c in r.chunks)
         print(f"  {name} {sf}: engine={r.engine} rows_in={n_in} "
-              f"result_rows={nrows} exact=True first_ms={first*1e3:.1f} "
-              f"p50_ms={statistics.median(times)*1e3:.2f} "
-              f"runs_ms={[round(t * 1e3, 2) for t in times]}")
+              f"result_rows={nrows} exact=True {_timing(first, times)}")
         print(f"    {busy}")
         if r.is_partial_agg and nrows <= 8 and \
                 len(r.chunks[0].columns) <= 20:
@@ -844,8 +906,9 @@ def _captured_reads(s, sql: str) -> list:
     return reads
 
 
-def _part_f1(args, d10, tags) -> dict:
-    """Part f1 (module docstring). -> the part's kernel launches."""
+def _part_f1(args, d10, tags) -> tuple:
+    """Part f1 (module docstring). -> (the part's kernel launches, the
+    session, which part g1 goes on with)."""
     sf10 = f"SF{args.sf:g}"
     torch.cuda.reset_peak_memory_stats()
     s = Session()
@@ -892,7 +955,7 @@ def _part_f1(args, d10, tags) -> dict:
     print(f"  peak device memory during f1: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
           f"({torch.cuda.memory_allocated() / 1e9:.3f} GB held after)")
-    return launches
+    return launches, s
 
 
 def _rows_equal(q: str, got: list, want: list) -> bool:
@@ -902,8 +965,9 @@ def _rows_equal(q: str, got: list, want: list) -> bool:
     return a == b
 
 
-def _part_f2(args, d1) -> dict:
-    """Part f2 (module docstring). -> the part's kernel launches."""
+def _part_f2(args, d1) -> tuple:
+    """Part f2 (module docstring). -> (the part's kernel launches, the
+    card and the CPU session at SF1, which part g1' goes on with)."""
     sf1 = f"SF{args.q18_sf:g}"
     torch.cuda.reset_peak_memory_stats()
     queries = sorted(TPCH_QUERIES, key=lambda q: int(q[1:]))
@@ -938,20 +1002,320 @@ def _part_f2(args, d1) -> dict:
     total_card = total_cpu = 0.0
     for q, (first, cpu_s, nrows, engines) in out.items():
         c = card19 if q == "q19" else card
-        times = [_sql_run(c, TPCH_QUERIES[q])[1] for _ in range(3)]
-        p50 = statistics.median(times)
-        total_card += p50
+        warm = _sql_run(c, TPCH_QUERIES[q])[1]
+        total_card += warm
         total_cpu += cpu_s
         scale = f"SF{Q19_SF:g}" if q == "q19" else sf1
         print(f"  {q.upper()} {scale}: rows={nrows} card==cpu engines="
-              f"{engines} card first_ms={first * 1e3:.1f} "
-              f"p50_ms={p50 * 1e3:.2f} runs_ms="
-              f"{[round(t * 1e3, 2) for t in times]} cpu_s={cpu_s:.3f} "
+              f"{engines} card {_timing(first, [warm])} cpu_s={cpu_s:.3f} "
               f"{_sql_split(c)}")
-    print(f"  22 queries: card warm p50s sum to {total_card:.2f}s, the CPU "
+    print(f"  22 queries: card warm runs sum to {total_card:.2f}s, the CPU "
           f"session's runs to {total_cpu:.2f}s; peak device memory during "
           f"f2: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    return launches
+    return launches, card, cpu
+
+
+# ---- part g: the write path (TPC-H refresh functions, the HTAP mix) ----
+G_QUERIES = ("q6", "q3", "q5", "q12", "q18")
+# g1's reads mid-RF1 and after RF1 at SF10, where orders' overlay sends
+# every join to the host tier (Q3, Q5, Q12 and Q18 take 17, 34, 10 and
+# 60 s there: more than the time limit leaves). g1' reads all five at
+# every point at SF1, card == CPU; g1 reads all five after RF2
+G1_EARLY = ("q6",)
+# rows per RF2 DELETE commit: below the 8,192-delta threshold. The
+# reference's commit calls maybe_compact once per mutation, and a
+# commit's own N >= 8,192 mutations stay unfolded, so each call scans
+# all N deltas again: N^2 visits, 3.6e9 for one 60,000-row DELETE at SF10
+RF2_ROWS = 8191
+RANK = "streamseg.rank_sums"
+
+
+def _stores(s, names=("orders", "lineitem")) -> dict:
+    return {n: s.storage.table_store(s.catalog.table(s.current_db, n).id)
+            for n in names}
+
+
+def _mem() -> str:
+    return (f"memory_allocated={torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+
+def _g_exec(sessions, stmts, kind: str, times: dict, label: str) -> None:
+    """Run write statements on each session, the card's first (the others
+    must give its affected count and tags); the card's wall time per
+    statement kind, and for each commit that compacted (a table's epoch
+    changed) its time and the device memory held after it."""
+    card = sessions[0]
+    stores = _stores(card)
+    for sql in stmts:
+        before = {n: st.epoch.epoch_id for n, st in stores.items()}
+        t0 = time.perf_counter()
+        rs = card.execute(sql)
+        dt = time.perf_counter() - t0
+        tags = list(card.last_engines)
+        if kind == "INSERT" and tags != ["point"]:
+            raise SystemExit(f"{label}: INSERT tags {tags}, want ['point']")
+        for other in sessions[1:]:
+            r2 = other.execute(sql)
+            if r2.affected != rs.affected or other.last_engines != tags:
+                raise SystemExit(
+                    f"{label}: {kind} affected/tags {r2.affected} "
+                    f"{other.last_engines} vs the card's {rs.affected} "
+                    f"{tags}")
+        times.setdefault(kind, []).append(dt)
+        folded = [n for n, st in stores.items()
+                  if st.epoch.epoch_id != before[n]]
+        if folded:
+            times.setdefault("compacting commit", []).append(dt)
+            print(f"    {label}: {kind} of {rs.affected} rows folded "
+                  f"{folded} in {dt * 1e3:.1f} ms (epoch rows "
+                  f"{[stores[n].epoch.num_rows for n in folded]}); "
+                  f"{_mem()}")
+
+
+def _g_reads(sessions, phase: str, data, hits: list,
+             queries=G_QUERIES) -> None:
+    """`queries` as SQL on the card (and the CPU twin's): rows exact
+    against the numpy answer over the arrays as modified (and the twin's
+    rows and tags equal), streamseg's launches, the cold run, the warm
+    p50 of 3 and the device-busy share (a host-tier read, seconds of
+    numpy at SF10: its cold run only)."""
+    card = sessions[0]
+    li = _stores(card)["lineitem"]
+    for q in queries:
+        sql = TPCH_QUERIES[q]
+        before = _kernels.LAUNCHES[RANK]
+        rows, first = _sql_run(card, sql)
+        launched = _kernels.LAUNCHES[RANK] - before
+        tags = list(card.last_engines)
+        if TR.sql_cells(rows) != TR.sql_oracle(q, data):
+            raise SystemExit(f"{phase} {q}: SQL rows differ from the oracle")
+        cpu = ""
+        for other in sessions[1:]:
+            want, cpu_s = _sql_run(other, sql)
+            if other.last_engines != tags or not _rows_equal(q, rows, want):
+                raise SystemExit(f"{phase} {q}: card rows/tags {tags} "
+                                 f"differ from the CPU's "
+                                 f"{other.last_engines}")
+            cpu = f" card==cpu cpu_s={cpu_s:.3f}"
+        rebuilt = li.epoch.fold_ts > 0
+        if launched and rebuilt:
+            hits.append(f"{phase} {q}")
+        if any(_host_tier(t) for t in tags):
+            times = []
+            busy = "device busy: not measured (host tier, cold run only)"
+        else:
+            times = [_sql_run(card, sql)[1] for _ in range(3)]
+            busy, _ = _device_busy(lambda: card.query(sql))
+        print(f"  {phase} {q.upper()}: engines={tags} rows={len(rows)} "
+              f"exact=True streamseg_launches={launched} "
+              f"lineitem_epoch_rebuilt={rebuilt} (deltas "
+              f"{len(li.deltas)}) {_timing(first, times)}{cpu}")
+        print(f"    {busy}")
+
+
+def _part_g1(args, sessions, data, sf: float, label: str,
+             early: tuple) -> list:
+    """Part g1 (SF10, `sessions` = [f1's card session]) or g1' (SF1, [a
+    card session, a CPU session]) (module docstring). -> the reads that
+    launched streamseg over a lineitem epoch that compaction rebuilt."""
+    card = sessions[0]
+    new = RF.rf1_rows(data, sf, args.seed + 101)
+    ins = RF.rf1_statements(new, 1000)
+    n_ord = -(-len(new["orders"]["o_orderkey"]) // 1000)
+    mid = n_ord + 4
+    keys = RF.rf2_keys(data, sf, args.seed + 102)
+    times: dict = {}
+    hits: list = []
+    print(f"  {label}: RF1 {len(new['orders']['o_orderkey'])} orders, "
+          f"{len(new['lineitem']['l_orderkey'])} lineitems in "
+          f"{len(ins)} INSERTs; RF2 {len(keys)} orders; {_mem()}")
+    _g_exec(sessions, ins[:mid], "INSERT", times, label)
+    li = _stores(card)["lineitem"]
+    if not 0 < len(li.deltas) < li.COMPACT_THRESHOLD:
+        raise SystemExit(f"{label}: mid-RF1 lineitem holds "
+                         f"{len(li.deltas)} deltas")
+    _g_reads(sessions, f"{label} mid-RF1", RF.apply_rf1(
+        data, RF.rf1_prefix(new, (mid - n_ord) * 1000)), hits, early)
+    _g_exec(sessions, ins[mid:], "INSERT", times, label)
+    after1 = RF.apply_rf1(data, new)
+    _g_reads(sessions, f"{label} after RF1", after1, hits, early)
+    _g_exec(sessions, RF.rf2_statements(
+        keys, RF.lines_per_order(after1, keys), RF2_ROWS), "DELETE", times,
+        label)
+    after2 = RF.apply_rf2(after1, keys)
+    _g_reads(sessions, f"{label} after RF2", after2, hits)
+    # one explicit transaction: its Q6 reads its own buffer, the rollback
+    # leaves the value before
+    extra = RF.rf1_rows(after2, sf, args.seed + 103)["lineitem"]
+    extra = {c: RF._take(v, np.arange(len(extra["l_orderkey"])) < 1000)
+             for c, v in extra.items()}
+    txn_data = RF.apply_rf1(after2, {"lineitem": extra})
+    for s in sessions:
+        s.execute("begin")
+        s.execute(RF.insert_statements("lineitem", extra, 1000)[0])
+        got = s.query(TPCH_QUERIES["q6"])
+        if TR.sql_cells(got) != TR.sql_oracle("q6", txn_data):
+            raise SystemExit(f"{label}: Q6 in the transaction does not see "
+                             "its own buffer")
+        tags = list(s.last_engines)
+        s.execute("rollback")
+        if TR.sql_cells(s.query(TPCH_QUERIES["q6"])) != \
+                TR.sql_oracle("q6", after2):
+            raise SystemExit(f"{label}: Q6 after ROLLBACK differs")
+    print(f"  {label} txn: BEGIN, INSERT 1000 lineitems, Q6 {tags} sees "
+          f"them (exact), ROLLBACK, Q6 exact as before")
+    for kind, ts in times.items():
+        print(f"  {label} {kind}: n={len(ts)} "
+              f"p50_ms={statistics.median(ts) * 1e3:.1f} "
+              f"max_ms={max(ts) * 1e3:.1f}")
+    print(f"  {label} peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {_mem()}")
+    return hits
+
+
+def _htap_phase(storage, n_read: int, n_write: int, n_scan: int,
+                secs: float, ids: int, scan_check) -> dict:
+    """One phase of the reference's HTAP mix (`bench.py`
+    flight_htap_mixed), in this process: threads with their own sessions
+    over `storage`; -> latencies, acknowledged UPDATEs and scans."""
+    stop = threading.Event()
+    lat = {"read": [], "write": []}
+    acked = [0]
+    scans: list = []
+    errs: list = []
+    lock = threading.Lock()
+
+    def points(wi: int, write: bool) -> None:
+        try:
+            s = Session(storage)
+            rng = np.random.default_rng(1000 * wi + int(write))
+            pick = rng.integers(0, ids, size=1 << 14)
+            j, mine, ok = 0, [], 0
+            while not stop.is_set():
+                i = int(pick[j & 0x3FFF])
+                j += 1
+                t0 = time.perf_counter()
+                if write:
+                    ok += s.execute("update sbtest set k = k + 1 "
+                                    f"where id = {i}").affected
+                else:
+                    s.query(f"select id, k, c from sbtest where id = {i}")
+                mine.append(time.perf_counter() - t0)
+                if s.last_engines != ["point"]:
+                    raise SystemExit(f"point tags {s.last_engines}")
+            with lock:
+                lat["write" if write else "read"] += mine
+                acked[0] += ok
+        except BaseException as e:  # re-raised by the caller
+            errs.append(e)
+
+    def scan() -> None:
+        try:
+            s = Session(storage)
+            while not stop.is_set():
+                for q in ("q6", "q1"):
+                    t0 = time.perf_counter()
+                    rows = s.query(TPCH_QUERIES[q])
+                    _sync()
+                    scans.append((q, time.perf_counter() - t0))
+                    scan_check(q, rows, s.last_engines)
+        except BaseException as e:  # re-raised by the caller
+            errs.append(e)
+
+    threads = ([threading.Thread(target=points, args=(i, False))
+                for i in range(n_read)]
+               + [threading.Thread(target=points, args=(i, True))
+                  for i in range(n_write)]
+               + [threading.Thread(target=scan) for _ in range(n_scan)])
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(secs)
+    stop.set()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return {"wall": wall, "lat": lat, "acked": acked[0], "scans": scans}
+
+
+def _pct(v: list, q: float) -> float:
+    v = sorted(v)
+    return v[min(len(v) - 1, int(len(v) * q))] * 1e3 if v else 0.0
+
+
+def _part_g2(args, d1) -> None:
+    """Part g2 (module docstring)."""
+    torch.cuda.reset_peak_memory_stats()
+    s = Session()
+    s.execute("create table sbtest (id bigint primary key, k bigint, "
+              "c varchar(64))")
+    sb = _stores(s, ("sbtest",))["sbtest"]
+    folds = [0]
+    compact = sb.compact
+
+    def counted(safe_ts):  # counts the compactions that fold
+        epoch = sb.epoch
+        compact(safe_ts)
+        folds[0] += sb.epoch is not epoch
+
+    sb.compact = counted
+    n = 100_000
+    t0 = time.perf_counter()
+    for lo in range(0, n, 2000):
+        s.execute("insert into sbtest values " + ",".join(
+            f"({i},{i % 1000},'c{i:020d}')" for i in range(lo, lo + 2000)))
+    t_load = time.perf_counter() - t0
+    TD.load_table(s, "lineitem", d1["lineitem"])
+    print(f"  g2: sbtest {n} rows by 2,000-row INSERTs in {t_load:.2f}s, "
+          f"lineitem SF{args.q18_sf:g} bulk-loaded "
+          f"({len(d1['lineitem']['l_orderkey'])} rows) in the same Storage")
+    for sql in ("select id, k, c from sbtest where id = 5",
+                "update sbtest set k = k + 0 where id = 5"):
+        s.execute(sql)
+        if s.last_engines != ["point"]:
+            raise SystemExit(f"g2: {sql!r} took {s.last_engines}, not the "
+                             "point fast path")
+    base_rows = s.query("select sum(k), count(*) from sbtest")
+    base_tags = list(s.last_engines)
+    want = {q: TR.sql_oracle(q, d1) for q in ("q1", "q6")}
+
+    def scan_check(q, rows, tags):
+        if TR.sql_cells(rows) != want[q]:
+            raise SystemExit(f"g2: {q} differs from its oracle under writes")
+
+    for q in ("q6", "q1"):  # warm the scanning path outside the timing
+        scan_check(q, s.query(TPCH_QUERIES[q]), None)
+    alone = _htap_phase(s.storage, 4, 1, 0, 6.0, n, scan_check)
+    mixed = _htap_phase(s.storage, 4, 8, 1, 6.0, n, scan_check)
+    acked = alone["acked"] + mixed["acked"]
+    rows = s.query("select sum(k), count(*) from sbtest")
+    if s.last_engines != base_tags or not s.last_engines[0].startswith(
+            "device"):
+        raise SystemExit(f"g2: sum(k) read took {s.last_engines}")
+    if rows != [(base_rows[0][0] + acked, n)]:
+        raise SystemExit(f"g2: sum(k), count(*) = {rows}, want "
+                         f"{base_rows[0][0]} + {acked} acknowledged "
+                         f"UPDATEs, {n}")
+    print(f"  g2 (in process, not over the MySQL wire; the store is in "
+          f"memory, not durable): sum(k) {base_rows[0][0]} -> "
+          f"{rows[0][0]} = initial + {acked} acknowledged UPDATEs "
+          f"(engines {s.last_engines}); sbtest compactions {folds[0]}")
+    for label, ph, w in (("alone (no scans)", alone, 1),
+                         ("under scans", mixed, 8)):
+        r, u = ph["lat"]["read"], ph["lat"]["write"]
+        print(f"  g2 {label}, 4 readers + {w} writer(s): point read "
+              f"{len(r) / ph['wall']:.0f} QPS p50={_pct(r, 0.5):.3f}ms "
+              f"p99={_pct(r, 0.99):.3f}ms; update {len(u) / ph['wall']:.0f}"
+              f" QPS p50={_pct(u, 0.5):.3f}ms p99={_pct(u, 0.99):.3f}ms")
+    for q in ("q6", "q1"):
+        ts = [t for name, t in mixed["scans"] if name == q]
+        print(f"  g2 {q.upper()} under the mix: {len(ts)} scans, "
+              f"{len(ts) / mixed['wall']:.2f}/s, "
+              f"p50_ms={_pct(ts, 0.5):.1f} (exact on every run)")
+    print(f"  g2 peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
 
 def main(argv=None) -> int:
@@ -1005,9 +1369,19 @@ def main(argv=None) -> int:
               _shape_phase(li1, f"SF{args.q18_sf:g}")]
 
     print("== 4. main path")
+    t_part = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"  [{name} took {now - t_part:.1f}s]")
+        t_part = now
+
     cop = CopClient()
     launches, tags = _main_path(args, cop, (d10, t10, s10), (d1, t1, s1))
+    lap("parts a-d")
     _part_e(args, cop, (d10, t10, s10), (d1, t1, s1))
+    lap("part e")
     # part f reuses the generated arrays; the earlier parts' client (and
     # its device caches) and snapshots go first
     del cop, t10, s10, t1, s1
@@ -1015,8 +1389,40 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"  -- f. the SQL read path (device memory held before it: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB)")
-    sql_launches = {"f1": _part_f1(args, d10, tags),
-                    "f2": _part_f2(args, d1)}
+    sql_launches, write_launches = {}, {}
+    sql_launches["f1"], s10 = _part_f1(args, d10, tags)
+    lap("part f1")
+    print(f"  -- g. the write path ({_mem()} held before it)")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    hits = _part_g1(args, [s10], d10, args.sf, f"g1 SF{args.sf:g}",
+                    G1_EARLY)
+    write_launches["g1"] = _kernels.LAUNCHES[RANK]
+    lap("part g1")
+    print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg over a "
+          f"rebuilt lineitem epoch: {hits}")
+    del s10
+    gc.collect()
+    torch.cuda.empty_cache()
+    sql_launches["f2"], card1, cpu1 = _part_f2(args, d1)
+    lap("part f2")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    _part_g1(args, [card1, cpu1], d1, args.q18_sf, f"g1' SF{args.q18_sf:g}",
+             G_QUERIES)
+    write_launches["g1'"] = _kernels.LAUNCHES[RANK]
+    lap("part g1'")
+    del card1, cpu1
+    gc.collect()
+    torch.cuda.empty_cache()
+    _kernels.reset_launches()
+    _part_g2(args, d1)
+    write_launches["g2"] = _kernels.LAUNCHES[RANK]
+    lap("part g2")
+    print(f"  streamseg launches in part g: {write_launches}")
+    if not hits:
+        raise SystemExit("g1: no request launched streamseg over a "
+                         "lineitem epoch that compaction rebuilt")
 
     print("== 5. result")
     # top-level numbers at the first (SF10) shape; every shape's in
@@ -1032,7 +1438,8 @@ def main(argv=None) -> int:
                 "bound_by", "bound_share", "library_ms", "library_call")},
             "shape": top["shape"], "shapes": shapes,
             "sql_launches": {k: v["streamseg.rank_sums"]
-                             for k, v in sql_launches.items()}}
+                             for k, v in sql_launches.items()},
+            "write_launches": write_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

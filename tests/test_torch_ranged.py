@@ -168,7 +168,7 @@ def test_ranged_helpers_match_the_oracles():
     from tidb_tpu_torch.bench import tpch_data as TD
     data = TD.generate_tpch(0.01, 3)
     t = TR.orders_indexed_table(1)
-    base = TR.load_table(t, data["orders"]).snapshot()
+    base = TR.load_table(t, data["orders"]).snapshot(0)
     ov_snap, _, ov = TR.overlay_snapshot(base, data["orders"], 3)
     rng = np.random.default_rng(3)
     custs = rng.choice(np.unique(data["orders"]["o_custkey"]), 50,

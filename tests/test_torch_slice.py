@@ -292,7 +292,7 @@ def test_port_matches_numpy_oracle(name):
         return
     li = TD.generate_tpch(SF, SEED)["lineitem"]
     table = TR.lineitem_table(5)
-    snap = TR.load_table(table, li).snapshot()
+    snap = TR.load_table(table, li).snapshot(0)
     cop = CopClient("cpu")
     if name == "q18_inner":
         r = execute_fragment(cop, TR.q18_inner_frag(table), {5: snap})

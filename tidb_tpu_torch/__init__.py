@@ -7,8 +7,10 @@ from host-only modules is copied in. Entry points:
 
 * `session.Session(device=None).execute(sql)` / `.query(sql)`: SQL text,
   parsed (`sql/`), planned as the reference plans it (`plan/`), run by the
-  root executor (`executor/engine.py`) over a read-only `store.storage.
-  Storage` of bulk-loaded tables (`bench/tpch_data.load_table`);
+  root executor (`executor/engine.py`) over the in-memory transactional
+  `store.storage.Storage` (`kv/`: percolator 2PC over an ordered KV;
+  `store/table_store.py`: column epochs, deltas, compaction), with DML,
+  transactions and the point fast path (`plan/fastpath.py`);
 * `copr.client.CopClient(device).execute(dag, snap)` for a single-table
   pushdown request (`plan.dag.CopDAG`);
 * `copr.fragment.execute_fragment(cop, frag, snaps)` for a fragment
@@ -17,8 +19,10 @@ from host-only modules is copied in. Entry points:
 Where the reference's gates send a request to its host tier, the port's
 host tier answers it too (`copr/host_exec.py`, the fragment's host
 interpreter), with the reference's engine tag. `errors.NotInSlice` marks
-what is not ported yet: writes and the statements other than the read
-path's, registry builtins (`fx:` ops), partitioned tables.
+what is not ported yet: DDL beyond CREATE/DROP/TRUNCATE, sequences, user
+locks, the clock functions, LOAD DATA, registry builtins (`fx:` ops),
+partitioned tables. Nothing is durable: `Storage()` is the reference's
+`Storage(path=None)`.
 """
 
 from .device import resolve_device

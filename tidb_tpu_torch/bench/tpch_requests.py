@@ -130,7 +130,8 @@ def load_tables(data: dict, names, first_table_id: int = 1
     for i, name in enumerate(names):
         t = tpch_table(name, first_table_id + i)
         tables[name] = t
-        snaps[t.id] = load_table(t, data[name]).snapshot()
+        # a bulk-loaded store holds no delta: every ts sees the epoch
+        snaps[t.id] = load_table(t, data[name]).snapshot(0)
     return tables, snaps
 
 
@@ -1340,8 +1341,8 @@ def _div_round(num: int, den: int) -> int:
 
 
 def sql_oracle(name: str, data: dict) -> list[tuple]:
-    """Final rows of TPC-H query `name` ("q3", "q4", "q5", "q6", "q10",
-    "q12", "q14") over the generated arrays."""
+    """Final rows of TPC-H query `name` ("q1", "q3", "q4", "q5", "q6",
+    "q10", "q12", "q14", "q18") over the generated arrays."""
     if name == "q6":
         (val, _), = q6_oracle(data["lineitem"])
         return [(_dec(val, 4),)]  # price (scale 2) * discount (scale 2)
@@ -1366,6 +1367,30 @@ def sql_oracle(name: str, data: dict) -> list[tuple]:
                 for ck, cn, bal, phone, nn, addr, cmt, rev, _ in rows]
     if name == "q4":
         return [(prio, n) for prio, n, _ in q4_oracle(data)]
+    if name == "q1":
+        # avg of a scale-s decimal: scale s + 4, rounded half away from
+        # zero (MySQL's div_precision_increment)
+        return [(rf, ls, _dec(qty, 2), _dec(price, 2), _dec(dp, 4),
+                 _dec(ch, 6), _dec(_div_round(qty * 10 ** 4, n), 6),
+                 _dec(_div_round(price * 10 ** 4, n), 6),
+                 _dec(_div_round(disc * 10 ** 4, n), 6), n)
+                for rf, ls, qty, n, price, _, dp, _, ch, _, _, _, _, _,
+                disc, _, _, _ in q1_oracle(data["lineitem"])]
+    if name == "q18":
+        li, o, c = data["lineitem"], data["orders"], data["customer"]
+        # per-order sums of quantities below 2^53: exact in float64
+        sums = np.bincount(li["l_orderkey"], weights=li["l_quantity"])
+        big = np.flatnonzero(sums > Q18_THRESHOLD)
+        qty = sums[big].astype(np.int64)
+        orow = _row_of(o["o_orderkey"])[big]
+        crow = _row_of(c["c_custkey"])[o["o_custkey"][orow]]
+        names = _strings(c["c_name"])[crow]
+        rows = sorted(zip((-o["o_totalprice"][orow]).tolist(),
+                          o["o_orderdate"][orow].tolist(), big.tolist(),
+                          names.tolist(), c["c_custkey"][crow].tolist(),
+                          qty.tolist()))[:100]
+        return [(cn, ck, ok, day, _dec(-negp, 2), _dec(q, 2))
+                for negp, day, ok, cn, ck, q in rows]
     raise KeyError(name)
 
 

@@ -1,33 +1,49 @@
 """Session: statement lifecycle over the storage, the planner and the executor.
 
-The read path of the reference's `tidb_tpu/session/session.py`: SQL text is
-parsed (`sql/parser.py`), planned exactly as the reference plans it
+Port of `tidb_tpu/session/session.py`. SQL text is parsed
+(`sql/parser.py`), planned exactly as the reference plans it
 (`plan/builder.py`, `plan/physical.optimize`), and run by the root executor
 (`executor/engine.py`), which sends every `CopDAG` and `FragmentDAG` to the
-port's coprocessor. The statements of this slice are CREATE DATABASE, USE,
-CREATE TABLE (primary keys, indexes, unique columns), DROP TABLE, SELECT
-(and UNION), EXPLAIN and ANALYZE TABLE. Tables are filled by bulk loads
-(`bench/tpch_data.load_table`); every other statement kind, and every write,
-raises `NotInSlice`.
+port's coprocessor. Writes take the reference's transaction path: the
+memdb buffer with statement staging, percolator 2PC at commit, the
+columnar fold the coprocessor reads back (`store/storage.py`).
+
+Txn model: autocommit by default, with the reference's retry of an
+autocommit statement that loses an optimistic write conflict (up to
+`tidb_retry_limit`); BEGIN opens an explicit optimistic or PESSIMISTIC
+txn; statement-level staging gives per-statement rollback inside a txn.
+
+Statements: CREATE/DROP DATABASE, USE, CREATE/DROP/TRUNCATE TABLE,
+SELECT (and UNION, FOR UPDATE), INSERT (VALUES, SELECT, REPLACE, ON
+DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN, COMMIT, ROLLBACK, SET,
+EXPLAIN (not ANALYZE) and ANALYZE TABLE. Autocommit point statements take
+the fast path (`plan/fastpath.py`) and never touch the coprocessor. Every
+other statement kind raises `NotInSlice(<kind>)`; so do the clock
+functions, sequences and user locks, each by its name.
 
 Left out of the reference's statement path: the SQL-text plan cache (it
-changes no answer), the point fast path, slow log, digests, profiler,
-bindings, privileges, replica routing, governor admission, FOR UPDATE,
-session variables and the session-dependent functions bound from them.
+changes no answer), slow log, digests, profiler, bindings, privileges,
+replica routing, governor admission, KILL and max_execution_time.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 from .. import obs
 from ..catalog.schema import Catalog, ColumnInfo, FKInfo, IndexInfo, TableInfo
+from ..chunk.column import _encode_scalar
 from ..copr.client import CopClient
-from ..errno import ER_BAD_FIELD, ER_PARSE_ERROR, CodedError
+from ..copr.npeval import NumpyEval, _truthy
+from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DUP_ENTRY,
+                     ER_PARSE_ERROR, ER_UNKNOWN_SYSTEM_VARIABLE,
+                     ER_VAR_READONLY, ER_WRONG_VALUE_COUNT_ON_ROW, CodedError)
 from ..errno import wrap as err_wrap
 from ..errors import NotInSlice
 from ..executor.engine import ExecContext, run_physical
@@ -35,13 +51,14 @@ from ..plan.builder import PlanBuilder, PlanError, _literal_const
 from ..plan.physical import explain_plan, optimize
 from ..sql import ast
 from ..sql.parser import ParseError, parse_sql
-from ..store.storage import Storage, Transaction
+from ..store.storage import (Storage, Transaction, TxnTooLargeError,
+                             WriteConflictError)
 from ..store.table_store import TableStore
-from ..types.field_type import FieldType
+from ..types.field_type import FieldType, TypeKind
 from ..types.value import Decimal
 
-# functions whose value depends on the session or the clock: the reference
-# binds them to literals before planning, from session state not ported
+# functions whose value depends on the session or the clock: bound to
+# literals before planning
 _SESSION_FUNCS = frozenset({
     "NOW", "CURRENT_TIMESTAMP", "SYSDATE", "LOCALTIME", "LOCALTIMESTAMP",
     "CURDATE", "CURRENT_DATE", "CURTIME", "CURRENT_TIME",
@@ -58,6 +75,18 @@ _NILADIC_FUNCS = frozenset({
     "CURRENT_DATE", "CURRENT_TIME", "CURRENT_TIMESTAMP", "CURRENT_USER",
     "LOCALTIME", "LOCALTIMESTAMP",
 })
+
+# session functions of planes not ported yet: the clock, sequences and
+# user locks raise NotInSlice by name
+_NOT_IN_SLICE_FUNCS = frozenset({
+    "NOW", "CURRENT_TIMESTAMP", "SYSDATE", "LOCALTIME", "LOCALTIMESTAMP",
+    "CURDATE", "CURRENT_DATE", "CURTIME", "CURRENT_TIME", "UNIX_TIMESTAMP",
+    "NEXTVAL", "LASTVAL", "SETVAL",
+    "GET_LOCK", "RELEASE_LOCK", "RELEASE_ALL_LOCKS", "IS_FREE_LOCK",
+    "IS_USED_LOCK",
+})
+
+_DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
 
 
 class SQLError(CodedError):
@@ -88,10 +117,24 @@ class Session:
         self._cop: Optional[CopClient] = cop
         self._device = device
         self.txn: Optional[Transaction] = None
+        self.in_explicit_txn = False
+        # authenticated account; the port has no privilege plane, so
+        # every session is the reference's internal (unchecked) session
+        self.user: Optional[str] = None
+        self.conn_id: Optional[int] = None
+        # session-scope system variable overrides + user variables
+        # (reference: sessionctx/variable/session.go SessionVars)
+        self.vars: dict[str, Any] = {}
+        self.user_vars: dict[str, Any] = {}
+        self.active_roles: set[str] = set()
+        self.warnings: list[tuple[str, int, str]] = []
         self._stmt_seq = 0
+        self._stmt_auto_id: Optional[int] = None
+        self._found_rows = 0
+        self._row_count = -1
         # last statement's attribution: stage totals ('parse',
-        # 'plan_build'), exclusive wall seconds per plan operator, and
-        # the engine tag of each coprocessor read in call order
+        # 'plan_build', 'fast_plan'), exclusive wall seconds per plan
+        # operator, and the engine tag of each read in call order
         self.last_stages: dict[str, float] = {}
         self.last_op_wall: dict[str, float] = {}
         self.last_engines: list[str] = []
@@ -138,9 +181,19 @@ class Session:
         if self._pending_parse_s:
             rec.add("parse", self._pending_parse_s)
             self._pending_parse_s = 0.0
+        # warnings reset per statement, except for table-less SELECTs
+        # (SELECT @@warning_count), which read the previous statement's
+        if not (isinstance(stmt, ast.SelectStmt) and stmt.from_ is None):
+            self.warnings = []
+        self._stmt_auto_id = None
         try:
             obs.install_stage_recorder(rec)
-            return self._execute_stmt(stmt)
+            rs = self._execute_stmt(stmt)
+            if self._stmt_auto_id is not None:
+                self.vars["last_insert_id"] = self._stmt_auto_id
+            # ROW_COUNT(): affected rows of the last DML, -1 otherwise
+            self._row_count = rs.affected if isinstance(stmt, _DML) else -1
+            return rs
         finally:
             obs.install_stage_recorder(prev_rec)
             self.last_stages = rec.totals
@@ -151,10 +204,25 @@ class Session:
         return self.execute(sql).rows
 
     def _execute_stmt(self, stmt: ast.Stmt) -> ResultSet:
+        # OLTP fast path: autocommit point SELECT/UPDATE/DELETE and
+        # literal INSERT VALUES bypass the whole plan/dispatch pipeline
+        # (plan/fastpath.py). Anything the recognizer rejects falls
+        # through to the paths below.
+        rs = self._try_fast_path(stmt)
+        if rs is not None:
+            return rs
         if isinstance(stmt, (ast.SelectStmt, ast.SetOpStmt)):
             if getattr(stmt, "into_outfile", None) is not None:
                 raise NotInSlice("INTO OUTFILE")
             return self._run_in_txn(lambda: self._exec_select(stmt))
+        if isinstance(stmt, _DML):
+            stmt = self._maybe_bind_vars(stmt)
+        if isinstance(stmt, ast.InsertStmt):
+            return self._run_in_txn(lambda: self._exec_insert(stmt))
+        if isinstance(stmt, ast.UpdateStmt):
+            return self._run_in_txn(lambda: self._exec_update(stmt))
+        if isinstance(stmt, ast.DeleteStmt):
+            return self._run_in_txn(lambda: self._exec_delete(stmt))
         if isinstance(stmt, ast.CreateTableStmt):
             return self._exec_create_table(stmt)
         if isinstance(stmt, ast.DropTableStmt):
@@ -162,21 +230,181 @@ class Session:
         if isinstance(stmt, ast.CreateDatabaseStmt):
             self.catalog.create_schema(stmt.name, stmt.if_not_exists)
             return ResultSet([], [], affected=0)
+        if isinstance(stmt, ast.DropDatabaseStmt):
+            for info in self.catalog.drop_schema(stmt.name, stmt.if_exists):
+                self.storage.unregister_table(info.id)
+                self.storage.destroy_table_data(info.id)
+            return ResultSet([], [])
+        if isinstance(stmt, ast.TruncateTableStmt):
+            return self._exec_truncate(stmt)
         if isinstance(stmt, ast.UseStmt):
             self.catalog.schema(stmt.db)  # raises if unknown
             self.current_db = stmt.db
             return ResultSet([], [])
+        if isinstance(stmt, ast.BeginStmt):
+            self._commit_implicit()
+            mode = stmt.mode or str(
+                self._sysvar_value("tidb_txn_mode") or "")
+            self.txn = self.storage.begin(
+                pessimistic=mode.upper() == "PESSIMISTIC")
+            self.in_explicit_txn = True
+            return ResultSet([], [])
+        if isinstance(stmt, ast.CommitStmt):
+            self._finish_txn(commit=True)
+            return ResultSet([], [])
+        if isinstance(stmt, ast.RollbackStmt):
+            self._finish_txn(commit=False)
+            return ResultSet([], [])
         if isinstance(stmt, ast.ExplainStmt):
             return self._exec_explain(stmt)
+        if isinstance(stmt, ast.SetStmt):
+            return self._exec_set(stmt)
         if isinstance(stmt, ast.AnalyzeTableStmt):
             return self._exec_analyze(stmt)
         raise NotInSlice(type(stmt).__name__)
 
-    # ==================== session state ====================
+    # ==================== system / user variables ====================
+    def _exec_set(self, stmt: ast.SetStmt) -> ResultSet:
+        """SET handling over the sysvar registry (reference:
+        executor/set.go; registry in sessionctx/variable/sysvar.go)."""
+        from .sysvars import SCOPE_GLOBAL, SCOPE_SESSION, SYSVARS
+
+        for scope, name, expr in stmt.items:
+            value = self._set_value(expr)
+            if scope == "USERVAR":
+                self.user_vars[name] = value
+                continue
+            if scope == "NAMES":
+                for v in ("character_set_client", "character_set_connection",
+                          "character_set_results"):
+                    self.vars[v] = value
+                continue
+            sv = SYSVARS.get(name)
+            if sv is None:
+                # tolerate unknown tidb_/engine-prefixed knobs (forward
+                # compat); reject arbitrary unknowns like MySQL does
+                if name.startswith(("tidb_", "innodb_", "sql_")):
+                    if scope == "GLOBAL":
+                        self.storage.sysvars.set_global(name, value)
+                    else:
+                        self.vars[name] = value
+                    continue
+                raise SQLError(f"Unknown system variable '{name}'",
+                               errno=ER_UNKNOWN_SYSTEM_VARIABLE)
+            if sv.read_only:
+                raise SQLError(
+                    f"Variable '{name}' is a read only variable",
+                    errno=ER_VAR_READONLY)
+            if isinstance(expr, ast.Literal) and expr.tag == "default":
+                value = sv.default
+            if scope == "GLOBAL":
+                if not sv.scope & SCOPE_GLOBAL:
+                    raise SQLError(
+                        f"Variable '{name}' is a SESSION variable and "
+                        "can't be used with SET GLOBAL")
+                self.storage.sysvars.set_global(name, value)
+            else:
+                if not sv.scope & SCOPE_SESSION:
+                    raise SQLError(
+                        f"Variable '{name}' is a GLOBAL variable and "
+                        "should be set with SET GLOBAL")
+                self.vars[name] = value
+        return ResultSet([], [])
+
+    def _set_value(self, expr: ast.Expr) -> Any:
+        if isinstance(expr, ast.Literal):
+            if expr.tag == "decimal":
+                return Decimal(expr.value.unscaled, expr.value.scale) \
+                    if hasattr(expr.value, "unscaled") else expr.value
+            return expr.value
+        if isinstance(expr, ast.ColumnRef):
+            return expr.name  # bare ident value (utf8mb4, ON, ...)
+        if isinstance(expr, ast.SysVarExpr):
+            return self._sysvar_value(expr.name, expr.scope)
+        if isinstance(expr, ast.UserVarExpr):
+            return self.user_vars.get(expr.name)
+        if isinstance(expr, ast.UnaryOp) and isinstance(
+                expr.operand, ast.Literal):
+            v = expr.operand.value
+            return -v if expr.op == "-" else v
+        raise SQLError("unsupported SET value expression")
+
+    def _sysvar_value(self, name: str, scope: str = "SESSION") -> Any:
+        from .sysvars import SYSVARS
+
+        if name == "warning_count" and scope != "GLOBAL":
+            return len(self.warnings)
+        if scope != "GLOBAL" and name in self.vars:
+            return self.vars[name]
+        v = self.storage.sysvars.get_global(name)
+        if v is None and name not in SYSVARS:
+            raise SQLError(f"Unknown system variable '{name}'",
+                           errno=ER_UNKNOWN_SYSTEM_VARIABLE)
+        return v
+
+    def _bind_vars(self, node):
+        """Substitute @@sysvar / @user_var reads with typed literals before
+        planning (the planner sees plain constants)."""
+
+        def lit(v):
+            if v is None:
+                return ast.Literal(None, "null")
+            if isinstance(v, bool):
+                return ast.Literal(int(v), "int")
+            if isinstance(v, int):
+                return ast.Literal(v, "int")
+            if isinstance(v, float):
+                return ast.Literal(v, "float")
+            return ast.Literal(str(v), "string")
+
+        def fn(n):
+            if isinstance(n, ast.SysVarExpr):
+                return lit(self._sysvar_value(n.name, n.scope))
+            if isinstance(n, ast.UserVarExpr):
+                return lit(self.user_vars.get(n.name))
+            if isinstance(n, ast.FuncCall) and n.name in _SESSION_FUNCS:
+                return lit(self._session_func_value(n))
+            if isinstance(n, ast.ColumnRef) and n.table is None and \
+                    n.name.upper() in _NILADIC_FUNCS:
+                # bare CURRENT_DATE etc. — reserved niladic functions
+                return lit(self._session_func_value(
+                    ast.FuncCall(n.name.upper(), [])))
+            return n
+
+        return ast.transform(node, fn)
+
+    def _session_func_value(self, n: ast.FuncCall) -> Any:
+        """Session-dependent function -> value at statement-bind time
+        (reference: expression/builtin_info.go). The clock, sequences and
+        user locks are planes not ported yet."""
+        name = n.name
+        if name in _NOT_IN_SLICE_FUNCS:
+            raise NotInSlice(name)
+        if name == "VERSION":
+            return str(self._sysvar_value("version"))
+        if name in ("DATABASE", "SCHEMA"):
+            return self.current_db
+        if name in ("USER", "CURRENT_USER", "SESSION_USER", "SYSTEM_USER"):
+            return f"{self.user or 'root'}@%"
+        if name == "CONNECTION_ID":
+            return self.conn_id or 0
+        if name == "LAST_INSERT_ID":
+            return int(self.vars.get("last_insert_id", 0) or 0)
+        if name == "FOUND_ROWS":
+            return int(self._found_rows)
+        if name == "ROW_COUNT":
+            return int(self._row_count)
+        if name == "CURRENT_ROLE":
+            return ", ".join(f"`{r}`@`%`"
+                             for r in sorted(self.active_roles)) or "NONE"
+        if name == "TIDB_IS_DDL_OWNER":
+            return 1  # one process: it owns DDL
+        raise SQLError(f"unsupported function {name}")
+
     @staticmethod
     def _has_var_reads(node) -> bool:
-        """@var / @@var reads and session-dependent functions, which the
-        reference binds to literals from session state before planning."""
+        """@var / @@var reads and session-dependent functions, which bind
+        to literals before planning."""
         found = False
 
         def visit(n):
@@ -192,6 +420,16 @@ class Session:
 
         ast.walk(node, visit)
         return found
+
+    def _maybe_bind_vars(self, stmt, has_vars: Optional[bool] = None):
+        """@var / @@var reads bind in every expression-bearing statement
+        (SELECT and DML alike). `has_vars` skips re-walking the AST when
+        the caller already checked."""
+        if has_vars is None:
+            has_vars = self._has_var_reads(stmt)
+        if has_vars:
+            return self._bind_vars(copy.deepcopy(stmt))
+        return stmt
 
     # ==================== ANALYZE ====================
     def _exec_analyze(self, stmt: ast.AnalyzeTableStmt) -> ResultSet:
@@ -211,26 +449,62 @@ class Session:
         return self.txn
 
     def _run_in_txn(self, fn):
-        """One autocommit statement in its own read transaction."""
-        self._ensure_txn()
-        try:
-            result = fn()
-        except Exception:
+        """One statement in the session txn; autocommit statements that
+        lose an optimistic write conflict re-execute at a fresh start_ts
+        up to tidb_retry_limit times (reference: session.go:690
+        retryable auto-commit retry — explicit txns never auto-retry)."""
+        retries = 0
+        if not self.in_explicit_txn and self.txn is None:
+            try:
+                retries = int(self._sysvar_value("tidb_retry_limit") or 0)
+            except (TypeError, ValueError):
+                retries = 0
+        for attempt in range(retries + 1):
+            txn = self._ensure_txn()
+            stage = txn.memdb.staging()
+            guards_before = set(txn.guard_keys)
+            try:
+                result = fn()
+            except Exception:
+                txn.memdb.cleanup(stage)
+                # unwind unique-guard claims with the staged rows: a
+                # failed statement must not leave LOCK markers on values
+                # it never wrote
+                txn.guard_keys = guards_before
+                if not self.in_explicit_txn:
+                    self._finish_txn(commit=False)
+                raise
+            txn.memdb.release(stage)
+            if self.in_explicit_txn:
+                return result
+            try:
+                self._finish_txn(commit=True)
+            except SQLError as e:
+                if attempt < retries and "write conflict" in str(e):
+                    continue  # fresh ts, statement re-executes
+                raise
+            return result
+
+    def rollback_if_active(self) -> None:
+        """Abandon any open transaction (connection teardown path)."""
+        if self.txn is not None:
             self._finish_txn(commit=False)
-            raise
-        self._finish_txn(commit=True)
-        return result
 
     def _commit_implicit(self) -> None:
-        if self.txn is not None:
+        if self.txn is not None and not self.in_explicit_txn:
             self._finish_txn(commit=True)
 
     def _finish_txn(self, commit: bool) -> None:
         if self.txn is None:
+            self.in_explicit_txn = False
             return
         txn, self.txn = self.txn, None
+        self.in_explicit_txn = False
         if commit:
-            txn.commit()
+            try:
+                txn.commit()
+            except (WriteConflictError, TxnTooLargeError) as e:
+                raise err_wrap(SQLError, e) from None
         else:
             txn.rollback()
 
@@ -238,31 +512,51 @@ class Session:
         """ExecContext with the session's memory quota attached."""
         from ..util.memory import MemTracker
 
-        sysvars = self.storage.sysvars
-        quota = int(sysvars.get_global("tidb_mem_quota_query") or 0)
-        action = str(sysvars.get_global("tidb_mem_oom_action") or "SPILL")
+        quota = int(self._sysvar_value("tidb_mem_quota_query") or 0)
+        action = str(self._sysvar_value("tidb_mem_oom_action") or "SPILL")
         mem = MemTracker("query", quota, action=action.upper())
         return ExecContext(self._ensure_txn(), self.cop, stats=stats,
                            mem=mem)
 
     # ==================== SELECT ====================
     def _exec_select(self, stmt: ast.SelectStmt) -> ResultSet:
-        if self._has_var_reads(stmt):
-            raise NotInSlice("session variables and functions")
-        if getattr(stmt, "for_update", False):
-            raise NotInSlice("FOR UPDATE")
-        with obs.stage("plan_build"):
-            plan = self._plan(stmt)
-        ctx = self._exec_ctx()
+        has_vars = self._has_var_reads(stmt)
+        stmt = self._maybe_bind_vars(stmt, has_vars)
         try:
-            chunk = run_physical(plan, ctx)
+            if getattr(stmt, "for_update", False):
+                self._lock_for_update(stmt)
+            with obs.stage("plan_build"):
+                plan = self._plan(stmt)
+            ctx = self._exec_ctx()
+            try:
+                chunk = run_physical(plan, ctx)
+            finally:
+                ctx.close()
         finally:
-            ctx.close()
+            # always clear the per-statement read-ts override — a plan
+            # error after FOR UPDATE locking must not leak for_update_ts
+            # into later statements' snapshots
+            if self.txn is not None:
+                self.txn.stmt_read_ts = None
+        self._found_rows = chunk.num_rows  # FOUND_ROWS()
         names = [f.name for f in plan.schema.fields]
         ftypes = [f.ftype for f in plan.schema.fields]
         if not chunk.columns:
             return ResultSet(names, [], column_types=ftypes)
         return ResultSet(names, chunk.to_pylist(), column_types=ftypes)
+
+    def _lock_for_update(self, stmt: ast.SelectStmt) -> None:
+        """SELECT ... FOR UPDATE row locks. Only pessimistic transactions
+        take locks; optimistic ones keep commit-time conflict detection
+        (the reference behaves the same)."""
+        txn = self._ensure_txn()
+        if not txn.pessimistic or stmt.from_ is None:
+            return
+        if not isinstance(stmt.from_, ast.TableName):
+            raise SQLError(
+                "FOR UPDATE supports single-table queries only")
+        info, _ = self._table_for(stmt.from_)
+        self._pessimistic_scan(info, stmt.from_, stmt.where, txn)
 
     def _plan(self, stmt: ast.SelectStmt):
         try:
@@ -271,6 +565,577 @@ class Session:
             return optimize(logical, self.storage.stats)
         except PlanError as e:
             raise err_wrap(SQLError, e) from None
+
+    # ==================== OLTP point fast path ====================
+    def _fast_path_eligible(self, stmt: ast.Stmt) -> bool:
+        """Session-state half of the TryFastPlan gate."""
+        if self.in_explicit_txn or self.txn is not None:
+            return False  # explicit txns keep the planned read/lock paths
+        if self.user is not None:
+            return False
+        if not isinstance(stmt, (ast.SelectStmt, ast.InsertStmt,
+                                 ast.UpdateStmt, ast.DeleteStmt)):
+            return False
+        if isinstance(stmt, ast.SelectStmt):
+            try:
+                if str(self._sysvar_value("tidb_replica_read")
+                       or "leader").lower() != "leader":
+                    return False
+            except SQLError:
+                pass
+        try:
+            return bool(int(
+                self._sysvar_value("tidb_enable_fast_path") or 0))
+        except (TypeError, ValueError):
+            return False
+
+    def _try_fast_path(self, stmt: ast.Stmt) -> Optional[ResultSet]:
+        """TryFastPlan gate: point statements execute straight against
+        the KV/MVCC layer — no planner, no ExecContext, no coprocessor.
+        Returns None whenever the statement (or session state) is not
+        point-shaped; the caller's slow path answers everything else."""
+        if not self._fast_path_eligible(stmt):
+            return None
+        from ..plan import fastpath
+        with obs.stage("fast_plan"):
+            fp = fastpath.try_plan(self, stmt)
+        if fp is None:
+            return None
+        obs.note_engine("point")
+        return fastpath.execute(self, fp)
+
+    # ==================== DML ====================
+    def _exec_insert(self, stmt: ast.InsertStmt) -> ResultSet:
+        info, store = self._table_for(stmt.table)
+        col_order = self._insert_columns(info, stmt.columns)
+        txn = self._ensure_txn()
+
+        rows: list[list[Any]] = []
+        if stmt.select is not None:
+            sub = self._exec_select(stmt.select)
+            rows = [list(r) for r in sub.rows]
+        else:
+            for value_row in stmt.rows:
+                if len(value_row) != len(col_order):
+                    raise SQLError("column count doesn't match value count",
+                                   errno=ER_WRONG_VALUE_COUNT_ON_ROW)
+                rows.append([self._eval_value(e) for e in value_row])
+
+        # pessimistic txns lock + duplicate-check at the latest committed
+        # view (a concurrent INSERT of the same key surfaces as a
+        # duplicate here instead of a conflict at commit)
+        from ..kv import tablecodec
+
+        if txn.pessimistic:
+            txn.stmt_read_ts = txn.refresh_for_update_ts()
+        timeout = float(
+            self._sysvar_value("innodb_lock_wait_timeout") or 50)
+        tid = info.id
+        checker: Optional[_UniqueChecker] = None
+
+        try:
+            count = 0
+            for rv in rows:
+                if len(rv) != len(col_order):
+                    raise SQLError("column count doesn't match value count",
+                                   errno=ER_WRONG_VALUE_COUNT_ON_ROW)
+                full = self._complete_row(info, col_order, rv, store)
+                handle = self._row_handle(info, full, store)
+                enc = store.encode_row(full)
+                if txn.pessimistic:
+                    # lock the new record key AND every unique-index key
+                    # this row claims, so a concurrent insert of the same
+                    # UNIQUE value serializes behind us; after any wait,
+                    # re-check duplicates at a fresh view
+                    from ..kv.backoff import (BO_TXN_CONFLICT, BO_TXN_LOCK,
+                                              Backoffer, BackoffExhausted)
+                    from ..kv.mvcc import WriteConflictError as KVConflict
+                    lock_keys = [tablecodec.record_key(tid, handle)]
+                    lock_keys += self._unique_lock_keys(info, enc)
+                    bo = Backoffer(budget_ms=int(timeout * 1000))
+                    while True:
+                        t0_lock = time.monotonic()
+                        try:
+                            waited = self.storage.pessimistic_lock_keys(
+                                txn, lock_keys, timeout)
+                        except KVConflict:
+                            # a commit landed past our for_update_ts:
+                            # the cached checker's snapshot is stale
+                            txn.stmt_read_ts = txn.refresh_for_update_ts()
+                            checker = None
+                            try:
+                                blocked = time.monotonic() - t0_lock
+                                if blocked > 0.001:
+                                    bo.charge(BO_TXN_LOCK, blocked)
+                                bo.sleep(BO_TXN_CONFLICT)
+                            except BackoffExhausted as e:
+                                raise err_wrap(SQLError, e) from None
+                            continue
+                        except (Storage.DeadlockError,
+                                Storage.LockWaitTimeout) as e:
+                            raise err_wrap(SQLError, e) from None
+                        if waited:
+                            txn.stmt_read_ts = txn.refresh_for_update_ts()
+                            checker = None
+                            blocked = time.monotonic() - t0_lock
+                            if blocked > 0.001:
+                                try:
+                                    bo.charge(BO_TXN_LOCK, blocked)
+                                except BackoffExhausted as e:
+                                    raise err_wrap(SQLError, e) from None
+                        if checker is None:
+                            checker = _UniqueChecker(info, store, txn)
+                        conflicts = checker.conflicts(handle, enc)
+                        # REPLACE deletes its victims and ON DUPLICATE
+                        # updates the first one: both write rows they
+                        # didn't insert, so those record keys need locks
+                        if not (conflicts
+                                and (stmt.is_replace or stmt.on_dup)):
+                            break
+                        victims = [tablecodec.record_key(tid, h)
+                                   for h in conflicts
+                                   if tablecodec.record_key(tid, h)
+                                   not in txn.locked_keys]
+                        if not victims:
+                            break
+                        lock_keys = victims  # lock them, then re-check
+                        try:
+                            bo.sleep(BO_TXN_CONFLICT)
+                        except BackoffExhausted as e:
+                            raise err_wrap(SQLError, e) from None
+                else:
+                    if checker is None:
+                        checker = _UniqueChecker(info, store, txn)
+                    conflicts = checker.conflicts(handle, enc)
+                if conflicts:
+                    if stmt.on_dup:
+                        count += self._apply_on_dup(
+                            stmt, info, info, tid, store, txn, checker,
+                            conflicts[0], full)
+                        continue  # the new row itself is not inserted
+                    if not stmt.is_replace:
+                        raise SQLError(
+                            checker.dup_message(handle, enc, conflicts),
+                            errno=ER_DUP_ENTRY)
+                    for h in conflicts:
+                        txn.delete_row(tid, h)
+                        checker.note_delete(h)
+                    count += len(conflicts)  # MySQL: replaced rows count 2x
+                if not txn.pessimistic:
+                    # claim the unique values as lock-only guard keys so
+                    # a CONCURRENT optimistic insert of the same value
+                    # collides at 2PC prewrite instead of both committing
+                    txn.guard_keys.update(
+                        self._unique_lock_keys(info, enc))
+                txn.set_row(tid, handle, enc)
+                checker.note_insert(handle, enc)
+                count += 1
+            return ResultSet([], [], affected=count)
+        finally:
+            txn.stmt_read_ts = None
+
+    def _apply_on_dup(self, stmt, info, tinfo, tid: int, store, txn,
+                      checker, handle: int, full: list) -> int:
+        """ON DUPLICATE KEY UPDATE: update the first conflicting row
+        with the assignment list; VALUES(col) refers to the would-be
+        inserted row (reference: executor/insert.go
+        doDupRowUpdate + expression/builtin_other.go VALUES)."""
+        handle = int(handle)
+        snap = txn.snapshot(tid)
+        gathered = snap.gather(np.array([handle], np.int64),
+                               list(range(tinfo.num_columns)))
+        existing: list[Any] = []
+        for data, valid in gathered:
+            existing.append(None if not valid[0]
+                            else _np_scalar(data[0]))
+        builder = PlanBuilder(self.catalog, self.current_db)
+        scan = builder._build_scan(stmt.table)
+        # 1-row evaluator over the existing row
+        cols = []
+        dicts = []
+        for off in range(tinfo.num_columns):
+            ft = tinfo.columns[off].ftype
+            arr = np.zeros(1, ft.np_dtype)
+            vl = np.ones(1, bool)
+            if existing[off] is None:
+                vl[0] = False
+            else:
+                arr[0] = existing[off]
+            cols.append((arr, vl))
+            dicts.append(store.dictionaries[off])
+        ev = NumpyEval(cols, dicts, 1)
+        col_by_name = {c.name.lower(): c for c in tinfo.columns}
+        new_phys = list(existing)
+        for a in stmt.on_dup:
+            target = col_by_name.get(a.column.name.lower())
+            if target is None:
+                raise SQLError(f"unknown column {a.column.name}",
+                               errno=ER_BAD_FIELD)
+            ci = target.offset
+            col_ft = target.ftype
+            # col = VALUES(col2): direct host-value re-encode (keeps
+            # temporal/decimal domains exact)
+            av = a.value
+            if isinstance(av, ast.FuncCall) and av.name == "VALUES":
+                src = col_by_name.get(av.args[0].name.lower())
+                if src is None:
+                    raise SQLError(
+                        f"unknown column {av.args[0].name} in VALUES()")
+                v = full[src.offset]
+                new_phys[ci] = None if v is None else _encode_scalar(
+                    col_ft, v, store.dictionaries[ci])
+            else:
+                expr_ast = self._subst_values_refs(av, col_by_name, full)
+                try:
+                    pe = builder.resolve(expr_ast, scan.schema)
+                except PlanError as e:
+                    raise err_wrap(SQLError, e) from None
+                if col_ft.is_string:
+                    sv, svl = ev.eval_str(pe)
+                    d = store.dictionaries[ci]
+                    new_phys[ci] = d.encode(sv[0]) if svl[0] else None
+                else:
+                    vv = ev.eval(pe)
+                    if pe.ftype.kind != col_ft.kind or (
+                            col_ft.is_decimal
+                            and pe.ftype.scale != col_ft.scale):
+                        vv = ev._cast(vv, pe.ftype, col_ft)
+                    v, vl = vv
+                    new_phys[ci] = None if not np.asarray(vl)[0] \
+                        else _np_scalar(np.asarray(v)[0])
+            if new_phys[ci] is None and not col_ft.nullable:
+                raise SQLError(
+                    f"column {target.name} cannot be null")
+        if info.pk_handle_offset is not None and \
+                new_phys[info.pk_handle_offset] != \
+                existing[info.pk_handle_offset]:
+            raise SQLError(
+                "changing the primary key in ON DUPLICATE KEY UPDATE "
+                "is unsupported")
+        if tuple(new_phys) == tuple(existing):
+            return 0  # MySQL: unchanged row counts 0
+        conf = checker.conflicts(handle, tuple(new_phys), exclude=handle)
+        if conf:
+            raise SQLError(
+                checker.dup_message(handle, tuple(new_phys), conf))
+        txn.set_row(tid, handle, tuple(new_phys))
+        checker.note_delete(handle)
+        checker.note_insert(handle, tuple(new_phys))
+        return 2  # MySQL: an updated duplicate counts 2
+
+    def _subst_values_refs(self, node, col_by_name, full: list):
+        """Replace VALUES(col) with the new row's host value as a typed
+        literal (non-temporal domains; plain `col = VALUES(col)` takes
+        the exact re-encode path above). Transforms a COPY: the on_dup
+        AST is shared across conflicting rows, and baking one row's
+        values into it would replay them for every later conflict."""
+        node = copy.deepcopy(node)
+
+        def fn(n):
+            if isinstance(n, ast.FuncCall) and n.name == "VALUES":
+                src = col_by_name.get(n.args[0].name.lower())
+                if src is None:
+                    raise SQLError(
+                        f"unknown column {n.args[0].name} in VALUES()")
+                v = full[src.offset]
+                if v is None:
+                    return ast.Literal(None, "null")
+                if isinstance(v, bool):
+                    return ast.Literal(int(v), "int")
+                if isinstance(v, int):
+                    return ast.Literal(v, "int")
+                if isinstance(v, float):
+                    return ast.Literal(v, "float")
+                if isinstance(v, Decimal):
+                    return ast.Literal(v, "decimal")
+                return ast.Literal(str(v), "string")
+            return n
+
+        return ast.transform(node, fn)
+
+    def _exec_update(self, stmt: ast.UpdateStmt) -> ResultSet:
+        info, store = self._table_for(stmt.table)
+        txn = self._ensure_txn()
+        try:
+            return self._exec_update_inner(stmt, info, store, txn)
+        finally:
+            txn.stmt_read_ts = None
+
+    def _exec_update_inner(self, stmt: ast.UpdateStmt, info, store,
+                           txn) -> ResultSet:
+        if txn.pessimistic:
+            snap, mask, ev, handles = self._pessimistic_scan(
+                info, stmt.table, stmt.where, txn)
+        else:
+            snap = txn.snapshot(info.id)
+            mask, ev = self._where_mask(info, stmt.table, stmt.where, snap)
+            handles = snap.handles()[mask]
+        if len(handles) == 0:
+            return ResultSet([], [], affected=0)
+        # resolve assignments against the scan schema
+        builder = PlanBuilder(self.catalog, self.current_db)
+        scan = builder._build_scan(stmt.table)
+        assigns: dict[int, Any] = {}
+        for a in stmt.assignments:
+            ci = scan.schema.resolve(a.column.name, a.column.table)
+            if ci is None:
+                raise SQLError(f"unknown column {a.column}",
+                               errno=ER_BAD_FIELD)
+            assigns[ci] = builder.resolve(a.value, scan.schema)
+        # evaluate each assignment once over the whole snapshot, in the
+        # column's own physical domain
+        new_vals: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        for ci, e in assigns.items():
+            col_ft = info.columns[ci].ftype
+            if col_ft.is_string:
+                sv, svl = ev.eval_str(e)
+                d = store.dictionaries[ci]
+                assert d is not None
+                data = np.fromiter(
+                    (d.encode(s) if ok else 0 for s, ok in zip(sv, svl)),
+                    dtype=np.int64, count=len(sv))
+                new_vals[ci] = (data, np.asarray(svl))
+            else:
+                vv = ev.eval(e)
+                v, vl = ev._cast(vv, e.ftype, col_ft) if (
+                    e.ftype.kind != col_ft.kind or
+                    (col_ft.is_decimal and e.ftype.scale != col_ft.scale)
+                ) else vv
+                new_vals[ci] = (np.asarray(v), np.asarray(vl))
+        # constraint checks only when an assigned column is the handle pk
+        # or part of a unique index
+        pk_changed = info.pk_handle_offset in assigns
+        touches_unique = pk_changed or any(
+            off in assigns
+            for ix in info.indices if ix.unique or ix.primary
+            for off in ix.col_offsets
+        )
+        checker = _UniqueChecker(info, store, txn, snap=snap) \
+            if touches_unique else None
+        # hoist full-column materialization out of the per-row loop
+        cols = [snap.column(c) for c in range(info.num_columns)]
+        col_data = [c.data for c in cols]
+        col_valid = [c.validity for c in cols]
+        rows_idx = np.nonzero(mask)[0]
+        count = 0
+        for ri, handle in zip(rows_idx, handles):
+            ri = int(ri)
+            handle = int(handle)
+            phys = [
+                None if not col_valid[c][ri] else _np_scalar(col_data[c][ri])
+                for c in range(info.num_columns)
+            ]
+            for ci in assigns:
+                v, vl = new_vals[ci]
+                phys[ci] = None if not vl[ri] else _np_scalar(v[ri])
+            new_handle = handle
+            if pk_changed:
+                pv = phys[info.pk_handle_offset]
+                if pv is None:
+                    raise SQLError(
+                        f"column {info.columns[info.pk_handle_offset].name} "
+                        "cannot be null")
+                new_handle = int(pv)
+                store.note_handle(new_handle)
+            if checker is not None:
+                conf = checker.conflicts(new_handle, tuple(phys),
+                                         exclude=handle)
+                if conf:
+                    raise SQLError(
+                        checker.dup_message(new_handle, tuple(phys), conf))
+                if not txn.pessimistic:
+                    # optimistic unique-value claim (same guard as the
+                    # insert path; see test_race_harness.py)
+                    txn.guard_keys.update(
+                        self._unique_lock_keys(info, tuple(phys)))
+            if new_handle != handle:
+                txn.delete_row(info.id, handle)
+                if checker is not None:
+                    checker.note_delete(handle)
+            txn.set_row(info.id, new_handle, tuple(phys))
+            if checker is not None:
+                checker.note_insert(new_handle, tuple(phys))
+            count += 1
+        return ResultSet([], [], affected=count)
+
+    def _exec_delete(self, stmt: ast.DeleteStmt) -> ResultSet:
+        info, _ = self._table_for(stmt.table)
+        txn = self._ensure_txn()
+        try:
+            if txn.pessimistic:
+                snap, mask, _, handles = self._pessimistic_scan(
+                    info, stmt.table, stmt.where, txn)
+            else:
+                snap = txn.snapshot(info.id)
+                mask, _ = self._where_mask(info, stmt.table, stmt.where,
+                                           snap)
+                handles = snap.handles()[mask]
+            for h in handles:
+                txn.delete_row(info.id, int(h))
+            return ResultSet([], [], affected=len(handles))
+        finally:
+            txn.stmt_read_ts = None
+
+    def _unique_lock_keys(self, info: TableInfo, enc: tuple) -> list[bytes]:
+        """Lock-only keys representing the unique-index entries a new row
+        would claim (NULL-bearing keys skipped — MySQL allows repeated
+        NULLs in unique indexes). Physical values (dictionary codes) are
+        per-store deterministic, so equal SQL values from any session
+        encode to equal lock keys."""
+        from ..kv import tablecodec
+
+        keys: list[bytes] = []
+        for ix in info.indices:
+            if not (ix.unique or ix.primary):
+                continue
+            vals = [enc[off] for off in ix.col_offsets]
+            if any(v is None for v in vals):
+                continue
+            keys.append(tablecodec.index_key(info.id, ix.id, vals))
+        return keys
+
+    def _pessimistic_scan(self, info: TableInfo, table: ast.TableName,
+                          where: Optional[ast.Expr], txn):
+        """Lock the matching rows at a fresh for_update_ts, retrying the
+        scan whenever a newer commit invalidates it (reference:
+        executor/adapter.go:533 handlePessimisticDML + :623 lock-error
+        retry). Leaves txn.stmt_read_ts at the locked for_update_ts so
+        every read this statement makes sees the locked versions; the
+        caller clears it when the statement ends."""
+        from ..kv import tablecodec
+        from ..kv.backoff import (BO_TXN_CONFLICT, BO_TXN_LOCK, Backoffer,
+                                  BackoffExhausted)
+        from ..kv.mvcc import WriteConflictError as KVConflict
+
+        timeout = float(
+            self._sysvar_value("innodb_lock_wait_timeout") or 50)
+        bo = Backoffer(budget_ms=int(timeout * 1000))
+        while True:
+            ts = txn.refresh_for_update_ts()
+            txn.stmt_read_ts = ts
+            snap = txn.snapshot(info.id)
+            mask, ev = self._where_mask(info, table, where, snap)
+            handles = snap.handles()[mask]
+            keys = [tablecodec.record_key(info.id, int(h))
+                    for h in handles]
+            t0 = time.monotonic()
+            try:
+                self.storage.pessimistic_lock_keys(txn, keys, timeout)
+                return snap, mask, ev, handles
+            except KVConflict:
+                try:
+                    # time blocked on foreign locks counts against the
+                    # SAME budget, or a contended statement could run
+                    # far beyond innodb_lock_wait_timeout
+                    waited = time.monotonic() - t0
+                    if waited > 0.001:
+                        bo.charge(BO_TXN_LOCK, waited)
+                    bo.sleep(BO_TXN_CONFLICT)  # then rescan fresh
+                except BackoffExhausted as e:
+                    raise err_wrap(SQLError, e) from None
+            except (Storage.DeadlockError,
+                    Storage.LockWaitTimeout) as e:
+                raise err_wrap(SQLError, e) from None
+
+    def _where_mask(self, info: TableInfo, table: ast.TableName,
+                    where: Optional[ast.Expr], snap):
+        n = snap.num_visible_rows
+        cols = []
+        dicts = []
+        for off in range(info.num_columns):
+            col = snap.column(off)
+            cols.append((col.data, col.validity))
+            dicts.append(col.dictionary)
+        ev = NumpyEval(cols, dicts, n)
+        if where is None:
+            return np.ones(n, dtype=bool), ev
+        builder = PlanBuilder(self.catalog, self.current_db)
+        scan = builder._build_scan(table)
+        cond = builder.resolve(where, scan.schema)
+        v, vl = ev.eval(cond)
+        return _truthy(np.asarray(v)) & vl, ev
+
+    def _eval_value(self, e: ast.Expr) -> Any:
+        """Evaluate an INSERT VALUES expression (constants + simple arith)."""
+        builder = PlanBuilder(self.catalog, self.current_db)
+        from ..plan.schema import PlanSchema
+        pe = builder.resolve(e, PlanSchema([]))
+        from ..plan.expr import Const
+        if not isinstance(pe, Const):
+            raise SQLError("non-constant INSERT value")
+        if pe.value is None:
+            return None
+        if pe.ftype.is_decimal:
+            return Decimal(pe.value, pe.ftype.scale)
+        if pe.ftype.kind == TypeKind.DATE:
+            from ..types.value import decode_date
+            return decode_date(pe.value)
+        if pe.ftype.kind in (TypeKind.DATETIME, TypeKind.TIMESTAMP):
+            from ..types.value import decode_datetime
+            return decode_datetime(pe.value)
+        return pe.value
+
+    def _insert_columns(self, info: TableInfo,
+                        names: Optional[list[str]]) -> list[int]:
+        if names is None:
+            return list(range(info.num_columns))
+        out = []
+        for n in names:
+            c = info.column_by_name(n)
+            if c is None:
+                raise SQLError(f"unknown column {n}",
+                               errno=ER_BAD_FIELD)
+            out.append(c.offset)
+        return out
+
+    def _complete_row(self, info: TableInfo, col_order: list[int],
+                      values: list[Any], store: TableStore) -> list[Any]:
+        full: list[Any] = [None] * info.num_columns
+        provided = set()
+        for off, v in zip(col_order, values):
+            full[off] = v
+            provided.add(off)
+        for c in info.columns:
+            if c.offset in provided:
+                continue
+            if c.default is not None:
+                full[c.offset] = c.default
+            elif c.auto_increment:
+                v = store.alloc_handle()
+                full[c.offset] = v
+                # LAST_INSERT_ID: first auto-generated value of the
+                # statement (reference: builtin_info.go lastInsertID)
+                if self._stmt_auto_id is None:
+                    self._stmt_auto_id = v
+            elif not c.nullable:
+                raise SQLError(f"column {c.name} cannot be null",
+                               errno=ER_BAD_NULL)
+        for c in info.columns:
+            if full[c.offset] is None and not c.nullable and \
+                    not c.auto_increment:
+                raise SQLError(f"column {c.name} cannot be null",
+                               errno=ER_BAD_NULL)
+        return full
+
+    def _row_handle(self, info: TableInfo, row: list[Any],
+                    store: TableStore) -> int:
+        if info.pk_handle_offset is not None:
+            v = row[info.pk_handle_offset]
+            if v is None:
+                v = store.alloc_handle()
+                row[info.pk_handle_offset] = v
+            handle = int(v)
+            store.note_handle(handle)
+            return handle
+        return store.alloc_handle()
+
+    def _exec_truncate(self, stmt: ast.TruncateTableStmt) -> ResultSet:
+        info, _ = self._table_for(stmt.table)
+        self.storage.unregister_table(info.id)
+        self.storage.stats.drop_table(info.id)
+        self.storage.destroy_table_data(info.id)
+        self.storage.register_table(info)
+        return ResultSet([], [])
 
     # ==================== DDL ====================
     def _exec_create_table(self, stmt: ast.CreateTableStmt) -> ResultSet:
@@ -381,6 +1246,7 @@ class Session:
             if info is not None:
                 self.storage.unregister_table(info.id)
                 self.storage.stats.drop_table(info.id)
+                self.storage.destroy_table_data(info.id)
         return ResultSet([], [])
 
     # ==================== EXPLAIN ====================
@@ -389,8 +1255,6 @@ class Session:
             raise SQLError("EXPLAIN supports SELECT only for now")
         if stmt.analyze:
             raise NotInSlice("EXPLAIN ANALYZE")
-        if self._has_var_reads(stmt.target):
-            raise NotInSlice("session variables and functions")
         plan = self._plan(stmt.target)
         return ResultSet(["plan"], [(line,) for line in explain_plan(plan)])
 
@@ -401,3 +1265,101 @@ class Session:
         except KeyError as e:
             raise err_wrap(SQLError, e) from None
         return info, self.storage.table_store(info.id)
+
+
+class _UniqueChecker:
+    """Duplicate-key detection for DML writes: checks new rows against the
+    snapshot (via index lookups) and against rows written earlier in the
+    same statement. Counterpart of the reference's unique-index constraint
+    path (table/tables/index.go Create; executor/insert.go dup handling,
+    REPLACE semantics in executor/replace.go). NULL keys are never
+    duplicates (MySQL unique-index NULL rule)."""
+
+    def __init__(self, info: TableInfo, store: TableStore, txn: Transaction,
+                 snap=None) -> None:
+        from ..store.index import IndexSearcher
+
+        self.info = info
+        self.store = store
+        self.uniques = [ix for ix in info.indices if ix.unique or ix.primary]
+        need = bool(self.uniques) or info.pk_handle_offset is not None
+        self.snap = snap if snap is not None else (
+            txn.snapshot(info.id) if need else None)
+        self._searchers = [
+            IndexSearcher(store, self.snap, ix) for ix in self.uniques
+        ] if self.snap is not None else []
+        self._seen: list[dict] = [dict() for _ in self.uniques]
+        self._deleted: set[int] = set()
+        self._inserted: set[int] = set()
+
+    def _key(self, ix: IndexInfo, enc: tuple):
+        vals = tuple(enc[off] for off in ix.col_offsets)
+        return None if any(v is None for v in vals) else vals
+
+    def conflicts(self, handle: int, enc: tuple,
+                  exclude: Optional[int] = None) -> list[int]:
+        """Visible handles the new row collides with (pk or unique keys).
+        Records the first violated constraint for dup_message."""
+        out: list[int] = []
+        self.last_dup: Optional[tuple[str, tuple]] = None
+        if self.snap is None:
+            return out
+        if self.info.pk_handle_offset is not None:
+            live = handle in self._inserted or (
+                self.snap.has_handle(handle) and handle not in self._deleted)
+            if live and handle != exclude:
+                out.append(handle)
+                self.last_dup = ("PRIMARY", (handle,))
+        for ix, searcher, seen in zip(self.uniques, self._searchers,
+                                      self._seen):
+            key = self._key(ix, enc)
+            if key is None:
+                continue
+            hits: list[int] = []
+            h2 = seen.get(key)
+            if h2 is not None and h2 != exclude and h2 not in self._deleted:
+                hits.append(h2)
+            for h in searcher.eq(key):
+                h = int(h)
+                # _inserted handles were rewritten this statement: their
+                # snapshot index entries are stale (e.g. a multi-row UPDATE
+                # vacating a unique value); their live keys are in `seen`
+                if h != exclude and h not in self._deleted and \
+                        h not in self._inserted:
+                    hits.append(h)
+            for h in hits:
+                if h not in out:
+                    out.append(h)
+            if hits and self.last_dup is None:
+                name = "PRIMARY" if ix.primary else ix.name
+                shown = []  # decode dictionary codes back to strings
+                for v, off in zip(key, ix.col_offsets):
+                    d = self.store.dictionaries[off]
+                    shown.append(d.decode(int(v)) if d is not None else v)
+                self.last_dup = (name, tuple(shown))
+        return out
+
+    def dup_message(self, handle: int, enc: tuple, conflicts: list[int]) -> str:
+        if self.last_dup is None:
+            return "Duplicate entry"
+        name, key = self.last_dup
+        return (f"Duplicate entry '{'-'.join(str(v) for v in key)}' "
+                f"for key '{name}'")
+
+    def note_insert(self, handle: int, enc: tuple) -> None:
+        self._inserted.add(handle)
+        self._deleted.discard(handle)
+        for ix, seen in zip(self.uniques, self._seen):
+            key = self._key(ix, enc)
+            if key is not None:
+                seen[key] = handle
+
+    def note_delete(self, handle: int) -> None:
+        self._deleted.add(handle)
+        self._inserted.discard(handle)
+
+
+def _np_scalar(v):
+    if isinstance(v, np.generic):
+        return v.item()
+    return v

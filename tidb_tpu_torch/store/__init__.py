@@ -1,1 +1,2 @@
-"""Columnar table storage and the read-only Storage over it."""
+"""Columnar table storage (epochs, deltas, compaction) and the in-memory
+transactional Storage over it."""

@@ -1,14 +1,20 @@
-"""Columnar table storage: one immutable base epoch per table.
+"""Per-table MVCC columnar storage: immutable base epochs + row deltas.
 
-The read side of the reference's MVCC store (`tidb_tpu/store/table_store.py`):
-a `ColumnEpoch` of flat column arrays, and a `TableSnapshot` over it with a
-visibility mask and an overlay of rows committed (or buffered) after the
-epoch, which the coprocessor runs as a second batch. Deltas, compaction and
-the KV layer are a later slice: `TableStore.snapshot` gives every base row
-and no overlay, and a snapshot with overlay rows is built by its caller
-(one converted from the reference, or `bench/tpch_requests.py`'s
-`overlay_snapshot`). The store keeps the index sort orders
-(`store/index.py`) of its epochs.
+Port of `tidb_tpu/store/table_store.py`:
+
+* The **base epoch** is an immutable set of flat column arrays. It is what
+  the coprocessor stages on the device and what kernels scan.
+* **Deltas** are committed row mutations `(commit_ts, handle, row|TOMBSTONE)`
+  kept host-side in commit order. A snapshot read at `snap_ts` sees the base
+  epoch minus overridden handles, plus the latest visible delta per handle —
+  merged into a small "overlay" chunk the device treats as one more tile.
+* **Compaction** folds deltas at or below the GC-safe ts into a new epoch.
+
+Handles are int64 row ids, auto-allocated or taken from an integer primary
+key. The store keeps the index sort orders (`store/index.py`) of its
+epochs. Left out with the planes they serve: the durable-epoch hook
+(`on_epoch`, `restore_epoch`), the mesh plane's eviction hooks, and the
+DDL reorganisations `apply_schema` and `cast_column`.
 """
 
 from __future__ import annotations
@@ -16,13 +22,15 @@ from __future__ import annotations
 import functools
 import hashlib
 import itertools
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 
 from ..catalog.schema import TableInfo
-from ..chunk.column import Column, Dictionary, EnumDictionary
+from ..chunk.column import Column, Dictionary, EnumDictionary, _encode_scalar
+from ..kv.memdb import TOMBSTONE
 from ..types.field_type import TypeKind
 
 _epoch_ids = itertools.count(1)
@@ -190,6 +198,10 @@ class TableSnapshot:
             out.append((data, valid))
         return out
 
+    def handles(self) -> np.ndarray:
+        return np.concatenate(
+            [self.epoch.handles[self.base_visible], self.overlay_handles])
+
     def column(self, offset: int) -> Column:
         """One full visible column: the visible base rows, then the
         overlay rows (the host interpreter's input). Where every base row
@@ -228,39 +240,175 @@ class TableSnapshot:
         return hashlib.md5(np.packbits(m).tobytes()).hexdigest()[:16]
 
 
+def _empty_epoch(table: TableInfo) -> ColumnEpoch:
+    return ColumnEpoch(
+        epoch_id=next(_epoch_ids),
+        fold_ts=0,
+        handles=np.empty(0, dtype=np.int64),
+        columns=[np.empty(0, dtype=c.ftype.np_dtype) for c in table.columns],
+        valids=[None] * len(table.columns),
+    )
+
+
 class TableStore:
-    """Storage for one table: a single base epoch filled by `bulk_load`."""
+    """MVCC store for one table."""
+
+    # fold deltas into a fresh epoch once this many are visible to everyone
+    COMPACT_THRESHOLD = 8192
 
     def __init__(self, table: TableInfo) -> None:
         self.table = table
-        # rows touched since creation: the auto-analyze delta feed
-        # (stats/handle.py)
-        self.modify_count = 0
-        self._snapshot: Optional[TableSnapshot] = None
-        # (epoch_id, index id or ("col", offset)) -> sort order; see
-        # store/index.py
-        self._index_orders: dict = {}
         self.dictionaries: list[Optional[Dictionary]] = [
             _column_dictionary(c.ftype) for c in table.columns
         ]
-        self.epoch = ColumnEpoch(
-            epoch_id=next(_epoch_ids), fold_ts=0,
-            handles=np.empty(0, dtype=np.int64),
-            columns=[np.empty(0, dtype=c.ftype.np_dtype)
-                     for c in table.columns],
-            valids=[None] * len(table.columns))
+        self.epoch = _empty_epoch(table)
+        # committed mutations after epoch.fold_ts, in commit-ts order
+        self.deltas: list[tuple[int, int, Any]] = []  # (commit_ts, handle, row)
+        self._next_handle = 1
+        self._lock = threading.RLock()
+        # (epoch_id, index id or ("col", offset)) -> sort order; see
+        # store/index.py
+        self._index_orders: dict = {}
+        # rows touched since creation — the auto-analyze delta feed
+        # (reference: stats delta in handle/update.go)
+        self.modify_count = 0
+        # bumped by every DDL that changes this table's schema; txns that
+        # buffered writes under an older token must abort at commit
+        # (reference: schema validator fencing, domain/schema_validator.go)
+        self.schema_token = 0
+        # the newest snapshot with no delta visible, per epoch: immutable,
+        # so its visibility digest is computed once, not per statement
+        self._snapshot: Optional[TableSnapshot] = None
 
-    def bulk_load(self, columns: list[np.ndarray],
-                  valids: Optional[list[Optional[np.ndarray]]] = None
-                  ) -> None:
-        """Install pre-encoded column arrays as the base epoch.
+    # ---- write path --------------------------------------------------------
+    def alloc_handle(self) -> int:
+        with self._lock:
+            h = self._next_handle
+            self._next_handle += 1
+            return h
 
+    def note_handle(self, handle: int) -> None:
+        """Keep auto-alloc above explicitly-written pk-is-handle values."""
+        with self._lock:
+            if handle >= self._next_handle:
+                self._next_handle = handle + 1
+
+    def encode_row(self, values: list[Any]) -> tuple:
+        """Host scalars -> physical tuple (dictionary side effects included)."""
+        assert len(values) == self.table.num_columns
+        out = []
+        for v, col, d in zip(values, self.table.columns, self.dictionaries):
+            if v is None:
+                out.append(None)
+            else:
+                out.append(_encode_scalar(col.ftype, v, d))
+        return tuple(out)
+
+    def apply_commit(self, commit_ts: int, handle: int, row: Any) -> None:
+        """Record one committed mutation (row tuple or TOMBSTONE)."""
+        with self._lock:
+            self.deltas.append((commit_ts, handle, row))
+            self.modify_count += 1
+
+    def latest_commit_ts(self, handle: int) -> int:
+        """Newest commit touching handle (0 if only in base/absent) —
+        the write-conflict check input."""
+        with self._lock:
+            for commit_ts, h, _ in reversed(self.deltas):
+                if h == handle:
+                    return commit_ts
+        return 0
+
+    # ---- read path ---------------------------------------------------------
+    def snapshot(
+        self,
+        snap_ts: int,
+        txn_overlay: Optional[dict[int, Any]] = None,
+    ) -> TableSnapshot:
+        """Build the visible view at snap_ts, optionally unioned with an
+        uncommitted txn buffer (read-your-writes; reference analog:
+        executor/union_scan.go over kv/union_iter.go). A view with no
+        delta and no buffered row is the epoch's one all-visible
+        snapshot."""
+        with self._lock:
+            epoch = self.epoch
+            # latest visible version per handle among deltas
+            visible: dict[int, Any] = {}
+            for commit_ts, handle, row in self.deltas:
+                if commit_ts <= snap_ts:
+                    visible[handle] = row
+            if txn_overlay:
+                visible.update(txn_overlay)
+            if not visible:
+                snap = self._snapshot
+                if snap is None or snap.epoch is not epoch:
+                    snap = self._snapshot = self._base_snapshot(epoch)
+                return snap
+
+        base_visible = np.ones(epoch.num_rows, dtype=bool)
+        ov_handles: list[int] = []
+        ov_rows: list[tuple] = []
+        for handle, row in visible.items():
+            pos = epoch.handle_pos.get(handle)
+            if pos is not None:
+                base_visible[pos] = False
+            if row is not TOMBSTONE:
+                ov_handles.append(handle)
+                ov_rows.append(row)
+
+        ncols = self.table.num_columns
+        ov_columns: list[np.ndarray] = []
+        ov_valids: list[Optional[np.ndarray]] = []
+        for ci in range(ncols):
+            dt = self.table.columns[ci].ftype.np_dtype
+            data = np.zeros(len(ov_rows), dtype=dt)
+            valid = np.ones(len(ov_rows), dtype=bool)
+            for ri, row in enumerate(ov_rows):
+                v = row[ci]
+                if v is None:
+                    valid[ri] = False
+                else:
+                    data[ri] = v
+            ov_columns.append(data)
+            ov_valids.append(None if valid.all() else valid)
+
+        return TableSnapshot(
+            table=self.table,
+            dictionaries=self.dictionaries,
+            epoch=epoch,
+            base_visible=base_visible,
+            overlay_handles=np.array(ov_handles, dtype=np.int64),
+            overlay_columns=ov_columns,
+            overlay_valids=ov_valids,
+            store=self,
+        )
+
+    def _base_snapshot(self, epoch: ColumnEpoch) -> TableSnapshot:
+        return TableSnapshot(
+            table=self.table,
+            dictionaries=self.dictionaries,
+            epoch=epoch,
+            base_visible=np.ones(epoch.num_rows, dtype=bool),
+            overlay_handles=np.empty(0, dtype=np.int64),
+            overlay_columns=[np.empty(0, dtype=c.ftype.np_dtype)
+                             for c in self.table.columns],
+            overlay_valids=[None] * self.table.num_columns,
+            store=self)
+
+    # ---- bulk load ----------------------------------------------------------
+    def bulk_load(
+        self,
+        columns: list[np.ndarray],
+        valids: Optional[list[Optional[np.ndarray]]] = None,
+        commit_ts: int = 0,
+    ) -> None:
+        """Append pre-encoded column arrays directly into a new base epoch.
+
+        The loader path of cmd/importer (reference: cmd/importer) — bypasses
+        the transaction layer; intended for benchmarks and dataset loads.
         Physical encodings must match the table's column types (dictionary
-        codes for strings, scaled ints for decimals, day numbers for
-        dates). The caller's arrays are adopted without copying; epoch
-        columns are treated as immutable everywhere."""
-        if self.epoch.num_rows:
-            raise ValueError("bulk_load: the base epoch is already loaded")
+        codes for strings, scaled ints for decimals, day numbers for dates).
+        """
         if len(columns) != self.table.num_columns:
             raise ValueError(
                 f"bulk_load: {len(columns)} columns for "
@@ -270,37 +418,110 @@ class TableStore:
             if len(c) != n:
                 raise ValueError(
                     f"bulk_load: column {ci} has {len(c)} rows, expected {n}")
-        valids = list(valids) if valids is not None \
-            else [None] * len(columns)
-        for ci, v in enumerate(valids):
-            if v is not None and len(v) != n:
-                raise ValueError(
-                    f"bulk_load: valids[{ci}] has {len(v)} rows, "
-                    f"expected {n}")
-        self.modify_count += n
-        self.epoch = ColumnEpoch(
-            epoch_id=next(_epoch_ids), fold_ts=0,
-            handles=np.arange(1, n + 1, dtype=np.int64),
-            columns=[c.astype(col.ftype.np_dtype, copy=False)
-                     for c, col in zip(columns, self.table.columns)],
-            valids=valids)
+        if valids is not None:
+            for ci, v in enumerate(valids):
+                if v is not None and len(v) != n:
+                    raise ValueError(
+                        f"bulk_load: valids[{ci}] has {len(v)} rows, "
+                        f"expected {n}")
+        with self._lock:
+            epoch = self.epoch
+            self.modify_count += n
+            handles = np.arange(self._next_handle, self._next_handle + n,
+                                dtype=np.int64)
+            self._next_handle += n
+            new_cols = []
+            new_valids: list[Optional[np.ndarray]] = []
+            for ci in range(self.table.num_columns):
+                dt = self.table.columns[ci].ftype.np_dtype
+                if epoch.num_rows == 0:
+                    # adopt the caller's arrays without copying: a SF100
+                    # load is ~60GB of columns and a concatenate would
+                    # double the peak footprint. Epoch columns are
+                    # treated as immutable everywhere.
+                    new_cols.append(columns[ci].astype(dt, copy=False))
+                else:
+                    new_cols.append(np.concatenate(
+                        [epoch.columns[ci], columns[ci].astype(dt)]))
+                add_v = valids[ci] if valids is not None else None
+                old_v = epoch.valids[ci]
+                if old_v is None and add_v is None:
+                    new_valids.append(None)
+                else:
+                    ov = old_v if old_v is not None else np.ones(
+                        epoch.num_rows, bool)
+                    av = add_v if add_v is not None else np.ones(n, bool)
+                    new_valids.append(np.concatenate([ov, av]))
+            all_handles = np.concatenate([epoch.handles, handles])
+            self.epoch = ColumnEpoch(
+                epoch_id=next(_epoch_ids),
+                fold_ts=max(epoch.fold_ts, commit_ts),
+                handles=all_handles,
+                columns=new_cols,
+                valids=new_valids,
+            )
 
-    def snapshot(self) -> TableSnapshot:
-        """Every base row visible, no overlay rows. One snapshot object
-        per epoch: it is immutable, and its visibility digest is then
-        computed once, not once per statement."""
-        snap = self._snapshot
-        if snap is not None and snap.epoch is self.epoch:
-            return snap
-        ncols = self.table.num_columns
-        self._snapshot = TableSnapshot(
-            table=self.table,
-            dictionaries=self.dictionaries,
-            epoch=self.epoch,
-            base_visible=np.ones(self.epoch.num_rows, dtype=bool),
-            overlay_handles=np.empty(0, dtype=np.int64),
-            overlay_columns=[np.empty(0, dtype=c.ftype.np_dtype)
-                             for c in self.table.columns],
-            overlay_valids=[None] * ncols,
-            store=self)
-        return self._snapshot
+    # ---- compaction --------------------------------------------------------
+    def maybe_compact(self, safe_ts: int) -> None:
+        if len(self.deltas) >= self.COMPACT_THRESHOLD:
+            self.compact(safe_ts)
+
+    def compact(self, safe_ts: int) -> None:
+        """Fold deltas with commit_ts <= safe_ts into a new immutable epoch.
+
+        safe_ts must not exceed the oldest active snapshot ts (the Storage
+        layer enforces this — GC-safepoint analog, store/tikv/gcworker).
+        """
+        with self._lock:
+            epoch = self.epoch
+            folding: dict[int, Any] = {}
+            remaining: list[tuple[int, int, Any]] = []
+            for commit_ts, handle, row in self.deltas:
+                if commit_ts <= safe_ts:
+                    folding[handle] = row
+                else:
+                    remaining.append((commit_ts, handle, row))
+            if not folding:
+                return
+
+            keep = np.ones(epoch.num_rows, dtype=bool)
+            for handle in folding:
+                pos = epoch.handle_pos.get(handle)
+                if pos is not None:
+                    keep[pos] = False
+            new_rows = [(h, r) for h, r in folding.items() if r is not TOMBSTONE]
+            new_rows.sort(key=lambda x: x[0])  # handle order keeps scans stable
+
+            ncols = self.table.num_columns
+            handles = np.concatenate(
+                [epoch.handles[keep], np.array([h for h, _ in new_rows], np.int64)]
+            )
+            columns: list[np.ndarray] = []
+            valids: list[Optional[np.ndarray]] = []
+            for ci in range(ncols):
+                dt = self.table.columns[ci].ftype.np_dtype
+                add = np.zeros(len(new_rows), dtype=dt)
+                addv = np.ones(len(new_rows), dtype=bool)
+                for ri, (_, row) in enumerate(new_rows):
+                    v = row[ci]
+                    if v is None:
+                        addv[ri] = False
+                    else:
+                        add[ri] = v
+                columns.append(np.concatenate([epoch.columns[ci][keep], add]))
+                oldv = epoch.valids[ci]
+                if oldv is None and addv.all():
+                    valids.append(None)
+                else:
+                    ov = oldv[keep] if oldv is not None else np.ones(int(keep.sum()), bool)
+                    valids.append(np.concatenate([ov, addv]))
+
+            new_epoch = ColumnEpoch(
+                epoch_id=next(_epoch_ids),
+                fold_ts=safe_ts,
+                handles=handles,
+                columns=columns,
+                valids=valids,
+            )
+            self.epoch = new_epoch
+            self.deltas = remaining
