@@ -90,10 +90,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           answer (`tpch_requests.sql_oracle`: the partial oracles
           finished as the root finishes them), its `last_engines` equal
           to the tag its coprocessor request carries in parts a-d, and Q3
-          must launch streamseg; then each one's cold run, warm p50 of 5,
+          must launch streamseg; then each one's cold run, warm p50 of 3,
           device-busy share of one profiled run, parse+plan ms and
           root-operator ms (from the session's stage recorder), the p50
-          of 5 runs of the same coprocessor requests sent directly to the
+          of 3 runs of the same coprocessor requests sent directly to the
           session's client with its snapshots (what the SQL layers add),
           and the part's peak device memory;
       f2. all 22 queries at SF1 (the arrays of the SF1 load) through a
@@ -114,8 +114,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           lineitems deleted by DELETE ... IN, lineitem first, each
           statement below 8,192 rows: a commit of N >= 8,192 mutations
           costs the reference's commit path N^2 delta visits); Q6, Q3,
-          Q5, Q12 and Q18
-          as SQL after RF2, and Q6 mid-RF1 (lineitem deltas below the
+          Q5 and Q12 as SQL after RF2 (Q18 there overflows to the host
+          tier, ~58 s: g1' and h2 read it at SF1), and Q6 mid-RF1 (lineitem deltas below the
           8,192 threshold, as overlay) and after RF1 (orders' overlay
           sends the four joins to the host tier there, ~120 s at SF10 per
           point, more than the time limit leaves: g1' reads them), each
@@ -129,10 +129,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           commits that compacted) p50 and max ms, the device memory held
           after each compacting commit and the part's peak. At least one
           read must launch streamseg over a lineitem epoch that
-          compaction rebuilt (checked at the end of part g);
+          compaction rebuilt (checked after part h);
       g1'. the same at SF1 on f2's card and CPU sessions, with all five
-          queries read mid-RF1 and after RF1 too (the four joins on the
-          host tier's build-overlay path): every statement's affected
+          queries read mid-RF1 too (the four joins on the host tier's
+          build-overlay path; after RF1 only Q6): every statement's affected
           count and tags, and every read's rows and tags, equal between
           the two;
       g2. the reference's HTAP mix (`bench.py` flight_htap_mixed), in
@@ -140,17 +140,51 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           not durable): sbtest (id bigint primary key, k bigint, c
           varchar(64)) with 100,000 rows by 2,000-row INSERTs and
           lineitem at SF1 bulk-loaded in one Storage; the point SELECT
-          and UPDATE must take the `point` fast path; then 6 s with 4
-          point readers and 1 writer, and 6 s with 4 readers, 8 writers
+          and UPDATE must take the `point` fast path; then 3 s with 4
+          point readers and 1 writer, and 3 s with 4 readers, 8 writers
           and 1 session scanning Q6 and Q1 (each exact against its numpy
           answer); sum(k) through the coprocessor on the card must equal
           the initial sum plus the acknowledged UPDATEs; point read and
           update p50/p99, QPS, scans per second, sbtest's compactions,
           the peak device memory.
+   h. durability and the MySQL wire server (after part g's sessions are
+      dropped; the filesystem of the store's temporary directory first,
+      from `df -T`: fsync time is the disk's, not the card's):
+      h1. the reference's HTAP mix as `bench.py` flight_htap_mixed runs
+          it: `Storage(<tmp>, sync_log="commit")`, whose KV engine must be
+          the port's NativeOrderedKV (`csrc/kvstore.cpp`, built with g++),
+          sbtest's 100,000 rows by 2,000-row INSERTs, lineitem, orders and
+          customer at SF1 bulk-loaded (their epoch files written), ANALYZE,
+          `checkpoint()`, then `Server(storage, port=0,
+          max_connections=256)` driven with `tests/mysql_client.py` (loaded
+          by path, an encoding of the protocol independent of the
+          server's): a point SELECT and UPDATE over the wire must take the
+          `point` path (read from the server-side session's
+          `last_engines`); 6 s of 4 readers and 1 writer, 6 s of 4
+          readers, 8 writers and 1 client scanning Q6 and Q1 (each exact
+          on every scan), and 6 s each of 1, 8 and 32 writers (durable
+          update QPS, the group fsync's average batch, the fsync's mean
+          time); sum(k) over the wire must equal its start plus the
+          acknowledged UPDATEs; then the server's close and a clean
+          `storage.close()`;
+      h2. `Storage(path)` reopened and timed (recovery, epoch files, TSO
+          floor); over a new `Server` on the card: sum(k) and count(*)
+          unchanged, Q6, Q1 and Q18 exact with part f2's tags, Q18
+          launching streamseg over the lineitem epoch that came from its
+          file (`write_launches["h2"]`);
+      h3. a child `python3` serving the store (the port only), 8 UPDATE
+          writers over the wire for 4 s, SIGKILL to the child with writes
+          in flight, the store reopened on the card (timed: the WAL replay
+          since the last checkpoint): sum(k) within [base + acknowledged,
+          base + acknowledged + 8] (one write in flight a writer), Q6
+          exact.
+      The check that a part g read launched streamseg over a rebuilt
+      lineitem epoch runs after part h.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
-   tag; then the first (cold) run and the p50 wall time of 5 warm runs,
-   each ending in torch.cuda.synchronize(), and the device-busy share of
+   tag; then the first (cold) run and the p50 wall time of 3 warm runs
+   (5 before part h), each ending in torch.cuda.synchronize(), and the
+   device-busy share of
    one more warm run under torch.profiler (traced kernel and copy time
    over its wall time; in parts c and d also the 8 kernels that took the
    most of it). A `host(...)` request takes its cold run only (seconds
@@ -196,6 +230,9 @@ from tidb_tpu_torch.copr.sumexact import limbs_of
 from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from tidb_tpu_torch.plan.fragment import FragmentDAG
 from tidb_tpu_torch.session import Session
+
+# warm runs of each request in parts a-f1 (5 before part h needed the room)
+WARM_RUNS = 3
 
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -377,9 +414,10 @@ def _device_busy(run, top: int = 0) -> tuple[str, float]:
     """One more warm run under torch.profiler: the summed time of the CUDA
     kernels and copies it traced against the run's wall time, and with
     `top` the `top` kernels that took the most of it (name, launches, ms).
+    Only device activity is traced: the CPU ops' events gave the same
+    device time and cost up to a second of post-processing a request.
     -> (that text, the profiled run's wall ms)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -423,7 +461,7 @@ def _drive(label: str, queries: list, top: int = 0,
            every_kernel: bool = True) -> dict:
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
-    p50 of 5 warm runs and one profiled run (with its `top` costliest CUDA
+    p50 of WARM_RUNS warm runs and one profiled run (with its `top` costliest CUDA
     kernels). A `host(...)` request takes its cold run only (seconds of
     numpy, which the profiler does not trace), a `ranged` one 2 warm
     runs, the second of them profiled. queries: [(name, scale, tag, rows
@@ -459,7 +497,7 @@ def _drive(label: str, queries: list, top: int = 0,
             busy = "device busy: not measured (host tier, cold run only)"
         else:
             times = []
-            for _ in range(1 if host else 5):
+            for _ in range(1 if host else WARM_RUNS):
                 t0 = time.perf_counter()
                 run()
                 torch.cuda.synchronize()
@@ -635,7 +673,7 @@ def _distinct(col: np.ndarray) -> np.ndarray:
 
 def _analyze(cop, snap, label: str) -> None:
     """`device_column_stats` over every column of `snap`: the cold run,
-    the p50 of 5 warm runs and the device-busy share; count, min and max
+    the p50 of 3 warm runs and the device-busy share; count, min and max
     exact against numpy, and each column's registers (from the same
     per-tile reductions over the cached tiles) and NDV equal to the host
     twin's. The twin reads each column's distinct values: a register is a
@@ -674,7 +712,7 @@ def _analyze(cop, snap, label: str) -> None:
             raise SystemExit(f"ANALYZE column {off}: {stats[off]} differs "
                              f"from the host twin")
     times = []
-    for _ in range(5):
+    for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -934,12 +972,12 @@ def _part_f1(args, d10, tags) -> tuple:
     print(f"  launches on the SQL path at {sf10}: {launches}")
     for q, (first, nrows, engines) in firsts.items():
         sql = TPCH_QUERIES[q]
-        times = [_sql_run(s, sql)[1] for _ in range(5)]
+        times = [_sql_run(s, sql)[1] for _ in range(WARM_RUNS)]
         split = _sql_split(s)
         busy, _ = _device_busy(lambda: s.query(sql))
         reads = _captured_reads(s, sql)
         direct = []
-        for _ in range(5):
+        for _ in range(WARM_RUNS):
             t0 = time.perf_counter()
             for read in reads:
                 read()
@@ -1012,22 +1050,29 @@ def _part_f2(args, d1) -> tuple:
     print(f"  22 queries: card warm runs sum to {total_card:.2f}s, the CPU "
           f"session's runs to {total_cpu:.2f}s; peak device memory during "
           f"f2: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    return launches, card, cpu
+    return launches, card, cpu, {q: v[3] for q, v in out.items()}
 
 
 # ---- part g: the write path (TPC-H refresh functions, the HTAP mix) ----
 G_QUERIES = ("q6", "q3", "q5", "q12", "q18")
-# g1's reads mid-RF1 and after RF1 at SF10, where orders' overlay sends
-# every join to the host tier (Q3, Q5, Q12 and Q18 take 17, 34, 10 and
-# 60 s there: more than the time limit leaves). g1' reads all five at
-# every point at SF1, card == CPU; g1 reads all five after RF2
-G1_EARLY = ("q6",)
+# the reads mid-RF1, after RF1 and after RF2. At SF10 (g1) orders' overlay
+# sends every join to the host tier before RF2 (Q3, Q5, Q12 and Q18 take
+# 17, 34, 10 and 60 s there: more than the time limit leaves), and after
+# RF2 Q18 overflows its group buffer to the host tier (58 s); Q3 after RF2
+# launches streamseg over the rebuilt lineitem epoch. At SF1 (g1', card ==
+# CPU) all five are read mid-RF1 and after RF2; after RF1 only Q6 (the
+# joins take the same host-tier path as mid-RF1, ~20 s a point)
+G1_READS = (("q6",), ("q6",), ("q6", "q3", "q5", "q12"))
+G1P_READS = (G_QUERIES, ("q6",), G_QUERIES)
 # rows per RF2 DELETE commit: below the 8,192-delta threshold. The
 # reference's commit calls maybe_compact once per mutation, and a
 # commit's own N >= 8,192 mutations stay unfolded, so each call scans
 # all N deltas again: N^2 visits, 3.6e9 for one 60,000-row DELETE at SF10
 RF2_ROWS = 8191
 RANK = "streamseg.rank_sums"
+# g2's phases: 3 s, half the reference's 6 s (part h runs the same mix at
+# 6 s over the wire on a durable store), for the script's time limit
+G2_SECONDS = 3.0
 
 
 def _stores(s, names=("orders", "lineitem")) -> dict:
@@ -1114,7 +1159,7 @@ def _g_reads(sessions, phase: str, data, hits: list,
 
 
 def _part_g1(args, sessions, data, sf: float, label: str,
-             early: tuple) -> list:
+             reads: tuple) -> list:
     """Part g1 (SF10, `sessions` = [f1's card session]) or g1' (SF1, [a
     card session, a CPU session]) (module docstring). -> the reads that
     launched streamseg over a lineitem epoch that compaction rebuilt."""
@@ -1135,15 +1180,15 @@ def _part_g1(args, sessions, data, sf: float, label: str,
         raise SystemExit(f"{label}: mid-RF1 lineitem holds "
                          f"{len(li.deltas)} deltas")
     _g_reads(sessions, f"{label} mid-RF1", RF.apply_rf1(
-        data, RF.rf1_prefix(new, (mid - n_ord) * 1000)), hits, early)
+        data, RF.rf1_prefix(new, (mid - n_ord) * 1000)), hits, reads[0])
     _g_exec(sessions, ins[mid:], "INSERT", times, label)
     after1 = RF.apply_rf1(data, new)
-    _g_reads(sessions, f"{label} after RF1", after1, hits, early)
+    _g_reads(sessions, f"{label} after RF1", after1, hits, reads[1])
     _g_exec(sessions, RF.rf2_statements(
         keys, RF.lines_per_order(after1, keys), RF2_ROWS), "DELETE", times,
         label)
     after2 = RF.apply_rf2(after1, keys)
-    _g_reads(sessions, f"{label} after RF2", after2, hits)
+    _g_reads(sessions, f"{label} after RF2", after2, hits, reads[2])
     # one explicit transaction: its Q6 reads its own buffer, the rollback
     # leaves the value before
     extra = RF.rf1_rows(after2, sf, args.seed + 103)["lineitem"]
@@ -1287,8 +1332,8 @@ def _part_g2(args, d1) -> None:
 
     for q in ("q6", "q1"):  # warm the scanning path outside the timing
         scan_check(q, s.query(TPCH_QUERIES[q]), None)
-    alone = _htap_phase(s.storage, 4, 1, 0, 6.0, n, scan_check)
-    mixed = _htap_phase(s.storage, 4, 8, 1, 6.0, n, scan_check)
+    alone = _htap_phase(s.storage, 4, 1, 0, G2_SECONDS, n, scan_check)
+    mixed = _htap_phase(s.storage, 4, 8, 1, G2_SECONDS, n, scan_check)
     acked = alone["acked"] + mixed["acked"]
     rows = s.query("select sum(k), count(*) from sbtest")
     if s.last_engines != base_tags or not s.last_engines[0].startswith(
@@ -1316,6 +1361,399 @@ def _part_g2(args, d1) -> None:
               f"p50_ms={_pct(ts, 0.5):.1f} (exact on every run)")
     print(f"  g2 peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+
+# ---- part h: durability and the MySQL wire server ----
+H_SCANS = ("q6", "q1")
+H_READS = ("q6", "q1", "q18")
+# the child of h3: the port's durable store served on port 0, nothing else
+H3_CHILD = """
+import sys, threading
+from tidb_tpu_torch.server import Server
+from tidb_tpu_torch.store.storage import Storage
+storage = Storage(sys.argv[1], sync_log="commit")
+server = Server(storage, port=0, max_connections=256)
+server.start()
+print(server.port, flush=True)
+threading.Event().wait()
+"""
+
+
+def _mini_client_module():
+    """tests/mysql_client.py loaded by path (as bench.py's wire flights
+    load it): an encoding of the protocol independent of the server's."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_mysql_client",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "mysql_client.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _wire_text(rows) -> list:
+    """Session rows as the text protocol renders them (what a client
+    reads back over the wire)."""
+    from tidb_tpu_torch.server.packet import render_text_value
+    return [tuple(None if (r := render_text_value(v)) is None else
+                  r.decode() for v in row) for row in rows]
+
+
+def _server_tags(server) -> list:
+    """The engine tags of the last statement of the server's newest
+    connection, the caller's (the port has no EXPLAIN ANALYZE yet)."""
+    _, conn = max(server._conns.items())
+    return list(conn.session.last_engines)
+
+
+def _wire_phase(mc, addr, n_read: int, n_write: int, n_scan: int,
+                secs: float, ids: int, expect: dict) -> dict:
+    """One phase of the reference's HTAP mix over the wire (`bench.py`
+    flight_htap_mixed run_phase): MiniClient threads; -> latencies,
+    acknowledged UPDATEs and scans (each exact)."""
+    stop = threading.Event()
+    lat = {"read": [], "write": []}
+    acked = [0]
+    scans: list = []
+    errs: list = []
+    lock = threading.Lock()
+
+    def points(wi: int, write: bool) -> None:
+        try:
+            cl = mc.MiniClient(*addr)
+            rng = np.random.default_rng(1000 * wi + int(write))
+            pick = rng.integers(0, ids, size=1 << 14)
+            j, mine, ok = 0, [], 0
+            while not stop.is_set():
+                i = int(pick[j & 0x3FFF])
+                j += 1
+                t0 = time.perf_counter()
+                if write:
+                    ok += cl.execute(f"update sbtest set k = k + 1 "
+                                     f"where id = {i}")
+                else:
+                    cl.query(f"select id, k, c from sbtest where id = {i}")
+                mine.append(time.perf_counter() - t0)
+            cl.close()
+            with lock:
+                lat["write" if write else "read"] += mine
+                acked[0] += ok
+        except BaseException as e:  # re-raised by the caller
+            errs.append(e)
+
+    def scan() -> None:
+        try:
+            cl = mc.MiniClient(*addr)
+            while not stop.is_set():
+                for q in H_SCANS:
+                    t0 = time.perf_counter()
+                    rows = cl.query(TPCH_QUERIES[q])
+                    scans.append((q, time.perf_counter() - t0))
+                    if rows != expect[q]:
+                        raise SystemExit(f"h1: {q} over the wire differs "
+                                         "from its oracle under writes")
+            cl.close()
+        except BaseException as e:  # re-raised by the caller
+            errs.append(e)
+
+    threads = ([threading.Thread(target=points, args=(i, False))
+                for i in range(n_read)]
+               + [threading.Thread(target=points, args=(i, True))
+                  for i in range(n_write)]
+               + [threading.Thread(target=scan) for _ in range(n_scan)])
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(secs)
+    stop.set()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return {"wall": wall, "lat": lat, "acked": acked[0], "scans": scans}
+
+
+def _wire_sum(mc, addr) -> tuple:
+    cl = mc.MiniClient(*addr)
+    (row,) = cl.query("select sum(k), count(*) from sbtest")
+    cl.close()
+    return int(row[0]), int(row[1])
+
+
+def _part_h1(args, d1, path: str, mc) -> dict:
+    """Part h1 (module docstring). -> what h2 and h3 check against."""
+    from tidb_tpu_torch.kv.native import NativeOrderedKV
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.store.storage import Storage
+
+    torch.cuda.reset_peak_memory_stats()
+    storage = Storage(path, sync_log="commit")
+    if not isinstance(storage.kv.kv, NativeOrderedKV):
+        raise SystemExit(f"h1: the KV engine is {type(storage.kv.kv)}, not "
+                         "the port's NativeOrderedKV")
+    print(f"  h1: Storage({path!r}, sync_log='commit'), KV engine "
+          f"{type(storage.kv.kv).__module__}.{type(storage.kv.kv).__name__}")
+    s = Session(storage)
+    s.execute("create table sbtest (id bigint primary key, k bigint, "
+              "c varchar(64))")
+    n = 100_000
+    t0 = time.perf_counter()
+    for lo in range(0, n, 2000):
+        s.execute("insert into sbtest values " + ",".join(
+            f"({i},{i % 1000},'c{i:020d}')" for i in range(lo, lo + 2000)))
+    t_sb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in ("lineitem", "orders", "customer"):
+        TD.load_table(s, name, d1[name])
+    t_bulk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.execute("analyze table sbtest, lineitem, orders, customer")
+    _sync()
+    t_an = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storage.checkpoint()
+    t_cp = time.perf_counter() - t0
+    print(f"  h1: sbtest {n} rows by 2,000-row durable INSERTs "
+          f"{t_sb:.2f}s; lineitem, orders, customer SF{args.q18_sf:g} bulk "
+          f"load (epoch files written and fsynced) {t_bulk:.2f}s; ANALYZE "
+          f"{t_an:.2f}s; checkpoint {t_cp:.2f}s")
+    # the expected wire text of the reads: the session's rows, each equal
+    # to the numpy answer first
+    expect = {}
+    for q in H_READS:
+        rows = s.query(TPCH_QUERIES[q])
+        if TR.sql_cells(rows) != TR.sql_oracle(q, d1):
+            raise SystemExit(f"h1: {q} in process differs from its oracle")
+        expect[q] = _wire_text(rows)
+    server = Server(storage, port=0, max_connections=256)
+    server.start()
+    addr = ("127.0.0.1", server.port)
+    probe = mc.MiniClient(*addr)
+    for sql in ("select id, k from sbtest where id = 5",
+                "update sbtest set k = k + 0 where id = 5"):
+        probe.execute(sql)
+        if _server_tags(server) != ["point"]:
+            raise SystemExit(f"h1: {sql!r} over the wire took "
+                             f"{_server_tags(server)}, not the point path")
+    for q in H_SCANS:  # the scanning path warm, outside the timing
+        if probe.query(TPCH_QUERIES[q]) != expect[q]:
+            raise SystemExit(f"h1: {q} over the wire differs from its "
+                             "oracle")
+    probe.close()
+    base = _wire_sum(mc, addr)
+    print(f"  h1: point SELECT and UPDATE over the wire take ['point'] "
+          f"(server-side session.last_engines); sum(k), count(*) = {base}")
+    # the WAL fsync's own time (the disk's, not the card's), beside the
+    # group batch
+    syncer = storage.kv.kv._syncer
+    fsync, fs = syncer._fsync, [0.0]
+
+    def timed_fsync():
+        t = time.perf_counter()
+        fsync()
+        fs[0] += time.perf_counter() - t
+
+    syncer._fsync = timed_fsync
+    alone = _wire_phase(mc, addr, 4, 1, 0, 6.0, n, expect)
+    mixed = _wire_phase(mc, addr, 4, 8, 1, 6.0, n, expect)
+    acked = alone["acked"] + mixed["acked"]
+    hist = storage.obs.group_commit_batch
+    for conc in (1, 8, 32):
+        _, sum0, n0 = hist.snapshot()
+        fs0 = fs[0]
+        ph = _wire_phase(mc, addr, 0, conc, 0, 6.0, n, expect)
+        _, sum1, n1 = hist.snapshot()
+        acked += ph["acked"]
+        u = ph["lat"]["write"]
+        print(f"  h1 durable write x{conc}: {len(u) / ph['wall']:.0f} QPS "
+              f"p50={_pct(u, 0.5):.3f}ms p99={_pct(u, 0.99):.3f}ms; group "
+              f"fsync avg batch {(sum1 - sum0) / max(n1 - n0, 1):.2f} over "
+              f"{n1 - n0} fsyncs of {(fs[0] - fs0) / max(n1 - n0, 1) * 1e3:.3f}"
+              f" ms each ({(fs[0] - fs0) / ph['wall'] * 100:.1f}% of the "
+              f"phase)")
+    got = _wire_sum(mc, addr)
+    if got != (base[0] + acked, n):
+        raise SystemExit(f"h1: sum(k), count(*) = {got}, want {base[0]} + "
+                         f"{acked} acknowledged UPDATEs, {n}")
+    print(f"  h1: sum(k) {base[0]} -> {got[0]} = initial + {acked} "
+          f"acknowledged UPDATEs (over the wire)")
+    for label, ph, w in (("alone (no scans)", alone, 1),
+                         ("under scans", mixed, 8)):
+        r, u = ph["lat"]["read"], ph["lat"]["write"]
+        print(f"  h1 {label}, 4 readers + {w} writer(s): point read "
+              f"{len(r) / ph['wall']:.0f} QPS p50={_pct(r, 0.5):.3f}ms "
+              f"p99={_pct(r, 0.99):.3f}ms; durable update "
+              f"{len(u) / ph['wall']:.0f} QPS p50={_pct(u, 0.5):.3f}ms "
+              f"p99={_pct(u, 0.99):.3f}ms")
+    for q in H_SCANS:
+        ts = [t for name, t in mixed["scans"] if name == q]
+        print(f"  h1 {q.upper()} under the mix over the wire: {len(ts)} "
+              f"scans, {len(ts) / mixed['wall']:.2f}/s, "
+              f"p50_ms={_pct(ts, 0.5):.1f} (exact on every run)")
+    print(f"  h1 peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    server.close()
+    t0 = time.perf_counter()
+    storage.close()
+    print(f"  h1: server closed, clean storage.close() (checkpoint) "
+          f"{time.perf_counter() - t0:.2f}s")
+    return {"expect": expect, "sum": got,
+            "lineitem_rows": len(d1["lineitem"]["l_orderkey"])}
+
+
+def _part_h2(args, path: str, mc, h1: dict, tags: dict) -> int:
+    """Part h2 (module docstring). -> streamseg's launches in the wire
+    reads."""
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.store.storage import Storage
+
+    t0 = time.perf_counter()
+    storage = Storage(path, sync_log="commit")
+    t_open = time.perf_counter() - t0
+    li = storage.table_store(storage.catalog.table("test", "lineitem").id)
+    epoch = li.epoch
+    if epoch.num_rows != h1["lineitem_rows"] or li.deltas:
+        raise SystemExit(f"h2: recovered lineitem {epoch.num_rows} rows + "
+                         f"{len(li.deltas)} deltas, want "
+                         f"{h1['lineitem_rows']} from its epoch file")
+    print(f"  h2: Storage(path) reopened in {t_open:.2f}s (catalog, "
+          f"statistics, epoch files, KV snapshot; TSO floor "
+          f"{storage.tso.current()}); lineitem {epoch.num_rows} rows from "
+          f"its epoch file (bulk-loaded: the KV holds none of them)")
+    server = Server(storage, port=0)
+    server.start()
+    addr = ("127.0.0.1", server.port)
+    if _wire_sum(mc, addr) != h1["sum"]:
+        raise SystemExit("h2: sum(k), count(*) changed across the restart")
+    cl = mc.MiniClient(*addr)
+    launched = 0
+    for q in H_READS:
+        before = _kernels.LAUNCHES[RANK]
+        t0 = time.perf_counter()
+        rows = cl.query(TPCH_QUERIES[q])
+        dt = time.perf_counter() - t0
+        n_q = _kernels.LAUNCHES[RANK] - before
+        got = _server_tags(server)
+        if rows != h1["expect"][q]:
+            raise SystemExit(f"h2: {q} over the wire differs from its "
+                             "oracle after the restart")
+        if got != tags[q]:
+            raise SystemExit(f"h2: {q} took {got}, parts f2 and g1' "
+                             f"{tags[q]}")
+        if q == "q18" and (n_q == 0 or li.epoch is not epoch):
+            raise SystemExit("h2: q18 did not launch streamseg over the "
+                             "recovered lineitem epoch")
+        launched += n_q
+        print(f"  h2 {q.upper()} over the wire: rows={len(rows)} exact "
+              f"engines={got} streamseg_launches={n_q} "
+              f"first_ms={dt * 1e3:.1f}")
+    cl.close()
+    print(f"  h2: sum(k), count(*) = {h1['sum']} unchanged")
+    server.close()
+    storage.close()
+    return launched
+
+
+def _part_h3(args, path: str, mc, h1: dict, d1) -> None:
+    """Part h3 (module docstring)."""
+    import os
+    import signal
+
+    from tidb_tpu_torch.store.storage import Storage
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", H3_CHILD, path],
+                             cwd=root, stdout=subprocess.PIPE, text=True)
+    try:
+        line = child.stdout.readline()
+        if not line.strip().isdigit():
+            raise SystemExit(f"h3: the child served no port ({line!r})")
+        addr = ("127.0.0.1", int(line))
+        t_child = time.perf_counter() - t0
+        killed = threading.Event()
+        acked = [0] * 8
+        errs: list = []
+
+        def writer(wi: int) -> None:
+            rng = np.random.default_rng(7000 + wi)
+            try:
+                cl = mc.MiniClient(*addr)
+                while True:
+                    i = int(rng.integers(0, h1["sum"][1]))
+                    acked[wi] += cl.execute(
+                        f"update sbtest set k = k + 1 where id = {i}")
+            except (ConnectionError, OSError, mc.MySQLError) as e:
+                if not killed.is_set():
+                    errs.append(e)  # a failure before the kill
+
+        threads = [threading.Thread(target=writer, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        time.sleep(4.0)
+        in_flight = sum(acked)
+        killed.set()
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait()
+        for t in threads:
+            t.join()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if errs:
+        raise errs[0]
+    total = sum(acked)
+    print(f"  h3: a child python3 served the store in {t_child:.2f}s; 8 "
+          f"writers over the wire, SIGKILL after 4 s with writes in flight "
+          f"({in_flight} acknowledged at the signal, {total} in all)")
+    t0 = time.perf_counter()
+    storage = Storage(path, sync_log="commit")
+    t_rec = time.perf_counter() - t0
+    s = Session(storage)
+    ((k, cnt),) = s.query("select sum(k), count(*) from sbtest")
+    base = h1["sum"][0]
+    if not (base + total <= k <= base + total + 8) or cnt != h1["sum"][1]:
+        raise SystemExit(f"h3: sum(k) {k} after kill -9, want within "
+                         f"[{base + total}, {base + total + 8}] "
+                         f"(count {cnt})")
+    rows = s.query(TPCH_QUERIES["q6"])
+    if TR.sql_cells(rows) != TR.sql_oracle("q6", d1):
+        raise SystemExit("h3: q6 after kill -9 differs from its oracle")
+    print(f"  h3: reopened after kill -9 in {t_rec:.2f}s (WAL replay since "
+          f"the last checkpoint); sum(k) = {k} = base {base} + "
+          f"{total} acknowledged + {k - base - total} in flight (<= 8); "
+          f"Q6 exact ({s.last_engines})")
+    storage.close()
+
+
+def _part_h(args, d1, tags: dict) -> int:
+    """Part h (module docstring). -> streamseg's launches in h2."""
+    import shutil
+    import tempfile
+
+    mc = _mini_client_module()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-h-")
+    try:
+        df = subprocess.run(["df", "-T", tmp], capture_output=True,
+                            text=True, check=True).stdout.splitlines()
+        print(f"  h: store directory {tmp} on: {df[-1]}")
+        path = f"{tmp}/db"
+        h1 = _part_h1(args, d1, path, mc)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launched = _part_h2(args, path, mc, h1, tags)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _part_h3(args, path, mc, h1, d1)
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -1396,7 +1834,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     hits = _part_g1(args, [s10], d10, args.sf, f"g1 SF{args.sf:g}",
-                    G1_EARLY)
+                    G1_READS)
     write_launches["g1"] = _kernels.LAUNCHES[RANK]
     lap("part g1")
     print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg over a "
@@ -1404,12 +1842,12 @@ def main(argv=None) -> int:
     del s10
     gc.collect()
     torch.cuda.empty_cache()
-    sql_launches["f2"], card1, cpu1 = _part_f2(args, d1)
+    sql_launches["f2"], card1, cpu1, f2_tags = _part_f2(args, d1)
     lap("part f2")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     _part_g1(args, [card1, cpu1], d1, args.q18_sf, f"g1' SF{args.q18_sf:g}",
-             G_QUERIES)
+             G1P_READS)
     write_launches["g1'"] = _kernels.LAUNCHES[RANK]
     lap("part g1'")
     del card1, cpu1
@@ -1420,6 +1858,13 @@ def main(argv=None) -> int:
     write_launches["g2"] = _kernels.LAUNCHES[RANK]
     lap("part g2")
     print(f"  streamseg launches in part g: {write_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  -- h. durability and the MySQL wire server ({_mem()} held "
+          f"before it; {smi})")
+    _kernels.reset_launches()
+    write_launches["h2"] = _part_h(args, d1, f2_tags)
+    lap("part h")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")

@@ -10,21 +10,23 @@ Column families:
   write: key + rev(commit_ts) -> (start_ts, kind)   kind: P/D/R
   data:  key + rev(start_ts)  -> value bytes
 
-Port of the in-memory half of `tidb_tpu/kv/mvcc.py`: `PyOrderedKV`
-without a path (the reference's own pure-Python engine, the twin of its
-C++ `NativeOrderedKV`) and `MVCCStore` with reads, percolator writes,
-pessimistic locks, lock resolution and range destruction. The WAL,
-its sync policy and snapshot files, the shared-directory refresh and the
-coordinator's mutation section are the durable and multi-process planes,
-and `gc` belongs to the GC worker: not ported, so every mutation section
-is the store mutex alone.
+Port of `tidb_tpu/kv/mvcc.py`: the pure-Python ordered KV (`PyOrderedKV`,
+the twin of the C++ engine `kv/native.NativeOrderedKV`) with its WAL and
+snapshot files and the sync-log policy (`SyncPolicy`, group commit), and
+`MVCCStore` with reads, percolator writes, pessimistic locks, lock
+resolution, range destruction and the recovery scans. The shared-directory
+refresh and the coordinator belong to the multi-process plane, and `gc`
+to the GC worker: not ported, so every mutation section is the store
+mutex alone.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 import struct
 import threading
+import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -42,6 +44,245 @@ OP_LOCK = b"L"  # lock-only mutation (SELECT FOR UPDATE)
 
 class KVError(Exception):
     pass
+
+
+def fsync_dir(path: str) -> None:
+    """Durable-rename helper: fsync the DIRECTORY so a tmp+rename
+    sequence survives power loss (the rename itself lives in the
+    directory's metadata; fsyncing only the file leaves the old name
+    recoverable)."""
+    fd = os.open(path or ".", os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+class SyncPolicy:
+    """THE storage.sync-log policy evaluator, shared by both engines'
+    WALs (`PyOrderedKV`, `kv/native.NativeOrderedKV`) so the policy
+    lives in one place:
+
+      off      — never fsync (flushing to the OS is the caller's job)
+      commit   — fsync at every boundary() call; an fsync failure
+                 PROPAGATES so the commit is never acked undurable
+      interval — group commit: at most one fsync per interval_ms. The
+                 tail burst before an idle period is covered by a
+                 deferred one-shot flush timer, so the loss window is
+                 genuinely bounded by interval_ms, not by when the
+                 next commit happens to arrive.
+
+    Cross-commit group fsync (`commit` mode): with `defer_commit` set
+    by the owning engine, boundary() leaves the commit's bytes flushed
+    to the OS and the COMMIT PATH calls commit_sync() after releasing
+    its locks. Concurrent committers rendezvous there on one in-flight
+    fsync — an fsync covers every byte written before it started, so N
+    waiters whose writes predate the leader's fsync all become durable
+    for the price of one disk barrier (reference: raft-store write
+    batching / MySQL binlog group commit). The durability contract is
+    UNCHANGED: nobody returns from commit_sync() until an fsync that
+    started after their last write completed, and a failed fsync
+    propagates to (or is retried by) every waiter it stranded.
+
+    `fsync` is the sink's own durability callable; it must tolerate
+    being invoked after close (the deferred timer may race teardown).
+    """
+
+    __slots__ = ("policy", "interval_ms", "_fsync", "_lock", "_last",
+                 "_dirty", "_timer", "_closed", "defer_commit",
+                 "group_max_batch", "group_max_wait_us", "on_batch", "_cv",
+                 "_wgen", "_sgen", "_sync_active", "_waiters")
+
+    def __init__(self, policy: str, interval_ms: int, fsync) -> None:
+        self.policy = policy
+        self.interval_ms = interval_ms
+        self._fsync = fsync
+        self._lock = threading.Lock()
+        self._last = 0.0
+        self._dirty = False
+        self._timer = None
+        self._closed = False
+        # ---- cross-commit group fsync (commit mode) ----
+        # defer_commit: the owning engine routes commit-boundary
+        # durability through commit_sync() instead of the in-section
+        # boundary() (False here so a bare SyncPolicy keeps the exact
+        # fsync-per-boundary behavior)
+        self.defer_commit = False
+        # leader gather window: once elected, wait up to max-wait-µs
+        # for more committers to join (0 = fsync immediately; the
+        # natural rendezvous during a slow fsync already batches) —
+        # skipped once max-batch committers are aboard
+        self.group_max_batch = 64
+        self.group_max_wait_us = 0
+        # batch telemetry hook (batch_size -> None), wired by the
+        # Storage to tidb_group_commit_batch_size; never fails a commit
+        self.on_batch = None
+        self._cv = threading.Condition(self._lock)
+        # write generation vs the generation covered by the last
+        # completed fsync: a committer whose writes are <= _sgen is
+        # durable without touching the disk itself
+        self._wgen = 0
+        self._sgen = 0
+        self._sync_active = False
+        self._waiters = 0
+
+    def mark_dirty(self) -> None:
+        # plain flag store — called once per WAL record on the write
+        # hot path; the group-commit write GENERATION advances at
+        # mutation-section granularity in boundary() instead, so bulk
+        # loads don't pay a lock round-trip per row
+        self._dirty = True
+
+    def boundary(self) -> None:
+        """Commit-boundary hook. OSError from the sink propagates (the
+        caller must not ack a commit whose durability failed)."""
+        if not self._dirty or self.policy == "off":
+            return
+        if self.policy == "commit":
+            if not self.defer_commit:
+                self.flush()
+                return
+            # deferred: every record of this mutation section is
+            # already written; CONSUME the dirty mark into one
+            # generation bump that fences them all for the commit
+            # path's commit_sync() rendezvous (which runs AFTER the
+            # caller's locks release, so concurrent committers share
+            # the fsync instead of serializing). A sibling section's
+            # mark consumed here is safe: its records were written
+            # before this bump, so this generation covers them; records
+            # it writes later re-mark and re-fence at its own exit.
+            with self._lock:
+                self._dirty = False
+                self._wgen += 1
+            return
+        now = time.monotonic()
+        with self._lock:
+            due = now - self._last >= self.interval_ms / 1000.0
+            if not due:
+                if self._timer is None and not self._closed:
+                    # cover the tail burst: without this, commits that
+                    # land inside the window and are followed by idle
+                    # time would stay un-fsynced indefinitely
+                    delay = self.interval_ms / 1000.0 - (now - self._last)
+                    t = threading.Timer(max(delay, 0.001),
+                                        self._deferred_flush)
+                    t.daemon = True
+                    t.name = "titpu-sync-flush"
+                    self._timer = t
+                    t.start()
+                return
+        self.flush()
+
+    def _deferred_flush(self) -> None:
+        with self._lock:
+            self._timer = None
+            if self._closed:
+                return
+        if self._dirty:
+            try:
+                self.flush()
+            except OSError:
+                pass  # still dirty: the next boundary retries loudly
+
+    def flush(self) -> None:
+        """Unconditional sync-now (checkpoint/close path too)."""
+        with self._lock:
+            start = self._wgen
+        self._fsync()
+        with self._lock:
+            self._dirty = False
+            if start > self._sgen:
+                self._sgen = start
+            self._last = time.monotonic()
+            self._cv.notify_all()
+
+    def _finish_sync(self, covered_gen: int) -> None:
+        """Advance the covered generation after a group fsync. `_dirty`
+        is deliberately NOT touched: a writer may have marked it
+        between fsync start and here, and clearing it would let that
+        writer's boundary() skip its generation fence (an undurable
+        ack). Coverage decisions in commit mode ride the generations;
+        `_dirty` only ever clears on flush()/clean(), whose callers
+        hold the write path quiescent."""
+        with self._lock:
+            if covered_gen > self._sgen:
+                self._sgen = covered_gen
+            self._last = time.monotonic()
+            self._cv.notify_all()
+
+    def commit_sync(self) -> None:
+        """Group-commit rendezvous: return once an fsync that STARTED
+        after this caller's last write has completed. One caller (the
+        leader) runs the fsync; everyone whose bytes were already in
+        the OS buffers when it started is covered for free. An fsync
+        failure propagates from the leader; stranded waiters retry as
+        the next leader, so nobody returns undurable."""
+        if self.policy != "commit":
+            return
+        self._commit_sync()
+
+    def _commit_sync(self) -> None:
+        with self._lock:
+            if self._dirty:
+                # writes not yet fenced by a boundary() (direct
+                # SyncPolicy users, or a sibling section's records
+                # marked after the last fence): consume + fence them —
+                # conservative, but only when unfenced writes exist
+                self._dirty = False
+                self._wgen += 1
+            my = self._wgen
+            if self._sgen >= my:
+                return  # already covered by a completed fsync
+            self._waiters += 1
+            try:
+                while self._sgen < my and self._sync_active:
+                    self._cv.wait()
+                if self._sgen >= my:
+                    return
+                self._sync_active = True
+            finally:
+                self._waiters -= 1
+        # ---- leader path (no locks held) ----
+        try:
+            wait_s = self.group_max_wait_us / 1e6
+            if wait_s > 0:
+                with self._lock:
+                    gather = self._waiters + 1 < self.group_max_batch
+                if gather:
+                    time.sleep(wait_s)
+            with self._lock:
+                start = self._wgen
+                batch = self._waiters + 1  # every waiter wrote <= start
+            self._fsync()
+        except BaseException:
+            with self._lock:
+                self._sync_active = False
+                self._cv.notify_all()  # a waiter takes over as leader
+            raise
+        self._finish_sync(start)
+        with self._lock:
+            self._sync_active = False
+            self._cv.notify_all()
+        if self.on_batch is not None:
+            try:
+                self.on_batch(batch)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
+    def clean(self) -> None:
+        """The sink was made durable by other means (checkpoint wrote
+        and fsynced a snapshot; the WAL restarted empty)."""
+        with self._lock:
+            self._dirty = False
+            self._sgen = self._wgen
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            t, self._timer = self._timer, None
+        if t is not None:
+            t.cancel()
 
 
 @dataclass
@@ -79,12 +320,137 @@ class TxnNotFoundError(KVError):
 # ---------------------------------------------------------------------------
 
 class PyOrderedKV:
-    """Sorted-key in-memory KV with 3 column families: the reference's
-    pure-Python engine without a path (no WAL, no snapshot file)."""
+    """Sorted-key in-memory KV with 3 column families. The pure-Python
+    twin of the C++ engine (`csrc/kvstore.cpp`); identical interface,
+    including the WAL + snapshot file format when `path` is given (the
+    record layout in kvstore.cpp write_rec), so either engine can reopen
+    a directory the other wrote."""
 
-    def __init__(self) -> None:
+    def __init__(self, path=None, sync_log: str = "off",
+                 sync_interval_ms: int = 100) -> None:
         self._maps: list[dict[bytes, bytes]] = [{}, {}, {}]
         self._keys: list[list[bytes]] = [[], [], []]
+        self._dir = None
+        self._wal = None
+        # durability policy (storage.sync-log): 'off' flushes to the OS
+        # only (a machine crash can lose acked commits), 'commit' fsyncs
+        # at every commit boundary, 'interval' group-commits — at most
+        # one fsync per sync_interval_ms
+        self.sync_log = sync_log
+        self.sync_interval_ms = sync_interval_ms
+        self._syncer = SyncPolicy(sync_log, sync_interval_ms,
+                                  self._fsync_wal)
+        # cross-commit group fsync: the commit-boundary fsync leaves the
+        # mutation section (the commit path's rendezvous in commit_sync
+        # runs after it drops its locks)
+        self._syncer.defer_commit = True
+        if path is not None:
+            os.makedirs(path, exist_ok=True)
+            self._dir = str(path)
+            self._replay(os.path.join(self._dir, "snapshot.kv"))
+            wal_path = os.path.join(self._dir, "wal.log")
+            valid = self._replay(wal_path)
+            if valid >= 0:
+                # drop a torn tail (crash mid-append): appending after the
+                # garbage would hide every later record from the next replay
+                with open(wal_path, "ab") as f:
+                    f.truncate(valid)
+            self._wal = open(wal_path, "ab")
+
+    # ---- durability --------------------------------------------------------
+    def _replay(self, path: str) -> int:
+        """Apply valid records; returns the valid-prefix byte length
+        (-1 when the file is absent)."""
+        try:
+            f = open(path, "rb")
+        except OSError:
+            return -1
+        valid = 0
+        with f:
+            while True:
+                hdr = f.read(10)
+                if len(hdr) < 10:
+                    return valid
+                op, cf = hdr[0], hdr[1]
+                klen, vlen = struct.unpack_from("<II", hdr, 2)
+                if cf >= 3 or op not in (1, 2):
+                    return valid  # torn/corrupt tail
+                key = f.read(klen)
+                val = f.read(vlen)
+                if len(key) < klen or len(val) < vlen:
+                    return valid
+                if op == 1:
+                    self._apply_put(cf, key, val)
+                else:
+                    self._apply_delete(cf, key)
+                valid = f.tell()
+
+    def _log(self, op: int, cf: int, key: bytes, value: bytes) -> None:
+        if self._wal is not None:
+            self._wal.write(struct.pack("<BBII", op, cf, len(key),
+                                        len(value)) + key + value)
+            self._wal.flush()
+            self._syncer.mark_dirty()
+
+    def checkpoint(self) -> None:
+        if self._dir is None or self._wal is None:
+            return
+        tmp = os.path.join(self._dir, "snapshot.tmp")
+        with open(tmp, "wb") as f:
+            for cf in range(3):
+                for k in self._keys[cf]:
+                    v = self._maps[cf][k]
+                    f.write(struct.pack("<BBII", 1, cf, len(k), len(v))
+                            + k + v)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(self._dir, "snapshot.kv"))
+        # the rename must be durable BEFORE the WAL truncates: a crash
+        # between the two otherwise leaves the old snapshot + an empty
+        # WAL — every record folded into the new snapshot gone
+        fsync_dir(self._dir)
+        self._wal.close()
+        self._wal = open(os.path.join(self._dir, "wal.log"), "wb")
+        self._syncer.clean()  # the fsync'd snapshot covers everything
+
+    def _fsync_wal(self) -> None:
+        wal = self._wal
+        if wal is None:
+            return
+        try:
+            wal.flush()
+            os.fsync(wal.fileno())
+        except ValueError:
+            # the group fsync runs outside the engine locks, so a
+            # concurrent checkpoint can rotate (close+reopen) the WAL
+            # under us: its snapshot was written AND fsynced before the
+            # rotation, so every record this fsync meant to cover is
+            # already durable — closed-file here is success, not error
+            return
+
+    def sync(self) -> None:
+        if self._wal is not None:
+            self._syncer.flush()
+
+    def maybe_sync(self) -> None:
+        """Commit-boundary durability hook (called at every mutation
+        section exit): fsync per the sync-log policy. 'interval' mode is
+        the group commit; 'commit' mode leaves durability to the commit
+        path's commit_sync() rendezvous (cross-commit group fsync)."""
+        if self._wal is not None:
+            self._syncer.boundary()
+
+    def commit_sync(self) -> None:
+        """Commit-ack durability: group-fsync rendezvous covering every
+        byte this committer wrote (no-op unless sync-log=commit)."""
+        if self._wal is not None:
+            self._syncer.commit_sync()
+
+    def close(self) -> None:
+        self._syncer.close()
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
 
     # ---- mutations ---------------------------------------------------------
     def _apply_put(self, cf: int, key: bytes, value: bytes) -> None:
@@ -103,9 +469,11 @@ class PyOrderedKV:
                 ks.pop(i)
 
     def put(self, cf: int, key: bytes, value: bytes) -> None:
+        self._log(1, cf, key, value)
         self._apply_put(cf, key, value)
 
     def delete(self, cf: int, key: bytes) -> None:
+        self._log(2, cf, key, b"")
         self._apply_delete(cf, key)
 
     def get(self, cf: int, key: bytes) -> Optional[bytes]:
@@ -123,6 +491,15 @@ class PyOrderedKV:
             yield ks[i], m[ks[i]]
             n += 1
             i += 1
+
+    def seek_prev(self, cf: int, key: bytes) -> Optional[tuple[bytes, bytes]]:
+        """Greatest entry with k <= key (for newest-version lookups)."""
+        ks = self._keys[cf]
+        i = bisect.bisect_right(ks, key)
+        if i == 0:
+            return None
+        k = ks[i - 1]
+        return k, self._maps[cf][k]
 
 # ---------------------------------------------------------------------------
 # record encodings
@@ -178,7 +555,13 @@ class MVCCStore:
         self._mu = threading.RLock()
 
     def _mutate(self):
-        return self._mu
+        return _MutationSection(self)
+
+    def commit_sync(self) -> None:
+        """Commit-ack durability rendezvous (see SyncPolicy.commit_sync).
+        Called by the storage commit path AFTER releasing the commit
+        lock, so concurrent committers amortize one fsync."""
+        self.kv.commit_sync()
 
     # ---- reads -------------------------------------------------------------
     def get(self, key: bytes, read_ts: int) -> Optional[bytes]:
@@ -442,6 +825,48 @@ class MVCCStore:
         else:
             self.rollback([key], start_ts)
 
+    # ---- recovery ----------------------------------------------------------
+    def scan_latest(
+        self, start: bytes, end: bytes
+    ) -> list[tuple[bytes, int, bytes, Optional[bytes]]]:
+        """Newest settled version per key in [start, end):
+        (key, commit_ts, kind, value|None). Rollback/lock markers are
+        skipped. Restart recovery uses this to re-fold committed rows into
+        column epochs."""
+        with self._mu:
+            out: list[tuple[bytes, int, bytes, Optional[bytes]]] = []
+            last_key: Optional[bytes] = None
+            it_start = _wkey(start, 0xFFFFFFFFFFFFFFFF) if start else b""
+            for wk, wv in self.kv.scan(CF_WRITE, it_start,
+                                       end if end else b""):
+                key, commit_ts = _split_vkey(wk)
+                if end and key >= end:
+                    break
+                if key == last_key:
+                    continue
+                start_ts, kind = _write_dec(wv)
+                if kind in (OP_ROLLBACK, OP_LOCK):
+                    continue
+                last_key = key
+                val = self.kv.get(CF_DATA, _dkey(key, start_ts)) \
+                    if kind == OP_PUT else None
+                out.append((key, commit_ts, kind, val))
+            return out
+
+    def max_commit_ts(self) -> int:
+        """Largest commit_ts in the write column (recovery TSO floor)."""
+        with self._mu:
+            best = 0
+            for wk, _ in self.kv.scan(CF_WRITE, b"", b""):
+                _, commit_ts = _split_vkey(wk)
+                if commit_ts > best:
+                    best = commit_ts
+            return best
+
+    def checkpoint(self) -> None:
+        with self._mu:
+            self.kv.checkpoint()
+
     def all_locks(self) -> list[LockInfo]:
         with self._mu:
             return [_lock_dec(k, v)
@@ -459,3 +884,38 @@ class MVCCStore:
                 # end bound still covers them (suffix sorts below end)
                 for k in doomed:
                     self.kv.delete(cf, k)
+
+
+class _MutationSection:
+    """Mutation critical section: the store mutex, with the engine's
+    sync-log boundary at its exit."""
+
+    __slots__ = ("store",)
+
+    def __init__(self, store: MVCCStore) -> None:
+        self.store = store
+
+    def __enter__(self):
+        self.store._mu.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        # the section's records fsync per the sync-log policy (under
+        # sync-log=commit the engine defers that to the commit path's
+        # group rendezvous, and maybe_sync only fences them). A FAILED
+        # fsync must not strand the mutex, but it must still FAIL the
+        # section: acking a commit whose durability call errored would
+        # void the sync-log contract
+        sync_err: Optional[OSError] = None
+        try:
+            self.store.kv.maybe_sync()
+        except OSError as e:
+            sync_err = e
+        finally:
+            self.store._mu.release()
+        if sync_err is not None and exc == (None, None, None):
+            # surface only on the success path (never mask the original
+            # exception already unwinding through this section)
+            raise KVError(
+                f"WAL fsync failed at commit boundary: {sync_err}"
+            ) from sync_err

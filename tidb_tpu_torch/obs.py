@@ -5,8 +5,10 @@ the SQL read path calls, under the same names: `stage` times one named
 stage EXCLUSIVE of the stages nested in it, `operator` records one plan
 operator's exclusive wall time, `note_engine` appends a coprocessor read's
 engine tag, and the session installs one `StageRecorder` per statement
-(`install_stage_recorder` / `active_stage_recorder`). Metrics, spans,
-the slow log and the rest of the plane are not ported.
+(`install_stage_recorder` / `active_stage_recorder`). Of the metrics
+registry, the histogram of group commit's batch sizes (`Observability`,
+one per `Storage`, under the reference's metric name). Spans, the slow
+log and the rest of the plane are not ported.
 """
 
 from __future__ import annotations
@@ -135,3 +137,48 @@ class _StageCtx:
 def stage(name: str) -> _StageCtx:
     """`with obs.stage("plan_build"):` — one named stage."""
     return _StageCtx(name)
+
+
+class Histogram:
+    """Fixed-bucket histogram (Prometheus-style); `snapshot()` gives
+    (per-bucket counts, the last one past the top bound; sum; total)."""
+
+    __slots__ = ("name", "help", "buckets", "_counts", "_sum", "_total",
+                 "_lock")
+
+    def __init__(self, name: str, help_: str, buckets) -> None:
+        self.name = name
+        self.help = help_
+        self.buckets = tuple(buckets)
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._total = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._sum += v
+            self._total += 1
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    def snapshot(self) -> tuple[list[int], float, int]:
+        with self._lock:
+            return list(self._counts), self._sum, self._total
+
+
+class Observability:
+    """One storage's metrics: the cross-commit group fsync
+    (kv/mvcc.py SyncPolicy.commit_sync) — commits amortized per disk
+    barrier under sync-log=commit; the mean batch size is the durable-QPS
+    amplification over one fsync."""
+
+    def __init__(self) -> None:
+        self.group_commit_batch = Histogram(
+            "tidb_group_commit_batch_size",
+            "commits made durable by one WAL fsync under "
+            "sync-log=commit (group-commit rendezvous batch size)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))

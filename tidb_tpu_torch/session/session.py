@@ -16,19 +16,24 @@ txn; statement-level staging gives per-statement rollback inside a txn.
 Statements: CREATE/DROP DATABASE, USE, CREATE/DROP/TRUNCATE TABLE,
 SELECT (and UNION, FOR UPDATE), INSERT (VALUES, SELECT, REPLACE, ON
 DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN, COMMIT, ROLLBACK, SET,
-EXPLAIN (not ANALYZE) and ANALYZE TABLE. Autocommit point statements take
+EXPLAIN (not ANALYZE), ANALYZE TABLE and KILL [QUERY|CONNECTION] (routed
+through the storage to the wire server that holds the connection); the
+server's prepared statements (`prepare`, `execute_prepared`,
+`close_prepared`). Autocommit point statements take
 the fast path (`plan/fastpath.py`) and never touch the coprocessor. Every
 other statement kind raises `NotInSlice(<kind>)`; so do the clock
 functions, sequences and user locks, each by its name.
 
 Left out of the reference's statement path: the SQL-text plan cache (it
-changes no answer), slow log, digests, profiler, bindings, privileges,
-replica routing, governor admission, KILL and max_execution_time.
+changes no answer), slow log, digests, profiler, bindings, the
+per-statement privilege checks, replica routing, governor admission and
+max_execution_time.
 """
 
 from __future__ import annotations
 
 import copy
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Optional, Union
@@ -42,20 +47,22 @@ from ..chunk.column import _encode_scalar
 from ..copr.client import CopClient
 from ..copr.npeval import NumpyEval, _truthy
 from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DUP_ENTRY,
-                     ER_PARSE_ERROR, ER_UNKNOWN_SYSTEM_VARIABLE,
-                     ER_VAR_READONLY, ER_WRONG_VALUE_COUNT_ON_ROW, CodedError)
+                     ER_KILL_DENIED, ER_PARSE_ERROR, ER_QUERY_INTERRUPTED,
+                     ER_UNKNOWN_SYSTEM_VARIABLE, ER_VAR_READONLY,
+                     ER_WRONG_VALUE_COUNT_ON_ROW, CodedError)
 from ..errno import wrap as err_wrap
 from ..errors import NotInSlice
 from ..executor.engine import ExecContext, run_physical
 from ..plan.builder import PlanBuilder, PlanError, _literal_const
 from ..plan.physical import explain_plan, optimize
 from ..sql import ast
-from ..sql.parser import ParseError, parse_sql
+from ..sql.parser import ParseError, Parser, parse_sql
 from ..store.storage import (Storage, Transaction, TxnTooLargeError,
                              WriteConflictError)
 from ..store.table_store import TableStore
 from ..types.field_type import FieldType, TypeKind
 from ..types.value import Decimal
+from ..util import interrupt
 
 # functions whose value depends on the session or the clock: bound to
 # literals before planning
@@ -118,10 +125,16 @@ class Session:
         self._device = device
         self.txn: Optional[Transaction] = None
         self.in_explicit_txn = False
-        # authenticated account; the port has no privilege plane, so
-        # every session is the reference's internal (unchecked) session
+        # authenticated account (None: the internal, unchecked session;
+        # the wire server sets it for an account of the grant table)
         self.user: Optional[str] = None
         self.conn_id: Optional[int] = None
+        # KILL QUERY / KILL CONNECTION flag, armed per statement; the
+        # engine polls it between plan nodes (util/interrupt.py)
+        self.killed = threading.Event()
+        # server-side prepared statements: id -> (AST, n_params)
+        self._prepared: dict[int, tuple] = {}
+        self._next_stmt_id = 0
         # session-scope system variable overrides + user variables
         # (reference: sessionctx/variable/session.go SessionVars)
         self.vars: dict[str, Any] = {}
@@ -186,6 +199,11 @@ class Session:
         if not (isinstance(stmt, ast.SelectStmt) and stmt.from_ is None):
             self.warnings = []
         self._stmt_auto_id = None
+        # arm the per-statement kill flag (KILL QUERY clears with the
+        # statement; KILL CONNECTION leaves it set and the server drops
+        # the socket)
+        self.killed.clear()
+        interrupt.install(self.killed)
         try:
             obs.install_stage_recorder(rec)
             rs = self._execute_stmt(stmt)
@@ -194,7 +212,11 @@ class Session:
             # ROW_COUNT(): affected rows of the last DML, -1 otherwise
             self._row_count = rs.affected if isinstance(stmt, _DML) else -1
             return rs
+        except interrupt.QueryInterrupted:
+            raise SQLError("Query execution was interrupted",
+                           errno=ER_QUERY_INTERRUPTED) from None
         finally:
+            interrupt.install(None)
             obs.install_stage_recorder(prev_rec)
             self.last_stages = rec.totals
             self.last_op_wall = rec.op_wall
@@ -202,6 +224,43 @@ class Session:
 
     def query(self, sql: str) -> list[tuple[Any, ...]]:
         return self.execute(sql).rows
+
+    # ==================== prepared statements ====================
+    def prepare(self, sql: str) -> tuple[int, int]:
+        """Server-side prepare (reference: server/conn_stmt.go
+        handleStmtPrepare + planner PrepareExec): parse once, count '?'
+        markers; returns (stmt_id, n_params)."""
+        try:
+            parser = Parser(sql)
+            stmts = parser.parse()
+        except ParseError as e:
+            raise SQLError(f"parse error: {e}",
+                           errno=getattr(e, 'errno', ER_PARSE_ERROR)) from None
+        if len(stmts) != 1:
+            raise SQLError("prepared statement must be a single statement")
+        self._next_stmt_id += 1
+        sid = self._next_stmt_id
+        self._prepared[sid] = (stmts[0], parser.param_count)
+        return sid, parser.param_count
+
+    def execute_prepared(self, stmt_id: int, params: list) -> ResultSet:
+        """Bind parameters and run (reference: server/conn_stmt.go
+        handleStmtExecute). Binding substitutes literals into a copy of
+        the AST; the statement replans per execution."""
+        entry = self._prepared.get(stmt_id)
+        if entry is None:
+            raise SQLError(f"unknown prepared statement {stmt_id}")
+        stmt, n_params = entry
+        if len(params) != n_params:
+            raise SQLError(
+                f"expected {n_params} parameters, got {len(params)}")
+        bound = copy.deepcopy(stmt)
+        if n_params:
+            bound = _bind_params(bound, params)
+        return self._execute_observed(bound)
+
+    def close_prepared(self, stmt_id: int) -> None:
+        self._prepared.pop(stmt_id, None)
 
     def _execute_stmt(self, stmt: ast.Stmt) -> ResultSet:
         # OLTP fast path: autocommit point SELECT/UPDATE/DELETE and
@@ -223,6 +282,9 @@ class Session:
             return self._run_in_txn(lambda: self._exec_update(stmt))
         if isinstance(stmt, ast.DeleteStmt):
             return self._run_in_txn(lambda: self._exec_delete(stmt))
+        if isinstance(stmt, ast.KillStmt):
+            self._exec_kill(stmt)
+            return ResultSet([], [])
         if isinstance(stmt, ast.CreateTableStmt):
             return self._exec_create_table(stmt)
         if isinstance(stmt, ast.DropTableStmt):
@@ -484,6 +546,27 @@ class Session:
                     continue  # fresh ts, statement re-executes
                 raise
             return result
+
+    def _exec_kill(self, stmt) -> None:
+        """Route KILL to the server that holds the connection (reference:
+        server/server.go:548 Kill)."""
+        storage = self.storage
+        # ownership check (reference: server.go Kill — SuperPriv OR the
+        # target belongs to the same user; MySQL types the refusal as
+        # ER_KILL_DENIED 1095, not a generic privilege error)
+        if self.user is not None and stmt.conn_id != self.conn_id \
+                and not storage.privileges.check(
+                    self.user, "ALL", "*", "*", roles=self.active_roles):
+            owner_of = getattr(storage, "conn_owner", None)
+            owner = owner_of(stmt.conn_id) if owner_of is not None \
+                else None
+            if owner != self.user:
+                raise SQLError(
+                    f"You are not owner of thread {stmt.conn_id}",
+                    errno=ER_KILL_DENIED)
+        router = getattr(storage, "kill_router", None)
+        if router is None or not router(stmt.conn_id, stmt.query_only):
+            raise SQLError(f"Unknown thread id: {stmt.conn_id}")
 
     def rollback_if_active(self) -> None:
         """Abandon any open transaction (connection teardown path)."""
@@ -1363,3 +1446,38 @@ def _np_scalar(v):
     if isinstance(v, np.generic):
         return v.item()
     return v
+
+
+def _bind_params(node, params: list):
+    """Replace ParamMarker nodes with typed literals (in a deep copy)."""
+    import dataclasses as _dc
+
+    if isinstance(node, ast.ParamMarker):
+        v = params[node.idx]
+        if v is None:
+            return ast.Literal(None, "null")
+        if isinstance(v, bool):
+            return ast.Literal(v, "bool")
+        if isinstance(v, int):
+            return ast.Literal(v, "int")
+        if isinstance(v, float):
+            return ast.Literal(v, "float")
+        if isinstance(v, Decimal):
+            return ast.Literal(v, "decimal")
+        return ast.Literal(str(v), "string")
+    if not _dc.is_dataclass(node):
+        return node
+    for f in _dc.fields(node):
+        v = getattr(node, f.name)
+        if _dc.is_dataclass(v) and not isinstance(v, type):
+            setattr(node, f.name, _bind_params(v, params))
+        elif isinstance(v, list):
+            setattr(node, f.name, [
+                _bind_params(x, params)
+                if _dc.is_dataclass(x) and not isinstance(x, type) else
+                (tuple(_bind_params(y, params)
+                       if _dc.is_dataclass(y) and not isinstance(y, type)
+                       else y for y in x) if isinstance(x, tuple) else x)
+                for x in v
+            ])
+    return node

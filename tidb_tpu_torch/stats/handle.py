@@ -196,9 +196,42 @@ class StatsHandle:
             self._analyzed_at_modify[info.id] = store.modify_count
             # fresh stats supersede stale observation feedback
             self.clear_feedback(info.id)
+            # no catch (the reference's is best-effort): a statistics
+            # write that fails fails the ANALYZE
+            self.save_to_kv(storage, info.id)
             return ts
         finally:
             txn.rollback()
+
+    # ---- persistence (reference: statistics/handle/handle.go saves to
+    # mysql.stats_* tables; here the meta-KV plane) ----------------------
+    def save_to_kv(self, storage, table_id: int) -> None:
+        import pickle
+
+        ts = self.tables.get(table_id)
+        if ts is None:
+            return
+        payload = (ts, self._analyzed_at_modify.get(table_id, 0))
+        storage.put_meta(b"stats:%d" % table_id, pickle.dumps(payload))
+
+    def load_from_kv(self, storage, catalog) -> int:
+        """Restore persisted stats for every known table; returns count.
+        The analog of the stats handle's boot-time load
+        (statistics/handle/bootstrap.go)."""
+        import pickle
+
+        n = 0
+        for schema in catalog.schemas.values():
+            for info in schema.tables.values():
+                raw = storage.get_meta(b"stats:%d" % info.id)
+                if raw is not None:
+                    ts, watermark = pickle.loads(raw)
+                    self.tables[info.id] = ts
+                    # restore the analyze watermark too, else auto-analyze
+                    # immediately rebuilds what the reload just restored
+                    self._analyzed_at_modify[info.id] = watermark
+                    n += 1
+        return n
 
     # ---- execution feedback --------------------------------------------
     FEEDBACK_CAP = 4096  # distinct conjunct sets retained (process-wide)

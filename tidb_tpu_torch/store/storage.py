@@ -1,50 +1,54 @@
 """Storage: the transactional store — percolator KV truth + columnar cache.
 
-Port of the in-memory half of `tidb_tpu/store/storage.py` (its
-`Storage(path=None)`). There is ONE transaction path: commits run the
-percolator two-phase protocol through the region tier (TwoPhaseCommitter
-over RegionManager over MVCCStore), over the reference's pure-Python
-ordered KV (`kv/mvcc.PyOrderedKV`; the reference takes its C++ twin when
-that builds, with the same answers). Each table owns its region
-(register_table splits at the table prefix), so multi-table transactions
-exercise region-grouped batches.
+Port of `tidb_tpu/store/storage.py`: `Storage(path=None)` in memory, and
+`Storage(path, sync_log=...)` durable — the KV WAL and snapshot under
+`path/kv` (the C++ engine `kv/native.py` when it builds, its pure-Python
+twin otherwise, as the reference chooses), columnar epoch snapshots under
+`path/epochs`, the catalog, statistics, GLOBAL sysvars and accounts in the
+meta keyspace of the same KV, and a TSO lease file. Reopening the
+directory recovers everything committed (`_recover`), and `sync_log`
+says when an acknowledged commit reaches the disk: 'commit' fsyncs before
+the acknowledgement (one group fsync for every committer that rendezvous
+on it), 'interval' at most once per `sync_interval_ms`, 'off' never.
 
-The per-table column epochs (TableStore) are the COPROCESSOR-FACING fold
-of the same committed data — applied under the commit lock immediately
-after the percolator commit lands. Snapshots read the columnar fold; the
-KV tier holds the truth (locks, write records, versioned values).
-
-Left out, with the planes they belong to: `path=` and everything durable
-(the WAL, `sync_log`, group commit, epoch files, `checkpoint`,
-`_recover`, the TSO lease), the multi-process and RPC planes (`shared`,
-`remote`, ranges, replica reads, the coordinator, `refresh`), sequences,
-user locks, privileges, bindings, the DDL job queue and the observability
-planes (metrics, events, history, heat). Partitioned tables raise
-`NotInSlice("partitioned table")`. The port states no durability
-guarantee: every write lives in this process.
+Left out, with the planes they belong to: the multi-process and RPC
+planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
+coordinator, `refresh`), the resumption of pending DDL jobs (the port
+creates none, and `_recover` raises `NotInSlice("DDL job")` on one),
+sequences, user locks, bindings, the maintenance daemon and the
+observability planes beyond the group-commit metrics (events, history,
+heat). Partitioned tables raise `NotInSlice("partitioned table")`.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import threading
 import time
 from contextlib import contextmanager
 from typing import Optional
 
+import numpy as np
+
 from ..catalog.schema import Catalog, TableInfo
+from ..chunk.column import Dictionary
 from ..errno import (ER_SCHEMA_CHANGED, ER_TXN_TOO_LARGE,
                      ER_WRITE_CONFLICT, CodedError)
 from ..errors import NotInSlice
 from ..kv import codec, tablecodec
 from ..kv.memdb import TOMBSTONE, MemDB
 from ..kv.mvcc import (OP_DEL, OP_LOCK, OP_PUT, KeyIsLockedError, KVError,
-                       MVCCStore, Mutation)
+                       MVCCStore, Mutation, PyOrderedKV, fsync_dir)
+from ..kv.native import NativeOrderedKV, NativeUnavailable, native_available
 from ..kv.mvcc import WriteConflictError as KVWriteConflict
 from ..kv.region import RegionManager
 from ..kv.tso import TimestampOracle
 from ..kv.twopc import CommitError, LockResolver, Snapshot, TwoPhaseCommitter
+from ..obs import Observability
 from ..stats.handle import StatsHandle
-from .table_store import TableSnapshot, TableStore
+from .table_store import (ColumnEpoch, TableSnapshot, TableStore,
+                          _column_dictionary, _epoch_ids)
 
 
 class WriteConflictError(CodedError):
@@ -61,25 +65,86 @@ class TxnTooLargeError(CodedError):
     errno = ER_TXN_TOO_LARGE
 
 
+def _make_engine(path: Optional[str] = None, sync_log: str = "off",
+                 sync_interval_ms: int = 100):
+    """C++ ordered-KV engine when buildable, pure-python twin otherwise.
+    With `path`, either engine opens WAL+snapshot files there (shared
+    format, csrc/kvstore.cpp) and honors the sync-log policy."""
+    try:
+        if native_available():
+            return NativeOrderedKV(path, sync_log=sync_log,
+                                   sync_interval_ms=sync_interval_ms)
+    except NativeUnavailable:
+        pass
+    if path is not None:
+        return PyOrderedKV(path, sync_log=sync_log,
+                           sync_interval_ms=sync_interval_ms)
+    return None
+
+
+# TSO lease horizon persisted ahead of issued timestamps (~2 min of
+# physical time); restart floors the oracle at the lease so ts never repeat
+_TSO_LEASE_MS = 120_000
+
+
 class Storage:
-    def __init__(self) -> None:
+    def __init__(self, path: Optional[str] = None, sync_log: str = "off",
+                 sync_interval_ms: int = 100) -> None:
+        """`path=None`: ephemeral in-memory store (tests, benches).
+        `path=dir`: durable — KV WAL+snapshot under dir/kv, columnar epoch
+        snapshots under dir/epochs, catalog/stats state in the meta
+        keyspace of the same KV; reopening the directory recovers
+        everything committed.
+
+        `sync_log` (storage.sync-log): when the KV WAL reaches disk —
+        'commit' fsyncs at every commit boundary (no acked commit can
+        die with the machine), 'interval' group-commits at most one
+        fsync per `sync_interval_ms`, 'off' leaves flushing to the OS
+        (process death loses nothing, power loss may)."""
+        from ..session.privileges import PrivilegeManager
         from ..session.sysvars import SysVarManager
 
+        if sync_log not in ("off", "commit", "interval"):
+            raise ValueError(
+                f"sync_log must be off|commit|interval, got {sync_log!r}")
+        self.path = path
+        self.sync_log = sync_log
+        self.sync_interval_ms = sync_interval_ms
         self.catalog = Catalog()
+        # per-storage metrics (the group-commit batch histogram)
+        self.obs = Observability()
         # commit-time cap over a txn's ENCODED mutation bytes
         # (performance.txn-total-size-limit; 0 disables) — enforced in
         # commit() with ER_TXN_TOO_LARGE
         self.txn_total_size_limit = 100 * 1024 * 1024
+        self._tso_lease = 0
+        # serializes lease-file persistence: concurrent committers both
+        # crossing the extension threshold would race the SAME tmp+rename
+        self._lease_lock = threading.Lock()
+        if path is not None:
+            os.makedirs(os.path.join(path, "epochs"), exist_ok=True)
+            self._tso_lease = self._read_tso_lease()
         self.stats = StatsHandle()
         self.tables: dict[int, TableStore] = {}
         # the transactional KV truth: percolator MVCC over regions
-        self.kv = MVCCStore()
-        self.tso = TimestampOracle()
+        engine = _make_engine(
+            os.path.join(path, "kv") if path is not None else None,
+            sync_log=sync_log, sync_interval_ms=sync_interval_ms)
+        self.kv = MVCCStore(engine=engine)
+        if path is not None and self._tso_lease == 0:
+            # lease file missing/corrupt: floor from the largest commit ts
+            # in the reopened KV so timestamps still never repeat
+            self._tso_lease = self.kv.max_commit_ts()
+        self.tso = TimestampOracle(floor=self._tso_lease)
         self.rm = RegionManager(self.kv)
         self.committer = TwoPhaseCommitter(self.rm, self.tso)
+        self.kv.kv._syncer.on_batch = self._note_group_commit
         # GLOBAL sysvar plane (mysql.global_variables analog) — rides the
-        # meta keyspace (put_meta / get_meta)
+        # meta keyspace (put_meta / get_meta), so durable stores keep SET
+        # GLOBAL across restarts
         self.sysvars = SysVarManager(self)
+        # grant tables (mysql.user analog) — same persistence plane
+        self.privileges = PrivilegeManager(self)
         self._commit_lock = threading.RLock()
         # seqlock generation for snapshot/fold consistency: odd while a
         # commit fold is in flight inside _commit_lock, even when
@@ -94,6 +159,11 @@ class Storage:
         # (reference: TiKV's deadlock detector service; util/deadlock)
         self._waits_for: dict[int, int] = {}
         self._waits_lock = threading.Lock()
+        if path is not None:
+            self._recover()
+            self._extend_tso_lease()
+            # persist schema on every catalog version bump from here on
+            self.catalog.on_change = lambda: self.persist_catalog()
 
     # ---- schema ------------------------------------------------------------
     def register_table(self, info: TableInfo) -> TableStore:
@@ -101,6 +171,8 @@ class Storage:
             raise NotInSlice("partitioned table")
         store = TableStore(info)
         self.tables[info.id] = store
+        if self.path is not None:
+            store.on_epoch = self._on_epoch_changed
         # one region per table (reference: split-table-region on create,
         # ddl/split_region.go) — multi-table commits become multi-region
         try:
@@ -113,11 +185,18 @@ class Storage:
         self.tables.pop(table_id, None)
 
     def destroy_table_data(self, table_id: int) -> None:
-        """Physically drop a table's KV range (DROP/TRUNCATE path;
-        reference: UnsafeDestroyRange driven by the GC worker for dropped
-        objects, ddl/delete_range.go + store/tikv/gcworker)."""
+        """Physically drop a table's KV range + epoch snapshot (DROP/
+        TRUNCATE path; reference: UnsafeDestroyRange driven by the GC
+        worker for dropped objects, ddl/delete_range.go +
+        store/tikv/gcworker). Without this, restart recovery would
+        resurrect dropped rows from the KV truth."""
         lo, hi = tablecodec.table_range(table_id)
         self.kv.unsafe_destroy_range(lo, hi)
+        if self.path is not None:
+            try:
+                os.remove(self._epoch_file(table_id))
+            except OSError:
+                pass
 
     def table_store(self, table_id: int) -> TableStore:
         return self.tables[table_id]
@@ -134,6 +213,263 @@ class Storage:
             else:
                 out.append(v)
         return out
+
+    def _fold_row(self, store: TableStore, values: list) -> tuple:
+        """KV value -> physical row (inverse of _kv_row). (The reference
+        also pads rows written before an ADD COLUMN; the port has no
+        ALTER TABLE, so every row has the table's arity.)"""
+        out = []
+        for v, d in zip(values, store.dictionaries):
+            if v is None:
+                out.append(None)
+            elif d is not None:
+                s = v.decode("utf-8") if isinstance(v, bytes) else str(v)
+                out.append(d.encode(s))
+            elif isinstance(v, bytes):
+                out.append(v.decode("utf-8"))
+            else:
+                out.append(v)
+        return tuple(out)
+
+    # ---- durability plane ---------------------------------------------------
+    def _lease_file(self) -> str:
+        return os.path.join(self.path, "tso.lease")
+
+    def _read_tso_lease(self) -> int:
+        try:
+            with open(self._lease_file()) as f:
+                return int(f.read().strip() or 0)
+        except (OSError, ValueError):
+            return 0
+
+    def _extend_tso_lease(self) -> None:
+        """Persist a ts horizon ahead of anything issued; cheap (runs only
+        when current() nears the lease). Restart floors the oracle here,
+        so commit timestamps stay monotonic across restarts even if the
+        wall clock steps backwards."""
+        lease = self.tso.current() + (_TSO_LEASE_MS << 18)
+        tmp = self._lease_file() + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(lease))
+            f.flush()
+            if self.sync_log != "off":
+                os.fsync(f.fileno())
+        os.replace(tmp, self._lease_file())
+        if self.sync_log != "off":
+            # a lease bump lost to power loss would let a restarted
+            # oracle re-issue timestamps the pre-crash process already
+            # handed out; under sync-log=off the whole store accepts
+            # the power-loss window, so the lease does too
+            fsync_dir(self.path)
+        self._tso_lease = lease
+
+    def _maybe_extend_lease(self) -> None:
+        if self.path is not None and \
+                self.tso.current() >= self._tso_lease - (
+                    (_TSO_LEASE_MS // 2) << 18):
+            with self._lease_lock:
+                # re-check: a concurrent committer may have extended
+                # while we waited (the lease covers everyone)
+                if self.tso.current() >= self._tso_lease - (
+                        (_TSO_LEASE_MS // 2) << 18):
+                    self._extend_tso_lease()
+
+    def persist_catalog(self) -> None:
+        """Whole-catalog snapshot into the meta keyspace (reference: the
+        m-prefix schema records, meta/meta.go:59-64,145-158). DDL-rate
+        writes, so a full pickle beats incremental encoding complexity."""
+        if self.path is None:
+            return
+        payload = pickle.dumps({
+            "schemas": self.catalog.schemas,
+            "next_id": self.catalog._next_id,
+            "version": self.catalog.version,
+        })
+        self.put_meta(b"catalog", payload)
+
+    def _on_epoch_changed(self, store: TableStore, required: bool) -> None:
+        """required=True (bulk load): the epoch holds data the KV truth
+        cannot rebuild — persist now. required=False (compaction): folded
+        deltas are still in KV, so just mark dirty and let checkpoint()
+        write the snapshot off the commit path."""
+        if required:
+            self._persist_epoch(store)
+            store.epoch_dirty = False
+        else:
+            store.epoch_dirty = True
+
+    def _epoch_file(self, table_id: int) -> str:
+        return os.path.join(self.path, "epochs", f"t{table_id}.npz")
+
+    def _persist_epoch(self, store: TableStore) -> None:
+        """Columnar epoch snapshot (atomic tmp+rename): the fold's
+        checkpoint; the KV WAL covers everything with commit_ts >
+        fold_ts."""
+        epoch = store.epoch
+        payload: dict = {
+            "handles": epoch.handles,
+            "fold_ts": np.int64(epoch.fold_ts),
+            "next_handle": np.int64(store._next_handle),
+            "ncols": np.int64(len(epoch.columns)),
+        }
+        for ci, (data, valid) in enumerate(zip(epoch.columns, epoch.valids)):
+            payload[f"col{ci}"] = data
+            if valid is not None:
+                payload[f"valid{ci}"] = valid
+            d = store.dictionaries[ci]
+            if d is not None:
+                payload[f"dict{ci}"] = np.array(list(d.values), dtype=object)
+        path = self._epoch_file(store.table.id)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            if self.sync_log != "off":
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+        if self.sync_log != "off":
+            # full crash-atomic sequence (tmp + fsync + rename + dir
+            # fsync): a half-written epoch must never shadow the
+            # previous good one — recovery treats the epoch as the fold
+            # floor and skips the WAL below its fold_ts
+            fsync_dir(os.path.dirname(path))
+
+    def _load_epoch(self, store: TableStore) -> None:
+        path = self._epoch_file(store.table.id)
+        if not os.path.exists(path):
+            return
+        try:
+            z_ctx = np.load(path, allow_pickle=True)
+        except Exception:  # noqa: BLE001 — torn/corrupt archive
+            # an unreadable epoch snapshot (crash mid-write on a
+            # filesystem without atomic rename, bit rot) must degrade
+            # to a full refold from the KV truth, never to a crash at
+            # open — drop it so the next checkpoint rewrites it
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return
+        with z_ctx as z:
+            ncols = int(z["ncols"])
+            if ncols != store.table.num_columns:
+                return  # schema moved past this snapshot; refold from KV
+            handles = z["handles"]
+            columns = [z[f"col{ci}"] for ci in range(ncols)]
+            valids = [
+                z[f"valid{ci}"] if f"valid{ci}" in z else None
+                for ci in range(ncols)
+            ]
+            dicts: list = []
+            for ci in range(ncols):
+                cft = store.table.columns[ci].ftype
+                if getattr(cft, "elems", ()) and cft.is_string:
+                    # ENUM: the fixed validating dictionary, rebuilt from
+                    # the schema (codes are definition positions)
+                    dicts.append(_column_dictionary(cft))
+                elif f"dict{ci}" in z:
+                    d = Dictionary()
+                    for v in z[f"dict{ci}"]:
+                        d.encode(str(v))
+                    dicts.append(d)
+                else:
+                    dicts.append(None)
+            epoch = ColumnEpoch(
+                epoch_id=next(_epoch_ids),
+                fold_ts=int(z["fold_ts"]),
+                handles=handles,
+                columns=columns,
+                valids=valids,
+            )
+            store.restore_epoch(epoch, dicts, int(z["next_handle"]))
+
+    def _recover(self) -> None:
+        """Bootstrap from the reopened KV + epoch snapshots: catalog, table
+        stores, committed rows newer than each epoch's fold, stats.
+        Orphaned percolator locks are resolved first (the restarted
+        process has no live transactions)."""
+        raw = self.get_meta(b"catalog")
+        if raw is None:
+            return  # fresh directory
+        jobs = self.get_meta(b"ddl:jobs")
+        if jobs and jobs != pickle.dumps([]):
+            # a pending DDL job: the port has no DDL job queue to resume it
+            raise NotInSlice("DDL job")
+        self._resolve_orphans()
+        state = pickle.loads(raw)
+        self.catalog.schemas = state["schemas"]
+        self.catalog._next_id = state["next_id"]
+        self.catalog.version = state["version"]
+        for schema in self.catalog.schemas.values():
+            for info in schema.tables.values():
+                store = self.register_table(info)
+                self._load_epoch(store)
+                lo, hi = tablecodec.record_range(info.id)
+                folds = []
+                for key, commit_ts, kind, val in self.kv.scan_latest(lo, hi):
+                    if commit_ts <= store.epoch.fold_ts:
+                        continue
+                    _, handle = tablecodec.decode_record_key(key)
+                    if kind == OP_DEL:
+                        if store.epoch.handle_pos.get(handle) is not None:
+                            folds.append((commit_ts, handle, TOMBSTONE))
+                    else:
+                        row = self._fold_row(store, codec.decode_key(val))
+                        folds.append((commit_ts, handle, row))
+                        store.note_handle(handle)
+                folds.sort(key=lambda t: t[0])
+                for commit_ts, handle, row in folds:
+                    store.apply_commit(commit_ts, handle, row)
+        self.stats.load_from_kv(self, self.catalog)
+
+    def _resolve_orphans(self) -> None:
+        """Roll crashed transactions forward or back from their primary's
+        fate (reference: lock_resolver.go at restart; every pre-crash lock
+        is orphaned by definition)."""
+        far_future = self.tso.next_ts() + (1 << 62)
+        for lock in self.kv.all_locks():
+            try:
+                commit_ts, _ = self.kv.check_txn_status(
+                    lock.primary, lock.start_ts, far_future)
+                self.kv.resolve_lock(lock.key, lock.start_ts, commit_ts)
+            except KVError:
+                pass
+
+    def checkpoint(self, dirty_only: bool = False) -> None:
+        """Fold the KV WAL into a snapshot file and persist table epochs
+        (clean-shutdown / periodic maintenance entry). dirty_only skips
+        epochs whose snapshot is already current; the WAL always folds."""
+        if self.path is None:
+            return
+        for store in list(self.tables.values()):
+            if dirty_only and not store.epoch_dirty:
+                continue
+            self._persist_epoch(store)
+            store.epoch_dirty = False
+        self.kv.checkpoint()
+
+    def _note_group_commit(self, batch: int) -> None:
+        """Group-fsync batch telemetry: every batch lands in the
+        tidb_group_commit_batch_size histogram."""
+        self.obs.group_commit_batch.observe(batch)
+
+    def configure_group_commit(self, max_batch: Optional[int] = None,
+                               max_wait_us: Optional[int] = None) -> None:
+        """Apply the storage.group-commit-* knobs to the engine's
+        SyncPolicy."""
+        syncer = self.kv.kv._syncer
+        if max_batch is not None:
+            syncer.group_max_batch = max(int(max_batch), 1)
+        if max_wait_us is not None:
+            syncer.group_max_wait_us = max(int(max_wait_us), 0)
+
+    def close(self) -> None:
+        """Clean shutdown: checkpoint (epochs + KV snapshot, WAL
+        truncated), then release the engine's files."""
+        if self.path is None:
+            return
+        self.checkpoint()
+        self.kv.kv.close()
 
     # ---- snapshot registry (compaction safepoint) ---------------------------
     def acquire_snapshot_ts(self) -> int:
@@ -245,6 +581,7 @@ class Storage:
                 self.kv.pessimistic_rollback(sorted(txn.locked_keys),
                                              txn.start_ts)
             return txn.start_ts
+        self._maybe_extend_lease()
         # fence + encode happen OUTSIDE the commit lock: prewrite can
         # block on other txns' row locks for the whole lock-wait budget,
         # and holding the commit lock there would stall every other
@@ -314,6 +651,22 @@ class Storage:
                 store = self.tables.get(table_id)
                 if store is not None:
                     store.apply_commit(commit_ts, handle, row)
+        # durability BEFORE the ack, AFTER the commit lock: under
+        # sync-log=commit the engine deferred the boundary fsync out of
+        # the mutation sections, so concurrent committers rendezvous
+        # here on ONE in-flight fsync (cross-commit group commit). A
+        # failed fsync must not ack — but the commit IS already applied
+        # and visible, so the error must NOT read as a retryable write
+        # conflict (a client retrying a "failed" increment would
+        # double-apply it): KVError propagates untyped ("result
+        # unknown"), and _run_in_txn's autocommit retry ignores it.
+        try:
+            self.kv.commit_sync()
+        except OSError as e:
+            raise KVError(
+                "commit durability unknown: WAL fsync failed after the "
+                f"commit was applied ({e}); do not blindly retry"
+            ) from e
         # opportunistic compaction at the GC-safe ts
         safe = self.safe_ts()
         for (table_id, _), _ in mutations.items():
@@ -348,12 +701,12 @@ class Storage:
             if self._fold_depth == 0:
                 self._fold_seq += 1  # even: quiescent
 
-    # ---- meta KV (sysvar persistence plane) ------------------------------
+    # ---- meta KV (catalog, stats, sysvar and account persistence) ---------
     def put_meta(self, name: bytes, value: bytes) -> None:
-        """Metadata write through the SAME percolator path as row data
-        (reference: meta/meta.go over the m-prefix keyspace). Non-catalog
-        keys are last-writer-wins snapshots, so a conflict retries with a
-        fresh ts; the catalog key never blind-retries."""
+        """Durable metadata write through the SAME percolator path as row
+        data (reference: meta/meta.go over the m-prefix keyspace).
+        Non-catalog keys are last-writer-wins snapshots, so a conflict
+        retries with a fresh ts; the catalog key never blind-retries."""
         from ..kv.backoff import BO_META, Backoffer, BackoffExhausted
 
         key = tablecodec.meta_key(name)
@@ -365,6 +718,15 @@ class Storage:
                 with self._commit_lock:
                     self.committer.commit(
                         [Mutation(OP_PUT, key, value)], start_ts)
+                # meta writes are acked durable like row commits: join
+                # the group-fsync rendezvous outside the commit lock
+                try:
+                    self.kv.commit_sync()
+                except OSError as e:
+                    raise KVError(
+                        f"meta write on {name!r}: WAL fsync failed "
+                        f"after the commit was applied ({e})"
+                    ) from e
                 return
             except KVWriteConflict:
                 if not retriable:

@@ -12,9 +12,9 @@ Port of `tidb_tpu/store/table_store.py`:
 
 Handles are int64 row ids, auto-allocated or taken from an integer primary
 key. The store keeps the index sort orders (`store/index.py`) of its
-epochs. Left out with the planes they serve: the durable-epoch hook
-(`on_epoch`, `restore_epoch`), the mesh plane's eviction hooks, and the
-DDL reorganisations `apply_schema` and `cast_column`.
+epochs, and fires its durable-epoch hook (`on_epoch`) at every new epoch.
+Left out with the planes they serve: the mesh plane's eviction hooks and
+the DDL reorganisations `apply_schema` and `cast_column`.
 """
 
 from __future__ import annotations
@@ -279,6 +279,28 @@ class TableStore:
         # the newest snapshot with no delta visible, per epoch: immutable,
         # so its visibility digest is computed once, not per statement
         self._snapshot: Optional[TableSnapshot] = None
+        # durable-storage hook: fired after every base-epoch replacement
+        # (bulk_load / compact) so the owner can persist the columnar
+        # snapshot (Storage._on_epoch_changed). `required=False`
+        # (compaction) only marks the epoch dirty: the folded deltas are
+        # still recoverable from the KV truth, so the snapshot write can
+        # defer to checkpoint() instead of stalling the committing session
+        # on an O(table) file write
+        self.on_epoch = None
+        self.epoch_dirty = False
+
+    def _epoch_changed(self, required: bool = True) -> None:
+        if self.on_epoch is not None:
+            self.on_epoch(self, required)
+
+    def restore_epoch(self, epoch: ColumnEpoch,
+                      dictionaries: list[Optional[Dictionary]],
+                      next_handle: int) -> None:
+        """Install a recovered columnar snapshot (restart recovery path)."""
+        with self._lock:
+            self.epoch = epoch
+            self.dictionaries = dictionaries
+            self._next_handle = max(self._next_handle, next_handle)
 
     # ---- write path --------------------------------------------------------
     def alloc_handle(self) -> int:
@@ -460,6 +482,7 @@ class TableStore:
                 columns=new_cols,
                 valids=new_valids,
             )
+        self._epoch_changed()
 
     # ---- compaction --------------------------------------------------------
     def maybe_compact(self, safe_ts: int) -> None:
@@ -525,3 +548,4 @@ class TableStore:
             )
             self.epoch = new_epoch
             self.deltas = remaining
+        self._epoch_changed(required=False)
