@@ -20,8 +20,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    kernel, the plain version and two PyTorch library calls computing the
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
-4. the main path through the port's entry points on the card, in five
-   parts, each with the launch counters set to 0 just before it and read
+4. the main path through the port's entry points on the card, in parts
+   a-i, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -107,10 +107,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    g. the write path (after f1 and after f2, on their sessions), with the
       launch counters set to 0 before g1, before g1' and before g2:
       g1. on f1's card session at SF10: TPC-H RF1 (`bench/
-          tpch_refresh.py`: SF x 1,500 new orders and their 1-7
-          lineitems from the generator's distributions, as autocommit
-          1,000-row INSERTs, orders first; each must take the `point`
-          fast path) and RF2 (SF x 1,500 seeded orders and their
+          tpch_refresh.py`: 0.4 x SF x 1,500 new orders, `G1_RF_SHARE`,
+          and their 1-7 lineitems from the generator's distributions,
+          as autocommit 1,000-row INSERTs, orders first; each must take
+          the `point` fast path) and RF2 (as many seeded orders and their
           lineitems deleted by DELETE ... IN, lineitem first, each
           statement below 8,192 rows: a commit of N >= 8,192 mutations
           costs the reference's commit path N^2 delta visits); Q6, Q3,
@@ -138,7 +138,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       g2. the reference's HTAP mix (`bench.py` flight_htap_mixed), in
           this process (not over the MySQL wire; the store is in memory,
           not durable): sbtest (id bigint primary key, k bigint, c
-          varchar(64)) with 100,000 rows by 2,000-row INSERTs and
+          varchar(64)) with 20,000 rows by 2,000-row INSERTs and
           lineitem at SF1 bulk-loaded in one Storage; the point SELECT
           and UPDATE must take the `point` fast path; then 3 s with 4
           point readers and 1 writer, and 3 s with 4 readers, 8 writers
@@ -180,6 +180,44 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           exact.
       The check that a part g read launched streamseg over a rebuilt
       lineitem epoch runs after part h.
+   i. online DDL and the schema surface (`ddl/ddl.py`, `catalog/
+      infoschema.py`), each of i1, i2, i3 with the launch counters set to
+      0 before it (`ddl_launches`):
+      i1. on g1's SF10 card session right after g1, over the data as RF2
+          left it: ALTER TABLE lineitem ADD COLUMN l_tag INT DEFAULT 7
+          (sum(l_tag), count(*) exactly 7 x rows, rows), MODIFY COLUMN
+          l_quantity DECIMAL(18,4) (every stored value times 100), ANALYZE
+          TABLE lineitem, Q6 and Q3 exact against their numpy answers with
+          part f1's tags (Q3 must launch streamseg over the lineitem epoch
+          the DDL rewrote), CREATE UNIQUE INDEX o_ck ON orders (o_custkey,
+          o_orderkey) (~750 reorg batches over 15M rows; ADMIN SHOW DDL
+          JOBS must show it done, SHOW INDEX list it), CREATE UNIQUE INDEX
+          l_ok ON lineitem (l_orderkey), which must fail on its duplicate
+          (errno 1105, the reference's for a rolled-back job) and leave no
+          index, its job rolled back; DROP INDEX o_ck, DROP COLUMN l_tag,
+          Q6 exact again; each statement's wall time, each reorg batch's
+          time, the reads' cold run and warm p50, the peak device memory;
+      i2. the same on g1''s SF1 card and CPU sessions (every statement's
+          outcome and tags equal between the two; Q3 takes the host tier
+          over orders' overlay there, as in g1'), plus CREATE UNIQUE INDEX
+          l_pk ON lineitem (l_orderkey, l_linenumber) (~300 batches) and
+          an INSERT of an existing key (1062), a view over lineitem x
+          orders read twice, a sequence feeding an INSERT, RENAME TABLE and
+          back, SHOW TABLES / CREATE TABLE / INDEX, information_schema
+          columns, tables and statistics, CHECKSUM TABLE orders, ADMIN
+          CHECK TABLE lineitem, orders, and Q18 and Q1 after the MODIFY
+          (Q18's streamseg launches reported);
+      i3. on h3's reopened durable store: ALTER TABLE orders ADD COLUMN
+          over the wire (orders' epoch file rewritten), SHOW CREATE TABLE
+          and information_schema.columns over the wire; then a child
+          `python3` serving the store with `TIDB_TPU_FAILPOINTS=
+          ddl/before-step=exit(9)@K` (K half way through lineitem's reorg
+          batches) runs CREATE UNIQUE INDEX l_pk over the wire and dies;
+          the store reopened on the card (timed) resumes the job (the
+          persisted state and reorg_pos printed; the reopened epoch has a
+          new id, so the validation restarts on it, as in the reference);
+          ADMIN SHOW DDL JOBS shows it done, SHOW INDEX lists l_pk, and Q18
+          over the wire is exact with f2's tags, launching streamseg.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the p50 wall time of 3 warm runs
@@ -1069,10 +1107,19 @@ G1P_READS = (G_QUERIES, ("q6",), G_QUERIES)
 # commit's own N >= 8,192 mutations stay unfolded, so each call scans
 # all N deltas again: N^2 visits, 3.6e9 for one 60,000-row DELETE at SF10
 RF2_ROWS = 8191
+# the share of TPC-H's SF x 1,500 refresh orders that g1 sends at SF10:
+# 6,000 orders still fold orders once in RF2 (so the joins after RF2 stay
+# on the device, Q3 launching streamseg) but make ~7 folds of the 60M-row
+# lineitem epoch instead of 18 (7-14 s each), for the time limit on slower
+# hosts; g1' at SF1 sends the whole refresh
+G1_RF_SHARE = 0.4
 RANK = "streamseg.rank_sums"
-# g2's phases: 3 s, half the reference's 6 s (part h runs the same mix at
-# 6 s over the wire on a durable store), for the script's time limit
+# g2's phases: 3 s, half the reference's 6 s, and its sbtest 20,000 rows,
+# a fifth of the reference's 100,000 (part h runs the same mix at 6 s and
+# 100,000 rows over the wire on a durable store), for the script's time
+# limit
 G2_SECONDS = 3.0
+G2_ROWS = 20_000
 
 
 def _stores(s, names=("orders", "lineitem")) -> dict:
@@ -1159,10 +1206,12 @@ def _g_reads(sessions, phase: str, data, hits: list,
 
 
 def _part_g1(args, sessions, data, sf: float, label: str,
-             reads: tuple) -> list:
+             reads: tuple) -> tuple:
     """Part g1 (SF10, `sessions` = [f1's card session]) or g1' (SF1, [a
-    card session, a CPU session]) (module docstring). -> the reads that
-    launched streamseg over a lineitem epoch that compaction rebuilt."""
+    card session, a CPU session]) (module docstring); the refresh sends
+    `sf` x 1,500 orders. -> (the reads that
+    launched streamseg over a lineitem epoch that compaction rebuilt, the
+    arrays as RF2 left them)."""
     card = sessions[0]
     new = RF.rf1_rows(data, sf, args.seed + 101)
     ins = RF.rf1_statements(new, 1000)
@@ -1215,7 +1264,7 @@ def _part_g1(args, sessions, data, sf: float, label: str,
               f"max_ms={max(ts) * 1e3:.1f}")
     print(f"  {label} peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {_mem()}")
-    return hits
+    return hits, after2
 
 
 def _htap_phase(storage, n_read: int, n_write: int, n_scan: int,
@@ -1306,7 +1355,7 @@ def _part_g2(args, d1) -> None:
         folds[0] += sb.epoch is not epoch
 
     sb.compact = counted
-    n = 100_000
+    n = G2_ROWS
     t0 = time.perf_counter()
     for lo in range(0, n, 2000):
         s.execute("insert into sbtest values " + ",".join(
@@ -1658,8 +1707,9 @@ def _part_h2(args, path: str, mc, h1: dict, tags: dict) -> int:
     return launched
 
 
-def _part_h3(args, path: str, mc, h1: dict, d1) -> None:
-    """Part h3 (module docstring)."""
+def _part_h3(args, path: str, mc, h1: dict, d1):
+    """Part h3 (module docstring). -> the reopened store, which part i3
+    goes on with."""
     import os
     import signal
 
@@ -1729,11 +1779,12 @@ def _part_h3(args, path: str, mc, h1: dict, d1) -> None:
           f"the last checkpoint); sum(k) = {k} = base {base} + "
           f"{total} acknowledged + {k - base - total} in flight (<= 8); "
           f"Q6 exact ({s.last_engines})")
-    storage.close()
+    return storage
 
 
-def _part_h(args, d1, tags: dict) -> int:
-    """Part h (module docstring). -> streamseg's launches in h2."""
+def _part_h(args, d1, tags: dict) -> tuple:
+    """Part h, then part i3 on h3's store (module docstring). ->
+    streamseg's launches in h2 and in i3."""
     import shutil
     import tempfile
 
@@ -1750,10 +1801,389 @@ def _part_h(args, d1, tags: dict) -> int:
         launched = _part_h2(args, path, mc, h1, tags)
         gc.collect()
         torch.cuda.empty_cache()
-        _part_h3(args, path, mc, h1, d1)
-        return launched
+        storage = _part_h3(args, path, mc, h1, d1)
+        print(f"  -- i3. online DDL on the durable store, over the wire "
+              f"({_mem()} held before it)")
+        _kernels.reset_launches()
+        return launched, _part_i3(args, storage, path, mc, h1, tags)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- part i: online DDL and the schema surface ----
+I_READS = ("q6", "q3")
+
+
+def _i_outcome(s, sql: str):
+    """One statement -> (affected, rows as cells) or ("error", errno,
+    message). ADMIN SHOW DDL JOBS drops its job ids: the card's and the
+    CPU's session take theirs from one counter."""
+    from tidb_tpu_torch.session import SQLError
+
+    try:
+        rs = s.execute(sql)
+    except SQLError as e:
+        return ("error", e.errno, str(e))
+    rows = rs.rows
+    if sql.startswith("ADMIN SHOW DDL JOBS"):
+        rows = [r[1:] for r in rows]
+    return (rs.affected, TR.sql_cells(rows))
+
+
+def _i_exec(sessions, sql: str, label: str, times: dict):
+    """`sql` on each session, the card's first, ending in a synchronize:
+    every other session must give its outcome and tags. -> the card's
+    outcome; its wall time goes into `times`."""
+    card = sessions[0]
+    t0 = time.perf_counter()
+    out = _i_outcome(card, sql)
+    _sync()
+    times[sql] = time.perf_counter() - t0
+    tags = list(card.last_engines)
+    for other in sessions[1:]:
+        got = _i_outcome(other, sql)
+        if got != out or other.last_engines != tags:
+            raise SystemExit(f"{label}: {sql[:60]!r} on the CPU "
+                             f"{str(got)[:200]} {other.last_engines}, on "
+                             f"the card {str(out)[:200]} {tags}")
+    return out
+
+
+def _i_read(sessions, q: str, label: str, data=None, want_tags=None,
+            warm: int = 3) -> tuple:
+    """Query `q` on the card (and the CPU twin's): rows exact against the
+    numpy answer over `data` where given, and equal to the twin's; tags
+    `want_tags` where given; cold run and warm p50. -> (streamseg
+    launches of the cold run, tags)."""
+    card = sessions[0]
+    sql = TPCH_QUERIES[q]
+    before = _kernels.LAUNCHES[RANK]
+    rows, first = _sql_run(card, sql)
+    launched = _kernels.LAUNCHES[RANK] - before
+    tags = list(card.last_engines)
+    if data is not None and TR.sql_cells(rows) != TR.sql_oracle(q, data):
+        raise SystemExit(f"{label} {q}: SQL rows differ from the oracle")
+    if want_tags is not None and tags != want_tags:
+        raise SystemExit(f"{label} {q}: engines {tags}, want {want_tags}")
+    cpu = ""
+    for other in sessions[1:]:
+        want, cpu_s = _sql_run(other, sql)
+        if other.last_engines != tags or not _rows_equal(q, rows, want):
+            raise SystemExit(f"{label} {q}: card rows/tags {tags} differ "
+                             f"from the CPU's {other.last_engines}")
+        cpu = f" card==cpu cpu_s={cpu_s:.3f}"
+    if any(_host_tier(t) for t in tags):
+        warm = 0  # seconds of numpy: the cold run only
+    times = [_sql_run(card, sql)[1] for _ in range(warm)]
+    exact = "exact" if data is not None else "rows"
+    print(f"  {label} {q.upper()}: engines={tags} rows={len(rows)} {exact} "
+          f"streamseg_launches={launched} {_timing(first, times)}{cpu}")
+    return launched, tags
+
+
+def _timed_batches():
+    """A patch of `DDL._validate_unique_batch` that times each reorg batch
+    (the first includes the index sort, `epoch_index_order`)."""
+    from tidb_tpu_torch.ddl import DDL
+
+    times: list = []
+    orig = DDL._validate_unique_batch
+
+    def timed(self, *a):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    return mock.patch.object(DDL, "_validate_unique_batch", timed), times
+
+
+def _batch_line(times: list) -> str:
+    rest = times[1:] or times
+    return (f"{len(times)} reorg batches: the first (with the index sort) "
+            f"{times[0]:.3f}s, then p50 {statistics.median(rest) * 1e3:.2f}"
+            f" ms, max {max(rest) * 1e3:.2f} ms, sum {sum(times):.2f}s")
+
+
+def _top_job(sessions, label: str, times: dict) -> tuple:
+    out = _i_exec(sessions, "ADMIN SHOW DDL JOBS", label, times)
+    return out[1][0]
+
+
+def _part_i12(args, sessions, data, label: str, want_tags,
+              full: bool) -> int:
+    """Part i1 (SF10, [f1's card session], `want_tags` parts a-d's) or i2
+    (SF1, [card, CPU], `full`: the schema surface too) (module
+    docstring), over `data` as RF2 left it. -> streamseg's launches."""
+    card = sessions[0]
+    li = _stores(card)["lineitem"]
+    n = len(data["lineitem"]["l_orderkey"])
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    times: dict = {}
+
+    def run(sql):
+        return _i_exec(sessions, sql, label, times)
+
+    def say(sql, extra=""):
+        print(f"  {label}: {sql[:72]} {times[sql] * 1e3:.1f} ms{extra}")
+
+    sql = "ALTER TABLE lineitem ADD COLUMN l_tag INT DEFAULT 7"
+    before = li.epoch.epoch_id
+    run(sql)
+    say(sql, f" (epoch {before} -> {li.epoch.epoch_id}); {_mem()}")
+    sql = "SELECT sum(l_tag), count(*) FROM lineitem"
+    if run(sql)[1] != [(7 * n, n)]:
+        raise SystemExit(f"{label}: sum(l_tag), count(*) is not 7 x {n}")
+    say(sql, f" = ({7 * n}, {n}) exact; engines {card.last_engines}")
+    for sql in ("ALTER TABLE lineitem MODIFY COLUMN l_quantity "
+                "DECIMAL(18,4)", "ANALYZE TABLE lineitem"):
+        run(sql)
+        say(sql)
+    rewritten = li.epoch
+    launches = {}
+    for q in I_READS:
+        launches[q], _ = _i_read(
+            sessions, q, label, data,
+            want_tags(q) if want_tags is not None else None)
+    if li.epoch is not rewritten or not (full or launches["q3"]):
+        # at SF1 (i2) orders' overlay sends Q3 to the host tier, as in g1'
+        raise SystemExit(f"{label}: q3 did not launch streamseg over the "
+                         "lineitem epoch the DDL rewrote")
+    patch, batches = _timed_batches()
+    sql = "CREATE UNIQUE INDEX o_ck ON orders (o_custkey, o_orderkey)"
+    with patch:
+        out = run(sql)
+    if out[0] == "error":
+        raise SystemExit(f"{label}: {sql}: {out}")
+    say(sql, f"; {_batch_line(batches)}")
+    job = _top_job(sessions, label, times)
+    if job[2:5] != ("add_index", "public", "done"):
+        raise SystemExit(f"{label}: o_ck's job is {job}")
+    out = run("SHOW INDEX FROM orders")
+    if "o_ck" not in {r[2] for r in out[1]}:
+        raise SystemExit(f"{label}: SHOW INDEX FROM orders lists no o_ck")
+    sql = "CREATE UNIQUE INDEX l_ok ON lineitem (l_orderkey)"
+    patch, batches = _timed_batches()
+    with patch:
+        out = run(sql)
+    # the reference's rolled-back job re-raises its error by its text:
+    # errno 1105, the validation's duplicate in the message
+    if out[:2] != ("error", 1105) or "Duplicate entry" not in out[2]:
+        raise SystemExit(f"{label}: {sql}: {out}")
+    say(sql, f" -> {out[1]} {out[2]!r}; {_batch_line(batches)}")
+    job = _top_job(sessions, label, times)
+    if job[2] != "add_index" or job[4] != "rolled back" or any(
+            ix.name == "l_ok"
+            for ix in card.catalog.table("test", "lineitem").indices):
+        raise SystemExit(f"{label}: l_ok's job is {job}, or l_ok is left")
+    print(f"  {label}: ADMIN SHOW DDL JOBS: o_ck done, l_ok rolled back; "
+          f"SHOW INDEX FROM orders lists o_ck")
+    if full:
+        _part_i2_surface(sessions, label, times, launches)
+    for sql in ("DROP INDEX o_ck ON orders",
+                "ALTER TABLE lineitem DROP COLUMN l_tag"):
+        run(sql)
+        say(sql)
+    launches["q6 after"], _ = _i_read(
+        sessions, "q6", label, data,
+        want_tags("q6") if want_tags is not None else None)
+    total = _kernels.LAUNCHES[RANK]
+    print(f"  {label}: streamseg launches {total} ({launches}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"GB; {_mem()}")
+    return total
+
+
+I2_VIEW = ("CREATE VIEW li_ord AS SELECT o_orderpriority, count(*) AS n, "
+           "sum(l_extendedprice) AS rev FROM lineitem, orders "
+           "WHERE l_orderkey = o_orderkey AND o_orderdate >= '1995-01-01' "
+           "AND o_orderdate < '1995-04-01' GROUP BY o_orderpriority")
+I2_SURFACE = [
+    I2_VIEW,
+    "SELECT * FROM li_ord ORDER BY o_orderpriority",
+    "SELECT * FROM li_ord ORDER BY o_orderpriority",
+    "CREATE SEQUENCE i2_seq START WITH 100",
+    "CREATE TABLE seq_t (id BIGINT PRIMARY KEY, v VARCHAR(8))",
+    "INSERT INTO seq_t VALUES (NEXTVAL(i2_seq), 'a'), "
+    "(NEXTVAL(i2_seq), 'b')",
+    "SELECT id, v FROM seq_t ORDER BY id",
+    "RENAME TABLE orders TO orders_r",
+    "SELECT count(*) FROM orders_r",
+    "RENAME TABLE orders_r TO orders",
+    "SHOW TABLES",
+    "SHOW CREATE TABLE lineitem",
+    "SHOW INDEX FROM orders",
+    "SELECT table_name, column_name, column_type, column_key FROM "
+    "information_schema.columns WHERE table_schema = 'test' "
+    "ORDER BY table_name, ordinal_position",
+    "SELECT table_name, table_type, table_rows FROM "
+    "information_schema.tables WHERE table_schema = 'test' "
+    "ORDER BY table_name",
+    "SELECT table_name, index_name, seq_in_index, column_name FROM "
+    "information_schema.statistics WHERE table_schema = 'test' "
+    "ORDER BY table_name, index_name, seq_in_index",
+    "CHECKSUM TABLE orders",
+    "ADMIN CHECK TABLE lineitem, orders",
+]
+
+
+def _part_i2_surface(sessions, label: str, times: dict,
+                     launches: dict) -> None:
+    """The rest of part i2 (module docstring): l_pk and a duplicate
+    INSERT, a view, a sequence, RENAME, SHOW, information_schema,
+    CHECKSUM, ADMIN CHECK, Q18 and Q1 after the MODIFY."""
+    sql = ("CREATE UNIQUE INDEX l_pk ON lineitem (l_orderkey, "
+           "l_linenumber)")
+    patch, batches = _timed_batches()
+    with patch:
+        out = _i_exec(sessions, sql, label, times)
+    if out[0] == "error":
+        raise SystemExit(f"{label}: {sql}: {out}")
+    print(f"  {label}: {sql} {times[sql] * 1e3:.1f} ms; "
+          f"{_batch_line(batches)}")
+    sql = ("INSERT INTO lineitem SELECT * FROM lineitem "
+           "WHERE l_orderkey = 1 AND l_linenumber = 1")
+    out = _i_exec(sessions, sql, label, times)
+    if out[:2] != ("error", 1062):
+        raise SystemExit(f"{label}: a duplicate (l_orderkey, l_linenumber) "
+                         f"INSERT gave {out}")
+    print(f"  {label}: INSERT of an existing (l_orderkey, l_linenumber) -> "
+          f"1062 {out[2]!r} on both")
+    for sql in I2_SURFACE:
+        out = _i_exec(sessions, sql, label, times)
+        if out[0] == "error":
+            raise SystemExit(f"{label}: {sql}: {out}")
+        shown = str(out[1])[:90] if sql.startswith(
+            ("SHOW", "CHECKSUM", "SELECT id")) else f"{len(out[1])} rows"
+        print(f"  {label}: {sql[:60]} {times[sql] * 1e3:.1f} ms "
+              f"card==cpu: {shown}")
+    for q in ("q18", "q1"):
+        launches[q], _ = _i_read(sessions, q, label, warm=1)
+
+
+def _part_i3(args, storage, path: str, mc, h1: dict, tags: dict) -> int:
+    """Part i3 (module docstring), on h3's reopened store. -> streamseg's
+    launches in its Q18."""
+    import os
+
+    from tidb_tpu_torch.ddl import DDL
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.store.storage import Storage
+
+    # 1. ADD COLUMN over the wire; the epoch file is rewritten
+    orders = storage.catalog.table("test", "orders")
+    efile = storage._epoch_file(orders.id)
+    mtime = os.stat(efile).st_mtime_ns
+    server = Server(storage, port=0)
+    server.start()
+    cl = mc.MiniClient("127.0.0.1", server.port)
+    t0 = time.perf_counter()
+    cl.execute("ALTER TABLE orders ADD COLUMN o_flag INT DEFAULT 1")
+    dt = time.perf_counter() - t0
+    if os.stat(efile).st_mtime_ns == mtime:
+        raise SystemExit("i3: ADD COLUMN left orders' epoch file unwritten")
+    create = cl.query("SHOW CREATE TABLE orders")[0][1]
+    ncols = cl.query("SELECT count(*) FROM information_schema.columns "
+                     "WHERE table_schema = 'test' AND "
+                     "table_name = 'orders'")
+    if "`o_flag` int" not in create or ncols != [("10",)]:
+        raise SystemExit(f"i3: SHOW CREATE TABLE / information_schema "
+                         f"after ADD COLUMN: {create!r} {ncols}")
+    print(f"  i3: ALTER TABLE orders ADD COLUMN o_flag INT DEFAULT 1 over "
+          f"the wire {dt * 1e3:.1f} ms (epoch file rewritten); SHOW CREATE "
+          f"TABLE lists o_flag; information_schema.columns counts 10")
+    cl.close()
+    server.close()
+    storage.close()
+    # 2. a child serving the store dies mid-reorg at the failpoint: at
+    # this hit of `ddl/before-step`, after the 3 state steps and half of
+    # lineitem's write-reorg batches (~300 at SF1)
+    batches = -(-h1["lineitem_rows"] // DDL.REORG_BATCH)
+    crash_step = 4 + batches // 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               TIDB_TPU_FAILPOINTS=f"ddl/before-step=exit(9)@{crash_step}")
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", H3_CHILD, path],
+                             cwd=root, stdout=subprocess.PIPE, text=True,
+                             env=env)
+    try:
+        line = child.stdout.readline()
+        if not line.strip().isdigit():
+            raise SystemExit(f"i3: the child served no port ({line!r})")
+        t_child = time.perf_counter() - t0
+        cl = mc.MiniClient("127.0.0.1", int(line))
+        t0 = time.perf_counter()
+        try:
+            cl.execute("CREATE UNIQUE INDEX l_pk ON lineitem "
+                       "(l_orderkey, l_linenumber)")
+            raise SystemExit("i3: CREATE UNIQUE INDEX outlived the "
+                             "failpoint")
+        except (ConnectionError, OSError):
+            pass
+        rc = child.wait(timeout=60)
+        t_die = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 9:
+        raise SystemExit(f"i3: the child exited {rc}, not 9")
+    print(f"  i3: a child python3 served the store in {t_child:.2f}s; "
+          f"CREATE UNIQUE INDEX l_pk over the wire died with it (exit 9 at "
+          f"`ddl/before-step` hit {crash_step} of {batches + 3}) after "
+          f"{t_die:.2f}s")
+    # 3. reopen on the card: the job resumes from its persisted state
+    read = []
+    orig = DDL.run_job
+
+    def run_job(self, job):
+        read.append((job.kind, job.schema_state, job.reorg_pos))
+        return orig(self, job)
+
+    patch, batches = _timed_batches()
+    t0 = time.perf_counter()
+    with mock.patch.object(DDL, "run_job", run_job), patch:
+        storage = Storage(path, sync_log="commit")
+    t_open = time.perf_counter() - t0
+    if not read or read[0][1] != "write reorg" or read[0][2] <= 0:
+        raise SystemExit(f"i3: the reopen read no job mid-reorg: {read}")
+    print(f"  i3: reopened in {t_open:.2f}s, resuming {read[0][0]} from its "
+          f"persisted state {read[0][1]!r}, reorg_pos={read[0][2]} (the "
+          f"reopened epoch has a new id, so the scan restarts on it); "
+          f"{_batch_line(batches)}")
+    # 4. the job done, the index public, Q18 over the wire
+    server = Server(storage, port=0)
+    server.start()
+    cl = mc.MiniClient("127.0.0.1", server.port)
+    job = cl.query("ADMIN SHOW DDL JOBS")[0]
+    idx = {r[2] for r in cl.query("SHOW INDEX FROM lineitem")}
+    if job[2:6] != ("lineitem", "add_index", "public", "done") or \
+            "l_pk" not in idx:
+        raise SystemExit(f"i3: after the reopen the job is {job}, indexes "
+                         f"{idx}")
+    li = storage.table_store(storage.catalog.table("test", "lineitem").id)
+    before = _kernels.LAUNCHES[RANK]
+    t0 = time.perf_counter()
+    rows = cl.query(TPCH_QUERIES["q18"])
+    dt = time.perf_counter() - t0
+    launched = _kernels.LAUNCHES[RANK] - before
+    got = _server_tags(server)
+    if rows != h1["expect"]["q18"] or got != tags["q18"] or not launched:
+        raise SystemExit(f"i3: q18 over the wire: exact "
+                         f"{rows == h1['expect']['q18']}, engines {got} "
+                         f"(f2: {tags['q18']}), streamseg launches "
+                         f"{launched}")
+    print(f"  i3: ADMIN SHOW DDL JOBS: {job[1:6]}; SHOW INDEX FROM lineitem "
+          f"lists l_pk; Q18 over the wire exact engines={got} "
+          f"streamseg_launches={launched} over lineitem epoch "
+          f"{li.epoch.epoch_id} first_ms={dt * 1e3:.1f}")
+    cl.close()
+    server.close()
+    storage.close()
+    return launched
 
 
 def main(argv=None) -> int:
@@ -1833,24 +2263,34 @@ def main(argv=None) -> int:
     print(f"  -- g. the write path ({_mem()} held before it)")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
-    hits = _part_g1(args, [s10], d10, args.sf, f"g1 SF{args.sf:g}",
-                    G1_READS)
+    hits, after10 = _part_g1(args, [s10], d10, args.sf * G1_RF_SHARE,
+                             f"g1 SF{args.sf:g}", G1_READS)
     write_launches["g1"] = _kernels.LAUNCHES[RANK]
     lap("part g1")
     print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg over a "
           f"rebuilt lineitem epoch: {hits}")
-    del s10
+    print(f"  -- i1. online DDL on g1's session ({_mem()} held before it)")
+    ddl_launches = {"i1": _part_i12(
+        args, [s10], after10, f"i1 SF{args.sf:g}",
+        lambda q: [tags[F1_REQUESTS[q]]], full=False)}
+    lap("part i1")
+    del s10, after10
     gc.collect()
     torch.cuda.empty_cache()
     sql_launches["f2"], card1, cpu1, f2_tags = _part_f2(args, d1)
     lap("part f2")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
-    _part_g1(args, [card1, cpu1], d1, args.q18_sf, f"g1' SF{args.q18_sf:g}",
-             G1P_READS)
+    _, after1 = _part_g1(args, [card1, cpu1], d1, args.q18_sf,
+                         f"g1' SF{args.q18_sf:g}", G1P_READS)
     write_launches["g1'"] = _kernels.LAUNCHES[RANK]
     lap("part g1'")
-    del card1, cpu1
+    print(f"  -- i2. online DDL and the schema surface on g1''s sessions "
+          f"({_mem()} held before it)")
+    ddl_launches["i2"] = _part_i12(args, [card1, cpu1], after1,
+                                   f"i2 SF{args.q18_sf:g}", None, full=True)
+    lap("part i2")
+    del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
     _kernels.reset_launches()
@@ -1863,8 +2303,8 @@ def main(argv=None) -> int:
     print(f"  -- h. durability and the MySQL wire server ({_mem()} held "
           f"before it; {smi})")
     _kernels.reset_launches()
-    write_launches["h2"] = _part_h(args, d1, f2_tags)
-    lap("part h")
+    write_launches["h2"], ddl_launches["i3"] = _part_h(args, d1, f2_tags)
+    lap("parts h, i3")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")
@@ -1884,7 +2324,8 @@ def main(argv=None) -> int:
             "shape": top["shape"], "shapes": shapes,
             "sql_launches": {k: v["streamseg.rank_sums"]
                              for k, v in sql_launches.items()},
-            "write_launches": write_launches}
+            "write_launches": write_launches,
+            "ddl_launches": ddl_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

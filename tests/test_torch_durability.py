@@ -1,12 +1,14 @@
 """Durability and restart recovery of the port, held to the reference.
 
-The cases of tests/test_durability.py (all but the pending-DDL one: the
-port has no DDL job queue). Each runs the same statements through both
-packages' `Session(Storage(path))` in a directory of its own, "crashes"
-both the way that file's `crash()` does (the KV engine's files released
-without a checkpoint), reopens both, and compares what the two
-recovered: rows, errnos and the table stores (epochs, dictionaries,
-deltas, handles).
+The cases of tests/test_durability.py, the pending DDL job among them,
+and two more: a DDL job "crashed" by the `ddl/before-step` failpoint in
+the middle of its reorg batches, and a sequence across a clean and a
+crashed restart. Each runs the same statements through both packages'
+`Session(Storage(path))` in a directory of its own, "crashes" both the
+way that file's `crash()` does (the KV engine's files released without a
+checkpoint), reopens both, and compares what the two recovered: rows,
+errnos, the table stores (epochs, dictionaries, deltas, handles), the
+indexes and the DDL job history (a pending job resumes at the reopen).
 
 The two packages' directories are not interchangeable (the catalog and
 the statistics are pickles of each package's own classes): the
@@ -15,21 +17,25 @@ package. The KV files alone are shared: tests/test_torch_native_kv.py.
 """
 
 import os
+import pickle
 
 import numpy as np
 import pytest
 
 from tidb_tpu.bench import tpch_data as RTD
+from tidb_tpu.ddl import DDL as RefDDL
+from tidb_tpu.util import failpoint as ref_failpoint
 from tidb_tpu.session import Session as RefSession
 from tidb_tpu.store.storage import Storage as RefStorage
 from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench import tpch_requests as TR
 from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
-from tidb_tpu_torch.errors import NotInSlice
+from tidb_tpu_torch.ddl import DDL
 from tidb_tpu_torch.kv import tablecodec
 from tidb_tpu_torch.kv.mvcc import OP_PUT, Mutation
 from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.store.storage import Storage
+from tidb_tpu_torch.util import failpoint
 
 from test_torch_store_writes import store_state
 
@@ -37,6 +43,7 @@ SIDES = {
     "port": (Storage, lambda st: Session(st, device="cpu")),
     "ref": (RefStorage, RefSession),
 }
+DDLS = {"port": (DDL, failpoint), "ref": (RefDDL, ref_failpoint)}
 
 
 def crash(storage):
@@ -335,18 +342,162 @@ def test_corrupt_epoch_refolds_from_the_kv(sides):
         assert not os.path.exists(side.st._epoch_file(tid))
 
 
-def test_pending_ddl_job_is_not_in_slice(tmp_path):
-    import pickle
+def _ddl_state(side) -> tuple:
+    """The side's DDL job history (ids as offsets from its first job) and
+    its tables' indexes."""
+    jobs = list(side.st.ddl_jobs) + list(side.st.ddl_history)
+    base = min((j.id for j in jobs), default=0)
+    idx = {info.name: [(ix.name, list(ix.col_offsets), ix.unique,
+                        ix.visible) for ix in info.indices]
+           for info in side.st.catalog.schemas["test"].tables.values()}
+    return ([(j.id - base,) + j.row()[1:] for j in jobs],
+            [j.state for j in side.st.ddl_jobs], idx,
+            side.st.catalog.version)
 
-    st = Storage(str(tmp_path / "db"))
-    Session(st, device="cpu").execute("CREATE TABLE r (id INT PRIMARY KEY)")
-    st.put_meta(b"ddl:jobs", pickle.dumps([]))  # no job pending: opens
-    crash(st)
-    st = Storage(str(tmp_path / "db"))
-    st.put_meta(b"ddl:jobs", pickle.dumps(["job"]))
-    crash(st)
-    with pytest.raises(NotInSlice, match="DDL job"):
-        Storage(str(tmp_path / "db"))
+
+def test_pending_ddl_resumes_after_crash(sides):
+    """A job left queued in delete-only by a dead worker: recovery resumes
+    it to completion at the reopen (the reference's case of
+    tests/test_durability.py)."""
+    _run(sides, ["CREATE TABLE r (id INT PRIMARY KEY, v INT)",
+                 "INSERT INTO r VALUES (1, 5), (2, 6), (3, 7)"])
+    for side in sides:
+        info = side.st.catalog.table("test", "r")
+        ddl = DDLS[side.name][0](side.st, side.st.catalog)
+        job = ddl.submit("add_index", "test", info, {
+            "name": "iv", "columns": ["v"], "unique": True})
+        ddl.step(job)  # delete-only — then the worker "dies"
+    got = _reopen_and_compare(sides, ["INSERT INTO r VALUES (9, 5)",
+                                      "SELECT id FROM r ORDER BY id"])
+    assert got[0] == ("error", 1062)
+    assert _ddl_state(sides[0]) == _ddl_state(sides[1])
+    assert sides[0].st.ddl_jobs == []
+    ix = next(x for x in sides[0].st.catalog.table("test", "r").indices
+              if x.name == "iv")
+    assert ix.visible and ix.unique
+
+
+class Crash(Exception):
+    """The worker's death at a failpoint."""
+
+
+def test_ddl_crashed_mid_reorg_resumes(sides, monkeypatch):
+    """CREATE UNIQUE INDEX dies at `ddl/before-step` after two persisted
+    reorg batches: the persisted job holds its checkpoint, and the reopen
+    resumes the job (the reopened epoch has a new id, so the validation
+    scan starts over on it) to the same index, rows and job history as
+    the reference's."""
+    _run(sides, ["CREATE TABLE r (id INT PRIMARY KEY, v INT)"] + [
+        "INSERT INTO r VALUES " + ",".join(
+            f"({i}, {i * 7})" for i in range(lo, lo + 500))
+        for lo in range(0, 2500, 500)])
+    hits = {}
+    for side in sides:
+        side.st.flush()  # the rows into the epoch the batches walk
+        cls, fp = DDLS[side.name]
+        monkeypatch.setattr(cls, "REORG_BATCH", 500)
+        hits[side.name] = 0
+
+        def crash_at(name=side.name):
+            hits[name] += 1
+            if hits[name] == 6:  # 3 state steps, 2 batches, then death
+                raise Crash()
+
+        with fp.failpoint("ddl/before-step", crash_at):
+            assert side.outcome("CREATE UNIQUE INDEX iv ON r (v)") == \
+                ("error", None)
+    persisted = [pickle.loads(side.st.get_meta(b"ddl:jobs"))
+                 for side in sides]
+    assert [[(j.schema_state, j.reorg_pos) for j in p] for p in persisted] \
+        == [[("write reorg", 1000)]] * 2
+    got = _reopen_and_compare(sides, ["INSERT INTO r VALUES (9999, 7)",
+                                      "SELECT count(*) FROM r"])
+    assert got == [("error", 1062), (0, [(2500,)])]
+    assert _ddl_state(sides[0]) == _ddl_state(sides[1])
+    assert _ddl_state(sides[0])[0][-1][4:6] == ("public", "done")
+
+
+def test_column_ddl_then_crash(sides):
+    """Rows written before an ADD COLUMN refold from the KV padded with
+    the new columns' defaults. The KV rows keep the layout and encoding
+    they were written in, so after a crash both packages read a MODIFY'd
+    column's pre-DDL values at the new scale (10 -> 0.10), and a DROP of a
+    middle column shifts the later ones: faults of the reference, carried
+    (ROADMAP queue 3). The two recover the same rows and stores."""
+    _run(sides, ["CREATE TABLE c (id INT PRIMARY KEY, a INT, b VARCHAR(5))",
+                 "INSERT INTO c VALUES (1, 10, 'x'), (2, 20, 'y')",
+                 "ALTER TABLE c ADD COLUMN d INT DEFAULT 4",
+                 "ALTER TABLE c ADD COLUMN e VARCHAR(4) DEFAULT 'ee'",
+                 "INSERT INTO c VALUES (3, 30, 'z', 5, 'f')",
+                 "ALTER TABLE c MODIFY COLUMN a DECIMAL(12,2)"])
+    got = _reopen_and_compare(sides, ["SELECT id, b, d, e FROM c ORDER BY id",
+                                      "SELECT a FROM c ORDER BY id"])
+    assert got[0] == (0, [(1, "x", 4, "ee"), (2, "y", 4, "ee"),
+                          (3, "z", 5, "f")])
+    assert got[1][1] == [(("dec", 10, 2),), (("dec", 20, 2),),
+                         (("dec", 30, 2),)]
+    _run(sides, ["ALTER TABLE c DROP COLUMN b"])
+    _reopen_and_compare(sides, ["SELECT * FROM c ORDER BY id"])
+
+
+CHILD = """
+import sys
+if sys.argv[1] == "port":
+    from tidb_tpu_torch.ddl import DDL
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store.storage import Storage
+    new_session = lambda st: Session(st, device="cpu")
+else:
+    from tidb_tpu.ddl import DDL
+    from tidb_tpu.session import Session as new_session
+    from tidb_tpu.store.storage import Storage
+DDL.REORG_BATCH = 500
+new_session(Storage(sys.argv[2])).execute("CREATE UNIQUE INDEX iv ON r (v)")
+"""
+
+
+def test_ddl_child_killed_mid_reorg_resumes(sides):
+    """A child process runs CREATE UNIQUE INDEX on the closed store with
+    `TIDB_TPU_FAILPOINTS=ddl/before-step=exit(9)@6` (each package parses
+    the variable at import) and dies after two persisted reorg batches;
+    the reopen resumes the job, as in the reference."""
+    import subprocess
+    import sys
+
+    _run(sides, ["CREATE TABLE r (id INT PRIMARY KEY, v INT)"] + [
+        "INSERT INTO r VALUES " + ",".join(
+            f"({i}, {i * 3})" for i in range(lo, lo + 500))
+        for lo in range(0, 2500, 500)])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, TIDB_TPU_FAILPOINTS="ddl/before-step=exit(9)@6")
+    for side in sides:
+        side.st.flush()
+        side.st.close()
+        rc = subprocess.run([sys.executable, "-c", CHILD, side.name,
+                             side.path], cwd=root, env=env,
+                            timeout=120).returncode
+        assert rc == 9
+        side.open()
+    assert _ddl_state(sides[0]) == _ddl_state(sides[1])
+    assert _ddl_state(sides[0])[0][-1][3:6] == ("add_index", "public",
+                                                 "done")
+    got = _run(sides, ["INSERT INTO r VALUES (9999, 3)"])
+    assert got == [("error", 1062)]
+    assert sides[0].stores() == sides[1].stores()
+
+
+def test_sequence_survives_restart(sides):
+    """Clean restart: the exact cursor (no value re-issued, none
+    skipped); crash: the persisted high-water a cache batch ahead (the
+    reference's case of tests/test_sequence_fk_owner.py, and its crash
+    twin)."""
+    _run(sides, ["create sequence rs"] + ["select nextval(rs)"] * 3)
+    for side in sides:
+        side.st.close()
+        side.open()
+    assert _run(sides, ["select nextval(rs)"]) == [(0, [(4,)])]
+    got = _reopen_and_compare(sides, ["select nextval(rs)"])
+    assert got[0][1][0][0] > 4
 
 
 def test_tpch_differential_against_reopened_store(tmp_path):

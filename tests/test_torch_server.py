@@ -5,11 +5,13 @@ side, each over its own in-memory store; one statement corpus goes to both
 through a raw client built on tests/mysql_client.py's encoding, and every
 response packet must be byte-equal: DDL, DML, explicit transactions, an
 error per errno class, NULLs and every column type rendered (text and
-binary protocol), prepared statements, COM_PING, COM_INIT_DB (to a
-database that does not exist, too) and KILL. Only the handshake's salt and
-connection id are masked. Auth, the 1040 gate, @@wait_timeout reaping and
-KILL CONNECTION are checked on both servers as in tests/test_server.py and
-tests/test_conn_plane.py. Every server is closed and its threads joined.
+binary protocol), SHOW, information_schema reads and online DDL (ALTER
+TABLE, CREATE INDEX, a unique index that fails), prepared statements,
+COM_PING, COM_INIT_DB (to a database that does not exist, too) and KILL.
+Only the handshake's salt and connection id are masked. Auth, the 1040
+gate, @@wait_timeout reaping and KILL CONNECTION are checked on both
+servers as in tests/test_server.py and tests/test_conn_plane.py. Every
+server is closed and its threads joined.
 """
 
 from __future__ import annotations
@@ -216,6 +218,19 @@ CORPUS = [
     "create table t2 (id int primary key, s varchar(8))",
     "insert into t2 values (1, 'a'), (2, NULL)",
     "select * from t2 order by id",
+    # the schema surface: SHOW, information_schema and online DDL
+    "show tables",
+    "show create table t2",
+    "select table_name, column_name, data_type, column_type from "
+    "information_schema.columns where table_schema = 'd1' "
+    "order by table_name, ordinal_position",
+    "alter table t2 add column c int default 3",
+    "create index ks on t2 (s)",
+    "create unique index ks2 on t2 (c)",
+    "select * from t2 order by id",
+    "show index from t2",
+    "select table_name, table_rows from information_schema.tables "
+    "where table_schema = 'd1'",
 ]
 
 

@@ -177,10 +177,11 @@ def test_analyze_device_error_is_not_caught(both):
 @pytest.mark.parametrize("sql,kind", [
     ("select now()", "NOW"),
     ("select get_lock('a', 1)", "GET_LOCK"),
-    ("alter table emp add column z int", "AlterTableStmt"),
-    ("create sequence sq", "CreateSequenceStmt"),
+    ("create user 'bob'", "CreateUserStmt"),
+    ("load data infile 'x.csv' into table emp", "LoadDataStmt"),
     ("explain analyze select id from emp", "EXPLAIN ANALYZE"),
-    ("create index kname on emp (name)", "CreateIndexStmt"),
+    ("create binding for select id from emp using select id from emp",
+     "CreateBindingStmt"),
 ])
 def test_statements_outside_the_slice_raise(both, sql, kind):
     _, port = both

@@ -7,10 +7,13 @@ from host-only modules is copied in. Entry points:
 
 * `session.Session(device=None).execute(sql)` / `.query(sql)`: SQL text,
   parsed (`sql/`), planned as the reference plans it (`plan/`), run by the
-  root executor (`executor/engine.py`) over the in-memory transactional
-  `store.storage.Storage` (`kv/`: percolator 2PC over an ordered KV;
-  `store/table_store.py`: column epochs, deltas, compaction), with DML,
-  transactions and the point fast path (`plan/fastpath.py`);
+  root executor (`executor/engine.py`) over the transactional
+  `store.storage.Storage` (`kv/`: percolator 2PC over an ordered KV,
+  durable with a path; `store/table_store.py`: column epochs, deltas,
+  compaction), with DML, transactions, the point fast path
+  (`plan/fastpath.py`), online DDL (`ddl/ddl.py`) and the schema surface
+  (SHOW, `catalog/infoschema.py`, views, sequences);
+* `server.Server(storage)`: the MySQL wire protocol over it;
 * `copr.client.CopClient(device).execute(dag, snap)` for a single-table
   pushdown request (`plan.dag.CopDAG`);
 * `copr.fragment.execute_fragment(cop, frag, snaps)` for a fragment
@@ -19,10 +22,9 @@ from host-only modules is copied in. Entry points:
 Where the reference's gates send a request to its host tier, the port's
 host tier answers it too (`copr/host_exec.py`, the fragment's host
 interpreter), with the reference's engine tag. `errors.NotInSlice` marks
-what is not ported yet: DDL beyond CREATE/DROP/TRUNCATE, sequences, user
-locks, the clock functions, LOAD DATA, registry builtins (`fx:` ops),
-partitioned tables. Nothing is durable: `Storage()` is the reference's
-`Storage(path=None)`.
+what is not ported yet: users and grants, bindings, user locks, the clock
+functions, LOAD DATA, the obs-backed SHOW kinds and information_schema
+tables, registry builtins (`fx:` ops), partitioned tables.
 """
 
 from .device import resolve_device

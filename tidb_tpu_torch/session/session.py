@@ -13,16 +13,30 @@ autocommit statement that loses an optimistic write conflict (up to
 `tidb_retry_limit`); BEGIN opens an explicit optimistic or PESSIMISTIC
 txn; statement-level staging gives per-statement rollback inside a txn.
 
-Statements: CREATE/DROP DATABASE, USE, CREATE/DROP/TRUNCATE TABLE,
-SELECT (and UNION, FOR UPDATE), INSERT (VALUES, SELECT, REPLACE, ON
-DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN, COMMIT, ROLLBACK, SET,
-EXPLAIN (not ANALYZE), ANALYZE TABLE and KILL [QUERY|CONNECTION] (routed
-through the storage to the wire server that holds the connection); the
-server's prepared statements (`prepare`, `execute_prepared`,
-`close_prepared`). Autocommit point statements take
-the fast path (`plan/fastpath.py`) and never touch the coprocessor. Every
-other statement kind raises `NotInSlice(<kind>)`; so do the clock
-functions, sequences and user locks, each by its name.
+Statements: CREATE/DROP DATABASE, USE (information_schema too),
+CREATE/DROP/TRUNCATE TABLE, SELECT (and UNION, FOR UPDATE), INSERT
+(VALUES, SELECT, REPLACE, ON DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN,
+COMMIT, ROLLBACK, SET, EXPLAIN (not ANALYZE), ANALYZE TABLE, KILL
+[QUERY|CONNECTION] (routed through the storage to the wire server that
+holds the connection); the schema changes, each an online DDL job
+(`ddl/ddl.py`) with an implicit commit: ALTER TABLE (ADD/DROP INDEX,
+ADD/DROP/MODIFY COLUMN, RENAME, several at once), CREATE/DROP INDEX,
+RENAME TABLE; CREATE/DROP VIEW, CREATE/DROP SEQUENCE with NEXTVAL,
+LASTVAL and SETVAL (bound once per statement); SHOW (TABLES, DATABASES,
+CREATE TABLE/DATABASE/VIEW, COLUMNS, INDEX, TABLE STATUS, VARIABLES,
+STATUS, GRANTS, PRIVILEGES, CHARSET, COLLATION, ENGINES, WARNINGS),
+ADMIN SHOW DDL JOBS, ADMIN CHECK TABLE and CHECKSUM TABLE; SELECTs over
+information_schema (`catalog/infoschema.py`, rebuilt before the
+statement reads it); the server's prepared statements (`prepare`,
+`execute_prepared`, `close_prepared`). Autocommit point statements take
+the fast path (`plan/fastpath.py`) and never touch the coprocessor.
+
+Raise `NotInSlice`: every other statement kind (users, grants, roles,
+bindings, LOAD DATA, ...) by its kind; the clock functions and user
+locks by their names; SHOW BINDINGS, PROCESSLIST, PROFILES, PROFILE,
+SLOW and METRICS as "SHOW <kind>"; ALTER ... PARTITION as "PARTITION
+BY"; `metrics_schema` and the obs-backed information_schema tables by
+their names.
 
 Left out of the reference's statement path: the SQL-text plan cache (it
 changes no answer), slow log, digests, profiler, bindings, the
@@ -46,10 +60,12 @@ from ..catalog.schema import Catalog, ColumnInfo, FKInfo, IndexInfo, TableInfo
 from ..chunk.column import _encode_scalar
 from ..copr.client import CopClient
 from ..copr.npeval import NumpyEval, _truthy
-from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DUP_ENTRY,
-                     ER_KILL_DENIED, ER_PARSE_ERROR, ER_QUERY_INTERRUPTED,
-                     ER_UNKNOWN_SYSTEM_VARIABLE, ER_VAR_READONLY,
-                     ER_WRONG_VALUE_COUNT_ON_ROW, CodedError)
+from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DATA_INCONSISTENT,
+                     ER_DUP_ENTRY, ER_KILL_DENIED, ER_NO_SUCH_TABLE,
+                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED, ER_TABLE_EXISTS,
+                     ER_TIKV_SERVER_BUSY, ER_UNKNOWN_SYSTEM_VARIABLE,
+                     ER_VAR_READONLY, ER_WRONG_VALUE_COUNT_ON_ROW,
+                     CodedError)
 from ..errno import wrap as err_wrap
 from ..errors import NotInSlice
 from ..executor.engine import ExecContext, run_physical
@@ -83,17 +99,22 @@ _NILADIC_FUNCS = frozenset({
     "LOCALTIME", "LOCALTIMESTAMP",
 })
 
-# session functions of planes not ported yet: the clock, sequences and
-# user locks raise NotInSlice by name
+# session functions of planes not ported yet: the clock and user locks
+# raise NotInSlice by name
 _NOT_IN_SLICE_FUNCS = frozenset({
     "NOW", "CURRENT_TIMESTAMP", "SYSDATE", "LOCALTIME", "LOCALTIMESTAMP",
     "CURDATE", "CURRENT_DATE", "CURTIME", "CURRENT_TIME", "UNIX_TIMESTAMP",
-    "NEXTVAL", "LASTVAL", "SETVAL",
     "GET_LOCK", "RELEASE_LOCK", "RELEASE_ALL_LOCKS", "IS_FREE_LOCK",
     "IS_USED_LOCK",
 })
 
 _DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
+
+# SHOW kinds whose planes are not ported (bindings, the processlist,
+# the profiler, the slow log, metrics)
+_NOT_IN_SLICE_SHOW = frozenset({"BINDINGS", "PROCESSLIST", "PROFILES",
+                                "PROFILE", "SLOW", "METRICS"})
+_METRICS_SCHEMA = "metrics_schema"
 
 
 class SQLError(CodedError):
@@ -145,6 +166,8 @@ class Session:
         self._stmt_auto_id: Optional[int] = None
         self._found_rows = 0
         self._row_count = -1
+        self._seq_lastval: Optional[int] = None
+        self._is_guard = None  # held infoschema viewer lock, if any
         # last statement's attribution: stage totals ('parse',
         # 'plan_build', 'fast_plan'), exclusive wall seconds per plan
         # operator, and the engine tag of each read in call order
@@ -194,9 +217,14 @@ class Session:
         if self._pending_parse_s:
             rec.add("parse", self._pending_parse_s)
             self._pending_parse_s = 0.0
-        # warnings reset per statement, except for table-less SELECTs
-        # (SELECT @@warning_count), which read the previous statement's
-        if not (isinstance(stmt, ast.SelectStmt) and stmt.from_ is None):
+        # warnings reset per statement — except SHOW WARNINGS and
+        # table-less SELECTs (SELECT @@warning_count, SELECT 1), which
+        # MySQL defines as reading the PREVIOUS statement's list
+        preserves_warnings = (
+            (isinstance(stmt, ast.ShowStmt) and stmt.kind == "WARNINGS")
+            or (isinstance(stmt, ast.SelectStmt) and stmt.from_ is None
+                and not self._collect_table_names(stmt)))
+        if not preserves_warnings:
             self.warnings = []
         self._stmt_auto_id = None
         # arm the per-statement kill flag (KILL QUERY clears with the
@@ -218,6 +246,9 @@ class Session:
         finally:
             interrupt.install(None)
             obs.install_stage_recorder(prev_rec)
+            if self._is_guard is not None:
+                self._is_guard.release()
+                self._is_guard = None
             self.last_stages = rec.totals
             self.last_op_wall = rec.op_wall
             self.last_engines = rec.engines
@@ -285,21 +316,44 @@ class Session:
         if isinstance(stmt, ast.KillStmt):
             self._exec_kill(stmt)
             return ResultSet([], [])
+        if isinstance(stmt, ast.CreateViewStmt):
+            with self.storage.ddl_section():
+                return self._exec_create_view(stmt)
+        if isinstance(stmt, ast.DropViewStmt):
+            with self.storage.ddl_section():
+                return self._exec_drop_view(stmt)
         if isinstance(stmt, ast.CreateTableStmt):
-            return self._exec_create_table(stmt)
+            with self.storage.ddl_section():
+                return self._exec_create_table(stmt)
         if isinstance(stmt, ast.DropTableStmt):
-            return self._exec_drop_table(stmt)
+            with self.storage.ddl_section():
+                return self._exec_drop_table(stmt)
         if isinstance(stmt, ast.CreateDatabaseStmt):
-            self.catalog.create_schema(stmt.name, stmt.if_not_exists)
-            return ResultSet([], [], affected=0)
+            with self.storage.ddl_section():
+                self.catalog.create_schema(stmt.name, stmt.if_not_exists)
+                return ResultSet([], [], affected=0)
         if isinstance(stmt, ast.DropDatabaseStmt):
-            for info in self.catalog.drop_schema(stmt.name, stmt.if_exists):
-                self.storage.unregister_table(info.id)
-                self.storage.destroy_table_data(info.id)
-            return ResultSet([], [])
+            with self.storage.ddl_section():
+                for info in self.catalog.drop_schema(stmt.name,
+                                                     stmt.if_exists):
+                    self.storage.unregister_table(info.id)
+                    self.storage.destroy_table_data(info.id)
+                return ResultSet([], [])
         if isinstance(stmt, ast.TruncateTableStmt):
-            return self._exec_truncate(stmt)
+            with self.storage.ddl_section():
+                return self._exec_truncate(stmt)
+        if isinstance(stmt, ast.CreateSequenceStmt):
+            with self.storage.ddl_section():
+                return self._exec_create_sequence(stmt)
+        if isinstance(stmt, ast.DropSequenceStmt):
+            with self.storage.ddl_section():
+                return self._exec_drop_sequence(stmt)
         if isinstance(stmt, ast.UseStmt):
+            from ..catalog import infoschema as I
+            if stmt.db.lower() == I.DB_NAME:
+                I.ensure_schema(self.storage)
+            elif stmt.db.lower() == _METRICS_SCHEMA:
+                raise NotInSlice(_METRICS_SCHEMA)
             self.catalog.schema(stmt.db)  # raises if unknown
             self.current_db = stmt.db
             return ResultSet([], [])
@@ -319,10 +373,41 @@ class Session:
             return ResultSet([], [])
         if isinstance(stmt, ast.ExplainStmt):
             return self._exec_explain(stmt)
+        if isinstance(stmt, ast.ShowStmt):
+            return self._exec_show(stmt)
         if isinstance(stmt, ast.SetStmt):
             return self._exec_set(stmt)
         if isinstance(stmt, ast.AnalyzeTableStmt):
             return self._exec_analyze(stmt)
+        if isinstance(stmt, ast.AlterTableStmt):
+            return self._exec_alter(stmt)
+        if isinstance(stmt, ast.CreateIndexStmt):
+            return self._exec_ddl_job("add_index", stmt.table, {
+                "name": stmt.name, "columns": stmt.columns,
+                "unique": stmt.unique})
+        if isinstance(stmt, ast.DropIndexStmt):
+            return self._exec_ddl_job("drop_index", stmt.table,
+                                      {"name": stmt.name})
+        if isinstance(stmt, ast.RenameTableStmt):
+            for old, new in stmt.renames:
+                self._exec_ddl_job("rename_table", old, {
+                    "new_name": new.name,
+                    "new_db": new.db or old.db or self.current_db})
+            return ResultSet([], [])
+        if isinstance(stmt, ast.ChecksumTableStmt):
+            return self._run_in_txn(lambda: self._exec_checksum(stmt))
+        if isinstance(stmt, ast.AdminStmt):
+            if stmt.kind == "SHOW_DDL_JOBS":
+                jobs = (list(self.storage.ddl_jobs)
+                        + list(reversed(self.storage.ddl_history)))
+                return ResultSet(
+                    ["JOB_ID", "DB_NAME", "TABLE_NAME", "JOB_TYPE",
+                     "SCHEMA_STATE", "STATE", "ERROR"],
+                    [j.row() for j in jobs[:32]])
+            if stmt.kind == "CHECK_TABLE":
+                return self._run_in_txn(
+                    lambda: self._exec_admin_check(stmt))
+            raise SQLError(f"unsupported ADMIN {stmt.kind}")
         raise NotInSlice(type(stmt).__name__)
 
     # ==================== system / user variables ====================
@@ -437,8 +522,8 @@ class Session:
 
     def _session_func_value(self, n: ast.FuncCall) -> Any:
         """Session-dependent function -> value at statement-bind time
-        (reference: expression/builtin_info.go). The clock, sequences and
-        user locks are planes not ported yet."""
+        (reference: expression/builtin_info.go). The clock and user locks
+        are planes not ported yet."""
         name = n.name
         if name in _NOT_IN_SLICE_FUNCS:
             raise NotInSlice(name)
@@ -450,6 +535,25 @@ class Session:
             return f"{self.user or 'root'}@%"
         if name == "CONNECTION_ID":
             return self.conn_id or 0
+        if name == "NEXTVAL":
+            if len(n.args) != 1:
+                raise SQLError("NEXTVAL takes a sequence name")
+            seq = self._sequence_for(n.args[0])
+            try:
+                v = self.storage.sequence_next(seq)
+            except ValueError as e:
+                raise err_wrap(SQLError, e) from None
+            self._seq_lastval = v
+            return v
+        if name == "LASTVAL":
+            return self._seq_lastval
+        if name == "SETVAL":
+            if len(n.args) != 2 or not isinstance(n.args[1], ast.Literal):
+                raise SQLError("SETVAL takes (sequence, constant)")
+            seq = self._sequence_for(n.args[0])
+            v = int(n.args[1].value)
+            self.storage.sequence_set(seq, v)
+            return v
         if name == "LAST_INSERT_ID":
             return int(self.vars.get("last_insert_id", 0) or 0)
         if name == "FOUND_ROWS":
@@ -460,7 +564,8 @@ class Session:
             return ", ".join(f"`{r}`@`%`"
                              for r in sorted(self.active_roles)) or "NONE"
         if name == "TIDB_IS_DDL_OWNER":
-            return 1  # one process: it owns DDL
+            owner = self.storage.ddl_owner
+            return int(bool(getattr(owner, "is_owner", lambda: True)()))
         raise SQLError(f"unsupported function {name}")
 
     @staticmethod
@@ -490,8 +595,104 @@ class Session:
         if has_vars is None:
             has_vars = self._has_var_reads(stmt)
         if has_vars:
+            self._guard_per_row_sequences(stmt)
             return self._bind_vars(copy.deepcopy(stmt))
         return stmt
+
+    def _guard_per_row_sequences(self, stmt) -> None:
+        """NEXTVAL binds once per statement, so any per-row context
+        would hand every row the same value — reject loudly instead of
+        silently duplicating ids (VALUES lists are fine: each row's
+        FuncCall node binds separately)."""
+        def contains_seq(node) -> bool:
+            hit = False
+
+            def v(n):
+                nonlocal hit
+                if isinstance(n, ast.FuncCall) and \
+                        n.name in ("NEXTVAL", "SETVAL"):
+                    hit = True
+                    return False
+                return None
+
+            ast.walk(node, v)
+            return hit
+
+        def visit(n):
+            if isinstance(n, ast.SelectStmt) and n.from_ is not None \
+                    and contains_seq(n):
+                raise SQLError(
+                    "NEXTVAL/SETVAL in per-row contexts (SELECT with "
+                    "FROM, INSERT ... SELECT) is unsupported")
+            if isinstance(n, ast.UpdateStmt) and (
+                    any(contains_seq(a.value) for a in n.assignments)
+                    or (n.where is not None and contains_seq(n.where))):
+                raise SQLError(
+                    "NEXTVAL/SETVAL in UPDATE statements is "
+                    "unsupported")
+            if isinstance(n, ast.DeleteStmt) and n.where is not None \
+                    and contains_seq(n.where):
+                raise SQLError(
+                    "NEXTVAL/SETVAL in DELETE is unsupported")
+            if isinstance(n, ast.InsertStmt) and any(
+                    contains_seq(a.value)
+                    for a in getattr(n, "on_dup", []) or []):
+                raise SQLError(
+                    "NEXTVAL/SETVAL in ON DUPLICATE KEY UPDATE is "
+                    "unsupported")
+            return None
+
+        ast.walk(stmt, visit)
+
+    @staticmethod
+    def _collect_table_names(stmt) -> list[ast.TableName]:
+        out: list[ast.TableName] = []
+
+        def visit(n):
+            if isinstance(n, ast.TableName):
+                out.append(n)
+                return False
+            return None
+
+        ast.walk(stmt, visit)
+        return out
+
+    # ==================== information_schema ====================
+    # the served table whose rows depend on the reader (the reference's
+    # processlist, profiling and cluster_processlist are not served)
+    _VIEWER_SENSITIVE_IS = frozenset({"user_privileges"})
+
+    def _refresh_infoschema(self, stmt) -> None:
+        """Rebuild any information_schema tables this statement touches
+        from the live catalog (reference: infoschema memtables are served
+        from the InfoSchema snapshot, executor/infoschema_reader.go).
+
+        Viewer-sensitive tables (USER_PRIVILEGES scope) materialize
+        per-viewer content into the SHARED store, so refresh+scan must be
+        exclusive: the statement holds storage.infoschema_lock until it
+        finishes (_execute_observed releases)."""
+        from ..catalog import infoschema as I
+
+        names: set[str] = set()
+        for tn in self._collect_table_names(stmt):
+            db = (tn.db or self.current_db).lower()
+            if db == I.DB_NAME:
+                names.add(tn.name.lower())
+            elif db == _METRICS_SCHEMA:
+                raise NotInSlice(_METRICS_SCHEMA)
+        if not names:
+            return
+        if names & self._VIEWER_SENSITIVE_IS and self._is_guard is None:
+            # bounded: a statement stuck on row locks while holding this
+            # would otherwise stall every sibling's read for its whole
+            # duration
+            lock = self.storage.infoschema_lock
+            if not lock.acquire(timeout=10.0):
+                raise SQLError(
+                    "information_schema busy; try again",
+                    errno=ER_TIKV_SERVER_BUSY)
+            self._is_guard = lock
+        I.refresh(self.storage, names, viewer=self)
 
     # ==================== ANALYZE ====================
     def _exec_analyze(self, stmt: ast.AnalyzeTableStmt) -> ResultSet:
@@ -605,6 +806,7 @@ class Session:
     def _exec_select(self, stmt: ast.SelectStmt) -> ResultSet:
         has_vars = self._has_var_reads(stmt)
         stmt = self._maybe_bind_vars(stmt, has_vars)
+        self._refresh_infoschema(stmt)
         try:
             if getattr(stmt, "for_update", False):
                 self._lock_for_update(stmt)
@@ -1332,6 +1534,336 @@ class Session:
                 self.storage.destroy_table_data(info.id)
         return ResultSet([], [])
 
+    # ==================== online DDL ====================
+    def _ddl(self):
+        from ..ddl import DDL
+
+        return DDL(self.storage, self.catalog)
+
+    def _exec_create_view(self, stmt: ast.CreateViewStmt) -> ResultSet:
+        from ..catalog.schema import ViewInfo
+        db = stmt.db or self.current_db
+        schema = self.catalog.schema(db)
+        key = stmt.name.lower()
+        if not hasattr(schema, "views"):
+            schema.views = {}
+        if key in schema.tables:
+            raise SQLError(f"Table '{stmt.name}' already exists")
+        if key in schema.views and not stmt.or_replace:
+            raise SQLError(f"Table '{stmt.name}' already exists")
+        # validate the stored SELECT against the current catalog
+        self._plan_view_select(db, stmt.select_sql, stmt.columns)
+        schema.views[key] = ViewInfo(
+            stmt.name, stmt.select_sql, tuple(stmt.columns),
+            definer=f"{self.user or 'root'}@%")
+        self.catalog.bump_version()
+        return ResultSet([], [])
+
+    def _exec_drop_view(self, stmt: ast.DropViewStmt) -> ResultSet:
+        db = stmt.db or self.current_db
+        schema = self.catalog.schema(db)
+        views = getattr(schema, "views", {})
+        if stmt.name.lower() not in views:
+            if stmt.if_exists:
+                return ResultSet([], [])
+            raise SQLError(f"Unknown view '{stmt.name}'")
+        del views[stmt.name.lower()]
+        self.catalog.bump_version()
+        return ResultSet([], [])
+
+    def _plan_view_select(self, db: str, sql: str, columns) -> None:
+        """Validate a view definition by building its plan now (the
+        reference re-parses/validates at CreateView, ddl/ddl_api.go)."""
+        try:
+            stmts = parse_sql(sql)
+            if len(stmts) != 1 or not isinstance(
+                    stmts[0], (ast.SelectStmt, ast.SetOpStmt)):
+                raise SQLError("view definition must be one SELECT")
+            plan = PlanBuilder(self.catalog, db).build_select(stmts[0])
+        except PlanError as e:
+            raise err_wrap(SQLError, e) from None
+        if columns and len(columns) != len(plan.schema.fields):
+            raise SQLError("view column list length mismatch")
+
+    def _exec_ddl_job(self, kind: str, tn: ast.TableName,
+                      args: dict) -> ResultSet:
+        from ..ddl import DDLError
+
+        self._commit_implicit()  # DDL implicitly commits (MySQL semantics)
+        # no ddl_section here: run_job takes the owner lock itself
+        info, _ = self._table_for(tn)
+        ddl = self._ddl()
+        job = ddl.submit(kind, tn.db or self.current_db, info, args)
+        try:
+            ddl.run_job(job)
+        except DDLError as e:
+            raise err_wrap(SQLError, e) from None
+        return ResultSet([], [])
+
+    def _exec_alter(self, stmt: ast.AlterTableStmt) -> ResultSet:
+        for spec in stmt.specs:
+            if spec.op in ("drop_partition", "truncate_partition"):
+                raise NotInSlice("PARTITION BY")
+            if spec.op == "add_index":
+                idef = spec.index
+                if idef.primary:
+                    raise SQLError("ADD PRIMARY KEY after create is "
+                                   "unsupported")
+                name = idef.name or f"idx_{'_'.join(idef.columns)}"
+                self._exec_ddl_job("add_index", stmt.table, {
+                    "name": name, "columns": idef.columns,
+                    "unique": idef.unique})
+            elif spec.op == "drop_index":
+                self._exec_ddl_job("drop_index", stmt.table,
+                                   {"name": spec.name})
+            elif spec.op == "add_column":
+                cd = spec.column
+                ft = _coldef_ftype(cd)
+                default = None
+                if cd.default is not None:
+                    c = _literal_const(cd.default)
+                    default = self._decode_default(c, ft)
+                self._exec_ddl_job("add_column", stmt.table, {
+                    "name": cd.name, "ftype": ft, "default": default,
+                    "phys_default": self._phys_value(default, ft)})
+            elif spec.op == "drop_column":
+                self._exec_ddl_job("drop_column", stmt.table,
+                                   {"name": spec.name})
+            elif spec.op == "modify_column":
+                cd = spec.column
+                self._exec_ddl_job("modify_column", stmt.table,
+                                   {"name": cd.name,
+                                    "ftype": _coldef_ftype(cd)})
+            elif spec.op == "rename":
+                self._exec_ddl_job("rename_table", stmt.table, {
+                    "new_name": spec.name,
+                    "new_db": stmt.table.db or self.current_db})
+                stmt = ast.AlterTableStmt(
+                    ast.TableName(spec.name, stmt.table.db), [])
+            else:
+                raise SQLError(f"unsupported ALTER action {spec.op}")
+        return ResultSet([], [])
+
+    def _phys_value(self, v, ft: FieldType):
+        """Host default -> physical encoding (scaled decimal, day number)."""
+        if v is None:
+            return None
+        if ft.is_string:
+            return str(v)
+        return _encode_scalar(ft, v, None)
+
+    # ==================== sequences ====================
+    def _exec_create_sequence(self, stmt: ast.CreateSequenceStmt
+                              ) -> ResultSet:
+        from ..catalog.schema import SequenceInfo
+
+        db = stmt.name.db or self.current_db
+        schema = self.catalog.schema(db)
+        seqs = getattr(schema, "sequences", None)
+        if seqs is None:  # catalogs pickled before the field existed
+            schema.sequences = seqs = {}
+        key = stmt.name.name.lower()
+        if key in seqs or self.catalog.try_table(db, stmt.name.name):
+            if stmt.if_not_exists:
+                return ResultSet([], [])
+            raise SQLError(f"table exists: {db}.{stmt.name.name}",
+                           errno=ER_TABLE_EXISTS)
+        seqs[key] = SequenceInfo(
+            id=self.catalog.alloc_id(), name=stmt.name.name,
+            start=stmt.start, increment=stmt.increment,
+            min_value=stmt.min_value, max_value=stmt.max_value,
+            cycle=stmt.cycle, next_value=stmt.start)
+        self.catalog.bump_version()
+        return ResultSet([], [])
+
+    def _exec_drop_sequence(self, stmt: ast.DropSequenceStmt) -> ResultSet:
+        for tn in stmt.names:
+            db = tn.db or self.current_db
+            schema = self.catalog.schema(db)
+            seqs = getattr(schema, "sequences", {}) or {}
+            if tn.name.lower() not in seqs:
+                if stmt.if_exists:
+                    continue
+                raise SQLError(f"unknown table: {db}.{tn.name}",
+                               errno=ER_NO_SUCH_TABLE)
+            del seqs[tn.name.lower()]
+        self.catalog.bump_version()
+        return ResultSet([], [])
+
+    def _sequence_for(self, node):
+        if not isinstance(node, ast.ColumnRef):
+            raise SQLError("sequence functions take a sequence name")
+        db = node.table or self.current_db
+        schema = self.catalog.schema(db)
+        seq = (getattr(schema, "sequences", {}) or {}).get(
+            node.name.lower())
+        if seq is None:
+            raise SQLError(f"unknown sequence: {db}.{node.name}")
+        return seq
+
+    # ==================== CHECKSUM / ADMIN CHECK ====================
+    CHECKSUM_CHUNK = 1 << 16
+
+    def _exec_checksum(self, stmt: ast.ChecksumTableStmt) -> ResultSet:
+        """CHECKSUM TABLE: deterministic crc32 over the visible rows in
+        HANDLE order (two replicas with identical content but different
+        compaction state must agree), column-major: handles, then per
+        column the validity bitmap followed by the cell payloads —
+        fixed-width cells with NULLs zeroed, strings length-prefixed
+        (("ab","c") != ("a","bc")) with only valid cells contributing;
+        in chunks of rows, with the KILL flag polled between them
+        (reference: executor/checksum.go; the polynomial differs — the
+        value is stable across servers and restarts)."""
+        import zlib
+
+        step = self.CHECKSUM_CHUNK
+        txn = self._ensure_txn()
+        rows = []
+        for tn in stmt.tables:
+            info, _ = self._table_for(tn)
+            crc = 0
+            snap = txn.snapshot(info.id)
+            n = snap.num_visible_rows
+            handles = snap.handles()
+            order = np.argsort(handles, kind="stable")
+            hs = np.ascontiguousarray(
+                handles[order].astype("<i8", copy=False))
+            for lo in range(0, n, step):
+                interrupt.check()
+                crc = zlib.crc32(hs[lo:lo + step].tobytes(), crc)
+            for off in range(info.num_columns):
+                col = snap.column(off)
+                data = col.data[order]
+                valid = col.validity[order].astype(bool, copy=False)
+                d = col.dictionary
+                is_str = d is not None and len(d) and \
+                    info.columns[off].ftype.is_string
+                if is_str:
+                    # one length-prefixed encode per DICTIONARY entry,
+                    # not per cell
+                    blobs = [len(b).to_bytes(4, "little") + b
+                             for b in (s.encode() for s in d.values)]
+                for lo in range(0, n, step):
+                    interrupt.check()
+                    dv = data[lo:lo + step]
+                    vv = valid[lo:lo + step]
+                    crc = zlib.crc32(np.packbits(vv).tobytes(), crc)
+                    if is_str:
+                        payload = b"".join(
+                            map(blobs.__getitem__,
+                                dv[vv].astype(np.int64).tolist()))
+                        crc = zlib.crc32(payload, crc)
+                    elif dv.dtype.kind in "iub":
+                        ints = np.where(
+                            vv, dv.astype("<i8", copy=False), np.int64(0))
+                        crc = zlib.crc32(
+                            np.ascontiguousarray(ints).tobytes(), crc)
+                    else:
+                        f = np.array(dv, copy=True)
+                        f[~vv] = 0
+                        crc = zlib.crc32(
+                            np.ascontiguousarray(f).tobytes(), crc)
+            crc = zlib.crc32(str(n).encode(), crc)
+            db = tn.db or self.current_db
+            rows.append((f"{db}.{info.name}", crc & 0xFFFFFFFF))
+        return ResultSet(["Table", "Checksum"], rows)
+
+    def _exec_admin_check(self, stmt: ast.AdminStmt) -> ResultSet:
+        """ADMIN CHECK TABLE: verify storage/index invariants per table
+        (reference: executor/admin.go CheckTable). An index here is a sort
+        order, with no per-row index KV to drift, so the checked
+        invariants are the ones this storage can violate: epoch
+        column/validity shapes, handle uniqueness, cached index orders
+        actually sorting their epoch, unique-key duplicates among visible
+        rows."""
+        for tn in stmt.tables:
+            info, store = self._table_for(tn)
+            self._admin_check_store(info, store)
+        return ResultSet([], [])
+
+    def _admin_check_store(self, info: TableInfo, store: TableStore) -> None:
+        from ..store.index import epoch_index_order
+
+        def fail(what: str) -> None:
+            raise SQLError(
+                f"admin check table {info.name} failed: {what}",
+                errno=ER_DATA_INCONSISTENT)
+
+        txn = self._ensure_txn()
+        snap = txn.snapshot(info.id)
+        epoch = snap.epoch
+        n = epoch.num_rows
+        for ci in range(info.num_columns):
+            if len(epoch.columns[ci]) != n:
+                fail(f"column {info.columns[ci].name} has "
+                     f"{len(epoch.columns[ci])} rows, epoch has {n}")
+            v = epoch.valids[ci]
+            if v is not None and len(v) != n:
+                fail(f"validity of {info.columns[ci].name} has {len(v)} "
+                     f"rows, epoch has {n}")
+        if len(np.unique(epoch.handles)) != n:
+            fail("duplicate handles in epoch")
+        for idx in info.indices:
+            if not idx.visible:
+                continue
+            order = epoch_index_order(store, epoch, idx)
+            if len(order) != n or (
+                    n and not np.array_equal(np.sort(order),
+                                             np.arange(n))):
+                fail(f"index {idx.name}: cached order is not a "
+                     "permutation of the epoch")
+            # key columns must be lexicographically non-decreasing along
+            # the permutation (NULLs-first per level)
+            if n:
+                prev_eq = np.ones(n - 1, bool)
+                for off in idx.col_offsets:
+                    data = epoch.columns[off][order]
+                    valid = epoch.valids[off]
+                    vv = valid[order] if valid is not None else \
+                        np.ones(n, bool)
+                    lvl = np.stack([vv.astype(np.int64),
+                                    np.where(vv, data, 0)], axis=1)
+                    cmp_lt = (lvl[:-1, 0] < lvl[1:, 0]) | (
+                        (lvl[:-1, 0] == lvl[1:, 0])
+                        & (lvl[:-1, 1] < lvl[1:, 1]))
+                    cmp_eq = (lvl[:-1] == lvl[1:]).all(axis=1)
+                    if not np.all(~prev_eq | cmp_lt | cmp_eq):
+                        fail(f"index {idx.name}: epoch not sorted by key")
+                    prev_eq &= cmp_eq
+            if idx.unique:
+                self._admin_check_unique(snap, idx, fail)
+
+    def _admin_check_unique(self, snap, idx, fail) -> None:
+        """No duplicate fully-non-NULL unique-key tuples among rows
+        visible at this snapshot (epoch ∩ base_visible + overlay)."""
+        keys = []
+        valid_all = None
+        vis = snap.base_visible
+        for off in idx.col_offsets:
+            base = snap.epoch.columns[off][vis]
+            ov = snap.overlay_columns[off]
+            col = np.concatenate([base, ov])
+            if np.issubdtype(col.dtype, np.floating):
+                # dedup on bit patterns, not truncation
+                from ..copr.analyze import float_bits_key
+                col = float_bits_key(col)
+            else:
+                col = col.astype(np.int64)
+            bvl = snap.epoch.valids[off]
+            bv = bvl[vis] if bvl is not None else np.ones(len(base), bool)
+            ovl = snap.overlay_valids[off]
+            o = ovl if ovl is not None else np.ones(len(ov), bool)
+            vcat = np.concatenate([bv, o])
+            keys.append(col)
+            valid_all = vcat if valid_all is None else (valid_all & vcat)
+        if not keys or valid_all is None or not valid_all.any():
+            return
+        stacked = np.stack(keys, axis=1)[valid_all]
+        uniq = np.unique(stacked, axis=0)
+        if len(uniq) != len(stacked):
+            fail(f"unique index {idx.name}: duplicate key values among "
+                 "visible rows")
+
     # ==================== EXPLAIN ====================
     def _exec_explain(self, stmt: ast.ExplainStmt) -> ResultSet:
         if not isinstance(stmt.target, (ast.SelectStmt, ast.SetOpStmt)):
@@ -1341,6 +1873,184 @@ class Session:
         plan = self._plan(stmt.target)
         return ResultSet(["plan"], [(line,) for line in explain_plan(plan)])
 
+    def _exec_show(self, stmt: ast.ShowStmt) -> ResultSet:
+        if stmt.kind in _NOT_IN_SLICE_SHOW:
+            raise NotInSlice(f"SHOW {stmt.kind}")
+        if stmt.kind == "TABLES":
+            schema = self.catalog.schema(self.current_db)
+            names = sorted(t.name for t in schema.tables.values()
+                           if _like_match(stmt.pattern, t.name))
+            return ResultSet([f"Tables_in_{self.current_db}"],
+                             [(n,) for n in names])
+        if stmt.kind == "DATABASES":
+            return ResultSet(
+                ["Database"],
+                [(s.name,) for s in sorted(self.catalog.schemas.values(),
+                                           key=lambda s: s.name)])
+        if stmt.kind == "CREATE_TABLE":
+            assert stmt.target is not None
+            info, _ = self._table_for(stmt.target)
+            lines = [
+                f"`{c.name}` {c.ftype!r}"
+                f"{'' if c.ftype.nullable else ' NOT NULL'}"
+                for c in info.columns
+            ]
+            for fk in getattr(info, "foreign_keys", []) or []:
+                cols_s = ", ".join(f"`{info.columns[o].name}`"
+                                   for o in fk.col_offsets)
+                refs = ", ".join(f"`{c}`" for c in fk.ref_cols)
+                lines.append(
+                    f"CONSTRAINT `{fk.name}` FOREIGN KEY ({cols_s}) "
+                    f"REFERENCES `{fk.ref_table}` ({refs})"
+                    + (f" ON DELETE {fk.on_delete}"
+                       if fk.on_delete != "RESTRICT" else "")
+                    + (f" ON UPDATE {fk.on_update}"
+                       if fk.on_update != "RESTRICT" else ""))
+            body = ",\n  ".join(lines)
+            ddl = f"CREATE TABLE `{info.name}` (\n  {body}\n)"
+            return ResultSet(["Table", "Create Table"], [(info.name, ddl)])
+        if stmt.kind == "VARIABLES":
+            vals = dict(self.storage.sysvars.all_globals())
+            if stmt.scope != "GLOBAL":
+                vals.update({k: v for k, v in self.vars.items()})
+            rows = [(k, "" if v is None else str(v))
+                    for k, v in sorted(vals.items())
+                    if _like_match(stmt.pattern, k)]
+            return ResultSet(["Variable_name", "Value"], rows)
+        if stmt.kind == "STATUS":
+            rows = [("Uptime", "0"), ("Threads_connected", "1"),
+                    ("Questions", str(self._stmt_seq)),
+                    ("Ssl_cipher", "")]
+            return ResultSet(["Variable_name", "Value"],
+                             [r for r in rows
+                              if _like_match(stmt.pattern, r[0])])
+        if stmt.kind == "GRANTS":
+            target = stmt.pattern or self.user or "root"
+            rows = []
+            for p, db, tbl in self.storage.privileges.grants_for(target):
+                obj = "*.*" if db == "*" and tbl == "*" else f"{db}.{tbl}"
+                rows.append((f"GRANT {p} ON {obj} TO '{target}'@'%'",))
+            by_scope: dict[tuple, list[str]] = {}
+            for p, db, tbl, col in \
+                    self.storage.privileges.col_grants_for(target):
+                by_scope.setdefault((p, db, tbl), []).append(col)
+            for (p, db, tbl), cols in sorted(by_scope.items()):
+                rows.append((
+                    f"GRANT {p} ({', '.join(cols)}) ON {db}.{tbl} "
+                    f"TO '{target}'@'%'",))
+            roles = sorted(self.storage.privileges.roles_of(target))
+            if roles:
+                rs = ", ".join(f"'{r}'@'%'" for r in roles)
+                rows.append((f"GRANT {rs} TO '{target}'@'%'",))
+            return ResultSet([f"Grants for {target}@%"], rows)
+        if stmt.kind == "TABLE_STATUS":
+            schema = self.catalog.schema(self.current_db)
+            rows = []
+            for t in sorted(schema.tables.values(), key=lambda t: t.name):
+                if not _like_match(stmt.pattern, t.name):
+                    continue
+                from ..catalog.infoschema import _store_rows
+                nrows = _store_rows(self.storage, t.id)
+                rows.append((t.name, "InnoDB", 10, "Fixed", nrows, 0,
+                             0, 0, 0, 0, None, None, None, None,
+                             "utf8mb4_bin", None, "", ""))
+            for v in sorted(getattr(schema, "views", {}).values(),
+                            key=lambda v: v.name):
+                if _like_match(stmt.pattern, v.name):
+                    rows.append((v.name, None, None, None, None, None,
+                                 None, None, None, None, None, None,
+                                 None, None, None, None, None, "VIEW"))
+            return ResultSet(
+                ["Name", "Engine", "Version", "Row_format", "Rows",
+                 "Avg_row_length", "Data_length", "Max_data_length",
+                 "Index_length", "Data_free", "Auto_increment",
+                 "Create_time", "Update_time", "Check_time", "Collation",
+                 "Checksum", "Create_options", "Comment"], rows)
+        if stmt.kind == "CHARSET":
+            rows = [("utf8mb4", "UTF-8 Unicode", "utf8mb4_bin", 4),
+                    ("binary", "Binary pseudo charset", "binary", 1),
+                    ("utf8", "UTF-8 Unicode", "utf8_bin", 3)]
+            rows = [r for r in rows if _like_match(stmt.pattern, r[0])]
+            return ResultSet(
+                ["Charset", "Description", "Default collation",
+                 "Maxlen"], rows)
+        if stmt.kind == "PRIVILEGES":
+            from .privileges import PRIVS
+            return ResultSet(
+                ["Privilege", "Context", "Comment"],
+                [(p.title(), "Tables,Databases,Global", "")
+                 for p in sorted(PRIVS - {"ALL", "USAGE"})])
+        if stmt.kind == "CREATE_DATABASE":
+            name = stmt.pattern or ""
+            try:
+                self.catalog.schema(name)  # raises if unknown
+            except KeyError as e:
+                raise err_wrap(SQLError, e) from None
+            return ResultSet(
+                ["Database", "Create Database"],
+                [(name, f"CREATE DATABASE `{name}` /*!40100 DEFAULT "
+                  f"CHARACTER SET utf8mb4 */")])
+        if stmt.kind == "CREATE_VIEW":
+            assert stmt.target is not None
+            db = stmt.target.db or self.current_db
+            schema = self.catalog.schema(db)
+            v = getattr(schema, "views", {}).get(stmt.target.name.lower())
+            if v is None:
+                raise SQLError(f"Unknown view '{stmt.target.name}'",
+                               errno=ER_NO_SUCH_TABLE)
+            return ResultSet(
+                ["View", "Create View", "character_set_client",
+                 "collation_connection"],
+                [(v.name,
+                  f"CREATE VIEW `{v.name}` AS {v.sql}",
+                  "utf8mb4", "utf8mb4_bin")])
+        if stmt.kind == "WARNINGS":
+            return ResultSet(["Level", "Code", "Message"],
+                             [tuple(w) for w in self.warnings])
+        if stmt.kind == "ENGINES":
+            return ResultSet(
+                ["Engine", "Support", "Comment", "Transactions", "XA",
+                 "Savepoints"],
+                [("InnoDB", "DEFAULT",
+                  "TiTPU columnar engine (InnoDB-compatible surface)",
+                  "YES", "NO", "NO")])
+        if stmt.kind == "COLLATION":
+            return ResultSet(
+                ["Collation", "Charset", "Id", "Default", "Compiled",
+                 "Sortlen"],
+                [("utf8mb4_bin", "utf8mb4", 46, "Yes", "Yes", 1)])
+        if stmt.kind == "COLUMNS":
+            assert stmt.target is not None
+            info, _ = self._table_for(stmt.target)
+            rows = []
+            for c in info.columns:
+                key = "PRI" if c.is_primary else ""
+                rows.append((c.name, repr(c.ftype),
+                             "YES" if c.nullable else "NO", key,
+                             None if c.default is None else str(c.default),
+                             "auto_increment" if c.auto_increment else ""))
+            return ResultSet(
+                ["Field", "Type", "Null", "Key", "Default", "Extra"],
+                [r for r in rows if _like_match(stmt.pattern, r[0])])
+        if stmt.kind == "INDEX":
+            assert stmt.target is not None
+            info, _ = self._table_for(stmt.target)
+            rows = []
+            for ix in info.indices:
+                if not ix.visible:
+                    continue
+                for seq, off in enumerate(ix.col_offsets):
+                    rows.append((
+                        info.name, 0 if ix.unique or ix.primary else 1,
+                        ix.name, seq + 1, info.columns[off].name, "A",
+                        0, None, None, "", "BTREE", "", ""))
+            return ResultSet(
+                ["Table", "Non_unique", "Key_name", "Seq_in_index",
+                 "Column_name", "Collation", "Cardinality", "Sub_part",
+                 "Packed", "Null", "Index_type", "Comment",
+                 "Index_comment"], rows)
+        raise SQLError(f"unsupported SHOW {stmt.kind}")
+
     def _table_for(self, tn: ast.TableName) -> tuple[TableInfo, TableStore]:
         db = tn.db or self.current_db
         try:
@@ -1348,6 +2058,27 @@ class Session:
         except KeyError as e:
             raise err_wrap(SQLError, e) from None
         return info, self.storage.table_store(info.id)
+
+
+def _like_match(pattern: Optional[str], s: str) -> bool:
+    """MySQL LIKE over SHOW output (case-insensitive, %, _ and \\-escapes;
+    same conversion the coprocessor's LIKE kernel uses)."""
+    if pattern is None:
+        return True
+    import re
+
+    from ..copr.client import _like_to_regex
+
+    return re.fullmatch(_like_to_regex(pattern), s,
+                        re.IGNORECASE) is not None
+
+
+def _coldef_ftype(cd) -> FieldType:
+    """Column-definition type with NOT NULL applied."""
+    ft = cd.ftype
+    if cd.not_null:
+        return FieldType(ft.kind, ft.flen, ft.scale, nullable=False)
+    return ft
 
 
 class _UniqueChecker:

@@ -11,13 +11,22 @@ says when an acknowledged commit reaches the disk: 'commit' fsyncs before
 the acknowledgement (one group fsync for every committer that rendezvous
 on it), 'interval' at most once per `sync_interval_ms`, 'off' never.
 
+The DDL job queue lives here (`ddl_jobs`, `ddl_history`, persisted as
+`ddl:jobs` in the meta keyspace with each job's reorg checkpoint), with
+its owner (`ddl_owner`: `owner.owner_manager`, an flock on a durable
+directory): `_recover` resumes a pending job from its checkpoint.
+`ddl_section` serializes the direct catalog DDL (CREATE/DROP TABLE and
+friends) on the same owner. Sequences allocate from cached cursors with a
+persisted high-water (`sequence_next`, `sequence_set`), flushed exactly at
+a checkpoint.
+
 Left out, with the planes they belong to: the multi-process and RPC
 planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
-coordinator, `refresh`), the resumption of pending DDL jobs (the port
-creates none, and `_recover` raises `NotInSlice("DDL job")` on one),
-sequences, user locks, bindings, the maintenance daemon and the
-observability planes beyond the group-commit metrics (events, history,
-heat). Partitioned tables raise `NotInSlice("partitioned table")`.
+coordinator, `refresh`, the remote owner), user locks, bindings, the
+maintenance daemon and its GC owner, the lock-order checker around
+`infoschema_lock`, and the observability planes beyond the group-commit
+metrics (events, history, heat). Partitioned tables raise
+`NotInSlice("partitioned table")`.
 """
 
 from __future__ import annotations
@@ -145,6 +154,22 @@ class Storage:
         self.sysvars = SysVarManager(self)
         # grant tables (mysql.user analog) — same persistence plane
         self.privileges = PrivilegeManager(self)
+        # viewer-sensitive information_schema refresh+scan exclusion
+        # (Session._refresh_infoschema holds this for the statement)
+        self.infoschema_lock = threading.RLock()
+        # DDL job queue + history (the meta-KV DDLJobList analog,
+        # reference meta/meta.go:571) — lives on storage so a replacement
+        # worker resumes pending jobs with their reorg checkpoints
+        self.ddl_jobs: list = []
+        self.ddl_history: list = []
+        # owner election: DDL jobs run on the owner only (the mock for an
+        # in-memory store, an flock for processes sharing this directory)
+        from ..owner import owner_manager
+        self.ddl_owner = owner_manager(path, "ddl")
+        # sequence cursors: values handed out, ahead of the persisted
+        # high-water only by the cache batch
+        self._seq_cursors: dict[int, int] = {}
+        self._seq_lock = threading.Lock()
         self._commit_lock = threading.RLock()
         # seqlock generation for snapshot/fold consistency: odd while a
         # commit fold is in flight inside _commit_lock, even when
@@ -215,9 +240,18 @@ class Storage:
         return out
 
     def _fold_row(self, store: TableStore, values: list) -> tuple:
-        """KV value -> physical row (inverse of _kv_row). (The reference
-        also pads rows written before an ADD COLUMN; the port has no
-        ALTER TABLE, so every row has the table's arity.)"""
+        """KV value -> physical row (inverse of _kv_row). Rows written
+        before an ADD COLUMN carry the old arity: pad with the new
+        columns' defaults (the instant-add-column read path; reference:
+        rows keep origin version, defaults fill at decode,
+        table/tables/tables.go DecodeRawRowData)."""
+        cols = store.table.columns
+        if len(values) < len(cols):
+            from ..ddl.ddl import _phys_default
+            values = list(values) + [
+                None if c.default is None
+                else _phys_default(c.ftype, c.default)
+                for c in cols[len(values):]]
         out = []
         for v, d in zip(values, store.dictionaries):
             if v is None:
@@ -287,11 +321,19 @@ class Storage:
         })
         self.put_meta(b"catalog", payload)
 
+    def persist_ddl_jobs(self) -> None:
+        """Pending DDL job queue (with reorg checkpoints) into meta-KV so a
+        restart resumes interrupted jobs (reference: DDLJobList,
+        meta/meta.go:571 + resumable reorg handles, ddl/reorg.go:263)."""
+        if self.path is None:
+            return
+        self.put_meta(b"ddl:jobs", pickle.dumps(self.ddl_jobs))
+
     def _on_epoch_changed(self, store: TableStore, required: bool) -> None:
-        """required=True (bulk load): the epoch holds data the KV truth
-        cannot rebuild — persist now. required=False (compaction): folded
-        deltas are still in KV, so just mark dirty and let checkpoint()
-        write the snapshot off the commit path."""
+        """required=True (bulk load / DDL rewrite): the epoch holds data
+        the KV truth cannot rebuild — persist now. required=False
+        (compaction): folded deltas are still in KV, so just mark dirty
+        and let checkpoint() write the snapshot off the commit path."""
         if required:
             self._persist_epoch(store)
             store.epoch_dirty = False
@@ -385,16 +427,12 @@ class Storage:
 
     def _recover(self) -> None:
         """Bootstrap from the reopened KV + epoch snapshots: catalog, table
-        stores, committed rows newer than each epoch's fold, stats.
-        Orphaned percolator locks are resolved first (the restarted
+        stores, committed rows newer than each epoch's fold, stats, pending
+        DDL. Orphaned percolator locks are resolved first (the restarted
         process has no live transactions)."""
         raw = self.get_meta(b"catalog")
         if raw is None:
             return  # fresh directory
-        jobs = self.get_meta(b"ddl:jobs")
-        if jobs and jobs != pickle.dumps([]):
-            # a pending DDL job: the port has no DDL job queue to resume it
-            raise NotInSlice("DDL job")
         self._resolve_orphans()
         state = pickle.loads(raw)
         self.catalog.schemas = state["schemas"]
@@ -421,6 +459,22 @@ class Storage:
                 for commit_ts, handle, row in folds:
                     store.apply_commit(commit_ts, handle, row)
         self.stats.load_from_kv(self, self.catalog)
+        raw = self.get_meta(b"ddl:jobs")
+        if raw:
+            self.ddl_jobs = pickle.loads(raw)
+        if self.ddl_jobs:
+            # owner-takeover: drive interrupted jobs from their persisted
+            # reorg checkpoints (reference: ddl_worker.go:419 + reorg.go:263).
+            # A job that legitimately rolls back (e.g. unique validation
+            # fails) is a normal outcome, not a reason to refuse to open.
+            from ..ddl import DDL, DDLError
+
+            ddl = DDL(self, self.catalog)
+            while self.ddl_jobs:
+                try:
+                    ddl.run_job(self.ddl_jobs[0])
+                except DDLError:
+                    pass
 
     def _resolve_orphans(self) -> None:
         """Roll crashed transactions forward or back from their primary's
@@ -441,6 +495,7 @@ class Storage:
         epochs whose snapshot is already current; the WAL always folds."""
         if self.path is None:
             return
+        self._flush_sequence_cursors()
         for store in list(self.tables.values()):
             if dirty_only and not store.epoch_dirty:
                 continue
@@ -465,11 +520,13 @@ class Storage:
 
     def close(self) -> None:
         """Clean shutdown: checkpoint (epochs + KV snapshot, WAL
-        truncated), then release the engine's files."""
+        truncated, sequence cursors), then release the engine's files and
+        the owner lock."""
         if self.path is None:
             return
         self.checkpoint()
         self.kv.kv.close()
+        self.ddl_owner.close()
 
     # ---- snapshot registry (compaction safepoint) ---------------------------
     def acquire_snapshot_ts(self) -> int:
@@ -701,7 +758,78 @@ class Storage:
             if self._fold_depth == 0:
                 self._fold_seq += 1  # even: quiescent
 
+    # ---- sequences ---------------------------------------------------------
+    SEQ_CACHE = 1000
+
+    def sequence_next(self, seq) -> int:
+        """Allocate the next value; persists the durable high-water a
+        cache batch ahead (clamped at the exhaustion sentinel) so a
+        CRASH never re-issues a handed-out non-cycle value; a clean
+        checkpoint writes the exact cursor back, so clean restarts
+        waste nothing (reference: ddl/sequence.go + meta autoid-style
+        batching)."""
+        with self._seq_lock:
+            cur = self._seq_cursors.get(seq.id, seq.next_value)
+            v = cur
+            wrapped = False
+            if v > seq.max_value or v < seq.min_value:
+                if not seq.cycle:
+                    raise ValueError(
+                        f"sequence {seq.name} has run out")
+                v = seq.start
+                wrapped = True
+            nxt = v + seq.increment
+            self._seq_cursors[seq.id] = nxt
+            if wrapped or (seq.increment > 0 and nxt > seq.next_value) \
+                    or (seq.increment < 0 and nxt < seq.next_value):
+                high = nxt + seq.increment * self.SEQ_CACHE
+                if seq.increment > 0:
+                    # never persist past "just exhausted": restart must
+                    # still hand out the values below max_value
+                    high = min(high, seq.max_value + seq.increment)
+                else:
+                    high = max(high, seq.min_value + seq.increment)
+                seq.next_value = high
+                self.persist_catalog()
+            return v
+
+    def sequence_set(self, seq, value: int) -> None:
+        with self._seq_lock:
+            self._seq_cursors[seq.id] = value + seq.increment
+            seq.next_value = value + seq.increment * (self.SEQ_CACHE + 1)
+            if seq.increment > 0:
+                seq.next_value = min(seq.next_value,
+                                     seq.max_value + seq.increment)
+            self.persist_catalog()
+
+    def _flush_sequence_cursors(self) -> None:
+        """Write exact cursors into the catalog so a clean shutdown
+        loses no sequence values (crash recovery falls back to the
+        batched high-water)."""
+        dirty = False
+        with self._seq_lock:
+            for schema in self.catalog.schemas.values():
+                for seq in (getattr(schema, "sequences", {}) or {}
+                            ).values():
+                    cur = self._seq_cursors.get(seq.id)
+                    if cur is not None and cur != seq.next_value:
+                        seq.next_value = cur
+                        dirty = True
+        if dirty:
+            self.persist_catalog()
+
     # ---- meta KV (catalog, stats, sysvar and account persistence) ---------
+    @contextmanager
+    def ddl_section(self):
+        """Critical section for direct catalog DDL (CREATE/DROP TABLE
+        and friends), gated on the DDL owner — the same lock ALTER-family
+        jobs take in `DDL.run_job`. The whole-catalog persist is
+        last-writer-wins, so {mutate -> persist} must not interleave with
+        a sibling's DDL. (The reference also folds a sibling process's
+        catalog in here, `refresh`: that waits with the shared plane.)"""
+        with self.ddl_owner:
+            yield
+
     def put_meta(self, name: bytes, value: bytes) -> None:
         """Durable metadata write through the SAME percolator path as row
         data (reference: meta/meta.go over the m-prefix keyspace).

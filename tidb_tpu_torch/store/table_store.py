@@ -13,8 +13,9 @@ Port of `tidb_tpu/store/table_store.py`:
 Handles are int64 row ids, auto-allocated or taken from an integer primary
 key. The store keeps the index sort orders (`store/index.py`) of its
 epochs, and fires its durable-epoch hook (`on_epoch`) at every new epoch.
-Left out with the planes they serve: the mesh plane's eviction hooks and
-the DDL reorganisations `apply_schema` and `cast_column`.
+The DDL reorganisations `apply_schema` and `cast_column` swap a new
+`TableInfo` and a new epoch (a new `epoch_id`) in one step under the store
+lock. Left out with the plane it serves: the mesh plane's eviction hooks.
 """
 
 from __future__ import annotations
@@ -280,12 +281,12 @@ class TableStore:
         # so its visibility digest is computed once, not per statement
         self._snapshot: Optional[TableSnapshot] = None
         # durable-storage hook: fired after every base-epoch replacement
-        # (bulk_load / compact) so the owner can persist the columnar
-        # snapshot (Storage._on_epoch_changed). `required=False`
-        # (compaction) only marks the epoch dirty: the folded deltas are
-        # still recoverable from the KV truth, so the snapshot write can
-        # defer to checkpoint() instead of stalling the committing session
-        # on an O(table) file write
+        # (bulk_load / compact / apply_schema / cast_column) so the owner
+        # can persist the columnar snapshot (Storage._on_epoch_changed).
+        # `required=False` (compaction) only marks the epoch dirty: the
+        # folded deltas are still recoverable from the KV truth, so the
+        # snapshot write can defer to checkpoint() instead of stalling the
+        # committing session on an O(table) file write
         self.on_epoch = None
         self.epoch_dirty = False
 
@@ -483,6 +484,114 @@ class TableStore:
                 valids=new_valids,
             )
         self._epoch_changed()
+
+    # ---- schema change (DDL reorg primitives) ------------------------------
+    def apply_schema(self, new_info: TableInfo,
+                     column_map: list, fills: dict) -> None:
+        """Swap to a new TableInfo, rewriting stored data to its layout.
+
+        column_map[i] = old offset backing new column i, or None for a new
+        column (filled from fills[i] = (phys_default, valid)). Old snapshots
+        stay consistent: they hold the previous TableInfo object and epoch
+        (immutable); only new snapshots see the new layout. This is the
+        storage half of the DDL state machine (reference: delete-only/
+        write-only states guard TiKV row format changes, ddl/column.go —
+        here the epoch swap is atomic under the store lock)."""
+        with self._lock:
+            epoch = self.epoch
+            n = epoch.num_rows
+            cols: list[np.ndarray] = []
+            valids: list[Optional[np.ndarray]] = []
+            dicts: list[Optional[Dictionary]] = []
+            for i, c in enumerate(new_info.columns):
+                src = column_map[i]
+                if src is None:
+                    dv, dvalid = fills[i]
+                    dt = c.ftype.np_dtype
+                    d = _column_dictionary(c.ftype)
+                    if dvalid and isinstance(dv, str):
+                        dv = d.encode(dv)  # string default -> fresh code
+                    cols.append(np.full(n, dv if dvalid else 0, dtype=dt))
+                    valids.append(None if dvalid else np.zeros(n, bool))
+                    dicts.append(d)
+                    fills[i] = (dv, dvalid)  # deltas reuse the encoded value
+                else:
+                    data = epoch.columns[src]
+                    if data.dtype != c.ftype.np_dtype:
+                        data = data.astype(c.ftype.np_dtype)
+                    cols.append(data)
+                    valids.append(epoch.valids[src])
+                    dicts.append(self.dictionaries[src])
+            new_deltas = []
+            for commit_ts, handle, row in self.deltas:
+                if row is not TOMBSTONE:
+                    row = tuple(
+                        (row[column_map[i]] if column_map[i] is not None
+                         else (fills[i][0] if fills[i][1] else None))
+                        for i in range(len(new_info.columns)))
+                new_deltas.append((commit_ts, handle, row))
+            self.table = new_info
+            self.dictionaries = dicts
+            self.deltas = new_deltas
+            self.epoch = ColumnEpoch(
+                epoch_id=next(_epoch_ids),
+                fold_ts=epoch.fold_ts,
+                handles=epoch.handles,
+                columns=cols,
+                valids=valids,
+                handle_pos=epoch.handle_pos,
+            )
+            self._index_orders.clear()
+            self.schema_token += 1
+        self._epoch_changed()
+
+    def cast_column(self, offset: int, cast_fn,
+                    new_info: Optional[TableInfo] = None) -> Optional[str]:
+        """Rewrite one column's physical values (MODIFY COLUMN reorg).
+        cast_fn(data, valid) -> (new_data, new_valid) or raises ValueError;
+        returns an error string on failure (job rolls back).
+
+        new_info, when given, is swapped in atomically with the rewritten
+        epoch: a snapshot must never pair new physical values with the old
+        FieldType (e.g. a DECIMAL(10,2)->INT rescale read back at scale 2)
+        — mirror of apply_schema's atomic table+epoch swap."""
+        with self._lock:
+            epoch = self.epoch
+            try:
+                data, valid = cast_fn(
+                    epoch.columns[offset],
+                    epoch.valids[offset] if epoch.valids[offset] is not None
+                    else np.ones(epoch.num_rows, bool))
+                new_deltas = []
+                for commit_ts, handle, row in self.deltas:
+                    if row is not TOMBSTONE and row[offset] is not None:
+                        v, ok = cast_fn(np.array([row[offset]]),
+                                        np.ones(1, bool))
+                        if not ok[0]:
+                            raise ValueError(f"cannot convert {row[offset]}")
+                        row = row[:offset] + (v[0].item(),) + row[offset + 1:]
+                    new_deltas.append((commit_ts, handle, row))
+            except (ValueError, OverflowError) as e:
+                return str(e)
+            cols = list(epoch.columns)
+            valids = list(epoch.valids)
+            cols[offset] = data
+            valids[offset] = None if valid.all() else valid
+            self.deltas = new_deltas
+            self.epoch = ColumnEpoch(
+                epoch_id=next(_epoch_ids),
+                fold_ts=epoch.fold_ts,
+                handles=epoch.handles,
+                columns=cols,
+                valids=valids,
+                handle_pos=epoch.handle_pos,
+            )
+            if new_info is not None:
+                self.table = new_info
+            self._index_orders.clear()
+            self.schema_token += 1
+        self._epoch_changed()
+        return None
 
     # ---- compaction --------------------------------------------------------
     def maybe_compact(self, safe_ts: int) -> None:
