@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-i, each with the launch counters set to 0 just before it and read
+   a-j, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -107,7 +107,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    g. the write path (after f1 and after f2, on their sessions), with the
       launch counters set to 0 before g1, before g1' and before g2:
       g1. on f1's card session at SF10: TPC-H RF1 (`bench/
-          tpch_refresh.py`: 0.4 x SF x 1,500 new orders, `G1_RF_SHARE`,
+          tpch_refresh.py`: 0.3 x SF x 1,500 new orders, `G1_RF_SHARE`,
           and their 1-7 lineitems from the generator's distributions,
           as autocommit 1,000-row INSERTs, orders first; each must take
           the `point` fast path) and RF2 (as many seeded orders and their
@@ -130,11 +130,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           after each compacting commit and the part's peak. At least one
           read must launch streamseg over a lineitem epoch that
           compaction rebuilt (checked after part h);
-      g1'. the same at SF1 on f2's card and CPU sessions, with all five
-          queries read mid-RF1 too (the four joins on the host tier's
-          build-overlay path; after RF1 only Q6): every statement's affected
-          count and tags, and every read's rows and tags, equal between
-          the two;
+      g1'. the same at SF1 on f2's card and CPU sessions (all five
+          queries after RF2; mid-RF1 and after RF1 only Q6, as g1: the
+          four joins there take the host tier's build-overlay path): every
+          statement's affected count and tags, and every read's rows and
+          tags, equal between the two;
       g2. the reference's HTAP mix (`bench.py` flight_htap_mixed), in
           this process (not over the MySQL wire; the store is in memory,
           not durable): sbtest (id bigint primary key, k bigint, c
@@ -153,7 +153,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       h1. the reference's HTAP mix as `bench.py` flight_htap_mixed runs
           it: `Storage(<tmp>, sync_log="commit")`, whose KV engine must be
           the port's NativeOrderedKV (`csrc/kvstore.cpp`, built with g++),
-          sbtest's 100,000 rows by 2,000-row INSERTs, lineitem, orders and
+          sbtest's 20,000 rows (the reference's 100,000 until part j) by
+          2,000-row INSERTs, lineitem, orders and
           customer at SF1 bulk-loaded (their epoch files written), ANALYZE,
           `checkpoint()`, then `Server(storage, port=0,
           max_connections=256)` driven with `tests/mysql_client.py` (loaded
@@ -162,7 +163,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           `point` path (read from the server-side session's
           `last_engines`); 6 s of 4 readers and 1 writer, 6 s of 4
           readers, 8 writers and 1 client scanning Q6 and Q1 (each exact
-          on every scan), and 6 s each of 1, 8 and 32 writers (durable
+          on every scan), and 3 s each of 1, 8 and 32 writers (durable
           update QPS, the group fsync's average batch, the fsync's mean
           time); sum(k) over the wire must equal its start plus the
           acknowledged UPDATEs; then the server's close and a clean
@@ -186,20 +187,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       i1. on g1's SF10 card session right after g1, over the data as RF2
           left it: ALTER TABLE lineitem ADD COLUMN l_tag INT DEFAULT 7
           (sum(l_tag), count(*) exactly 7 x rows, rows), MODIFY COLUMN
-          l_quantity DECIMAL(18,4) (every stored value times 100), ANALYZE
-          TABLE lineitem, Q6 and Q3 exact against their numpy answers with
+          l_quantity DECIMAL(18,4) (every stored value times 100; the
+          ANALYZE TABLE lineitem after it runs in i2 only, to pay for part
+          j), Q6 and Q3 exact against their numpy answers with
           part f1's tags (Q3 must launch streamseg over the lineitem epoch
-          the DDL rewrote), CREATE UNIQUE INDEX o_ck ON orders (o_custkey,
-          o_orderkey) (~750 reorg batches over 15M rows; ADMIN SHOW DDL
-          JOBS must show it done, SHOW INDEX list it), CREATE UNIQUE INDEX
+          the DDL rewrote), CREATE UNIQUE INDEX
           l_ok ON lineitem (l_orderkey), which must fail on its duplicate
           (errno 1105, the reference's for a rolled-back job) and leave no
-          index, its job rolled back; DROP INDEX o_ck, DROP COLUMN l_tag,
+          index, its job rolled back; DROP COLUMN l_tag,
           Q6 exact again; each statement's wall time, each reorg batch's
           time, the reads' cold run and warm p50, the peak device memory;
       i2. the same on g1''s SF1 card and CPU sessions (every statement's
           outcome and tags equal between the two; Q3 takes the host tier
           over orders' overlay there, as in g1'), plus CREATE UNIQUE INDEX
+          o_ck ON orders (o_custkey, o_orderkey) (~75 reorg batches; ADMIN
+          SHOW DDL JOBS must show it done, SHOW INDEX list it; i1 ran it
+          over SF10's 15M orders until part j), CREATE UNIQUE INDEX
           l_pk ON lineitem (l_orderkey, l_linenumber) (~300 batches) and
           an INSERT of an existing key (1062), a view over lineitem x
           orders read twice, a sequence feeding an INSERT, RENAME TABLE and
@@ -218,6 +221,47 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           new id, so the validation restarts on it, as in the reference);
           ADMIN SHOW DDL JOBS shows it done, SHOW INDEX lists l_pk, and Q18
           over the wire is exact with f2's tags, launching streamseg.
+   j. partitioned tables (each partition its own `TableStore`; the
+      reference plans each partition that pruning keeps as its own CopDAG
+      request, never a fragment over a partition, so streamseg is expected
+      to launch 0 times: `partition_launches`), each of j1, j2, j3 with the
+      launch counters set to 0 before it:
+      j1. after i1 (its session dropped), on the SF10 arrays: a new card
+          `Session()` with orders and lineitem `PARTITION BY
+          HASH(l_orderkey) PARTITIONS 4`, bulk-loaded through the port's
+          numpy router (`tpch_data.load_table_partitioned`; seconds),
+          ANALYZE TABLE lineitem (seconds); Q6 exact with four `device`
+          tags and a point read of one l_orderkey pruned to one
+          partition, the part's peak device memory; then the same
+          partitioning of lineitem at SF0.1 (`J1_ROOT_SF`; generated
+          from `--seed`, ANALYZEd): Q1 exact with four `device` tags and
+          Q18's inner GROUP BY ... HAVING as SQL exact (its tags printed).
+          Over partitions the reference plans no aggregation below the
+          partition union, so these two bring every selected row to the
+          root, whose host aggregation takes ~30 s a run at SF10. Each
+          read's cold run and warm p50 of 3;
+      j2. after i2, on the SF1 arrays: a card `Session()` and a
+          `Session(device="cpu")` with lineitem `PARTITION BY RANGE
+          (l_orderkey)` (four equal key ranges and MAXVALUE) beside orders
+          and customer; every statement's outcome and tags equal between
+          the two: TPC-H RF1 and RF2 (g1''s share) as routed INSERTs and
+          DELETEs, an UPDATE of l_orderkey moving p0's last 2,000 keys
+          into p1, an INSERT of a new l_shipmode value into p0 read
+          through LIKE and IN from the other partitions (exact counts),
+          TRUNCATE PARTITION p2 and DROP PARTITION p1 (device memory
+          before and after each), information_schema.partitions, SHOW
+          TABLE STATUS, CHECKSUM TABLE and ADMIN CHECK TABLE lineitem; Q6,
+          Q1 and Q18 exact after each of the two write phases (the DML,
+          the partition DDL);
+      j3. after i3, in part h's temporary directory: `Storage(<tmp>/pj,
+          sync_log="commit")` with SF1 lineitem in 4 hash partitions
+          (bulk load, epoch files), closed; a child `python3` runs 10
+          routed INSERTs (~40 rows each) with `TIDB_TPU_FAILPOINTS=
+          storage/mid-checkpoint=exit(9)@2`, then `checkpoint()`, and dies
+          after two of the four partitions' epoch files are rewritten; the
+          store reopened on the card (timed): every acknowledged INSERT
+          read back, the next INSERT's handles above every handle of every
+          partition, Q6 exact with four `device` tags.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the p50 wall time of 3 warm runs
@@ -1098,21 +1142,24 @@ G_QUERIES = ("q6", "q3", "q5", "q12", "q18")
 # 17, 34, 10 and 60 s there: more than the time limit leaves), and after
 # RF2 Q18 overflows its group buffer to the host tier (58 s); Q3 after RF2
 # launches streamseg over the rebuilt lineitem epoch. At SF1 (g1', card ==
-# CPU) all five are read mid-RF1 and after RF2; after RF1 only Q6 (the
-# joins take the same host-tier path as mid-RF1, ~20 s a point)
+# CPU) all five are read after RF2; mid-RF1 and after RF1 only Q6 (the
+# joins take the host tier's build-overlay path there, ~20 s a point,
+# which e1 reads at SF10 and i2's Q18 at SF1; mid-RF1's joins paid for
+# part j)
 G1_READS = (("q6",), ("q6",), ("q6", "q3", "q5", "q12"))
-G1P_READS = (G_QUERIES, ("q6",), G_QUERIES)
+G1P_READS = (("q6",), ("q6",), G_QUERIES)
 # rows per RF2 DELETE commit: below the 8,192-delta threshold. The
 # reference's commit calls maybe_compact once per mutation, and a
 # commit's own N >= 8,192 mutations stay unfolded, so each call scans
 # all N deltas again: N^2 visits, 3.6e9 for one 60,000-row DELETE at SF10
 RF2_ROWS = 8191
 # the share of TPC-H's SF x 1,500 refresh orders that g1 sends at SF10:
-# 6,000 orders still fold orders once in RF2 (so the joins after RF2 stay
-# on the device, Q3 launching streamseg) but make ~7 folds of the 60M-row
-# lineitem epoch instead of 18 (7-14 s each), for the time limit on slower
-# hosts; g1' at SF1 sends the whole refresh
-G1_RF_SHARE = 0.4
+# 4,500 orders (RF1's 4,500 inserts and RF2's 4,500 deletes pass the
+# 8,192-delta threshold) still fold orders once in RF2 (so the joins after
+# RF2 stay on the device, Q3 launching streamseg) but make ~4 folds of the
+# 60M-row lineitem epoch instead of 18 (7-14 s each), for the time limit
+# on slower hosts (0.4 before part j); g1' at SF1 sends the whole refresh
+G1_RF_SHARE = 0.3
 RANK = "streamseg.rank_sums"
 # g2's phases: 3 s, half the reference's 6 s, and its sbtest 20,000 rows,
 # a fifth of the reference's 100,000 (part h runs the same mix at 6 s and
@@ -1414,6 +1461,12 @@ def _part_g2(args, d1) -> None:
 
 # ---- part h: durability and the MySQL wire server ----
 H_SCANS = ("q6", "q1")
+# sbtest's rows in h1: 20,000, a fifth of the reference's 100,000 (the
+# durable INSERTs took 27-47 s), and the writer phases 3 s, half the
+# reference's 6 s (the mix phases keep 6 s: a Q1 scan over the wire takes
+# ~5.6 s), paying for part j as g2's cuts did
+H1_ROWS = 20_000
+H_WRITE_SECONDS = 3.0
 H_READS = ("q6", "q1", "q18")
 # the child of h3: the port's durable store served on port 0, nothing else
 H3_CHILD = """
@@ -1549,7 +1602,7 @@ def _part_h1(args, d1, path: str, mc) -> dict:
     s = Session(storage)
     s.execute("create table sbtest (id bigint primary key, k bigint, "
               "c varchar(64))")
-    n = 100_000
+    n = H1_ROWS
     t0 = time.perf_counter()
     for lo in range(0, n, 2000):
         s.execute("insert into sbtest values " + ",".join(
@@ -1614,7 +1667,7 @@ def _part_h1(args, d1, path: str, mc) -> dict:
     for conc in (1, 8, 32):
         _, sum0, n0 = hist.snapshot()
         fs0 = fs[0]
-        ph = _wire_phase(mc, addr, 0, conc, 0, 6.0, n, expect)
+        ph = _wire_phase(mc, addr, 0, conc, 0, H_WRITE_SECONDS, n, expect)
         _, sum1, n1 = hist.snapshot()
         acked += ph["acked"]
         u = ph["lat"]["write"]
@@ -1783,8 +1836,9 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
 
 
 def _part_h(args, d1, tags: dict) -> tuple:
-    """Part h, then part i3 on h3's store (module docstring). ->
-    streamseg's launches in h2 and in i3."""
+    """Part h, then part i3 on h3's store and part j3 in the same
+    temporary directory (module docstring). -> streamseg's launches in
+    h2, in i3 and in j3."""
     import shutil
     import tempfile
 
@@ -1805,7 +1859,14 @@ def _part_h(args, d1, tags: dict) -> tuple:
         print(f"  -- i3. online DDL on the durable store, over the wire "
               f"({_mem()} held before it)")
         _kernels.reset_launches()
-        return launched, _part_i3(args, storage, path, mc, h1, tags)
+        i3 = _part_i3(args, storage, path, mc, h1, tags)
+        print(f"  -- j3. a partitioned table on a durable store, killed "
+              f"mid-checkpoint ({_mem()} held before it)")
+        t0 = time.perf_counter()
+        _kernels.reset_launches()
+        j3 = _part_j3(args, tmp, d1)
+        print(f"  [part j3 took {time.perf_counter() - t0:.1f}s]")
+        return launched, i3, j3
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1937,8 +1998,10 @@ def _part_i12(args, sessions, data, label: str, want_tags,
     if run(sql)[1] != [(7 * n, n)]:
         raise SystemExit(f"{label}: sum(l_tag), count(*) is not 7 x {n}")
     say(sql, f" = ({7 * n}, {n}) exact; engines {card.last_engines}")
+    # i1 runs no ANALYZE after the MODIFY (13-20 s at SF10, paying for
+    # part j): Q6 and Q3 keep f1's plans and tags; i2 analyzes at SF1
     for sql in ("ALTER TABLE lineitem MODIFY COLUMN l_quantity "
-                "DECIMAL(18,4)", "ANALYZE TABLE lineitem"):
+                "DECIMAL(18,4)", "ANALYZE TABLE lineitem")[:2 if full else 1]:
         run(sql)
         say(sql)
     rewritten = li.epoch
@@ -1951,19 +2014,23 @@ def _part_i12(args, sessions, data, label: str, want_tags,
         # at SF1 (i2) orders' overlay sends Q3 to the host tier, as in g1'
         raise SystemExit(f"{label}: q3 did not launch streamseg over the "
                          "lineitem epoch the DDL rewrote")
-    patch, batches = _timed_batches()
-    sql = "CREATE UNIQUE INDEX o_ck ON orders (o_custkey, o_orderkey)"
-    with patch:
-        out = run(sql)
-    if out[0] == "error":
-        raise SystemExit(f"{label}: {sql}: {out}")
-    say(sql, f"; {_batch_line(batches)}")
-    job = _top_job(sessions, label, times)
-    if job[2:5] != ("add_index", "public", "done"):
-        raise SystemExit(f"{label}: o_ck's job is {job}")
-    out = run("SHOW INDEX FROM orders")
-    if "o_ck" not in {r[2] for r in out[1]}:
-        raise SystemExit(f"{label}: SHOW INDEX FROM orders lists no o_ck")
+    if full:
+        # o_ck's ~750 reorg batches over SF10 orders (10.7-32.5 s) paid
+        # for part j: i1 runs the failing l_ok, i2 and i3 the unique reorg
+        patch, batches = _timed_batches()
+        sql = "CREATE UNIQUE INDEX o_ck ON orders (o_custkey, o_orderkey)"
+        with patch:
+            out = run(sql)
+        if out[0] == "error":
+            raise SystemExit(f"{label}: {sql}: {out}")
+        say(sql, f"; {_batch_line(batches)}")
+        job = _top_job(sessions, label, times)
+        if job[2:5] != ("add_index", "public", "done"):
+            raise SystemExit(f"{label}: o_ck's job is {job}")
+        out = run("SHOW INDEX FROM orders")
+        if "o_ck" not in {r[2] for r in out[1]}:
+            raise SystemExit(f"{label}: SHOW INDEX FROM orders lists no "
+                             "o_ck")
     sql = "CREATE UNIQUE INDEX l_ok ON lineitem (l_orderkey)"
     patch, batches = _timed_batches()
     with patch:
@@ -1978,14 +2045,17 @@ def _part_i12(args, sessions, data, label: str, want_tags,
             ix.name == "l_ok"
             for ix in card.catalog.table("test", "lineitem").indices):
         raise SystemExit(f"{label}: l_ok's job is {job}, or l_ok is left")
-    print(f"  {label}: ADMIN SHOW DDL JOBS: o_ck done, l_ok rolled back; "
-          f"SHOW INDEX FROM orders lists o_ck")
     if full:
+        print(f"  {label}: ADMIN SHOW DDL JOBS: o_ck done, l_ok rolled "
+              f"back; SHOW INDEX FROM orders lists o_ck")
         _part_i2_surface(sessions, label, times, launches)
-    for sql in ("DROP INDEX o_ck ON orders",
-                "ALTER TABLE lineitem DROP COLUMN l_tag"):
-        run(sql)
-        say(sql)
+        run("DROP INDEX o_ck ON orders")
+        say("DROP INDEX o_ck ON orders")
+    else:
+        print(f"  {label}: ADMIN SHOW DDL JOBS: l_ok rolled back")
+    sql = "ALTER TABLE lineitem DROP COLUMN l_tag"
+    run(sql)
+    say(sql)
     launches["q6 after"], _ = _i_read(
         sessions, "q6", label, data,
         want_tags("q6") if want_tags is not None else None)
@@ -2186,6 +2256,415 @@ def _part_i3(args, storage, path: str, mc, h1: dict, tags: dict) -> int:
     return launched
 
 
+# ---- part j: partitioned tables ----
+J_READS = ("q6", "q1", "q18")
+J1_BY = "partition by hash(l_orderkey) partitions 4"
+Q18_INNER_SQL = ("select l_orderkey, sum(l_quantity) from lineitem "
+                 "group by l_orderkey having sum(l_quantity) > 300")
+HOVERCRAFT = "HOVERCRAFT"
+# the scale of j1's Q1 and Q18-inner: over partitions the reference plans
+# no aggregation below the partition union, so each partition's request
+# returns its selected rows and the root aggregates them on the host (a
+# cold Q1 took 29.9-32.6 s at SF10, ~2.3 s at SF1 in j2); the four runs
+# of each read fit part j's 120 s only this small
+J1_ROOT_SF = 0.1
+
+
+def _j_range_by(li) -> tuple:
+    """Four RANGE partitions of equal key width over `li`'s l_orderkey,
+    and MAXVALUE. -> (the clause, the width)."""
+    step = int(li["l_orderkey"].max()) // 5 + 1
+    defs = ", ".join(f"partition p{i} values less than ({step * (i + 1)})"
+                     for i in range(4))
+    return (f"partition by range (l_orderkey) ({defs}, "
+            f"partition pmax values less than maxvalue)"), step
+
+
+def _j_load(s, data, by: str, names=("orders",),
+            analyze: bool = True) -> tuple:
+    """`names` bulk-loaded as they are and lineitem through the port's
+    partition router; ANALYZE TABLE lineitem. -> (rows per partition,
+    load seconds, ANALYZE seconds or None)."""
+    t0 = time.perf_counter()
+    for name in names:
+        TD.load_table(s, name, data[name])
+    counts = TD.load_table_partitioned(s, "lineitem", data["lineitem"], by)
+    t1 = time.perf_counter()
+    if not analyze:
+        return counts, t1 - t0, None
+    s.execute("analyze table lineitem")
+    _sync()
+    return counts, t1 - t0, time.perf_counter() - t1
+
+
+def _j_q18_inner_oracle(li) -> list:
+    """Q18-inner's final rows over `li`, whose l_orderkey the generator
+    emits in order (checked): each order's sum from its run, the exact
+    HAVING."""
+    okey, qty = li["l_orderkey"], li["l_quantity"]
+    if not (okey[1:] >= okey[:-1]).all():
+        raise SystemExit("j1: lineitem's l_orderkey is not in order")
+    starts = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    sums = np.add.reduceat(qty, starts)
+    ok = sums > TR.Q18_THRESHOLD
+    return [(k, ("dec", v, 2))
+            for k, v in zip(okey[starts][ok].tolist(), sums[ok].tolist())]
+
+
+def _j_read(sessions, label: str, sql: str, want, warm: int = 3,
+            want_tags=None) -> tuple:
+    """`sql` on the card (and the CPU twin's): rows exact against `want`
+    (cells) and equal to the twin's, tags `want_tags` where given; the
+    cold run and the warm p50 of `warm` runs (a host-tier read: its cold
+    run only). -> (tags, streamseg launches of the cold run, the timing
+    text)."""
+    card = sessions[0]
+    before = _kernels.LAUNCHES[RANK]
+    rows, first = _sql_run(card, sql)
+    launched = _kernels.LAUNCHES[RANK] - before
+    tags = list(card.last_engines)
+    got = sorted(TR.sql_cells(rows), key=repr)
+    if got != sorted(want, key=repr):
+        raise SystemExit(f"{label}: {sql[:60]}: rows differ from the oracle")
+    if want_tags is not None and tags != want_tags:
+        raise SystemExit(f"{label}: {sql[:60]}: engines {tags}, want "
+                         f"{want_tags}")
+    cpu = ""
+    for other in sessions[1:]:
+        rows2, cpu_s = _sql_run(other, sql)
+        if other.last_engines != tags or \
+                sorted(TR.sql_cells(rows2), key=repr) != got:
+            raise SystemExit(f"{label}: {sql[:60]}: card rows/tags {tags} "
+                             f"differ from the CPU's {other.last_engines}")
+        cpu = f" card==cpu cpu_s={cpu_s:.3f}"
+    if any(_host_tier(t) for t in tags):
+        warm = 0
+    times = [_sql_run(card, sql)[1] for _ in range(warm)]
+    return tags, launched, f"{_timing(first, times)}{cpu}"
+
+
+def _j1_reads(s, label: str, reads) -> None:
+    for name, sql, want, tags in reads:
+        got, launched, timing = _j_read([s], label, sql, want,
+                                        want_tags=tags)
+        if name == "point" and len(got) != 1:
+            raise SystemExit(f"{label}: the point read was not pruned to "
+                             f"one partition: {got}")
+        print(f"  {label} {name}: engines={got} rows={len(want)} exact "
+              f"streamseg_launches={launched} {timing}")
+
+
+def _part_j1(args, d10) -> int:
+    """Part j1 (module docstring). -> streamseg's launches."""
+    label = f"j1 SF{args.sf:g}"
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    s = Session()
+    counts, t_load, t_an = _j_load(s, d10, J1_BY)
+    print(f"  {label}: orders and lineitem ({J1_BY}: {counts} rows) "
+          f"bulk-loaded through the router in {t_load:.2f}s; ANALYZE TABLE "
+          f"lineitem (4 partitions) {t_an:.2f}s; {_mem()}")
+    li = d10["lineitem"]
+    n = len(counts)
+    k = int(li["l_orderkey"][len(li["l_orderkey"]) // 3])
+    m = li["l_orderkey"] == k
+    _j1_reads(s, label, [
+        ("q6", TPCH_QUERIES["q6"], TR.sql_oracle("q6", d10), ["device"] * n),
+        ("point", f"select count(*), sum(l_quantity) from lineitem where "
+         f"l_orderkey = {k}",
+         [(int(m.sum()), ("dec", int(li["l_quantity"][m].sum()), 2))],
+         None)])
+    print(f"  {label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB (i1: 11.125 GB "
+          f"unpartitioned)")
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Q1 and Q18-inner at J1_ROOT_SF (module docstring)
+    d = TD.generate_tpch(J1_ROOT_SF, args.seed)
+    label = f"j1 SF{J1_ROOT_SF:g}"
+    s = Session()
+    counts, t_load, t_an = _j_load(s, d, J1_BY, ())
+    print(f"  {label}: lineitem ({J1_BY}: {counts} rows) bulk-loaded "
+          f"through the router in {t_load:.2f}s; ANALYZE TABLE lineitem "
+          f"(4 partitions) {t_an:.2f}s")
+    _j1_reads(s, label, [
+        ("q1", TPCH_QUERIES["q1"], TR.sql_oracle("q1", d),
+         ["device"] * len(counts)),
+        ("q18-inner", Q18_INNER_SQL, _j_q18_inner_oracle(d["lineitem"]),
+         None)])
+    total = _kernels.LAUNCHES[RANK]
+    print(f"  j1: streamseg launches {total}; {_mem()}")
+    return total
+
+
+def _j_exec(sessions, sql: str, label: str, times: dict):
+    """`_i_exec`, where the statement must succeed."""
+    out = _i_exec(sessions, sql, label, times)
+    if out[0] == "error":
+        raise SystemExit(f"{label}: {sql[:72]}: {out}")
+    return out
+
+
+def _j_reads(sessions, label: str, data) -> int:
+    launched = 0
+    for q in J_READS:
+        tags, n, timing = _j_read(sessions, label, TPCH_QUERIES[q],
+                                  TR.sql_oracle(q, data), warm=0)
+        launched += n
+        print(f"  {label} {q.upper()}: engines={tags} exact "
+              f"streamseg_launches={n} {timing}")
+    return launched
+
+
+def _j_with_keys(li, old_lo: int, old_hi: int, shift: int) -> dict:
+    """lineitem's arrays after `UPDATE ... SET l_orderkey = l_orderkey +
+    shift WHERE l_orderkey >= old_lo AND l_orderkey < old_hi`."""
+    out = dict(li)
+    k = li["l_orderkey"]
+    out["l_orderkey"] = np.where((k >= old_lo) & (k < old_hi), k + shift, k)
+    return out
+
+
+def _part_j2(args, d1) -> int:
+    """Part j2 (module docstring). -> streamseg's launches."""
+    label = f"j2 SF{args.q18_sf:g}"
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    by, step = _j_range_by(d1["lineitem"])
+    card, cpu = Session(), Session(device="cpu")
+    sessions = [card, cpu]
+    for s in sessions:
+        # no ANALYZE (j1 analyzes the partitions at SF10): the two
+        # sessions plan alike without statistics
+        counts, t_load, _ = _j_load(s, d1, by, ("orders", "customer"),
+                                    analyze=False)
+        print(f"  {label} {s.cop.device}: lineitem {counts} rows in 4 "
+              f"ranges of {step} keys and MAXVALUE, loaded in "
+              f"{t_load:.2f}s")
+    times: dict = {}
+    launched = 0
+    # 1. TPC-H's refresh: RF1's lineitem INSERTs routed, RF2's DELETEs
+    sf = args.q18_sf
+    new = RF.rf1_rows(d1, sf, args.seed + 101)
+    for sql in RF.rf1_statements(new, 1000):
+        _j_exec(sessions, sql, label, times)
+    after1 = RF.apply_rf1(d1, new)
+    keys = RF.rf2_keys(after1, sf, args.seed + 102)
+    for sql in RF.rf2_statements(keys, RF.lines_per_order(after1, keys),
+                                 RF2_ROWS):
+        _j_exec(sessions, sql, label, times)
+    data = RF.apply_rf2(after1, keys)
+    ins = [t for q, t in times.items() if q.startswith("insert")]
+    dels = [t for q, t in times.items() if q.startswith("delete")]
+    print(f"  {label}: RF1 {len(new['lineitem']['l_orderkey'])} lineitems "
+          f"in {len(ins)} routed INSERTs (with orders'), p50 "
+          f"{statistics.median(ins) * 1e3:.1f} ms; RF2 {len(keys)} orders "
+          f"in {len(dels)} DELETEs, p50 "
+          f"{statistics.median(dels) * 1e3:.1f} ms")
+    # 2. an UPDATE moving p0's last 2,000 keys into p1, then a new
+    # l_shipmode value into p0, read through LIKE and IN from the others
+    lo = step - 2000
+    sql = (f"UPDATE lineitem SET l_orderkey = l_orderkey + {step} "
+           f"WHERE l_orderkey >= {lo} AND l_orderkey < {step}")
+    out = _j_exec(sessions, sql, label, times)
+    li = _j_with_keys(data["lineitem"], lo, step, step)
+    print(f"  {label}: {sql} moved {out[0]} rows p0 -> p1 in "
+          f"{times[sql] * 1e3:.1f} ms")
+    row = {c: RF._take(v, np.arange(len(v[1] if isinstance(v, tuple)
+                                         else v)) == 0)
+           for c, v in li.items()}
+    row["l_shipmode"] = ([HOVERCRAFT], np.zeros(1, np.int64))
+    sql = RF.insert_statements("lineitem", row)[0]
+    _j_exec(sessions, sql, label, times)
+    row["l_shipmode"] = RF._take(li["l_shipmode"],
+                                 np.arange(len(li["l_orderkey"])) == 0)
+    data = dict(data, lineitem={c: RF._concat(li[c], row[c]) for c in li})
+    vocab, codes = li["l_shipmode"]
+    k = li["l_orderkey"]
+    others = k >= step  # every partition but p0, which took the new value
+    checks = [
+        (f"SELECT count(*) FROM lineitem WHERE l_shipmode LIKE 'HOV%'",
+         [(1,)]),
+        (f"SELECT count(*) FROM lineitem WHERE l_shipmode LIKE '%AIL' "
+         f"AND l_orderkey >= {step}",
+         [(int(np.isin(codes[others], [vocab.index("MAIL"),
+                                      vocab.index("RAIL")]).sum()),)]),
+        (f"SELECT l_shipmode, count(*) FROM lineitem WHERE l_shipmode IN "
+         f"('{HOVERCRAFT}', 'MAIL', 'SHIP') AND l_orderkey >= {step} "
+         f"GROUP BY l_shipmode",
+         [(m, int((codes[others] == vocab.index(m)).sum()))
+          for m in ("MAIL", "SHIP")]),
+    ]
+    for sql, want in checks:
+        tags, n, timing = _j_read(sessions, label, sql, want, warm=0)
+        launched += n
+        print(f"  {label}: {sql[:64]}... = {want} exact engines={tags} "
+              f"{timing}")
+    launched += _j_reads(sessions, f"{label} after the DML", data)
+    # 3. TRUNCATE PARTITION p2, DROP PARTITION p1: device memory around
+    # each (the card session's client frees the partition's tensors)
+    for sql, a, b in (("ALTER TABLE lineitem TRUNCATE PARTITION p2",
+                       2 * step, 3 * step),
+                      ("ALTER TABLE lineitem DROP PARTITION p1",
+                       step, 2 * step)):
+        _sync()
+        m0 = torch.cuda.memory_allocated()
+        _j_exec(sessions, sql, label, times)
+        m1 = torch.cuda.memory_allocated()
+        k = data["lineitem"]["l_orderkey"]
+        keep = (k < a) | (k >= b)
+        data = dict(data, lineitem={c: RF._take(v, keep)
+                                    for c, v in data["lineitem"].items()})
+        print(f"  {label}: {sql} {times[sql] * 1e3:.1f} ms; device memory "
+              f"{m0 / 1e9:.3f} -> {m1 / 1e9:.3f} GB")
+    for sql in ("SELECT partition_name, partition_method, "
+                "partition_description, table_rows FROM "
+                "information_schema.partitions WHERE table_name = "
+                "'lineitem' ORDER BY partition_ordinal_position",
+                "SHOW TABLE STATUS LIKE 'lineitem'",
+                "CHECKSUM TABLE lineitem", "ADMIN CHECK TABLE lineitem"):
+        out = _j_exec(sessions, sql, label, times)
+        print(f"  {label}: {sql[:48]} {times[sql] * 1e3:.1f} ms -> "
+              f"{str(out[1])[:160]}")
+    rows = sum(r[3] for r in _i_outcome(card, "SELECT partition_name, "
+               "partition_method, partition_description, table_rows FROM "
+               "information_schema.partitions WHERE table_name = "
+               "'lineitem'")[1])
+    if rows != len(data["lineitem"]["l_orderkey"]):
+        raise SystemExit(f"{label}: information_schema counts {rows} rows")
+    launched += _j_reads(sessions, f"{label} after TRUNCATE/DROP", data)
+    print(f"  {label}: card == CPU on every statement; streamseg launches "
+          f"{launched}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    return launched
+
+
+J3_CHILD = """
+import json
+import sys
+from tidb_tpu_torch.session import Session
+from tidb_tpu_torch.store.storage import Storage
+path, stmts = sys.argv[1], json.load(open(sys.argv[2]))
+st = Storage(path, sync_log="commit")
+s = Session(st, device="cpu")  # writes only: no coprocessor on the card
+for i, sql in enumerate(stmts):
+    print(f"ACK={i} {s.execute(sql).affected}", flush=True)
+st.checkpoint()
+print("DONE", flush=True)
+"""
+
+
+def _part_j3(args, tmp: str, d1) -> int:
+    """Part j3 (module docstring), in part h's temporary directory. ->
+    streamseg's launches."""
+    import os
+
+    from tidb_tpu_torch.store.storage import Storage
+
+    label = "j3"
+    path = f"{tmp}/pj"
+    li = d1["lineitem"]
+    shift = int(li["l_orderkey"].max()) + 1
+    # ~40 rows an INSERT: the child's time is the SQL path's, row by row
+    width = 40
+    t0 = time.perf_counter()
+    st = Storage(path, sync_log="commit")
+    s = Session(st)
+    counts = TD.load_table_partitioned(s, "lineitem", li, J1_BY)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st.close()
+    t_close = time.perf_counter() - t0
+    print(f"  {label}: Storage(sync_log='commit'), lineitem SF"
+          f"{args.q18_sf:g} ({J1_BY}: {counts} rows) bulk-loaded with its "
+          f"epoch files in {t_load:.2f}s, clean close {t_close:.2f}s")
+    mtimes = {f: os.stat(f"{path}/epochs/{f}").st_mtime_ns
+              for f in os.listdir(f"{path}/epochs")}
+    # 10 INSERTs, each of the rows of `width` order keys with the keys
+    # moved past every key there is: strings every partition knows
+    # (after a reopen the partitions no longer share dictionaries,
+    # ROADMAP queue 3)
+    k = li["l_orderkey"]
+    stmts = []
+    for i in range(10):
+        m = (k >= i * width) & (k < (i + 1) * width)
+        rows = {c: RF._take(v, m) for c, v in li.items()}
+        rows["l_orderkey"] = rows["l_orderkey"] + shift
+        stmts += RF.insert_statements("lineitem", rows, batch=len(k))
+    with open(f"{tmp}/pj-inserts.json", "w") as f:
+        json.dump(stmts, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               TIDB_TPU_FAILPOINTS="storage/mid-checkpoint=exit(9)@2")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", J3_CHILD, path,
+                           f"{tmp}/pj-inserts.json"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    t_child = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    acked = [tuple(map(int, ln[4:].split())) for ln in lines
+             if ln.startswith("ACK=")]
+    if proc.returncode != 9 or "DONE" in lines or len(acked) != 10:
+        raise SystemExit(f"{label}: the child exited {proc.returncode} "
+                         f"after {len(acked)} INSERTs (want 9 at the "
+                         f"checkpoint after 10): {proc.stderr[-2000:]}")
+    rewritten = [f for f, t in mtimes.items()
+                 if os.stat(f"{path}/epochs/{f}").st_mtime_ns != t]
+    if len(rewritten) != 2:
+        raise SystemExit(f"{label}: the checkpoint rewrote {rewritten}, "
+                         f"not 2 of the 4 partitions' epoch files")
+    print(f"  {label}: a child python3 ran 10 routed INSERTs "
+          f"({sum(n for _, n in acked)} rows acknowledged), then "
+          f"checkpoint(), and died at `storage/mid-checkpoint` hit 2 of 4 "
+          f"(exit 9) in {t_child:.2f}s")
+    t0 = time.perf_counter()
+    st = Storage(path, sync_log="commit")
+    t_open = time.perf_counter() - t0
+    s = Session(st)
+    _kernels.reset_launches()
+    # every acknowledged INSERT is back, window by window
+    for i, n in acked:
+        got = s.query(f"select count(*) from lineitem where l_orderkey >= "
+                      f"{shift + i * width} and l_orderkey < "
+                      f"{shift + (i + 1) * width}")
+        want = int(((k >= i * width) & (k < (i + 1) * width)).sum())
+        if got != [(n,)] or n != want:
+            raise SystemExit(f"{label}: INSERT {i} acknowledged {n} rows "
+                             f"(want {want}); read back {got}")
+    # the next INSERT takes a handle above every partition's handles
+    part = st.catalog.table("test", "lineitem").partition
+    stores = [st.table_store(d.id) for d in part.defs]
+    top = max(max([int(stores[j].epoch.handles.max(initial=0))]
+                  + [h for _, h, _ in stores[j].deltas])
+              for j in range(len(stores)))
+    cols = ", ".join(c.name for c in st.catalog.table("test",
+                                                      "lineitem").columns)
+    sel = cols.replace("l_orderkey", f"l_orderkey + {2 * shift}", 1)
+    s.execute(f"insert into lineitem select {sel} from lineitem "
+              f"where l_orderkey = {int(k[0])}")
+    fresh = [h for ps in stores for _, h, _ in ps.deltas if h > top]
+    if len(fresh) != int((k == k[0]).sum()):
+        raise SystemExit(f"{label}: the INSERT after the reopen took "
+                         f"handles {fresh}, not above {top}")
+    extra = {c: RF._take(v, (k >= 0) & (k < 10 * width))
+             for c, v in li.items()}
+    extra2 = {c: RF._take(v, k == k[0]) for c, v in li.items()}
+    data = RF.apply_rf1(RF.apply_rf1({"lineitem": li},
+                                     {"lineitem": extra}),
+                        {"lineitem": extra2})
+    tags, launched, timing = _j_read([s], label, TPCH_QUERIES["q6"],
+                                     TR.sql_oracle("q6", data),
+                                     want_tags=["device"] * len(stores))
+    print(f"  {label}: reopened in {t_open:.2f}s from the 4 epoch files "
+          f"({len(rewritten)} rewritten by the checkpoint) and the WAL; every "
+          f"acknowledged INSERT read back; the next INSERT took handles "
+          f"{min(fresh)}..{max(fresh)} above {top}; Q6 exact engines="
+          f"{tags} {timing}")
+    st.close()
+    return _kernels.LAUNCHES[RANK]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2277,6 +2756,12 @@ def main(argv=None) -> int:
     del s10, after10
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"  -- j1. a HASH-partitioned lineitem at SF{args.sf:g} ({_mem()} "
+          f"held before it)")
+    partition_launches = {"j1": _part_j1(args, d10)}
+    lap("part j1")
+    gc.collect()
+    torch.cuda.empty_cache()
     sql_launches["f2"], card1, cpu1, f2_tags = _part_f2(args, d1)
     lap("part f2")
     torch.cuda.reset_peak_memory_stats()
@@ -2293,6 +2778,12 @@ def main(argv=None) -> int:
     del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"  -- j2. a RANGE-partitioned lineitem at SF{args.q18_sf:g}, "
+          f"card == CPU ({_mem()} held before it)")
+    partition_launches["j2"] = _part_j2(args, d1)
+    lap("part j2")
+    gc.collect()
+    torch.cuda.empty_cache()
     _kernels.reset_launches()
     _part_g2(args, d1)
     write_launches["g2"] = _kernels.LAUNCHES[RANK]
@@ -2303,8 +2794,9 @@ def main(argv=None) -> int:
     print(f"  -- h. durability and the MySQL wire server ({_mem()} held "
           f"before it; {smi})")
     _kernels.reset_launches()
-    write_launches["h2"], ddl_launches["i3"] = _part_h(args, d1, f2_tags)
-    lap("parts h, i3")
+    (write_launches["h2"], ddl_launches["i3"],
+     partition_launches["j3"]) = _part_h(args, d1, f2_tags)
+    lap("parts h, i3, j3")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")
@@ -2325,7 +2817,9 @@ def main(argv=None) -> int:
             "sql_launches": {k: v["streamseg.rank_sums"]
                              for k, v in sql_launches.items()},
             "write_launches": write_launches,
-            "ddl_launches": ddl_launches}
+            "ddl_launches": ddl_launches,
+            "partition_launches": sum(partition_launches.values()),
+            "partition_launches_by_part": partition_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

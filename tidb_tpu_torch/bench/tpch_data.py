@@ -453,6 +453,12 @@ def load_table(session: "Session", name: str,
     session.execute(TPCH_DDL[name])
     info = session.catalog.table(session.current_db, name)
     store = session.storage.table_store(info.id)
+    store.bulk_load(_physical_columns(info, store, data))
+
+
+def _physical_columns(info, store, data: dict[str, object]) -> list:
+    """Generated arrays in the store's physical encoding: string columns
+    as codes of the store's dictionaries."""
     cols = []
     for c in info.columns:
         v = data[c.name]
@@ -463,7 +469,65 @@ def load_table(session: "Session", name: str,
             cols.append(remap[codes])
         else:
             cols.append(np.asarray(v))
-    store.bulk_load(cols)
+    return cols
+
+
+def route_partitions(part, keys: np.ndarray,
+                     valid: Optional[np.ndarray] = None) -> np.ndarray:
+    """The index into `part.defs` of each row's partition: what
+    `PartitionInfo.route` gives row by row, in numpy. HASH takes the
+    floor modulo of the key (Python's `%`, which `np.mod` computes for
+    integers, negative keys too); RANGE the first partition whose bound
+    is above the key; a NULL key (`valid` False) partition 0. Raises
+    ValueError, as `route` does, for a key above the last RANGE bound."""
+    keys = np.asarray(keys, dtype=np.int64)
+    if part.kind == "hash":
+        idx = np.mod(keys, len(part.defs))
+    else:
+        bounds = np.array([d.less_than for d in part.defs
+                           if d.less_than is not None], dtype=np.int64)
+        idx = np.searchsorted(bounds, keys, side="right")
+        if part.defs[-1].less_than is not None:
+            over = idx == len(part.defs)
+            if valid is not None:
+                over &= valid
+            if over.any():
+                v = int(keys[np.argmax(over)])
+                raise ValueError(f"Table has no partition for value {v}")
+    if valid is not None:
+        idx = np.where(valid, idx, 0)
+    return idx
+
+
+def load_table_partitioned(session: "Session", name: str,
+                           data: dict[str, object],
+                           partition_by: str) -> list[int]:
+    """Create `name` from TPCH_DDL with `partition_by` appended (e.g.
+    "partition by hash(l_orderkey) partitions 4") and bulk-load the
+    generated arrays: each row routed by `route_partitions` into its
+    partition's store, one bulk load per partition. Handles come from
+    the table's allocator (the first partition's store) in blocks, one
+    block per partition, so they are unique across the table and the
+    allocator covers them all. Returns the rows per partition."""
+    session.execute(f"drop table if exists {name}")
+    session.execute(TPCH_DDL[name].rstrip() + " " + partition_by)
+    info = session.catalog.table(session.current_db, name)
+    part = info.partition
+    first = session.storage.table_store(part.defs[0].id)
+    cols = _physical_columns(info, first, data)
+    pidx = route_partitions(part, cols[part.col_offset])
+    base = first._next_handle
+    counts = []
+    for k, d in enumerate(part.defs):
+        rows = np.flatnonzero(pidx == k)
+        if len(rows):
+            store = session.storage.table_store(d.id)
+            store._next_handle = base
+            store.bulk_load([np.take(c, rows) for c in cols])
+        base += len(rows)
+        counts.append(len(rows))
+    first._next_handle = max(first._next_handle, base)
+    return counts
 
 
 def load_tpch(session: "Session", sf: float = 0.01, seed: int = 42,

@@ -136,19 +136,30 @@ class CopClient:
             if old is not None and epoch_id <= old:
                 return
             self._live_epochs[table_id] = epoch_id
-            if old is None:
-                return
+            if old is not None:
+                self._drop_epoch(old)
 
-            def stale(k) -> bool:  # plain or "tile"-prefixed cache keys
-                if len(k) > 2 and k[1] == "aligned" and k[2] == old:
-                    return True  # build-side epoch of an aligned join
-                return k[0] == old or (k[0] == "tile" and k[1] == old)
+    def forget_table(self, table_id: int) -> None:
+        """Free the device tensors cached for a physical table whose data
+        is gone (DROP or TRUNCATE of a table or a partition): a dropped
+        id never stages a newer epoch, so `_evict_stale` would never
+        free them."""
+        with self._lock:
+            old = self._live_epochs.pop(table_id, None)
+            if old is not None:
+                self._drop_epoch(old)
 
-            for cache in (self._col_cache, self._mask_cache):
-                for k in [k for k in cache if stale(k)]:
-                    del cache[k]
-            for k in [k for k in self._stats if k[0] == old]:
-                del self._stats[k]
+    def _drop_epoch(self, old: int) -> None:
+        def stale(k) -> bool:  # plain or "tile"-prefixed cache keys
+            if len(k) > 2 and k[1] == "aligned" and k[2] == old:
+                return True  # build-side epoch of an aligned join
+            return k[0] == old or (k[0] == "tile" and k[1] == old)
+
+        for cache in (self._col_cache, self._mask_cache):
+            for k in [k for k in cache if stale(k)]:
+                del cache[k]
+        for k in [k for k in self._stats if k[0] == old]:
+            del self._stats[k]
 
     # ---- placement hooks of the executor (one device: no-ops) -----------
     def placement_scope(self, snap):

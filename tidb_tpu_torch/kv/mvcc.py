@@ -30,6 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
+from ..util import failpoint
 from .codec import encode_uint_desc
 
 CF_LOCK = 0
@@ -253,6 +254,9 @@ class SyncPolicy:
             with self._lock:
                 start = self._wgen
                 batch = self._waiters + 1  # every waiter wrote <= start
+            # kill-9 site: the batch's bytes are flushed to the OS but
+            # NOT fsynced, and none of its commits is acked yet
+            failpoint.inject("kv/group-fsync")
             self._fsync()
         except BaseException:
             with self._lock:
@@ -387,8 +391,20 @@ class PyOrderedKV:
 
     def _log(self, op: int, cf: int, key: bytes, value: bytes) -> None:
         if self._wal is not None:
-            self._wal.write(struct.pack("<BBII", op, cf, len(key),
-                                        len(value)) + key + value)
+            rec = struct.pack("<BBII", op, cf, len(key),
+                              len(value)) + key + value
+            if failpoint.is_enabled("kv/wal-torn-append"):
+                # crash-injection site: half the record reaches the file,
+                # then the armed action fires (a kill-9 mid-append). An
+                # inert hit falls through and writes the remainder,
+                # keeping the stream whole.
+                half = rec[:max(1, len(rec) // 2)]
+                self._wal.write(half)
+                self._wal.flush()
+                failpoint.inject("kv/wal-torn-append")
+                self._wal.write(rec[len(half):])
+            else:
+                self._wal.write(rec)
             self._wal.flush()
             self._syncer.mark_dirty()
 

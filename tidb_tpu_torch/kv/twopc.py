@@ -8,8 +8,10 @@ forward/backward). In-process regions replace gRPC; the retry loop against
 RegionError and KeyIsLocked is the same control flow the reference runs
 against real TiKV.
 
-Port of `tidb_tpu/kv/twopc.py` over the in-process region tier. The
-reference's failpoint sites, its wait ledger, spans and metrics, the
+Port of `tidb_tpu/kv/twopc.py` over the in-process region tier, with the
+reference's four failpoint sites (`twopc/before-prewrite`,
+`twopc/after-prewrite`, `twopc/before-commit-primary`,
+`twopc/after-primary-commit`). Its wait ledger, spans and metrics, the
 structured event log, the keyspace heatmap and the range tier's
 cross-range commit fan-out have no port yet: their hooks are left out,
 and the control flow between them is the reference's.
@@ -22,6 +24,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from ..util import failpoint
 from .mvcc import OP_LOCK, KeyIsLockedError, KVError, Mutation
 from .region import Region, RegionError, RegionManager
 
@@ -111,10 +114,14 @@ class TwoPhaseCommitter:
 
         # prewrite grouped by region, primary's batch first
         # (reference: 2pc.go:730 prewrite primary first for async recovery)
+        failpoint.inject("twopc/before-prewrite")
         self._run_batches(
             mutations, primary, resolver,
             lambda region, batch: self.rm.prewrite(
                 region, batch, primary, start_ts, self.lock_ttl))
+        # crash here = fully-prewritten, uncommitted txn: every lock is
+        # orphaned and must roll BACK (reference failpoint site: 2pc.go:704)
+        failpoint.inject("twopc/after-prewrite")
         return mutations, primary, resolver
 
     def commit_phase(self, state, start_ts: int) -> int:
@@ -124,10 +131,15 @@ class TwoPhaseCommitter:
         commit_ts = self.tso.ts()
         # commit the primary synchronously — the txn is durable
         # once this lands (reference: 2pc.go:741)
+        failpoint.inject("twopc/before-commit-primary")
         self._retry_region(
             primary, resolver,
             lambda region: self.rm.commit(region, [primary], start_ts,
                                           commit_ts))
+        # crash here = committed txn with secondary locks left behind:
+        # the resolver must roll them FORWARD from the primary's write
+        # record (reference failpoint site: 2pc.go:1027)
+        failpoint.inject("twopc/after-primary-commit")
         # secondaries may commit lazily; do them inline (the reference
         # fires a goroutine — same semantics, resolver covers crashes).
         # IMPORTANT: the txn is already durable — a secondary failure must

@@ -14,15 +14,17 @@ autocommit statement that loses an optimistic write conflict (up to
 txn; statement-level staging gives per-statement rollback inside a txn.
 
 Statements: CREATE/DROP DATABASE, USE (information_schema too),
-CREATE/DROP/TRUNCATE TABLE, SELECT (and UNION, FOR UPDATE), INSERT
+CREATE/DROP/TRUNCATE TABLE (PARTITION BY HASH or RANGE too), SELECT
+(and UNION, FOR UPDATE), INSERT
 (VALUES, SELECT, REPLACE, ON DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN,
 COMMIT, ROLLBACK, SET, EXPLAIN (not ANALYZE), ANALYZE TABLE, KILL
 [QUERY|CONNECTION] (routed through the storage to the wire server that
 holds the connection); the schema changes, each an online DDL job
 (`ddl/ddl.py`) with an implicit commit: ALTER TABLE (ADD/DROP INDEX,
 ADD/DROP/MODIFY COLUMN, RENAME, several at once), CREATE/DROP INDEX,
-RENAME TABLE; CREATE/DROP VIEW, CREATE/DROP SEQUENCE with NEXTVAL,
-LASTVAL and SETVAL (bound once per statement); SHOW (TABLES, DATABASES,
+RENAME TABLE, ALTER TABLE ... DROP/TRUNCATE PARTITION; CREATE/DROP
+VIEW, CREATE/DROP SEQUENCE with NEXTVAL, LASTVAL and SETVAL (bound once
+per statement); SHOW (TABLES, DATABASES,
 CREATE TABLE/DATABASE/VIEW, COLUMNS, INDEX, TABLE STATUS, VARIABLES,
 STATUS, GRANTS, PRIVILEGES, CHARSET, COLLATION, ENGINES, WARNINGS),
 ADMIN SHOW DDL JOBS, ADMIN CHECK TABLE and CHECKSUM TABLE; SELECTs over
@@ -34,9 +36,14 @@ the fast path (`plan/fastpath.py`) and never touch the coprocessor.
 Raise `NotInSlice`: every other statement kind (users, grants, roles,
 bindings, LOAD DATA, ...) by its kind; the clock functions and user
 locks by their names; SHOW BINDINGS, PROCESSLIST, PROFILES, PROFILE,
-SLOW and METRICS as "SHOW <kind>"; ALTER ... PARTITION as "PARTITION
-BY"; `metrics_schema` and the obs-backed information_schema tables by
-their names.
+SLOW and METRICS as "SHOW <kind>"; `metrics_schema` and the obs-backed
+information_schema tables by their names.
+
+A partitioned table's DML loops over its partitions
+(`_partition_children`): INSERT routes each row by the partition column,
+UPDATE buffers rows that move to another partition until every partition
+has been scanned, and DELETE, FOR UPDATE, ANALYZE, CHECKSUM and ADMIN
+CHECK visit each partition's store.
 
 Left out of the reference's statement path: the SQL-text plan cache (it
 changes no answer), slow log, digests, profiler, bindings, the
@@ -143,6 +150,8 @@ class Session:
         # the coprocessor client is built at the first statement that
         # needs it, on `device` (None: the card; no card is an error then)
         self._cop: Optional[CopClient] = cop
+        if cop is not None:
+            self.storage.add_cache_client(cop)
         self._device = device
         self.txn: Optional[Transaction] = None
         self.in_explicit_txn = False
@@ -182,6 +191,7 @@ class Session:
         `mesh.client_for`; the port has one device)."""
         if self._cop is None:
             self._cop = CopClient(self._device)
+            self.storage.add_cache_client(self._cop)
         return self._cop
 
     # ==================== public API ====================
@@ -700,9 +710,10 @@ class Session:
         tables from 2M rows up take the coprocessor's device pass."""
         self._commit_implicit()
         for tn in stmt.tables:
-            info, store = self._table_for(tn)
-            self.storage.stats.analyze_one(info, store, self.storage,
-                                           cop=self.cop)
+            info, _ = self._table_for(tn)
+            for child, store in self._partition_children(info):
+                self.storage.stats.analyze_one(child, store, self.storage,
+                                               cop=self.cop)
         return ResultSet([], [])
 
     # ==================== txn plumbing ====================
@@ -841,7 +852,8 @@ class Session:
             raise SQLError(
                 "FOR UPDATE supports single-table queries only")
         info, _ = self._table_for(stmt.from_)
-        self._pessimistic_scan(info, stmt.from_, stmt.where, txn)
+        for child, _store in self._partition_children(info):
+            self._pessimistic_scan(child, stmt.from_, stmt.where, txn)
 
     def _plan(self, stmt: ast.SelectStmt):
         try:
@@ -915,8 +927,16 @@ class Session:
             txn.stmt_read_ts = txn.refresh_for_update_ts()
         timeout = float(
             self._sysvar_value("innodb_lock_wait_timeout") or 50)
-        tid = info.id
-        checker: Optional[_UniqueChecker] = None
+        part = getattr(info, "partition", None)
+        children = {c.id: (c, s) for c, s in
+                    self._partition_children(info)}
+        checkers: dict[int, _UniqueChecker] = {}
+
+        def checker_for(tid: int) -> _UniqueChecker:
+            if tid not in checkers:
+                cinfo, cstore = children[tid]
+                checkers[tid] = _UniqueChecker(cinfo, cstore, txn)
+            return checkers[tid]
 
         try:
             count = 0
@@ -927,6 +947,18 @@ class Session:
                 full = self._complete_row(info, col_order, rv, store)
                 handle = self._row_handle(info, full, store)
                 enc = store.encode_row(full)
+                if part is not None:
+                    # route by partition column (reference:
+                    # table/tables/partition.go locatePartition); unique
+                    # keys include the partition column, so duplicate
+                    # checks stay within the target partition
+                    try:
+                        tid = part.route(enc[part.col_offset]).id
+                    except ValueError as e:
+                        raise err_wrap(SQLError, e) from None
+                else:
+                    tid = info.id
+                tinfo = children[tid][0]
                 if txn.pessimistic:
                     # lock the new record key AND every unique-index key
                     # this row claims, so a concurrent insert of the same
@@ -936,7 +968,7 @@ class Session:
                                               Backoffer, BackoffExhausted)
                     from ..kv.mvcc import WriteConflictError as KVConflict
                     lock_keys = [tablecodec.record_key(tid, handle)]
-                    lock_keys += self._unique_lock_keys(info, enc)
+                    lock_keys += self._unique_lock_keys(tinfo, enc)
                     bo = Backoffer(budget_ms=int(timeout * 1000))
                     while True:
                         t0_lock = time.monotonic()
@@ -945,9 +977,9 @@ class Session:
                                 txn, lock_keys, timeout)
                         except KVConflict:
                             # a commit landed past our for_update_ts:
-                            # the cached checker's snapshot is stale
+                            # EVERY cached checker's snapshot is stale
                             txn.stmt_read_ts = txn.refresh_for_update_ts()
-                            checker = None
+                            checkers.clear()
                             try:
                                 blocked = time.monotonic() - t0_lock
                                 if blocked > 0.001:
@@ -961,15 +993,14 @@ class Session:
                             raise err_wrap(SQLError, e) from None
                         if waited:
                             txn.stmt_read_ts = txn.refresh_for_update_ts()
-                            checker = None
+                            checkers.clear()
                             blocked = time.monotonic() - t0_lock
                             if blocked > 0.001:
                                 try:
                                     bo.charge(BO_TXN_LOCK, blocked)
                                 except BackoffExhausted as e:
                                     raise err_wrap(SQLError, e) from None
-                        if checker is None:
-                            checker = _UniqueChecker(info, store, txn)
+                        checker = checker_for(tid)
                         conflicts = checker.conflicts(handle, enc)
                         # REPLACE deletes its victims and ON DUPLICATE
                         # updates the first one: both write rows they
@@ -989,13 +1020,12 @@ class Session:
                         except BackoffExhausted as e:
                             raise err_wrap(SQLError, e) from None
                 else:
-                    if checker is None:
-                        checker = _UniqueChecker(info, store, txn)
+                    checker = checker_for(tid)
                     conflicts = checker.conflicts(handle, enc)
                 if conflicts:
                     if stmt.on_dup:
                         count += self._apply_on_dup(
-                            stmt, info, info, tid, store, txn, checker,
+                            stmt, info, tinfo, tid, store, txn, checker,
                             conflicts[0], full)
                         continue  # the new row itself is not inserted
                     if not stmt.is_replace:
@@ -1011,7 +1041,7 @@ class Session:
                     # a CONCURRENT optimistic insert of the same value
                     # collides at 2PC prewrite instead of both committing
                     txn.guard_keys.update(
-                        self._unique_lock_keys(info, enc))
+                        self._unique_lock_keys(tinfo, enc))
                 txn.set_row(tid, handle, enc)
                 checker.note_insert(handle, enc)
                 count += 1
@@ -1139,15 +1169,41 @@ class Session:
         return ast.transform(node, fn)
 
     def _exec_update(self, stmt: ast.UpdateStmt) -> ResultSet:
-        info, store = self._table_for(stmt.table)
+        info, alloc_store = self._table_for(stmt.table)
         txn = self._ensure_txn()
         try:
-            return self._exec_update_inner(stmt, info, store, txn)
+            total = 0
+            # rows moving across partitions are buffered and applied
+            # AFTER every partition's snapshot-scan: writing them inline
+            # would make them visible to later partitions' scans in the
+            # same statement (the cross-partition Halloween problem)
+            moves: list[tuple[int, int, tuple]] = []
+            children = self._partition_children(info)
+            for child, store in children:
+                rs = self._exec_update_inner(stmt, child, store, txn,
+                                             parent=info, moves=moves)
+                total += rs.affected
+            for target_id, new_handle, phys in moves:
+                tinfo = next(c for c, _s in children if c.id == target_id)
+                tstore = self.storage.table_store(target_id)
+                checker = _UniqueChecker(tinfo, tstore, txn)
+                conf = checker.conflicts(new_handle, phys)
+                if conf:
+                    raise SQLError(
+                        checker.dup_message(new_handle, phys, conf),
+                        errno=ER_DUP_ENTRY)
+                tstore.note_handle(new_handle)
+                # the shared allocator must never re-issue this handle
+                alloc_store.note_handle(new_handle)
+                txn.set_row(target_id, new_handle, phys)
+            return ResultSet([], [], affected=total)
         finally:
             txn.stmt_read_ts = None
 
     def _exec_update_inner(self, stmt: ast.UpdateStmt, info, store,
-                           txn) -> ResultSet:
+                           txn, parent=None, moves=None) -> ResultSet:
+        part = getattr(parent, "partition", None) if parent is not None \
+            else None
         if txn.pessimistic:
             snap, mask, ev, handles = self._pessimistic_scan(
                 info, stmt.table, stmt.where, txn)
@@ -1233,6 +1289,24 @@ class Session:
                     # insert path; see test_race_harness.py)
                     txn.guard_keys.update(
                         self._unique_lock_keys(info, tuple(phys)))
+            target_id = info.id
+            if part is not None:
+                # a partition-column update may move the row
+                # (reference: partition.go row movement on update)
+                try:
+                    target_id = part.route(phys[part.col_offset]).id
+                except ValueError as e:
+                    raise err_wrap(SQLError, e) from None
+            if target_id != info.id:
+                # cross-partition move: delete here, apply after every
+                # partition scanned (uniqueness checked at apply time)
+                txn.delete_row(info.id, handle)
+                if checker is not None:
+                    checker.note_delete(handle)
+                assert moves is not None
+                moves.append((target_id, new_handle, tuple(phys)))
+                count += 1
+                continue
             if new_handle != handle:
                 txn.delete_row(info.id, handle)
                 if checker is not None:
@@ -1247,17 +1321,20 @@ class Session:
         info, _ = self._table_for(stmt.table)
         txn = self._ensure_txn()
         try:
-            if txn.pessimistic:
-                snap, mask, _, handles = self._pessimistic_scan(
-                    info, stmt.table, stmt.where, txn)
-            else:
-                snap = txn.snapshot(info.id)
-                mask, _ = self._where_mask(info, stmt.table, stmt.where,
-                                           snap)
-                handles = snap.handles()[mask]
-            for h in handles:
-                txn.delete_row(info.id, int(h))
-            return ResultSet([], [], affected=len(handles))
+            total = 0
+            for child, _store in self._partition_children(info):
+                if txn.pessimistic:
+                    snap, mask, _, handles = self._pessimistic_scan(
+                        child, stmt.table, stmt.where, txn)
+                else:
+                    snap = txn.snapshot(child.id)
+                    mask, _ = self._where_mask(child, stmt.table,
+                                               stmt.where, snap)
+                    handles = snap.handles()[mask]
+                for h in handles:
+                    txn.delete_row(child.id, int(h))
+                total += len(handles)
+            return ResultSet([], [], affected=total)
         finally:
             txn.stmt_read_ts = None
 
@@ -1416,16 +1493,15 @@ class Session:
 
     def _exec_truncate(self, stmt: ast.TruncateTableStmt) -> ResultSet:
         info, _ = self._table_for(stmt.table)
-        self.storage.unregister_table(info.id)
-        self.storage.stats.drop_table(info.id)
-        self.storage.destroy_table_data(info.id)
+        for tid in self._physical_ids(info):
+            self.storage.unregister_table(tid)
+            self.storage.stats.drop_table(tid)
+            self.storage.destroy_table_data(tid)
         self.storage.register_table(info)
         return ResultSet([], [])
 
     # ==================== DDL ====================
     def _exec_create_table(self, stmt: ast.CreateTableStmt) -> ResultSet:
-        if stmt.partition_by is not None:
-            raise NotInSlice("PARTITION BY")
         db = stmt.table.db or self.current_db
         columns: list[ColumnInfo] = []
         pk_offsets: list[int] = []
@@ -1480,6 +1556,10 @@ class Session:
             # enforce via a primary unique index
             indices.append(IndexInfo(self.catalog.alloc_id(), "PRIMARY",
                                      list(pk_offsets), True, True))
+        partition = None
+        if stmt.partition_by is not None:
+            partition = self._build_partition_info(
+                stmt.partition_by, columns, indices, pk_handle)
         # FK metadata: stored, not enforced (as the reference)
         fk_infos = []
         for i, fk in enumerate(getattr(stmt, "foreign_keys", []) or []):
@@ -1504,6 +1584,7 @@ class Session:
             columns=columns,
             indices=indices,
             pk_handle_offset=pk_handle,
+            partition=partition,
             foreign_keys=fk_infos,
         )
         try:
@@ -1513,6 +1594,50 @@ class Session:
         if created:
             self.storage.register_table(info)
         return ResultSet([], [])
+
+    def _build_partition_info(self, pb, columns, indices, pk_handle):
+        """Validate + build PartitionInfo (reference: ddl/partition.go
+        checkPartitionByHash/Range + checkPartitionKeysConstraint — every
+        unique key must include the partition column)."""
+        from ..catalog.schema import PartitionDef, PartitionInfo
+
+        col = next((c for c in columns
+                    if c.name.lower() == pb.column.lower()), None)
+        if col is None:
+            raise SQLError(f"unknown partition column {pb.column}")
+        ft = col.ftype
+        if not (ft.is_integer or ft.kind == TypeKind.DATE):
+            raise SQLError(
+                "partition column must be integer or DATE typed")
+        for ix in indices:
+            if (ix.unique or ix.primary) and \
+                    col.offset not in ix.col_offsets:
+                raise SQLError(
+                    "A UNIQUE INDEX must include all columns in the "
+                    "table's partitioning function")
+        if pk_handle is not None and pk_handle != col.offset:
+            raise SQLError(
+                "A PRIMARY KEY must include all columns in the "
+                "table's partitioning function")
+        defs: list = []
+        if pb.kind == "hash":
+            for i in range(pb.count):
+                defs.append(PartitionDef(f"p{i}", self.catalog.alloc_id()))
+        else:
+            prev = None
+            for name, less_than in pb.ranges:
+                if any(d.name.lower() == name.lower() for d in defs):
+                    raise SQLError(f"duplicate partition name {name}")
+                if prev is not None and prev[1] is None:
+                    raise SQLError("MAXVALUE must be the last partition")
+                if less_than is not None and prev is not None and \
+                        prev[1] is not None and less_than <= prev[1]:
+                    raise SQLError(
+                        "VALUES LESS THAN must be strictly increasing")
+                defs.append(PartitionDef(name, self.catalog.alloc_id(),
+                                         less_than))
+                prev = (name, less_than)
+        return PartitionInfo(pb.kind, col.offset, defs)
 
     def _decode_default(self, c, ft: FieldType) -> Any:
         if c.value is None:
@@ -1529,9 +1654,10 @@ class Session:
             except KeyError as e:
                 raise err_wrap(SQLError, e) from None
             if info is not None:
-                self.storage.unregister_table(info.id)
-                self.storage.stats.drop_table(info.id)
-                self.storage.destroy_table_data(info.id)
+                for tid in self._physical_ids(info):
+                    self.storage.unregister_table(tid)
+                    self.storage.stats.drop_table(tid)
+                    self.storage.destroy_table_data(tid)
         return ResultSet([], [])
 
     # ==================== online DDL ====================
@@ -1603,7 +1729,15 @@ class Session:
     def _exec_alter(self, stmt: ast.AlterTableStmt) -> ResultSet:
         for spec in stmt.specs:
             if spec.op in ("drop_partition", "truncate_partition"):
-                raise NotInSlice("PARTITION BY")
+                self._exec_alter_partition(stmt.table, spec)
+                continue
+            info = self.catalog.try_table(
+                stmt.table.db or self.current_db, stmt.table.name)
+            if info is not None and getattr(info, "partition",
+                                            None) is not None:
+                raise SQLError(
+                    f"ALTER {spec.op} on partitioned tables is "
+                    "unsupported")
             if spec.op == "add_index":
                 idef = spec.index
                 if idef.primary:
@@ -1643,6 +1777,54 @@ class Session:
             else:
                 raise SQLError(f"unsupported ALTER action {spec.op}")
         return ResultSet([], [])
+
+    def _exec_alter_partition(self, tn: ast.TableName,
+                              spec: ast.AlterSpec) -> None:
+        """DROP/TRUNCATE PARTITION (reference: ddl/partition.go
+        onDropTablePartition + truncate — partition data reclaim via
+        delete-range, here unsafe_destroy_range on the child id)."""
+        info, _ = self._table_for(tn)
+        part = getattr(info, "partition", None)
+        if part is None:
+            raise SQLError(f"table {info.name} is not partitioned")
+        d = part.by_name(spec.name)
+        if d is None:
+            raise SQLError(f"unknown partition {spec.name}")
+        self._commit_implicit()
+        # the first partition's store is the table's shared handle
+        # allocator (_table_for): its counter must survive this DDL or
+        # re-issued handles would overwrite live rows elsewhere
+        alloc = self.storage.table_store(part.defs[0].id)._next_handle
+        if spec.op == "drop_partition":
+            if part.kind != "range":
+                raise SQLError(
+                    "DROP PARTITION is only supported for RANGE "
+                    "partitioning (use a smaller PARTITIONS count "
+                    "for HASH)")
+            if len(part.defs) == 1:
+                raise SQLError("cannot drop the last partition")
+            part.defs.remove(d)
+            self.storage.unregister_table(d.id)
+            self.storage.stats.drop_table(d.id)
+            self.storage.destroy_table_data(d.id)
+            new_first = self.storage.table_store(part.defs[0].id)
+            new_first._next_handle = max(new_first._next_handle, alloc)
+            self.catalog.bump_version()
+        else:  # truncate_partition: fresh store, same identity
+            self.storage.destroy_table_data(d.id)
+            self.storage.stats.drop_table(d.id)
+            store = TableStore(Storage.child_table_info(info, d))
+            # keep the shared dictionaries (other partitions still
+            # reference their codes)
+            other = next((p for p in part.defs if p.id != d.id), None)
+            if other is not None:
+                store.dictionaries = \
+                    self.storage.table_store(other.id).dictionaries
+            self.storage.tables[d.id] = store
+            self.storage.adopt_table_store(store)
+            if d.id == part.defs[0].id:
+                store._next_handle = alloc
+            self.catalog.bump_version()
 
     def _phys_value(self, v, ft: FieldType):
         """Host default -> physical encoding (scaled decimal, day number)."""
@@ -1722,48 +1904,52 @@ class Session:
         for tn in stmt.tables:
             info, _ = self._table_for(tn)
             crc = 0
-            snap = txn.snapshot(info.id)
-            n = snap.num_visible_rows
-            handles = snap.handles()
-            order = np.argsort(handles, kind="stable")
-            hs = np.ascontiguousarray(
-                handles[order].astype("<i8", copy=False))
-            for lo in range(0, n, step):
-                interrupt.check()
-                crc = zlib.crc32(hs[lo:lo + step].tobytes(), crc)
-            for off in range(info.num_columns):
-                col = snap.column(off)
-                data = col.data[order]
-                valid = col.validity[order].astype(bool, copy=False)
-                d = col.dictionary
-                is_str = d is not None and len(d) and \
-                    info.columns[off].ftype.is_string
-                if is_str:
-                    # one length-prefixed encode per DICTIONARY entry,
-                    # not per cell
-                    blobs = [len(b).to_bytes(4, "little") + b
-                             for b in (s.encode() for s in d.values)]
+            for cinfo, _store in self._partition_children(info):
+                snap = txn.snapshot(cinfo.id)
+                n = snap.num_visible_rows
+                handles = snap.handles()
+                order = np.argsort(handles, kind="stable")
+                hs = np.ascontiguousarray(
+                    handles[order].astype("<i8", copy=False))
                 for lo in range(0, n, step):
                     interrupt.check()
-                    dv = data[lo:lo + step]
-                    vv = valid[lo:lo + step]
-                    crc = zlib.crc32(np.packbits(vv).tobytes(), crc)
+                    crc = zlib.crc32(hs[lo:lo + step].tobytes(), crc)
+                for off in range(cinfo.num_columns):
+                    col = snap.column(off)
+                    data = col.data[order]
+                    valid = col.validity[order].astype(bool, copy=False)
+                    d = col.dictionary
+                    is_str = d is not None and len(d) and \
+                        cinfo.columns[off].ftype.is_string
                     if is_str:
-                        payload = b"".join(
-                            map(blobs.__getitem__,
-                                dv[vv].astype(np.int64).tolist()))
-                        crc = zlib.crc32(payload, crc)
-                    elif dv.dtype.kind in "iub":
-                        ints = np.where(
-                            vv, dv.astype("<i8", copy=False), np.int64(0))
+                        # one length-prefixed encode per DICTIONARY
+                        # entry, not per cell
+                        blobs = [len(b).to_bytes(4, "little") + b
+                                 for b in (s.encode() for s in d.values)]
+                    for lo in range(0, n, step):
+                        interrupt.check()
+                        dv = data[lo:lo + step]
+                        vv = valid[lo:lo + step]
                         crc = zlib.crc32(
-                            np.ascontiguousarray(ints).tobytes(), crc)
-                    else:
-                        f = np.array(dv, copy=True)
-                        f[~vv] = 0
-                        crc = zlib.crc32(
-                            np.ascontiguousarray(f).tobytes(), crc)
-            crc = zlib.crc32(str(n).encode(), crc)
+                            np.packbits(vv).tobytes(), crc)
+                        if is_str:
+                            payload = b"".join(
+                                map(blobs.__getitem__,
+                                    dv[vv].astype(np.int64).tolist()))
+                            crc = zlib.crc32(payload, crc)
+                        elif dv.dtype.kind in "iub":
+                            ints = np.where(
+                                vv, dv.astype("<i8", copy=False),
+                                np.int64(0))
+                            crc = zlib.crc32(
+                                np.ascontiguousarray(ints).tobytes(),
+                                crc)
+                        else:
+                            f = np.array(dv, copy=True)
+                            f[~vv] = 0
+                            crc = zlib.crc32(
+                                np.ascontiguousarray(f).tobytes(), crc)
+                crc = zlib.crc32(str(n).encode(), crc)
             db = tn.db or self.current_db
             rows.append((f"{db}.{info.name}", crc & 0xFFFFFFFF))
         return ResultSet(["Table", "Checksum"], rows)
@@ -1775,18 +1961,20 @@ class Session:
         invariants are the ones this storage can violate: epoch
         column/validity shapes, handle uniqueness, cached index orders
         actually sorting their epoch, unique-key duplicates among visible
-        rows."""
+        rows, and partition routing."""
         for tn in stmt.tables:
-            info, store = self._table_for(tn)
-            self._admin_check_store(info, store)
+            info, _ = self._table_for(tn)
+            for cinfo, cstore in self._partition_children(info):
+                self._admin_check_store(info, cinfo, cstore)
         return ResultSet([], [])
 
-    def _admin_check_store(self, info: TableInfo, store: TableStore) -> None:
+    def _admin_check_store(self, root: TableInfo, info: TableInfo,
+                           store: TableStore) -> None:
         from ..store.index import epoch_index_order
 
         def fail(what: str) -> None:
             raise SQLError(
-                f"admin check table {info.name} failed: {what}",
+                f"admin check table {root.name} failed: {what}",
                 errno=ER_DATA_INCONSISTENT)
 
         txn = self._ensure_txn()
@@ -1832,6 +2020,16 @@ class Session:
                     prev_eq &= cmp_eq
             if idx.unique:
                 self._admin_check_unique(snap, idx, fail)
+        part = getattr(root, "partition", None)
+        if part is not None and info.id != root.id:
+            off = part.col_offset
+            vals = epoch.columns[off]
+            vv = epoch.valids[off]
+            check_vals = vals if vv is None else vals[vv]
+            for u in np.unique(check_vals):
+                if part.route(int(u)).id != info.id:
+                    fail(f"row with partition key {u} stored in wrong "
+                         f"partition {info.name}")
 
     def _admin_check_unique(self, snap, idx, fail) -> None:
         """No duplicate fully-non-NULL unique-key tuples among rows
@@ -1950,10 +2148,13 @@ class Session:
                 if not _like_match(stmt.pattern, t.name):
                     continue
                 from ..catalog.infoschema import _store_rows
-                nrows = _store_rows(self.storage, t.id)
+                part = getattr(t, "partition", None)
+                nrows = sum(_store_rows(self.storage, tid)
+                            for tid in self._physical_ids(t))
                 rows.append((t.name, "InnoDB", 10, "Fixed", nrows, 0,
                              0, 0, 0, 0, None, None, None, None,
-                             "utf8mb4_bin", None, "", ""))
+                             "utf8mb4_bin", None,
+                             "partitioned" if part else "", ""))
             for v in sorted(getattr(schema, "views", {}).values(),
                             key=lambda v: v.name):
                 if _like_match(stmt.pattern, v.name):
@@ -2057,7 +2258,28 @@ class Session:
             info = self.catalog.table(db, tn.name)
         except KeyError as e:
             raise err_wrap(SQLError, e) from None
+        part = getattr(info, "partition", None)
+        if part is not None:
+            # first partition's store: the shared allocator + shared
+            # dictionaries (see Storage._register_partitioned)
+            return info, self.storage.table_store(part.defs[0].id)
         return info, self.storage.table_store(info.id)
+
+    def _partition_children(self, info: TableInfo):
+        """[(child TableInfo, store)] — a single pair for unpartitioned
+        tables, so DML loops uniformly over physical tables."""
+        part = getattr(info, "partition", None)
+        if part is None:
+            return [(info, self.storage.table_store(info.id))]
+        return [(Storage.child_table_info(info, d),
+                 self.storage.table_store(d.id)) for d in part.defs]
+
+    @staticmethod
+    def _physical_ids(info: TableInfo) -> list[int]:
+        """The table ids holding a table's rows: its partitions' ids, or
+        its own."""
+        part = getattr(info, "partition", None)
+        return [d.id for d in part.defs] if part is not None else [info.id]
 
 
 def _like_match(pattern: Optional[str], s: str) -> bool:

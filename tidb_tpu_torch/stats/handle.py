@@ -348,14 +348,19 @@ class StatsHandle:
         out = []
         for schema in list(catalog.schemas.values()):
             for info in list(schema.tables.values()):
-                # (partitioned tables, whose children the reference
-                # analyzes one by one, are not created in this port)
-                try:
-                    store = storage.table_store(info.id)
-                except KeyError:
-                    continue
-                if not self.needs_auto_analyze(info, store, ratio):
-                    continue
-                self.analyze_one(info, store, storage)
-                out.append(info.name)
+                part = getattr(info, "partition", None)
+                if part is not None:
+                    targets = [(storage.child_table_info(info, d), d.id)
+                               for d in part.defs]
+                else:
+                    targets = [(info, info.id)]
+                for tinfo, tid in targets:
+                    try:
+                        store = storage.table_store(tid)
+                    except KeyError:
+                        continue
+                    if not self.needs_auto_analyze(tinfo, store, ratio):
+                        continue
+                    self.analyze_one(tinfo, store, storage)
+                    out.append(info.name)
         return out

@@ -24,17 +24,26 @@ Left out, with the planes they belong to: the multi-process and RPC
 planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
 coordinator, `refresh`, the remote owner), user locks, bindings, the
 maintenance daemon and its GC owner, the lock-order checker around
-`infoschema_lock`, and the observability planes beyond the group-commit
-metrics (events, history, heat). Partitioned tables raise
-`NotInSlice("partitioned table")`.
+`infoschema_lock`, the epoch listeners of the mesh plane, and the
+observability planes beyond the group-commit metrics (events, history,
+heat).
+
+A partitioned table is one `TableStore` per partition, each under its own
+table id and region (`child_table_info`); the partitions share the first
+partition's string dictionaries (until a reopen: `_load_epoch` gives each
+partition its own epoch file's, as the reference does), and the first
+partition's store is the table's handle allocator, whose counter
+`_recover` raises over every partition's handles.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import threading
 import time
+import weakref
 from contextlib import contextmanager
 from typing import Optional
 
@@ -44,7 +53,6 @@ from ..catalog.schema import Catalog, TableInfo
 from ..chunk.column import Dictionary
 from ..errno import (ER_SCHEMA_CHANGED, ER_TXN_TOO_LARGE,
                      ER_WRITE_CONFLICT, CodedError)
-from ..errors import NotInSlice
 from ..kv import codec, tablecodec
 from ..kv.memdb import TOMBSTONE, MemDB
 from ..kv.mvcc import (OP_DEL, OP_LOCK, OP_PUT, KeyIsLockedError, KVError,
@@ -56,6 +64,7 @@ from ..kv.tso import TimestampOracle
 from ..kv.twopc import CommitError, LockResolver, Snapshot, TwoPhaseCommitter
 from ..obs import Observability
 from ..stats.handle import StatsHandle
+from ..util import failpoint
 from .table_store import (ColumnEpoch, TableSnapshot, TableStore,
                           _column_dictionary, _epoch_ids)
 
@@ -184,6 +193,11 @@ class Storage:
         # (reference: TiKV's deadlock detector service; util/deadlock)
         self._waits_for: dict[int, int] = {}
         self._waits_lock = threading.Lock()
+        # coprocessor clients caching this store's tables on a device,
+        # held weakly: `destroy_table_data` frees a dropped table's
+        # tensors in every one (each wire connection has its own client)
+        self._cache_clients: weakref.WeakSet = weakref.WeakSet()
+        self._cache_clients_lock = threading.Lock()
         if path is not None:
             self._recover()
             self._extend_tso_lease()
@@ -192,12 +206,12 @@ class Storage:
 
     # ---- schema ------------------------------------------------------------
     def register_table(self, info: TableInfo) -> TableStore:
-        if getattr(info, "partition", None) is not None:
-            raise NotInSlice("partitioned table")
+        part = getattr(info, "partition", None)
+        if part is not None:
+            return self._register_partitioned(info, part)
         store = TableStore(info)
         self.tables[info.id] = store
-        if self.path is not None:
-            store.on_epoch = self._on_epoch_changed
+        self.adopt_table_store(store)
         # one region per table (reference: split-table-region on create,
         # ddl/split_region.go) — multi-table commits become multi-region
         try:
@@ -205,6 +219,44 @@ class Storage:
         except ValueError:
             pass  # split point already a region boundary
         return store
+
+    def _register_partitioned(self, info: TableInfo, part) -> TableStore:
+        """Each partition is a full physical TableStore under its own
+        table id/region (reference: partitions ARE tables,
+        table/tables/partition.go); they share the first partition's
+        string dictionaries so cross-partition unions need no code
+        remapping. Returns the first partition's store (the shared
+        allocator)."""
+        first: Optional[TableStore] = None
+        for d in part.defs:
+            store = TableStore(self.child_table_info(info, d))
+            if first is None:
+                first = store
+            else:
+                store.dictionaries = first.dictionaries
+            self.tables[d.id] = store
+            self.adopt_table_store(store)
+            try:
+                self.rm.split(tablecodec.table_prefix(d.id))
+            except ValueError:
+                pass
+        assert first is not None
+        return first
+
+    def adopt_table_store(self, store: TableStore) -> None:
+        """Wire a TableStore into this storage's epoch plumbing (the
+        durable-snapshot hook). Every TableStore that lands in
+        self.tables passes through here: register_table, partition
+        registration, TRUNCATE PARTITION's fresh store."""
+        if self.path is not None:
+            store.on_epoch = self._on_epoch_changed
+
+    @staticmethod
+    def child_table_info(info: TableInfo, d) -> TableInfo:
+        """A partition's physical TableInfo: parent schema, own id."""
+        return dataclasses.replace(info, id=d.id,
+                                   name=f"{info.name}#{d.name}",
+                                   partition=None)
 
     def unregister_table(self, table_id: int) -> None:
         self.tables.pop(table_id, None)
@@ -222,6 +274,19 @@ class Storage:
                 os.remove(self._epoch_file(table_id))
             except OSError:
                 pass
+        # a dropped id never stages a newer epoch, so the clients' own
+        # `_evict_stale` would never free its tensors
+        with self._cache_clients_lock:
+            clients = list(self._cache_clients)
+        for client in clients:
+            client.forget_table(table_id)
+
+    def add_cache_client(self, client) -> None:
+        """Register a coprocessor client that caches this store's tables
+        on its device; `destroy_table_data` calls its `forget_table`.
+        Held by a weak reference: a closed session's client goes."""
+        with self._cache_clients_lock:
+            self._cache_clients.add(client)
 
     def table_store(self, table_id: int) -> TableStore:
         return self.tables[table_id]
@@ -440,24 +505,19 @@ class Storage:
         self.catalog.version = state["version"]
         for schema in self.catalog.schemas.values():
             for info in schema.tables.values():
-                store = self.register_table(info)
-                self._load_epoch(store)
-                lo, hi = tablecodec.record_range(info.id)
-                folds = []
-                for key, commit_ts, kind, val in self.kv.scan_latest(lo, hi):
-                    if commit_ts <= store.epoch.fold_ts:
-                        continue
-                    _, handle = tablecodec.decode_record_key(key)
-                    if kind == OP_DEL:
-                        if store.epoch.handle_pos.get(handle) is not None:
-                            folds.append((commit_ts, handle, TOMBSTONE))
-                    else:
-                        row = self._fold_row(store, codec.decode_key(val))
-                        folds.append((commit_ts, handle, row))
-                        store.note_handle(handle)
-                folds.sort(key=lambda t: t[0])
-                for commit_ts, handle, row in folds:
-                    store.apply_commit(commit_ts, handle, row)
+                self.register_table(info)
+                part = getattr(info, "partition", None)
+                ids = [d.id for d in part.defs] if part is not None \
+                    else [info.id]
+                for tid in ids:
+                    self._refold(self.tables[tid])
+                if part is not None:
+                    # the first partition's store allocates handles for
+                    # the WHOLE table: its counter must cover handles
+                    # living in every sibling partition
+                    first = self.tables[ids[0]]
+                    first._next_handle = max(
+                        self.tables[tid]._next_handle for tid in ids)
         self.stats.load_from_kv(self, self.catalog)
         raw = self.get_meta(b"ddl:jobs")
         if raw:
@@ -475,6 +535,28 @@ class Storage:
                     ddl.run_job(self.ddl_jobs[0])
                 except DDLError:
                     pass
+
+    def _refold(self, store: TableStore) -> None:
+        """One physical table at recovery: its epoch file, then the
+        committed KV rows newer than the epoch's fold, in commit order."""
+        tid = store.table.id
+        self._load_epoch(store)
+        lo, hi = tablecodec.record_range(tid)
+        folds = []
+        for key, commit_ts, kind, val in self.kv.scan_latest(lo, hi):
+            if commit_ts <= store.epoch.fold_ts:
+                continue
+            _, handle = tablecodec.decode_record_key(key)
+            if kind == OP_DEL:
+                if store.epoch.handle_pos.get(handle) is not None:
+                    folds.append((commit_ts, handle, TOMBSTONE))
+            else:
+                row = self._fold_row(store, codec.decode_key(val))
+                folds.append((commit_ts, handle, row))
+                store.note_handle(handle)
+        folds.sort(key=lambda t: t[0])
+        for commit_ts, handle, row in folds:
+            store.apply_commit(commit_ts, handle, row)
 
     def _resolve_orphans(self) -> None:
         """Roll crashed transactions forward or back from their primary's
@@ -501,6 +583,10 @@ class Storage:
                 continue
             self._persist_epoch(store)
             store.epoch_dirty = False
+            # crash-injection site: a kill here leaves some epochs
+            # persisted and the KV WAL not yet folded — recovery must
+            # treat the half-finished checkpoint as noise
+            failpoint.inject("storage/mid-checkpoint")
         self.kv.checkpoint()
 
     def _note_group_commit(self, batch: int) -> None:
@@ -704,6 +790,7 @@ class Storage:
             # columnar fold of the committed mutations (the coprocessor's
             # read view) — inside the lock so no snapshot can observe the
             # KV commit without the fold
+            failpoint.inject("storage/before-fold")
             for (table_id, handle), row in mutations.items():
                 store = self.tables.get(table_id)
                 if store is not None:

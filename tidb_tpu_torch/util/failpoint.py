@@ -23,10 +23,26 @@ parsed at import, so points arm inside child server processes. Values:
     true/false   boolean toggle
     anything@K   fire only on the K-th hit (1-based), inert otherwise
 
-The port wires one site so far, `ddl/before-step` (`ddl/ddl.py`, the
-boundary between two persisted job steps). The reference's other sites
-wait with their planes, and with them its declared-site registry and hit
-counts (read by its static analysis and its status port).
+The port wires the reference's sites in the planes it has:
+
+    ddl/before-step              ddl/ddl.py, between two persisted job steps
+    kv/group-fsync               kv/mvcc.py, a group's bytes written, not
+                                 yet fsynced (the leader of the batch)
+    kv/wal-torn-append           kv/mvcc.py, half a WAL record written
+                                 (the pure-Python engine only)
+    storage/mid-checkpoint       store/storage.py, after each epoch file
+                                 a checkpoint persists
+    storage/before-fold          store/storage.py, KV committed, the
+                                 columnar fold not yet run
+    twopc/before-prewrite        kv/twopc.py, the percolator phases
+    twopc/after-prewrite
+    twopc/before-commit-primary
+    twopc/after-primary-commit
+
+The sites of planes not yet ported (governor, daemon, rpc, net, diag,
+range, replica, mesh) wait with them, and so do the reference's
+declared-site registry and hit counts (read by its static analysis and
+its status port).
 """
 
 from __future__ import annotations
@@ -48,6 +64,11 @@ def enable(name: str, value: Any = True) -> None:
 def disable(name: str) -> None:
     with _lock:
         _active.pop(name, None)
+
+
+def is_enabled(name: str) -> bool:
+    with _lock:
+        return name in _active
 
 
 def inject(name: str) -> Optional[Any]:
@@ -145,4 +166,5 @@ def arm_from_env(spec: Optional[str] = None) -> list[str]:
 arm_from_env()
 
 
-__all__ = ["enable", "disable", "inject", "failpoint", "arm_from_env"]
+__all__ = ["enable", "disable", "is_enabled", "inject", "failpoint",
+           "arm_from_env"]
