@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-j, each with the launch counters set to 0 just before it and read
+   a-k, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -262,6 +262,34 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           store reopened on the card (timed): every acknowledged INSERT
           read back, the next INSERT's handles above every handle of every
           partition, Q6 exact with four `device` tags.
+   k. the function registry, the session functions and accounts, after
+      i2 on f2's card and CPU sessions (an `fx:` op has no device
+      lowering: its request is a projected scan, and streamseg is
+      expected to launch 0 times: `registry_launches`):
+      k1. every statement's outcome, tags and registry row-wise count
+          (`REGISTRY_ROW_EVALS` by function) equal on the card and the CPU
+          session, its cold run and warm p50 of 3 on the card:
+          SUBSTRING_INDEX(l_shipmode, 'A', 1) as a GROUP BY key over
+          1992's lineitem (the dictionary path; counts exact against
+          numpy), SOUNDEX over a derived table whose l_quantity < 2 is
+          pushed (the root Selection), DATE_FORMAT grouped over one month
+          of shipdates (row by row), SHA2, REGEXP_LIKE, CONV, HEX and
+          FORMAT over ORDER BY ... LIMIT 100 reads of the first orders and
+          parts, JSON_CONTAINS and JSON_EXTRACT over a 1,000-row JSON
+          table created and dropped in both sessions, FROM_UNIXTIME under
+          time_zone '+00:00' and '+08:00' (eight hours apart, exact), and
+          Q1 with DATE_FORMAT(max(l_shipdate), '%W %M %Y') added, exact
+          against the numpy oracle at the l_quantity scale i2 left;
+      k2. GET_LOCK('k', 0) held by one card session over the card's
+          store, refused to a second, freed by RELEASE_ALL_LOCKS(); then
+          the port's wire server on that store: SELECT SLEEP(20) ended by
+          KILL QUERY from a second connection with errno 1317 within 2 s,
+          and the connection's next Q6 exact;
+      k3. over the same server, a user with SELECT on Q6's four lineitem
+          columns and a role with SELECT on orders: Q6 exact, l_comment
+          and orders refused with 1142 (the reference's errno for a column
+          too), orders read after SET ROLE, an UPDATE refused; the user
+          and the role dropped.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the p50 wall time of 3 warm runs
@@ -2665,6 +2693,301 @@ def _part_j3(args, tmp: str, d1) -> int:
     return _kernels.LAUNCHES[RANK]
 
 
+# ---- part k: the function registry, the session functions, accounts ----
+# k1's reads on f2's sessions after i2 (card == CPU): lineitem and orders
+# as g1' left them (i2 changed only l_quantity's type, to DECIMAL(18,4),
+# and dropped the column it added), part as f2 loaded it. The reference
+# keeps a WHERE with a registry call wholly in the root Selection (so
+# SOUNDEX filters a derived table whose own filter is pushed), and
+# evaluates a registry projection over every row the scan returns,
+# before the root's Sort and Limit: each read's pushed filter bounds the
+# rows the registry sees (~2% of lineitem for SOUNDEX, one month of
+# shipdates, ~1/84, for DATE_FORMAT, the first ~250 orders and 500
+# parts), and the root's grouping of SUBSTRING_INDEX's keys is cut to
+# 1992's shipdates (~1/7), for part k's 60 s
+K1_READS = (
+    ("substring_index",
+     "SELECT substring_index(l_shipmode, 'A', 1) AS k, count(*) "
+     "FROM lineitem WHERE l_shipdate < '1993-01-01' GROUP BY k "
+     "ORDER BY k"),
+    ("soundex",
+     "SELECT count(*) FROM (SELECT l_shipmode FROM lineitem "
+     "WHERE l_quantity < 2) t WHERE soundex(l_shipmode) = 'M400'"),
+    ("date_format",
+     "SELECT date_format(l_shipdate, '%Y-%m') AS m, sum(l_quantity), "
+     "count(*) FROM lineitem WHERE l_shipdate >= '1994-03-01' "
+     "AND l_shipdate < '1994-04-01' GROUP BY m ORDER BY m"),
+    ("sha2",
+     "SELECT o_orderkey, sha2(o_comment, 256) FROM orders "
+     "WHERE o_orderkey < 1000 ORDER BY o_orderkey LIMIT 100"),
+    ("part",
+     "SELECT p_partkey, regexp_like(p_name, '^forest'), "
+     "conv(p_partkey, 10, 36), hex(p_name), format(p_retailprice, 1) "
+     "FROM part WHERE p_partkey <= 500 ORDER BY p_partkey LIMIT 100"),
+)
+K1_JSON_ROWS = 1000
+K1_Q1 = TPCH_QUERIES["q1"].replace(
+    "count(*) as count_order",
+    "count(*) as count_order, "
+    "date_format(max(l_shipdate), '%W %M %Y') as last_ship")
+K_TZ_READ = ("SELECT o_orderkey, from_unixtime(o_orderkey) FROM orders "
+             "WHERE o_orderkey < 1000 ORDER BY o_orderkey LIMIT 100")
+K3_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+
+
+def _k_row_evals() -> dict:
+    from tidb_tpu_torch import obs
+    return {dict(k).get("func"): v
+            for k, v in obs.REGISTRY_ROW_EVALS.samples()}
+
+
+def _k_delta(before: dict) -> dict:
+    return {f: int(v - before.get(f, 0))
+            for f, v in _k_row_evals().items() if v != before.get(f, 0)}
+
+
+def _k_read(card, cpu, label: str, sql: str, times: dict,
+            want=None) -> list:
+    """`sql` on the card session (cold, then 3 warm runs) and on the CPU
+    session: outcome and tags equal, and the rows `want` where given;
+    the registry's row-wise count of the card's cold run and of the CPU
+    run must be equal. -> the card's rows as cells."""
+    before = _k_row_evals()
+    t0 = time.perf_counter()
+    out = _i_outcome(card, sql)
+    _sync()
+    first = time.perf_counter() - t0
+    rows_card = _k_delta(before)
+    tags = list(card.last_engines)
+    before = _k_row_evals()
+    got = _i_outcome(cpu, sql)
+    rows_cpu = _k_delta(before)
+    if got != out or cpu.last_engines != tags:
+        raise SystemExit(f"{label}: {sql[:60]!r} on the CPU {str(got)[:200]}"
+                         f" {cpu.last_engines}, on the card "
+                         f"{str(out)[:200]} {tags}")
+    if out[0] == "error":
+        raise SystemExit(f"{label}: {sql[:60]!r}: {out}")
+    if rows_card != rows_cpu:
+        raise SystemExit(f"{label}: {sql[:60]!r}: registry row-wise calls "
+                         f"{rows_card} on the card, {rows_cpu} on the CPU")
+    if want is not None and out[1] != want:
+        raise SystemExit(f"{label}: {sql[:60]!r}: rows differ from the "
+                         f"oracle: {str(out[1])[:200]} vs {str(want)[:200]}")
+    warm = [_sql_run(card, sql)[1] for _ in range(3)]
+    times[label] = first
+    print(f"  {label}: engines={tags} rows={len(out[1])} card==cpu"
+          f"{' exact' if want is not None else ''} row_evals={rows_card} "
+          f"{_timing(first, warm)}")
+    return out[1]
+
+
+def _k_substring_index_oracle(li) -> list:
+    import datetime as dt
+    from tidb_tpu_torch.copr.funcs import REGISTRY
+    vocab, codes = li["l_shipmode"]
+    keep = li["l_shipdate"] < (dt.date(1993, 1, 1) - dt.date(1970, 1, 1)).days
+    counts = np.bincount(codes[keep], minlength=len(vocab))
+    groups: dict = {}
+    for v, n in zip(vocab, counts.tolist()):
+        if n:
+            k = REGISTRY["SUBSTRING_INDEX"].fn(v, "A", 1)
+            groups[k] = groups.get(k, 0) + n
+    return sorted(groups.items())
+
+
+def _k_q1_oracle(li, qty_scale: int) -> list:
+    """TPC-H Q1's oracle rows (`TR.sql_oracle`) with l_quantity at
+    `qty_scale` (i2 widened it to 4: sum_qty's scale follows, avg_qty's
+    is the scale plus 4) and the last shipdate of each group, formatted
+    '%W %M %Y'."""
+    import datetime as dt
+    rows = TR.sql_oracle("q1", {"lineitem": li})
+    m = li["l_shipdate"] <= (dt.date(1998, 9, 2)
+                             - dt.date(1970, 1, 1)).days
+    rf_vocab, rf = li["l_returnflag"]
+    ls_vocab, ls = li["l_linestatus"]
+    out = []
+    for r in rows:
+        g = m & (rf == rf_vocab.index(r[0])) & (ls == ls_vocab.index(r[1]))
+        last = dt.date(1970, 1, 1) + dt.timedelta(
+            days=int(li["l_shipdate"][g].max()))
+        r = list(r)
+        if qty_scale != 2:
+            u = r[2][1] * 10 ** (qty_scale - 2)
+            r[2] = ("dec", u, qty_scale)
+            r[6] = ("dec", TR._div_round(u * 10 ** 4, r[9]), qty_scale + 4)
+        out.append(tuple(r) + (last.strftime("%A %B %Y"),))
+    return out
+
+
+def _part_k1(card, cpu, data, times: dict) -> None:
+    li = data["lineitem"]
+    want = {"substring_index": TR.sql_cells(_k_substring_index_oracle(li))}
+    for name, sql in K1_READS:
+        _k_read(card, cpu, f"k1 {name}", sql, times, want.get(name))
+    nv = np.random.default_rng(7).integers(0, 7, K1_JSON_ROWS)
+    vals = ", ".join(
+        f"({i}, '{{\"a\": {i}, \"n\": {{\"v\": {int(v)}}}, "
+        f"\"tags\": [\"t{int(v)}\", \"x\"]}}')"
+        for i, v in enumerate(nv))
+    for sql in ("CREATE TABLE k_json (id INT PRIMARY KEY, doc JSON)",
+                f"INSERT INTO k_json VALUES {vals}"):
+        _i_exec([card, cpu], sql, "k1 json", times)
+    n3 = int((nv == 3).sum())
+    _k_read(card, cpu, "k1 json_contains",
+            "SELECT count(*) FROM k_json WHERE "
+            "json_contains(doc, '3', '$.n.v') = 1", times, [(n3,)])
+    _k_read(card, cpu, "k1 json_extract",
+            "SELECT id, json_extract(doc, '$.tags[0]'), "
+            "json_extract(doc, '$.n') FROM k_json ORDER BY id LIMIT 100",
+            times)
+    _i_exec([card, cpu], "DROP TABLE k_json", "k1 json", times)
+    zones = {}
+    for tz in ("+00:00", "+08:00"):
+        _i_exec([card, cpu], f"SET time_zone = '{tz}'", "k1 tz", times)
+        zones[tz] = _k_read(card, cpu, f"k1 from_unixtime {tz}", K_TZ_READ,
+                            times)
+    _i_exec([card, cpu], "SET time_zone = 'SYSTEM'", "k1 tz", times)
+    import datetime as dt
+    for (k, a), (_, b) in zip(zones["+00:00"], zones["+08:00"]):
+        ta = dt.datetime.strptime(a, "%Y-%m-%d %H:%M:%S")
+        tb = dt.datetime.strptime(b, "%Y-%m-%d %H:%M:%S")
+        if ta != dt.datetime(1970, 1, 1) + dt.timedelta(seconds=k) or \
+                tb - ta != dt.timedelta(hours=8):
+            raise SystemExit(f"k1: from_unixtime({k}) is {a} at +00:00 and "
+                             f"{b} at +08:00")
+    qty, = [c for c in card.catalog.table("test", "lineitem").columns
+            if c.name == "l_quantity"]
+    _k_read(card, cpu, "k1 q1+date_format", K1_Q1, times,
+            TR.sql_cells(_k_q1_oracle(li, qty.ftype.scale)))
+
+
+def _part_k2(card, data, mc, server) -> None:
+    """User locks on two card sessions over `card`'s storage, then SLEEP
+    over the wire ended by KILL QUERY from a second connection."""
+    a, b = Session(card.storage), Session(card.storage)
+    steps = [(a, "SELECT get_lock('k', 0)", [(1,)]),
+             (b, "SELECT get_lock('k', 0)", [(0,)]),
+             (b, "SELECT is_free_lock('k')", [(0,)]),
+             (a, "SELECT release_all_locks()", [(1,)]),
+             (b, "SELECT get_lock('k', 0)", [(1,)]),
+             (b, "SELECT release_all_locks()", [(1,)])]
+    for s, sql, want in steps:
+        got = s.query(sql)
+        if got != want:
+            raise SystemExit(f"k2: {sql} gave {got}, want {want}")
+    print("  k2: GET_LOCK('k', 0) held by one card session, refused to the "
+          "other (0), freed by RELEASE_ALL_LOCKS(), then taken by it")
+    addr = ("127.0.0.1", server.port)
+    ca, cb = mc.MiniClient(*addr), mc.MiniClient(*addr)
+    ida = int(ca.query("SELECT connection_id()")[0][0])
+    box: dict = {}
+
+    def sleeper():
+        t0 = time.perf_counter()
+        try:
+            box["rows"] = ca.query("SELECT SLEEP(20)")
+        except mc.MySQLError as e:
+            box["err"] = e.code
+        box["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=sleeper)
+    th.start()
+    time.sleep(0.5)
+    t_kill = time.perf_counter()
+    cb.execute(f"KILL QUERY {ida}")
+    th.join(timeout=10.0)
+    ended = time.perf_counter() - t_kill
+    if th.is_alive() or box.get("err") != 1317 or ended > 2.0:
+        raise SystemExit(f"k2: SLEEP(20) after KILL QUERY: {box}, ended "
+                         f"{ended:.2f}s after the KILL")
+    want = _wire_text(card.query(TPCH_QUERIES["q6"]))
+    if TR.sql_cells(card.query(TPCH_QUERIES["q6"])) != \
+            TR.sql_oracle("q6", data) or ca.query(TPCH_QUERIES["q6"]) != want:
+        raise SystemExit("k2: Q6 on the killed connection is not exact")
+    print(f"  k2: SELECT SLEEP(20) over the wire ended by KILL QUERY from a "
+          f"second connection: errno {box['err']} {ended * 1e3:.1f} ms "
+          f"after the KILL ({box['s']:.2f}s in all); its next Q6 exact, "
+          f"engines {server._conns[ida].session.last_engines}")
+    ca.close()
+    cb.close()
+
+
+def _part_k3(card, data, mc, server) -> None:
+    """A non-root user over the wire: column grants, a role, refusals."""
+    addr = ("127.0.0.1", server.port)
+    root = mc.MiniClient(*addr)
+    for sql in ("CREATE USER 'k3' IDENTIFIED BY 'k3pw'",
+                f"GRANT SELECT ({', '.join(K3_COLUMNS)}) ON lineitem TO "
+                "'k3'",
+                "CREATE ROLE 'k3_orders'",
+                "GRANT SELECT ON test.orders TO 'k3_orders'",
+                "GRANT 'k3_orders' TO 'k3'"):
+        root.execute(sql)
+    k3 = mc.MiniClient(*addr, user="k3", password="k3pw")
+
+    def refused(sql: str) -> tuple:
+        try:
+            k3.query(sql)
+        except mc.MySQLError as e:
+            return e.code, str(e)
+        raise SystemExit(f"k3: {sql!r} was not refused")
+
+    t0 = time.perf_counter()
+    q6 = k3.query(TPCH_QUERIES["q6"])
+    t_q6 = time.perf_counter() - t0
+    if q6 != _wire_text(card.query(TPCH_QUERIES["q6"])) or \
+            TR.sql_cells(card.query(TPCH_QUERIES["q6"])) != \
+            TR.sql_oracle("q6", data):
+        raise SystemExit("k3: Q6 as k3 is not exact")
+    tags = _server_tags(server)
+    col = refused("SELECT l_comment FROM lineitem LIMIT 1")
+    tab = refused("SELECT count(*) FROM orders")
+    k3.execute("SET ROLE 'k3_orders'")
+    n_orders = int(k3.query("SELECT count(*) FROM orders")[0][0])
+    upd = refused("UPDATE lineitem SET l_quantity = 1 WHERE l_orderkey = 1")
+    # the reference types a column refusal as 1142 (MySQL: 1143)
+    if col[0] != 1142 or "l_comment" not in col[1] or tab[0] != 1142 or \
+            upd[0] != 1142 or n_orders != len(data["orders"]["o_orderkey"]):
+        raise SystemExit(f"k3: l_comment {col}, orders {tab}, UPDATE {upd}, "
+                         f"orders after SET ROLE {n_orders}")
+    k3.close()
+    for sql in ("DROP USER 'k3'", "DROP ROLE 'k3_orders'"):
+        root.execute(sql)
+    root.close()
+    print(f"  k3: as 'k3' over the wire: Q6 exact {t_q6 * 1e3:.1f} ms "
+          f"engines {tags}; l_comment refused {col[0]}, orders refused "
+          f"{tab[0]}, after SET ROLE orders read ({n_orders} rows), UPDATE "
+          f"refused {upd[0]}; user and role dropped")
+
+
+def _part_k(card, cpu, data) -> int:
+    """Part k (module docstring) on f2's sessions after i2. -> streamseg's
+    launches during the part."""
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    times: dict = {}
+    before = _k_row_evals()
+    _part_k1(card, cpu, data, times)
+    print(f"  k1: registry row-wise calls by function (card and CPU): "
+          f"{_k_delta(before)}")
+    from tidb_tpu_torch.server import Server
+    mc = _mini_client_module()
+    server = Server(card.storage, port=0)
+    server.start()
+    try:
+        _part_k2(card, data, mc, server)
+        _part_k3(card, data, mc, server)
+    finally:
+        server.close()
+    launched = _kernels.LAUNCHES[RANK]
+    print(f"  k: streamseg launches {launched} (an fx: op has no device "
+          f"lowering: its requests are projected scans); part k took "
+          f"{time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2775,6 +3098,10 @@ def main(argv=None) -> int:
     ddl_launches["i2"] = _part_i12(args, [card1, cpu1], after1,
                                    f"i2 SF{args.q18_sf:g}", None, full=True)
     lap("part i2")
+    print(f"  -- k. the function registry, the session functions and "
+          f"accounts on f2's sessions ({_mem()} held before it)")
+    registry_launches = _part_k(card1, cpu1, after1)
+    lap("part k")
     del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
@@ -2819,7 +3146,8 @@ def main(argv=None) -> int:
             "write_launches": write_launches,
             "ddl_launches": ddl_launches,
             "partition_launches": sum(partition_launches.values()),
-            "partition_launches_by_part": partition_launches}
+            "partition_launches_by_part": partition_launches,
+            "registry_launches": registry_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,16 @@
 """The port's host expression evaluator against the JAX package's.
 
 `tidb_tpu_torch/copr/npeval.py` is the port's own copy of
-`tidb_tpu/copr/npeval.py` (the registry builtins left out). The
-coprocessor runs it on the host for two things: the row path's projections
-and the build filters of semi/anti edges. Every op the planner pushes down
-(`_DEVICE_OPS` of `tidb_tpu/plan/physical.py`) is evaluated here by both
-over one seeded corpus: BIGINTs with NULLs and zeros, decimals of two
-scales, a double, dates, and dictionary strings in two dictionaries, in the
-numeric and the string domain (`eval_str`) alike. Expressions are built
-with the reference's classes and carried over with `convert`.
+`tidb_tpu/copr/npeval.py`. The coprocessor runs it on the host for two
+things: the row path's projections and the build filters of semi/anti
+edges. Every op the planner pushes down (`_DEVICE_OPS` of
+`tidb_tpu/plan/physical.py`) is evaluated here by both over one seeded
+corpus: BIGINTs with NULLs and zeros, decimals of two scales, a double,
+dates, and dictionary strings in two dictionaries, in the numeric and the
+string domain (`eval_str`) alike; so are registry builtins (`fx:` ops) on
+the row-wise and the dictionary path, with their row-eval counts.
+Expressions are built with the reference's classes and carried over with
+`convert`.
 
 Tolerance: exact. Values (every lane, NULL lanes included) and validity
 must be identical arrays.
@@ -21,7 +23,6 @@ from tidb_tpu.chunk.column import Dictionary as RefDictionary
 from tidb_tpu.copr.npeval import NumpyEval as RefNumpyEval
 from tidb_tpu.plan.expr import Call, Col, Const, arith_result_type, bool_call
 from tidb_tpu.types.field_type import FieldType, TypeKind
-from tidb_tpu_torch import NotInSlice
 from tidb_tpu_torch.chunk.column import Dictionary
 from tidb_tpu_torch.convert import request_from_reference
 from tidb_tpu_torch.copr.npeval import NumpyEval
@@ -188,11 +189,53 @@ def test_numpy_eval_matches_reference(evaluators, name):
     assert np.asarray(gvl).any()
 
 
-def test_registry_builtin_is_not_in_slice(evaluators):
-    _, port = evaluators
-    e = request_from_reference(Call("fx:upper", [S1], STR))
-    with pytest.raises(NotInSlice) as ei:
-        port.eval_str(e)
-    assert ei.value.reason == "registry builtin"
-    with pytest.raises(NotInSlice):
-        port.eval(request_from_reference(Call("fx:abs", [A], BIGINT)))
+def _fx(name, args, ftype):
+    return Call(f"fx:{name}", args, ftype)
+
+
+# registry builtins (fx: ops, copr/funcs.py): row-wise, dictionary-
+# vectorized (SUBSTRING_INDEX, REGEXP_LIKE over one dictionary column and
+# constants) and the exact decimal domain (MOD returns its arg0 type)
+FX_EXPRS = {
+    "soundex": (_fx("SOUNDEX", [S1], STR), "str"),
+    "substring_index_dict": (_fx("SUBSTRING_INDEX", [
+        S1, _const("p", STR), _const(1, BIGINT)], STR), "str"),
+    "regexp_like_dict": (_fx("REGEXP_LIKE", [S2, _const("^[cd]", STR)],
+                             BIGINT), "num"),
+    "mod_decimal": (_fx("MOD", [X, _const(700, DEC2)], DEC2), "num"),
+    "format_decimal": (_fx("FORMAT", [Y, _const(2, BIGINT)], STR), "str"),
+    "date_format": (_fx("DATE_FORMAT", [D, _const("%Y-%m", STR)], STR),
+                    "str"),
+    "conv_int": (_fx("CONV", [A, _const(10, BIGINT), _const(16, BIGINT)],
+                     STR), "str"),
+    "degrees_float": (_fx("DEGREES", [F], DOUBLE), "num"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FX_EXPRS))
+def test_registry_builtin_matches_reference(evaluators, name):
+    """Both evaluators give the same lanes, and count the same rows on
+    their registry row-eval counter (0 on the dictionary path)."""
+    from tidb_tpu import obs as ref_obs
+    from tidb_tpu_torch import obs
+
+    ref, port = evaluators
+    e, domain = FX_EXPRS[name]
+    fn = e.op[3:]
+    before = (ref_obs.REGISTRY_ROW_EVALS.get(func=fn),
+              obs.REGISTRY_ROW_EVALS.get(func=fn))
+    pe = request_from_reference(e)
+    if domain == "str":
+        want, got = ref.eval_str(e), port.eval_str(pe)
+    else:
+        want, got = ref.eval(e), port.eval(pe)
+    (wv, wvl), (gv, gvl) = want, got
+    wv, gv = np.asarray(wv), np.asarray(gv)
+    assert gv.dtype == wv.dtype and gv.shape == wv.shape == (N,)
+    assert np.array_equal(gv, wv)
+    assert np.array_equal(np.asarray(gvl), np.asarray(wvl))
+    assert np.asarray(gvl).any()
+    rows = (ref_obs.REGISTRY_ROW_EVALS.get(func=fn) - before[0],
+            obs.REGISTRY_ROW_EVALS.get(func=fn) - before[1])
+    assert rows[0] == rows[1]
+    assert rows[1] == (0 if name.endswith("_dict") else N)

@@ -140,7 +140,9 @@ def _close(*servers) -> None:
     """Close each server (its close joins its reactor and workers) and
     join its accept thread. The reference's close leaves that thread
     blocked in accept() on the closed listener, so its listener is shut
-    down first, as the port's close does."""
+    down first, as the port's close does; and its start runs its store's
+    metrics-history sampler, which only `Storage.close` stops, so that
+    sampler is stopped here (these in-memory stores are never closed)."""
     for srv in servers:
         if isinstance(srv, RefServer) and srv._listener is not None:
             try:
@@ -150,6 +152,9 @@ def _close(*servers) -> None:
         srv.close(drain_timeout=0.2)
         srv._accept_thread.join(timeout=5.0)
         assert not srv._accept_thread.is_alive()
+        if isinstance(srv, RefServer):
+            srv.storage.metrics_history.stop()
+            assert not srv.storage.metrics_history.running
 
 
 COLUMNS = ("a tinyint, b smallint, c int, d bigint primary key, e float, "

@@ -9,9 +9,9 @@ grouping and an index-ranged scan. Rows (exact: a Decimal by its unscaled
 integer and scale), column names, engine tags and EXPLAIN text must be the
 reference's. ANALYZE TABLE builds the reference's statistics, on the host
 path and on the coprocessor's device path alike, and an error of the
-device pass is not caught. Statements of planes not ported yet (DDL
-beyond CREATE/DROP/TRUNCATE, sequences, the clock functions, user locks,
-EXPLAIN ANALYZE) raise `NotInSlice` with their kind or name; a
+device pass is not caught. Statements of planes not ported yet (INTO
+OUTFILE, TRACE, SHOW PROCESSLIST, LOAD DATA, EXPLAIN ANALYZE, bindings)
+raise `NotInSlice` with their kind or name; a
 `Session()` without CUDA raises at its first statement that needs the
 coprocessor and never moves to the CPU.
 """
@@ -175,9 +175,9 @@ def test_analyze_device_error_is_not_caught(both):
 
 
 @pytest.mark.parametrize("sql,kind", [
-    ("select now()", "NOW"),
-    ("select get_lock('a', 1)", "GET_LOCK"),
-    ("create user 'bob'", "CreateUserStmt"),
+    ("select id from emp into outfile 'x.csv'", "INTO OUTFILE"),
+    ("trace select id from emp", "TraceStmt"),
+    ("show processlist", "SHOW PROCESSLIST"),
     ("load data infile 'x.csv' into table emp", "LoadDataStmt"),
     ("explain analyze select id from emp", "EXPLAIN ANALYZE"),
     ("create binding for select id from emp using select id from emp",

@@ -11,8 +11,11 @@ from host-only modules is copied in. Entry points:
   `store.storage.Storage` (`kv/`: percolator 2PC over an ordered KV,
   durable with a path; `store/table_store.py`: column epochs, deltas,
   compaction), with DML, transactions, the point fast path
-  (`plan/fastpath.py`), online DDL (`ddl/ddl.py`) and the schema surface
-  (SHOW, `catalog/infoschema.py`, views, sequences);
+  (`plan/fastpath.py`), online DDL (`ddl/ddl.py`), the schema surface
+  (SHOW, `catalog/infoschema.py`, views, sequences), partitioned tables,
+  the function registry (`copr/funcs.py`), the clock and user locks, and
+  accounts, grants and roles checked per statement
+  (`session/privileges.py`);
 * `server.Server(storage)`: the MySQL wire protocol over it;
 * `copr.client.CopClient(device).execute(dag, snap)` for a single-table
   pushdown request (`plan.dag.CopDAG`);
@@ -22,9 +25,9 @@ from host-only modules is copied in. Entry points:
 Where the reference's gates send a request to its host tier, the port's
 host tier answers it too (`copr/host_exec.py`, the fragment's host
 interpreter), with the reference's engine tag. `errors.NotInSlice` marks
-what is not ported yet: users and grants, bindings, user locks, the clock
-functions, LOAD DATA, the obs-backed SHOW kinds and information_schema
-tables, registry builtins (`fx:` ops), partitioned tables.
+what is not ported yet: bindings, LOAD DATA and INTO OUTFILE, TRACE and
+EXPLAIN ANALYZE, the obs-backed SHOW kinds and information_schema tables,
+`metrics_schema`.
 """
 
 from .device import resolve_device

@@ -10,10 +10,14 @@ rows. Every op keeps the reference's semantics (three-valued logic, LIKE and
 IN over dictionary codes, decimal scale alignment, MySQL `DIV`/`MOD` signs,
 date parts, casts).
 
-What differs: the registry builtins (`fx:` ops, the reference's
-`copr/funcs.py`) are left out. Pushdown never sends one to the coprocessor
-(the planner's device op set has no `fx:` op), so an `fx:` op raises
-`NotInSlice("registry builtin")`.
+The registry builtins (`fx:` ops, `copr/funcs.py`) evaluate here too, on the
+root's rows: pushdown never sends one to the coprocessor (the planner's
+device op set has no `fx:` op). A call whose one string argument is a
+dictionary-coded column and whose other arguments are constants runs once
+per dictionary value and gathers by code (`_dict_vec_call`); every other
+call runs row by row (`_registry_call`) and counts its rows on
+`obs.REGISTRY_ROW_EVALS`. DECIMAL arguments reach the builtin as exact
+`decimal.Decimal`s.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ from typing import Optional
 import numpy as np
 
 from ..chunk.column import Dictionary
-from ..errors import NotInSlice
 from ..plan.expr import Call, Col, Const, PlanExpr
 from ..types.field_type import FieldType, TypeKind
 
@@ -44,6 +47,168 @@ class NumpyEval:
         self.n = n
 
     # ---- string-domain evaluation -------------------------------------------
+    def _registry_call(self, e: Call) -> VV:
+        """Breadth-layer builtins (copr/funcs.py): rowwise Python with
+        the registry's NULL semantics; args arrive in their natural
+        domains (str / day-number int / EXACT stdlib decimal.Decimal for
+        DECIMAL columns / int). The reference keeps exact MyDecimal
+        semantics through every builtin (types/mydecimal.go): a float
+        round trip would lose precision silently."""
+        import decimal as _pydec
+
+        from .. import obs
+        from .funcs import REGISTRY
+
+        fd = REGISTRY[e.op[3:]]
+        vec = self._dict_vec_call(e, fd)
+        if vec is not None:
+            return vec
+        # the de-vectorization tax, attributed per function (the
+        # reference surfaces it through metrics_schema and its
+        # registry-row-eval inspection rule)
+        obs.REGISTRY_ROW_EVALS.inc(self.n, func=fd.name)
+        arg_vv = []
+        for a in e.args:
+            if a.ftype.is_string:
+                v, vl = self.eval_str(a)
+                dec_scale = None
+            else:
+                v, vl = self.eval(a)
+                v = np.asarray(v)
+                dec_scale = a.ftype.scale if a.ftype.is_decimal else None
+            arg_vv.append((v, np.asarray(vl), dec_scale))
+        n = self.n
+        out = np.empty(n, dtype=object)
+        valid = np.zeros(n, bool)
+        for i in range(n):
+            vals = []
+            has_null = False
+            for v, vl, dec_scale in arg_vv:
+                if vl[i]:
+                    x = v[i]
+                    x = x.item() if hasattr(x, "item") else x
+                    if dec_scale is not None:
+                        # exact: unscaled int / 10**scale in the decimal
+                        # domain, no float round trip
+                        x = _pydec.Decimal(int(x)).scaleb(-dec_scale)
+                    vals.append(x)
+                else:
+                    vals.append(None)
+                    has_null = True
+            if has_null and fd.null_prop:
+                continue
+            try:
+                r = fd.fn(*vals)
+            except (ValueError, TypeError, OverflowError,
+                    ZeroDivisionError):
+                r = None
+            if r is not None:
+                out[i] = r
+                valid[i] = True
+        return self._coerce_registry(e, fd, out, valid)
+
+    def _dict_vec_call(self, e: Call, fd) -> Optional[VV]:
+        """Dictionary-vectorized registry call: when the ONE string
+        argument is a plain dict-coded column and every other argument
+        is a constant, evaluate the builtin once per DISTINCT dictionary
+        value and gather per row by code — len(dict) Python calls
+        instead of n (the de-vectorization the registry-row-eval rule
+        watches). Returns None when the shape doesn't apply and the
+        per-row path must run."""
+        import decimal as _pydec
+
+        if not fd.dict_vec or not fd.null_prop:
+            return None
+        col_pos = None
+        consts: dict[int, object] = {}
+        for i, a in enumerate(e.args):
+            if isinstance(a, Col) and a.ftype.is_string:
+                if col_pos is not None:
+                    return None  # two string columns: no single domain
+                col_pos = i
+            elif isinstance(a, Const):
+                if a.value is None:
+                    return None  # NULL const: per-row path propagates
+                if a.ftype.is_string:
+                    consts[i] = str(a.value)
+                elif a.ftype.is_decimal:
+                    consts[i] = _pydec.Decimal(
+                        int(a.value)).scaleb(-a.ftype.scale)
+                elif isinstance(a.value, (int, float, bool)):
+                    consts[i] = a.value
+                else:
+                    return None
+            else:
+                return None
+        if col_pos is None:
+            return None
+        c = e.args[col_pos]
+        d = self.dicts[c.idx] if c.idx < len(self.dicts) else None
+        if d is None or len(d) == 0 or len(d) > max(self.n, 1):
+            return None  # fewer rows than values: per-row is cheaper
+        codes, vl = self.cols[c.idx]
+        dvals = np.empty(len(d), dtype=object)
+        dok = np.zeros(len(d), bool)
+        args = [consts.get(i) for i in range(len(e.args))]
+        for ci, sval in enumerate(d.values):
+            args[col_pos] = sval
+            try:
+                r = fd.fn(*args)
+            except (ValueError, TypeError, OverflowError,
+                    ZeroDivisionError):
+                r = None
+            if r is not None:
+                dvals[ci] = r
+                dok[ci] = True
+        safe = np.clip(codes, 0, len(d) - 1)
+        out = dvals[safe]
+        valid = np.asarray(vl) & dok[safe]
+        out = np.where(valid, out, None)
+        return self._coerce_registry(e, fd, out, valid)
+
+    def _coerce_registry(self, e: Call, fd, out: np.ndarray,
+                         valid: np.ndarray) -> VV:
+        """Registry results (object array) -> the typed (data, valid)
+        pair per the FuncDef's declared return domain."""
+        import decimal as _pydec
+
+        n = self.n
+        if fd.ret == "str":
+            # string consumers read through eval_str (object array)
+            for i in range(n):
+                if not valid[i]:
+                    out[i] = ""
+            return out, valid
+        idx = np.nonzero(valid)[0]
+        if fd.ret == "float" or (fd.ret == "arg0" and e.ftype.is_float):
+            arr = np.zeros(n, np.float64)
+            if len(idx):
+                arr[idx] = [float(out[i]) for i in idx]
+        elif fd.ret == "arg0" and e.ftype.is_decimal:
+            # exact fixed-point: Decimal/int results rescale without a
+            # float round trip (MySQL half-away-from-zero on narrowing);
+            # float results (float-natured fns) round at their precision
+            import decimal as _pydec
+
+            arr = np.zeros(n, np.int64)
+            if len(idx):
+                m = e.ftype.scale
+
+                def _fix(r):
+                    if isinstance(r, float):
+                        r = _pydec.Decimal(repr(r))
+                    elif not isinstance(r, _pydec.Decimal):
+                        r = _pydec.Decimal(int(r))
+                    return int(r.scaleb(m).to_integral_value(
+                        rounding=_pydec.ROUND_HALF_UP))
+
+                arr[idx] = [_fix(out[i]) for i in idx]
+        else:
+            arr = np.zeros(n, np.int64)
+            if len(idx):
+                arr[idx] = [int(out[i]) for i in idx]
+        return arr, valid
+
     def eval_str(self, e: PlanExpr) -> VV:
         """Evaluate a string-typed expression to (object array of str, valid).
 
@@ -68,7 +233,7 @@ class NumpyEval:
         op = e.op
         A = e.args
         if op.startswith("fx:"):
-            raise NotInSlice("registry builtin")
+            return self._registry_call(e)
         if op == "if":
             cv, cvl = _b(self.eval(A[0]))
             tv, tvl = self.eval_str(A[1])
@@ -251,7 +416,7 @@ class NumpyEval:
         A = e.args
 
         if op.startswith("fx:"):
-            raise NotInSlice("registry builtin")
+            return self._registry_call(e)
         if op == "and":
             av, avl = _b(self.eval(A[0]))
             bv, bvl = _b(self.eval(A[1]))

@@ -4,13 +4,10 @@
 class NotInSlice(Exception):
     """The statement or request needs a part of the reference that is not
     ported. `reason` names it: a statement kind the Session does not run
-    ("CreateUserStmt", "LoadDataStmt", "CreateBindingStmt", ...), a
-    session function of an unported plane by its name ("NOW",
-    "GET_LOCK", ...), a SHOW kind ("SHOW PROCESSLIST", ...), an
-    information_schema table of an unported plane by its name
-    ("slow_query", ...), "metrics_schema", "registry builtin" (an `fx:`
-    op: the reference's function registry), "partitioned table",
-    "PARTITION BY", "EXPLAIN ANALYZE", "INTO OUTFILE"."""
+    ("LoadDataStmt", "CreateBindingStmt", "TraceStmt", ...), a SHOW kind
+    ("SHOW PROCESSLIST", ...), an information_schema table of an unported
+    plane by its name ("slow_query", ...), "metrics_schema", "EXPLAIN
+    ANALYZE", "INTO OUTFILE"."""
 
     def __init__(self, reason: str) -> None:
         super().__init__(reason)

@@ -7,8 +7,10 @@ operator's exclusive wall time, `note_engine` appends a coprocessor read's
 engine tag, and the session installs one `StageRecorder` per statement
 (`install_stage_recorder` / `active_stage_recorder`). Of the metrics
 registry, the histogram of group commit's batch sizes (`Observability`,
-one per `Storage`, under the reference's metric name). Spans, the slow
-log and the rest of the plane are not ported.
+one per `Storage`, under the reference's metric name) and, in the
+process-wide registry (`PROCESS_METRICS`), the counter of rows the
+function registry evaluated row by row (`REGISTRY_ROW_EVALS`, by `func`).
+Spans, the slow log and the rest of the plane are not ported.
 """
 
 from __future__ import annotations
@@ -139,6 +141,54 @@ def stage(name: str) -> _StageCtx:
     return _StageCtx(name)
 
 
+class Counter:
+    """A labeled monotonic counter (Prometheus counter): `inc(amount,
+    **labels)`, `get(**labels)`, `samples()`."""
+
+    __slots__ = ("name", "help", "_values", "_lock")
+
+    def __init__(self, name: str, help_: str) -> None:
+        self.name = name
+        self.help = help_
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def get(self, **labels) -> float:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            return self._values.get(key, 0.0)
+
+    def samples(self):
+        with self._lock:
+            return list(self._values.items())
+
+
+class Registry:
+    """Metric families by name; `counter` returns the one registered
+    under a name, creating it on first use."""
+
+    def __init__(self) -> None:
+        self._metrics: dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, help_: str = "") -> Counter:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = Counter(name, help_)
+                self._metrics[name] = m
+            elif not isinstance(m, Counter):
+                raise TypeError(
+                    f"metric {name} already registered as "
+                    f"{type(m).__name__}")
+            return m
+
+
 class Histogram:
     """Fixed-bucket histogram (Prometheus-style); `snapshot()` gives
     (per-bucket counts, the last one past the top bound; sum; total)."""
@@ -182,3 +232,13 @@ class Observability:
             "commits made durable by one WAL fsync under "
             "sync-log=commit (group-commit rendezvous batch size)",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+
+
+# process-global metrics (one device per process)
+PROCESS_METRICS = Registry()
+REGISTRY_ROW_EVALS = PROCESS_METRICS.counter(
+    "tidb_registry_row_eval_total",
+    "rows evaluated by the per-row scalar-function registry fallback "
+    "(copr/funcs.py), by function — nonzero means an expression left "
+    "the vectorized path (the registry-row-eval inspection rule reads "
+    "this)")

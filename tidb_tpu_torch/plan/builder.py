@@ -62,7 +62,6 @@ _CMP_SWAP = {"eq": "eq", "ne": "ne", "lt": "gt", "le": "ge", "gt": "lt",
 
 
 from ..errno import ER_BAD_FIELD, CodedError
-from ..errors import NotInSlice
 from ..errno import wrap as err_wrap
 
 
@@ -1326,9 +1325,28 @@ class PlanBuilder:
         out = self._resolve_builtin(name, args, need)
         if out is not None:
             return out
-        # breadth layer: the reference resolves the remaining names in
-        # its host-function registry (copr/funcs.py), not ported
-        raise NotInSlice("registry builtin")
+        # breadth layer: the declarative host-function registry
+        # (copr/funcs.py). LOCATE's 3-arg form shares a name with the
+        # vectorized 2-arg core — registered under an alias.
+        from ..copr.funcs import lookup
+        reg_name = "LOCATE3" if name == "LOCATE" and len(args) == 3 \
+            else name
+        fd = lookup(reg_name)
+        if fd is not None:
+            if not fd.min_args <= len(args) <= fd.max_args:
+                raise PlanError(
+                    f"{name} expects {fd.min_args}..{fd.max_args} "
+                    f"argument(s)")
+            from ..types.field_type import varchar_type
+            ret = {"str": varchar_type(),
+                   "int": FieldType(TypeKind.BIGINT),
+                   "float": FieldType(TypeKind.DOUBLE),
+                   "date": FieldType(TypeKind.DATE)}.get(fd.ret)
+            if ret is None:  # argN: result typed like that argument
+                i = 1 if fd.ret == "arg1" and len(args) > 1 else 0
+                ret = args[i].ftype
+            return _fold(Call(f"fx:{fd.name}", args, ret))
+        raise PlanError(f"unsupported function {name}")
 
     def _resolve_builtin(self, name: str, args: list[PlanExpr],
                          need) -> Optional[PlanExpr]:

@@ -33,10 +33,25 @@ statement reads it); the server's prepared statements (`prepare`,
 `execute_prepared`, `close_prepared`). Autocommit point statements take
 the fast path (`plan/fastpath.py`) and never touch the coprocessor.
 
-Raise `NotInSlice`: every other statement kind (users, grants, roles,
-bindings, LOAD DATA, ...) by its kind; the clock functions and user
-locks by their names; SHOW BINDINGS, PROCESSLIST, PROFILES, PROFILE,
-SLOW and METRICS as "SHOW <kind>"; `metrics_schema` and the obs-backed
+Accounts: CREATE/DROP/ALTER/RENAME USER, GRANT and REVOKE (column grants
+too), CREATE/DROP ROLE, GRANT of a role, SET DEFAULT ROLE and SET ROLE,
+each over the storage's `PrivilegeManager`. A session with a `user` (the
+wire server sets it at login, with the account's default roles active)
+has every statement checked before it runs (`_check_privileges`, ahead of
+the fast path), its plan's leaf tables checked column by column
+(`_check_column_privs`), and the column lists of its INSERTs and UPDATEs
+(`_check_dml_columns`).
+
+Functions: the registry builtins (`copr/funcs.py`) evaluate on the root's
+rows; the statement installs `@@time_zone` for them (FROM_UNIXTIME) and
+restores the previous zone when it ends. The clock (NOW, CURDATE,
+CURTIME, UNIX_TIMESTAMP()) binds to literals before planning, and the
+GET_LOCK family takes the storage's named locks (`UserLocks`), released
+when the connection closes (`rollback_if_active`).
+
+Raise `NotInSlice`: every other statement kind (bindings, LOAD DATA,
+...) by its kind; SHOW BINDINGS, PROCESSLIST, PROFILES, PROFILE, SLOW and
+METRICS as "SHOW <kind>"; `metrics_schema` and the obs-backed
 information_schema tables by their names.
 
 A partitioned table's DML loops over its partitions
@@ -46,9 +61,8 @@ has been scanned, and DELETE, FOR UPDATE, ANALYZE, CHECKSUM and ADMIN
 CHECK visit each partition's store.
 
 Left out of the reference's statement path: the SQL-text plan cache (it
-changes no answer), slow log, digests, profiler, bindings, the
-per-statement privilege checks, replica routing, governor admission and
-max_execution_time.
+changes no answer), slow log, digests, profiler, bindings, replica
+routing, governor admission and max_execution_time.
 """
 
 from __future__ import annotations
@@ -65,12 +79,15 @@ import torch
 from .. import obs
 from ..catalog.schema import Catalog, ColumnInfo, FKInfo, IndexInfo, TableInfo
 from ..chunk.column import _encode_scalar
+from ..copr import funcs
 from ..copr.client import CopClient
 from ..copr.npeval import NumpyEval, _truthy
 from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DATA_INCONSISTENT,
                      ER_DUP_ENTRY, ER_KILL_DENIED, ER_NO_SUCH_TABLE,
-                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED, ER_TABLE_EXISTS,
-                     ER_TIKV_SERVER_BUSY, ER_UNKNOWN_SYSTEM_VARIABLE,
+                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED,
+                     ER_SPECIFIC_ACCESS_DENIED, ER_TABLE_EXISTS,
+                     ER_TABLEACCESS_DENIED, ER_TIKV_SERVER_BUSY,
+                     ER_UNKNOWN_SYSTEM_VARIABLE,
                      ER_VAR_READONLY, ER_WRONG_VALUE_COUNT_ON_ROW,
                      CodedError)
 from ..errno import wrap as err_wrap
@@ -104,15 +121,6 @@ _SESSION_FUNCS = frozenset({
 _NILADIC_FUNCS = frozenset({
     "CURRENT_DATE", "CURRENT_TIME", "CURRENT_TIMESTAMP", "CURRENT_USER",
     "LOCALTIME", "LOCALTIMESTAMP",
-})
-
-# session functions of planes not ported yet: the clock and user locks
-# raise NotInSlice by name
-_NOT_IN_SLICE_FUNCS = frozenset({
-    "NOW", "CURRENT_TIMESTAMP", "SYSDATE", "LOCALTIME", "LOCALTIMESTAMP",
-    "CURDATE", "CURRENT_DATE", "CURTIME", "CURRENT_TIME", "UNIX_TIMESTAMP",
-    "GET_LOCK", "RELEASE_LOCK", "RELEASE_ALL_LOCKS", "IS_FREE_LOCK",
-    "IS_USED_LOCK",
 })
 
 _DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
@@ -242,8 +250,22 @@ class Session:
         # the socket)
         self.killed.clear()
         interrupt.install(self.killed)
+        # route @@time_zone to the scalar-function layer for the
+        # statement's duration: FROM_UNIXTIME formats in the session
+        # time zone like MySQL
+        try:
+            tz = str(self._sysvar_value("time_zone") or "SYSTEM")
+        except (TypeError, ValueError, SQLError):
+            tz = "SYSTEM"
+        # the TLS frames (stage recorder, session time zone) install
+        # INSIDE the protected region and restore in the finally, or the
+        # frame leaks onto this worker thread for its next statement.
+        # Restoring a never-installed time zone writes None, which reads
+        # as SYSTEM.
+        prev_tz = None
         try:
             obs.install_stage_recorder(rec)
+            prev_tz = funcs.install_session_time_zone(tz)
             rs = self._execute_stmt(stmt)
             if self._stmt_auto_id is not None:
                 self.vars["last_insert_id"] = self._stmt_auto_id
@@ -256,6 +278,7 @@ class Session:
         finally:
             interrupt.install(None)
             obs.install_stage_recorder(prev_rec)
+            funcs.install_session_time_zone(prev_tz)
             if self._is_guard is not None:
                 self._is_guard.release()
                 self._is_guard = None
@@ -304,6 +327,8 @@ class Session:
         self._prepared.pop(stmt_id, None)
 
     def _execute_stmt(self, stmt: ast.Stmt) -> ResultSet:
+        if self.user is not None:
+            self._check_privileges(stmt)
         # OLTP fast path: autocommit point SELECT/UPDATE/DELETE and
         # literal INSERT VALUES bypass the whole plan/dispatch pipeline
         # (plan/fastpath.py). Anything the recognizer rejects falls
@@ -311,6 +336,10 @@ class Session:
         rs = self._try_fast_path(stmt)
         if rs is not None:
             return rs
+        if isinstance(stmt, (ast.AlterUserStmt, ast.RenameUserStmt,
+                             ast.CreateUserStmt, ast.DropUserStmt,
+                             ast.GrantStmt)):
+            return self._exec_account_stmt(stmt)
         if isinstance(stmt, (ast.SelectStmt, ast.SetOpStmt)):
             if getattr(stmt, "into_outfile", None) is not None:
                 raise NotInSlice("INTO OUTFILE")
@@ -404,6 +433,10 @@ class Session:
                     "new_name": new.name,
                     "new_db": new.db or old.db or self.current_db})
             return ResultSet([], [])
+        if isinstance(stmt, (ast.CreateRoleStmt, ast.DropRoleStmt,
+                             ast.GrantRoleStmt, ast.SetRoleStmt,
+                             ast.SetDefaultRoleStmt)):
+            return self._exec_role_stmt(stmt)
         if isinstance(stmt, ast.ChecksumTableStmt):
             return self._run_in_txn(lambda: self._exec_checksum(stmt))
         if isinstance(stmt, ast.AdminStmt):
@@ -442,6 +475,7 @@ class Session:
                 # compat); reject arbitrary unknowns like MySQL does
                 if name.startswith(("tidb_", "innodb_", "sql_")):
                     if scope == "GLOBAL":
+                        self._require_super()
                         self.storage.sysvars.set_global(name, value)
                     else:
                         self.vars[name] = value
@@ -459,6 +493,9 @@ class Session:
                     raise SQLError(
                         f"Variable '{name}' is a SESSION variable and "
                         "can't be used with SET GLOBAL")
+                # cluster-wide durable state: superuser only (reference:
+                # SUPER/SYSTEM_VARIABLES_ADMIN requirement)
+                self._require_super()
                 self.storage.sysvars.set_global(name, value)
             else:
                 if not sv.scope & SCOPE_SESSION:
@@ -532,11 +569,18 @@ class Session:
 
     def _session_func_value(self, n: ast.FuncCall) -> Any:
         """Session-dependent function -> value at statement-bind time
-        (reference: expression/builtin_info.go). The clock and user locks
-        are planes not ported yet."""
+        (reference: expression/builtin_info.go + builtin_time.go
+        nondeterministic set)."""
         name = n.name
-        if name in _NOT_IN_SLICE_FUNCS:
-            raise NotInSlice(name)
+        if name in ("NOW", "CURRENT_TIMESTAMP", "SYSDATE",
+                    "LOCALTIME", "LOCALTIMESTAMP"):
+            return time.strftime("%Y-%m-%d %H:%M:%S")
+        if name in ("CURDATE", "CURRENT_DATE"):
+            return time.strftime("%Y-%m-%d")
+        if name in ("CURTIME", "CURRENT_TIME"):
+            return time.strftime("%H:%M:%S")
+        if name == "UNIX_TIMESTAMP" and not n.args:
+            return int(time.time())
         if name == "VERSION":
             return str(self._sysvar_value("version"))
         if name in ("DATABASE", "SCHEMA"):
@@ -576,7 +620,32 @@ class Session:
         if name == "TIDB_IS_DDL_OWNER":
             owner = self.storage.ddl_owner
             return int(bool(getattr(owner, "is_owner", lambda: True)()))
+        if name in ("GET_LOCK", "RELEASE_LOCK", "IS_FREE_LOCK",
+                    "IS_USED_LOCK", "RELEASE_ALL_LOCKS"):
+            return self._user_lock_func(n)
         raise SQLError(f"unsupported function {name}")
+
+    def _user_lock_func(self, n: ast.FuncCall) -> Any:
+        """User-level named locks (reference: builtin_miscellaneous.go
+        GET_LOCK family; the lock table lives on the Storage so siblings
+        in one process contend correctly)."""
+        me = self.conn_id or id(self)
+        if n.name == "RELEASE_ALL_LOCKS":
+            return self.storage.user_locks.release_all(me)
+        if not n.args:
+            raise SQLError(f"{n.name} takes a lock name")
+        name = str(self._eval_value(n.args[0]))
+        if n.name == "GET_LOCK":
+            timeout = 0.0
+            if len(n.args) > 1:
+                # constant expression (covers unary minus: -1 = forever)
+                timeout = float(self._eval_value(n.args[1]))
+            return int(self.storage.user_locks.acquire(name, me, timeout))
+        if n.name == "RELEASE_LOCK":
+            return self.storage.user_locks.release(name, me)
+        if n.name == "IS_FREE_LOCK":
+            return int(self.storage.user_locks.holder(name) is None)
+        return self.storage.user_locks.holder(name)  # IS_USED_LOCK
 
     @staticmethod
     def _has_var_reads(node) -> bool:
@@ -654,6 +723,105 @@ class Session:
 
         ast.walk(stmt, visit)
 
+    # ==================== accounts and privileges ====================
+    def _require_super(self) -> None:
+        if self.user is not None and not self.storage.privileges.check(
+                self.user, "ALL", "*", "*", roles=self.active_roles):
+            raise SQLError(
+                f"Access denied; you need SUPER privilege(s) "
+                f"for this operation (user '{self.user}')",
+                errno=ER_SPECIFIC_ACCESS_DENIED)
+
+    def _exec_account_stmt(self, stmt: ast.Stmt) -> ResultSet:
+        """CREATE/DROP/ALTER/RENAME USER and GRANT/REVOKE over the grant
+        tables (reference: executor/simple.go; mysql.user analog)."""
+        from .privileges import PrivilegeError
+        pm = self.storage.privileges
+        if isinstance(stmt, ast.AlterUserStmt):
+            target = stmt.name or self.user or "root"
+            if target != (self.user or "root"):
+                self._require_super()  # changing OWN password needs none
+            try:
+                pm.set_password(target, stmt.password)
+            except PrivilegeError as e:
+                if stmt.if_exists:
+                    return ResultSet([], [])
+                raise err_wrap(SQLError, e) from None
+            return ResultSet([], [])
+        self._require_super()
+        try:
+            if isinstance(stmt, ast.RenameUserStmt):
+                pm.rename_users(stmt.pairs)
+            elif isinstance(stmt, ast.CreateUserStmt):
+                pm.create_user(stmt.name, stmt.password, stmt.if_not_exists)
+            elif isinstance(stmt, ast.DropUserStmt):
+                pm.drop_user(stmt.name, stmt.if_exists)
+            else:  # GrantStmt
+                db = stmt.db if stmt.db else self.current_db
+                fn = pm.revoke if stmt.revoke else pm.grant
+                fn(stmt.privs, db, stmt.table, stmt.user,
+                   stmt.priv_cols or None)
+        except PrivilegeError as e:
+            raise err_wrap(SQLError, e) from None
+        return ResultSet([], [])
+
+    def _exec_role_stmt(self, stmt) -> ResultSet:
+        """Role management + activation (reference:
+        privilege/privileges role graph, executor/set_role;
+        tests: privileges_test.go TestRole*)."""
+        from .privileges import PrivilegeError
+        pm = self.storage.privileges
+        try:
+            if isinstance(stmt, ast.CreateRoleStmt):
+                self._require_super()
+                pm.create_role(stmt.names, stmt.if_not_exists)
+            elif isinstance(stmt, ast.DropRoleStmt):
+                self._require_super()
+                pm.drop_role(stmt.names, stmt.if_exists)
+            elif isinstance(stmt, ast.GrantRoleStmt):
+                self._require_super()
+                pm.grant_roles(stmt.roles, stmt.users, stmt.revoke)
+            elif isinstance(stmt, ast.SetDefaultRoleStmt):
+                # users may set their OWN default roles; SUPER for others
+                if any(u != (self.user or "root") for u in stmt.users):
+                    self._require_super()
+                # validate every user (existence AND grantedness of the
+                # listed roles) before mutating any — same atomicity
+                # contract as the other role mutations
+                for u in stmt.users:
+                    if not pm.exists(u):
+                        raise SQLError(f"unknown user '{u}'",
+                                       errno=ER_SPECIFIC_ACCESS_DENIED)
+                    if stmt.mode == "LIST":
+                        granted = pm.roles_of(u)
+                        for r in stmt.roles:
+                            if r not in granted:
+                                raise SQLError(
+                                    f"role '{r}' is not granted to "
+                                    f"'{u}'",
+                                    errno=ER_SPECIFIC_ACCESS_DENIED)
+                for u in stmt.users:
+                    pm.set_default_roles(u, stmt.mode, stmt.roles)
+            else:  # SetRoleStmt: activate for THIS session
+                me = self.user or "root"
+                granted = pm.roles_of(me)
+                if stmt.mode == "ALL":
+                    self.active_roles = set(granted)
+                elif stmt.mode == "NONE":
+                    self.active_roles = set()
+                elif stmt.mode == "DEFAULT":
+                    self.active_roles = pm.default_roles(me)
+                else:
+                    missing = [r for r in stmt.roles if r not in granted]
+                    if missing:
+                        raise SQLError(
+                            f"Role '{missing[0]}' has not been granted "
+                            f"to '{me}'", errno=ER_SPECIFIC_ACCESS_DENIED)
+                    self.active_roles = set(stmt.roles)
+        except PrivilegeError as e:
+            raise err_wrap(SQLError, e) from None
+        return ResultSet([], [])
+
     @staticmethod
     def _collect_table_names(stmt) -> list[ast.TableName]:
         out: list[ast.TableName] = []
@@ -666,6 +834,119 @@ class Session:
 
         ast.walk(stmt, visit)
         return out
+
+    _STMT_PRIV = {
+        ast.InsertStmt: "INSERT", ast.UpdateStmt: "UPDATE",
+        ast.DeleteStmt: "DELETE", ast.CreateTableStmt: "CREATE",
+        ast.DropTableStmt: "DROP", ast.TruncateTableStmt: "DROP",
+        ast.AlterTableStmt: "ALTER", ast.CreateIndexStmt: "INDEX",
+        ast.DropIndexStmt: "INDEX", ast.RenameTableStmt: "ALTER",
+        ast.CreateDatabaseStmt: "CREATE", ast.DropDatabaseStmt: "DROP",
+        ast.CreateViewStmt: "CREATE", ast.DropViewStmt: "DROP",
+        ast.LoadDataStmt: "INSERT",
+    }
+
+    def _check_column_privs(self, plan) -> None:
+        """Column-scope SELECT enforcement (mysql.columns_priv analog):
+        the physical plan's scan leaves carry the PRUNED column sets,
+        i.e. exactly what the query touches per table (reference:
+        privilege columns checked at resolution, planner visitInfo +
+        privileges/cache.go columnsPriv)."""
+        if self.user is None:
+            return
+        pm = self.storage.privileges
+        if not pm.has_col_grants(self.user, self.active_roles):
+            return  # hot path: no column-scoped grants anywhere
+        from ..plan.fragment import PhysFragmentRead
+        from ..plan.physical import (PhysIndexMerge, PhysPointGet,
+                                     PhysTableRead)
+
+        def leaf_tables(p):
+            if isinstance(p, PhysTableRead) and p.table is not None:
+                yield p.table, p.dag.scan.col_offsets
+            elif isinstance(p, (PhysPointGet, PhysIndexMerge)):
+                yield p.table, p.col_offsets
+            elif isinstance(p, PhysFragmentRead):
+                for t in p.frag.tables:
+                    yield t.table, t.col_offsets
+            for c in getattr(p, "children", ()) or ():
+                yield from leaf_tables(c)
+
+        def db_of(info) -> str:
+            for s in self.catalog.schemas.values():
+                t = s.tables.get(info.name.lower())
+                if t is not None and t.id == info.id:
+                    return s.name
+            return self.current_db
+
+        for info, offsets in leaf_tables(plan):
+            names = [info.columns[o].name for o in offsets
+                     if o < len(info.columns)]
+            denied = pm.check_columns(self.user, "SELECT", db_of(info),
+                                      info.name, names,
+                                      roles=self.active_roles)
+            if denied is not None:
+                raise SQLError(
+                    f"SELECT command denied to user '{self.user}' for "
+                    f"column '{denied}' in table '{info.name}'",
+                    errno=ER_TABLEACCESS_DENIED)
+
+    def _check_dml_columns(self, tn: ast.TableName, info, priv: str,
+                           names: list[str]) -> None:
+        if self.user is None:
+            return
+        db = tn.db or self.current_db
+        denied = self.storage.privileges.check_columns(
+            self.user, priv, db, info.name, names,
+            roles=self.active_roles)
+        if denied is not None:
+            raise SQLError(
+                f"{priv} command denied to user '{self.user}' for "
+                f"column '{denied}' in table '{info.name}'",
+                errno=ER_TABLEACCESS_DENIED)
+
+    def _check_privileges(self, stmt: ast.Stmt) -> None:
+        """Statement-level grant checks before planning (reference:
+        visitInfo checks at planner/optimize.go:246)."""
+        pm = self.storage.privileges
+
+        def deny(priv: str, obj: str):
+            raise SQLError(
+                f"{priv} command denied to user '{self.user}' "
+                f"for table '{obj}'", errno=ER_TABLEACCESS_DENIED)
+
+        if isinstance(stmt, ast.TraceStmt):
+            # TRACE runs the target for real: same checks as running it
+            self._check_privileges(stmt.target)
+            return
+        if isinstance(stmt, (ast.SelectStmt, ast.SetOpStmt,
+                             ast.ExplainStmt, ast.AnalyzeTableStmt,
+                             ast.ChecksumTableStmt)):
+            # CHECKSUM fingerprints content: same SELECT requirement
+            for tn in self._collect_table_names(stmt):
+                db = tn.db or self.current_db
+                if not pm.check(self.user, "SELECT", db, tn.name,
+                                roles=self.active_roles):
+                    deny("SELECT", f"{db}.{tn.name}")
+            return
+        priv = self._STMT_PRIV.get(type(stmt))
+        if priv is None:
+            return  # txn control, SET, SHOW, USE, admin: unchecked
+        if isinstance(stmt, (ast.CreateDatabaseStmt, ast.DropDatabaseStmt)):
+            if not pm.check(self.user, priv, stmt.name, "*",
+                            roles=self.active_roles):
+                deny(priv, stmt.name)
+            return
+        # the DML privilege applies to the statement's TARGET table;
+        # every other referenced table (subqueries, INSERT..SELECT
+        # sources) needs SELECT
+        target = getattr(stmt, "table", None)
+        for tn in self._collect_table_names(stmt):
+            db = tn.db or self.current_db
+            need = priv if (tn is target or target is None) else "SELECT"
+            if not pm.check(self.user, need, db, tn.name,
+                            roles=self.active_roles):
+                deny(need, f"{db}.{tn.name}")
 
     # ==================== information_schema ====================
     # the served table whose rows depend on the reader (the reference's
@@ -781,9 +1062,12 @@ class Session:
             raise SQLError(f"Unknown thread id: {stmt.conn_id}")
 
     def rollback_if_active(self) -> None:
-        """Abandon any open transaction (connection teardown path)."""
+        """Abandon any open transaction (connection teardown path).
+        Also releases the session's GET_LOCK user locks (MySQL frees
+        them on connection exit)."""
         if self.txn is not None:
             self._finish_txn(commit=False)
+        self.storage.user_locks.release_all(self.conn_id or id(self))
 
     def _commit_implicit(self) -> None:
         if self.txn is not None and not self.in_explicit_txn:
@@ -823,6 +1107,7 @@ class Session:
                 self._lock_for_update(stmt)
             with obs.stage("plan_build"):
                 plan = self._plan(stmt)
+            self._check_column_privs(plan)
             ctx = self._exec_ctx()
             try:
                 chunk = run_physical(plan, ctx)
@@ -905,6 +1190,9 @@ class Session:
     def _exec_insert(self, stmt: ast.InsertStmt) -> ResultSet:
         info, store = self._table_for(stmt.table)
         col_order = self._insert_columns(info, stmt.columns)
+        self._check_dml_columns(
+            stmt.table, info, "INSERT",
+            [info.columns[o].name for o in col_order])
         txn = self._ensure_txn()
 
         rows: list[list[Any]] = []
@@ -1170,6 +1458,25 @@ class Session:
 
     def _exec_update(self, stmt: ast.UpdateStmt) -> ResultSet:
         info, alloc_store = self._table_for(stmt.table)
+        self._check_dml_columns(
+            stmt.table, info, "UPDATE",
+            [a.column.name for a in stmt.assignments])
+        # columns READ by the update (WHERE + assignment RHS) need
+        # SELECT, or matched-row counts leak unreadable values (MySQL
+        # requires the same)
+        read_cols: list[str] = []
+
+        def visit(n):
+            if isinstance(n, ast.ColumnRef):
+                read_cols.append(n.name)
+            return None
+
+        if stmt.where is not None:
+            ast.walk(stmt.where, visit)
+        for a in stmt.assignments:
+            ast.walk(a.value, visit)
+        if read_cols:
+            self._check_dml_columns(stmt.table, info, "SELECT", read_cols)
         txn = self._ensure_txn()
         try:
             total = 0

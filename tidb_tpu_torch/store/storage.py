@@ -18,11 +18,12 @@ directory): `_recover` resumes a pending job from its checkpoint.
 `ddl_section` serializes the direct catalog DDL (CREATE/DROP TABLE and
 friends) on the same owner. Sequences allocate from cached cursors with a
 persisted high-water (`sequence_next`, `sequence_set`), flushed exactly at
-a checkpoint.
+a checkpoint. `user_locks` is the table of GET_LOCK's named locks
+(`UserLocks`), shared by every session over the storage.
 
 Left out, with the planes they belong to: the multi-process and RPC
 planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
-coordinator, `refresh`, the remote owner), user locks, bindings, the
+coordinator, `refresh`, the remote owner), bindings, the
 maintenance daemon and its GC owner, the lock-order checker around
 `infoschema_lock`, the epoch listeners of the mesh plane, and the
 observability planes beyond the group-commit metrics (events, history,
@@ -45,7 +46,7 @@ import threading
 import time
 import weakref
 from contextlib import contextmanager
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 
@@ -163,6 +164,8 @@ class Storage:
         self.sysvars = SysVarManager(self)
         # grant tables (mysql.user analog) — same persistence plane
         self.privileges = PrivilegeManager(self)
+        # GET_LOCK user locks (builtin_miscellaneous.go lock family)
+        self.user_locks = UserLocks()
         # viewer-sensitive information_schema refresh+scan exclusion
         # (Session._refresh_infoschema holds this for the statement)
         self.infoschema_lock = threading.RLock()
@@ -969,6 +972,65 @@ class Storage:
         safe = self.safe_ts()
         for store in self.tables.values():
             store.compact(safe)
+
+
+class UserLocks:
+    """Named advisory locks for GET_LOCK/RELEASE_LOCK (reference:
+    builtin_miscellaneous.go lockFunc family). Reentrant per holder,
+    released explicitly, en masse, or on connection close."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._held: dict[str, tuple[Any, int]] = {}  # name -> (who, depth)
+
+    def acquire(self, name: str, who, timeout_s: float) -> bool:
+        import time as _t
+
+        from ..util import interrupt
+        infinite = timeout_s < 0  # MySQL: negative timeout waits forever
+        deadline = _t.monotonic() + timeout_s
+        with self._cv:
+            while True:
+                cur = self._held.get(name)
+                if cur is None or cur[0] == who:
+                    depth = cur[1] + 1 if cur else 1
+                    self._held[name] = (who, depth)
+                    return True
+                interrupt.check()  # KILL QUERY cancels a blocked wait
+                remain = 0.5 if infinite else deadline - _t.monotonic()
+                if remain <= 0:
+                    return False
+                self._cv.wait(min(remain, 0.5))
+
+    def release(self, name: str, who) -> Optional[int]:
+        """1 released, 0 held by someone else, None not held (MySQL)."""
+        with self._cv:
+            cur = self._held.get(name)
+            if cur is None:
+                return None
+            if cur[0] != who:
+                return 0
+            if cur[1] > 1:
+                self._held[name] = (who, cur[1] - 1)
+            else:
+                del self._held[name]
+                self._cv.notify_all()
+            return 1
+
+    def release_all(self, who) -> int:
+        with self._cv:
+            mine = [k for k, (w, _) in self._held.items() if w == who]
+            n = sum(self._held[k][1] for k in mine)
+            for k in mine:
+                del self._held[k]
+            if mine:
+                self._cv.notify_all()
+            return n
+
+    def holder(self, name: str) -> Optional[Any]:
+        with self._cv:
+            cur = self._held.get(name)
+            return cur[0] if cur else None
 
 
 class Transaction:
