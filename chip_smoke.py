@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-k, each with the launch counters set to 0 just before it and read
+   a-l, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -140,8 +140,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           not durable): sbtest (id bigint primary key, k bigint, c
           varchar(64)) with 20,000 rows by 2,000-row INSERTs and
           lineitem at SF1 bulk-loaded in one Storage; the point SELECT
-          and UPDATE must take the `point` fast path; then 3 s with 4
-          point readers and 1 writer, and 3 s with 4 readers, 8 writers
+          and UPDATE must take the `point` fast path; then 2 s with 4
+          point readers and 1 writer, and 2 s with 4 readers, 8 writers
           and 1 session scanning Q6 and Q1 (each exact against its numpy
           answer); sum(k) through the coprocessor on the card must equal
           the initial sum plus the acknowledged UPDATEs; point read and
@@ -161,9 +161,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           by path, an encoding of the protocol independent of the
           server's): a point SELECT and UPDATE over the wire must take the
           `point` path (read from the server-side session's
-          `last_engines`); 6 s of 4 readers and 1 writer, 6 s of 4
+          `last_engines`); 4 s of 4 readers and 1 writer, 4 s of 4
           readers, 8 writers and 1 client scanning Q6 and Q1 (each exact
-          on every scan), and 3 s each of 1, 8 and 32 writers (durable
+          on every scan), and 2 s each of 1, 8 and 32 writers (durable
           update QPS, the group fsync's average batch, the fsync's mean
           time); sum(k) over the wire must equal its start plus the
           acknowledged UPDATEs; then the server's close and a clean
@@ -250,9 +250,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           through LIKE and IN from the other partitions (exact counts),
           TRUNCATE PARTITION p2 and DROP PARTITION p1 (device memory
           before and after each), information_schema.partitions, SHOW
-          TABLE STATUS, CHECKSUM TABLE and ADMIN CHECK TABLE lineitem; Q6,
-          Q1 and Q18 exact after each of the two write phases (the DML,
-          the partition DDL);
+          TABLE STATUS, CHECKSUM TABLE and ADMIN CHECK TABLE lineitem; Q6
+          exact after the DML, and Q6, Q1 and Q18 exact after the
+          partition DDL;
       j3. after i3, in part h's temporary directory: `Storage(<tmp>/pj,
           sync_log="commit")` with SF1 lineitem in 4 hash partitions
           (bulk load, epoch files), closed; a child `python3` runs 10
@@ -290,10 +290,41 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           and orders refused with 1142 (the reference's errno for a column
           too), orders read after SET ROLE, an UPDATE refused; the user
           and the role dropped.
+   l. the statement plane (`explain_launches`, the launch counters set to
+      0 before l1 and before l2):
+      l1. on f1's SF10 session right after f1 (before g1): EXPLAIN ANALYZE
+          of Q6, Q3 and Q5: the root's actRows equal to f1's row count,
+          each leaf's engine equal to f1's tag, each device leaf showing
+          the `kernel` and `device_get` stages, a leaf's stages summing
+          to at most its time_ms (but for the cells' rounding: 3
+          significant digits a stage, 0.01 ms for the time), Q3 launching
+          streamseg; each node's time and stages printed; then TRACE of
+          Q6, whose tree must hold `copr.execute` (or `copr.fragment`),
+          `device.dispatch` and `device.fetch`;
+      l2. after part k, on f2's SF1 card and CPU sessions, card == CPU on
+          each of: EXPLAIN ANALYZE of Q1, Q3 and Q18 (plan text, actRows,
+          engines; times excluded); 1,000 seeded point SELECTs over 200
+          orders keys (equal plan-cache hit, miss and eviction counts)
+          and EXPLAIN ANALYZE's point row showing `plan_cache:hit`; a
+          SESSION binding with a LEADING join hint on Q3 (applied:
+          @@last_plan_from_binding 1, rows exact and unchanged; its plan
+          text stays, as the fragment planner takes lineitem as Q3's
+          probe in any order, in both packages) and one on a
+          supplier x nation count whose plan text it changes; a GLOBAL
+          binding seen from a second session of each store; the slow log
+          with tidb_slow_log_threshold = 0 (the card's Q6 entry's stages
+          hold `kernel`); one week of orders (< 8,192 rows) INTO OUTFILE,
+          the two files byte-equal, and LOAD DATA of it into an empty
+          copy of orders on each session, whose read equals the same read
+          over the week; TRACE of a 100-row INSERT (the same span names,
+          `twopc.prewrite` and `twopc.commit` among them); `SET
+          max_execution_time = 100`: SELECT SLEEP(5) raises 3024 within
+          1 s, the card's next Q6 exact under the same limit; and the
+          part's statements_summary digests with equal exec counts.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
-   tag; then the first (cold) run and the p50 wall time of 3 warm runs
-   (5 before part h), each ending in torch.cuda.synchronize(), and the
+   tag; then the first (cold) run and the p50 wall time of 2 warm runs
+   (5 before part h, 3 before part l), each ending in torch.cuda.synchronize(), and the
    device-busy share of
    one more warm run under torch.profiler (traced kernel and copy time
    over its wall time; in parts c and d also the 8 kernels that took the
@@ -341,8 +372,9 @@ from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from tidb_tpu_torch.plan.fragment import FragmentDAG
 from tidb_tpu_torch.session import Session
 
-# warm runs of each request in parts a-f1 (5 before part h needed the room)
-WARM_RUNS = 3
+# warm runs of each request in parts a-f1, g1 and k1 (5 before part h
+# needed the room, 3 before part l did)
+WARM_RUNS = 2
 
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1056,7 +1088,7 @@ def _captured_reads(s, sql: str) -> list:
 
 def _part_f1(args, d10, tags) -> tuple:
     """Part f1 (module docstring). -> (the part's kernel launches, the
-    session, which part g1 goes on with)."""
+    session, which parts l1 and g1 go on with, each query's row count)."""
     sf10 = f"SF{args.sf:g}"
     torch.cuda.reset_peak_memory_stats()
     s = Session()
@@ -1103,7 +1135,7 @@ def _part_f1(args, d10, tags) -> tuple:
     print(f"  peak device memory during f1: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
           f"({torch.cuda.memory_allocated() / 1e9:.3f} GB held after)")
-    return launches, s
+    return launches, s, {q: v[1] for q, v in firsts.items()}
 
 
 def _rows_equal(q: str, got: list, want: list) -> bool:
@@ -1189,11 +1221,11 @@ RF2_ROWS = 8191
 # on slower hosts (0.4 before part j); g1' at SF1 sends the whole refresh
 G1_RF_SHARE = 0.3
 RANK = "streamseg.rank_sums"
-# g2's phases: 3 s, half the reference's 6 s, and its sbtest 20,000 rows,
-# a fifth of the reference's 100,000 (part h runs the same mix at 6 s and
-# 100,000 rows over the wire on a durable store), for the script's time
-# limit
-G2_SECONDS = 3.0
+# g2's phases: 2 s, a third of the reference's 6 s (3 s before part l),
+# and its sbtest 20,000 rows, a fifth of the reference's 100,000 (part h
+# runs the same mix over the wire on a durable store), for the script's
+# time limit
+G2_SECONDS = 2.0
 G2_ROWS = 20_000
 
 
@@ -1271,7 +1303,7 @@ def _g_reads(sessions, phase: str, data, hits: list,
             times = []
             busy = "device busy: not measured (host tier, cold run only)"
         else:
-            times = [_sql_run(card, sql)[1] for _ in range(3)]
+            times = [_sql_run(card, sql)[1] for _ in range(WARM_RUNS)]
             busy, _ = _device_busy(lambda: card.query(sql))
         print(f"  {phase} {q.upper()}: engines={tags} rows={len(rows)} "
               f"exact=True streamseg_launches={launched} "
@@ -1490,11 +1522,14 @@ def _part_g2(args, d1) -> None:
 # ---- part h: durability and the MySQL wire server ----
 H_SCANS = ("q6", "q1")
 # sbtest's rows in h1: 20,000, a fifth of the reference's 100,000 (the
-# durable INSERTs took 27-47 s), and the writer phases 3 s, half the
-# reference's 6 s (the mix phases keep 6 s: a Q1 scan over the wire takes
-# ~5.6 s), paying for part j as g2's cuts did
+# durable INSERTs took 27-47 s), and the writer phases 2 s, a third of the
+# reference's 6 s (3 s before part l), paying for parts j and l as g2's
+# cuts did; the mix phases H_MIX_SECONDS, 4 s (6 s before part l): a Q1
+# scan over the wire takes ~3-6 s, so the scanner still finishes at least
+# one
 H1_ROWS = 20_000
-H_WRITE_SECONDS = 3.0
+H_WRITE_SECONDS = 2.0
+H_MIX_SECONDS = 4.0
 H_READS = ("q6", "q1", "q18")
 # the child of h3: the port's durable store served on port 0, nothing else
 H3_CHILD = """
@@ -1688,8 +1723,8 @@ def _part_h1(args, d1, path: str, mc) -> dict:
         fs[0] += time.perf_counter() - t
 
     syncer._fsync = timed_fsync
-    alone = _wire_phase(mc, addr, 4, 1, 0, 6.0, n, expect)
-    mixed = _wire_phase(mc, addr, 4, 8, 1, 6.0, n, expect)
+    alone = _wire_phase(mc, addr, 4, 1, 0, H_MIX_SECONDS, n, expect)
+    mixed = _wire_phase(mc, addr, 4, 8, 1, H_MIX_SECONDS, n, expect)
     acked = alone["acked"] + mixed["acked"]
     hist = storage.obs.group_commit_batch
     for conc in (1, 8, 32):
@@ -2434,9 +2469,9 @@ def _j_exec(sessions, sql: str, label: str, times: dict):
     return out
 
 
-def _j_reads(sessions, label: str, data) -> int:
+def _j_reads(sessions, label: str, data, queries=J_READS) -> int:
     launched = 0
-    for q in J_READS:
+    for q in queries:
         tags, n, timing = _j_read(sessions, label, TPCH_QUERIES[q],
                                   TR.sql_oracle(q, data), warm=0)
         launched += n
@@ -2529,7 +2564,10 @@ def _part_j2(args, d1) -> int:
         launched += n
         print(f"  {label}: {sql[:64]}... = {want} exact engines={tags} "
               f"{timing}")
-    launched += _j_reads(sessions, f"{label} after the DML", data)
+    # after the DML Q6 only (Q1 and Q18 over partitions are root-bound,
+    # ~8 s a pair on each session: read after the partition DDL only,
+    # since part l)
+    launched += _j_reads(sessions, f"{label} after the DML", data, ("q6",))
     # 3. TRUNCATE PARTITION p2, DROP PARTITION p1: device memory around
     # each (the card session's client frees the partition's tensors)
     for sql, a, b in (("ALTER TABLE lineitem TRUNCATE PARTITION p2",
@@ -2774,7 +2812,7 @@ def _k_read(card, cpu, label: str, sql: str, times: dict,
     if want is not None and out[1] != want:
         raise SystemExit(f"{label}: {sql[:60]!r}: rows differ from the "
                          f"oracle: {str(out[1])[:200]} vs {str(want)[:200]}")
-    warm = [_sql_run(card, sql)[1] for _ in range(3)]
+    warm = [_sql_run(card, sql)[1] for _ in range(WARM_RUNS)]
     times[label] = first
     print(f"  {label}: engines={tags} rows={len(out[1])} card==cpu"
           f"{' exact' if want is not None else ''} row_evals={rows_card} "
@@ -2988,6 +3026,343 @@ def _part_k(card, cpu, data) -> int:
     return launched
 
 
+# ---- part l: the statement plane (EXPLAIN ANALYZE, TRACE, plan cache,
+# bindings, digests, the slow log, INTO OUTFILE / LOAD DATA, deadlines) ----
+L1_QUERIES = ("q6", "q3", "q5")
+L2_EXPLAIN = ("q1", "q3", "q18")
+# l2's point reads: 1,000 seeded o_orderkey lookups over 200 keys
+L2_POINTS, L2_POINT_KEYS = 1000, 200
+# a join hint through a SESSION binding on Q3, and on a two-table join
+# whose plan the hint does change (the fragment planner takes lineitem as
+# Q3's probe whatever the order asked for, in both packages)
+L2_LEADING = "LEADING(orders, customer, lineitem)"
+L2_JOIN2 = ("select count(*) from supplier, nation "
+            "where s_nationkey = n_nationkey")
+L2_JOIN2_HINT = "LEADING(nation, supplier)"
+# one week of orders for INTO OUTFILE / LOAD DATA: ~4,400 rows at SF1,
+# under 8,192 (a commit of N >= 8,192 mutations costs the reference's
+# commit path N^2 delta visits)
+L2_WEEK = ("o_orderdate >= date '1995-03-01' "
+           "and o_orderdate < date '1995-03-08'")
+L2_COPY_READ = ("select count(*), sum(o_totalprice), min(o_orderdate), "
+                "max(o_custkey), sum(o_shippriority) from {t}")
+
+
+def _l_stages(cell: str) -> dict:
+    """'staging:0.12ms kernel:1.5ms' -> {stage: ms}."""
+    out = {}
+    for part in (cell or "").split():
+        k, _, v = part.partition(":")
+        out[k] = float(v.removesuffix("ms"))
+    return out
+
+
+_EST = re.compile(r" est=\d+")
+
+
+def _l_plan(line: str) -> str:
+    """A plan line without its row estimate: l2's card and CPU sessions
+    auto-analyze at different statements since f2 (the card's timed runs
+    are its own), so their estimates may differ; the CPU tests hold
+    EXPLAIN text with estimates to the reference."""
+    return _EST.sub("", line)
+
+
+def _l_untimed(rows) -> list:
+    """EXPLAIN ANALYZE rows without their times and estimates: plan,
+    actRows, engine."""
+    return [(_l_plan(r[0]), r[1], r[3]) for r in rows]
+
+
+def _l_hinted(sql: str, hint: str) -> str:
+    return re.sub(r"(?i)^\s*select", f"select /*+ {hint} */", sql, count=1)
+
+
+def _part_l1(s, nrows: dict, tags: dict) -> int:
+    """Part l1 (module docstring) on f1's SF10 session. -> streamseg's
+    launches under EXPLAIN ANALYZE."""
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    for q in L1_QUERIES:
+        before = _kernels.LAUNCHES[RANK]
+        rows = s.query("explain analyze " + TPCH_QUERIES[q])
+        _sync()
+        launched = _kernels.LAUNCHES[RANK] - before
+        want = tags[F1_REQUESTS[q]]
+        if rows[0][1] != nrows[q]:
+            raise SystemExit(f"l1 {q}: root actRows {rows[0][1]}, f1 "
+                             f"returned {nrows[q]} rows")
+        leaves = [r for r in rows if r[3]]
+        if [r[3] for r in leaves] != [want]:
+            raise SystemExit(f"l1 {q}: leaf engines "
+                             f"{[r[3] for r in leaves]}, f1's tag {want!r}")
+        for r in leaves:
+            st = _l_stages(r[4])
+            # the cells print each stage to 3 significant digits and the
+            # time to 0.01 ms: the sum may pass time_ms by that rounding
+            if r[3].startswith("device") and not \
+                    {"kernel", "device_get"} <= set(st):
+                raise SystemExit(f"l1 {q}: device leaf stages {r[4]!r}")
+            if sum(st.values()) > r[2] * 1.005 + 0.01:
+                raise SystemExit(f"l1 {q}: stages {r[4]!r} sum past the "
+                                 f"leaf's {r[2]} ms")
+        if q == "q3" and launched == 0:
+            raise SystemExit("l1 q3: EXPLAIN ANALYZE did not launch "
+                             "kernel streamseg.rank_sums")
+        print(f"  l1 EXPLAIN ANALYZE {q.upper()}: root actRows="
+              f"{rows[0][1]} (f1's rows) leaf engine={want} "
+              f"streamseg_launches={launched}")
+        for r in rows:
+            print(f"    {r[2]} ms | {r[0].strip()[:90]} | actRows={r[1]} "
+                  f"| {r[3]} | {r[4]}")
+    launches = _kernels.LAUNCHES[RANK]
+    rows = s.query("trace " + TPCH_QUERIES["q6"])
+    ops = [r[0].strip() for r in rows]
+    for want in (("copr.execute", "copr.fragment"), ("device.dispatch",),
+                 ("device.fetch",)):
+        if not any(o.startswith(want) for o in ops):
+            raise SystemExit(f"l1: TRACE of Q6 lacks {want}: {ops}")
+    print("  l1 TRACE Q6 (start ms, duration ms):")
+    for r in rows:
+        print(f"    {r[1]} {r[2]} {r[0]}")
+    print(f"  l1 took {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _l_both(card, cpu, sql: str, label: str):
+    """`sql` on both sessions: outcome and tags equal. -> the card's
+    outcome."""
+    out = _i_outcome(card, sql)
+    got = _i_outcome(cpu, sql)
+    if got != out or cpu.last_engines != card.last_engines:
+        raise SystemExit(f"{label}: {sql[:70]!r} card {str(out)[:200]} "
+                         f"{card.last_engines}, CPU {str(got)[:200]} "
+                         f"{cpu.last_engines}")
+    return out
+
+
+def _l_counts(s) -> tuple:
+    o = s.storage.obs
+    return (o.plan_cache_hits.get(), o.plan_cache_misses.get(),
+            o.plan_cache_evictions.get())
+
+
+def _part_l2(card, cpu, data, tmp: str) -> int:
+    """Part l2 (module docstring) on f2's SF1 sessions after part k. ->
+    streamseg's launches during it."""
+    import os
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    sessions = (card, cpu)
+    # no auto-analyze during l2: it bumps the statistics generation the
+    # plan-cache entries are stamped with, at statements that differ
+    # between the two sessions (their statement counts differ since f2)
+    # and a table that was written but has no statistics (i2's seq_t,
+    # information_schema's stores, a table whose MODIFY dropped them)
+    # would still be: run each store's pending auto-analyzes now, the
+    # step a session takes every 64 statements
+    pending = []
+    for s in sessions:
+        s.execute("set global tidb_auto_analyze_ratio = 1000000")
+        pending.append(s.storage.stats.auto_analyze(s.storage, s.catalog))
+    print(f"  l2: auto-analyze off for the part; pending auto-analyzes run "
+          f"first: card {pending[0]}, CPU {pending[1]}")
+    digests0 = [{e["digest"]: e["exec_count"]
+                 for e in s.storage.obs.statements.snapshot()}
+                for s in sessions]
+    # 1. EXPLAIN ANALYZE: plan text, actRows and engines, times excluded
+    for q in L2_EXPLAIN:
+        sql = "explain analyze " + TPCH_QUERIES[q]
+        got = [s.query(sql) for s in sessions]
+        if _l_untimed(got[0]) != _l_untimed(got[1]):
+            raise SystemExit(f"l2 EXPLAIN ANALYZE {q}: card "
+                             f"{_l_untimed(got[0])} vs CPU "
+                             f"{_l_untimed(got[1])}")
+        leaf = [r[3] for r in got[0] if r[3]]
+        print(f"  l2 EXPLAIN ANALYZE {q.upper()}: card == CPU (plan, "
+              f"actRows {got[0][0][1]}, engines {leaf}); card root "
+              f"{got[0][0][2]} ms, CPU {got[1][0][2]} ms")
+    # 2. the plan cache: seeded point reads, then EXPLAIN ANALYZE's point
+    # row (before any binding: a binding turns the point path off), on a
+    # new session of each store: the plan cache is the session's, and
+    # f2's two sessions hold different entries (the card's timed runs)
+    pts = [Session(card.storage), Session(cpu.storage, device="cpu")]
+    rng = np.random.default_rng(14)
+    keys = rng.choice(data["orders"]["o_orderkey"], L2_POINT_KEYS,
+                      replace=False)
+    picks = rng.choice(keys, L2_POINTS)
+    before = [_l_counts(s) for s in pts]
+    t_pts = time.perf_counter()
+    for k in picks:
+        sql = f"select o_totalprice from orders where o_orderkey = {int(k)}"
+        out = _l_both(*pts, sql, "l2 point")
+        if pts[0].last_engines != ["point"] or len(out[1]) != 1:
+            raise SystemExit(f"l2 point: {sql} {out} {pts[0].last_engines}")
+    t_pts = time.perf_counter() - t_pts
+    deltas = [tuple(b - a for a, b in zip(before[i], _l_counts(s)))
+              for i, s in enumerate(pts)]
+    if deltas[0] != deltas[1] or deltas[0][0] == 0:
+        raise SystemExit(f"l2 plan cache: card (hits, misses, evictions) "
+                         f"{deltas[0]}, CPU {deltas[1]}")
+    sql = f"select o_totalprice from orders where o_orderkey = {int(picks[-1])}"
+    pt = [s.query("explain analyze " + sql) for s in pts]
+    if _l_untimed(pt[0]) != _l_untimed(pt[1]) or \
+            pt[0][0][4] != "plan_cache:hit" or pt[1][0][4] != "plan_cache:hit":
+        raise SystemExit(f"l2 EXPLAIN ANALYZE point: {pt}")
+    print(f"  l2 plan cache: {L2_POINTS} point SELECTs over {L2_POINT_KEYS} "
+          f"seeded orders keys on both sessions in {t_pts:.2f}s, (hits, "
+          f"misses, evictions) {deltas[0]} on each; EXPLAIN ANALYZE point "
+          f"row {pt[0][0][0]} {pt[0][0][4]} {pt[0][0][2]} ms")
+    # 3. a SESSION binding with a join hint on Q3, and one on a two-table
+    # join whose plan text the hint changes; a GLOBAL binding seen from a
+    # second session
+    def explain(sessions, sql):
+        got = [[_l_plan(r[0]) for r in s.query("explain " + sql)]
+               for s in sessions]
+        if got[0] != got[1]:
+            raise SystemExit(f"l2 EXPLAIN {sql[:60]!r}: {got}")
+        return got[0]
+
+    q3 = TPCH_QUERIES["q3"]
+    for sql, hint in ((q3, L2_LEADING), (L2_JOIN2, L2_JOIN2_HINT)):
+        base = explain(sessions, sql)
+        _l_both(card, cpu, f"create session binding for {sql} using "
+                f"{_l_hinted(sql, hint)}", "l2 binding")
+        bound = explain(sessions, sql)
+        rows = _l_both(card, cpu, sql, "l2 binding")
+        used = _l_both(card, cpu, "select @@last_plan_from_binding",
+                       "l2 binding")
+        want = TR.sql_oracle("q3", data) if sql == q3 else \
+            [(len(data["supplier"]["s_suppkey"]),)]
+        if rows[1] != want or used[1] != [(1,)]:
+            raise SystemExit(f"l2 binding {hint}: rows {rows[1]} (want "
+                             f"{want}), @@last_plan_from_binding {used}")
+        if sql == L2_JOIN2 and bound == base:
+            raise SystemExit(f"l2 binding {hint}: the plan did not change")
+        print(f"  l2 SESSION binding /*+ {hint} */ on "
+              f"{' '.join(sql.split())[:40]!r}...: card == CPU, plan text "
+              f"changed={bound != base}, rows exact, "
+              f"@@last_plan_from_binding=1")
+        _l_both(card, cpu, f"drop session binding for {sql}", "l2 binding")
+    _l_both(card, cpu, f"create global binding for {L2_JOIN2} using "
+            f"{_l_hinted(L2_JOIN2, L2_JOIN2_HINT)}", "l2 global binding")
+    sibs = [Session(card.storage), Session(cpu.storage, device="cpu")]
+    seen = explain(sibs, L2_JOIN2)
+    _l_both(*sibs, L2_JOIN2, "l2 global binding")
+    used = _l_both(*sibs, "select @@last_plan_from_binding",
+                   "l2 global binding")
+    if used[1] != [(1,)] or seen != bound:
+        raise SystemExit(f"l2 GLOBAL binding: a second session read "
+                         f"{used}, plan {seen}")
+    _l_both(card, cpu, f"drop global binding for {L2_JOIN2}",
+            "l2 global binding")
+    print("  l2 GLOBAL binding: a second session of each store plans with "
+          "it (@@last_plan_from_binding=1, the bound plan); dropped")
+    # 4. the slow log with every statement logged: the card's Stages cell
+    _l_both(card, cpu, "set tidb_slow_log_threshold = 0", "l2 slow log")
+    q6 = _l_both(card, cpu, TPCH_QUERIES["q6"], "l2 slow log")
+    _l_both(card, cpu, "set tidb_slow_log_threshold = 300", "l2 slow log")
+    ent = [e for e in card.storage.obs.slow_queries()
+           if e["sql"] == TPCH_QUERIES["q6"]][-1]
+    if "kernel" not in ent["stages"] or len(ent["plan_digest"]) != 32:
+        raise SystemExit(f"l2 slow log: {ent}")
+    print(f"  l2 slow log (threshold 0): Q6 digest {ent['plan_digest']} "
+          f"{ent['duration_ms']} ms stages {ent['stages']}")
+    # 5. one week of orders INTO OUTFILE (byte-equal files), LOAD DATA into
+    # an empty copy on each session, the copy read like the week
+    week = (f"select * from orders where {L2_WEEK} order by o_orderkey "
+            f"into outfile ")
+    paths = [os.path.join(tmp, f"l2_week_{n}.tsv") for n in ("card", "cpu")]
+    n_rows = []
+    t_io = {}
+    for s, path in zip(sessions, paths):
+        t1 = time.perf_counter()
+        n_rows.append(s.execute(f"{week}'{path}'").affected)
+        t_io.setdefault("outfile", []).append(time.perf_counter() - t1)
+    blobs = [open(p, "rb").read() for p in paths]
+    if blobs[0] != blobs[1] or n_rows[0] != n_rows[1] or \
+            not 0 < n_rows[0] < 8192:
+        raise SystemExit(f"l2 INTO OUTFILE: rows {n_rows}, files equal "
+                         f"{blobs[0] == blobs[1]}")
+    ddl = TD.TPCH_DDL["orders"].replace("create table orders",
+                                        "create table orders_w")
+    for s, path in zip(sessions, paths):
+        s.execute(ddl)
+        t1 = time.perf_counter()
+        loaded = s.execute(f"load data infile '{path}' into table "
+                           f"orders_w").affected
+        t_io.setdefault("load", []).append(time.perf_counter() - t1)
+        if loaded != n_rows[0]:
+            raise SystemExit(f"l2 LOAD DATA: {loaded} of {n_rows[0]} rows")
+    copy = _l_both(card, cpu, L2_COPY_READ.format(t="orders_w"), "l2 copy")
+    orig = _l_both(card, cpu, L2_COPY_READ.format(t=f"orders where "
+                                                  f"{L2_WEEK}"), "l2 copy")
+    if copy != orig:
+        raise SystemExit(f"l2 LOAD DATA: copy {copy} vs orders {orig}")
+    print(f"  l2 INTO OUTFILE: {n_rows[0]} orders of one week, {len(blobs[0])}"
+          f" bytes, card == CPU byte for byte (card {t_io['outfile'][0]:.2f}"
+          f"s, CPU {t_io['outfile'][1]:.2f}s); LOAD DATA into an empty copy "
+          f"on each (card {t_io['load'][0]:.2f}s, CPU {t_io['load'][1]:.2f}"
+          f"s), the copy's read equal to the week's: {copy[1]}")
+    # 6. TRACE of a 100-row INSERT: the 2PC phases, span names equal
+    base = int(data["orders"]["o_orderkey"].max()) + 10_000_000
+    values = ", ".join(f"({base + i}, 1, 'O', 1.00, date '1998-01-01', "
+                       f"'1-URGENT', 'Clerk#1', 0, 'l2')" for i in range(100))
+    names = [[r[0] for r in s.query(f"trace insert into orders_w values "
+                                     f"{values}")] for s in sessions]
+    if names[0] != names[1] or not all(
+            any(n.strip().startswith(w) for n in names[0])
+            for w in ("twopc.prewrite", "twopc.commit")):
+        raise SystemExit(f"l2 TRACE INSERT: card {names[0]}, CPU {names[1]}")
+    spans = {}
+    for n in names[0]:
+        spans[n.strip()] = spans.get(n.strip(), 0) + 1
+    print(f"  l2 TRACE of a 100-row INSERT: card == CPU, spans (count) "
+          f"{spans}")
+    # 7. @@max_execution_time: SLEEP ends with 3024 within 1 s, and the
+    # next Q6 under the same limit is exact
+    ended = []
+    for s in sessions:
+        s.execute("set max_execution_time = 100")
+        t1 = time.perf_counter()
+        out = _i_outcome(s, "select sleep(5)")
+        ended.append(time.perf_counter() - t1)
+        if out[:2] != ("error", 3024) or ended[-1] > 1.0:
+            raise SystemExit(f"l2 max_execution_time: {out} after "
+                             f"{ended[-1]:.2f}s")
+    after = card.query(TPCH_QUERIES["q6"])
+    for s in sessions:
+        s.execute("set max_execution_time = 0")
+    # (the CPU session's Q6 after its limit is off: it may take longer
+    # than 100 ms there)
+    if TR.sql_cells(after) != TR.sql_oracle("q6", data) or \
+            q6[1] != TR.sql_cells(after) or \
+            TR.sql_cells(cpu.query(TPCH_QUERIES["q6"])) != q6[1]:
+        raise SystemExit("l2 max_execution_time: the next Q6 is not exact")
+    print(f"  l2 max_execution_time = 100: SELECT SLEEP(5) raised 3024 "
+          f"after {ended[0] * 1e3:.1f} ms (card), {ended[1] * 1e3:.1f} ms "
+          f"(CPU); the card's next Q6 exact")
+    for s in sessions:
+        s.execute("drop table orders_w")
+        s.execute("set global tidb_auto_analyze_ratio = 0.5")
+    # 8. statements_summary: the same digests and exec counts over l2
+    deltas = []
+    for s, d0 in zip(sessions, digests0):
+        deltas.append({e["digest"]: e["exec_count"] - d0.get(e["digest"], 0)
+                       for e in s.storage.obs.statements.snapshot()
+                       if e["exec_count"] != d0.get(e["digest"], 0)})
+    if deltas[0] != deltas[1]:
+        raise SystemExit(f"l2 statements_summary: card {len(deltas[0])} "
+                         f"digests, CPU {len(deltas[1])}")
+    print(f"  l2 statements_summary: {len(deltas[0])} digests with equal "
+          f"exec counts on both ({sum(deltas[0].values())} executions)")
+    launched = _kernels.LAUNCHES[RANK]
+    print(f"  l2: card == CPU on every check; streamseg launches "
+          f"{launched}; l2 took {time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3060,8 +3435,11 @@ def main(argv=None) -> int:
     print(f"  -- f. the SQL read path (device memory held before it: "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB)")
     sql_launches, write_launches = {}, {}
-    sql_launches["f1"], s10 = _part_f1(args, d10, tags)
+    sql_launches["f1"], s10, f1_rows = _part_f1(args, d10, tags)
     lap("part f1")
+    print("  -- l1. EXPLAIN ANALYZE and TRACE on f1's session")
+    explain_launches = {"l1": _part_l1(s10, f1_rows, tags)}
+    lap("part l1")
     print(f"  -- g. the write path ({_mem()} held before it)")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -3102,6 +3480,12 @@ def main(argv=None) -> int:
           f"accounts on f2's sessions ({_mem()} held before it)")
     registry_launches = _part_k(card1, cpu1, after1)
     lap("part k")
+    print(f"  -- l2. the statement plane on f2's sessions, card == CPU "
+          f"({_mem()} held before it)")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        explain_launches["l2"] = _part_l2(card1, cpu1, after1, tmp)
+    lap("part l2")
     del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
@@ -3147,7 +3531,8 @@ def main(argv=None) -> int:
             "ddl_launches": ddl_launches,
             "partition_launches": sum(partition_launches.values()),
             "partition_launches_by_part": partition_launches,
-            "registry_launches": registry_launches}
+            "registry_launches": registry_launches,
+            "explain_launches": explain_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -224,14 +224,18 @@ def fixed_clock(monkeypatch):
 
 
 def test_session_functions(tk, fixed_clock):
-    """The reference test's session functions, with its plan-cache half
-    left out (the port has no plan cache); the clock is patched in both
-    packages, so NOW() and CURDATE() are exact."""
+    """The reference test's session functions; the clock is patched in
+    both packages, so NOW() and CURDATE() are exact. NOW() keeps the
+    statement out of the plan cache in both."""
     r = tk.must_query("select version(), database(), user()")[0]
     assert "TiDB" in r[0] and r[1] == "test" and "@" in r[2]
     now = tk.must_query("select now(), curdate(), current_date")[0]
     assert now[0][:4] == now[1][:4]
     assert now == ("2024-02-15 13:45:30", "2024-02-15", "2024-02-15")
+    h = tk.both(lambda s: s.plan_cache_hits)
+    tk.must_query("select now()")
+    tk.must_query("select now()")
+    assert tk.both(lambda s: s.plan_cache_hits) == h
 
 
 def test_review_edge_cases(tk):

@@ -222,7 +222,10 @@ def test_show_create_table_text(surface):
                           "  `d` decimal(10,2)\n)")]
 
 
-@pytest.mark.parametrize("table", sorted(I.SERVED))
+# (statements_summary and slow_query hold times: their digests, counts
+# and rows are held to the reference in test_torch_statement_plane.py)
+@pytest.mark.parametrize("table", sorted(I.SERVED - {"statements_summary",
+                                                     "slow_query"}))
 def test_infoschema_table_matches_reference(surface, table):
     out = surface.one(f"select * from information_schema.{table}")
     if table in ("schemata", "tables", "columns", "engines",
@@ -282,20 +285,36 @@ SHOW_NOT_IN_SLICE = {
     "show profiles": "SHOW PROFILES", "show profile": "SHOW PROFILE",
     "show slow queries": "SHOW SLOW", "show metrics": "SHOW METRICS",
 }
+# obs-backed surfaces served since the statement plane's port
+SHOW_IN_SLICE_SINCE = {"show bindings", "show slow queries"}
+INFOSCHEMA_IN_SLICE_SINCE = {"statements_summary", "slow_query"}
 
 
 @pytest.mark.parametrize("sql", sorted(SHOW_NOT_IN_SLICE))
 def test_obs_backed_show_is_not_in_slice(surface, sql):
+    """The SHOW kinds of unported planes raise by name; SHOW BINDINGS and
+    SHOW SLOW QUERIES answer with the reference's columns."""
+    if sql in SHOW_IN_SLICE_SINCE:
+        got = [side.s.execute(sql).column_names
+               for side in (surface.ref, surface.port)]
+        assert got[0] == got[1]
+        return
     with pytest.raises(NotInSlice) as e:
         surface.port.s.execute(sql)
     assert e.value.reason == SHOW_NOT_IN_SLICE[sql]
 
 
-@pytest.mark.parametrize("table", sorted(set(I._DEFS) - I.SERVED))
+@pytest.mark.parametrize(
+    "table", sorted(set(I._DEFS) - I.SERVED | INFOSCHEMA_IN_SLICE_SINCE))
 def test_obs_backed_infoschema_is_not_in_slice(surface, table):
+    """The obs-backed tables of unported planes raise by name; the
+    statement plane's two are served."""
+    sql = f"select count(*) from information_schema.{table}"
+    if table in I.SERVED:
+        assert surface.port.s.query(sql)[0][0] >= 0
+        return
     with pytest.raises(NotInSlice) as e:
-        surface.port.s.execute(
-            f"select count(*) from information_schema.{table}")
+        surface.port.s.execute(sql)
     assert e.value.reason == table
 
 

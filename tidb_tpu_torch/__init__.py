@@ -13,9 +13,12 @@ from host-only modules is copied in. Entry points:
   compaction), with DML, transactions, the point fast path
   (`plan/fastpath.py`), online DDL (`ddl/ddl.py`), the schema surface
   (SHOW, `catalog/infoschema.py`, views, sequences), partitioned tables,
-  the function registry (`copr/funcs.py`), the clock and user locks, and
+  the function registry (`copr/funcs.py`), the clock and user locks,
   accounts, grants and roles checked per statement
-  (`session/privileges.py`);
+  (`session/privileges.py`), and the statement plane: the plan cache,
+  bindings (`session/bindinfo.py`), LOAD DATA and INTO OUTFILE, statement
+  digests and the slow log, TRACE and EXPLAIN ANALYZE over the
+  coprocessor's dispatch stages (`obs.py`), @@max_execution_time;
 * `server.Server(storage)`: the MySQL wire protocol over it;
 * `copr.client.CopClient(device).execute(dag, snap)` for a single-table
   pushdown request (`plan.dag.CopDAG`);
@@ -25,9 +28,9 @@ from host-only modules is copied in. Entry points:
 Where the reference's gates send a request to its host tier, the port's
 host tier answers it too (`copr/host_exec.py`, the fragment's host
 interpreter), with the reference's engine tag. `errors.NotInSlice` marks
-what is not ported yet: bindings, LOAD DATA and INTO OUTFILE, TRACE and
-EXPLAIN ANALYZE, the obs-backed SHOW kinds and information_schema tables,
-`metrics_schema`.
+what is not ported yet: SHOW PROCESSLIST, PROFILES, PROFILE and METRICS,
+the obs-backed information_schema tables but `statements_summary` and
+`slow_query`, `metrics_schema`.
 """
 
 from .device import resolve_device

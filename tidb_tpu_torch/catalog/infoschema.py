@@ -11,11 +11,13 @@ Every table of the reference is defined (`_DEFS`, so table ids, SHOW
 TABLES and the catalog match the reference's). The catalog-backed ones
 are served: schemata, tables, columns, statistics, engines, collations,
 character_sets, key_column_usage, referential_constraints, sequences,
-partitions, views and user_privileges. A statement that touches one of
-the others (statements summaries, the slow log, Top SQL, wait profiles,
-the mesh recorder, events, hot ranges, inspection, metrics, profiling,
-the processlist and every cluster_* table) raises `NotInSlice(<table>)`:
-they read planes the port does not have yet.
+partitions, views and user_privileges, and, from the storage's
+`Observability`, statements_summary (the digest table) and slow_query
+(the slow-log ring). A statement that touches one of the others (the
+statements summary history, Top SQL, wait profiles, the mesh recorder,
+events, hot ranges, inspection, metrics, profiling, the processlist and
+every cluster_* table) raises `NotInSlice(<table>)`: they read planes the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -479,6 +481,7 @@ SERVED = frozenset({
     "schemata", "tables", "columns", "statistics", "engines", "collations",
     "character_sets", "key_column_usage", "referential_constraints",
     "sequences", "partitions", "views", "user_privileges",
+    "statements_summary", "slow_query",
 })
 
 
@@ -640,6 +643,25 @@ def _rows_for(storage, catalog: Catalog, tname: str,
                         part.kind.upper(),
                         t.columns[part.col_offset].name, desc,
                         _store_rows(storage, d.id)])
+    elif tname == "statements_summary":
+        for e in sorted(storage.obs.statements.snapshot(),
+                        key=lambda e: -e["sum_latency_ms"]):
+            rows.append([
+                e["digest"], e["schema_name"], e["digest_text"],
+                e["sample_text"], e["exec_count"], e["errors"],
+                round(e["sum_latency_ms"], 3),
+                round(e["sum_latency_ms"] / max(e["exec_count"], 1), 3),
+                round(e["max_latency_ms"], 3), e["sum_rows"],
+                e["max_mem_bytes"], e["sum_spill_count"],
+                e["first_seen"], e["last_seen"]])
+    elif tname == "slow_query":
+        from .. import obs
+        for e in storage.obs.slow_queries():
+            rows.append([e["ts"], e["db"], float(e["duration_ms"]),
+                         e["sql"], e["plan_digest"],
+                         obs.fmt_stages_ms(e["stages"]),
+                         int(e["mem_max"]), int(e["spill_count"]),
+                         obs.fmt_ops_ms(e["operators"]), 0.0, ""])
     elif tname == "views":
         for s in user_schemas:
             for v in sorted(getattr(s, "views", {}).values(),

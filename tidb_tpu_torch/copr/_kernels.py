@@ -11,6 +11,10 @@ outputs and scratch with torch, launches on the current stream, raises
 when the C function returns a CUDA error, and adds one to its entry in
 `LAUNCHES` for each launch. There is no fallback: a wrapper that cannot
 build or launch its kernel raises.
+
+The first use of a library in a process (its build when stale, and its
+load) is the `compile` dispatch stage (span `cuda.compile`): it shows at
+most once per process, on the first launch of that kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from .. import obs
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -116,13 +122,16 @@ def _library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if _stale(name):
-                build_all([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn_name, argtypes in _SIGNATURES[name].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            with obs.stage("compile", span_name="cuda.compile") as sp:
+                if sp:
+                    sp.note = name
+                if _stale(name):
+                    build_all([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                for fn_name, argtypes in _SIGNATURES[name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

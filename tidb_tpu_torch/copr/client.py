@@ -33,6 +33,13 @@ What stays as in the reference:
   ships per-group HLL registers (`analyze.py`), merged across tiles by
   max.
 
+Dispatch stages and spans sit at the reference's sites (`obs.stage`,
+`obs.span`; the stages' meanings on the port are in `obs.py`): `ranged`,
+`prepare`, `host_fallback`, `staging` with `transfer` inside it, `kernel`
+(the asynchronous launches), `device_get` (the synchronizing copy to the
+host) and `merge`; spans `copr.execute(t<id>)`, `copr.fragment`,
+`device.batch(base|overlay)`, `device.dispatch` and `device.fetch`.
+
 What differs: the programs run eagerly on `self.device` (no jit cache),
 and staged columns are cached per epoch as device tensors. The host tier
 is the reference's own answer for those requests, not a fallback from a
@@ -49,6 +56,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..chunk.chunk import Chunk
 from ..chunk.column import Column, Dictionary
 from ..device import resolve_device
@@ -175,32 +183,53 @@ class CopClient:
 
     # ==================== public entry ====================
     def execute(self, dag: CopDAG, snap: TableSnapshot) -> CopResult:
+        with obs.span(f"copr.execute(t{dag.scan.table_id})") as sp:
+            return self._execute(dag, snap, sp)
+
+    def _execute(self, dag: CopDAG, snap: TableSnapshot, sp) -> CopResult:
         if dag.scan.ranges is not None:
             # index-ranged scan: the index permutation resolves a (small)
             # handle set, and the DAG runs on the host over those rows
-            r = host_exec.execute_ranged(dag, snap)
+            with obs.stage("ranged", span_name="copr.ranged"):
+                r = host_exec.execute_ranged(dag, snap)
             r.engine = "ranged"
+            if sp:
+                sp.note = "ranged"
             return r
         self._evict_stale(dag.scan.table_id, snap.epoch.epoch_id)
-        prepared, fallback = self._prepare(dag, snap)
+        with obs.stage("prepare", span_name="copr.prepare"):
+            prepared, fallback = self._prepare(dag, snap)
         if fallback is not None:
             r = self._try_group_fragment(dag, snap, fallback)
             if r is not None:
+                if sp:
+                    sp.note = r.engine
                 return r
             if fallback.startswith("sparse segment space"):
                 # the sort-grouped preference could not be honored: the
                 # dense einsum is still correct and still a device path
-                prepared, fallback = self._prepare(dag, snap,
-                                                   sparse_gate=False)
+                with obs.stage("prepare", span_name="copr.prepare"):
+                    prepared, fallback = self._prepare(dag, snap,
+                                                       sparse_gate=False)
         if fallback is not None:
-            r = host_exec.execute_host(dag, snap, fallback)
+            with obs.stage("host_fallback",
+                           span_name="copr.host_fallback") as hsp:
+                if hsp:
+                    hsp.note = fallback
+                r = host_exec.execute_host(dag, snap, fallback)
             r.engine = f"host({fallback})"
             return r
+        if sp:
+            sp.note = "device"
         chunks: list[Chunk] = []
         if snap.epoch.num_rows > 0:
-            chunks.extend(self._run_batch(dag, snap, prepared, overlay=False))
+            with obs.span("device.batch(base)"):
+                chunks.extend(self._run_batch(dag, snap, prepared,
+                                              overlay=False))
         if len(snap.overlay_handles) > 0:
-            chunks.extend(self._run_batch(dag, snap, prepared, overlay=True))
+            with obs.span("device.batch(overlay)"):
+                chunks.extend(self._run_batch(dag, snap, prepared,
+                                              overlay=True))
         if not chunks:
             chunks = [self._empty_chunk(dag, snap)]
         return CopResult(chunks, is_partial_agg=dag.agg is not None,
@@ -213,12 +242,14 @@ class CopClient:
         tile. A bare row scan of the base epoch stages nothing: no device
         program reads it."""
         bare = dag.agg is None and dag.topn is None and dag.selection is None
-        if overlay:
-            cols, vis, host_cols, host_mask = self._stage_inputs(
-                dag, snap, overlay=True)
-            tiles = [(cols, vis, len(snap.overlay_handles))]
-        else:
-            tiles = None if bare else self._stage_tiles(dag, snap)
+        with obs.stage("staging", span_name="copr.staging"):
+            if overlay:
+                cols, vis, host_cols, host_mask = self._stage_inputs(
+                    dag, snap, overlay=True)
+                tiles = [(cols, vis, len(snap.overlay_handles))]
+            else:
+                tiles = None if bare else self._stage_tiles(dag, snap)
+        if not overlay:
             host_cols, host_mask = self._host_view(dag, snap)
         if dag.agg is not None:
             return self._run_agg(dag, snap, prepared, tiles)
@@ -255,8 +286,11 @@ class CopClient:
         if frag is None:
             return None
         try:
-            return FR._device_fragment(
-                self, frag, {frag.tables[0].table.id: snap})
+            with obs.span("copr.fragment") as fsp:
+                if fsp:
+                    fsp.note = "group-lift"
+                return FR._device_fragment(
+                    self, frag, {frag.tables[0].table.id: snap})
         except (FR._Fallback, CompileError):
             return None
 
@@ -620,6 +654,15 @@ class CopClient:
     def _place(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _upload(self, arrs, note: bool = True):
+        """Place staged scan arrays as the `transfer` stage; `note`
+        attributes their bytes to the statement's active operator."""
+        with obs.stage("transfer"):
+            out = tuple(self._place(a) for a in arrs)
+        if note:
+            obs.note_op_bytes(sum(a.nbytes for a in arrs))
+        return out
+
     def _stage_tiles(self, dag: CopDAG, snap: TableSnapshot):
         """Device tiles covering the base epoch: [(dev_cols, vis, n_rows)].
 
@@ -657,9 +700,10 @@ class CopClient:
                     valid = epoch.valids[off]
                     vslice = np.ones(cnt, bool) if valid is None \
                         else valid[lo:lo + cnt]
-                    cached = (self._place(_pad(_narrow_stats(
-                                  data, self._col_stats(snap, off)), b)),
-                              self._place(_pad_bool(vslice, b)))
+                    cached = self._upload((
+                        _pad(_narrow_stats(data, self._col_stats(snap, off)),
+                             b),
+                        _pad_bool(vslice, b)))
                     if cacheable:
                         with self._lock:
                             self._col_cache[key] = cached
@@ -668,7 +712,8 @@ class CopClient:
             with self._lock:
                 vis = self._mask_cache.get(vkey)
             if vis is None:
-                vis = self._place(_pad_bool(snap.base_visible[lo:lo + cnt], b))
+                vis, = self._upload(
+                    (_pad_bool(snap.base_visible[lo:lo + cnt], b),))
                 if cacheable:
                     with self._lock:
                         self._mask_cache[vkey] = vis
@@ -691,11 +736,12 @@ class CopClient:
                 valid = snap.overlay_valids[off]
                 vfull = np.ones(n, bool) if valid is None else valid
                 host_cols.append((data, vfull))
-                dev_cols.append((self._place(_pad(_narrow(data), b)),
-                                 self._place(_pad_bool(vfull, b))))
+                dev_cols.append(self._upload(
+                    (_pad(_narrow(data), b), _pad_bool(vfull, b))))
             mask = np.zeros(b, bool)
             mask[:n] = True
-            return dev_cols, self._place(mask), host_cols, mask[:n]
+            dev_mask, = self._upload((mask,), note=False)
+            return dev_cols, dev_mask, host_cols, mask[:n]
         epoch = snap.epoch
         n = epoch.num_rows
         b = _bucket(n)
@@ -711,10 +757,10 @@ class CopClient:
             with self._lock:
                 cached = self._col_cache.get(key)
             if cached is None:
-                cached = (self._place(_pad(_narrow_stats(
-                              epoch.columns[off], self._col_stats(snap, off)),
-                              b)),
-                          self._place(_pad_bool(vfull, b)))
+                cached = self._upload((
+                    _pad(_narrow_stats(epoch.columns[off],
+                                       self._col_stats(snap, off)), b),
+                    _pad_bool(vfull, b)))
                 if cacheable:
                     with self._lock:
                         self._col_cache[key] = cached
@@ -725,7 +771,7 @@ class CopClient:
         with self._lock:
             vis = self._mask_cache.get(vis_key)
         if vis is None:
-            vis = self._place(_pad_bool(snap.base_visible, b))
+            vis, = self._upload((_pad_bool(snap.base_visible, b),))
             if cacheable:
                 with self._lock:
                     for k in [k for k in self._mask_cache
@@ -754,8 +800,16 @@ class CopClient:
         for c in cards:
             segments *= max(c, 1)
         body = self._agg_kernel_body(dag, prepared, cards, segments)
-        outs = fetch([body(cols, vis) for cols, vis, _ in tiles])
-        out = _merge_tile_outs(outs, prepared["__agg_sched__"])
+        # launches are asynchronous; ONE fetch brings every tile's
+        # partials to the host
+        with obs.stage("kernel", span_name="device.dispatch") as sp:
+            if sp:
+                sp.note = f"{len(tiles)} tile(s)"
+            devs = [body(cols, vis) for cols, vis, _ in tiles]
+        with obs.stage("device_get", span_name="device.fetch"):
+            outs = fetch(devs)
+        with obs.stage("merge"):
+            out = _merge_tile_outs(outs, prepared["__agg_sched__"])
         group_dicts = [
             snap.dictionaries[dag.scan.col_offsets[g.idx]]
             if g.ftype.is_string and isinstance(g, Col) else None
@@ -792,8 +846,11 @@ class CopClient:
             idx = np.nonzero(host_mask)[0]
         else:
             body = self._rowmask_body(dag, prepared)
-            packs = [body(cols, vis) for cols, vis, _ in tiles]
-            parts = [np.unpackbits(p.cpu().numpy())[:cnt].astype(bool)
+            with obs.stage("kernel", span_name="device.dispatch"):
+                devs = [body(cols, vis) for cols, vis, _ in tiles]
+            with obs.stage("device_get", span_name="device.fetch"):
+                packs = [p.cpu().numpy() for p in devs]
+            parts = [np.unpackbits(p)[:cnt].astype(bool)
                      for p, (_, _, cnt) in zip(packs, tiles)]
             idx = np.nonzero(np.concatenate(parts))[0]
         if dag.limit is not None and len(idx) > dag.limit.n:
@@ -844,7 +901,10 @@ class CopClient:
         """Per-tile top-n candidates; the host Sort/Limit above merge the
         tiles' chunks exactly."""
         body = self._topn_body(dag, prepared)
-        outs = fetch([body(cols, vis) for cols, vis, _ in tiles])
+        with obs.stage("kernel", span_name="device.dispatch"):
+            devs = [body(cols, vis) for cols, vis, _ in tiles]
+        with obs.stage("device_get", span_name="device.fetch"):
+            outs = fetch(devs)
         chunks = (self._topn_decode(dag, snap, out) for out in outs)
         return [c for c in chunks if c is not None]
 

@@ -59,6 +59,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..chunk.chunk import Chunk
 from ..chunk.column import Column
 from ..plan.dag import CopDAG, DAGScan
@@ -105,10 +106,15 @@ def execute_fragment(cop: CopClient, frag: FragmentDAG, snaps: dict
                      ) -> CopResult:
     """snaps: table_id -> TableSnapshot for every fragment table."""
     try:
-        return _device_fragment(cop, frag, snaps)
+        with obs.span("copr.fragment") as sp:
+            if sp:
+                sp.note = f"{len(frag.tables)} tables"
+            return _device_fragment(cop, frag, snaps)
     except (_Fallback, CompileError) as e:
         reason = getattr(e, "reason", None) or "compile"
-    r = _host_fragment(frag, snaps)
+    # the host interpreter's time is join work
+    with obs.operator("join"):
+        r = _host_fragment(frag, snaps)
     r.engine = f"host(fragment:{reason})"
     return r
 
@@ -255,24 +261,27 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     if mode == "hc" and frag.hc is not None and frag.hc.items:
         _elect_fused_cut(frag, prepared, comb_dicts, n_rows, cop.device)
 
-    # ---- build staging: whole build tables + perm tables ----
+    # ---- build staging: whole build tables + perm tables (join work
+    # in the per-operator attribution) ----
     builds = []
-    for j, (lo, span) in zip(frag.joins, spans):
-        t = frag.tables[j.build]
-        snap = snaps[t.table.id]
-        cols, vis, _, _ = cop._stage_build_table(_facade_dag(t), snap)
-        key_off = t.col_offsets[j.build_key_local]
-        perm = cop._place_build_array(
-            _perm_array(cop, snap, key_off, lo, span))
-        builds.append({"cols": cols, "vis": vis, "perm": perm})
-    # membership bitmaps ride behind the join builds; their host-side
-    # (has_null, empty) facts decide the NOT IN gates' form
-    semi_flags = []
-    for sm, (lo, span) in zip(frag.semis, semi_spans):
-        entry = _stage_semi_bitmap(cop, sm, snaps[sm.table.table.id], lo,
-                                   span)
-        semi_flags.append((entry["has_null"], entry["empty"]))
-        builds.append({"bm": entry["bm"]})
+    with obs.operator("join"), \
+            obs.stage("staging", span_name="copr.staging"):
+        for j, (lo, span) in zip(frag.joins, spans):
+            t = frag.tables[j.build]
+            snap = snaps[t.table.id]
+            cols, vis, _, _ = cop._stage_build_table(_facade_dag(t), snap)
+            key_off = t.col_offsets[j.build_key_local]
+            perm = cop._place_build_array(
+                _perm_array(cop, snap, key_off, lo, span))
+            builds.append({"cols": cols, "vis": vis, "perm": perm})
+        # membership bitmaps ride behind the join builds; their host-side
+        # (has_null, empty) facts decide the NOT IN gates' form
+        semi_flags = []
+        for sm, (lo, span) in zip(frag.semis, semi_spans):
+            entry = _stage_semi_bitmap(cop, sm, snaps[sm.table.table.id],
+                                       lo, span)
+            semi_flags.append((entry["has_null"], entry["empty"]))
+            builds.append({"bm": entry["bm"]})
     prepared["__semi_flags__"] = semi_flags
 
     chunks: list[Chunk] = []
@@ -463,20 +472,29 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode,
             psnap.epoch.num_rows > cop.TILE_ROWS:
         return _run_frag_tiled(cop, frag, snaps, prepared, spans, builds,
                                mode)
-    pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe), psnap,
-                                              overlay=overlay)
+    # probe-side staging is scan work, aligned build staging join work
+    with obs.operator("scan"), \
+            obs.stage("staging", span_name="copr.staging"):
+        pcols, pvis, phost, _ = cop._stage_inputs(_facade_dag(probe),
+                                                  psnap, overlay=overlay)
     # the first query over an epoch pair pays the gathers; later ones
     # read the cached aligned build columns (membership bitmaps follow)
     kern_builds = builds
-    if not overlay:
-        nj = len(frag.joins)
-        kern_builds = _stage_aligned(cop, frag, snaps, spans, builds[:nj],
-                                     pcols) + builds[nj:]
+    nj = len(frag.joins)
+    if not overlay and nj:
+        with obs.operator("join"), \
+                obs.stage("staging", span_name="copr.staging"):
+            kern_builds = _stage_aligned(cop, frag, snaps, spans,
+                                         builds[:nj], pcols) + builds[nj:]
     aux = None
     if mode == "hc" and prepared.get("__rank_meta__") is not None:
         aux = _stage_rank_aux(cop, psnap, prepared)
     kernel = _build_frag_kernel(frag, prepared, spans, mode)
-    out = fetch([kernel(pcols, pvis, kern_builds, aux)])[0]
+    with obs.operator(_mode_op(frag, mode)):
+        with obs.stage("kernel", span_name="device.dispatch"):
+            dev = kernel(pcols, pvis, kern_builds, aux)
+        with obs.stage("device_get", span_name="device.fetch"):
+            out = fetch([dev])[0]
     if mode == "hc":
         chunk = _decode_hc(frag, snaps, prepared, out)
         return [] if chunk is None else [chunk]
@@ -501,17 +519,29 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
     one chunk per tile (the host Sort/Limit above merge them)."""
     probe = frag.tables[0]
     psnap = snaps[probe.table.id]
-    tiles = cop._stage_tiles(_facade_dag(probe), psnap)
+    with obs.operator("scan"), \
+            obs.stage("staging", span_name="copr.staging"):
+        tiles = cop._stage_tiles(_facade_dag(probe), psnap)
     kernel = _build_frag_kernel(frag, prepared, spans, mode)
     devs = []
     nj = len(frag.joins)
+    kop = _mode_op(frag, mode)
     for ti, (cols, vis, _) in enumerate(tiles):
-        kb = _stage_aligned(cop, frag, snaps, spans, builds[:nj], cols,
-                            tag=("tile", ti)) + builds[nj:]
-        devs.append(kernel(cols, vis, kb))
-    outs = fetch(devs)
+        kb = builds
+        if nj:
+            with obs.operator("join"), \
+                    obs.stage("staging", span_name="copr.staging"):
+                kb = _stage_aligned(cop, frag, snaps, spans, builds[:nj],
+                                    cols, tag=("tile", ti)) + builds[nj:]
+        with obs.operator(kop), \
+                obs.stage("kernel", span_name="device.dispatch"):
+            devs.append(kernel(cols, vis, kb))
+    with obs.operator(kop), \
+            obs.stage("device_get", span_name="device.fetch"):
+        outs = fetch(devs)
     if mode == "agg":
-        out = _merge_tile_outs(outs, prepared["__agg_sched__"])
+        with obs.stage("merge"):
+            out = _merge_tile_outs(outs, prepared["__agg_sched__"])
         return _decode_frag_agg(frag, snaps, prepared, out)
     if mode == "topn":
         chunks = (_decode_frag_topn(frag, snaps, out) for out in outs)
@@ -524,6 +554,21 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
             idx_parts.append(local + ti * T)
     idx = np.concatenate(idx_parts) if idx_parts else np.zeros(0, np.int64)
     return _host_rows_for(frag, snaps, idx, overlay=False)
+
+
+def _mode_op(frag, mode: str) -> str:
+    """The fused program's operator label in the attribution plane: one
+    program covers the whole tree, so the label names its dominant
+    consumers."""
+    if mode == "hc":
+        if frag.hc is None:  # HAVING-filtered candidate path
+            return "join+agg" if frag.joins else "agg"
+        return "join+agg+topn" if frag.joins else "agg+topn"
+    if mode == "topn":
+        return "join+topn" if frag.joins else "topn"
+    if mode == "agg":
+        return "join+agg" if frag.joins else "agg"
+    return "join"
 
 
 def _stage_aligned(cop, frag, snaps, spans, builds, pcols, tag=None):

@@ -4,10 +4,9 @@
 class NotInSlice(Exception):
     """The statement or request needs a part of the reference that is not
     ported. `reason` names it: a statement kind the Session does not run
-    ("LoadDataStmt", "CreateBindingStmt", "TraceStmt", ...), a SHOW kind
-    ("SHOW PROCESSLIST", ...), an information_schema table of an unported
-    plane by its name ("slow_query", ...), "metrics_schema", "EXPLAIN
-    ANALYZE", "INTO OUTFILE"."""
+    (its class name), a SHOW kind ("SHOW PROCESSLIST", ...), an
+    information_schema table of an unported plane by its name
+    ("tidb_top_sql", ...), "metrics_schema"."""
 
     def __init__(self, reason: str) -> None:
         super().__init__(reason)

@@ -30,6 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
+from .. import obs
 from ..util import failpoint
 from .codec import encode_uint_desc
 
@@ -651,11 +652,15 @@ class MVCCStore:
                     errs.append(e)
             if errs:
                 raise errs[0]
-            for m in mutations:
-                self.kv.put(CF_LOCK, m.key, _lock_enc(
-                    LockInfo(m.key, primary, start_ts, m.op, ttl)))
-                if m.op == OP_PUT:
-                    self.kv.put(CF_DATA, _dkey(m.key, start_ts), m.value)
+            # wal.append: lock and data records reaching the engine (and
+            # its WAL)
+            with obs.span("wal.append"):
+                for m in mutations:
+                    self.kv.put(CF_LOCK, m.key, _lock_enc(
+                        LockInfo(m.key, primary, start_ts, m.op, ttl)))
+                    if m.op == OP_PUT:
+                        self.kv.put(CF_DATA, _dkey(m.key, start_ts),
+                                    m.value)
 
     def _prewrite_check(self, key: bytes, start_ts: int) -> Optional[KVError]:
         lv = self.kv.get(CF_LOCK, key)
@@ -684,7 +689,7 @@ class MVCCStore:
     def commit(self, keys: list[bytes], start_ts: int,
                commit_ts: int) -> None:
         """Second phase (reference: mvcc_leveldb.go Commit)."""
-        with self._mutate():
+        with self._mutate(), obs.span("wal.append"):
             for key in keys:
                 lv = self.kv.get(CF_LOCK, key)
                 if lv is None:

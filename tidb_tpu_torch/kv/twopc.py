@@ -11,10 +11,11 @@ against real TiKV.
 Port of `tidb_tpu/kv/twopc.py` over the in-process region tier, with the
 reference's four failpoint sites (`twopc/before-prewrite`,
 `twopc/after-prewrite`, `twopc/before-commit-primary`,
-`twopc/after-primary-commit`). Its wait ledger, spans and metrics, the
-structured event log, the keyspace heatmap and the range tier's
-cross-range commit fan-out have no port yet: their hooks are left out,
-and the control flow between them is the reference's.
+`twopc/after-primary-commit`) and its TRACE spans (`twopc.prewrite`,
+`twopc.commit`, `twopc.commit_primary`, `twopc.commit_secondary`). Its wait ledger and metrics, the structured event log,
+the keyspace heatmap and the range tier's cross-range commit fan-out have
+no port yet: their hooks are left out, and the control flow between them
+is the reference's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import obs
 from ..util import failpoint
 from .mvcc import OP_LOCK, KeyIsLockedError, KVError, Mutation
 from .region import Region, RegionError, RegionManager
@@ -104,6 +106,12 @@ class TwoPhaseCommitter:
         hold serializing locks across it — the storage runs it outside
         its commit lock (the reference has no such global lock; its fold
         equivalent is TiFlash's async raft apply)."""
+        with obs.span("twopc.prewrite") as sp:
+            if sp:
+                sp.note = f"{len(mutations)} keys"
+            return self._prewrite_phase(mutations, start_ts)
+
+    def _prewrite_phase(self, mutations: list[Mutation], start_ts: int):
         resolver = LockResolver(self.rm, self.tso)
         mutations = sorted(mutations, key=lambda m: m.key)
         # the primary must leave a write record: a lock-only (OP_LOCK)
@@ -127,15 +135,21 @@ class TwoPhaseCommitter:
     def commit_phase(self, state, start_ts: int) -> int:
         """Phase 2: never waits on foreign locks (we hold every key),
         so it is safe inside the storage commit lock."""
+        with obs.span("twopc.commit"):
+            return self._commit_phase(state, start_ts)
+
+    def _commit_phase(self, state, start_ts: int) -> int:
         mutations, primary, resolver = state
         commit_ts = self.tso.ts()
         # commit the primary synchronously — the txn is durable
         # once this lands (reference: 2pc.go:741)
         failpoint.inject("twopc/before-commit-primary")
-        self._retry_region(
-            primary, resolver,
-            lambda region: self.rm.commit(region, [primary], start_ts,
-                                          commit_ts))
+        # (the span half of the reference's commit_primary wait frame)
+        with obs.span("twopc.commit_primary"):
+            self._retry_region(
+                primary, resolver,
+                lambda region: self.rm.commit(region, [primary], start_ts,
+                                              commit_ts))
         # crash here = committed txn with secondary locks left behind:
         # the resolver must roll them FORWARD from the primary's write
         # record (reference failpoint site: 2pc.go:1027)
@@ -145,15 +159,18 @@ class TwoPhaseCommitter:
         # IMPORTANT: the txn is already durable — a secondary failure must
         # NOT surface as a commit failure (the lock resolver rolls the
         # stragglers forward from the committed primary)
-        for key in (m.key for m in mutations if m.key != primary):
-            try:
-                self._retry_region(
-                    key, resolver,
-                    lambda region, k=key: self.rm.commit(
-                        region, [k], start_ts, commit_ts))
-            except (CommitError, KVError):
-                # resolver recovers from the primary's record
-                pass
+        rest = [m.key for m in mutations if m.key != primary]
+        if rest:
+            with obs.span("twopc.commit_secondary"):
+                for key in rest:
+                    try:
+                        self._retry_region(
+                            key, resolver,
+                            lambda region, k=key: self.rm.commit(
+                                region, [k], start_ts, commit_ts))
+                    except (CommitError, KVError):
+                        # resolver recovers from the primary's record
+                        pass
         return commit_ts
 
     def rollback(self, mutations: list[Mutation], start_ts: int) -> None:

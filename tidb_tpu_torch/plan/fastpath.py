@@ -9,7 +9,9 @@ the KV/MVCC layer:
 
 * zero coprocessor involvement (the session's lazy `cop` property is
   never touched, so no device, no staging, no kernels);
-* zero planner work;
+* zero planner work on a plan-cache hit (the session LRU stores the
+  recognized FastPlan under the same `_plan_cache_key` the physical
+  plan cache uses, including the prepared-statement `#stmt{id}` keys);
 * the row read is O(1): txn-visible deltas scanned newest-first, then
   the epoch's lazy HandleIndex — never a table-sized snapshot mask.
 
@@ -18,11 +20,9 @@ understand (partitions, views, unique secondary indexes on INSERT,
 expressions beyond simple row-local arithmetic, bindings in force)
 returns None and the unchanged slow path answers.
 
-Port of `tidb_tpu/plan/fastpath.py`. The reference also stores FastPlans
-in its SQL-text plan cache and runs point reads under the execution
-admission gate and the keyspace heatmap; the port has none of those
-planes, so recognition runs for every eligible statement and execution
-goes straight to the transaction.
+Port of `tidb_tpu/plan/fastpath.py`. The reference also runs point reads
+under the execution admission gate and the keyspace heatmap; the port
+has neither plane, so execution goes straight to the transaction.
 """
 
 from __future__ import annotations

@@ -322,6 +322,7 @@ class Server:
                     conn_id = self._next_conn_id
                     self._next_conn_id += 1
                     conn = ClientConn(self, sock, conn_id)
+                    self.storage.obs.connections.inc()
                     self._conns[conn_id] = conn
             if conn is None:
                 # connection gate: a clean ER_CON_COUNT_ERROR before any
@@ -340,6 +341,7 @@ class Server:
         a short timeout so a stalled flood client cannot wedge the
         accept loop."""
         from . import packet as P
+        self.storage.obs.conn_rejects.inc()
         try:
             sock.settimeout(1.0)
             payload = P.err_packet(1040, "Too many connections", "08004")

@@ -15,23 +15,39 @@ txn; statement-level staging gives per-statement rollback inside a txn.
 
 Statements: CREATE/DROP DATABASE, USE (information_schema too),
 CREATE/DROP/TRUNCATE TABLE (PARTITION BY HASH or RANGE too), SELECT
-(and UNION, FOR UPDATE), INSERT
-(VALUES, SELECT, REPLACE, ON DUPLICATE KEY UPDATE), UPDATE, DELETE, BEGIN,
-COMMIT, ROLLBACK, SET, EXPLAIN (not ANALYZE), ANALYZE TABLE, KILL
+(and UNION, FOR UPDATE, INTO OUTFILE), INSERT
+(VALUES, SELECT, REPLACE, ON DUPLICATE KEY UPDATE), LOAD DATA, UPDATE,
+DELETE, BEGIN, COMMIT, ROLLBACK, SET, EXPLAIN and EXPLAIN ANALYZE, TRACE,
+ANALYZE TABLE, KILL
 [QUERY|CONNECTION] (routed through the storage to the wire server that
 holds the connection); the schema changes, each an online DDL job
 (`ddl/ddl.py`) with an implicit commit: ALTER TABLE (ADD/DROP INDEX,
 ADD/DROP/MODIFY COLUMN, RENAME, several at once), CREATE/DROP INDEX,
 RENAME TABLE, ALTER TABLE ... DROP/TRUNCATE PARTITION; CREATE/DROP
 VIEW, CREATE/DROP SEQUENCE with NEXTVAL, LASTVAL and SETVAL (bound once
-per statement); SHOW (TABLES, DATABASES,
+per statement); CREATE/DROP [GLOBAL|SESSION] BINDING (`bindinfo.py`);
+SHOW (TABLES, DATABASES,
 CREATE TABLE/DATABASE/VIEW, COLUMNS, INDEX, TABLE STATUS, VARIABLES,
-STATUS, GRANTS, PRIVILEGES, CHARSET, COLLATION, ENGINES, WARNINGS),
+STATUS, GRANTS, PRIVILEGES, CHARSET, COLLATION, ENGINES, WARNINGS,
+BINDINGS, SLOW QUERIES),
 ADMIN SHOW DDL JOBS, ADMIN CHECK TABLE and CHECKSUM TABLE; SELECTs over
 information_schema (`catalog/infoschema.py`, rebuilt before the
 statement reads it); the server's prepared statements (`prepare`,
 `execute_prepared`, `close_prepared`). Autocommit point statements take
 the fast path (`plan/fastpath.py`) and never touch the coprocessor.
+
+The observed statement (`_execute_observed`): per-statement counters on
+the storage's `Observability`, the digest record (`statements_summary`)
+of single statements, the slow log over `tidb_slow_log_threshold`, and
+`@@max_execution_time`: a SELECT's deadline rides the KILL QUERY
+interrupt plane and ends it with 3024. The SQL-text plan cache
+(`_plan_cache`, a true LRU of `tidb_plan_cache_size` entries, on with
+`tidb_enable_plan_cache`) holds physical plans and point FastPlans under
+the statement's text or a prepared statement's `#stmt{id}:<params>` key,
+stamped with the schema version, the statistics generation and the
+bindings. EXPLAIN ANALYZE runs the plan under a `RuntimeStatsColl` (a
+point SELECT shows its fast path and `plan_cache:hit|miss`); TRACE runs
+a SELECT or DML under a `SpanCollector`.
 
 Accounts: CREATE/DROP/ALTER/RENAME USER, GRANT and REVOKE (column grants
 too), CREATE/DROP ROLE, GRANT of a role, SET DEFAULT ROLE and SET ROLE,
@@ -40,7 +56,8 @@ wire server sets it at login, with the account's default roles active)
 has every statement checked before it runs (`_check_privileges`, ahead of
 the fast path), its plan's leaf tables checked column by column
 (`_check_column_privs`), and the column lists of its INSERTs and UPDATEs
-(`_check_dml_columns`).
+(`_check_dml_columns`); LOAD DATA and INTO OUTFILE need FILE, and
+`secure_file_priv` confines their paths.
 
 Functions: the registry builtins (`copr/funcs.py`) evaluate on the root's
 rows; the statement installs `@@time_zone` for them (FROM_UNIXTIME) and
@@ -49,27 +66,30 @@ CURTIME, UNIX_TIMESTAMP()) binds to literals before planning, and the
 GET_LOCK family takes the storage's named locks (`UserLocks`), released
 when the connection closes (`rollback_if_active`).
 
-Raise `NotInSlice`: every other statement kind (bindings, LOAD DATA,
-...) by its kind; SHOW BINDINGS, PROCESSLIST, PROFILES, PROFILE, SLOW and
-METRICS as "SHOW <kind>"; `metrics_schema` and the obs-backed
-information_schema tables by their names.
+Raise `NotInSlice`: every other statement kind by its kind; SHOW
+PROCESSLIST, PROFILES, PROFILE and METRICS as "SHOW <kind>";
+`metrics_schema` and the obs-backed information_schema tables other than
+`statements_summary` and `slow_query` by their names.
 
 A partitioned table's DML loops over its partitions
-(`_partition_children`): INSERT routes each row by the partition column,
-UPDATE buffers rows that move to another partition until every partition
-has been scanned, and DELETE, FOR UPDATE, ANALYZE, CHECKSUM and ADMIN
-CHECK visit each partition's store.
+(`_partition_children`): INSERT (and LOAD DATA) routes each row by the
+partition column, UPDATE buffers rows that move to another partition
+until every partition has been scanned, and DELETE, FOR UPDATE, ANALYZE,
+CHECKSUM and ADMIN CHECK visit each partition's store.
 
-Left out of the reference's statement path: the SQL-text plan cache (it
-changes no answer), slow log, digests, profiler, bindings, replica
-routing, governor admission and max_execution_time.
+Left out of the reference's statement path, with their planes: Top SQL,
+the workload history, the wait profile, the profiler, the processlist,
+replica routing and governor admission.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import re
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
@@ -82,11 +102,14 @@ from ..chunk.column import _encode_scalar
 from ..copr import funcs
 from ..copr.client import CopClient
 from ..copr.npeval import NumpyEval, _truthy
-from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_DATA_INCONSISTENT,
-                     ER_DUP_ENTRY, ER_KILL_DENIED, ER_NO_SUCH_TABLE,
-                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED,
+from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_CANT_CREATE_FILE,
+                     ER_DATA_INCONSISTENT, ER_DUP_ENTRY, ER_FILE_EXISTS,
+                     ER_FILE_NOT_FOUND, ER_KILL_DENIED, ER_NO_SUCH_TABLE,
+                     ER_NOT_SUPPORTED_YET, ER_OPTION_PREVENTS_STATEMENT,
+                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED, ER_QUERY_TIMEOUT,
                      ER_SPECIFIC_ACCESS_DENIED, ER_TABLE_EXISTS,
-                     ER_TABLEACCESS_DENIED, ER_TIKV_SERVER_BUSY,
+                     ER_TABLEACCESS_DENIED, ER_TEXTFILE_NOT_READABLE,
+                     ER_TIKV_SERVER_BUSY, ER_TRUNCATED_WRONG_VALUE,
                      ER_UNKNOWN_SYSTEM_VARIABLE,
                      ER_VAR_READONLY, ER_WRONG_VALUE_COUNT_ON_ROW,
                      CodedError)
@@ -124,11 +147,16 @@ _NILADIC_FUNCS = frozenset({
 })
 
 _DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
+# statements whose affected count is ROW_COUNT()
+_ROW_COUNT_STMTS = _DML + (ast.LoadDataStmt,)
 
-# SHOW kinds whose planes are not ported (bindings, the processlist,
-# the profiler, the slow log, metrics)
-_NOT_IN_SLICE_SHOW = frozenset({"BINDINGS", "PROCESSLIST", "PROFILES",
-                                "PROFILE", "SLOW", "METRICS"})
+# SHOW kinds whose planes are not ported (the processlist, the profiler,
+# the metrics history)
+_NOT_IN_SLICE_SHOW = frozenset({"PROCESSLIST", "PROFILES", "PROFILE",
+                                "METRICS"})
+
+_EXPLAIN_ANALYZE_COLS = ["plan", "actRows", "time_ms", "engine", "stages",
+                         "mesh", "wait_profile"]
 _METRICS_SCHEMA = "metrics_schema"
 
 
@@ -192,6 +220,29 @@ class Session:
         self.last_op_wall: dict[str, float] = {}
         self.last_engines: list[str] = []
         self._pending_parse_s = 0.0
+        # the statement's working-set peak and spills (digest table,
+        # slow log)
+        self.last_mem_peak = 0
+        self.last_spill_count = 0
+        # SQL-text plan cache: key -> (invalidation gen, plan), a true
+        # LRU holding physical plans and point FastPlans under the same
+        # keys, the prepared-statement #stmt{id} keys included
+        self._plan_cache: OrderedDict = OrderedDict()
+        self._plan_cache_key: Optional[str] = None
+        # did the last statement's plan come from the cache? (EXPLAIN
+        # ANALYZE's point row)
+        self.last_plan_from_cache = False
+        self.plan_cache_hits = 0
+        # SESSION-scope plan bindings (digest -> record); GLOBAL ones
+        # live on the storage (`bindinfo.BindingManager`)
+        self.session_bindings: dict[str, dict] = {}
+        self._binding_gen = 0
+        self._binding_match_sql: Optional[str] = None
+        self._lpfb_next = 0
+        # the single statement's own text (EXPLAIN's binding match)
+        self._raw_sql: Optional[str] = None
+        # set by the @@max_execution_time timer before it interrupts
+        self._deadline_expired = False
 
     @property
     def cop(self) -> CopClient:
@@ -210,14 +261,34 @@ class Session:
         try:
             stmts = parse_sql(sql)
         except ParseError as e:
+            self.storage.obs.query_errors.inc()
             raise SQLError(f"parse error: {e}",
                            errno=getattr(e, 'errno', ER_PARSE_ERROR)) from None
         # parse happens before the per-statement recorder exists: the
         # first statement's recorder books it as its 'parse' stage
         self._pending_parse_s = time.perf_counter() - t_parse
         result = ResultSet([], [])
-        for stmt in stmts:
-            result = self._execute_observed(stmt)
+        single = len(stmts) == 1
+        for i, stmt in enumerate(stmts):
+            label = sql if single else \
+                f"[stmt {i + 1}/{len(stmts)}] {sql}"
+            # a single statement's text keys the plan cache (SELECT) and
+            # the point FastPlan cache (DML); bindings match SELECT text
+            is_select = single and isinstance(
+                stmt, (ast.SelectStmt, ast.SetOpStmt))
+            self._plan_cache_key = sql if (
+                is_select or (single and isinstance(stmt, _DML))) else None
+            self._binding_match_sql = sql if is_select else None
+            self._raw_sql = sql if single else None
+            try:
+                # batch members are not digested: the batch label is no
+                # statement's own text
+                result = self._execute_observed(
+                    stmt, label, digest_sql=sql if single else None)
+            finally:
+                self._plan_cache_key = None
+                self._binding_match_sql = None
+                self._raw_sql = None
         # delta-driven auto-analyze at statement boundaries (the
         # reference's stats owner loop, checked inline every 64
         # statements as the reference's single-process session does)
@@ -226,14 +297,54 @@ class Session:
             self.storage.stats.auto_analyze(self.storage, self.catalog)
         return result
 
-    def _execute_observed(self, stmt: ast.Stmt) -> ResultSet:
-        """Run one statement under its own stage recorder; the recorder's
-        totals, operator walls and engine tags become `last_stages`,
-        `last_op_wall` and `last_engines`."""
+    def _start_deadline(self, stmt: ast.Stmt) -> Optional[threading.Timer]:
+        """@@max_execution_time: a SELECT's deadline (DML is exempt, 0
+        disables it) on the same interrupt plane as KILL QUERY; the
+        expired statement ends at its next checkpoint with 3024."""
+        if not isinstance(stmt, (ast.SelectStmt, ast.SetOpStmt)):
+            return None
+        try:
+            max_ms = int(self._sysvar_value("max_execution_time") or 0)
+        except (TypeError, ValueError, SQLError):
+            max_ms = 0
+        if max_ms <= 0:
+            return None
+
+        def expire() -> None:
+            self._deadline_expired = True
+            self.killed.set()
+
+        timer = threading.Timer(max_ms / 1000.0, expire)
+        timer.daemon = True
+        timer.start()
+        return timer
+
+    def _execute_observed(self, stmt: ast.Stmt, sql: str,
+                          digest_sql: Optional[str] = None) -> ResultSet:
+        """Run one statement under its own stage recorder, with the
+        storage's statement counters, the digest record and the slow log;
+        the recorder's totals, operator walls and engine tags become
+        `last_stages`, `last_op_wall` and `last_engines`."""
+        o = self.storage.obs
+        t0 = time.perf_counter()
+        o.queries.inc(type=type(stmt).__name__.removesuffix("Stmt"))
+        failed = False
+        rows_out = 0
+        # arm the per-statement kill flag (KILL QUERY clears with the
+        # statement; KILL CONNECTION leaves it set and the server drops
+        # the socket)
+        self.killed.clear()
+        self.last_plan_from_cache = False
+        self.last_mem_peak = 0
+        self.last_spill_count = 0
+        interrupt.install(self.killed)
+        self._deadline_expired = False
+        deadline = self._start_deadline(stmt)
         prev_rec = obs.active_stage_recorder()
         rec = obs.StageRecorder()
         if self._pending_parse_s:
             rec.add("parse", self._pending_parse_s)
+            rec.add_op_stage("(session)", "parse", self._pending_parse_s)
             self._pending_parse_s = 0.0
         # warnings reset per statement — except SHOW WARNINGS and
         # table-less SELECTs (SELECT @@warning_count, SELECT 1), which
@@ -245,11 +356,6 @@ class Session:
         if not preserves_warnings:
             self.warnings = []
         self._stmt_auto_id = None
-        # arm the per-statement kill flag (KILL QUERY clears with the
-        # statement; KILL CONNECTION leaves it set and the server drops
-        # the socket)
-        self.killed.clear()
-        interrupt.install(self.killed)
         # route @@time_zone to the scalar-function layer for the
         # statement's duration: FROM_UNIXTIME formats in the session
         # time zone like MySQL
@@ -267,24 +373,61 @@ class Session:
             obs.install_stage_recorder(rec)
             prev_tz = funcs.install_session_time_zone(tz)
             rs = self._execute_stmt(stmt)
+            rows_out = len(rs.rows)
             if self._stmt_auto_id is not None:
                 self.vars["last_insert_id"] = self._stmt_auto_id
             # ROW_COUNT(): affected rows of the last DML, -1 otherwise
-            self._row_count = rs.affected if isinstance(stmt, _DML) else -1
+            self._row_count = rs.affected if isinstance(
+                stmt, _ROW_COUNT_STMTS) else -1
             return rs
         except interrupt.QueryInterrupted:
+            failed = True
+            o.query_errors.inc()
+            if self._deadline_expired:
+                raise SQLError(
+                    "Query execution was interrupted, maximum statement "
+                    "execution time exceeded",
+                    errno=ER_QUERY_TIMEOUT) from None
             raise SQLError("Query execution was interrupted",
                            errno=ER_QUERY_INTERRUPTED) from None
+        except Exception:
+            failed = True
+            o.query_errors.inc()
+            raise
         finally:
+            if deadline is not None:
+                deadline.cancel()
+            self._deadline_expired = False
             interrupt.install(None)
             obs.install_stage_recorder(prev_rec)
             funcs.install_session_time_zone(prev_tz)
             if self._is_guard is not None:
                 self._is_guard.release()
                 self._is_guard = None
+            dt = time.perf_counter() - t0
+            o.query_seconds.observe(dt)
             self.last_stages = rec.totals
             self.last_op_wall = rec.op_wall
             self.last_engines = rec.engines
+            if digest_sql is not None:
+                o.statements.record(digest_sql, self.current_db, dt,
+                                    rows_out, failed,
+                                    mem_peak=self.last_mem_peak,
+                                    spill_count=self.last_spill_count)
+            try:
+                thresh = float(
+                    self._sysvar_value("tidb_slow_log_threshold"))
+            except (TypeError, ValueError, SQLError):
+                thresh = obs.DEFAULT_SLOW_THRESHOLD_MS
+            if dt * 1e3 >= thresh:
+                # the digest the statements_summary uses, so slow-log
+                # entries join against the digest table
+                digest, _ = obs.StatementsSummary.digest(digest_sql or sql)
+                o.record_slow(sql, self.current_db, dt,
+                              plan_digest=digest, stages=rec.snapshot(),
+                              mem_peak=self.last_mem_peak,
+                              spill_count=self.last_spill_count,
+                              op_wall=rec.op_wall)
 
     def query(self, sql: str) -> list[tuple[Any, ...]]:
         return self.execute(sql).rows
@@ -304,24 +447,34 @@ class Session:
             raise SQLError("prepared statement must be a single statement")
         self._next_stmt_id += 1
         sid = self._next_stmt_id
-        self._prepared[sid] = (stmts[0], parser.param_count)
+        self._prepared[sid] = (stmts[0], parser.param_count, sql)
         return sid, parser.param_count
 
     def execute_prepared(self, stmt_id: int, params: list) -> ResultSet:
         """Bind parameters and run (reference: server/conn_stmt.go
         handleStmtExecute). Binding substitutes literals into a copy of
-        the AST; the statement replans per execution."""
+        the AST; the plan caches per (statement, bound parameters)."""
         entry = self._prepared.get(stmt_id)
         if entry is None:
             raise SQLError(f"unknown prepared statement {stmt_id}")
-        stmt, n_params = entry
+        stmt, n_params, raw_sql = entry
         if len(params) != n_params:
             raise SQLError(
                 f"expected {n_params} parameters, got {len(params)}")
         bound = copy.deepcopy(stmt)
         if n_params:
             bound = _bind_params(bound, params)
-        return self._execute_observed(bound)
+        if isinstance(bound, (ast.SelectStmt, ast.SetOpStmt) + _DML):
+            self._plan_cache_key = f"#stmt{stmt_id}:{params!r}"
+        if isinstance(bound, (ast.SelectStmt, ast.SetOpStmt)):
+            # bindings match on the PREPARE text: its '?' markers line up
+            # with the literal-normalized binding key
+            self._binding_match_sql = raw_sql
+        try:
+            return self._execute_observed(bound, f"EXECUTE stmt#{stmt_id}")
+        finally:
+            self._plan_cache_key = None
+            self._binding_match_sql = None
 
     def close_prepared(self, stmt_id: int) -> None:
         self._prepared.pop(stmt_id, None)
@@ -341,13 +494,17 @@ class Session:
                              ast.GrantStmt)):
             return self._exec_account_stmt(stmt)
         if isinstance(stmt, (ast.SelectStmt, ast.SetOpStmt)):
-            if getattr(stmt, "into_outfile", None) is not None:
-                raise NotInSlice("INTO OUTFILE")
-            return self._run_in_txn(lambda: self._exec_select(stmt))
+            rs = self._run_in_txn(lambda: self._exec_select(stmt))
+            outfile = getattr(stmt, "into_outfile", None)
+            if outfile is not None:
+                return self._write_outfile(rs, outfile)
+            return rs
         if isinstance(stmt, _DML):
             stmt = self._maybe_bind_vars(stmt)
         if isinstance(stmt, ast.InsertStmt):
             return self._run_in_txn(lambda: self._exec_insert(stmt))
+        if isinstance(stmt, ast.LoadDataStmt):
+            return self._run_in_txn(lambda: self._exec_load_data(stmt))
         if isinstance(stmt, ast.UpdateStmt):
             return self._run_in_txn(lambda: self._exec_update(stmt))
         if isinstance(stmt, ast.DeleteStmt):
@@ -412,6 +569,8 @@ class Session:
             return ResultSet([], [])
         if isinstance(stmt, ast.ExplainStmt):
             return self._exec_explain(stmt)
+        if isinstance(stmt, ast.TraceStmt):
+            return self._exec_trace(stmt)
         if isinstance(stmt, ast.ShowStmt):
             return self._exec_show(stmt)
         if isinstance(stmt, ast.SetStmt):
@@ -433,6 +592,10 @@ class Session:
                     "new_name": new.name,
                     "new_db": new.db or old.db or self.current_db})
             return ResultSet([], [])
+        if isinstance(stmt, ast.CreateBindingStmt):
+            return self._exec_create_binding(stmt)
+        if isinstance(stmt, ast.DropBindingStmt):
+            return self._exec_drop_binding(stmt)
         if isinstance(stmt, (ast.CreateRoleStmt, ast.DropRoleStmt,
                              ast.GrantRoleStmt, ast.SetRoleStmt,
                              ast.SetDefaultRoleStmt)):
@@ -822,6 +985,183 @@ class Session:
             raise err_wrap(SQLError, e) from None
         return ResultSet([], [])
 
+    # ==================== SQL plan management (bindinfo) ==================
+    def _exec_create_binding(self, stmt: ast.CreateBindingStmt
+                             ) -> ResultSet:
+        """CREATE [GLOBAL|SESSION] BINDING. The FOR and USING statements
+        must normalize alike but for their hints."""
+        from .bindinfo import (binding_digest, make_record,
+                               normalize_binding_sql)
+        norm_orig = normalize_binding_sql(stmt.orig_sql)
+        if norm_orig != normalize_binding_sql(stmt.bind_sql):
+            raise SQLError(
+                "create binding only supports a USING statement that "
+                "differs from the original by optimizer hints")
+        bs = stmt.bind_stmt
+        hints = list(getattr(bs, "hints", []) or (
+            bs.selects[0].hints if isinstance(bs, ast.SetOpStmt) else []))
+        if stmt.scope == "GLOBAL":
+            self._require_super()
+            self.storage.bindings.create(
+                norm_orig, stmt.bind_sql, self.current_db, hints)
+        else:
+            self.session_bindings[
+                binding_digest(norm_orig, self.current_db)] = make_record(
+                norm_orig, stmt.bind_sql, self.current_db, hints)
+        self._binding_gen += 1
+        return ResultSet([], [])
+
+    def _exec_drop_binding(self, stmt: ast.DropBindingStmt) -> ResultSet:
+        from .bindinfo import binding_digest, normalize_binding_sql
+        norm = normalize_binding_sql(stmt.orig_sql)
+        if stmt.scope == "GLOBAL":
+            self._require_super()
+            self.storage.bindings.drop(norm, self.current_db)
+        else:
+            self.session_bindings.pop(
+                binding_digest(norm, self.current_db), None)
+        self._binding_gen += 1
+        return ResultSet([], [])
+
+    def _apply_binding(self, stmt):
+        """Hint injection for a matched binding: SESSION bindings shadow
+        GLOBAL ones; the user's literals stay and only the binding's hint
+        set transfers. The new @@last_plan_from_binding lands when the
+        statement has run (`_exec_select`)."""
+        self._lpfb_next = 0
+        sql = self._binding_match_sql
+        if not sql or (not self.session_bindings
+                       and not self.storage.bindings.has_any()):
+            return stmt
+        if not int(self._sysvar_value("tidb_use_plan_baselines") or 0):
+            return stmt
+        from .bindinfo import binding_digest, normalize_binding_sql
+        norm = normalize_binding_sql(sql)
+        rec = self.session_bindings.get(
+            binding_digest(norm, self.current_db)) \
+            or self.storage.bindings.match(norm, self.current_db)
+        if not rec or rec.get("status") != "enabled":
+            return stmt
+        hints = [(h[0], list(h[1])) for h in rec.get("hints", [])]
+        if isinstance(stmt, ast.SetOpStmt):
+            stmt.selects[0].hints = hints
+        else:
+            stmt.hints = hints
+        self._lpfb_next = 1
+        return stmt
+
+    # ==================== LOAD DATA / INTO OUTFILE ====================
+    def _require_file_priv(self, path: str) -> None:
+        """Server-side file access needs the global FILE privilege, and
+        secure_file_priv (when set) confines paths to that directory."""
+        if self.user is not None and not self.storage.privileges.check(
+                self.user, "FILE", "*", "*", roles=self.active_roles):
+            raise SQLError(
+                "Access denied; you need (at least one of) the FILE "
+                f"privilege(s) for this operation (user '{self.user}')",
+                errno=ER_SPECIFIC_ACCESS_DENIED)
+        self._confine_secure_path(path)
+
+    def _confine_secure_path(self, path: str) -> None:
+        """secure_file_priv confinement (when set), applied to every
+        server-side file read or write, opted-in LOAD DATA LOCAL too
+        (whose read is server-side here)."""
+        base = str(self._sysvar_value("secure_file_priv") or "")
+        if base and not os.path.realpath(path).startswith(
+                os.path.realpath(base) + os.sep):
+            raise SQLError(
+                "The MySQL server is running with the "
+                "--secure-file-priv option so it cannot execute this "
+                "statement", errno=ER_OPTION_PREVENTS_STATEMENT)
+
+    def _exec_load_data(self, stmt: ast.LoadDataStmt) -> ResultSet:
+        """LOAD DATA INFILE: parse the file on the host, then feed the
+        rows through the transactional insert path, so duplicate checks,
+        partition routing and indexes all apply."""
+        if stmt.local and not self._sysvar_value("local_infile"):
+            # without the local_infile opt-in LOCAL keeps the typed
+            # rejection: reading a SERVER-side path under the LOCAL
+            # spelling would hand FILE-less users the server's files
+            raise SQLError(
+                "LOAD DATA LOCAL INFILE is not supported (enable the "
+                "local_infile system variable / local-infile config to "
+                "accept it); use server-side LOAD DATA INFILE",
+                errno=ER_NOT_SUPPORTED_YET)
+        info, _ = self._table_for(stmt.table)
+        col_order = self._insert_columns(info, stmt.columns)
+        path = stmt.fmt.path
+        if not stmt.local:
+            self._require_file_priv(path)
+        else:
+            # opted-in LOCAL reads a server-side path here, so an
+            # authenticated user brings FILE or a configured
+            # secure_file_priv confinement
+            confined = bool(
+                str(self._sysvar_value("secure_file_priv") or ""))
+            if not confined and self.user is not None and \
+                    not self.storage.privileges.check(
+                        self.user, "FILE", "*", "*",
+                        roles=self.active_roles):
+                raise SQLError(
+                    "LOAD DATA LOCAL INFILE reads a server-side path "
+                    "on this server; grant FILE or set "
+                    "secure_file_priv to confine it",
+                    errno=ER_SPECIFIC_ACCESS_DENIED)
+            self._confine_secure_path(path)
+        if not os.path.isfile(path):
+            raise SQLError(f"File '{path}' not found",
+                           errno=ER_FILE_NOT_FOUND)
+        try:
+            with open(path, "r", encoding="utf-8", errors="replace") as f:
+                text = f.read()
+        except OSError as e:
+            raise SQLError(f"Can't read file '{path}': {e}",
+                           errno=ER_TEXTFILE_NOT_READABLE) from None
+        records = _parse_load_file(text, stmt.fmt)[stmt.ignore_lines:]
+        ftypes = [info.columns[off].ftype for off in col_order]
+        rows = [[_load_convert(ft, fields[i] if i < len(fields) else None)
+                 for i, ft in enumerate(ftypes)] for fields in records]
+        shim = ast.InsertStmt(stmt.table, stmt.columns,
+                              is_replace=stmt.dup_mode == "replace")
+        # LOCAL cannot abort a half-streamed file: duplicates degrade to
+        # IGNORE unless REPLACE was given
+        ignore = stmt.dup_mode == "ignore" or (
+            stmt.local and stmt.dup_mode != "replace")
+        return self._exec_insert(shim, rows_override=rows,
+                                 load_ignore=ignore)
+
+    def _write_outfile(self, rs: ResultSet, fmt) -> ResultSet:
+        """SELECT ... INTO OUTFILE; refuses to overwrite, like MySQL."""
+        self._require_file_priv(fmt.path)
+        if os.path.exists(fmt.path):
+            raise SQLError(f"File '{fmt.path}' already exists",
+                           errno=ER_FILE_EXISTS)
+        esc, enc = fmt.escaped, fmt.enclosed
+        specials = {esc or "", enc or "",
+                    fmt.field_term[:1], fmt.line_term[:1]}
+        specials.discard("")
+
+        def render(v) -> str:
+            if v is None:
+                return esc + "N" if esc else "NULL"
+            s = _outfile_text(v)
+            if esc:
+                s = "".join(esc + c if c in specials else c for c in s)
+            return enc + s + enc if enc else s
+
+        lines = [fmt.field_term.join(render(v) for v in row)
+                 for row in rs.rows]
+        body = fmt.line_term.join(lines)
+        if lines:
+            body += fmt.line_term
+        try:
+            with open(fmt.path, "x", encoding="utf-8") as f:
+                f.write(body)
+        except OSError as e:
+            raise SQLError(f"Can't create file '{fmt.path}': {e}",
+                           errno=ER_CANT_CREATE_FILE) from None
+        return ResultSet([], [], affected=len(rs.rows))
+
     @staticmethod
     def _collect_table_names(stmt) -> list[ast.TableName]:
         out: list[ast.TableName] = []
@@ -1099,14 +1439,18 @@ class Session:
 
     # ==================== SELECT ====================
     def _exec_select(self, stmt: ast.SelectStmt) -> ResultSet:
+        # var reads must be detected BEFORE binding substitutes them with
+        # literals, or the cache would freeze the first-seen values
         has_vars = self._has_var_reads(stmt)
         stmt = self._maybe_bind_vars(stmt, has_vars)
+        stmt = self._apply_binding(stmt)
         self._refresh_infoschema(stmt)
+        ctx = None
         try:
             if getattr(stmt, "for_update", False):
                 self._lock_for_update(stmt)
-            with obs.stage("plan_build"):
-                plan = self._plan(stmt)
+            with obs.stage("plan_build", span_name="planner.optimize"):
+                plan = self._plan_cached(stmt, uncacheable=has_vars)
             self._check_column_privs(plan)
             ctx = self._exec_ctx()
             try:
@@ -1119,6 +1463,12 @@ class Session:
             # into later statements' snapshots
             if self.txn is not None:
                 self.txn.stmt_read_ts = None
+            if ctx is not None:
+                self.last_mem_peak = ctx.mem.peak_footprint()
+                self.last_spill_count = ctx.mem.spill_count
+        # @@last_plan_from_binding describes the previous statement: it
+        # lands when this one has run
+        self.vars["last_plan_from_binding"] = self._lpfb_next
         self._found_rows = chunk.num_rows  # FOUND_ROWS()
         names = [f.name for f in plan.schema.fields]
         ftypes = [f.ftype for f in plan.schema.fields]
@@ -1148,9 +1498,96 @@ class Session:
         except PlanError as e:
             raise err_wrap(SQLError, e) from None
 
+    # ==================== the plan cache ====================
+    def _plan_cache_gen(self) -> tuple:
+        """Invalidation generation every cache entry is stamped with: the
+        schema version, the statistics generation, the database and both
+        scopes' bindings."""
+        return (self.catalog.version, self.storage.stats.generation,
+                self.current_db, self._binding_gen,
+                self.storage.bindings.fingerprint())
+
+    def _plan_cache_enabled(self) -> bool:
+        try:
+            return bool(int(self._sysvar_value("tidb_enable_plan_cache")
+                            or 0))
+        except (TypeError, ValueError):
+            return False
+
+    def _plan_cache_hit(self, key: str) -> None:
+        self._plan_cache.move_to_end(key)
+        self.plan_cache_hits += 1
+        self.last_plan_from_cache = True
+        self.storage.obs.plan_cache_hits.inc()
+
+    def _plan_cache_put(self, key: str, gen: tuple, plan) -> None:
+        """Insert as most recent; evict the least recently used past
+        `tidb_plan_cache_size`."""
+        cache = self._plan_cache
+        if key in cache:
+            cache.move_to_end(key)
+        cache[key] = (gen, plan)
+        try:
+            cap = int(self._sysvar_value("tidb_plan_cache_size") or 128)
+        except (TypeError, ValueError):
+            cap = 128
+        evict = self.storage.obs.plan_cache_evictions
+        while len(cache) > max(cap, 1):
+            cache.popitem(last=False)
+            evict.inc()
+
+    def _plan_cached(self, stmt: ast.SelectStmt, uncacheable: bool = False):
+        """Plan through the SQL-text plan cache when the statement is
+        cache-safe (no @@var reads, no FOR UPDATE) and the cache is on."""
+        from ..plan.fastpath import FastPlan
+
+        key = self._plan_cache_key
+        if (key is None or uncacheable or not self._plan_cache_enabled()
+                or getattr(stmt, "for_update", False)):
+            return self._plan(stmt)
+        gen = self._plan_cache_gen()
+        entry = self._plan_cache.get(key)
+        if entry is not None and entry[0] == gen \
+                and not isinstance(entry[1], FastPlan):
+            # (a FastPlan under this key was cached by the point path;
+            # replan physically rather than mis-execute)
+            self._plan_cache_hit(key)
+            return entry[1]
+        self.storage.obs.plan_cache_misses.inc()
+        plan = self._plan(stmt)
+        self._plan_cache_put(key, gen, plan)
+        return plan
+
+    def _fast_plan_cached(self, stmt: ast.Stmt):
+        """Recognize (or fetch the cached) FastPlan for this statement,
+        in the same LRU and counters as the physical plans; the keys
+        embed the literals, so a cached FastPlan replays exactly."""
+        from ..plan import fastpath
+
+        key = self._plan_cache_key
+        use_cache = key is not None and self._plan_cache_enabled()
+        gen = None
+        if use_cache:
+            gen = self._plan_cache_gen()
+            entry = self._plan_cache.get(key)
+            if entry is not None and entry[0] == gen and \
+                    isinstance(entry[1], fastpath.FastPlan):
+                self._plan_cache_hit(key)
+                return entry[1]
+        fp = fastpath.try_plan(self, stmt)
+        if fp is not None and use_cache:
+            self.storage.obs.plan_cache_misses.inc()
+            # ad-hoc point writes embed their literals and would evict
+            # the recurring SELECT plans: only prepared keys and SELECT
+            # texts take a slot
+            if key.startswith("#stmt") or isinstance(stmt, ast.SelectStmt):
+                self._plan_cache_put(key, gen, fp)
+        return fp
+
     # ==================== OLTP point fast path ====================
     def _fast_path_eligible(self, stmt: ast.Stmt) -> bool:
-        """Session-state half of the TryFastPlan gate."""
+        """Session-state half of the TryFastPlan gate, shared by statement
+        execution and EXPLAIN ANALYZE."""
         if self.in_explicit_txn or self.txn is not None:
             return False  # explicit txns keep the planned read/lock paths
         if self.user is not None:
@@ -1159,6 +1596,8 @@ class Session:
                                  ast.UpdateStmt, ast.DeleteStmt)):
             return False
         if isinstance(stmt, ast.SelectStmt):
+            if self.session_bindings or self.storage.bindings.has_any():
+                return False  # a binding could redirect this exact text
             try:
                 if str(self._sysvar_value("tidb_replica_read")
                        or "leader").lower() != "leader":
@@ -1180,14 +1619,18 @@ class Session:
             return None
         from ..plan import fastpath
         with obs.stage("fast_plan"):
-            fp = fastpath.try_plan(self, stmt)
+            fp = self._fast_plan_cached(stmt)
         if fp is None:
             return None
         obs.note_engine("point")
         return fastpath.execute(self, fp)
 
     # ==================== DML ====================
-    def _exec_insert(self, stmt: ast.InsertStmt) -> ResultSet:
+    def _exec_insert(self, stmt: ast.InsertStmt,
+                     rows_override: Optional[list[list[Any]]] = None,
+                     load_ignore: bool = False) -> ResultSet:
+        """INSERT (and LOAD DATA, whose parsed rows come in
+        `rows_override`; `load_ignore` skips duplicates)."""
         info, store = self._table_for(stmt.table)
         col_order = self._insert_columns(info, stmt.columns)
         self._check_dml_columns(
@@ -1196,7 +1639,9 @@ class Session:
         txn = self._ensure_txn()
 
         rows: list[list[Any]] = []
-        if stmt.select is not None:
+        if rows_override is not None:
+            rows = rows_override
+        elif stmt.select is not None:
             sub = self._exec_select(stmt.select)
             rows = [list(r) for r in sub.rows]
         else:
@@ -1311,6 +1756,8 @@ class Session:
                     checker = checker_for(tid)
                     conflicts = checker.conflicts(handle, enc)
                 if conflicts:
+                    if load_ignore:
+                        continue  # LOAD DATA IGNORE: skip the row
                     if stmt.on_dup:
                         count += self._apply_on_dup(
                             stmt, info, tinfo, tid, store, txn, checker,
@@ -2373,10 +2820,132 @@ class Session:
     def _exec_explain(self, stmt: ast.ExplainStmt) -> ResultSet:
         if not isinstance(stmt.target, (ast.SelectStmt, ast.SetOpStmt)):
             raise SQLError("EXPLAIN supports SELECT only for now")
+        # bindings apply to the displayed plan too: EXPLAIN shows what
+        # would run
+        m = re.match(r"(?is)\s*explain\s+(?:analyze\s+)?(.*)$",
+                     self._raw_sql or "")
+        if m and m.group(1):
+            prev = self._binding_match_sql
+            self._binding_match_sql = m.group(1)
+            try:
+                stmt.target = self._apply_binding(stmt.target)
+            finally:
+                self._binding_match_sql = prev
         if stmt.analyze:
-            raise NotInSlice("EXPLAIN ANALYZE")
+            # a point statement runs the fast path and shows it AS the
+            # plan
+            rs = self._explain_analyze_point(
+                stmt.target, m.group(1) if m else None)
+            if rs is not None:
+                return rs
         plan = self._plan(stmt.target)
-        return ResultSet(["plan"], [(line,) for line in explain_plan(plan)])
+        if not stmt.analyze:
+            return ResultSet(["plan"],
+                             [(line,) for line in explain_plan(plan)])
+        # EXPLAIN ANALYZE: run the plan with per-node runtime stats
+        from ..plan.physical import explain_nodes
+
+        coll = obs.RuntimeStatsColl()
+
+        def run():
+            ctx = self._exec_ctx(stats=coll)
+            try:
+                return run_physical(plan, ctx)
+            finally:
+                ctx.close()
+
+        self._run_in_txn(run)
+        rows = []
+        for node, line in explain_nodes(plan):
+            st = coll.for_plan(node)
+            if st is None:
+                rows.append((line, None, None, "", "", "", ""))
+            else:
+                rows.append((line, st["rows"],
+                             round(st["time"] * 1e3, 2),
+                             st["engine"] or "",
+                             obs.fmt_stages(st.get("stages")),
+                             obs.fmt_mesh(st.get("mesh")), ""))
+        return ResultSet(list(_EXPLAIN_ANALYZE_COLS), rows)
+
+    def _explain_analyze_point(self, target,
+                               bare_sql: Optional[str] = None
+                               ) -> Optional[ResultSet]:
+        """EXPLAIN ANALYZE of a point-eligible SELECT runs the fast path
+        and renders one Point_Get row: engine `point`, the plan-cache
+        outcome in the stages cell. `bare_sql` (the target's own text)
+        keys the same cache entry the bare statement uses."""
+        if not isinstance(target, ast.SelectStmt) or \
+                not self._fast_path_eligible(target):
+            return None
+        from ..plan import fastpath
+        prev_key = self._plan_cache_key
+        self._plan_cache_key = bare_sql or prev_key
+        try:
+            with obs.stage("fast_plan"):
+                fp = self._fast_plan_cached(target)
+        finally:
+            self._plan_cache_key = prev_key
+        if fp is None:
+            return None
+        obs.note_engine("point")
+        t0 = time.perf_counter()
+        rs = fastpath.execute(self, fp)
+        dt = (time.perf_counter() - t0) * 1e3
+        cache = "hit" if self.last_plan_from_cache else "miss"
+        key = f"handle:{fp.handle}" if fp.handle is not None \
+            else f"key:{fp.index.name}"
+        row = (f"Point_Get_1(table:{fp.info.name}, {key})",
+               len(rs.rows), round(dt, 3), "point",
+               f"plan_cache:{cache}", "", "")
+        return ResultSet(list(_EXPLAIN_ANALYZE_COLS), [row])
+
+    def _exec_trace(self, stmt: ast.TraceStmt) -> ResultSet:
+        """TRACE <select|dml>: run it under a span collector and return
+        the span tree, then one row per plan node of a SELECT with its
+        EXPLAIN ANALYZE time."""
+        from ..plan.physical import explain_nodes
+
+        target = stmt.target
+        if not isinstance(target, (ast.SelectStmt, ast.SetOpStmt) + _DML):
+            raise SQLError("TRACE supports SELECT and DML statements")
+        is_select = isinstance(target, (ast.SelectStmt, ast.SetOpStmt))
+        coll = obs.RuntimeStatsColl()
+        plan = None
+        try:
+            raw = self._sysvar_value("tidb_trace_span_cap")
+            cap = obs.TRACE_SPAN_CAP if raw is None or raw == "" \
+                else max(int(raw), 1)  # 1 = root only, rest dropped
+        except (TypeError, ValueError, SQLError):
+            cap = obs.TRACE_SPAN_CAP
+        with obs.SpanCollector("session.run", cap=cap) as spans:
+            if is_select:
+                with obs.span("session.prepare"):
+                    target = self._maybe_bind_vars(target)
+                    self._refresh_infoschema(target)
+                with obs.stage("plan_build", span_name="planner.optimize"):
+                    plan = self._plan(target)
+
+                def run():
+                    ctx = self._exec_ctx(stats=coll)
+                    try:
+                        return run_physical(plan, ctx)
+                    finally:
+                        ctx.close()
+
+                with obs.span("executor.run"):
+                    self._run_in_txn(run)
+            else:
+                with obs.span("executor.dml"):
+                    self._execute_stmt(target)
+        rows: list[tuple] = spans.rows()
+        if plan is not None:
+            for node, line in explain_nodes(plan):
+                st = coll.for_plan(node)
+                dur = round(st["time"] * 1e3, 3) if st else None
+                rows.append((f"  {line}", None, dur))
+        self.storage.obs.record_trace(self.conn_id or 0, rows)
+        return ResultSet(["operation", "start_ms", "duration_ms"], rows)
 
     def _exec_show(self, stmt: ast.ShowStmt) -> ResultSet:
         if stmt.kind in _NOT_IN_SLICE_SHOW:
@@ -2515,6 +3084,25 @@ class Session:
         if stmt.kind == "WARNINGS":
             return ResultSet(["Level", "Code", "Message"],
                              [tuple(w) for w in self.warnings])
+        if stmt.kind == "BINDINGS":
+            recs = self.storage.bindings.all() if stmt.scope == "GLOBAL" \
+                else list(self.session_bindings.values())
+            return ResultSet(
+                ["Original_sql", "Bind_sql", "Default_db", "Status",
+                 "Create_time", "Update_time", "Charset", "Collation",
+                 "Source"],
+                [(r["original_sql"], r["bind_sql"], r["default_db"],
+                  r["status"], r["create_time"], r["update_time"],
+                  "utf8mb4", "utf8mb4_bin", "manual") for r in recs])
+        if stmt.kind == "SLOW":
+            rows = [(e["ts"], e["db"], e["duration_ms"], e["sql"],
+                     e["plan_digest"],
+                     obs.fmt_stages_ms(e.get("stages")),
+                     e["mem_max"], e["spill_count"], "")
+                    for e in self.storage.obs.slow_queries()]
+            return ResultSet(["Time", "DB", "Duration_ms", "Query",
+                              "Plan_digest", "Stages", "Mem_max",
+                              "Spill_count", "Wait_profile"], rows)
         if stmt.kind == "ENGINES":
             return ResultSet(
                 ["Engine", "Support", "Comment", "Transactions", "XA",
@@ -2587,6 +3175,132 @@ class Session:
         its own."""
         part = getattr(info, "partition", None)
         return [d.id for d in part.defs] if part is not None else [info.id]
+
+
+def _parse_load_file(text: str, fmt) -> list[list[Optional[str]]]:
+    """One-pass LOAD DATA record and field splitter honoring FIELDS
+    TERMINATED/ENCLOSED/ESCAPED BY and LINES TERMINATED BY. esc+'N' as a
+    whole field is SQL NULL; escapes apply before terminator matching, so
+    escaped terminator characters stay literal."""
+    ft, lt = fmt.field_term, fmt.line_term
+    if not ft or not lt:
+        # the parser rejects these; startswith("") would never advance
+        raise ValueError("empty field/line terminator")
+    enc, esc = fmt.enclosed, fmt.escaped
+    esc_map = {"n": "\n", "t": "\t", "r": "\r", "0": "\0", "Z": "\x1a"}
+    rows: list[list[Optional[str]]] = []
+    fields: list[Optional[str]] = []
+    cur: list[str] = []
+    null_pending = False
+    enclosure_seen = False  # an empty enclosed field ("") still counts
+    i, n = 0, len(text)
+
+    def end_field() -> None:
+        nonlocal cur, null_pending, enclosure_seen
+        if null_pending and not cur:
+            fields.append(None)
+        else:
+            fields.append("".join(cur))
+        cur = []
+        null_pending = False
+        enclosure_seen = False
+
+    def end_line() -> None:
+        nonlocal fields
+        end_field()
+        rows.append(fields)
+        fields = []
+
+    while i < n:
+        c = text[i]
+        if enc and not cur and not null_pending and c == enc:
+            # enclosed field: scan to the closing quote (enc+enc = literal)
+            enclosure_seen = True
+            i += 1
+            while i < n:
+                c = text[i]
+                if esc and c == esc and i + 1 < n:
+                    nxt = text[i + 1]
+                    cur.append(esc_map.get(nxt, nxt))
+                    i += 2
+                    continue
+                if c == enc:
+                    if i + 1 < n and text[i + 1] == enc:
+                        cur.append(enc)
+                        i += 2
+                        continue
+                    i += 1
+                    break
+                cur.append(c)
+                i += 1
+            continue  # the next characters should be a terminator
+        if esc and c == esc and i + 1 < n:
+            nxt = text[i + 1]
+            if nxt == "N" and not cur and not null_pending:
+                null_pending = True
+            else:
+                if null_pending:
+                    cur.append("N")
+                    null_pending = False
+                cur.append(esc_map.get(nxt, nxt))
+            i += 2
+            continue
+        if text.startswith(lt, i):
+            end_line()
+            i += len(lt)
+            continue
+        if text.startswith(ft, i):
+            end_field()
+            i += len(ft)
+            continue
+        if null_pending:
+            cur.append("N")
+            null_pending = False
+        cur.append(c)
+        i += 1
+    if cur or fields or null_pending or enclosure_seen:
+        end_line()
+    return rows
+
+
+def _load_convert(ft: FieldType, s: Optional[str]) -> Any:
+    """LOAD DATA text field -> host value for the insert path, with
+    MySQL's coercions: \\N is NULL; empty numeric and decimal fields load
+    as 0; empty temporal fields as NULL; fractional text into an integer
+    column rounds half away from zero."""
+    if s is None:
+        return None
+    if ft.is_string or ft.kind == TypeKind.JSON:
+        return s
+    s = s.strip()
+    if ft.kind in (TypeKind.DATE, TypeKind.DATETIME, TypeKind.TIMESTAMP):
+        return s if s else None
+    if ft.is_decimal:
+        return s if s else "0"
+    if not s:
+        return 0
+    try:
+        if ft.is_float:
+            return float(s)
+        try:
+            return int(s)
+        except ValueError:
+            f = float(s)
+            return int(f + 0.5) if f >= 0 else -int(-f + 0.5)
+    except ValueError:
+        raise SQLError(
+            f"Truncated incorrect {'DOUBLE' if ft.is_float else 'INTEGER'}"
+            f" value: '{s}'",
+            errno=ER_TRUNCATED_WRONG_VALUE) from None
+
+
+def _outfile_text(v) -> str:
+    """INTO OUTFILE cell rendering (MySQL text form)."""
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, float):
+        return repr(v)
+    return str(v)
 
 
 def _like_match(pattern: Optional[str], s: str) -> bool:

@@ -23,11 +23,12 @@ a checkpoint. `user_locks` is the table of GET_LOCK's named locks
 
 Left out, with the planes they belong to: the multi-process and RPC
 planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
-coordinator, `refresh`, the remote owner), bindings, the
+coordinator, `refresh`, the remote owner), the
 maintenance daemon and its GC owner, the lock-order checker around
 `infoschema_lock`, the epoch listeners of the mesh plane, and the
-observability planes beyond the group-commit metrics (events, history,
-heat).
+observability planes beyond the statement metrics (events, history,
+heat). GLOBAL plan bindings (`bindings`, `session/bindinfo.py`) ride the
+meta keyspace.
 
 A partitioned table is one `TableStore` per partition, each under its own
 table id and region (`child_table_info`); the partitions share the first
@@ -130,7 +131,7 @@ class Storage:
         self.sync_log = sync_log
         self.sync_interval_ms = sync_interval_ms
         self.catalog = Catalog()
-        # per-storage metrics (the group-commit batch histogram)
+        # per-storage metrics, slow log and statement digests
         self.obs = Observability()
         # commit-time cap over a txn's ENCODED mutation bytes
         # (performance.txn-total-size-limit; 0 disables) — enforced in
@@ -166,6 +167,10 @@ class Storage:
         self.privileges = PrivilegeManager(self)
         # GET_LOCK user locks (builtin_miscellaneous.go lock family)
         self.user_locks = UserLocks()
+        # GLOBAL SQL plan bindings (mysql.bind_info analog) — same
+        # persistence plane
+        from ..session.bindinfo import BindingManager
+        self.bindings = BindingManager(self)
         # viewer-sensitive information_schema refresh+scan exclusion
         # (Session._refresh_infoschema holds this for the statement)
         self.infoschema_lock = threading.RLock()
@@ -594,8 +599,10 @@ class Storage:
 
     def _note_group_commit(self, batch: int) -> None:
         """Group-fsync batch telemetry: every batch lands in the
-        tidb_group_commit_batch_size histogram."""
+        tidb_group_commit_batch_size histogram and its counter twins."""
         self.obs.group_commit_batch.observe(batch)
+        self.obs.group_commit_fsyncs.inc()
+        self.obs.group_commit_commits.inc(batch)
 
     def configure_group_commit(self, max_batch: Optional[int] = None,
                                max_wait_us: Optional[int] = None) -> None:
@@ -774,6 +781,7 @@ class Storage:
         try:
             state = self.committer.prewrite_phase(kv_muts, txn.start_ts)
         except KVWriteConflict as e:
+            self.obs.conflicts.inc()
             self._best_effort_rollback(kv_muts, txn.start_ts)
             raise WriteConflictError(str(e)) from None
         except (KVError, CommitError) as e:
@@ -814,6 +822,7 @@ class Storage:
                 "commit durability unknown: WAL fsync failed after the "
                 f"commit was applied ({e}); do not blindly retry"
             ) from e
+        self.obs.commits.inc()
         # opportunistic compaction at the GC-safe ts
         safe = self.safe_ts()
         for (table_id, _), _ in mutations.items():
