@@ -275,7 +275,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           pushed (the root Selection), DATE_FORMAT grouped over one month
           of shipdates (row by row), SHA2, REGEXP_LIKE, CONV, HEX and
           FORMAT over ORDER BY ... LIMIT 100 reads of the first orders and
-          parts, JSON_CONTAINS and JSON_EXTRACT over a 1,000-row JSON
+          parts, JSON_CONTAINS and JSON_EXTRACT over a 500-row JSON
           table created and dropped in both sessions, FROM_UNIXTIME under
           time_zone '+00:00' and '+08:00' (eight hours apart, exact), and
           Q1 with DATE_FORMAT(max(l_shipdate), '%W %M %Y') added, exact
@@ -303,7 +303,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           `device.dispatch` and `device.fetch`;
       l2. after part k, on f2's SF1 card and CPU sessions, card == CPU on
           each of: EXPLAIN ANALYZE of Q1, Q3 and Q18 (plan text, actRows,
-          engines; times excluded); 1,000 seeded point SELECTs over 200
+          engines; times excluded); 500 seeded point SELECTs over 200
           orders keys (equal plan-cache hit, miss and eviction counts)
           and EXPLAIN ANALYZE's point row showing `plan_cache:hit`; a
           SESSION binding with a LEADING join hint on Q3 (applied:
@@ -321,10 +321,42 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           max_execution_time = 100`: SELECT SLEEP(5) raises 3024 within
           1 s, the card's next Q6 exact under the same limit; and the
           part's statements_summary digests with equal exec counts.
+   m. the observability planes and the governor (`observe_launches`, the
+      launch counters set to 0 before m1 and before m2):
+      m1. on f1's SF10 session right after l1 (before g1): Q6's warm p50
+          with Top SQL and the wait profile off and on, over M1_AB_PAIRS
+          pairs whose order alternates (off first, then on first), with
+          each side's range; with both on,
+          Q6, Q3 and Q5 once each: each moves `tidb_copr_requests_total`
+          by one request under its leaf's engine class (f1's tag, the
+          one leaf l1 showed: `device[...]` under device-fragment, a
+          CopDAG `device` under device), and the `tidb_copr_column_cache_
+          total` hit and miss deltas of each (Q3's is ROADMAP's S1
+          reading) are printed; tidb_top_sql has each of the three
+          digests with a device time (kernel + device_get) > 0 and at
+          most its wall; metrics_schema.tidb_device_buffer_bytes > 0 and
+          at most torch.cuda.memory_allocated(); inspection_result
+          printed; Q3 launching streamseg; both planes off again;
+      m2. after l2 on f2's SF1 card and CPU sessions (auto-analyze off,
+          as in l2), card == CPU on each of: with Top SQL, the wait
+          profile and the workload history on, Q1 (under @@profiling = 1:
+          SHOW PROFILES one row, SHOW PROFILE not empty; frame names not
+          compared), Q3 and Q18 once each: tidb_top_sql's digests and
+          exec counts, tidb_plan_history's digests, plan digests, engines
+          and exec counts; the wait states in tidb_wait_profile of a
+          100-row INSERT; with the admission gate at 1 token, that token
+          held, Q6 answering 9003 and tidb_events holding admission_shed;
+          under the `governor/mem-pressure` failpoint over a 1 MiB limit,
+          Q1 answering 8175, tidb_events holding governor_kill, and the
+          next Q6 equal to the one before; metrics_schema's table names;
+          inspection_summary's rule names. Then every plane off and no
+          live `titpu-metrics-history` or `titpu-profiler` thread (part
+          k's server started its store's sampler: part k stops it).
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the p50 wall time of 2 warm runs
-   (5 before part h, 3 before part l), each ending in torch.cuda.synchronize(), and the
+   (5 before part h, 3 before part l; e3's ANALYZE, g's reads and k1's
+   reads 1 since part m), each ending in torch.cuda.synchronize(), and the
    device-busy share of
    one more warm run under torch.profiler (traced kernel and copy time
    over its wall time; in parts c and d also the 8 kernels that took the
@@ -357,6 +389,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from tidb_tpu_torch import obs
 from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench import tpch_refresh as RF
 from tidb_tpu_torch.bench import tpch_requests as TR
@@ -371,10 +404,15 @@ from tidb_tpu_torch.copr.sumexact import limbs_of
 from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from tidb_tpu_torch.plan.fragment import FragmentDAG
 from tidb_tpu_torch.session import Session
+from tidb_tpu_torch.util import failpoint
+from tidb_tpu_torch.util.governor import AdmissionTimeout
 
 # warm runs of each request in parts a-f1, g1 and k1 (5 before part h
 # needed the room, 3 before part l did)
 WARM_RUNS = 2
+# part m's cuts (depth only): one warm run for e3's ANALYZE, g's reads
+# and k1's reads (WARM_RUNS before part m)
+M_CUT_WARM_RUNS = 1
 
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -854,7 +892,7 @@ def _analyze(cop, snap, label: str) -> None:
             raise SystemExit(f"ANALYZE column {off}: {stats[off]} differs "
                              f"from the host twin")
     times = []
-    for _ in range(WARM_RUNS):
+    for _ in range(M_CUT_WARM_RUNS):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1221,11 +1259,12 @@ RF2_ROWS = 8191
 # on slower hosts (0.4 before part j); g1' at SF1 sends the whole refresh
 G1_RF_SHARE = 0.3
 RANK = "streamseg.rank_sums"
-# g2's phases: 2 s, a third of the reference's 6 s (3 s before part l),
+# g2's phases: 1 s, a sixth of the reference's 6 s (3 s before part l, 2 s
+# before part m; each phase's scanner still runs one Q6 and one Q1),
 # and its sbtest 20,000 rows, a fifth of the reference's 100,000 (part h
 # runs the same mix over the wire on a durable store), for the script's
 # time limit
-G2_SECONDS = 2.0
+G2_SECONDS = 1.0
 G2_ROWS = 20_000
 
 
@@ -1276,8 +1315,8 @@ def _g_reads(sessions, phase: str, data, hits: list,
     """`queries` as SQL on the card (and the CPU twin's): rows exact
     against the numpy answer over the arrays as modified (and the twin's
     rows and tags equal), streamseg's launches, the cold run, the warm
-    p50 of 3 and the device-busy share (a host-tier read, seconds of
-    numpy at SF10: its cold run only)."""
+    time of M_CUT_WARM_RUNS warm runs and the device-busy share (a
+    host-tier read, seconds of numpy at SF10: its cold run only)."""
     card = sessions[0]
     li = _stores(card)["lineitem"]
     for q in queries:
@@ -1303,7 +1342,8 @@ def _g_reads(sessions, phase: str, data, hits: list,
             times = []
             busy = "device busy: not measured (host tier, cold run only)"
         else:
-            times = [_sql_run(card, sql)[1] for _ in range(WARM_RUNS)]
+            times = [_sql_run(card, sql)[1]
+                     for _ in range(M_CUT_WARM_RUNS)]
             busy, _ = _device_busy(lambda: card.query(sql))
         print(f"  {phase} {q.upper()}: engines={tags} rows={len(rows)} "
               f"exact=True streamseg_launches={launched} "
@@ -1522,13 +1562,14 @@ def _part_g2(args, d1) -> None:
 # ---- part h: durability and the MySQL wire server ----
 H_SCANS = ("q6", "q1")
 # sbtest's rows in h1: 20,000, a fifth of the reference's 100,000 (the
-# durable INSERTs took 27-47 s), and the writer phases 2 s, a third of the
-# reference's 6 s (3 s before part l), paying for parts j and l as g2's
-# cuts did; the mix phases H_MIX_SECONDS, 4 s (6 s before part l): a Q1
+# durable INSERTs took 27-47 s), and the writer phases 1 s, a sixth of the
+# reference's 6 s (3 s before part l, 2 s before part m), paying for parts
+# j, l and m as g2's cuts did; the mix phases H_MIX_SECONDS, 4 s (6 s
+# before part l): a Q1
 # scan over the wire takes ~3-6 s, so the scanner still finishes at least
 # one
 H1_ROWS = 20_000
-H_WRITE_SECONDS = 2.0
+H_WRITE_SECONDS = 1.0
 H_MIX_SECONDS = 4.0
 H_READS = ("q6", "q1", "q18")
 # the child of h3: the port's durable store served on port 0, nothing else
@@ -2374,7 +2415,7 @@ def _j_q18_inner_oracle(li) -> list:
             for k, v in zip(okey[starts][ok].tolist(), sums[ok].tolist())]
 
 
-def _j_read(sessions, label: str, sql: str, want, warm: int = 3,
+def _j_read(sessions, label: str, sql: str, want, warm: int = WARM_RUNS,
             want_tags=None) -> tuple:
     """`sql` on the card (and the CPU twin's): rows exact against `want`
     (cells) and equal to the twin's, tags `want_tags` where given; the
@@ -2763,7 +2804,7 @@ K1_READS = (
      "conv(p_partkey, 10, 36), hex(p_name), format(p_retailprice, 1) "
      "FROM part WHERE p_partkey <= 500 ORDER BY p_partkey LIMIT 100"),
 )
-K1_JSON_ROWS = 1000
+K1_JSON_ROWS = 500
 K1_Q1 = TPCH_QUERIES["q1"].replace(
     "count(*) as count_order",
     "count(*) as count_order, "
@@ -2786,7 +2827,8 @@ def _k_delta(before: dict) -> dict:
 
 def _k_read(card, cpu, label: str, sql: str, times: dict,
             want=None) -> list:
-    """`sql` on the card session (cold, then 3 warm runs) and on the CPU
+    """`sql` on the card session (cold, then M_CUT_WARM_RUNS warm runs)
+    and on the CPU
     session: outcome and tags equal, and the rows `want` where given;
     the registry's row-wise count of the card's cold run and of the CPU
     run must be equal. -> the card's rows as cells."""
@@ -2812,7 +2854,7 @@ def _k_read(card, cpu, label: str, sql: str, times: dict,
     if want is not None and out[1] != want:
         raise SystemExit(f"{label}: {sql[:60]!r}: rows differ from the "
                          f"oracle: {str(out[1])[:200]} vs {str(want)[:200]}")
-    warm = [_sql_run(card, sql)[1] for _ in range(WARM_RUNS)]
+    warm = [_sql_run(card, sql)[1] for _ in range(M_CUT_WARM_RUNS)]
     times[label] = first
     print(f"  {label}: engines={tags} rows={len(out[1])} card==cpu"
           f"{' exact' if want is not None else ''} row_evals={rows_card} "
@@ -3019,6 +3061,9 @@ def _part_k(card, cpu, data) -> int:
         _part_k3(card, data, mc, server)
     finally:
         server.close()
+        # the server started the store's metrics-history sampler; this
+        # in-memory store is never closed, so stop it here
+        card.storage.metrics_history.stop()
     launched = _kernels.LAUNCHES[RANK]
     print(f"  k: streamseg launches {launched} (an fx: op has no device "
           f"lowering: its requests are projected scans); part k took "
@@ -3030,8 +3075,8 @@ def _part_k(card, cpu, data) -> int:
 # bindings, digests, the slow log, INTO OUTFILE / LOAD DATA, deadlines) ----
 L1_QUERIES = ("q6", "q3", "q5")
 L2_EXPLAIN = ("q1", "q3", "q18")
-# l2's point reads: 1,000 seeded o_orderkey lookups over 200 keys
-L2_POINTS, L2_POINT_KEYS = 1000, 200
+# l2's point reads: 500 seeded o_orderkey lookups over 200 keys
+L2_POINTS, L2_POINT_KEYS = 500, 200
 # a join hint through a SESSION binding on Q3, and on a two-table join
 # whose plan the hint does change (the fragment planner takes lineitem as
 # Q3's probe whatever the order asked for, in both packages)
@@ -3363,6 +3408,276 @@ def _part_l2(card, cpu, data, tmp: str) -> int:
     return launched
 
 
+# ---- part m: the observability planes and the governor (process
+# counters, Top SQL, the wait profile, the event log, metrics_schema, the
+# workload history, inspection, the profiler, the governor and the gate) ----
+M1_QUERIES = ("q6", "q3", "q5")
+M1_AB_PAIRS = 6
+M2_QUERIES = ("q1", "q3", "q18")
+M_PLANE_THREADS = ("titpu-metrics-history", "titpu-profiler")
+
+
+def _m_engine_class(tag: str) -> str:
+    """The `tidb_copr_requests_total` engine label a leaf's tag counts
+    under: a fragment leaf (`device[...]`) under device-fragment, a
+    CopDAG leaf under device, the host tiers under theirs."""
+    if tag.startswith("device["):
+        return "device-fragment"
+    if tag.startswith("host(fragment:"):
+        return "host-fragment"
+    if tag.startswith("host("):
+        return "host"
+    return tag
+
+
+def _m_requests() -> dict:
+    return {dict(k)["engine"]: v for k, v in obs.COPR_REQUESTS.samples()}
+
+
+def _m_planes(s, on: bool) -> None:
+    """Top SQL and the wait profile on (their rings emptied first) or
+    off."""
+    o = s.storage.obs
+    if on:
+        o.topsql.clear()
+        o.waitprofile.clear()
+    o.topsql.configure(enabled=on, window_s=3600)
+    o.waitprofile.configure(enabled=on, window_s=3600)
+
+
+def _m_top(s, digests: dict) -> dict:
+    """digest -> (exec count, device seconds, wall seconds) over every
+    Top SQL window, for the statements of `digests`."""
+    out = {}
+    for b in s.storage.obs.topsql.snapshot():
+        for e in b["digests"].values():
+            if e["digest"] not in digests:
+                continue
+            n, dev, wall = out.get(e["digest"], (0, 0.0, 0.0))
+            out[e["digest"]] = (
+                n + e["exec_count"],
+                dev + e["stages"].get("kernel", 0.0)
+                + e["stages"].get("device_get", 0.0),
+                wall + e["sum_wall_s"])
+    return out
+
+
+def _part_m1(s, tags: dict) -> int:
+    """Part m1 (module docstring) on f1's SF10 session after l1. ->
+    streamseg's launches during it."""
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    q6 = TPCH_QUERIES["q6"]
+    runs = {False: [], True: []}
+    for i in range(M1_AB_PAIRS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            _m_planes(s, on)
+            runs[on].append(_sql_run(s, q6)[1] * 1e3)
+    off, on = sorted(runs[False]), sorted(runs[True])
+    print(f"  m1 Q6 warm p50 over {M1_AB_PAIRS} alternating pairs: planes "
+          f"off {statistics.median(off):.2f} ms [{off[0]:.2f}-{off[-1]:.2f}]"
+          f", Top SQL and the wait profile on {statistics.median(on):.2f} "
+          f"ms [{on[0]:.2f}-{on[-1]:.2f}]")
+    _m_planes(s, True)
+    digests = {}
+    for q in M1_QUERIES:
+        sql = TPCH_QUERIES[q]
+        digests[obs.StatementsSummary.digest(sql)[0]] = q
+        want = _m_engine_class(tags[F1_REQUESTS[q]])
+        req0 = _m_requests()
+        hit0, miss0 = (obs.COL_CACHE.get(result=r) for r in ("hit", "miss"))
+        _, dt = _sql_run(s, sql)
+        delta = {k: v - req0.get(k, 0.0) for k, v in _m_requests().items()
+                 if v != req0.get(k, 0.0)}
+        if delta != {want: 1.0}:
+            raise SystemExit(f"m1 {q}: tidb_copr_requests_total moved by "
+                             f"{delta}; its one leaf {tags[F1_REQUESTS[q]]} "
+                             f"counts under {want}")
+        hits = obs.COL_CACHE.get(result="hit") - hit0
+        misses = obs.COL_CACHE.get(result="miss") - miss0
+        print(f"  m1 {q.upper()}: {dt * 1e3:.2f} ms, requests {delta} "
+              f"(leaf {tags[F1_REQUESTS[q]]}), tidb_copr_column_cache_total "
+              f"hit {hits:g} miss {misses:g}")
+    _sync()
+    top = _m_top(s, digests)
+    rows = s.query("select digest, exec_count from "
+                   "information_schema.tidb_top_sql where operator = "
+                   "'(stmt)'")
+    seen = {r[0] for r in rows}
+    for d, q in digests.items():
+        n, dev, wall = top.get(d, (0, 0.0, 0.0))
+        if d not in seen or not 0 < dev <= wall:
+            raise SystemExit(f"m1 {q}: tidb_top_sql row {d in seen}, device "
+                             f"{dev} s of wall {wall} s")
+        print(f"  m1 tidb_top_sql {q.upper()} {d}: {n} execs, device time "
+              f"(kernel + device_get) {dev * 1e3:.2f} of {wall * 1e3:.2f} "
+              f"ms wall")
+    buf = s.query("select max(value) from "
+                  "metrics_schema.tidb_device_buffer_bytes")[0][0]
+    alloc = torch.cuda.memory_allocated()
+    if not 0 < buf <= alloc:
+        raise SystemExit(f"m1: tidb_device_buffer_bytes {buf} outside (0, "
+                         f"memory_allocated {alloc}]")
+    print(f"  m1 metrics_schema.tidb_device_buffer_bytes {buf:.0f} of "
+          f"{alloc} allocated; jit cache {_m_jit()}")
+    for r in s.query("select rule, item, severity, value, details from "
+                     "information_schema.inspection_result"):
+        print(f"  m1 inspection_result: {r[0]} {r[1]} {r[2]} {r[3]} "
+              f"{r[4][:120]}")
+    _m_planes(s, False)
+    launched = _kernels.LAUNCHES[RANK]
+    if launched == 0:
+        raise SystemExit("m1: Q3 did not launch kernel streamseg.rank_sums")
+    print(f"  m1: streamseg launches {launched}; m1 took "
+          f"{time.perf_counter() - t0:.1f}s")
+    return launched
+
+
+def _m_jit() -> str:
+    return (f"hit {obs.JIT_CACHE.get(result='hit'):g} miss "
+            f"{obs.JIT_CACHE.get(result='miss'):g}, "
+            f"{_kernels.loaded_count()} librar(ies) loaded")
+
+
+def _m_kinds(s) -> list:
+    return [r[0] for r in s.query("select kind from "
+                                  "information_schema.tidb_events")]
+
+
+def _part_m2(card, cpu, data) -> int:
+    """Part m2 (module docstring) on f2's SF1 sessions after l2. ->
+    streamseg's launches during it."""
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    sessions = (card, cpu)
+    # no auto-analyze during m2, as in l2: each session would re-plan at
+    # its own statement counts
+    for s in sessions:
+        s.execute("set global tidb_auto_analyze_ratio = 1000000")
+        s.storage.stats.auto_analyze(s.storage, s.catalog)
+        _m_planes(s, True)
+        s.storage.history.configure(enabled=True, window_seconds=3600)
+    # 1. Top SQL and the history plane over Q1, Q3, Q18; @@profiling on
+    # for Q1 alone
+    digests = {obs.StatementsSummary.digest(TPCH_QUERIES[q])[0]: q
+               for q in M2_QUERIES}
+    for q in M2_QUERIES:
+        rows = []
+        for s in sessions:
+            if q == "q1":
+                s.execute("set profiling = 1")
+            rows.append(s.query(TPCH_QUERIES[q]))
+            if q == "q1":
+                s.execute("set profiling = 0")
+        if not _rows_equal(q, rows[0], rows[1]) or \
+                card.last_engines != cpu.last_engines:
+            raise SystemExit(f"m2 {q}: card and CPU rows or tags differ")
+    tops = [{d: v[0] for d, v in _m_top(s, digests).items()}
+            for s in sessions]
+    plans = [sorted((r[0], r[1], r[2], r[3]) for r in s.query(
+        "select digest, plan_digest, engines, exec_count from "
+        "information_schema.tidb_plan_history") if r[0] in digests)
+        for s in sessions]
+    if tops[0] != tops[1] or set(tops[0]) != set(digests) or \
+            plans[0] != plans[1] or len(plans[0]) != len(M2_QUERIES):
+        raise SystemExit(f"m2 Top SQL / history: card {tops[0]} {plans[0]}, "
+                         f"CPU {tops[1]} {plans[1]}")
+    for d, pd, eng, n in plans[0]:
+        print(f"  m2 {digests[d].upper()}: digest {d} execs (Top SQL) "
+              f"{tops[0][d]}, plan digest {pd} engines {eng} execs "
+              f"(history) {n}: card == CPU")
+    profs = [(s.query("show profiles"), s.query("show profile"))
+             for s in sessions]
+    for s, (ps, p) in zip(sessions, profs):
+        if len(ps) != 1 or "sum(l_quantity)" not in ps[0][2] or not p:
+            raise SystemExit(f"m2 @@profiling: SHOW PROFILES {ps}, SHOW "
+                             f"PROFILE {len(p)} rows")
+    print(f"  m2 @@profiling: SHOW PROFILES one row on each (card "
+          f"{profs[0][0][0][1]:.3f} s, CPU {profs[1][0][0][1]:.3f} s), SHOW "
+          f"PROFILE {len(profs[0][1])} / {len(profs[1][1])} frame rows")
+    # 2. the wait states of a 100-row INSERT
+    states = []
+    for s in sessions:
+        s.execute("create table m2_w (a bigint primary key, b bigint)")
+        s.execute("insert into m2_w values " + ", ".join(
+            f"({i}, {i * 7})" for i in range(100)))
+        states.append(sorted({r[0] for r in s.query(
+            "select state from information_schema.tidb_wait_profile "
+            "where digest_text like 'insert into m2_w%'")}))
+        s.execute("drop table m2_w")
+    if states[0] != states[1] or "prewrite" not in states[0]:
+        raise SystemExit(f"m2 wait profile: card {states[0]}, CPU "
+                         f"{states[1]}")
+    print(f"  m2 tidb_wait_profile of a 100-row INSERT: {states[0]}, card "
+          f"== CPU")
+    # 3. the admission gate at one token, the token held: Q6 sheds
+    q6 = TPCH_QUERIES["q6"]
+    base = _l_both(card, cpu, q6, "m2 Q6")
+    for s in sessions:
+        gate = s.storage.admission
+        gate.configure(tokens=1, timeout_ms=100)
+        held = gate.acquire(0)
+        try:
+            s.query(q6)
+            out = ("ok",)
+        except AdmissionTimeout as e:  # the shed under test
+            out = ("error", e.errno, str(e))
+        finally:
+            if held:
+                gate.release()
+            gate.configure(tokens=0)
+        if out[:2] != ("error", 9003) or \
+                "admission_shed" not in _m_kinds(s):
+            raise SystemExit(f"m2 admission: {out}, events {_m_kinds(s)}")
+    print("  m2 admission gate at 1 token, held: Q6 answered 9003 on both, "
+          "tidb_events holds admission_shed")
+    # 4. the governor under governor/mem-pressure: Q1 killed with 8175
+    for s in sessions:
+        gov = s.storage.governor
+        gov.configure(limit_bytes=1 << 20, cooldown_ms=0)
+        try:
+            with failpoint.failpoint("governor/mem-pressure", 2 << 20):
+                out = _i_outcome(s, TPCH_QUERIES["q1"])
+        finally:
+            gov.configure(limit_bytes=0)
+        if out[:2] != ("error", 8175) or "governor_kill" not in _m_kinds(s):
+            raise SystemExit(f"m2 governor: {out}, events {_m_kinds(s)}")
+    after = _l_both(card, cpu, q6, "m2 Q6 after the kill")
+    if after != base or TR.sql_cells(after[1]) != TR.sql_cells(base[1]):
+        raise SystemExit("m2 governor: the next Q6 is not exact")
+    print("  m2 governor under governor/mem-pressure: Q1 answered 8175 on "
+          "both, tidb_events holds governor_kill; the next Q6 exact")
+    # 5. metrics_schema's tables and inspection_summary's rules
+    names = []
+    for s in sessions:
+        db = s.current_db
+        s.execute("use metrics_schema")
+        names.append(sorted(r[0] for r in s.query("show tables")))
+        s.execute(f"use {db}")
+    rules = [sorted(r[0] for r in s.query(
+        "select rule from information_schema.inspection_summary"))
+        for s in sessions]
+    if names[0] != names[1] or rules[0] != rules[1] or not rules[0]:
+        raise SystemExit(f"m2 metrics_schema {names} / inspection_summary "
+                         f"{rules}")
+    print(f"  m2 metrics_schema: {len(names[0])} tables, inspection_summary: "
+          f"{len(rules[0])} rules, card == CPU")
+    # every plane off, the samplers stopped
+    for s in sessions:
+        _m_planes(s, False)
+        s.storage.history.configure(enabled=False)
+        s.storage.metrics_history.stop()
+        s.execute("set global tidb_auto_analyze_ratio = 0.5")
+    live = [t.name for t in threading.enumerate()
+            if t.is_alive() and t.name in M_PLANE_THREADS]
+    if live:
+        raise SystemExit(f"m2: plane threads still alive: {live}")
+    launched = _kernels.LAUNCHES[RANK]
+    print(f"  m2: card == CPU on every check; streamseg launches {launched}; "
+          f"jit cache {_m_jit()}; m2 took {time.perf_counter() - t0:.1f}s")
+    return launched
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3440,6 +3755,9 @@ def main(argv=None) -> int:
     print("  -- l1. EXPLAIN ANALYZE and TRACE on f1's session")
     explain_launches = {"l1": _part_l1(s10, f1_rows, tags)}
     lap("part l1")
+    print("  -- m1. the observability planes on f1's session")
+    observe_launches = {"m1": _part_m1(s10, tags)}
+    lap("part m1")
     print(f"  -- g. the write path ({_mem()} held before it)")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -3486,6 +3804,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         explain_launches["l2"] = _part_l2(card1, cpu1, after1, tmp)
     lap("part l2")
+    print(f"  -- m2. the observability planes and the governor on f2's "
+          f"sessions, card == CPU ({_mem()} held before it)")
+    observe_launches["m2"] = _part_m2(card1, cpu1, after1)
+    lap("part m2")
     del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
@@ -3532,7 +3854,8 @@ def main(argv=None) -> int:
             "partition_launches": sum(partition_launches.values()),
             "partition_launches_by_part": partition_launches,
             "registry_launches": registry_launches,
-            "explain_launches": explain_launches}
+            "explain_launches": explain_launches,
+            "observe_launches": observe_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

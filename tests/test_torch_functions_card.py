@@ -185,3 +185,4 @@ def test_user_locks_sleep_kill_and_grants_over_the_wire(sessions):
         root.close()
     finally:
         srv.close(drain_timeout=0.2)
+        srv.storage.metrics_history.stop()

@@ -6,7 +6,12 @@ belong to this slice), every SHOW kind the port serves, every
 information_schema table it serves, CHECKSUM TABLE (the crc must equal the
 reference's) and ADMIN CHECK TABLE: each statement through both packages'
 `Session` (`test_torch_ddl.Pair`: outcomes and catalog, store and job
-state equal after every statement). The SHOW kinds and
+state equal after every statement). The information_schema tables the
+observability planes serve (`OBS_SERVED`: their rows are timings and
+process telemetry, which differ between two packages' processes) are
+held to the reference's columns here and to its rows in the planes' own
+tests (tests/test_torch_topsql.py and its siblings), as are
+metrics_schema and SHOW PROFILES, PROFILE and METRICS. The SHOW kinds and
 information_schema tables of planes the port does not have yet raise
 `NotInSlice` with their names. Tolerance: none.
 """
@@ -224,13 +229,32 @@ def test_show_create_table_text(surface):
 
 # (statements_summary and slow_query hold times: their digests, counts
 # and rows are held to the reference in test_torch_statement_plane.py)
-@pytest.mark.parametrize("table", sorted(I.SERVED - {"statements_summary",
-                                                     "slow_query"}))
+# served tables whose rows are the observability planes' (timings,
+# process telemetry): their columns are compared below, their rows in
+# the planes' own tests
+OBS_SERVED = frozenset({
+    "statements_summary", "slow_query", "tidb_top_sql", "tidb_wait_profile",
+    "tidb_events", "statements_summary_history", "tidb_plan_history",
+    "inspection_result", "inspection_summary", "metrics_summary",
+    "profiling"})
+
+
+@pytest.mark.parametrize("table", sorted(I.SERVED - OBS_SERVED))
 def test_infoschema_table_matches_reference(surface, table):
     out = surface.one(f"select * from information_schema.{table}")
     if table in ("schemata", "tables", "columns", "engines",
                  "collations", "character_sets"):
         assert out[2], table
+
+
+@pytest.mark.parametrize("table", sorted(OBS_SERVED))
+def test_obs_infoschema_columns_match_reference(table):
+    """Fresh stores of each package: the same columns."""
+    from tidb_tpu.session import Session as RefSession
+
+    sql = f"select * from information_schema.{table}"
+    got = Session(device="cpu").execute(sql).column_names
+    assert got == RefSession().execute(sql).column_names
 
 
 def test_infoschema_filtered_reads(surface):
@@ -285,15 +309,18 @@ SHOW_NOT_IN_SLICE = {
     "show profiles": "SHOW PROFILES", "show profile": "SHOW PROFILE",
     "show slow queries": "SHOW SLOW", "show metrics": "SHOW METRICS",
 }
-# obs-backed surfaces served since the statement plane's port
-SHOW_IN_SLICE_SINCE = {"show bindings", "show slow queries"}
-INFOSCHEMA_IN_SLICE_SINCE = {"statements_summary", "slow_query"}
+# obs-backed surfaces served since the statement plane's port and the
+# observability planes'
+SHOW_IN_SLICE_SINCE = {"show bindings", "show slow queries",
+                       "show profiles", "show profile", "show metrics"}
+INFOSCHEMA_IN_SLICE_SINCE = OBS_SERVED
 
 
 @pytest.mark.parametrize("sql", sorted(SHOW_NOT_IN_SLICE))
 def test_obs_backed_show_is_not_in_slice(surface, sql):
-    """The SHOW kinds of unported planes raise by name; SHOW BINDINGS and
-    SHOW SLOW QUERIES answer with the reference's columns."""
+    """The SHOW kinds of unported planes raise by name; SHOW BINDINGS,
+    SLOW QUERIES, PROFILES, PROFILE and METRICS answer with the
+    reference's columns."""
     if sql in SHOW_IN_SLICE_SINCE:
         got = [side.s.execute(sql).column_names
                for side in (surface.ref, surface.port)]
@@ -307,8 +334,8 @@ def test_obs_backed_show_is_not_in_slice(surface, sql):
 @pytest.mark.parametrize(
     "table", sorted(set(I._DEFS) - I.SERVED | INFOSCHEMA_IN_SLICE_SINCE))
 def test_obs_backed_infoschema_is_not_in_slice(surface, table):
-    """The obs-backed tables of unported planes raise by name; the
-    statement plane's two are served."""
+    """The obs-backed tables of unported planes raise by name; those of
+    the statement plane and the observability planes are served."""
     sql = f"select count(*) from information_schema.{table}"
     if table in I.SERVED:
         assert surface.port.s.query(sql)[0][0] >= 0
@@ -319,11 +346,21 @@ def test_obs_backed_infoschema_is_not_in_slice(surface, table):
 
 
 def test_metrics_schema_is_not_in_slice(surface):
-    for sql in ("use metrics_schema",
-                "select * from metrics_schema.tidb_qps"):
-        with pytest.raises(NotInSlice) as e:
-            surface.port.s.execute(sql)
-        assert e.value.reason == "metrics_schema"
+    """metrics_schema is served since the observability planes' port: USE
+    works, and a family that does not exist is the reference's unknown
+    table."""
+    from tidb_tpu.session import Session as RefSession
+
+    sides = (Session(device="cpu"), RefSession())
+    for s in sides:
+        s.execute("use metrics_schema")
+    got = []
+    for s in sides:
+        with pytest.raises(Exception) as e:
+            s.execute("select * from metrics_schema.tidb_qps")
+        got.append((type(e.value).__name__,
+                    getattr(e.value, "errno", None), str(e.value)))
+    assert got[0] == got[1]
 
 
 # ---------------- owner election ----------------

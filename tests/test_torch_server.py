@@ -140,21 +140,26 @@ def _close(*servers) -> None:
     """Close each server (its close joins its reactor and workers) and
     join its accept thread. The reference's close leaves that thread
     blocked in accept() on the closed listener, so its listener is shut
-    down first, as the port's close does; and its start runs its store's
-    metrics-history sampler, which only `Storage.close` stops, so that
-    sampler is stopped here (these in-memory stores are never closed)."""
+    down first, as the port's close does; and each package's start runs
+    its store's metrics-history sampler, which only `Storage.close`
+    stops, so that sampler is stopped here (these in-memory stores are
+    never closed)."""
     for srv in servers:
         if isinstance(srv, RefServer) and srv._listener is not None:
             try:
                 srv._listener.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+            # its accept thread may still be starting the worker it
+            # spawned for the last connection, and the reference's pool
+            # close joins every worker it spawned, started or not: let
+            # that thread end first
+            srv._accept_thread.join(timeout=5.0)
         srv.close(drain_timeout=0.2)
         srv._accept_thread.join(timeout=5.0)
         assert not srv._accept_thread.is_alive()
-        if isinstance(srv, RefServer):
-            srv.storage.metrics_history.stop()
-            assert not srv.storage.metrics_history.running
+        srv.storage.metrics_history.stop()
+        assert not srv.storage.metrics_history.running
 
 
 COLUMNS = ("a tinyint, b smallint, c int, d bigint primary key, e float, "
@@ -431,6 +436,9 @@ def test_server_close_leaves_no_thread():
     assert cl.ping()
     assert cl.query("select 1") == [("1",)]
     port.close(drain_timeout=0.2)
+    # the server started its store's metrics-history sampler; closing the
+    # store joins it
+    port.storage.close()
     assert [t.name for t in set(threading.enumerate()) - before] == []
     with pytest.raises((ConnectionError, OSError, MySQLError)):
         cl.query("select 1")
@@ -467,6 +475,7 @@ def test_device_fault_closes_the_connection(monkeypatch):
         cl.sock.close()
     finally:
         srv.close(drain_timeout=0.2)
+        srv.storage.close()
 
 
 def test_no_server_thread_outlives_the_file():

@@ -11,13 +11,18 @@ Every table of the reference is defined (`_DEFS`, so table ids, SHOW
 TABLES and the catalog match the reference's). The catalog-backed ones
 are served: schemata, tables, columns, statistics, engines, collations,
 character_sets, key_column_usage, referential_constraints, sequences,
-partitions, views and user_privileges, and, from the storage's
-`Observability`, statements_summary (the digest table) and slow_query
-(the slow-log ring). A statement that touches one of the others (the
-statements summary history, Top SQL, wait profiles, the mesh recorder,
-events, hot ranges, inspection, metrics, profiling, the processlist and
-every cluster_* table) raises `NotInSlice(<table>)`: they read planes the
-port does not have yet.
+partitions, views and user_privileges; from the storage's
+`Observability`, statements_summary (the digest table), slow_query (the
+slow-log ring), tidb_top_sql, tidb_wait_profile and tidb_events; from
+the workload history (`obs_history.py`), statements_summary_history and
+tidb_plan_history; from the inspection engine (`obs_inspect.py`),
+inspection_result and inspection_summary (one rule run when a statement
+reads both; a critical finding also lands in SHOW WARNINGS); from the
+metrics history, metrics_summary; and from the reading session's
+@@profiling ring, profiling. A statement that touches one of the others
+(the mesh recorder's tidb_mesh_shards and tidb_mesh_storage,
+tidb_hot_ranges, processlist and every cluster_* table) raises
+`NotInSlice(<table>)`: they read planes the port does not have yet.
 """
 
 from __future__ import annotations
@@ -481,7 +486,10 @@ SERVED = frozenset({
     "schemata", "tables", "columns", "statistics", "engines", "collations",
     "character_sets", "key_column_usage", "referential_constraints",
     "sequences", "partitions", "views", "user_privileges",
-    "statements_summary", "slow_query",
+    "statements_summary", "slow_query", "tidb_top_sql",
+    "tidb_wait_profile", "tidb_events", "statements_summary_history",
+    "tidb_plan_history", "inspection_result", "inspection_summary",
+    "metrics_summary", "profiling",
 })
 
 
@@ -661,7 +669,44 @@ def _rows_for(storage, catalog: Catalog, tname: str,
                          e["sql"], e["plan_digest"],
                          obs.fmt_stages_ms(e["stages"]),
                          int(e["mem_max"]), int(e["spill_count"]),
-                         obs.fmt_ops_ms(e["operators"]), 0.0, ""])
+                         obs.fmt_ops_ms(e["operators"]),
+                         0.0,
+                         obs.fmt_waits_ms(e["waits"])])
+    elif tname == "tidb_top_sql":
+        rows = storage.obs.topsql.table_rows()
+    elif tname == "tidb_wait_profile":
+        rows = storage.obs.waitprofile.table_rows()
+    elif tname == "tidb_events":
+        for e in storage.obs.events.snapshot():
+            rows.append([int(e["id"]), e["ts"], e["kind"], e["severity"],
+                         int(e["conn_id"]), e["digest"], e["detail"]])
+    elif tname == "statements_summary_history":
+        h = storage.history
+        rows = h.table_rows() if h.enabled else []
+    elif tname == "tidb_plan_history":
+        h = storage.history
+        rows = h.plan_rows() if h.enabled else []
+    elif tname == "inspection_result":
+        from .. import obs_inspect
+        rows = obs_inspect.result_rows(storage)
+        _warn_critical_inspections(rows, viewer)
+    elif tname == "inspection_summary":
+        from .. import obs_inspect
+        rows = obs_inspect.summary_rows(storage)
+    elif tname == "metrics_summary":
+        hist = storage.metrics_history
+        # the ring plus a transient point for "now": a read must not
+        # append to the time-series
+        now = hist.sample_now(record=False)
+        for name, st in sorted(hist.summary(extra=now).items()):
+            rows.append([name, st["samples"], st["min"], st["avg"],
+                         st["max"], st["last"]])
+    elif tname == "profiling":
+        for p in (getattr(viewer, "_profiles", None) or []):
+            prof = p["profile"]
+            for seq, (frame, secs, samples) in enumerate(
+                    prof.tree_rows(), 1):
+                rows.append([p["query_id"], seq, frame, secs, samples])
     elif tname == "views":
         for s in user_schemas:
             for v in sorted(getattr(s, "views", {}).values(),
@@ -720,18 +765,42 @@ def publish_store(storage, info: TableInfo, rows: list[list]) -> None:
     storage.tables[info.id] = store  # atomic publish
 
 
+def _warn_critical_inspections(rows: list[list], viewer) -> None:
+    """Critical inspection findings ALSO land in SHOW WARNINGS, so the
+    operator who just SELECTed sees the red ones without re-filtering."""
+    if viewer is None or not hasattr(viewer, "add_warning"):
+        return
+    for r in rows:
+        if r[2] == "critical":
+            viewer.add_warning(
+                f"inspection: {r[0]} critical on {r[1]} "
+                f"({r[5][:160]})")
+
+
 def refresh(storage, names: set[str], viewer=None) -> None:
     """Rebuild the named information_schema stores from the live catalog.
     `viewer` is the reading Session for the tables whose contents are
-    per-viewer (USER_PRIVILEGES scope)."""
+    per-viewer (USER_PRIVILEGES scope, the profiling ring)."""
     ensure_schema(storage)
     cat: Catalog = storage.catalog
     schema = cat.schemas[DB_NAME]
     for tname in sorted(names):
         if tname in _DEFS and tname not in SERVED:
             raise NotInSlice(tname)
+    # a statement touching BOTH inspection tables gets one rule run (and
+    # one edge-trigger update) shared by the pair: the two tables agree
+    precomputed: dict[str, list[list]] = {}
+    if {"inspection_result", "inspection_summary"} <= names:
+        from .. import obs_inspect
+        res_rows, sum_rows = obs_inspect.result_and_summary_rows(storage)
+        precomputed["inspection_result"] = res_rows
+        precomputed["inspection_summary"] = sum_rows
+        _warn_critical_inspections(res_rows, viewer)
     for tname in names:
         if tname not in _DEFS:
             continue
         info = schema.tables[tname]
-        publish_store(storage, info, _rows_for(storage, cat, tname, viewer))
+        rows = precomputed.get(tname)
+        if rows is None:
+            rows = _rows_for(storage, cat, tname, viewer)
+        publish_store(storage, info, rows)

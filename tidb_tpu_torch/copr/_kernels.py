@@ -118,9 +118,19 @@ def build_all(names=None, force: bool = False) -> dict[str, str]:
     return logs
 
 
+def loaded_count() -> int:
+    """CUDA libraries loaded in this process (`tidb_jit_cache_entries`)."""
+    with _lock:
+        return len(_libs)
+
+
 def _library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if its source is newer.
+    Counted in `tidb_copr_jit_cache_total`: the first build and load is a
+    miss, every later lookup a hit."""
     with _lock:
         lib = _libs.get(name)
+        obs.JIT_CACHE.inc(result="hit" if lib is not None else "miss")
         if lib is None:
             with obs.stage("compile", span_name="cuda.compile") as sp:
                 if sp:

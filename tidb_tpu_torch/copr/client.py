@@ -49,6 +49,7 @@ device error: no torch or CUDA error is caught.
 from __future__ import annotations
 
 import threading
+import weakref
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Optional, Union
@@ -106,6 +107,52 @@ def _bucket(n: int) -> int:
     return b
 
 
+# ---- device telemetry -------------------------------------------------------
+# live clients, so one process-wide probe can sum the staged bytes across
+# sessions without per-dispatch accounting
+_LIVE_CLIENTS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _cached_tensors(vals):
+    """The tensors nested in staging-cache values (tuples, lists and the
+    semi-join bitmap entries' dicts)."""
+    if isinstance(vals, torch.Tensor):
+        yield vals
+    elif isinstance(vals, (tuple, list)):
+        for v in vals:
+            yield from _cached_tensors(v)
+    elif isinstance(vals, dict):
+        for v in vals.values():
+            yield from _cached_tensors(v)
+
+
+def _device_telemetry_probe() -> None:
+    """Set `tidb_device_buffer_bytes` to the unique bytes the live
+    clients' column and mask caches hold, each storage counted once (a
+    view and its base, or one tensor cached under two keys, share one
+    storage), and `tidb_jit_cache_entries` to the CUDA libraries
+    loaded."""
+    from . import _kernels
+    seen: set = set()
+    buf = 0
+    for c in list(_LIVE_CLIENTS):
+        with c._lock:
+            vals = list(c._col_cache.values()) + \
+                list(c._mask_cache.values())
+        for t in _cached_tensors(vals):
+            st = t.untyped_storage()
+            ptr = (t.device, st.data_ptr())
+            if ptr in seen:
+                continue
+            seen.add(ptr)
+            buf += st.nbytes()
+    obs.DEVICE_BUFFER_BYTES.set(buf)
+    obs.JIT_CACHE_ENTRIES.set(_kernels.loaded_count())
+
+
+obs.register_gauge_probe(_device_telemetry_probe)
+
+
 @dataclass
 class CopResult:
     """Coprocessor answer: one or more partial chunks in the layout
@@ -116,6 +163,13 @@ class CopResult:
     # which engine served it: "device", "device[<mode>]", "host(<reason>)"
     # or "ranged"
     engine: str = "device"
+
+
+def _note_transfer(nbytes: int) -> None:
+    """Host-to-device staging accounting: the process gauge and the
+    statement's active operator (Top SQL, the slow log)."""
+    obs.DEVICE_TRANSFER_BYTES.inc(nbytes)
+    obs.note_op_bytes(nbytes)
 
 
 class CopClient:
@@ -136,6 +190,7 @@ class CopClient:
         # and rank-metadata facts keyed by (epoch_id, tag, offsets)
         self._stats: dict = {}
         self._lock = threading.RLock()
+        _LIVE_CLIENTS.add(self)
 
     def _evict_stale(self, table_id: int, epoch_id: int) -> None:
         """Free device tensors cached for a table's superseded epoch."""
@@ -190,6 +245,7 @@ class CopClient:
         if dag.scan.ranges is not None:
             # index-ranged scan: the index permutation resolves a (small)
             # handle set, and the DAG runs on the host over those rows
+            obs.COPR_REQUESTS.inc(engine="ranged")
             with obs.stage("ranged", span_name="copr.ranged"):
                 r = host_exec.execute_ranged(dag, snap)
             r.engine = "ranged"
@@ -212,6 +268,7 @@ class CopClient:
                     prepared, fallback = self._prepare(dag, snap,
                                                        sparse_gate=False)
         if fallback is not None:
+            obs.COPR_REQUESTS.inc(engine="host")
             with obs.stage("host_fallback",
                            span_name="copr.host_fallback") as hsp:
                 if hsp:
@@ -219,6 +276,7 @@ class CopClient:
                 r = host_exec.execute_host(dag, snap, fallback)
             r.engine = f"host({fallback})"
             return r
+        obs.COPR_REQUESTS.inc(engine="device")
         if sp:
             sp.note = "device"
         chunks: list[Chunk] = []
@@ -289,8 +347,10 @@ class CopClient:
             with obs.span("copr.fragment") as fsp:
                 if fsp:
                     fsp.note = "group-lift"
-                return FR._device_fragment(
+                r = FR._device_fragment(
                     self, frag, {frag.tables[0].table.id: snap})
+            obs.COPR_REQUESTS.inc(engine="device-fragment")
+            return r
         except (FR._Fallback, CompileError):
             return None
 
@@ -660,7 +720,7 @@ class CopClient:
         with obs.stage("transfer"):
             out = tuple(self._place(a) for a in arrs)
         if note:
-            obs.note_op_bytes(sum(a.nbytes for a in arrs))
+            _note_transfer(sum(a.nbytes for a in arrs))
         return out
 
     def _stage_tiles(self, dag: CopDAG, snap: TableSnapshot):
@@ -696,6 +756,7 @@ class CopClient:
                 with self._lock:
                     cached = self._col_cache.get(key)
                 if cached is None:
+                    obs.COL_CACHE.inc(result="miss")
                     data = epoch.columns[off][lo:lo + cnt]
                     valid = epoch.valids[off]
                     vslice = np.ones(cnt, bool) if valid is None \
@@ -707,6 +768,8 @@ class CopClient:
                     if cacheable:
                         with self._lock:
                             self._col_cache[key] = cached
+                else:
+                    obs.COL_CACHE.inc(result="hit")
                 dev_cols.append(cached)
             vkey = ("tile", epoch.epoch_id, b, vis_digest, ti)
             with self._lock:
@@ -757,6 +820,7 @@ class CopClient:
             with self._lock:
                 cached = self._col_cache.get(key)
             if cached is None:
+                obs.COL_CACHE.inc(result="miss")
                 cached = self._upload((
                     _pad(_narrow_stats(epoch.columns[off],
                                        self._col_stats(snap, off)), b),
@@ -764,6 +828,8 @@ class CopClient:
                 if cacheable:
                     with self._lock:
                         self._col_cache[key] = cached
+            else:
+                obs.COL_CACHE.inc(result="hit")
             dev_cols.append(cached)
             host_cols.append((epoch.columns[off], vfull))
         vis_digest = snap.visible_digest

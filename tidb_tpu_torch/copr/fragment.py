@@ -81,6 +81,7 @@ from .client import (
     CopClient,
     CopResult,
     _merge_tile_outs,
+    _note_transfer,
     agg_partials,
     decode_agg_partials,
     fetch,
@@ -109,9 +110,13 @@ def execute_fragment(cop: CopClient, frag: FragmentDAG, snaps: dict
         with obs.span("copr.fragment") as sp:
             if sp:
                 sp.note = f"{len(frag.tables)} tables"
-            return _device_fragment(cop, frag, snaps)
+            r = _device_fragment(cop, frag, snaps)
+        obs.COPR_REQUESTS.inc(engine="device-fragment")
+        return r
     except (_Fallback, CompileError) as e:
         reason = getattr(e, "reason", None) or "compile"
+    obs.COPR_REQUESTS.inc(engine="host-fragment")
+    obs.FRAG_FALLBACKS.inc(reason=reason)
     # the host interpreter's time is join work
     with obs.operator("join"):
         r = _host_fragment(frag, snaps)
@@ -452,6 +457,7 @@ def _stage_semi_bitmap(cop, sm, snap, lo: int, span: int) -> dict:
         bm[kd[idx].astype(np.int64) - lo] = True
     entry = {"bm": cop._place_build_array(cop._place(bm)),
              "has_null": has_null, "empty": not bool(keep.any())}
+    _note_transfer(bm.nbytes)
     if cacheable:
         with cop._lock:
             cop._col_cache[ck] = entry

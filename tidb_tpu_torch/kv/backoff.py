@@ -10,9 +10,9 @@ equal-jitter, and exhaustion raises with the full retry history so an
 operator sees WHY a statement burned its budget instead of a bare
 "retries exhausted".
 
-Port of `tidb_tpu/kv/backoff.py`. The reference also reports each sleep
-to its backoff metrics and the statement's wait ledger; the port has
-neither plane yet, so `wait_state` is accepted and unused.
+Port of `tidb_tpu/kv/backoff.py`: each sleep reports to the backoff
+families (`tidb_backoff_seconds`, `tidb_backoff_events_total`) and, as
+`wait_state` or `backoff.<kind>`, to the statement's wait ledger.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import random
 import time
 from dataclasses import dataclass, field
 
+from .. import obs
 from ..errno import ER_TIKV_SERVER_TIMEOUT, CodedError
 
 
@@ -71,6 +72,10 @@ class Backoffer:
                 f"(budget {self.budget_ms}ms): {hist}")
         self.total_ms += ms
         time.sleep(ms / 1000.0)
+        sec = ms / 1000.0
+        obs.BACKOFF_SECONDS.observe(sec, kind=kind.name)
+        obs.BACKOFF_EVENTS.inc(kind=kind.name)
+        obs.note_wait(wait_state or f"backoff.{kind.name}", sec)
 
     def charge(self, kind: BackoffKind, waited_s: float) -> None:
         """Account an externally-performed wait (e.g. a condition-var

@@ -91,9 +91,14 @@ class SyncPolicy:
     """
 
     __slots__ = ("policy", "interval_ms", "_fsync", "_lock", "_last",
-                 "_dirty", "_timer", "_closed", "defer_commit",
-                 "group_max_batch", "group_max_wait_us", "on_batch", "_cv",
-                 "_wgen", "_sgen", "_sync_active", "_waiters")
+                 "_dirty", "_timer", "_closed", "on_stall", "stall_ms",
+                 "defer_commit", "group_max_batch", "group_max_wait_us",
+                 "on_batch", "_cv", "_wgen", "_sgen", "_sync_active",
+                 "_waiters")
+
+    # an fsync slower than this reports a stall (a healthy fsync is
+    # single-digit ms; the threshold flags the pathological tail)
+    STALL_MS_DEFAULT = 100.0
 
     def __init__(self, policy: str, interval_ms: int, fsync) -> None:
         self.policy = policy
@@ -104,6 +109,10 @@ class SyncPolicy:
         self._dirty = False
         self._timer = None
         self._closed = False
+        # stall reporting hook (seconds -> None), wired by the Storage
+        # to its event ring
+        self.on_stall = None
+        self.stall_ms = self.STALL_MS_DEFAULT
         # ---- cross-commit group fsync (commit mode) ----
         # defer_commit: the owning engine routes commit-boundary
         # durability through commit_sync() instead of the in-section
@@ -190,13 +199,24 @@ class SyncPolicy:
         """Unconditional sync-now (checkpoint/close path too)."""
         with self._lock:
             start = self._wgen
-        self._fsync()
+        self._timed_fsync()
         with self._lock:
             self._dirty = False
             if start > self._sgen:
                 self._sgen = start
             self._last = time.monotonic()
             self._cv.notify_all()
+
+    def _timed_fsync(self) -> None:
+        """The sink's fsync as the typed `fsync_wait` (and the
+        `wal.fsync` span under TRACE); one slower than `stall_ms`
+        reports to `on_stall`."""
+        t0 = time.perf_counter()
+        with obs.wait("fsync_wait", span_name="wal.fsync"):
+            self._fsync()
+        dt = time.perf_counter() - t0
+        if self.on_stall is not None and dt * 1e3 >= self.stall_ms:
+            self.on_stall(dt)
 
     def _finish_sync(self, covered_gen: int) -> None:
         """Advance the covered generation after a group fsync. `_dirty`
@@ -221,7 +241,8 @@ class SyncPolicy:
         the next leader, so nobody returns undurable."""
         if self.policy != "commit":
             return
-        self._commit_sync()
+        with obs.wait("fsync_wait", span_name="wal.group_commit"):
+            self._commit_sync()
 
     def _commit_sync(self) -> None:
         with self._lock:
@@ -258,7 +279,7 @@ class SyncPolicy:
             # kill-9 site: the batch's bytes are flushed to the OS but
             # NOT fsynced, and none of its commits is acked yet
             failpoint.inject("kv/group-fsync")
-            self._fsync()
+            self._timed_fsync()
         except BaseException:
             with self._lock:
                 self._sync_active = False

@@ -11,11 +11,13 @@ against real TiKV.
 Port of `tidb_tpu/kv/twopc.py` over the in-process region tier, with the
 reference's four failpoint sites (`twopc/before-prewrite`,
 `twopc/after-prewrite`, `twopc/before-commit-primary`,
-`twopc/after-primary-commit`) and its TRACE spans (`twopc.prewrite`,
-`twopc.commit`, `twopc.commit_primary`, `twopc.commit_secondary`). Its wait ledger and metrics, the structured event log,
-the keyspace heatmap and the range tier's cross-range commit fan-out have
-no port yet: their hooks are left out, and the control flow between them
-is the reference's.
+`twopc/after-primary-commit`), its TRACE spans (`twopc.prewrite`,
+`twopc.commit`, `twopc.commit_primary`, `twopc.commit_secondary`), its
+typed waits (`prewrite`, `tso_wait`, `commit_primary`,
+`commit_secondary`, `resolve_lock`, `backoff.txnLock`) and the
+`orphan_resolved` event. The keyspace heatmap and the range tier's
+cross-range commit fan-out have no port yet: their hooks are left out,
+and the control flow between them is the reference's.
 """
 
 from __future__ import annotations
@@ -61,9 +63,13 @@ class LockResolver:
     """Resolves locks left by crashed/slow transactions (reference:
     store/tikv/lock_resolver.go ResolveLocks)."""
 
-    def __init__(self, rm: RegionManager, tso: TSO) -> None:
+    def __init__(self, rm: RegionManager, tso: TSO,
+                 events=None) -> None:
         self.rm = rm
         self.tso = tso
+        # optional structured EventLog sink: every orphan actually
+        # rolled forward or back is recorded there
+        self.events = events
 
     def resolve(self, lock) -> bool:
         """True if the lock was cleared (caller may retry immediately).
@@ -73,11 +79,20 @@ class LockResolver:
         ANOTHER range's leader, so the status check and the resolve are
         two routed calls — exactly how a peer rolls a crashed
         coordinator's orphans forward/backward."""
-        commit_ts, done = self.rm.check_txn_status(
-            lock.primary, lock.start_ts, self.tso.ts())
-        if not done:
-            return False  # lock holder still alive; caller backs off
-        self.rm.resolve_lock(lock.key, lock.start_ts, commit_ts)
+        with obs.wait("resolve_lock"):
+            commit_ts, done = self.rm.check_txn_status(
+                lock.primary, lock.start_ts, self.tso.ts())
+            if not done:
+                return False  # lock holder still alive; caller backs off
+            self.rm.resolve_lock(lock.key, lock.start_ts, commit_ts)
+        if self.events is not None:
+            action = "roll-forward" if commit_ts else "roll-back"
+            self.events.record(
+                "orphan_resolved",
+                detail=f"{action} key={lock.key!r} "
+                       f"primary={lock.primary!r} "
+                       f"start_ts={lock.start_ts} commit_ts={commit_ts} "
+                       "trace_id=")
         return True
 
 
@@ -92,6 +107,9 @@ class TwoPhaseCommitter:
     # so this is time-based, unlike the count-based region retries
     # (reference: backoff.go txnLockFastBackoff with a total budget)
     lock_wait_timeout_s: float = 50.0
+    # structured EventLog sink for orphan resolutions (the storage
+    # passes its obs.events; bare committers audit nothing)
+    events: Optional[object] = None
 
     def commit(self, mutations: list[Mutation], start_ts: int) -> int:
         """Run 2PC; returns commit_ts (reference: 2pc.go execute :1050)."""
@@ -106,13 +124,13 @@ class TwoPhaseCommitter:
         hold serializing locks across it — the storage runs it outside
         its commit lock (the reference has no such global lock; its fold
         equivalent is TiFlash's async raft apply)."""
-        with obs.span("twopc.prewrite") as sp:
+        with obs.wait("prewrite"), obs.span("twopc.prewrite") as sp:
             if sp:
                 sp.note = f"{len(mutations)} keys"
             return self._prewrite_phase(mutations, start_ts)
 
     def _prewrite_phase(self, mutations: list[Mutation], start_ts: int):
-        resolver = LockResolver(self.rm, self.tso)
+        resolver = LockResolver(self.rm, self.tso, events=self.events)
         mutations = sorted(mutations, key=lambda m: m.key)
         # the primary must leave a write record: a lock-only (OP_LOCK)
         # primary would give crash recovery nothing to roll forward from
@@ -140,12 +158,13 @@ class TwoPhaseCommitter:
 
     def _commit_phase(self, state, start_ts: int) -> int:
         mutations, primary, resolver = state
-        commit_ts = self.tso.ts()
+        with obs.wait("tso_wait"):
+            commit_ts = self.tso.ts()
         # commit the primary synchronously — the txn is durable
         # once this lands (reference: 2pc.go:741)
         failpoint.inject("twopc/before-commit-primary")
-        # (the span half of the reference's commit_primary wait frame)
-        with obs.span("twopc.commit_primary"):
+        with obs.wait("commit_primary",
+                      span_name="twopc.commit_primary"):
             self._retry_region(
                 primary, resolver,
                 lambda region: self.rm.commit(region, [primary], start_ts,
@@ -161,7 +180,8 @@ class TwoPhaseCommitter:
         # stragglers forward from the committed primary)
         rest = [m.key for m in mutations if m.key != primary]
         if rest:
-            with obs.span("twopc.commit_secondary"):
+            with obs.wait("commit_secondary",
+                          span_name="twopc.commit_secondary"):
                 for key in rest:
                     try:
                         self._retry_region(
@@ -174,7 +194,7 @@ class TwoPhaseCommitter:
         return commit_ts
 
     def rollback(self, mutations: list[Mutation], start_ts: int) -> None:
-        resolver = LockResolver(self.rm, self.tso)
+        resolver = LockResolver(self.rm, self.tso, events=self.events)
         for m in mutations:
             self._retry_region(
                 m.key, resolver,
@@ -230,7 +250,16 @@ class TwoPhaseCommitter:
                     err.errno = 1205  # ER_LOCK_WAIT_TIMEOUT
                     raise err from None
                 time.sleep(backoff)
+                _note_lock_backoff(backoff)
                 backoff = min(backoff * 2, 0.05)
+
+
+def _note_lock_backoff(seconds: float) -> None:
+    """Type a foreign-lock wait sleep: the backoff families plus the
+    active statement's wait ledger."""
+    obs.BACKOFF_SECONDS.observe(seconds, kind="txnLock")
+    obs.BACKOFF_EVENTS.inc(kind="txnLock")
+    obs.note_wait("backoff.txnLock", seconds)
 
 
 class Snapshot:
@@ -253,6 +282,7 @@ class Snapshot:
             except KeyIsLockedError as e:
                 if not self._resolver.resolve(e.lock):
                     time.sleep(backoff)
+                    _note_lock_backoff(backoff)
                     backoff = min(backoff * 2, 0.1)
         raise CommitError(f"read of {key!r} kept hitting locks")
 
@@ -267,5 +297,6 @@ class Snapshot:
             except KeyIsLockedError as e:
                 if not self._resolver.resolve(e.lock):
                     time.sleep(backoff)
+                    _note_lock_backoff(backoff)
                     backoff = min(backoff * 2, 0.1)
         raise CommitError("scan kept hitting locks")

@@ -1,21 +1,36 @@
-"""Observability: metrics, statement digests, the slow log, spans, stages.
+"""Observability: metrics, statement digests, the slow log, spans, stages,
+the attribution planes, the metrics history and the profiler.
 
-Port of the statement half of `tidb_tpu/obs.py`, under the same names:
+Port of `tidb_tpu/obs.py`, under the same names:
 
 * the metrics registry (`Counter`, `Gauge`, `Histogram`, `Registry`, with
-  the Prometheus text exposition and the duplicate-registration guards);
+  the Prometheus text exposition, the duplicate-registration guards and
+  `flat_samples`, whose 'name{k="v"}' keys `split_sample_name` parses);
   one `Observability` per `Storage` holds the statement families
   (`tidb_queries_total`, `tidb_query_errors_total`,
   `tidb_query_duration_seconds`, commits, write conflicts, connections,
   rejected connections, slow queries), the plan cache's hit, miss and
-  eviction counters and the group-commit histogram and counters; the
-  process-wide `PROCESS_METRICS` holds the per-stage dispatch histogram
-  and the function registry's row-wise evaluations
-  (`REGISTRY_ROW_EVALS`, by `func`);
+  eviction counters, the group-commit histogram and counters, and three
+  planes, each off by default and free while off (`record()` returns
+  before it takes a lock): Top SQL (`TopSQL`, windowed per-digest
+  attribution of wall time, stages, operators, bytes, sheds and kills),
+  the wait profile (`WaitProfile`, windowed per-digest typed waits) and
+  the structured event ring (`EventLog`, always on, with
+  `tidb_server_events_total`);
+* the process-wide `PROCESS_METRICS`: the dispatch-stage histogram, the
+  coprocessor's requests by engine, fragment fallbacks by reason,
+  column-cache and jit-cache lookups, the registry's row-wise
+  evaluations (`REGISTRY_ROW_EVALS`), the wait and backoff families,
+  profiler samples, and the device-telemetry gauges, which the gauge
+  probes (`register_gauge_probe`, `run_gauge_probes`) refresh before
+  every sample; `MetricsHistory` keeps a bounded ring of those samples
+  (one per Storage, its thread started by the server and joined by
+  `Storage.close`);
 * the statement record: `StatementsSummary` (literal-normalized text,
   sha256 digest, the reference's capped table), the slow-log ring
-  (`record_slow`, `slow_queries`) and the ring of the last TRACE per
-  connection (`record_trace`, `trace_for`);
+  (`record_slow`, `slow_queries`, with the statement's typed waits) and
+  the ring of the last TRACE per connection (`record_trace`,
+  `trace_for`);
 * spans (`Span`, `SpanCollector`, `span`, `active_collector`,
   `TRACE_SPAN_CAP`): a no-op TLS read unless a TRACE statement installed
   a collector;
@@ -25,7 +40,14 @@ Port of the statement half of `tidb_tpu/obs.py`, under the same names:
   records one plan operator's exclusive wall time and routes the stages
   and transfer bytes opened inside it to that operator (`ops`,
   `op_bytes`); `note_engine` appends a coprocessor read's engine tag;
-  `RuntimeStatsColl` is EXPLAIN ANALYZE's per-plan-node record.
+  `RuntimeStatsColl` is EXPLAIN ANALYZE's per-plan-node record;
+* the wait ledger: `wait(state)` frames and `note_wait` charges, with
+  exclusive accounting, feed `tidb_wait_seconds` and its counter twin
+  always and the statement's `WaitLedger` while the wait profile is on
+  (`fmt_waits` renders EXPLAIN ANALYZE's `wait_profile` cell);
+* the host sampling profiler (`Profile`, `SamplingProfiler`,
+  `profile_process`) behind @@profiling, and the exposition lint
+  (`lint_metrics`).
 
 What the dispatch stages mean on the port (PyTorch on one CUDA device):
 
@@ -48,16 +70,31 @@ What the dispatch stages mean on the port (PyTorch on one CUDA device):
 No stage synchronizes the device: a stage costs two `perf_counter` reads
 and a dict update, as in the reference.
 
-Left out, with the planes they belong to: Top SQL, the wait profile and
-its ledger, the event log, the metrics history, the sampling profiler,
-the exposition lint, the remote and graft span helpers (the RPC plane),
-and the replica and device-telemetry families.
+What the device families mean on the port:
+
+* `tidb_copr_jit_cache_total` counts lookups of a hand-written kernel's
+  CUDA library in `copr/_kernels._library`: the first build and load of
+  a library is a miss, every later lookup a hit (the port has no program
+  cache; this is the meaning the `compile` stage has), and
+  `tidb_jit_cache_entries` is the number of libraries loaded;
+* `tidb_device_transfer_bytes` adds up the bytes the coprocessor client
+  uploads (`CopClient._upload`);
+* `tidb_device_buffer_bytes` is the unique bytes of every live client's
+  column and mask caches, each tensor counted by its storage's
+  `untyped_storage().nbytes()` once per storage pointer.
+
+Left out, with the planes they belong to: the remote and graft span
+helpers (the RPC plane), the replica families (the follower read tier),
+the RPC breaker, range and mesh families, and the per-device label of
+the buffer gauge (one device).
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -186,6 +223,18 @@ def _label_name(name: str, key: tuple) -> str:
     return f"{name}{{{lbl}}}" if lbl else name
 
 
+def split_sample_name(name: str, family: str) -> Optional[str]:
+    """Inverse of _label_name for one family: 'fam{k="v"}' -> 'k="v"',
+    bare 'fam' -> '', a sample of any other family -> None. The one
+    parser of the flattened-sample convention: metrics_schema and the
+    inspection rules both read `flat_samples` through it."""
+    if name == family:
+        return ""
+    if name.startswith(family + "{") and name.endswith("}"):
+        return name[len(family) + 1:-1]
+    return None
+
+
 def _fmt_value(v: float) -> str:
     """Integers render as integers, other floats at full precision."""
     return str(int(v)) if float(v).is_integer() else repr(float(v))
@@ -225,6 +274,19 @@ class Registry:
     def families(self) -> list[str]:
         with self._lock:
             return list(self._metrics)
+
+    def flat_samples(self) -> list[tuple[str, float]]:
+        """Counter and gauge samples flattened to ('name{l="v"}', value)
+        pairs: what the metrics history samples (histograms stay on the
+        exposition)."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: list[tuple[str, float]] = []
+        for m in metrics:
+            if isinstance(m, (Counter, Gauge)):
+                out.extend((_label_name(m.name, key), v)
+                           for key, v in m.samples())
+        return out
 
     def render(self) -> str:
         """Prometheus text exposition format."""
@@ -347,6 +409,398 @@ class StatementsSummary:
         with self._lock:
             return [dict(e) for e in self._entries.values()]
 
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+# ---- Top SQL: continuous per-digest resource attribution --------------------
+
+class TopSQL:
+    """Windowed per-digest resource attribution (reference: TiDB's Top
+    SQL — util/topsql collecting per-statement CPU/exec metrics into
+    time buckets keyed by SQL digest, resource attribution that runs in
+    PRODUCTION, not only under EXPLAIN ANALYZE).
+
+    Shape: a ring of `n_windows` time buckets, each holding a digest ->
+    entry map capped at `digest_cap`; statements past the cap fold into
+    one "(other)" overflow entry so a digest storm cannot grow the map.
+    Every completed statement feeds one record() with its wall time,
+    per-stage dispatch seconds (the statement's StageRecorder), per-operator
+    wall/stage/transfer attribution, rows, and admission/governor
+    outcomes.
+
+    Disabled (the default) it is ZERO allocation on the statement path:
+    record() returns before touching the lock or building anything, and
+    the session call site checks `enabled` before assembling arguments.
+    Thread-safe: one lock guards the ring; entries are plain dicts
+    mutated under it."""
+
+    DEFAULT_WINDOW_S = 60
+    DEFAULT_WINDOWS = 6
+    DEFAULT_DIGEST_CAP = 50
+    OTHER = "(other)"
+    STMT = "(stmt)"
+    SESSION_OP = "(session)"
+
+    def __init__(self, window_s: float = DEFAULT_WINDOW_S,
+                 n_windows: int = DEFAULT_WINDOWS,
+                 digest_cap: int = DEFAULT_DIGEST_CAP,
+                 enabled: bool = False) -> None:
+        self.enabled = bool(enabled)
+        self.window_s = max(float(window_s), 1.0)
+        self.digest_cap = max(int(digest_cap), 1)
+        self._lock = threading.Lock()
+        self._buckets: deque = deque(maxlen=max(int(n_windows), 1))
+
+    def configure(self, enabled: Optional[bool] = None,
+                  window_s: Optional[float] = None,
+                  digest_cap: Optional[int] = None,
+                  n_windows: Optional[int] = None) -> None:
+        """Apply the performance.topsql-* config knobs (safe while
+        running; a shrunk ring drops the oldest windows)."""
+        if enabled is not None:
+            self.enabled = bool(enabled)
+        if window_s is not None:
+            self.window_s = max(float(window_s), 1.0)
+        if digest_cap is not None:
+            self.digest_cap = max(int(digest_cap), 1)
+        if n_windows is not None:
+            with self._lock:
+                self._buckets = deque(self._buckets,
+                                      maxlen=max(int(n_windows), 1))
+
+    def _bucket_locked(self, now: float) -> dict:
+        win = int(now - (now % self.window_s))
+        for b in reversed(self._buckets):
+            if b["start"] == win:
+                return b
+        last = self._buckets[-1] if self._buckets else None
+        if last is not None and win < last["start"]:
+            # clock went backwards past the ring: charge the newest
+            # window rather than resurrecting evicted history
+            return last
+        b = {"start": win, "digests": {}, "other": None}
+        self._buckets.append(b)
+        return b
+
+    @staticmethod
+    def _new_entry(digest: str, digest_text: str, db: str) -> dict:
+        return {"digest": digest, "digest_text": digest_text,
+                "schema_name": db, "exec_count": 0, "errors": 0,
+                "sum_wall_s": 0.0, "max_wall_s": 0.0, "sum_rows": 0,
+                "sheds": 0, "kills": 0,
+                "stages": {}, "op_wall": {}, "op_stages": {},
+                "op_bytes": {}, "waits": {}}
+
+    def record(self, digest: str, digest_text: str, db: str,
+               wall_s: float, stages: Optional[dict] = None,
+               op_wall: Optional[dict] = None,
+               op_stages: Optional[dict] = None,
+               op_bytes: Optional[dict] = None,
+               rows: int = 0, failed: bool = False, shed: bool = False,
+               killed: bool = False,
+               waits: Optional[dict] = None,
+               now: Optional[float] = None) -> None:
+        if not self.enabled:
+            return
+        ts = time.time() if now is None else float(now)
+        with self._lock:
+            b = self._bucket_locked(ts)
+            ent = b["digests"].get(digest)
+            if ent is None:
+                if len(b["digests"]) < self.digest_cap:
+                    ent = b["digests"][digest] = self._new_entry(
+                        digest, digest_text, db)
+                else:
+                    # overflow: fold into the bucket's "(other)" entry
+                    if b["other"] is None:
+                        b["other"] = self._new_entry(
+                            self.OTHER, self.OTHER, "")
+                    ent = b["other"]
+            ent["exec_count"] += 1
+            ent["errors"] += 1 if failed else 0
+            ent["sheds"] += 1 if shed else 0
+            ent["kills"] += 1 if killed else 0
+            ent["sum_wall_s"] += wall_s
+            ent["max_wall_s"] = max(ent["max_wall_s"], wall_s)
+            ent["sum_rows"] += int(rows)
+            if stages:
+                st = ent["stages"]
+                for k, v in stages.items():
+                    st[k] = st.get(k, 0.0) + v
+            if op_wall:
+                ow = ent["op_wall"]
+                for k, v in op_wall.items():
+                    ow[k] = ow.get(k, 0.0) + v
+            if op_stages:
+                target = ent["op_stages"]
+                for op, d in op_stages.items():
+                    td = target.setdefault(op, {})
+                    for k, v in d.items():
+                        td[k] = td.get(k, 0.0) + v
+            if op_bytes:
+                ob = ent["op_bytes"]
+                for k, v in op_bytes.items():
+                    ob[k] = ob.get(k, 0) + int(v)
+            if waits:
+                # typed wait-state split — what makes a window
+                # attributable to its dominant wait state
+                tw = ent.setdefault("waits", {})
+                for k, v in waits.items():
+                    tw[k] = tw.get(k, 0.0) + v
+
+    def snapshot(self) -> list[dict]:
+        """Deep-copied buckets, oldest first."""
+        with self._lock:
+            return [copy.deepcopy(b) for b in self._buckets]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buckets.clear()
+
+    @staticmethod
+    def attributed_seconds(ent: dict) -> float:
+        """Statement seconds attributed to SOMETHING named: exclusive
+        per-operator wall plus the dispatch stages recorded outside any
+        operator frame (plan_build et al under '(session)'). Operator
+        wall and op-stage splits overlap by construction (the stages
+        are the split OF the operator wall), so only the session-scoped
+        stages add."""
+        return sum(ent["op_wall"].values()) + sum(
+            ent["op_stages"].get(TopSQL.SESSION_OP, {}).values())
+
+    def table_rows(self) -> list[list]:
+        """information_schema.tidb_top_sql rows: newest window first,
+        digests by total wall desc; per digest one '(stmt)' summary row
+        then one row per operator (heaviest first)."""
+        rows: list[list] = []
+        for b in reversed(self.snapshot()):
+            win = time.strftime("%Y-%m-%d %H:%M:%S",
+                                time.localtime(b["start"]))
+            ents = sorted(b["digests"].values(),
+                          key=lambda e: -e["sum_wall_s"])
+            if b["other"] is not None:
+                ents.append(b["other"])
+            for e in ents:
+                attributed = self.attributed_seconds(e)
+                # dominant wait state of the digest's window: which
+                # typed wait (if any) owned the wall — 'state:frac'
+                dst, dfrac = WaitProfile.dominant(e)
+                dom = f"{dst}:{dfrac:.2f}" if dst else ""
+                rows.append([
+                    win, e["digest"], e["digest_text"], self.STMT,
+                    e["exec_count"], round(e["sum_wall_s"] * 1e3, 3),
+                    round(attributed * 1e3, 3),
+                    sum(e["op_bytes"].values()),
+                    fmt_stages(e["stages"])[:256], e["sum_rows"],
+                    e["sheds"], e["kills"],
+                    0.0, dom])
+                ops = dict(e["op_wall"])
+                sess = e["op_stages"].get(self.SESSION_OP)
+                if sess:
+                    ops[self.SESSION_OP] = sum(sess.values())
+                for op in sorted(ops, key=lambda o: -ops[o]):
+                    rows.append([
+                        win, e["digest"], e["digest_text"], op,
+                        e["exec_count"], round(e["sum_wall_s"] * 1e3, 3),
+                        round(ops[op] * 1e3, 3),
+                        e["op_bytes"].get(op, 0),
+                        fmt_stages(e["op_stages"].get(op))[:256],
+                        e["sum_rows"], e["sheds"], e["kills"],
+                        0.0, ""])
+        return rows
+
+
+# ---- wait-state profile: windowed per-digest wait attribution ---------------
+
+class WaitProfile:
+    """Windowed per-digest typed-wait attribution — the continuous
+    (production, not only EXPLAIN ANALYZE) aggregation of WaitLedger
+    totals, same ring shape as TopSQL: `n_windows` time buckets, each a
+    digest -> entry map capped at `digest_cap` with an "(other)"
+    overflow fold. Feeds information_schema.tidb_wait_profile, the
+    /debug/waitprofile endpoint and the dominant-wait inspection rule.
+
+    Disabled (the default) it is ZERO cost on the statement path:
+    record() returns before the lock, and the session neither installs
+    a WaitLedger nor assembles arguments (performance.wait-profile-
+    enabled arms it, SIGHUP-hot-reloadable)."""
+
+    DEFAULT_WINDOW_S = 60
+    DEFAULT_WINDOWS = 6
+    DEFAULT_DIGEST_CAP = 50
+    OTHER = "(other)"
+
+    def __init__(self, window_s: float = DEFAULT_WINDOW_S,
+                 n_windows: int = DEFAULT_WINDOWS,
+                 digest_cap: int = DEFAULT_DIGEST_CAP,
+                 enabled: bool = False) -> None:
+        self.enabled = bool(enabled)
+        self.window_s = max(float(window_s), 1.0)
+        self.digest_cap = max(int(digest_cap), 1)
+        self._lock = threading.Lock()
+        self._buckets: deque = deque(maxlen=max(int(n_windows), 1))
+
+    def configure(self, enabled: Optional[bool] = None,
+                  window_s: Optional[float] = None,
+                  digest_cap: Optional[int] = None,
+                  n_windows: Optional[int] = None) -> None:
+        if enabled is not None:
+            self.enabled = bool(enabled)
+        if window_s is not None:
+            self.window_s = max(float(window_s), 1.0)
+        if digest_cap is not None:
+            self.digest_cap = max(int(digest_cap), 1)
+        if n_windows is not None:
+            with self._lock:
+                self._buckets = deque(self._buckets,
+                                      maxlen=max(int(n_windows), 1))
+
+    def _bucket_locked(self, now: float) -> dict:
+        win = int(now - (now % self.window_s))
+        for b in reversed(self._buckets):
+            if b["start"] == win:
+                return b
+        last = self._buckets[-1] if self._buckets else None
+        if last is not None and win < last["start"]:
+            return last
+        b = {"start": win, "digests": {}, "other": None}
+        self._buckets.append(b)
+        return b
+
+    @staticmethod
+    def _new_entry(digest: str, digest_text: str, db: str) -> dict:
+        return {"digest": digest, "digest_text": digest_text,
+                "schema_name": db, "exec_count": 0,
+                "sum_wall_s": 0.0, "waits": {}}
+
+    def record(self, digest: str, digest_text: str, db: str,
+               wall_s: float, waits: dict,
+               now: Optional[float] = None) -> None:
+        if not self.enabled:
+            return
+        ts = time.time() if now is None else float(now)
+        with self._lock:
+            b = self._bucket_locked(ts)
+            ent = b["digests"].get(digest)
+            if ent is None:
+                if len(b["digests"]) < self.digest_cap:
+                    ent = b["digests"][digest] = self._new_entry(
+                        digest, digest_text, db)
+                else:
+                    if b["other"] is None:
+                        b["other"] = self._new_entry(
+                            self.OTHER, self.OTHER, "")
+                    ent = b["other"]
+            ent["exec_count"] += 1
+            ent["sum_wall_s"] += wall_s
+            w = ent["waits"]
+            for k, v in waits.items():
+                w[k] = w.get(k, 0.0) + v
+
+    def snapshot(self) -> list[dict]:
+        """Deep-copied buckets, oldest first."""
+        with self._lock:
+            return [copy.deepcopy(b) for b in self._buckets]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buckets.clear()
+
+    @staticmethod
+    def dominant(ent: dict) -> tuple[str, float]:
+        """(state, fraction-of-wall) of the entry's heaviest wait state
+        — what the dominant-wait inspection rule and the TopSQL
+        attribution column read. ('', 0.0) when nothing waited."""
+        waits = ent.get("waits") or {}
+        if not waits or ent.get("sum_wall_s", 0.0) <= 0:
+            return "", 0.0
+        state = max(waits, key=lambda k: waits[k])
+        return state, min(waits[state] / ent["sum_wall_s"], 1.0)
+
+    def table_rows(self) -> list[list]:
+        """information_schema.tidb_wait_profile rows: newest window
+        first, digests by total wall desc, one row per wait state
+        (heaviest first)."""
+        rows: list[list] = []
+        for b in reversed(self.snapshot()):
+            win = time.strftime("%Y-%m-%d %H:%M:%S",
+                                time.localtime(b["start"]))
+            ents = sorted(b["digests"].values(),
+                          key=lambda e: -e["sum_wall_s"])
+            if b["other"] is not None:
+                ents.append(b["other"])
+            for e in ents:
+                wall = e["sum_wall_s"]
+                waits = e["waits"]
+                for st in sorted(waits, key=lambda k: -waits[k]):
+                    frac = waits[st] / wall if wall > 0 else 0.0
+                    rows.append([
+                        win, e["digest"], e["digest_text"],
+                        e["schema_name"], e["exec_count"],
+                        round(wall * 1e3, 3), st,
+                        round(waits[st] * 1e3, 3),
+                        round(min(frac, 1.0), 4)])
+        return rows
+
+
+# ---- structured server event log --------------------------------------------
+
+class EventLog:
+    """Bounded ring of structured server events (reference: TiDB logs
+    these as structured log lines; here they are queryable after the
+    fact): governor kills, admission sheds, rpc breaker trips,
+    elections/promotions, checkpoint/fsync stalls — each with conn and
+    digest attribution where the producer has it, so the governor's
+    and the admission gate's protective actions are explainable after
+    the fact."""
+
+    DEFAULT_CAP = 512
+
+    def __init__(self, cap: int = DEFAULT_CAP, metrics=None) -> None:
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=max(int(cap), 1))
+        self._seq = 0
+        if metrics is not None:
+            self.counter = metrics.counter(
+                "tidb_server_events_total",
+                "structured server events recorded, by kind")
+        else:
+            self.counter = None
+
+    def configure(self, cap: Optional[int] = None) -> None:
+        if cap:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(int(cap), 1))
+
+    def record(self, kind: str, detail: str = "",
+               severity: str = "info", conn_id: int = 0,
+               digest: str = "") -> None:
+        ent = {
+            "ts": time.strftime("%Y-%m-%d %H:%M:%S"),
+            "unix": round(time.time(), 3),
+            "kind": str(kind)[:32],
+            "severity": str(severity)[:8],
+            "conn_id": int(conn_id),
+            "digest": str(digest)[:32],
+            "detail": str(detail)[:512],
+        }
+        with self._lock:
+            self._seq += 1
+            ent["id"] = self._seq
+            self._ring.append(ent)
+        if self.counter is not None:
+            self.counter.inc(kind=ent["kind"])
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            return [dict(e) for e in self._ring]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
 
 # ---- per-storage observability state -----------------------------------------
 
@@ -356,8 +810,9 @@ DEFAULT_SLOW_THRESHOLD_MS = 300
 
 
 class Observability:
-    """One storage's metrics, slow log, statement summaries and TRACE
-    ring, so two servers in one process keep their own counters."""
+    """One storage's metrics, slow log, statement summaries, TRACE ring,
+    Top SQL, wait profile and event ring, so two servers in one process
+    keep their own counters."""
 
     def __init__(self) -> None:
         self.metrics = Registry()
@@ -414,14 +869,23 @@ class Observability:
         self.statements = StatementsSummary()
         # conn_id -> last TRACE span tree
         self._traces: dict[int, dict] = {}
+        # continuous per-digest resource attribution, off by default
+        self.topsql = TopSQL()
+        # structured server event ring (governor kills, admission sheds,
+        # checkpoint and fsync stalls, plan changes)
+        self.events = EventLog(metrics=self.metrics)
+        # windowed per-digest typed-wait attribution, off by default
+        self.waitprofile = WaitProfile()
 
     def record_slow(self, sql: str, db: str, duration_s: float,
                     plan_digest: str = "",
                     stages: Optional[dict[str, float]] = None,
                     mem_peak: int = 0, spill_count: int = 0,
-                    op_wall: Optional[dict[str, float]] = None) -> None:
-        """One slow-log entry (the reference's shape without the shard
-        skew and the typed waits: no mesh and no wait plane here)."""
+                    op_wall: Optional[dict[str, float]] = None,
+                    waits: Optional[dict[str, float]] = None) -> None:
+        """One slow-log entry, in the reference's shape less the shard
+        skew (no mesh here): digest, stages, operator walls, working-set
+        peak and spills, and the typed waits (ms)."""
         self.slow_counter.inc()
         ent = {
             "ts": time.strftime("%Y-%m-%d %H:%M:%S"),
@@ -435,6 +899,8 @@ class Observability:
                           for k, v in (op_wall or {}).items()},
             "mem_max": int(mem_peak),
             "spill_count": int(spill_count),
+            "waits": {k: round(v * 1e3, 3)
+                      for k, v in (waits or {}).items()},
         }
         with self._slow_lock:
             self._slow_log.append(ent)
@@ -469,16 +935,210 @@ class Observability:
 # process-global metrics (one device per process), in their own registry
 # so a server's exposition can concatenate both without duplicates
 PROCESS_METRICS = Registry()
+COPR_REQUESTS = PROCESS_METRICS.counter(
+    "tidb_copr_requests_total",
+    "coprocessor executions, by engine (device / host fallback)")
+FRAG_FALLBACKS = PROCESS_METRICS.counter(
+    "tidb_copr_fragment_fallbacks_total",
+    "device-fragment gate rejections, by reason")
 DISPATCH_STAGE_SECONDS = PROCESS_METRICS.histogram(
     "tidb_dispatch_stage_duration_seconds",
     "per-stage dispatch wall time (staging, compile, transfer, kernel, "
     "device_get, host_fallback), labeled by stage")
+COL_CACHE = PROCESS_METRICS.counter(
+    "tidb_copr_column_cache_total",
+    "device column-staging cache lookups, by result (hit / miss)")
+JIT_CACHE = PROCESS_METRICS.counter(
+    "tidb_copr_jit_cache_total",
+    "compiled-kernel cache lookups, by result (hit / miss)")
+PROFILER_SAMPLES = PROCESS_METRICS.counter(
+    "tidb_profiler_samples_total",
+    "stack samples taken by the host sampling profiler")
 REGISTRY_ROW_EVALS = PROCESS_METRICS.counter(
     "tidb_registry_row_eval_total",
     "rows evaluated by the per-row scalar-function registry fallback "
     "(copr/funcs.py), by function — nonzero means an expression left "
     "the vectorized path (the registry-row-eval inspection rule reads "
     "this)")
+
+# the wait-state plane: process-wide, as the Backoffer and the sync
+# policy have no Storage in reach. The histogram carries the
+# distribution per typed state; its counter twin is the metrics_schema
+# view of accumulated wait seconds (histograms stay on the exposition)
+WAIT_SECONDS = PROCESS_METRICS.histogram(
+    "tidb_wait_seconds",
+    "exclusive statement wait time by typed state (tso_wait, "
+    "lease_wait, backoff.{kind}, rpc_net, prewrite, commit_primary, "
+    "commit_secondary, resolve_lock, fsync_wait)")
+WAIT_SECONDS_TOTAL = PROCESS_METRICS.counter(
+    "tidb_wait_total_seconds",
+    "accumulated exclusive wait seconds by typed state — the "
+    "SQL-queryable twin of the tidb_wait_seconds histogram (named "
+    "total_seconds, not seconds_total, so the counter family never "
+    "prefix-collides with the histogram's sample names)")
+BACKOFF_SECONDS = PROCESS_METRICS.histogram(
+    "tidb_backoff_seconds",
+    "Backoffer sleep time by backoff kind (txnLock, txnConflict, "
+    "regionMiss, metaConflict, tsoWait, tikvRPC)")
+BACKOFF_EVENTS = PROCESS_METRICS.counter(
+    "tidb_backoff_events_total",
+    "Backoffer sleeps taken, by backoff kind — each typed sleep "
+    "reports here instead of silently time.sleep-ing")
+
+# device telemetry (one device per process): transfer bytes accumulate
+# on the dispatch path; buffer bytes, loaded kernel libraries and RSS
+# are set by the gauge probes right before every sample
+DEVICE_TRANSFER_BYTES = PROCESS_METRICS.gauge(
+    "tidb_device_transfer_bytes",
+    "cumulative host->device bytes staged by the coprocessor client")
+DEVICE_BUFFER_BYTES = PROCESS_METRICS.gauge(
+    "tidb_device_buffer_bytes",
+    "live device bytes pinned by the column/mask staging caches")
+JIT_CACHE_ENTRIES = PROCESS_METRICS.gauge(
+    "tidb_jit_cache_entries",
+    "compiled kernels resident in the jit cache")
+PROCESS_RSS_BYTES = PROCESS_METRICS.gauge(
+    "tidb_process_rss_bytes", "resident set size of this process")
+
+# probes recomputing the sampled gauges from live state, run by
+# MetricsHistory.sample_now() so the gauges are current at read time
+# without taxing the dispatch path
+_GAUGE_PROBES: list = []
+
+
+def register_gauge_probe(fn) -> None:
+    _GAUGE_PROBES.append(fn)
+
+
+def run_gauge_probes() -> None:
+    """Run every probe. A probe's own host errors (a file it cannot
+    read, a value it cannot parse) leave its gauge as it was; anything
+    else, a device error among them, raises."""
+    for fn in list(_GAUGE_PROBES):
+        try:
+            fn()
+        except (OSError, ValueError):
+            pass
+
+
+def _rss_probe() -> None:
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        PROCESS_RSS_BYTES.set(pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        import resource
+        import sys
+        # best-effort fallback (peak, not live); ru_maxrss is KiB on
+        # Linux but already bytes on macOS
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        PROCESS_RSS_BYTES.set(rss if sys.platform == "darwin"
+                              else rss * 1024)
+
+
+register_gauge_probe(_rss_probe)
+
+
+# ---- metrics time-series ring (metrics_summary / history route) -------------
+
+class MetricsHistory:
+    """Background sampler keeping a bounded ring of counter/gauge
+    snapshots (reference: the in-cluster metrics schema behind
+    INFORMATION_SCHEMA.METRICS_SUMMARY — TiDB 4.0 reads Prometheus; the
+    embedded analog samples its own registries). One per Storage,
+    started at open and joined at close like the sampling profiler, so
+    no thread outlives its store."""
+
+    DEFAULT_INTERVAL_S = 15.0
+    DEFAULT_CAP = 240  # one hour at the default cadence
+
+    def __init__(self, registries, interval_s: Optional[float] = None,
+                 cap: Optional[int] = None) -> None:
+        self.registries = list(registries)
+        self.interval_s = float(interval_s or self.DEFAULT_INTERVAL_S)
+        self._ring: deque = deque(maxlen=int(cap or self.DEFAULT_CAP))
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def configure(self, interval_s: Optional[float] = None,
+                  cap: Optional[int] = None) -> None:
+        """Apply the performance.metrics-history-* config knobs (the
+        server calls this after loading config; safe while running)."""
+        if interval_s:
+            self.interval_s = max(float(interval_s), 0.1)
+        if cap:
+            with self._lock:
+                self._ring = deque(self._ring, maxlen=max(int(cap), 1))
+
+    def sample_now(self, record: bool = True) -> dict:
+        """One sample of every counter/gauge. record=False computes the
+        point without touching the ring — the metrics_summary read path
+        uses it so reading the time-series never mutates it."""
+        run_gauge_probes()
+        values: dict[str, float] = {}
+        for reg in self.registries:
+            values.update(reg.flat_samples())
+        ent = {"ts": time.time(), "values": values}
+        if record:
+            with self._lock:
+                self._ring.append(ent)
+        return ent
+
+    def _run(self) -> None:
+        self.sample_now()  # first point at start, not one interval in
+        while not self._stop.wait(self.interval_s):
+            self.sample_now()
+
+    def start(self) -> "MetricsHistory":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, daemon=True,
+                name="titpu-metrics-history")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        t = self._thread
+        if t is not None:
+            self._stop.set()
+            t.join(timeout=5.0)
+            self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            return [dict(e) for e in self._ring]
+
+    def summary(self, extra: Optional[dict] = None) -> dict[str, dict]:
+        """metric -> {samples, min, avg, max, last} over the ring (the
+        information_schema.metrics_summary rows); `extra` folds in a
+        transient point (e.g. sample_now(record=False)) for 'now'."""
+        out: dict[str, dict] = {}
+        points = self.snapshot()
+        if extra is not None:
+            points.append(extra)
+        for ent in points:
+            for name, v in ent["values"].items():
+                st = out.get(name)
+                if st is None:
+                    out[name] = {"samples": 1, "min": v, "max": v,
+                                 "sum": v, "last": v}
+                else:
+                    st["samples"] += 1
+                    st["min"] = min(st["min"], v)
+                    st["max"] = max(st["max"], v)
+                    st["sum"] += v
+                    st["last"] = v
+        for st in out.values():
+            st["avg"] = st.pop("sum") / st["samples"]
+        return out
+
+
 
 
 # ---- cross-layer span trees (TRACE) -----------------------------------------
@@ -652,12 +1312,11 @@ class StageRecorder:
     most the instrumented wall time; `op_wall`: exclusive wall seconds
     per plan operator; `ops`: each operator's per-stage split (stages
     outside any operator frame land under '(session)'); `op_bytes`:
-    host-to-device bytes per operator; `op_mesh`: per-operator shard
-    balance (empty on one device); `engines`: the engine tag of each
+    host-to-device bytes per operator; `engines`: the engine tag of each
     coprocessor read, in call order."""
 
     __slots__ = ("totals", "counts", "op_wall", "ops", "op_bytes",
-                 "op_mesh", "engines")
+                 "engines")
 
     def __init__(self) -> None:
         self.totals: dict[str, float] = {}
@@ -665,7 +1324,6 @@ class StageRecorder:
         self.op_wall: dict[str, float] = {}
         self.ops: dict[str, dict[str, float]] = {}
         self.op_bytes: dict[str, int] = {}
-        self.op_mesh: dict[str, list] = {}
         self.engines: list[str] = []
 
     def add(self, name: str, seconds: float) -> None:
@@ -760,6 +1418,140 @@ def stage(name: str, span_name: Optional[str] = None) -> _StageCtx:
     return _StageCtx(name, span_name)
 
 
+# ---- typed wait-state ledger (critical-path attribution) --------------------
+
+_wait_tls = threading.local()
+
+
+class WaitLedger:
+    """Per-statement typed wait totals, EXCLUSIVE of nested wait frames
+    (same additive guarantee as StageRecorder: summing the states never
+    exceeds the instrumented wall). One ledger per statement, installed
+    by the session ONLY while performance.wait-profile-enabled is on —
+    disabled, nothing on the statement path allocates or touches one
+    (the zero-allocation contract). The states are
+    the write path's blocking taxonomy: tso_wait, lease_wait,
+    backoff.{kind}, rpc_net, prewrite, commit_primary,
+    commit_secondary, resolve_lock, fsync_wait (reference: TiDB's
+    execution-stage runtime stats feeding slow log and Top SQL)."""
+
+    __slots__ = ("totals", "counts")
+
+    def __init__(self) -> None:
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    def add(self, state: str, seconds: float) -> None:
+        self.totals[state] = self.totals.get(state, 0.0) + seconds
+        self.counts[state] = self.counts.get(state, 0) + 1
+
+    def snapshot(self) -> dict[str, float]:
+        return dict(self.totals)
+
+
+def install_wait_ledger(led: Optional[WaitLedger]) -> None:
+    _wait_tls.led = led
+
+
+def active_wait_ledger() -> Optional[WaitLedger]:
+    return getattr(_wait_tls, "led", None)
+
+
+class _WaitCtx:
+    """Times one typed wait frame: always feeds the tidb_wait_seconds
+    histogram (+ its counter twin) with EXCLUSIVE time — a per-thread
+    nesting stack subtracts inner wait frames and note_wait charges,
+    so the per-state sums are additive — and feeds the active
+    WaitLedger when one is installed. With `fallback=True` the frame
+    is a full no-op when ANY wait frame is already open: the enclosed
+    time stays attributed to the more specific enclosing state
+    (rpc_net is the catch-all for network time not already typed as a
+    2PC phase or tso_wait). Optionally opens a TRACE span (span_name),
+    allocating no Span when tracing is off."""
+
+    __slots__ = ("state", "spanctx", "t0", "skip")
+
+    def __init__(self, state: str, span_name: Optional[str],
+                 fallback: bool) -> None:
+        self.state = state
+        self.skip = bool(fallback and getattr(_wait_tls, "stack", None))
+        self.spanctx = _SpanCtx(span_name) if (
+            span_name and not self.skip) else None
+        self.t0 = 0.0
+
+    def __enter__(self) -> "_WaitCtx":
+        if self.skip:
+            return self
+        stack = getattr(_wait_tls, "stack", None)
+        if stack is None:
+            stack = _wait_tls.stack = []
+        stack.append(0.0)  # accumulates nested-frame wall time
+        if self.spanctx is not None:
+            self.spanctx.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.skip:
+            return
+        dt = time.perf_counter() - self.t0
+        if self.spanctx is not None:
+            self.spanctx.__exit__(*exc)
+        stack = _wait_tls.stack
+        child = stack.pop()
+        if stack:
+            stack[-1] += dt
+        excl = dt - child if dt > child else 0.0
+        WAIT_SECONDS.observe(excl, state=self.state)
+        WAIT_SECONDS_TOTAL.inc(excl, state=self.state)
+        led = getattr(_wait_tls, "led", None)
+        if led is not None:
+            led.add(self.state, excl)
+
+
+def wait(state: str, span_name: Optional[str] = None,
+         fallback: bool = False) -> _WaitCtx:
+    """`with obs.wait("prewrite"):` — one typed wait frame. Histogram +
+    active ledger always (exclusive time); a span only when span_name
+    is given AND a TRACE collector is active."""
+    return _WaitCtx(state, span_name, fallback)
+
+
+def note_wait(state: str, seconds: float) -> None:
+    """Charge externally-timed wait seconds (a Backoffer sleep, a
+    transport-timeout block) to the typed state: histogram + counter
+    twin + the active ledger, and the enclosing wait frame's exclusive
+    accounting (the charge is subtracted from the enclosing frame, so
+    a backoff sleep inside a prewrite frame never double-counts)."""
+    if seconds <= 0:
+        return
+    stack = getattr(_wait_tls, "stack", None)
+    if stack:
+        stack[-1] += seconds
+    WAIT_SECONDS.observe(seconds, state=state)
+    WAIT_SECONDS_TOTAL.inc(seconds, state=state)
+    led = getattr(_wait_tls, "led", None)
+    if led is not None:
+        led.add(state, seconds)
+
+
+def fmt_waits(waits: Optional[dict[str, float]]) -> str:
+    """wait dict (seconds) -> 'prewrite:3.2ms rpc_net:1.1ms ...'
+    heaviest first — the EXPLAIN ANALYZE / slow-log wait_profile cell."""
+    if not waits:
+        return ""
+    return " ".join(f"{k}:{v * 1e3:.3g}ms" for k, v in
+                    sorted(waits.items(), key=lambda kv: -kv[1]))
+
+
+def fmt_waits_ms(waits_ms: Optional[dict[str, float]]) -> str:
+    """fmt_waits for dicts already in milliseconds (the slow-log entry
+    form written by record_slow)."""
+    if not waits_ms:
+        return ""
+    return fmt_waits({k: v / 1e3 for k, v in waits_ms.items()})
+
+
 _STAGE_ORDER = ("parse", "plan_build", "prepare", "staging", "transfer",
                 "compile", "kernel", "device_get", "host_fallback",
                 "ranged")
@@ -836,3 +1628,286 @@ class RuntimeStatsColl:
 
     def for_plan(self, plan) -> Optional[dict]:
         return self.nodes.get(id(plan))
+
+
+# ---- sampling host-CPU profiler ---------------------------------------------
+
+class Profile:
+    """Aggregated stack samples: {stack tuple -> count}. A stack is a
+    tuple of 'func (file:line)' strings, outermost first."""
+
+    __slots__ = ("stacks", "hz", "duration_s")
+
+    def __init__(self, stacks: dict[tuple, int], hz: float,
+                 duration_s: float) -> None:
+        self.stacks = stacks
+        self.hz = hz
+        self.duration_s = duration_s
+
+    @property
+    def total_samples(self) -> int:
+        return sum(self.stacks.values())
+
+    def hot_frames(self, limit: int = 20) -> list[tuple[str, int]]:
+        """Frames ranked by SELF samples (innermost frame of a stack)."""
+        own: dict[str, int] = {}
+        for stack, n in self.stacks.items():
+            if stack:
+                own[stack[-1]] = own.get(stack[-1], 0) + n
+        return sorted(own.items(), key=lambda kv: -kv[1])[:limit]
+
+    def tree_rows(self, max_rows: int = 512) -> list[tuple[str, float, int]]:
+        """Flamegraph-style rows: (indented frame, est. seconds,
+        samples), depth-first, heaviest subtree first."""
+        root: dict = {}
+        counts: dict[int, int] = {}
+
+        for stack, n in self.stacks.items():
+            node = root
+            for frame in stack:
+                node = node.setdefault(frame, {})
+                counts[id(node)] = counts.get(id(node), 0) + n
+
+        per_sample = 1.0 / self.hz if self.hz > 0 else 0.0
+        rows: list[tuple[str, float, int]] = []
+
+        def walk(node: dict, depth: int) -> None:
+            for frame, child in sorted(
+                    node.items(), key=lambda kv: -counts[id(kv[1])]):
+                if len(rows) >= max_rows:
+                    return
+                n = counts[id(child)]
+                rows.append(("  " * depth + frame,
+                             round(n * per_sample, 6), n))
+                walk(child, depth + 1)
+
+        walk(root, 0)
+        return rows
+
+    def to_dict(self) -> dict:
+        return {
+            "hz": self.hz,
+            "duration_s": round(self.duration_s, 6),
+            "total_samples": self.total_samples,
+            "hot_frames": self.hot_frames(),
+            "tree": [{"frame": f, "seconds": s, "samples": n}
+                     for f, s, n in self.tree_rows()],
+        }
+
+
+def _format_frame(frame) -> str:
+    co = frame.f_code
+    return f"{co.co_name} ({co.co_filename.rsplit('/', 1)[-1]}" \
+        f":{frame.f_lineno})"
+
+
+class SamplingProfiler:
+    """Wall-clock stack sampler over sys._current_frames() (reference:
+    util/profile serving pprof CPU profiles through SQL and the status
+    port). `thread_ids=None` samples every thread (the /debug/profile
+    whole-process view); a set restricts to those threads (the
+    per-statement SHOW PROFILE view). start()/stop() own the sampler
+    thread's lifecycle — stop() joins it, so no sampler leaks past the
+    statement that started it."""
+
+    MAX_DEPTH = 48
+    MAX_STACKS = 4096
+
+    def __init__(self, hz: float = 97.0,
+                 thread_ids: Optional[set] = None) -> None:
+        self.hz = max(float(hz), 1.0)
+        self.thread_ids = thread_ids
+        self._stacks: dict[tuple, int] = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._t0 = 0.0
+        self._elapsed = 0.0
+
+    def start(self) -> "SamplingProfiler":
+        if self._thread is not None:
+            raise RuntimeError("profiler already running")
+        self._t0 = time.perf_counter()
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="titpu-profiler")
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        import sys
+
+        me = threading.get_ident()
+        period = 1.0 / self.hz
+        while not self._stop.wait(period):
+            frames = sys._current_frames()
+            for tid, frame in frames.items():
+                if tid == me:
+                    continue
+                if self.thread_ids is not None and \
+                        tid not in self.thread_ids:
+                    continue
+                stack: list[str] = []
+                f = frame
+                while f is not None and len(stack) < self.MAX_DEPTH:
+                    stack.append(_format_frame(f))
+                    f = f.f_back
+                stack.reverse()
+                key = tuple(stack)
+                if key in self._stacks or \
+                        len(self._stacks) < self.MAX_STACKS:
+                    self._stacks[key] = self._stacks.get(key, 0) + 1
+                PROFILER_SAMPLES.inc()
+            del frames
+
+    def stop(self) -> Profile:
+        t = self._thread
+        if t is not None:
+            self._stop.set()
+            t.join(timeout=5.0)
+            self._thread = None
+        self._elapsed = time.perf_counter() - self._t0
+        return Profile(dict(self._stacks), self.hz, self._elapsed)
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+
+def profile_process(seconds: float = 0.5, hz: float = 97.0) -> Profile:
+    """Block for `seconds` sampling every thread — the /debug/profile
+    handler's one-shot whole-process view."""
+    p = SamplingProfiler(hz=hz).start()
+    time.sleep(max(min(seconds, 10.0), 0.01))
+    return p.stop()
+
+
+# ---- metric-hygiene lint -----------------------------------------------------
+
+_METRIC_NAME_RE = None  # compiled lazily (re import stays off hot paths)
+
+
+def lint_metrics(registries, device_label_cap: Optional[int] = None
+                 ) -> list[str]:
+    """Walk registries + their rendered exposition and return hygiene
+    findings (empty list = clean). Checks: every metric carries help
+    text; names are tidb_-prefixed snake_case; no family is registered
+    in more than one of the given registries (their /metrics outputs
+    concatenate); `device`/`shard` label families stay bounded by the
+    mesh size (`device_label_cap`, default 8) so per-device telemetry
+    cannot turn into unbounded cardinality; and the rendered Prometheus
+    text exposition is well-formed (HELP/TYPE precede samples, label
+    syntax and values parse, histogram buckets are cumulative and
+    _count-consistent), so a metric added later cannot silently break
+    the scrape."""
+    import re
+    global _METRIC_NAME_RE
+    if _METRIC_NAME_RE is None:
+        _METRIC_NAME_RE = re.compile(r"^tidb_[a-z0-9_]+$")
+    if device_label_cap is None:
+        # one device: the reference's floor of 8 (its default is the
+        # live mesh width, at least 8)
+        device_label_cap = 8
+    findings: list[str] = []
+    seen: dict[str, int] = {}
+    label_vals: dict[tuple[str, str], set] = {}
+    for ri, reg in enumerate(registries):
+        with reg._lock:
+            metrics = list(reg._metrics.values())
+        for m in metrics:
+            if not getattr(m, "help", ""):
+                findings.append(f"metric {m.name}: missing help text")
+            if not _METRIC_NAME_RE.match(m.name):
+                findings.append(
+                    f"metric {m.name}: name must match tidb_[a-z0-9_]+")
+            if m.name in seen and seen[m.name] != ri:
+                findings.append(
+                    f"metric {m.name}: registered in more than one "
+                    "concatenated registry (duplicate family on "
+                    "/metrics)")
+            seen[m.name] = ri
+            if isinstance(m, (Counter, Gauge)):
+                keys = [k for k, _ in m.samples()]
+            else:
+                keys = [k for k, _, _, _ in m.series()]
+            for key in keys:
+                for lk, lv in key:
+                    if lk in ("device", "shard"):
+                        label_vals.setdefault((m.name, lk),
+                                              set()).add(lv)
+        findings.extend(_lint_exposition(reg.render()))
+    for (mname, lk), vals in sorted(label_vals.items()):
+        if len(vals) > device_label_cap:
+            findings.append(
+                f"metric {mname}: label {lk!r} has {len(vals)} values, "
+                f"over the mesh-size cap {device_label_cap} (unbounded "
+                "per-device/per-shard cardinality)")
+    return findings
+
+
+def _lint_exposition(text: str) -> list[str]:
+    """Validate one registry's Prometheus text exposition."""
+    import re
+    findings: list[str] = []
+    sample_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+        r'(?:\{((?:[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*")'
+        r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*")*)?\})? (\S+)$')
+    helped: set[str] = set()
+    typed: dict[str, str] = {}
+    bucket_acc: dict[str, int] = {}  # series label-part -> last cum count
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# HELP "):
+            parts = ln.split(" ", 3)
+            if len(parts) < 4 or not parts[3].strip():
+                findings.append(f"exposition: HELP without text: {ln!r}")
+            helped.add(parts[2])
+            continue
+        if ln.startswith("# TYPE "):
+            parts = ln.split(" ")
+            if len(parts) != 4 or parts[3] not in (
+                    "counter", "gauge", "histogram", "summary"):
+                findings.append(f"exposition: malformed TYPE: {ln!r}")
+                continue
+            if parts[2] in typed:
+                findings.append(
+                    f"exposition: duplicate TYPE for {parts[2]}")
+            typed[parts[2]] = parts[3]
+            continue
+        if ln.startswith("#"):
+            continue
+        m = sample_re.match(ln)
+        if m is None:
+            findings.append(f"exposition: malformed sample line: {ln!r}")
+            continue
+        name, labels, value = m.group(1), m.group(2), m.group(3)
+        family = name
+        for sfx in ("_bucket", "_sum", "_count"):
+            if name.endswith(sfx) and name[:-len(sfx)] in typed:
+                family = name[:-len(sfx)]
+                break
+        if family not in typed:
+            findings.append(
+                f"exposition: sample {name} precedes (or lacks) its "
+                "TYPE line")
+        elif family not in helped:
+            findings.append(f"exposition: {family} lacks a HELP line")
+        try:
+            float(value)
+        except ValueError:
+            findings.append(
+                f"exposition: non-numeric value {value!r} on {name}")
+            continue
+        if name.endswith("_bucket") and labels:
+            series = re.sub(r'le="[^"]*",?', "", labels)
+            key = family + "{" + series + "}"
+            cum = int(float(value))
+            if cum < bucket_acc.get(key, 0):
+                findings.append(
+                    f"exposition: non-cumulative buckets on {key}")
+            if 'le="+Inf"' in labels:
+                bucket_acc.pop(key, None)  # series complete; reset
+            else:
+                bucket_acc[key] = cum
+    return findings

@@ -1,10 +1,12 @@
 """MySQL wire server: accept loop, connection registry, graceful shutdown.
 
 Port of `tidb_tpu/server/server.py`: the worker pool, the connection
-reactor, the 1040 gate, KILL and the graceful close. `device` (None: the
-card) is handed to every connection's `Session`. Left out: the HTTP
-status server, TLS, the PROXY protocol, the multi-process kill mailbox,
-PROCESSLIST and the metrics-history sampler.
+reactor, the 1040 gate, KILL, the graceful close and the start of the
+storage's metrics-history sampler (the thread `titpu-metrics-history`,
+joined by `Storage.close`, not by the server: the store outlives a
+server restart). `device` (None: the card) is handed to every
+connection's `Session`. Left out: the HTTP status server, TLS, the PROXY
+protocol, the multi-process kill mailbox and PROCESSLIST.
 
 Counterpart of the reference's server package (reference: server/server.go —
 NewServer, Run accept loop :308, onConn :411, Kill :548, graceful drain
@@ -80,8 +82,10 @@ class _WorkerPool:
             self._count += 1
             t = threading.Thread(target=self._worker, daemon=True,
                                  name=f"titpu-conn-worker-{self._seq}")
+            # started under the lock, so close() never joins a thread
+            # that has not started (start() does not take the lock)
+            t.start()
             self._threads.add(t)
-        t.start()
 
     def _worker(self) -> None:
         while True:
@@ -307,6 +311,10 @@ class Server:
         self.storage.kill_router = self.kill
         # KILL ownership lookup (the reference's ER_KILL_DENIED check)
         self.storage.conn_owner = self.conn_owner
+        # a serving deployment samples its metrics ring in the
+        # background (embedded stores sample on demand); Storage.close()
+        # joins the thread
+        self.storage.metrics_history.start()
 
     def _accept_loop(self) -> None:
         assert self._listener is not None

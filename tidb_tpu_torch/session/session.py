@@ -29,10 +29,11 @@ per statement); CREATE/DROP [GLOBAL|SESSION] BINDING (`bindinfo.py`);
 SHOW (TABLES, DATABASES,
 CREATE TABLE/DATABASE/VIEW, COLUMNS, INDEX, TABLE STATUS, VARIABLES,
 STATUS, GRANTS, PRIVILEGES, CHARSET, COLLATION, ENGINES, WARNINGS,
-BINDINGS, SLOW QUERIES),
+BINDINGS, SLOW QUERIES, PROFILES, PROFILE, METRICS),
 ADMIN SHOW DDL JOBS, ADMIN CHECK TABLE and CHECKSUM TABLE; SELECTs over
-information_schema (`catalog/infoschema.py`, rebuilt before the
-statement reads it); the server's prepared statements (`prepare`,
+information_schema (`catalog/infoschema.py`) and metrics_schema
+(`catalog/metrics_schema.py`), rebuilt before the statement reads them;
+the server's prepared statements (`prepare`,
 `execute_prepared`, `close_prepared`). Autocommit point statements take
 the fast path (`plan/fastpath.py`) and never touch the coprocessor.
 
@@ -48,6 +49,19 @@ stamped with the schema version, the statistics generation and the
 bindings. EXPLAIN ANALYZE runs the plan under a `RuntimeStatsColl` (a
 point SELECT shows its fast path and `plan_cache:hit|miss`); TRACE runs
 a SELECT or DML under a `SpanCollector`.
+
+The observability planes, each off until configured on the storage: the
+statement feeds Top SQL (stages, operator walls and bytes, the shed and
+killed flags), the wait profile (a `WaitLedger` is installed for the
+statement only while it is on; EXPLAIN ANALYZE's `wait_profile` cell
+prints it) and the workload history (digest, engine tags, stages), each
+gated on `enabled` before any digest is hashed; @@profiling samples the
+statement's thread (SHOW PROFILES, SHOW PROFILE,
+information_schema.profiling). The storage's governor and admission gate
+(`util/governor.py`): DML admits at the DML priority and a SELECT at its
+plan's (`plan_priority`), INSERT ... SELECT once; a shed raises
+`AdmissionTimeout` (9003); every statement's memory tracker registers
+with the governor, whose kill answers 8175.
 
 Accounts: CREATE/DROP/ALTER/RENAME USER, GRANT and REVOKE (column grants
 too), CREATE/DROP ROLE, GRANT of a role, SET DEFAULT ROLE and SET ROLE,
@@ -67,9 +81,8 @@ GET_LOCK family takes the storage's named locks (`UserLocks`), released
 when the connection closes (`rollback_if_active`).
 
 Raise `NotInSlice`: every other statement kind by its kind; SHOW
-PROCESSLIST, PROFILES, PROFILE and METRICS as "SHOW <kind>";
-`metrics_schema` and the obs-backed information_schema tables other than
-`statements_summary` and `slow_query` by their names.
+PROCESSLIST as "SHOW PROCESSLIST"; the information_schema tables of
+planes the port does not have by their names (`catalog/infoschema.py`).
 
 A partitioned table's DML loops over its partitions
 (`_partition_children`): INSERT (and LOAD DATA) routes each row by the
@@ -77,9 +90,8 @@ partition column, UPDATE buffers rows that move to another partition
 until every partition has been scanned, and DELETE, FOR UPDATE, ANALYZE,
 CHECKSUM and ADMIN CHECK visit each partition's store.
 
-Left out of the reference's statement path, with their planes: Top SQL,
-the workload history, the wait profile, the profiler, the processlist,
-replica routing and governor admission.
+Left out of the reference's statement path, with their planes: the
+processlist, replica routing and the shard-skew warnings of the mesh.
 """
 
 from __future__ import annotations
@@ -90,6 +102,7 @@ import re
 import threading
 import time
 from collections import OrderedDict
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Any, Optional, Union
 
@@ -106,7 +119,8 @@ from ..errno import (ER_BAD_FIELD, ER_BAD_NULL, ER_CANT_CREATE_FILE,
                      ER_DATA_INCONSISTENT, ER_DUP_ENTRY, ER_FILE_EXISTS,
                      ER_FILE_NOT_FOUND, ER_KILL_DENIED, ER_NO_SUCH_TABLE,
                      ER_NOT_SUPPORTED_YET, ER_OPTION_PREVENTS_STATEMENT,
-                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED, ER_QUERY_TIMEOUT,
+                     ER_PARSE_ERROR, ER_QUERY_INTERRUPTED,
+                     ER_QUERY_MEM_EXCEEDED, ER_QUERY_TIMEOUT,
                      ER_SPECIFIC_ACCESS_DENIED, ER_TABLE_EXISTS,
                      ER_TABLEACCESS_DENIED, ER_TEXTFILE_NOT_READABLE,
                      ER_TIKV_SERVER_BUSY, ER_TRUNCATED_WRONG_VALUE,
@@ -150,14 +164,12 @@ _DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
 # statements whose affected count is ROW_COUNT()
 _ROW_COUNT_STMTS = _DML + (ast.LoadDataStmt,)
 
-# SHOW kinds whose planes are not ported (the processlist, the profiler,
-# the metrics history)
-_NOT_IN_SLICE_SHOW = frozenset({"PROCESSLIST", "PROFILES", "PROFILE",
-                                "METRICS"})
+# SHOW kinds whose planes are not ported (the processlist, with the
+# server process)
+_NOT_IN_SLICE_SHOW = frozenset({"PROCESSLIST"})
 
 _EXPLAIN_ANALYZE_COLS = ["plan", "actRows", "time_ms", "engine", "stages",
                          "mesh", "wait_profile"]
-_METRICS_SCHEMA = "metrics_schema"
 
 
 class SQLError(CodedError):
@@ -243,6 +255,31 @@ class Session:
         self._raw_sql: Optional[str] = None
         # set by the @@max_execution_time timer before it interrupts
         self._deadline_expired = False
+        # the last statement's operator stage split, operator transfer
+        # bytes and typed waits (Top SQL's feed, readable by callers)
+        self.last_op_stages: dict[str, dict[str, float]] = {}
+        self.last_op_bytes: dict[str, int] = {}
+        self.last_waits: dict[str, float] = {}
+        # @@profiling ring: per-statement sampling profiles served by
+        # SHOW PROFILES / SHOW PROFILE / information_schema.profiling
+        self._profiles: list[dict] = []
+        self._profile_seq = 0
+        # server-wide overload protection (util/governor.py): the LIVE
+        # per-statement tracker root while one is registered with the
+        # memory governor, the governor-kill latch telling 8175 from a
+        # plain KILL's 1317, and the admission re-entrancy depth
+        # (INSERT..SELECT must not buy a second execution token and
+        # deadlock itself at token-limit 1)
+        self._live_mem = None
+        # the running statement's text (the governor's kill label and
+        # the admission shed's event)
+        self.in_flight_sql: Optional[str] = None
+        self._governor_killed = False
+        self._admission_depth = 0
+        # serializes the governor's kill callback against the
+        # statement's tracker install/uninstall, so a late callback
+        # cannot flag the session's NEXT statement
+        self._gov_lock = threading.Lock()
 
     @property
     def cop(self) -> CopClient:
@@ -252,6 +289,10 @@ class Session:
             self._cop = CopClient(self._device)
             self.storage.add_cache_client(self._cop)
         return self._cop
+
+    def add_warning(self, message: str, code: int = 1105,
+                    level: str = "Warning") -> None:
+        self.warnings.append((level, code, message))
 
     # ==================== public API ====================
     def execute(self, sql: str) -> ResultSet:
@@ -321,19 +362,25 @@ class Session:
 
     def _execute_observed(self, stmt: ast.Stmt, sql: str,
                           digest_sql: Optional[str] = None) -> ResultSet:
-        """Run one statement under its own stage recorder, with the
-        storage's statement counters, the digest record and the slow log;
-        the recorder's totals, operator walls and engine tags become
-        `last_stages`, `last_op_wall` and `last_engines`."""
+        """Run one statement under its own stage recorder (and, while the
+        wait profile is on, its own wait ledger), with the storage's
+        statement counters, the digest record, the slow log and the
+        planes that are on: Top SQL, the wait profile, the workload
+        history and @@profiling. The recorder's totals, operator walls,
+        stage splits, bytes and engine tags become `last_stages`,
+        `last_op_wall`, `last_op_stages`, `last_op_bytes` and
+        `last_engines`; the ledger's totals `last_waits`."""
         o = self.storage.obs
         t0 = time.perf_counter()
         o.queries.inc(type=type(stmt).__name__.removesuffix("Stmt"))
         failed = False
+        shed = False
         rows_out = 0
         # arm the per-statement kill flag (KILL QUERY clears with the
         # statement; KILL CONNECTION leaves it set and the server drops
         # the socket)
         self.killed.clear()
+        self._governor_killed = False
         self.last_plan_from_cache = False
         self.last_mem_peak = 0
         self.last_spill_count = 0
@@ -342,6 +389,10 @@ class Session:
         deadline = self._start_deadline(stmt)
         prev_rec = obs.active_stage_recorder()
         rec = obs.StageRecorder()
+        # the typed wait ledger exists ONLY while the wait profile is on:
+        # off, the statement path never builds or touches one
+        prev_led = obs.active_wait_ledger()
+        led = obs.WaitLedger() if o.waitprofile.enabled else None
         if self._pending_parse_s:
             rec.add("parse", self._pending_parse_s)
             rec.add_op_stage("(session)", "parse", self._pending_parse_s)
@@ -355,6 +406,7 @@ class Session:
                 and not self._collect_table_names(stmt)))
         if not preserves_warnings:
             self.warnings = []
+        self.in_flight_sql = sql[:256]
         self._stmt_auto_id = None
         # route @@time_zone to the scalar-function layer for the
         # statement's duration: FROM_UNIXTIME formats in the session
@@ -363,16 +415,28 @@ class Session:
             tz = str(self._sysvar_value("time_zone") or "SYSTEM")
         except (TypeError, ValueError, SQLError):
             tz = "SYSTEM"
-        # the TLS frames (stage recorder, session time zone) install
-        # INSIDE the protected region and restore in the finally, or the
-        # frame leaks onto this worker thread for its next statement.
-        # Restoring a never-installed time zone writes None, which reads
-        # as SYSTEM.
+        # the TLS frames (stage recorder, wait ledger, session time zone)
+        # install INSIDE the protected region and restore in the finally,
+        # or the frame leaks onto this worker thread for its next
+        # statement. Restoring a never-installed time zone writes None,
+        # which reads as SYSTEM.
         prev_tz = None
+        prof = None
         try:
             obs.install_stage_recorder(rec)
+            obs.install_wait_ledger(led)
             prev_tz = funcs.install_session_time_zone(tz)
-            rs = self._execute_stmt(stmt)
+            # @@profiling: sample THIS thread's stacks for the statement
+            prof = self._maybe_start_profiler(stmt)
+            if isinstance(stmt, _ROW_COUNT_STMTS):
+                # DML admits at the top priority class: point writes must
+                # not starve behind queued analytical scans (SELECTs
+                # admit in _exec_select, with the planner's estimate)
+                from ..util.governor import PRI_DML
+                with self._admission(PRI_DML):
+                    rs = self._execute_stmt(stmt)
+            else:
+                rs = self._execute_stmt(stmt)
             rows_out = len(rs.rows)
             if self._stmt_auto_id is not None:
                 self.vars["last_insert_id"] = self._stmt_auto_id
@@ -383,6 +447,15 @@ class Session:
         except interrupt.QueryInterrupted:
             failed = True
             o.query_errors.inc()
+            if self._governor_killed:
+                # the memory governor picked this statement as the
+                # heaviest cancellable one: 8175, server-scoped message
+                raise SQLError(
+                    "Out Of Memory Quota! [server] statement cancelled "
+                    "by the memory governor: tidb-server memory usage "
+                    "crossed server-memory-limit and this was the "
+                    "heaviest cancellable statement",
+                    errno=ER_QUERY_MEM_EXCEEDED) from None
             if self._deadline_expired:
                 raise SQLError(
                     "Query execution was interrupted, maximum statement "
@@ -390,8 +463,10 @@ class Session:
                     errno=ER_QUERY_TIMEOUT) from None
             raise SQLError("Query execution was interrupted",
                            errno=ER_QUERY_INTERRUPTED) from None
-        except Exception:
+        except Exception as e:
             failed = True
+            from ..util.governor import AdmissionTimeout
+            shed = isinstance(e, AdmissionTimeout)
             o.query_errors.inc()
             raise
         finally:
@@ -400,15 +475,22 @@ class Session:
             self._deadline_expired = False
             interrupt.install(None)
             obs.install_stage_recorder(prev_rec)
+            obs.install_wait_ledger(prev_led)
             funcs.install_session_time_zone(prev_tz)
+            self.in_flight_sql = None
             if self._is_guard is not None:
                 self._is_guard.release()
                 self._is_guard = None
             dt = time.perf_counter() - t0
+            if prof is not None:
+                self._finish_profile(prof, sql, dt)
             o.query_seconds.observe(dt)
             self.last_stages = rec.totals
             self.last_op_wall = rec.op_wall
+            self.last_op_stages = rec.ops
+            self.last_op_bytes = rec.op_bytes
             self.last_engines = rec.engines
+            self.last_waits = led.totals if led is not None else {}
             if digest_sql is not None:
                 o.statements.record(digest_sql, self.current_db, dt,
                                     rows_out, failed,
@@ -419,15 +501,86 @@ class Session:
                     self._sysvar_value("tidb_slow_log_threshold"))
             except (TypeError, ValueError, SQLError):
                 thresh = obs.DEFAULT_SLOW_THRESHOLD_MS
-            if dt * 1e3 >= thresh:
-                # the digest the statements_summary uses, so slow-log
-                # entries join against the digest table
-                digest, _ = obs.StatementsSummary.digest(digest_sql or sql)
-                o.record_slow(sql, self.current_db, dt,
-                              plan_digest=digest, stages=rec.snapshot(),
-                              mem_peak=self.last_mem_peak,
-                              spill_count=self.last_spill_count,
-                              op_wall=rec.op_wall)
+            slow = dt * 1e3 >= thresh
+            # the planes' feeds, each gated on `enabled` HERE so a plane
+            # that is off costs no digest hash and no allocation
+            topsql = o.topsql
+            history = self.storage.history
+            hist_on = history.enabled and digest_sql is not None
+            wp_on = led is not None and led.totals \
+                and digest_sql is not None
+            top_on = topsql.enabled and digest_sql is not None
+            if slow or hist_on or wp_on or top_on:
+                # the digest the statements_summary uses, so slow-log,
+                # Top SQL and history entries join against the digest
+                # table
+                digest, norm = obs.StatementsSummary.digest(
+                    digest_sql or sql)
+                if hist_on:
+                    history.observe(
+                        digest, norm[:512], self.current_db, dt,
+                        engines=rec.engines, stages=rec.totals,
+                        rows=rows_out, failed=failed)
+                if wp_on:
+                    o.waitprofile.record(digest, norm[:512],
+                                         self.current_db, dt,
+                                         led.totals)
+                if top_on:
+                    topsql.record(
+                        digest, norm[:512], self.current_db, dt,
+                        stages=rec.totals, op_wall=rec.op_wall,
+                        op_stages=rec.ops, op_bytes=rec.op_bytes,
+                        rows=rows_out, failed=failed, shed=shed,
+                        killed=self._governor_killed,
+                        waits=led.totals if led is not None else None)
+                if slow:
+                    o.record_slow(sql, self.current_db, dt,
+                                  plan_digest=digest,
+                                  stages=rec.snapshot(),
+                                  mem_peak=self.last_mem_peak,
+                                  spill_count=self.last_spill_count,
+                                  op_wall=rec.op_wall,
+                                  waits=dict(led.totals)
+                                  if led is not None else None)
+
+    # ==================== statement profiling ====================
+    def _maybe_start_profiler(self, stmt: ast.Stmt):
+        """Start a per-statement stack sampler when @@profiling is on.
+        SET and SHOW PROFILE[S] are exempt (MySQL behaves the same:
+        toggling or reading profiles must not clobber the ring)."""
+        if isinstance(stmt, ast.SetStmt):
+            return None
+        if isinstance(stmt, ast.ShowStmt) and \
+                stmt.kind in ("PROFILE", "PROFILES"):
+            return None
+        v = self._sysvar_value("profiling")
+        if str(v).upper() not in ("1", "ON", "TRUE", "YES"):
+            return None
+        try:
+            hz = float(self._sysvar_value("tidb_profiler_sample_hz") or 97)
+        except (TypeError, ValueError):
+            hz = 97.0
+        return obs.SamplingProfiler(
+            hz=hz, thread_ids={threading.get_ident()}).start()
+
+    def _finish_profile(self, prof, sql: str, duration_s: float) -> None:
+        profile = prof.stop()
+        self._profile_seq += 1
+        self._profiles.append({
+            "query_id": self._profile_seq,
+            "sql": sql[:512],
+            "duration": duration_s,
+            "profile": profile,
+        })
+        try:
+            raw = self._sysvar_value("profiling_history_size")
+            cap = 15 if raw is None or raw == "" else int(raw)
+        except (TypeError, ValueError, SQLError):
+            cap = 15
+        if cap <= 0:  # MySQL: history size 0 retains nothing
+            self._profiles.clear()
+        else:
+            del self._profiles[:max(len(self._profiles) - cap, 0)]
 
     def query(self, sql: str) -> list[tuple[Any, ...]]:
         return self.execute(sql).rows
@@ -546,10 +699,11 @@ class Session:
                 return self._exec_drop_sequence(stmt)
         if isinstance(stmt, ast.UseStmt):
             from ..catalog import infoschema as I
+            from ..catalog import metrics_schema as MS
             if stmt.db.lower() == I.DB_NAME:
                 I.ensure_schema(self.storage)
-            elif stmt.db.lower() == _METRICS_SCHEMA:
-                raise NotInSlice(_METRICS_SCHEMA)
+            elif stmt.db.lower() == MS.DB_NAME:
+                MS.ensure_schema(self.storage)
             self.catalog.schema(stmt.db)  # raises if unknown
             self.current_db = stmt.db
             return ResultSet([], [])
@@ -1289,9 +1443,9 @@ class Session:
                 deny(need, f"{db}.{tn.name}")
 
     # ==================== information_schema ====================
-    # the served table whose rows depend on the reader (the reference's
-    # processlist, profiling and cluster_processlist are not served)
-    _VIEWER_SENSITIVE_IS = frozenset({"user_privileges"})
+    # the served tables whose rows depend on the reader (the reference's
+    # processlist and cluster_processlist are not served)
+    _VIEWER_SENSITIVE_IS = frozenset({"user_privileges", "profiling"})
 
     def _refresh_infoschema(self, stmt) -> None:
         """Rebuild any information_schema tables this statement touches
@@ -1303,14 +1457,20 @@ class Session:
         exclusive: the statement holds storage.infoschema_lock until it
         finishes (_execute_observed releases)."""
         from ..catalog import infoschema as I
+        from ..catalog import metrics_schema as MS
 
         names: set[str] = set()
+        ms_names: set[str] = set()
         for tn in self._collect_table_names(stmt):
             db = (tn.db or self.current_db).lower()
             if db == I.DB_NAME:
                 names.add(tn.name.lower())
-            elif db == _METRICS_SCHEMA:
-                raise NotInSlice(_METRICS_SCHEMA)
+            elif db == MS.DB_NAME:
+                ms_names.add(tn.name.lower())
+        if ms_names:
+            # the metric-family memtables (one per registered family;
+            # not viewer-sensitive, so no infoschema lock)
+            MS.refresh(self.storage, ms_names)
         if not names:
             return
         if names & self._VIEWER_SENSITIVE_IS and self._is_guard is None:
@@ -1428,14 +1588,69 @@ class Session:
             txn.rollback()
 
     def _exec_ctx(self, stats=None) -> ExecContext:
-        """ExecContext with the session's memory quota attached."""
+        """ExecContext with the session's memory quota attached. The
+        root tracker also registers with the storage's memory governor
+        for the statement's lifetime, so a server crossing its memory
+        limit can pick (and kill) the heaviest statement;
+        ExecContext.close() unregisters."""
         from ..util.memory import MemTracker
 
         quota = int(self._sysvar_value("tidb_mem_quota_query") or 0)
         action = str(self._sysvar_value("tidb_mem_oom_action") or "SPILL")
         mem = MemTracker("query", quota, action=action.upper())
-        return ExecContext(self._ensure_txn(), self.cop, stats=stats,
-                           mem=mem)
+        ctx = ExecContext(self._ensure_txn(), self.cop, stats=stats,
+                          mem=mem)
+        gov = self.storage.governor
+        # install the tracker BEFORE registering: register() runs a
+        # pressure check at once, and a kill it issues calls back into
+        # _governor_kill, whose tracker-identity guard must see it
+        with self._gov_lock:
+            self._live_mem = mem
+        token = gov.register(
+            mem, kill=lambda: self._governor_kill(mem),
+            label=(self.in_flight_sql or "")[:256],
+            conn_id=self.conn_id or 0)
+
+        def _release() -> None:
+            gov.unregister(token)
+            with self._gov_lock:
+                if self._live_mem is mem:
+                    self._live_mem = None
+
+        ctx.on_close = _release
+        return ctx
+
+    def _governor_kill(self, mem) -> None:
+        """Kill callback the memory governor invokes (from the thread
+        that tripped the limit): flip the latch that types the error as
+        8175 and set the statement's interrupt flag, which the engine
+        polls between plan nodes, as KILL QUERY's. Guarded by tracker
+        identity under the session's governor lock: a callback that
+        arrives after the picked statement finished is a no-op."""
+        with self._gov_lock:
+            if self._live_mem is not mem:
+                return  # the picked statement already completed
+            self._governor_killed = True
+            self.killed.set()
+
+    @contextmanager
+    def _admission(self, priority: int):
+        """Hold an execution token for the duration (no-op when the gate
+        is unlimited or this statement already holds one: INSERT ..
+        SELECT re-enters through _exec_select and must not buy a second
+        token). AdmissionTimeout (errno 9003) propagates to the client
+        as the typed "server busy" shed."""
+        if self._admission_depth > 0:
+            yield
+            return
+        self._admission_depth += 1
+        try:
+            with self.storage.admission.admit(
+                    priority, info={"conn_id": self.conn_id or 0,
+                                    "sql": self.in_flight_sql or ""}):
+                yield
+        finally:
+            self._admission_depth -= 1
 
     # ==================== SELECT ====================
     def _exec_select(self, stmt: ast.SelectStmt) -> ResultSet:
@@ -1447,16 +1662,27 @@ class Session:
         self._refresh_infoschema(stmt)
         ctx = None
         try:
-            if getattr(stmt, "for_update", False):
-                self._lock_for_update(stmt)
-            with obs.stage("plan_build", span_name="planner.optimize"):
-                plan = self._plan_cached(stmt, uncacheable=has_vars)
-            self._check_column_privs(plan)
-            ctx = self._exec_ctx()
-            try:
-                chunk = run_physical(plan, ctx)
-            finally:
-                ctx.close()
+            from ..util.governor import PRI_DML, plan_priority
+            # a locking read admits BEFORE taking row locks (locks then
+            # queue would invert against DML's admit then lock); FOR
+            # UPDATE is DML-class anyway
+            outer = self._admission(PRI_DML) \
+                if getattr(stmt, "for_update", False) else nullcontext()
+            with outer:
+                if getattr(stmt, "for_update", False):
+                    self._lock_for_update(stmt)
+                with obs.stage("plan_build",
+                               span_name="planner.optimize"):
+                    plan = self._plan_cached(stmt, uncacheable=has_vars)
+                self._check_column_privs(plan)
+                # execution admission: priority from the planner's
+                # estimate; a no-op when already admitted above
+                with self._admission(plan_priority(plan)):
+                    ctx = self._exec_ctx()
+                    try:
+                        chunk = run_physical(plan, ctx)
+                    finally:
+                        ctx.close()
         finally:
             # always clear the per-statement read-ts override — a plan
             # error after FOR UPDATE locking must not leak for_update_ts
@@ -2855,18 +3081,32 @@ class Session:
                 ctx.close()
 
         self._run_in_txn(run)
+        wp = self._wait_profile_cell()
         rows = []
-        for node, line in explain_nodes(plan):
+        for i, (node, line) in enumerate(explain_nodes(plan)):
             st = coll.for_plan(node)
             if st is None:
-                rows.append((line, None, None, "", "", "", ""))
+                rows.append((line, None, None, "", "", "",
+                             wp if i == 0 else ""))
             else:
                 rows.append((line, st["rows"],
                              round(st["time"] * 1e3, 2),
                              st["engine"] or "",
                              obs.fmt_stages(st.get("stages")),
-                             obs.fmt_mesh(st.get("mesh")), ""))
+                             obs.fmt_mesh(st.get("mesh")),
+                             wp if i == 0 else ""))
         return ResultSet(list(_EXPLAIN_ANALYZE_COLS), rows)
+
+    @staticmethod
+    def _wait_profile_cell() -> str:
+        """The statement's typed wait profile for the EXPLAIN ANALYZE
+        header row: EXPLAIN ANALYZE runs under the statement's wait
+        ledger, so the active ledger holds exactly the waits the analyzed
+        execution accrued so far. Empty when the wait profile is off."""
+        led = obs.active_wait_ledger()
+        if led is None or not led.totals:
+            return ""
+        return obs.fmt_waits(led.totals)
 
     def _explain_analyze_point(self, target,
                                bare_sql: Optional[str] = None
@@ -2897,7 +3137,7 @@ class Session:
             else f"key:{fp.index.name}"
         row = (f"Point_Get_1(table:{fp.info.name}, {key})",
                len(rs.rows), round(dt, 3), "point",
-               f"plan_cache:{cache}", "", "")
+               f"plan_cache:{cache}", "", self._wait_profile_cell())
         return ResultSet(list(_EXPLAIN_ANALYZE_COLS), [row])
 
     def _exec_trace(self, stmt: ast.TraceStmt) -> ResultSet:
@@ -3094,11 +3334,38 @@ class Session:
                 [(r["original_sql"], r["bind_sql"], r["default_db"],
                   r["status"], r["create_time"], r["update_time"],
                   "utf8mb4", "utf8mb4_bin", "manual") for r in recs])
+        if stmt.kind == "PROFILES":
+            # the @@profiling ring (MySQL SHOW PROFILES; entries
+            # recorded by the per-statement sampling profiler)
+            return ResultSet(
+                ["Query_ID", "Duration", "Query"],
+                [(p["query_id"], round(p["duration"], 6), p["sql"])
+                 for p in self._profiles])
+        if stmt.kind == "PROFILE":
+            # flamegraph-style table for one profiled statement: frame
+            # tree rows with estimated seconds and raw sample counts
+            if not self._profiles:
+                return ResultSet(["Status", "Duration", "Samples"], [])
+            if stmt.pattern:
+                qid = int(stmt.pattern)
+                ent = next((p for p in self._profiles
+                            if p["query_id"] == qid), None)
+                if ent is None:
+                    raise SQLError(f"no profile for query {qid}")
+            else:
+                ent = self._profiles[-1]
+            prof = ent["profile"]
+            rows = [(f_, sec, n) for f_, sec, n in prof.tree_rows()]
+            if not rows:
+                rows = [("(no samples: statement finished between "
+                         f"ticks at {prof.hz:g}Hz)", 0.0, 0)]
+            return ResultSet(["Status", "Duration", "Samples"], rows)
         if stmt.kind == "SLOW":
             rows = [(e["ts"], e["db"], e["duration_ms"], e["sql"],
                      e["plan_digest"],
                      obs.fmt_stages_ms(e.get("stages")),
-                     e["mem_max"], e["spill_count"], "")
+                     e["mem_max"], e["spill_count"],
+                     obs.fmt_waits_ms(e.get("waits")))
                     for e in self.storage.obs.slow_queries()]
             return ResultSet(["Time", "DB", "Duration_ms", "Query",
                               "Plan_digest", "Stages", "Mem_max",
@@ -3145,6 +3412,17 @@ class Session:
                  "Column_name", "Collation", "Cardinality", "Sub_part",
                  "Packed", "Null", "Index_type", "Comment",
                  "Index_comment"], rows)
+        if stmt.kind == "METRICS":
+            rows = []
+            # this storage's registry and the process-wide one: their
+            # families are disjoint
+            text = self.storage.obs.render() + obs.PROCESS_METRICS.render()
+            for line in text.splitlines():
+                if line.startswith("#") or not line.strip():
+                    continue
+                name, _, val = line.rpartition(" ")
+                rows.append((name, val))
+            return ResultSet(["Metric", "Value"], rows)
         raise SQLError(f"unsupported SHOW {stmt.kind}")
 
     def _table_for(self, tn: ast.TableName) -> tuple[TableInfo, TableStore]:

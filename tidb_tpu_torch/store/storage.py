@@ -25,10 +25,18 @@ Left out, with the planes they belong to: the multi-process and RPC
 planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
 coordinator, `refresh`, the remote owner), the
 maintenance daemon and its GC owner, the lock-order checker around
-`infoschema_lock`, the epoch listeners of the mesh plane, and the
-observability planes beyond the statement metrics (events, history,
-heat). GLOBAL plan bindings (`bindings`, `session/bindinfo.py`) ride the
-meta keyspace.
+`infoschema_lock`, the epoch listeners of the mesh plane, the diagnostics
+service and the keyspace heat plane. GLOBAL plan bindings (`bindings`,
+`session/bindinfo.py`) ride the meta keyspace.
+
+The observability planes live here as in the reference: `obs` (the
+metrics, Top SQL, the wait profile and the event ring, which the
+governor, the admission gate, the committer's lock resolver, the WAL's
+fsync-stall hook, checkpoints and group commits record into),
+`governor` and `admission` (`util/governor.py`, both off until
+configured), `metrics_history` (its sampler thread started by the
+server and joined by `close`), `diagnostics` (`obs_inspect.py`) and
+`history` (`obs_history.py`, persisted under `<path>/history/`).
 
 A partitioned table is one `TableStore` per partition, each under its own
 table id and region (`child_table_info`); the partitions share the first
@@ -133,6 +141,32 @@ class Storage:
         self.catalog = Catalog()
         # per-storage metrics, slow log and statement digests
         self.obs = Observability()
+        # server-wide overload protection (util/governor.py): the global
+        # memory ledger + kill policy and the execution admission gate,
+        # both off by default (limit 0 / tokens 0); their metrics ride
+        # this storage's registry
+        from ..util.governor import AdmissionGate, MemoryGovernor
+        self.governor = MemoryGovernor(self.obs.metrics)
+        self.admission = AdmissionGate(self.obs.metrics)
+        self.governor.events = self.obs.events
+        self.admission.events = self.obs.events
+        # bounded time-series of counter/gauge samples feeding
+        # metrics_schema and information_schema.metrics_summary; the
+        # serving Server starts its thread (embedded stores sample on
+        # demand), and close() always joins it
+        from .. import obs as _obs
+        self.metrics_history = _obs.MetricsHistory(
+            [self.obs.metrics, _obs.PROCESS_METRICS])
+        # the inspection engine's settings and edge-trigger memory
+        from .. import obs_inspect as _inspect
+        self.diagnostics = _inspect.DiagnosticsState()
+        _inspect.track(self)
+        # workload-history plane: per-digest (sql_digest, plan_digest)
+        # history, persisted under <path>/history/; off by default
+        from ..obs_history import WorkloadHistory
+        self.history = WorkloadHistory(path=path,
+                                       metrics=self.obs.metrics,
+                                       events=self.obs.events)
         # commit-time cap over a txn's ENCODED mutation bytes
         # (performance.txn-total-size-limit; 0 disables) — enforced in
         # commit() with ER_TXN_TOO_LARGE
@@ -157,8 +191,14 @@ class Storage:
             self._tso_lease = self.kv.max_commit_ts()
         self.tso = TimestampOracle(floor=self._tso_lease)
         self.rm = RegionManager(self.kv)
-        self.committer = TwoPhaseCommitter(self.rm, self.tso)
-        self.kv.kv._syncer.on_batch = self._note_group_commit
+        self.committer = TwoPhaseCommitter(self.rm, self.tso,
+                                           events=self.obs.events)
+        # group-commit event throttle (_note_group_commit)
+        self._gc_lock = threading.Lock()
+        self._gc_event_last = 0.0
+        self._gc_batches = 0
+        self._gc_commits = 0
+        self._wire_fsync_stall()
         # GLOBAL sysvar plane (mysql.global_variables analog) — rides the
         # meta keyspace (put_meta / get_meta), so durable stores keep SET
         # GLOBAL across restarts
@@ -585,6 +625,7 @@ class Storage:
         epochs whose snapshot is already current; the WAL always folds."""
         if self.path is None:
             return
+        t0 = time.perf_counter()
         self._flush_sequence_cursors()
         for store in list(self.tables.values()):
             if dirty_only and not store.epoch_dirty:
@@ -596,13 +637,55 @@ class Storage:
             # treat the half-finished checkpoint as noise
             failpoint.inject("storage/mid-checkpoint")
         self.kv.checkpoint()
+        dt = time.perf_counter() - t0
+        if dt >= 1.0:
+            # a slow checkpoint competes with the commit path for the
+            # WAL and its fsync: the event ring explains the spike
+            self.obs.events.record(
+                "checkpoint_stall", severity="warn",
+                detail=f"checkpoint took {dt * 1e3:.0f}ms "
+                       f"({len(self.tables)} tables, "
+                       f"dirty_only={dirty_only})")
+
+    def _wire_fsync_stall(self) -> None:
+        """Point the WAL's sync policy at this storage's event ring (a
+        slow fsync) and group-commit telemetry."""
+        syncer = self.kv.kv._syncer
+        events = self.obs.events
+
+        def _fsync_stall(dt_s: float) -> None:
+            events.record("fsync_stall", severity="warn",
+                          detail=f"wal fsync took {dt_s * 1e3:.1f}ms "
+                                 f"(policy {syncer.policy})")
+
+        syncer.on_stall = _fsync_stall
+        syncer.on_batch = self._note_group_commit
 
     def _note_group_commit(self, batch: int) -> None:
         """Group-fsync batch telemetry: every batch lands in the
-        tidb_group_commit_batch_size histogram and its counter twins."""
+        tidb_group_commit_batch_size histogram and its counter twins;
+        the event ring gets a throttled group_commit note (cumulative
+        since the last one), at most one each 5 s."""
         self.obs.group_commit_batch.observe(batch)
         self.obs.group_commit_fsyncs.inc()
         self.obs.group_commit_commits.inc(batch)
+        emit = None
+        with self._gc_lock:
+            self._gc_batches += 1
+            self._gc_commits += batch
+            now = time.monotonic()
+            if batch > 1 and now - self._gc_event_last >= 5.0:
+                self._gc_event_last = now
+                emit = (self._gc_commits, self._gc_batches)
+                self._gc_batches = 0
+                self._gc_commits = 0
+        if emit is not None:
+            commits, batches = emit
+            self.obs.events.record(
+                "group_commit",
+                detail=f"{commits} commits over {batches} wal fsyncs "
+                       f"({commits / max(batches, 1):.1f} avg batch) "
+                       "since the last note")
 
     def configure_group_commit(self, max_batch: Optional[int] = None,
                                max_wait_us: Optional[int] = None) -> None:
@@ -615,9 +698,12 @@ class Storage:
             syncer.group_max_wait_us = max(int(max_wait_us), 0)
 
     def close(self) -> None:
-        """Clean shutdown: checkpoint (epochs + KV snapshot, WAL
-        truncated, sequence cursors), then release the engine's files and
-        the owner lock."""
+        """Clean shutdown: join the metrics-history sampler and persist
+        the live workload-history window, then checkpoint (epochs + KV
+        snapshot, WAL truncated, sequence cursors) and release the
+        engine's files and the owner lock."""
+        self.metrics_history.stop()
+        self.history.flush()
         if self.path is None:
             return
         self.checkpoint()

@@ -26,6 +26,10 @@ parsed at import, so points arm inside child server processes. Values:
 The port wires the reference's sites in the planes it has:
 
     ddl/before-step              ddl/ddl.py, between two persisted job steps
+    governor/mem-pressure        util/governor.py, a number there is the
+                                 server's memory usage (the synthetic
+                                 pressure that makes a governor kill
+                                 deterministic)
     kv/group-fsync               kv/mvcc.py, a group's bytes written, not
                                  yet fsynced (the leader of the batch)
     kv/wal-torn-append           kv/mvcc.py, half a WAL record written
@@ -39,7 +43,7 @@ The port wires the reference's sites in the planes it has:
     twopc/before-commit-primary
     twopc/after-primary-commit
 
-The sites of planes not yet ported (governor, daemon, rpc, net, diag,
+The sites of planes not yet ported (daemon, rpc, net, diag,
 range, replica, mesh) wait with them, and so do the reference's
 declared-site registry and hit counts (read by its static analysis and
 its status port).
@@ -64,6 +68,11 @@ def enable(name: str, value: Any = True) -> None:
 def disable(name: str) -> None:
     with _lock:
         _active.pop(name, None)
+
+
+def disable_all() -> None:
+    with _lock:
+        _active.clear()
 
 
 def is_enabled(name: str) -> bool:

@@ -26,10 +26,6 @@ import pickle
 import tempfile
 from typing import Iterator, Optional
 
-# governor poll cadence (the reference's util/governor.py; the port has no
-# server-wide governor yet, so `governor` stays None)
-GOV_POLL_BYTES = 4 << 20
-
 
 class QueryMemExceeded(Exception):
     """Raised when a query's working set exceeds tidb_mem_quota_query and
@@ -103,6 +99,7 @@ class MemTracker:
             t.ledger_peak = combined
         g = t.governor
         if g is not None and combined >= t._gov_next:
+            from .governor import GOV_POLL_BYTES
             t._gov_next = combined + GOV_POLL_BYTES
             g.check()
 
@@ -117,6 +114,7 @@ class MemTracker:
             root.ledger_peak = combined
         g = root.governor
         if g is not None and combined >= root._gov_next:
+            from .governor import GOV_POLL_BYTES
             root._gov_next = combined + GOV_POLL_BYTES
             g.check()
 
