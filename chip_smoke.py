@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-l, each with the launch counters set to 0 just before it and read
+   a-n, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -90,17 +90,19 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           answer (`tpch_requests.sql_oracle`: the partial oracles
           finished as the root finishes them), its `last_engines` equal
           to the tag its coprocessor request carries in parts a-d, and Q3
-          must launch streamseg; then each one's cold run, warm p50 of 3,
+          must launch streamseg; then each one's cold run, warm run,
           device-busy share of one profiled run, parse+plan ms and
-          root-operator ms (from the session's stage recorder), the p50
-          of 3 runs of the same coprocessor requests sent directly to the
+          root-operator ms (from the session's stage recorder), the
+          time of `WARM_RUNS` runs of the same coprocessor requests sent
+          directly to the
           session's client with its snapshots (what the SQL layers add),
           and the part's peak device memory;
       f2. all 22 queries at SF1 (the arrays of the SF1 load) through a
           card `Session()` and a `Session(device="cpu")`, loaded and
           analyzed alike: rows equal exactly (in order where the query
           has ORDER BY), engine tags equal, Q18 must launch streamseg;
-          the card's cold run and one warm run, and the CPU's seconds.
+          the card's cold run (one warm run before part n) and the CPU's
+          seconds.
           Q19 runs at SF0.003 (seed 1) instead: the reference plans it as
           a cross join of lineitem and part whose OR filter the root
           evaluates over every pair (1.2e12 pairs at SF1).
@@ -174,11 +176,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           launching streamseg over the lineitem epoch that came from its
           file (`write_launches["h2"]`);
       h3. a child `python3` serving the store (the port only), 8 UPDATE
-          writers over the wire for 4 s, SIGKILL to the child with writes
-          in flight, the store reopened on the card (timed: the WAL replay
-          since the last checkpoint): sum(k) within [base + acknowledged,
-          base + acknowledged + 8] (one write in flight a writer), Q6
-          exact.
+          writers over the wire for 2 s (4 s before part n), SIGKILL to
+          the child with writes in flight, the store reopened on the card
+          (timed: the WAL replay since the last checkpoint): sum(k)
+          within [base + acknowledged, base + acknowledged + 8] (one write
+          in flight a writer), Q6 exact.
       The check that a part g read launched streamseg over a rebuilt
       lineitem epoch runs after part h.
    i. online DDL and the schema surface (`ddl/ddl.py`, `catalog/
@@ -239,7 +241,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           Over partitions the reference plans no aggregation below the
           partition union, so these two bring every selected row to the
           root, whose host aggregation takes ~30 s a run at SF10. Each
-          read's cold run and warm p50 of 3;
+          read's cold run and warm run;
       j2. after i2, on the SF1 arrays: a card `Session()` and a
           `Session(device="cpu")` with lineitem `PARTITION BY RANGE
           (l_orderkey)` (four equal key ranges and MAXVALUE) beside orders
@@ -268,7 +270,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       expected to launch 0 times: `registry_launches`):
       k1. every statement's outcome, tags and registry row-wise count
           (`REGISTRY_ROW_EVALS` by function) equal on the card and the CPU
-          session, its cold run and warm p50 of 3 on the card:
+          session, its cold run and warm run on the card:
           SUBSTRING_INDEX(l_shipmode, 'A', 1) as a GROUP BY key over
           1992's lineitem (the dictionary path; counts exact against
           numpy), SOUNDEX over a derived table whose l_quantity < 2 is
@@ -352,11 +354,49 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           inspection_summary's rule names. Then every plane off and no
           live `titpu-metrics-history` or `titpu-profiler` thread (part
           k's server started its store's sampler: part k stops it).
+   n. the server process as an operator starts it (`server_launches`),
+      after i3 on h3's durable store (SF1 lineitem, orders and customer,
+      sbtest's 20,000 rows, `sync_log="commit"`), the launch counters set
+      to 0 before it: a child `python -m tidb_tpu_torch.server --config
+      n.toml --path <store> -P 0 --status <free port> --token-limit 16`
+      (n.toml: the status port, Top SQL, the wait profile, a 1 s metrics
+      history, a token limit of 64, the workload history, diagnostics,
+      the maintenance worker ticking every second, TLS from the test pair
+      under tests/data/ and PROXY headers required from 127.0.0.1):
+      n1. the time to its listening line (the store's reopen and CUDA's
+          start-up);
+      n2. over TLS with a PROXY v1 header, Q6, Q1 and Q18 equal to h1's
+          answers; n3. Q18's streamseg launches in the child, read from
+          its /metrics (the `tidb_copr_jit_cache_total` lookups of the
+          streamseg library, one a launch, and the device-fragment
+          requests must grow across the query);
+      n4. every ported status route answers 200 with the reference's
+          keys; /debug/topsql holds Q18's digest with device time;
+          /debug/trace/<conn> the tree of a TRACE; /debug/mesh,
+          /debug/replicas, /debug/keyviz and /debug/lockgraph 501;
+      n5. SHOW PROCESSLIST from a second connection (PROXY v2) while the
+          first runs SLEEP(2): the proxied hosts and the sleeping
+          statement; information_schema.processlist agreeing; a user
+          without PROCESS seeing only its own row;
+      n6. under SET GLOBAL require_secure_transport = ON a plaintext
+          login refused with 3159;
+      n7. 300 seeded sbtest UPDATEs, SET GLOBAL tidb_gc_life_time = '1s',
+          2.5 s of ticks: sum(k), count(*) and Q6 exact after the GC;
+      n8. the config rewritten, SIGHUP: the reference's `config reloaded:
+          [...]` line, Top SQL off, the flag's token limit kept;
+      n9. SIGTERM: `shutting down...` and rc 0; the store reopened in this
+          process: sum(k), count(*) unchanged, sbtest's versions between
+          one a row and one a row plus part n's own UPDATEs (the child's
+          GC dropped every version of the history before part n; how
+          many of part n's own it kept depends on whether the clock has
+          caught up with the reopened TSO's persisted lease, up to 120 s
+          ahead of it), Q18 exact, launching streamseg.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
-   tag; then the first (cold) run and the p50 wall time of 2 warm runs
-   (5 before part h, 3 before part l; e3's ANALYZE, g's reads and k1's
-   reads 1 since part m), each ending in torch.cuda.synchronize(), and the
+   tag; then the first (cold) run and the wall time of 1 warm run
+   (`WARM_RUNS`: the p50 of 5 before part h, 3 before part l, 2 before
+   part n; parts i and j read as many), each ending in
+   torch.cuda.synchronize(), and the
    device-busy share of
    one more warm run under torch.profiler (traced kernel and copy time
    over its wall time; in parts c and d also the 8 kernels that took the
@@ -407,9 +447,9 @@ from tidb_tpu_torch.session import Session
 from tidb_tpu_torch.util import failpoint
 from tidb_tpu_torch.util.governor import AdmissionTimeout
 
-# warm runs of each request in parts a-f1, g1 and k1 (5 before part h
-# needed the room, 3 before part l did)
-WARM_RUNS = 2
+# warm runs of each request in parts a-f1, i and j (5 before part h
+# needed the room, 3 before part l did, 2 before part n did)
+WARM_RUNS = 1
 # part m's cuts (depth only): one warm run for e3's ANALYZE, g's reads
 # and k1's reads (WARM_RUNS before part m)
 M_CUT_WARM_RUNS = 1
@@ -544,7 +584,7 @@ def _shape_phase(li, label: str) -> dict:
     ms = _cuda_ms(kernel, 20)
     plain_ms = _cuda_ms(plain, 5)
     lib_ms = {"index_add_": _cuda_ms(index_add, 5),
-              "segment_reduce": _cuda_ms(segment_reduce, 10)}
+              "segment_reduce": _cuda_ms(segment_reduce, 5)}
     library_call = min(lib_ms, key=lib_ms.get)
     nbytes = vals.numel() * 4 + f.numel() * 4 + K * nd_pad * 4
     ops = vals.numel()  # one add per value
@@ -1202,6 +1242,7 @@ def _part_f2(args, d1) -> tuple:
         before = dict(_kernels.LAUNCHES)
         rows, first = _sql_run(c, sql)
         engines = list(c.last_engines)
+        split = _sql_split(c)
         want, cpu_s = _sql_run(h, sql)
         if engines != h.last_engines:
             raise SystemExit(f"{q}: card engines {engines}, CPU "
@@ -1211,23 +1252,21 @@ def _part_f2(args, d1) -> tuple:
         if q == "q18" and _kernels.LAUNCHES["streamseg.rank_sums"] == \
                 before["streamseg.rank_sums"]:
             raise SystemExit("q18 did not launch kernel streamseg.rank_sums")
-        out[q] = (first, cpu_s, len(rows), engines)
+        out[q] = (first, cpu_s, len(rows), engines, split)
     launches = dict(_kernels.LAUNCHES)
     for k, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {k} was not launched on the SQL path")
     print(f"  launches on the 22-query SQL path: {launches}")
     total_card = total_cpu = 0.0
-    for q, (first, cpu_s, nrows, engines) in out.items():
-        c = card19 if q == "q19" else card
-        warm = _sql_run(c, TPCH_QUERIES[q])[1]
-        total_card += warm
+    for q, (first, cpu_s, nrows, engines, split) in out.items():
+        total_card += first
         total_cpu += cpu_s
         scale = f"SF{Q19_SF:g}" if q == "q19" else sf1
         print(f"  {q.upper()} {scale}: rows={nrows} card==cpu engines="
-              f"{engines} card {_timing(first, [warm])} cpu_s={cpu_s:.3f} "
-              f"{_sql_split(c)}")
-    print(f"  22 queries: card warm runs sum to {total_card:.2f}s, the CPU "
+              f"{engines} card {_timing(first, [])} cpu_s={cpu_s:.3f} "
+              f"{split}")
+    print(f"  22 queries: card cold runs sum to {total_card:.2f}s, the CPU "
           f"session's runs to {total_cpu:.2f}s; peak device memory during "
           f"f2: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     return launches, card, cpu, {q: v[3] for q, v in out.items()}
@@ -1572,6 +1611,8 @@ H1_ROWS = 20_000
 H_WRITE_SECONDS = 1.0
 H_MIX_SECONDS = 4.0
 H_READS = ("q6", "q1", "q18")
+# h3's writers before the SIGKILL: 2 s (4 s before part n)
+H3_WRITE_SECONDS = 2.0
 # the child of h3: the port's durable store served on port 0, nothing else
 H3_CHILD = """
 import sys, threading
@@ -1902,7 +1943,7 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
                    for i in range(8)]
         for t in threads:
             t.start()
-        time.sleep(4.0)
+        time.sleep(H3_WRITE_SECONDS)
         in_flight = sum(acked)
         killed.set()
         os.kill(child.pid, signal.SIGKILL)
@@ -1917,7 +1958,8 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
         raise errs[0]
     total = sum(acked)
     print(f"  h3: a child python3 served the store in {t_child:.2f}s; 8 "
-          f"writers over the wire, SIGKILL after 4 s with writes in flight "
+          f"writers over the wire, SIGKILL after {H3_WRITE_SECONDS:g} s "
+          f"with writes in flight "
           f"({in_flight} acknowledged at the signal, {total} in all)")
     t0 = time.perf_counter()
     storage = Storage(path, sync_log="commit")
@@ -1940,9 +1982,9 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
 
 
 def _part_h(args, d1, tags: dict) -> tuple:
-    """Part h, then part i3 on h3's store and part j3 in the same
+    """Part h, then parts i3 and n on h3's store and part j3 in the same
     temporary directory (module docstring). -> streamseg's launches in
-    h2, in i3 and in j3."""
+    h2, in i3, in j3 and in n."""
     import shutil
     import tempfile
 
@@ -1964,15 +2006,362 @@ def _part_h(args, d1, tags: dict) -> tuple:
               f"({_mem()} held before it)")
         _kernels.reset_launches()
         i3 = _part_i3(args, storage, path, mc, h1, tags)
+        print(f"  -- n. the server process: python -m "
+              f"tidb_tpu_torch.server on i3's store ({_mem()} held "
+              f"before it)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _kernels.reset_launches()
+        n = _part_n(args, tmp, path, mc, h1)
+        print(f"  [part n took {time.perf_counter() - t0:.1f}s]")
         print(f"  -- j3. a partitioned table on a durable store, killed "
               f"mid-checkpoint ({_mem()} held before it)")
         t0 = time.perf_counter()
         _kernels.reset_launches()
         j3 = _part_j3(args, tmp, d1)
         print(f"  [part j3 took {time.perf_counter() - t0:.1f}s]")
-        return launched, i3, j3
+        return launched, i3, j3, n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- part n: the server process ----
+# the config file of part n's child (`--config`); {topsql} and {window}
+# change at the SIGHUP, the token limit is pinned by a flag
+N_CONFIG = """host = "127.0.0.1"
+[status]
+report-status = true
+status-host = "127.0.0.1"
+[performance]
+topsql-enabled = {topsql}
+wait-profile-enabled = true
+metrics-history-interval = 1
+token-limit = {tokens}
+[history]
+enabled = true
+window-seconds = {window}
+[diagnostics]
+enabled = true
+[gc]
+run-interval = "1s"
+[security]
+ssl-cert = "{cert}"
+ssl-key = "{key}"
+proxy-protocol-networks = "127.0.0.1"
+"""
+N_TOKENS = 16  # --token-limit: beats the file's 64, kept at the SIGHUP
+N_V1 = "203.0.113.7"
+N_V2 = "198.51.100.9"
+N_UPDATES = 300
+# the status routes the port serves, with the reference's top-level keys
+# (a list route: None)
+N_ROUTES = {
+    "/status": {"version", "connections", "admission", "governor",
+                "top_sql", "inspection"},
+    "/slow-query": None, "/statements-summary": None, "/debug/events": None,
+    "/debug/metrics/history": {"interval_s", "samples"},
+    "/debug/topsql": {"enabled", "window_s", "digest_cap", "windows"},
+    "/debug/waitprofile": {"enabled", "window_s", "digest_cap", "windows"},
+    "/debug/inspection": {"enabled", "rules", "findings", "summary"},
+    "/debug/history": {"enabled", "window_seconds", "history_cap",
+                       "regression_ratio", "dir", "records", "live",
+                       "window_start", "regressions"},
+    "/debug/failpoints": set(),
+    "/debug/profile?seconds=0.2&hz=97": {"hz", "duration_s",
+                                         "total_samples", "hot_frames",
+                                         "tree"},
+}
+N_UNPORTED = ("/debug/mesh", "/debug/replicas", "/debug/keyviz",
+              "/debug/lockgraph")
+
+
+def _proxy_v1(src: str) -> bytes:
+    return f"PROXY TCP4 {src} 10.0.0.1 56324 4000\r\n".encode()
+
+
+def _proxy_v2(src: str) -> bytes:
+    import socket
+    import struct
+    body = socket.inet_aton(src) + socket.inet_aton("10.0.0.1") + \
+        struct.pack(">HH", 55555, 4000)
+    return b"\r\n\r\n\x00\r\nQUIT\n" + bytes([0x21, 0x11]) + \
+        struct.pack(">H", len(body)) + body
+
+
+def _http(port: int, route: str):
+    """-> (HTTP code, body bytes) of a GET on the status port."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _metric(text: str, family: str, labels: str) -> float:
+    m = re.search(rf"^{family}\{{{re.escape(labels)}\}} (\S+)$", text, re.M)
+    return float(m[1]) if m else 0.0
+
+
+def _n_counts(port: int) -> tuple:
+    """(streamseg's library lookups, device-fragment requests) from the
+    child's /metrics: the only view into its launches. The streamseg
+    wrapper looks its library up only right before a launch (after its
+    checks and its empty case), so each lookup is one launch."""
+    code, body = _http(port, "/metrics")
+    if code != 200:
+        raise SystemExit(f"n: /metrics answered {code}")
+    text = body.decode()
+    lookups = _metric(text, "tidb_copr_jit_cache_total", 'result="hit"') + \
+        _metric(text, "tidb_copr_jit_cache_total", 'result="miss"')
+    frag = _metric(text, "tidb_copr_requests_total",
+                   'engine="device-fragment"')
+    return int(lookups), int(frag)
+
+
+def _n_connect(mc, port: int, preamble: bytes, **kw):
+    return mc.MiniClient("127.0.0.1", port, use_ssl=True, preamble=preamble,
+                         **kw)
+
+
+def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
+    """Part n (module docstring), on h3's store after i3. -> streamseg's
+    launches: in the child (its /metrics) and in the parent's reopen."""
+    import json as _json
+    import os
+    import signal
+    import socket
+
+    from tidb_tpu_torch.kv import mvcc as MV
+    from tidb_tpu_torch.kv import tablecodec as TC
+    from tidb_tpu_torch.obs import StatementsSummary
+    from tidb_tpu_torch.store.storage import Storage
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cert = os.path.join(root, "tests", "data", "tls_test_cert.pem")
+    key = os.path.join(root, "tests", "data", "tls_test_key.pem")
+    cfg = os.path.join(tmp, "n.toml")
+    with open(cfg, "w") as f:
+        f.write(N_CONFIG.format(topsql="true", window=60, tokens=64,
+                                cert=cert, key=key))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        status = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch.server", "--config", cfg,
+         "--path", path, "-P", "0", "--status", str(status),
+         "--token-limit", str(N_TOKENS)],
+        cwd=root, stdout=subprocess.PIPE, text=True)
+    try:
+        # 1. the listening line: the store's reopen and CUDA's start-up
+        line = child.stdout.readline()
+        if not line.startswith("tidb-tpu-server listening on 127.0.0.1:"):
+            raise SystemExit(f"n: the child printed {line!r}")
+        t_listen = time.perf_counter() - t0
+        port = int(line.rsplit(":", 1)[1])
+        print(f"  n1: python -m tidb_tpu_torch.server --config n.toml "
+              f"--path <h3's store> -P 0 --status {status} --token-limit "
+              f"{N_TOKENS}: {line.strip()!r} after {t_listen:.2f}s (reopen "
+              f"+ CUDA start-up)")
+        # 2. TLS with a PROXY v1 header: Q6, Q1, Q18 exact; 3. Q18's
+        # streamseg launches, read from the child's /metrics
+        a = _n_connect(mc, port, _proxy_v1(N_V1))
+        if not a.tls:
+            raise SystemExit("n2: the connection did not upgrade to TLS")
+        base = a.query("select sum(k), count(*) from sbtest")[0]
+        for q in ("q6", "q1", "q18"):
+            lk0, fr0 = _n_counts(status)
+            t1 = time.perf_counter()
+            rows = a.query(TPCH_QUERIES[q])
+            dt = time.perf_counter() - t1
+            lk, fr = _n_counts(status)
+            if rows != h1["expect"][q]:
+                raise SystemExit(f"n2: {q} over TLS differs from h1's "
+                                 "answer")
+            if q == "q18" and (lk - lk0 < 1 or fr - fr0 < 1):
+                raise SystemExit(f"n3: q18 in the child: streamseg "
+                                 f"lookups +{lk - lk0}, device-fragment "
+                                 f"requests +{fr - fr0}")
+            print(f"  n2 {q.upper()} over TLS + PROXY v1: rows={len(rows)} "
+                  f"exact first_ms={dt * 1e3:.1f}; in the child "
+                  f"streamseg_launches={lk - lk0} device-fragment requests "
+                  f"+{fr - fr0}")
+        # 4. the routes: 200 with the reference's keys, the unported 501
+        digest, _ = StatementsSummary.digest(TPCH_QUERIES["q18"])
+        (conn_id,) = a.query("select connection_id()")[0]
+        a.query("trace select count(*) from orders")
+        seen = {}
+        for route, keys in N_ROUTES.items():
+            code, body = _http(status, route)
+            got = _json.loads(body) if code == 200 else None
+            if code != 200 or (keys is None and not isinstance(got, list)) \
+                    or (keys is not None and not keys <= set(got)):
+                shape = sorted(got) if isinstance(got, dict) else type(got)
+                raise SystemExit(f"n4: {route} answered {code} {shape}")
+            seen[route] = got
+        top = {e["digest"]: e for w in seen["/debug/topsql"]["windows"]
+               for e in w["digests"].values()}
+        q18 = top.get(digest)
+        dev = q18 and (q18["stages"].get("kernel", 0.0)
+                       + q18["stages"].get("device_get", 0.0))
+        if not dev:
+            raise SystemExit(f"n4: /debug/topsql holds no device time for "
+                             f"Q18's digest {digest}")
+        code, body = _http(status, f"/debug/trace/{conn_id}")
+        spans = _json.loads(body)["spans"] if code == 200 else []
+        if not spans or spans[0][0] != "session.run":
+            raise SystemExit(f"n4: /debug/trace/{conn_id} answered {code}")
+        for route in N_UNPORTED:
+            code, body = _http(status, route)
+            if code != 501 or "roadmap_item" not in _json.loads(body):
+                raise SystemExit(f"n4: {route} answered {code}, not 501")
+        if seen["/status"]["admission"]["token_limit"] != N_TOKENS:
+            raise SystemExit(f"n4: token limit "
+                             f"{seen['/status']['admission']}")
+        by_device = seen["/status"]["top_sql"]["by_device_time"]
+        print(f"  n4: {len(N_ROUTES)} routes 200 with the reference's "
+              f"keys, /debug/trace/{conn_id} {len(spans)} spans; Q18's "
+              f"digest in /debug/topsql with device time "
+              f"{dev * 1e3:.3f} ms of {q18['sum_wall_s'] * 1e3:.1f} ms; "
+              f"/status top_sql by device: "
+              f"{[e['digest'][:8] for e in by_device]}; "
+              f"{', '.join(N_UNPORTED)} 501")
+        # 5. SHOW PROCESSLIST from a second connection (PROXY v2) while
+        # the first sleeps; a user without PROCESS sees only its own row
+        root_c = _n_connect(mc, port, _proxy_v2(N_V2))
+        root_c.execute("create user 'n_user' identified by 'n_pw'")
+        root_c.execute("grant select on test.* to 'n_user'")
+        sleeper = threading.Thread(target=a.query, args=("select sleep(2)",))
+        sleeper.start()
+        time.sleep(0.5)
+        plist = root_c.query("show processlist")
+        is_rows = root_c.query("select id, user, host, command, info from "
+                               "information_schema.processlist")
+        u = _n_connect(mc, port, _proxy_v1("192.0.2.5"), user="n_user",
+                       password="n_pw")
+        mine = u.query("show processlist")
+        sleeper.join()
+        hosts = {r[2]: r for r in plist}
+        if hosts.get(N_V1, [None] * 8)[7] != "select sleep(2)" or \
+                N_V2 not in hosts:
+            raise SystemExit(f"n5: SHOW PROCESSLIST {plist}")
+        # the reader's own row differs by its Info (its own statement)
+        if {tuple(r) for r in is_rows if r[2] != N_V2} != \
+                {(r[0], r[1], r[2], r[4], r[7]) for r in plist
+                 if r[2] != N_V2}:
+            raise SystemExit(f"n5: information_schema.processlist "
+                             f"{is_rows} vs SHOW {plist}")
+        if [r[1] for r in mine] != ["n_user"] or mine[0][2] != "192.0.2.5":
+            raise SystemExit(f"n5: without PROCESS: {mine}")
+        print(f"  n5: SHOW PROCESSLIST during SLEEP(2): "
+              f"{[(r[1], r[2], r[4], r[7]) for r in plist]}; "
+              f"information_schema.processlist agrees; a user without "
+              f"PROCESS sees {[(r[1], r[2]) for r in mine]}")
+        u.close()
+        # 6. plaintext refused under require_secure_transport
+        root_c.execute("set global require_secure_transport = ON")
+        try:
+            mc.MiniClient("127.0.0.1", port, preamble=_proxy_v1(N_V1))
+            raise SystemExit("n6: a plaintext login was accepted")
+        except mc.MySQLError as e:
+            if e.code != 3159:
+                raise SystemExit(f"n6: plaintext refused with {e.code}")
+        root_c.execute("set global require_secure_transport = OFF")
+        print("  n6: a plaintext login refused with 3159 "
+              "(ER_SECURE_TRANSPORT_REQUIRED) under SET GLOBAL "
+              "require_secure_transport = ON")
+        # 7. GC by the maintenance worker: UPDATEs, then a low
+        # tidb_gc_life_time (the worker ticks every second: [gc]
+        # run-interval); the next ticks drop every older version
+        acked = 0
+        rng = np.random.default_rng(args.seed + 17)
+        for i in rng.integers(0, int(base[1]), N_UPDATES):
+            acked += a.execute(f"update sbtest set k = k + 1 where id = {i}")
+        root_c.execute("set global tidb_gc_life_time = '1s'")
+        time.sleep(2.5)
+        want = (str(int(base[0]) + acked), base[1])
+        got = tuple(a.query("select sum(k), count(*) from sbtest")[0])
+        if got != want or a.query(TPCH_QUERIES["q6"]) != h1["expect"]["q6"]:
+            raise SystemExit(f"n7: after GC sum(k), count(*) = {got}, "
+                             f"want {want} (or Q6 differs)")
+        print(f"  n7: {acked} UPDATEs acknowledged, then "
+              f"tidb_gc_life_time = '1s' and 2.5 s of 1 s ticks; sum(k), "
+              f"count(*) = {got} and Q6 exact after the GC's fold")
+        root_c.close()
+        lookups, _ = _n_counts(status)
+        # 8. SIGHUP: the reloadable knobs the flag did not pin
+        with open(cfg, "w") as f:
+            f.write(N_CONFIG.format(topsql="false", window=30, tokens=32,
+                                    cert=cert, key=key))
+        child.send_signal(signal.SIGHUP)
+        line = child.stdout.readline().strip()
+        want_line = ("config reloaded: ['history.window_seconds', "
+                     "'performance.topsql_enabled']")
+        st = _json.loads(_http(status, "/status")[1])
+        if line != want_line or st["top_sql"]["enabled"] or \
+                st["admission"]["token_limit"] != N_TOKENS:
+            raise SystemExit(f"n8: SIGHUP printed {line!r}; /status "
+                             f"top_sql {st['top_sql']['enabled']}, "
+                             f"admission {st['admission']}")
+        print(f"  n8: SIGHUP after the rewrite: {line!r}; Top SQL off, "
+              f"the flag's token limit {N_TOKENS} kept (the file says 32)")
+        a.close()
+        # 9. SIGTERM: rc 0
+        t1 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=120)
+        rest = child.stdout.read().splitlines()
+        t_stop = time.perf_counter() - t1
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        child.stdout.close()
+    if rc != 0 or rest != ["shutting down..."]:
+        raise SystemExit(f"n9: SIGTERM: rc {rc}, printed {rest}")
+    t1 = time.perf_counter()
+    storage = Storage(path, sync_log="commit")
+    t_open = time.perf_counter() - t1
+    s = Session(storage)
+    tid = storage.catalog.table("test", "sbtest").id
+    lo, hi = TC.record_range(tid)
+    versions = sum(1 for _ in storage.kv.kv.scan(MV.CF_WRITE, lo, hi))
+    ((k, cnt),) = _wire_text(s.query("select sum(k), count(*) from sbtest"))
+    before = _kernels.LAUNCHES[RANK]
+    q18 = _wire_text(s.query(TPCH_QUERIES["q18"]))
+    launched = _kernels.LAUNCHES[RANK] - before
+    # every UPDATE since h1 added a version: sum(k) less h1's initial sum
+    ever = int(k) - sum(i % 1000 for i in range(int(cnt)))
+    # the GC keeps the newest version below its safepoint and every
+    # version above it. Its safepoint is the TSO less tidb_gc_life_time
+    # (1 s), taken 2.5 s of ticks after the last UPDATE. A reopened TSO
+    # starts at its persisted lease, up to 120 s ahead of the clock, so
+    # how many of part n's own versions are still above the safepoint
+    # depends on when the clock caught up with the lease: anything from
+    # none (versions == rows) to all (rows + acked). The history before
+    # part n (ever - acked versions, ever > acked) is below the
+    # safepoint either way, so at least that many versions went.
+    if (k, cnt) != want or not ever > acked or \
+            not int(cnt) <= versions <= int(cnt) + acked or \
+            q18 != h1["expect"]["q18"] or not launched:
+        raise SystemExit(f"n9: reopened: sum(k), count(*) = {(k, cnt)} "
+                         f"(want {want}), {versions} sbtest versions, Q18 "
+                         f"exact {q18 == h1['expect']['q18']}, streamseg "
+                         f"launches {launched}")
+    print(f"  n9: SIGTERM -> 'shutting down...', rc 0 after "
+          f"{t_stop:.2f}s; reopened in {t_open:.2f}s: sum(k), count(*) = "
+          f"{(k, cnt)} unchanged, sbtest holds {versions} versions = one a "
+          f"row + {versions - int(cnt)} of part n's {acked} UPDATEs above "
+          f"the safepoint (without the GC: rows + {ever}, every UPDATE "
+          f"since h1), Q18 exact "
+          f"(streamseg_launches={launched}); the child's streamseg "
+          f"library lookups in all: {lookups}")
+    storage.close()
+    return {"child": lookups, "reopen": launched}
 
 
 # ---- part i: online DDL and the schema surface ----
@@ -2015,7 +2404,7 @@ def _i_exec(sessions, sql: str, label: str, times: dict):
 
 
 def _i_read(sessions, q: str, label: str, data=None, want_tags=None,
-            warm: int = 3) -> tuple:
+            warm: int = WARM_RUNS) -> tuple:
     """Query `q` on the card (and the CPU twin's): rows exact against the
     numpy answer over `data` where given, and equal to the twin's; tags
     `want_tags` where given; cold run and warm p50. -> (streamseg
@@ -3828,8 +4217,8 @@ def main(argv=None) -> int:
           f"before it; {smi})")
     _kernels.reset_launches()
     (write_launches["h2"], ddl_launches["i3"],
-     partition_launches["j3"]) = _part_h(args, d1, f2_tags)
-    lap("parts h, i3, j3")
+     partition_launches["j3"], server_launches) = _part_h(args, d1, f2_tags)
+    lap("parts h, i3, n, j3")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")
@@ -3855,7 +4244,8 @@ def main(argv=None) -> int:
             "partition_launches_by_part": partition_launches,
             "registry_launches": registry_launches,
             "explain_launches": explain_launches,
-            "observe_launches": observe_launches}
+            "observe_launches": observe_launches,
+            "server_launches": server_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

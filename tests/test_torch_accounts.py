@@ -7,10 +7,9 @@ package (the port's with `device="cpu"`) over its own store, outcomes
 (rows, or the error's class, errno and message), warnings and engine tags
 equal after every statement; the grant tables are read back from both
 stores and compared. TRACE of a DML compares the two span trees by
-name. One statement of those files belongs to a plane the port has not
-taken yet, SHOW PROCESSLIST (the processlist): there the port raises
-`NotInSlice` by name and the reference test's other statements still run
-through both.
+name. SHOW PROCESSLIST and information_schema.processlist answer on both
+behind the PROCESS gate, from a provider's rows and over each package's
+server.
 
 The account cases of tests/test_compat.py run the same way; the
 server-backed ones over each package's own `Server(storage, port=0)`, with
@@ -35,7 +34,6 @@ from tidb_tpu.server import Server as RefServer
 from tidb_tpu.session import Session as RefSession
 from tidb_tpu.sql.parser import parse_one as ref_parse_one
 from tidb_tpu.store.storage import Storage as RefStorage
-from tidb_tpu_torch import NotInSlice
 from tidb_tpu_torch.bench import tpch_data as TD
 from tidb_tpu_torch.bench.tpch_queries import TPCH_QUERIES
 from tidb_tpu_torch.server import Server
@@ -343,23 +341,62 @@ def test_update_requires_select_on_read_columns(ck):
 
 
 def test_processlist_requires_process_priv(ck):
-    """SHOW PROCESSLIST belongs to the processlist plane, not ported: the
-    port names it; the reference's PROCESS gate is read from its own
-    sessions, and the GRANT runs through both."""
-    rows_all = [(1, "root", "h", "test", "Query", 0, "", "select 1"),
-                (2, "c11", "h", "test", "Query", 0, "", "select 2")]
-    ck.ref.storage.processlist = lambda: rows_all
+    """SHOW PROCESSLIST and information_schema.processlist behind the
+    PROCESS gate, with a provider's rows on both stores (the wire case
+    below reads a real server's): a user without PROCESS sees only its
+    own rows, the GRANT widens it, and the two packages answer alike."""
+    rows_all = [(1, "root", "h", "test", "Query", 0, "", "select 1", 5, 0),
+                (2, "c11", "h", "test", "Query", 0, "", "select 2", 7, 1)]
+    for s in ck.sessions:
+        s.storage.processlist = lambda: rows_all
     u = _user(ck, "c11")
-    with pytest.raises(NotInSlice) as ei:
-        u.port.execute("show processlist")
-    assert ei.value.reason == "SHOW PROCESSLIST"
-    assert [r[1] for r in u.ref.execute("show processlist").rows] == \
-        ["c11"]
-    ck.must_exec("grant process on *.* to 'c11'")
-    assert len(u.ref.execute("show processlist").rows) == 2
-    assert ck.both(lambda s: s.storage.privileges.check(
-        "c11", "PROCESS", "*", "*"))
-    del ck.ref.storage.processlist
+    try:
+        assert [r[1] for r in u.query("show processlist")] == ["c11"]
+        assert u.query("select id, user, mem_max, spill_count from "
+                       "information_schema.processlist") == \
+            [(2, "c11", 7, 1)]
+        ck.must_exec("grant process on *.* to 'c11'")
+        assert len(u.query("show processlist")) == 2
+        assert len(u.query("select * from information_schema.processlist")
+                   ) == 2
+        assert ck.both(lambda s: s.storage.privileges.check(
+            "c11", "PROCESS", "*", "*"))
+    finally:
+        for s in ck.sessions:
+            del s.storage.processlist
+
+
+def test_processlist_over_the_wire():
+    """Each package's server lists its live connections: the same rows
+    on both (Host without the client's ephemeral port), a PROCESS-less
+    user seeing only its own, information_schema.processlist agreeing."""
+    port, ref = _servers(users={"root": ""}, allow_unknown_users=False)
+    try:
+        got = []
+        for srv in (port, ref):
+            root = MiniClient("127.0.0.1", srv.port)
+            root.execute("create user 'pl' identified by 'pw'")
+            root.execute("grant select on test.* to 'pl'")
+            user = MiniClient("127.0.0.1", srv.port, user="pl",
+                              password="pw")
+
+            def masked(rows):
+                return [(r[0], r[1], r[2].rsplit(":", 1)[0]) + r[3:]
+                        for r in rows]
+            seen = [masked(root.query("show processlist")),
+                    masked(user.query("show processlist")),
+                    user.query("select id, user, command, info from "
+                               "information_schema.processlist")]
+            root.execute("grant process on *.* to 'pl'")
+            seen.append(masked(user.query("show processlist")))
+            got.append(seen)
+            user.close()
+            root.close()
+        assert got[0] == got[1]
+        assert [r[1] for r in got[0][1]] == ["pl"]
+        assert [r[1] for r in got[0][3]] == ["root", "pl"]
+    finally:
+        _close(port, ref)
 
 
 def test_column_grants_through_roles(ck):

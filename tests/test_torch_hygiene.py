@@ -80,6 +80,19 @@ def test_session_needs_cuda_unless_cpu_is_asked():
         assert s.cop.device == torch.device("cpu")
 
 
+def _cuda_like(dtype, shape, device):
+    """A stand-in for a well-formed CUDA tensor: it passes the wrapper's
+    checks, so the wrapper goes on to its library."""
+    t = mock.MagicMock(spec=torch.Tensor)
+    t.is_cuda = True
+    t.device = device
+    t.dtype = dtype
+    t.shape = shape
+    t.dim.return_value = len(shape)
+    t.is_contiguous.return_value = True
+    return t
+
+
 def test_cuda_wrapper_raises_without_a_built_kernel(tmp_path, monkeypatch):
     # an empty build directory and no nvcc anywhere
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "kernels")
@@ -87,16 +100,38 @@ def test_cuda_wrapper_raises_without_a_built_kernel(tmp_path, monkeypatch):
     monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cuda_vals = mock.MagicMock(spec=torch.Tensor)
-    cuda_vals.is_cuda = True
+    dev = torch.device("cuda", 0)
+    cuda_vals = _cuda_like(torch.float32, (1, 6), dev)
+    cuda_f = _cuda_like(torch.int32, (6,), dev)
     meta = TSS.rank_meta([np.array([0, 0, 1, 1, 1, 2])])
     assert not meta["identity"]
     before = dict(_kernels.LAUNCHES)
     with mock.patch.object(TSS, "rank_sums_plain",
                            side_effect=AssertionError("fell back")):
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            TSS.rank_sums(cuda_vals, mock.MagicMock(spec=torch.Tensor), meta)
+            TSS.rank_sums(cuda_vals, cuda_f, meta)
     assert _kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["bad dtype", "no rows"])
+def test_cuda_wrapper_looks_up_its_library_only_to_launch(case, monkeypatch):
+    """A library lookup is what `tidb_copr_jit_cache_total` counts: the
+    wrapper makes none when its checks refuse the inputs or when there is
+    nothing to launch, so a lookup always means a launch."""
+    monkeypatch.setattr(_kernels, "_library",
+                        mock.Mock(side_effect=AssertionError("looked up")))
+    dev = torch.device("meta")
+    if case == "bad dtype":
+        with pytest.raises(ValueError, match="vals must be torch.float32"):
+            _kernels.streamseg_rank_sums(
+                _cuda_like(torch.float64, (1, 6), dev),
+                _cuda_like(torch.int32, (6,), dev), 2, 4)
+    else:
+        out = _kernels.streamseg_rank_sums(
+            _cuda_like(torch.float32, (2, 0), dev),
+            _cuda_like(torch.int32, (0,), dev), 0, 4)
+        assert out.shape == (2, 4)
+    _kernels._library.assert_not_called()
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -11,7 +11,9 @@ observability planes serve (`OBS_SERVED`: their rows are timings and
 process telemetry, which differ between two packages' processes) are
 held to the reference's columns here and to its rows in the planes' own
 tests (tests/test_torch_topsql.py and its siblings), as are
-metrics_schema and SHOW PROFILES, PROFILE and METRICS. The SHOW kinds and
+metrics_schema and SHOW PROFILES, PROFILE and METRICS. SHOW PROCESSLIST
+and information_schema.processlist (the reading session's own row in an
+embedded store) are held to the reference's rows. The SHOW kinds and
 information_schema tables of planes the port does not have yet raise
 `NotInSlice` with their names. Tolerance: none.
 """
@@ -309,18 +311,19 @@ SHOW_NOT_IN_SLICE = {
     "show profiles": "SHOW PROFILES", "show profile": "SHOW PROFILE",
     "show slow queries": "SHOW SLOW", "show metrics": "SHOW METRICS",
 }
-# obs-backed surfaces served since the statement plane's port and the
-# observability planes'
+# obs-backed surfaces served since the statement plane's port, the
+# observability planes' and the server process's (the processlist)
 SHOW_IN_SLICE_SINCE = {"show bindings", "show slow queries",
-                       "show profiles", "show profile", "show metrics"}
+                       "show profiles", "show profile", "show metrics",
+                       "show processlist"}
 INFOSCHEMA_IN_SLICE_SINCE = OBS_SERVED
 
 
 @pytest.mark.parametrize("sql", sorted(SHOW_NOT_IN_SLICE))
 def test_obs_backed_show_is_not_in_slice(surface, sql):
     """The SHOW kinds of unported planes raise by name; SHOW BINDINGS,
-    SLOW QUERIES, PROFILES, PROFILE and METRICS answer with the
-    reference's columns."""
+    SLOW QUERIES, PROFILES, PROFILE, METRICS and PROCESSLIST answer with
+    the reference's columns."""
     if sql in SHOW_IN_SLICE_SINCE:
         got = [side.s.execute(sql).column_names
                for side in (surface.ref, surface.port)]

@@ -9,10 +9,9 @@ grouping and an index-ranged scan. Rows (exact: a Decimal by its unscaled
 integer and scale), column names, engine tags and EXPLAIN text must be the
 reference's. ANALYZE TABLE builds the reference's statistics, on the host
 path and on the coprocessor's device path alike, and an error of the
-device pass is not caught. Statements of planes not ported yet (SHOW
-PROCESSLIST) raise `NotInSlice` with their kind or name, and those of the
-statement plane (INTO OUTFILE, TRACE, LOAD DATA, EXPLAIN ANALYZE,
-bindings) answer as the reference does, times excluded; a
+device pass is not caught. The statements of the statement plane (INTO
+OUTFILE, TRACE, LOAD DATA, EXPLAIN ANALYZE, bindings) and SHOW
+PROCESSLIST answer as the reference does, times excluded; a
 `Session()` without CUDA raises at its first statement that needs the
 coprocessor and never moves to the CPU.
 """
@@ -208,9 +207,10 @@ def test_statements_outside_the_slice_raise(both, sql, kind, tmp_path,
     assert port.query("select count(*) from emp") == [(200,)]
 
 
-# the statement plane's kinds, which answer since their port
+# the statement plane's kinds, which answer since their port, and SHOW
+# PROCESSLIST since the server process's
 IN_SLICE_SINCE = {"INTO OUTFILE", "TraceStmt", "LoadDataStmt",
-                  "EXPLAIN ANALYZE", "CreateBindingStmt"}
+                  "EXPLAIN ANALYZE", "CreateBindingStmt", "SHOW PROCESSLIST"}
 # columns that hold times (EXPLAIN ANALYZE, TRACE)
 _TIMED = {"time_ms", "stages", "start_ms", "duration_ms"}
 

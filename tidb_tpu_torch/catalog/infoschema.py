@@ -19,9 +19,10 @@ tidb_plan_history; from the inspection engine (`obs_inspect.py`),
 inspection_result and inspection_summary (one rule run when a statement
 reads both; a critical finding also lands in SHOW WARNINGS); from the
 metrics history, metrics_summary; and from the reading session's
-@@profiling ring, profiling. A statement that touches one of the others
-(the mesh recorder's tidb_mesh_shards and tidb_mesh_storage,
-tidb_hot_ranges, processlist and every cluster_* table) raises
+@@profiling ring, profiling; from the serving server's connections (or
+the reading session alone, embedded), processlist. A statement that
+touches one of the others (the mesh recorder's tidb_mesh_shards and
+tidb_mesh_storage, tidb_hot_ranges and every cluster_* table) raises
 `NotInSlice(<table>)`: they read planes the port does not have yet.
 """
 
@@ -489,7 +490,7 @@ SERVED = frozenset({
     "statements_summary", "slow_query", "tidb_top_sql",
     "tidb_wait_profile", "tidb_events", "statements_summary_history",
     "tidb_plan_history", "inspection_result", "inspection_summary",
-    "metrics_summary", "profiling",
+    "metrics_summary", "profiling", "processlist",
 })
 
 
@@ -707,6 +708,35 @@ def _rows_for(storage, catalog: Catalog, tname: str,
             for seq, (frame, secs, samples) in enumerate(
                     prof.tree_rows(), 1):
                 rows.append([p["query_id"], seq, frame, secs, samples])
+    elif tname == "processlist":
+        provider = getattr(storage, "processlist", None)
+        plist = list(provider()) if provider is not None else []
+        if not plist and viewer is not None:
+            # embedded session (no wire server): own row, matching the
+            # SHOW PROCESSLIST fallback
+            import time as _t
+            info = viewer.in_flight_sql
+            t = int(_t.time() - viewer.in_flight_since) \
+                if info and viewer.in_flight_since else 0
+            live = getattr(viewer, "_live_mem", None)
+            plist = [(getattr(viewer, "conn_id", 0) or 0,
+                      viewer.user or "root", "localhost",
+                      viewer.current_db, "Query", t, "executing", info,
+                      int(live.peak_footprint()) if live is not None
+                      else int(getattr(viewer, "last_mem_peak", 0)),
+                      int(live.spill_count) if live is not None
+                      else int(getattr(viewer, "last_spill_count", 0)))]
+        if viewer is not None and viewer.user is not None and not \
+                storage.privileges.check(viewer.user, "PROCESS", "*",
+                                         "*", roles=viewer.active_roles):
+            # without PROCESS only your own connections are visible
+            # (same rule SHOW PROCESSLIST applies)
+            plist = [r for r in plist if r[1] == viewer.user]
+        for r in plist:
+            rows.append([int(r[0]), r[1], r[2], r[3], r[4], int(r[5]),
+                         r[6], r[7],
+                         int(r[8]) if len(r) > 8 else 0,
+                         int(r[9]) if len(r) > 9 else 0])
     elif tname == "views":
         for s in user_schemas:
             for v in sorted(getattr(s, "views", {}).values(),

@@ -184,8 +184,9 @@ def streamseg_rank_sums(vals: torch.Tensor, f: torch.Tensor, nd: int,
     One launch, after one zero fill of the look-back scratch (its size and
     layout are the kernel's: per tile a status word and K tail words, and
     the tile counter). The kernel writes every output element, so `out`
-    starts empty."""
-    lib = _library("streamseg")
+    starts empty. The library is looked up only after the checks and the
+    empty case, so each lookup (`tidb_copr_jit_cache_total`) is followed
+    by a launch or by the launch's error."""
     dev = vals.device
     _check(vals, "vals", torch.float32, 2, dev)
     _check(f, "f", torch.int32, 1, dev)
@@ -200,6 +201,7 @@ def streamseg_rank_sums(vals: torch.Tensor, f: torch.Tensor, nd: int,
                          f"(the kernel stores 16-byte groups of ranks)")
     if n == 0:
         return torch.zeros((K, nd_pad), dtype=torch.float32, device=dev)
+    lib = _library("streamseg")
     out = torch.empty((K, nd_pad), dtype=torch.float32, device=dev)
     scratch = torch.zeros(lib.streamseg_scratch_words(K, n),
                           dtype=torch.int64, device=dev)

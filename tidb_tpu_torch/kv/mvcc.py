@@ -14,10 +14,10 @@ Port of `tidb_tpu/kv/mvcc.py`: the pure-Python ordered KV (`PyOrderedKV`,
 the twin of the C++ engine `kv/native.NativeOrderedKV`) with its WAL and
 snapshot files and the sync-log policy (`SyncPolicy`, group commit), and
 `MVCCStore` with reads, percolator writes, pessimistic locks, lock
-resolution, range destruction and the recovery scans. The shared-directory
-refresh and the coordinator belong to the multi-process plane, and `gc`
-to the GC worker: not ported, so every mutation section is the store
-mutex alone.
+resolution, range destruction, the recovery scans and version GC (`gc`,
+driven by the maintenance worker, `store/daemon.py`). The shared-directory
+refresh and the coordinator belong to the multi-process plane: not
+ported, so every mutation section is the store mutex alone.
 """
 
 from __future__ import annotations
@@ -926,6 +926,46 @@ class MVCCStore:
                 # end bound still covers them (suffix sorts below end)
                 for k in doomed:
                     self.kv.delete(cf, k)
+
+    # ---- GC ----------------------------------------------------------------
+    def gc(self, safepoint: int) -> int:
+        """Drop versions not visible at/after safepoint (reference:
+        gcworker/gc_worker.go DoGC). Returns removed version count."""
+        with self._mutate():
+            removed = 0
+            drop_w: list[bytes] = []
+            drop_d: list[bytes] = []
+            last_key: Optional[bytes] = None
+            kept_newest = False
+            for wk, wv in self.kv.scan(CF_WRITE, b"", b""):
+                key, commit_ts = _split_vkey(wk)
+                if key != last_key:
+                    last_key = key
+                    kept_newest = False
+                start_ts, kind = _write_dec(wv)
+                if commit_ts >= safepoint:
+                    continue
+                if kind in (OP_LOCK, OP_ROLLBACK):
+                    # markers never settle a key: collect the marker but
+                    # keep looking for the newest REAL version — treating
+                    # a marker as the kept version would delete the live
+                    # PUT beneath it
+                    drop_w.append(wk)
+                    continue
+                if not kept_newest:
+                    kept_newest = True
+                    if kind == OP_PUT:
+                        continue  # newest visible version stays
+                    # newest real record below safepoint is DEL: drop it
+                drop_w.append(wk)
+                if kind == OP_PUT:
+                    drop_d.append(_dkey(key, start_ts))
+            for wk in drop_w:
+                self.kv.delete(CF_WRITE, wk)
+                removed += 1
+            for dk in drop_d:
+                self.kv.delete(CF_DATA, dk)
+            return removed
 
 
 class _MutationSection:

@@ -611,6 +611,38 @@ class TopSQL:
                         0.0, ""])
         return rows
 
+    def top_by_device(self, n: int = 5) -> list[dict]:
+        """Top digests by device time (kernel + device_get stage sums)
+        across the whole ring — the /status quick view. Reduces to
+        scalars directly under the lock instead of deep-copying the
+        ring: monitoring pollers hit this every few seconds and must
+        not lengthen the lock hold against the statement feed."""
+        acc: dict[str, dict] = {}
+        with self._lock:
+            for b in self._buckets:
+                ents = list(b["digests"].values())
+                if b["other"] is not None:
+                    ents.append(b["other"])
+                for e in ents:
+                    dev = e["stages"].get("kernel", 0.0) + \
+                        e["stages"].get("device_get", 0.0)
+                    a = acc.get(e["digest"])
+                    if a is None:
+                        a = acc[e["digest"]] = {
+                            "digest": e["digest"],
+                            "digest_text": e["digest_text"],
+                            "exec_count": 0, "device_ms": 0.0,
+                            "wall_ms": 0.0, "transfer_bytes": 0}
+                    a["exec_count"] += e["exec_count"]
+                    a["device_ms"] += dev * 1e3
+                    a["wall_ms"] += e["sum_wall_s"] * 1e3
+                    a["transfer_bytes"] += sum(e["op_bytes"].values())
+        out = sorted(acc.values(), key=lambda a: -a["device_ms"])[:n]
+        for a in out:
+            a["device_ms"] = round(a["device_ms"], 3)
+            a["wall_ms"] = round(a["wall_ms"], 3)
+        return out
+
 
 # ---- wait-state profile: windowed per-digest wait attribution ---------------
 

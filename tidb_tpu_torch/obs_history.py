@@ -39,7 +39,8 @@ tags equal the reference's, so its plan digests do too:
 Surfaces: information_schema.statements_summary_history (one row per
 rotated window x digest x plan) and tidb_plan_history (one row per
 digest x plan, the "which plan won" view), and the tidb_history_*
-metric families. The cluster_ variants wait for the diagnostics RPC
+metric families, and the status port's /debug/history
+(`debug_payload`). The cluster_ variants wait for the diagnostics RPC
 plane.
 """
 
@@ -499,6 +500,20 @@ class WorkloadHistory:
                 1 if latest.get(digest, (None, None))[1] == plan else 0,
             ])
         return rows
+
+    def debug_payload(self) -> dict:
+        out = {
+            "enabled": self.enabled,
+            "window_seconds": self.window_seconds,
+            "history_cap": self.history_cap,
+            "regression_ratio": self.regression_ratio,
+            "dir": self.dir,
+        }
+        if not self.enabled:
+            return out
+        out.update(self.snapshot())
+        out["regressions"] = self.regression_findings()
+        return out
 
     # ==================== regression detection ====================
     def regression_findings(self) -> list[dict]:

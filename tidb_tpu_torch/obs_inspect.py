@@ -33,8 +33,9 @@ imports nothing.
 Surfaces: information_schema.inspection_result / inspection_summary and
 an edge-triggered `inspection_finding` event the first time a rule
 crosses severity=critical for an item. The cluster_ variant waits for
-the diagnostics RPC plane; the /status section and /debug/inspection
-wait for the status port.
+the diagnostics RPC plane. The status port reads `status_section` (the
+/status `inspection` counts, cached for 5 s) and `debug_payload`
+(/debug/inspection).
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ class DiagnosticsState:
     """Per-storage diagnostics settings + the edge-trigger memory.
     Field names/defaults mirror the reference's config.DiagnosticsConfig
     for the rules the port evaluates; the thresholds of the rules whose
-    plane the port lacks come with that plane. Embedded callers set
-    them directly (the TOML owner waits for the port's config)."""
+    plane the port lacks come with that plane. Config.seed_diagnostics
+    copies the knobs in; embedded callers set them directly."""
 
     enabled: bool = True
     # how many MetricsHistory samples a windowed rule considers (the
@@ -78,6 +79,13 @@ class DiagnosticsState:
     # serializes the edge-trigger update between concurrent inspections
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False)
+    # /status scrape cache: (monotonic ts, severity counts) — a
+    # monitoring poller hitting /status every few seconds must not run
+    # the full rule engine per scrape
+    _status_cache: Optional[tuple] = field(default=None, repr=False)
+
+
+STATUS_CACHE_TTL_S = 5.0
 
 
 @dataclass(frozen=True)
@@ -639,6 +647,52 @@ def result_and_summary_rows(storage) -> tuple[list[list], list[list]]:
     return _result_rows_of(findings), _summary_rows_of(findings)
 
 
+def status_section(storage) -> dict:
+    """The /status `inspection` section: enabled flag, rule count, and
+    finding counts by severity. Zero rule work while disabled; counts
+    are cached for STATUS_CACHE_TTL_S so a monitoring poller never
+    turns the liveness endpoint into a per-scrape rule run."""
+    st = getattr(storage, "diagnostics", None)
+    enabled = bool(st is not None and st.enabled)
+    out = {"enabled": enabled, "rules": len(RULES)}
+    if not enabled:
+        return out
+    cached = st._status_cache
+    now = time.monotonic()
+    if cached is not None and now - cached[0] < STATUS_CACHE_TTL_S:
+        out["findings"] = dict(cached[1])
+        return out
+    counts = {s: 0 for s in SEVERITIES}
+    for f in inspect(storage):
+        counts[f.severity] = counts.get(f.severity, 0) + 1
+    st._status_cache = (now, dict(counts))
+    out["findings"] = counts
+    return out
+
+
+def debug_payload(storage) -> dict:
+    """The /debug/inspection JSON: settings + full findings + the
+    per-rule summary — derived from ONE inspection run so the two
+    sections of one payload can never disagree."""
+    st = getattr(storage, "diagnostics", None)
+    out: dict = {
+        "enabled": bool(st is not None and st.enabled),
+        "rules": sorted(RULES),
+    }
+    if not out["enabled"]:
+        return out
+    findings = inspect(storage)
+    out["findings"] = [
+        {"rule": r[0], "item": r[1], "severity": r[2], "value": r[3],
+         "reference": r[4], "details": r[5]}
+        for r in _result_rows_of(findings)]
+    out["summary"] = [
+        {"rule": r[0], "severity": r[1], "findings": r[2],
+         "items": r[3], "reference": r[4]}
+        for r in _summary_rows_of(findings)]
+    return out
+
+
 # ---- process-wide storage tracking -----------------------------------------
 
 # every live Storage, weakly held (the reference's post-mortem report of
@@ -653,4 +707,4 @@ def track(storage) -> None:
 
 __all__ = ["DiagnosticsState", "Finding", "Rule", "RULES", "rule",
            "lint_rules", "InspectionContext", "inspect", "result_rows",
-           "summary_rows", "track"]
+           "summary_rows", "status_section", "debug_payload", "track"]

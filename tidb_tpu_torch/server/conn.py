@@ -1,9 +1,10 @@
 """Per-connection handler: handshake, auth, command dispatch loop.
 
-Port of `tidb_tpu/server/conn.py` without TLS and the PROXY protocol. A
-statement error answers as an ERR packet, as the reference's does; a
-device or kernel fault (a RuntimeError that carries no errno) is not a
-statement error, and closes the connection instead.
+Port of `tidb_tpu/server/conn.py`, with the SSLRequest upgrade,
+require_secure_transport and the PROXY protocol (v1 and v2). A statement
+error answers as an ERR packet, as the reference's does; a device or
+kernel fault (a RuntimeError that carries no errno) is not a statement
+error, and closes the connection instead.
 
 Counterpart of the reference's clientConn (reference: server/conn.go —
 handshake :235, readOptionalSSLRequestAndHandshakeResponse :665, command
@@ -39,9 +40,12 @@ _CAPS = (P.CLIENT_LONG_PASSWORD | P.CLIENT_LONG_FLAG
 
 
 class _SockIO:
-    """Exact-length socket reads for PacketIO: recv(n) never takes more
-    than the current packet needs, so the reactor's readability check
-    sees every byte a buffered reader would have hidden."""
+    """Exact-length socket reads for PacketIO. A buffered makefile reader
+    would be faster per syscall but over-reads: at the TLS upgrade the
+    client's first handshake bytes can land in the Python buffer while
+    ssl wraps the raw fd — a deadlock. recv(n) never takes more than the
+    current packet needs, so the upgrade sees a clean socket and the
+    reactor's readability check sees every byte."""
 
     __slots__ = ("sock", "_wbuf")
 
@@ -91,17 +95,33 @@ class ClientConn:
         # reactor bookkeeping: when this conn last parked idle
         # (@@wait_timeout reaping reads it on the sweep)
         self.parked_at = 0.0
+        self.tls = False
+        self.client_addr: Optional[str] = None  # PROXY-header real client
 
     # ---- handshake ---------------------------------------------------------
+    def _caps(self) -> int:
+        caps = _CAPS
+        if self.server.ssl_ctx is not None:
+            caps |= P.CLIENT_SSL
+        return caps
+
+    def _secure_transport_required(self) -> bool:
+        """Live sysvar, not the constructor flag: SET GLOBAL
+        require_secure_transport takes effect for new connections (the
+        server start mirrors its config flag into the sysvar default)."""
+        v = self.server.storage.sysvars.get_global(
+            "require_secure_transport")
+        return str(v).lower() in ("1", "on", "true", "yes")
+
     def write_initial_handshake(self) -> None:
         payload = (
             b"\x0a" + SERVER_VERSION.encode() + b"\x00"
             + struct.pack("<I", self.conn_id)
             + self.salt[:8] + b"\x00"
-            + struct.pack("<H", _CAPS & 0xFFFF)
+            + struct.pack("<H", self._caps() & 0xFFFF)
             + bytes([P._CHARSET_UTF8MB4 & 0xFF])
             + struct.pack("<H", P.SERVER_STATUS_AUTOCOMMIT)
-            + struct.pack("<H", (_CAPS >> 16) & 0xFFFF)
+            + struct.pack("<H", (self._caps() >> 16) & 0xFFFF)
             + bytes([21])  # auth plugin data length
             + b"\x00" * 10
             + self.salt[8:20] + b"\x00"
@@ -113,7 +133,31 @@ class ClientConn:
     def read_handshake_response(self) -> None:
         data = self.io.read_packet()
         caps = struct.unpack_from("<I", data, 0)[0]
+        if caps & P.CLIENT_SSL and self.server.ssl_ctx is not None \
+                and len(data) <= 32:
+            # SSLRequest (reference: server/conn.go:665
+            # readOptionalSSLRequestAndHandshakeResponse): upgrade the
+            # socket, keep the packet sequence running, then read the
+            # real (now encrypted) handshake response
+            seq = self.io.sequence
+            self.sock = self.server.ssl_ctx.wrap_socket(
+                self.sock, server_side=True)
+            sio = _SockIO(self.sock)
+            self.io = P.PacketIO(sio, sio)
+            self.io.sequence = seq
+            self.tls = True
+            data = self.io.read_packet()
+            caps = struct.unpack_from("<I", data, 0)[0]
         self.capabilities = caps
+        if self._secure_transport_required() and not self.tls:
+            from ..errno import ER_SECURE_TRANSPORT_REQUIRED
+            self.io.write_packet(P.err_packet(
+                ER_SECURE_TRANSPORT_REQUIRED,
+                "Connections using insecure transport are "
+                "prohibited while --require_secure_transport=ON.",
+                "HY000"))
+            self.io.flush()
+            raise ConnectionError("insecure transport rejected")
         pos = 4 + 4 + 1 + 23  # caps, max packet, charset, filler
         end = data.index(b"\x00", pos)
         self.user = data[pos:end].decode()
@@ -151,6 +195,10 @@ class ClientConn:
         root row (empty auth) would accept any password. Accounts created
         in the grant table verify against their stored double-SHA1
         (reference: privilege/privileges/privileges.go auth + cache)."""
+        if self.server.skip_grant_table:
+            # --skip-grant-table: accept anyone as an unchecked internal
+            # session (reference: privileges.SkipWithGrant)
+            return True
         pwd = self.server.users.get(user)
         if pwd is not None:
             if pwd == "":
@@ -167,6 +215,59 @@ class ClientConn:
                 self.session.active_roles = pm.default_roles(user)
             return ok
         return self.server.allow_unknown_users
+
+    # ---- PROXY protocol ----------------------------------------------------
+    def _read_proxy_header(self) -> None:
+        """Consume a PROXY protocol v1/v2 header when the peer is a
+        configured load balancer (reference: server/server.go:273 wraps
+        the listener in go-proxyprotocol). The real client address
+        replaces the socket peer for observability. The LB sends the
+        header before any MySQL bytes, so reading it first is safe even
+        though MySQL is a server-speaks-first protocol."""
+        try:
+            peer = self.sock.getpeername()[0]
+        except OSError:
+            return
+        if not self.server.proxy_expected(peer):
+            return
+        sio = _SockIO(self.sock)
+        sig = sio.read(6)
+        if sig == b"PROXY ":
+            line = bytearray()
+            while not line.endswith(b"\r\n"):
+                if len(line) >= 101:  # v1 max line is 107 bytes total
+                    raise ConnectionError("PROXY v1 line too long")
+                c = sio.read(1)
+                if not c:
+                    raise ConnectionError("truncated PROXY header")
+                line += c
+            parts = line[:-2].decode("ascii", "replace").split()
+            # TCP4/TCP6 src dst sport dport | UNKNOWN
+            if len(parts) >= 4 and parts[0] in ("TCP4", "TCP6"):
+                self.client_addr = parts[1]
+            return
+        if sig == b"\r\n\r\n\x00\r":
+            rest = sio.read(6)  # remaining v2 signature
+            if rest != b"\nQUIT\n":
+                raise ConnectionError("bad PROXY v2 signature")
+            hdr = sio.read(4)  # ver/cmd, family, length (BE16)
+            if len(hdr) < 4:
+                raise ConnectionError("truncated PROXY v2 header")
+            ln = int.from_bytes(hdr[2:4], "big")
+            body = sio.read(ln)
+            if len(body) < ln:
+                raise ConnectionError("truncated PROXY v2 body")
+            fam = hdr[1] >> 4
+            if fam == 1 and ln >= 12:  # AF_INET
+                import socket as _s
+                self.client_addr = _s.inet_ntoa(body[0:4])
+            elif fam == 2 and ln >= 36:  # AF_INET6
+                import socket as _s
+                self.client_addr = _s.inet_ntop(_s.AF_INET6, body[0:16])
+            return
+        raise ConnectionError(
+            "connection from a proxy-protocol network sent no PROXY "
+            "header")
 
     # ---- command loop ------------------------------------------------------
     def _idle_timeout(self) -> Optional[float]:
@@ -188,6 +289,7 @@ class ClientConn:
         contrast: server/conn.go Run holds a goroutine per conn; the
         OS-thread analog stopped scaling at max-server-connections)."""
         try:
+            self._read_proxy_header()
             self.write_initial_handshake()
             self.read_handshake_response()
         except Exception:  # noqa: BLE001 — malformed handshakes must
@@ -206,7 +308,9 @@ class ClientConn:
     def _park(self) -> None:
         """Hand the socket to the reactor; no thread is held while the
         connection idles. Bytes that race this hand-off are safe: the
-        selector sees them the moment the fd registers."""
+        selector sees them the moment the fd registers. (TLS is the
+        exception — decrypted-but-unread records are invisible to the
+        selector — which is why callers check _buffered_input first.)"""
         if not self.alive or self.killed.is_set():
             self.close()
             return
@@ -217,6 +321,13 @@ class ClientConn:
         reactor.park(self)
 
     def _buffered_input(self) -> bool:
+        pending = getattr(self.sock, "pending", None)
+        if pending is not None:
+            try:
+                if pending():
+                    return True
+            except (OSError, ValueError):
+                return False
         import select as _select
         try:
             r, _, _ = _select.select([self.sock], [], [], 0)

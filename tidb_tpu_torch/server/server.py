@@ -1,12 +1,14 @@
 """MySQL wire server: accept loop, connection registry, graceful shutdown.
 
 Port of `tidb_tpu/server/server.py`: the worker pool, the connection
-reactor, the 1040 gate, KILL, the graceful close and the start of the
-storage's metrics-history sampler (the thread `titpu-metrics-history`,
-joined by `Storage.close`, not by the server: the store outlives a
-server restart). `device` (None: the card) is handed to every
-connection's `Session`. Left out: the HTTP status server, TLS, the PROXY
-protocol, the multi-process kill mailbox and PROCESSLIST.
+reactor, the 1040 gate, KILL, TLS (an operator's pair or auto-tls, and
+require_secure_transport), the PROXY protocol, the processlist, the HTTP
+status server (`server/status.py`), the graceful close and the start of
+the storage's metrics-history sampler (the thread
+`titpu-metrics-history`, joined by `Storage.close`, not by the server:
+the store outlives a server restart). `device` (None: the card) is
+handed to every connection's `Session`. Left out: the multi-process kill
+mailbox (the coordinator's plane).
 
 Counterpart of the reference's server package (reference: server/server.go —
 NewServer, Run accept loop :308, onConn :411, Kill :548, graceful drain
@@ -261,6 +263,15 @@ class Server:
         users: Optional[dict[str, str]] = None,
         allow_unknown_users: bool = True,
         max_connections: int = 512,
+        status_port: Optional[int] = None,
+        status_host: Optional[str] = None,
+        skip_grant_table: bool = False,
+        ssl_cert: Optional[str] = None,
+        ssl_key: Optional[str] = None,
+        ssl_ca: Optional[str] = None,
+        auto_tls: bool = False,
+        require_secure_transport: bool = False,
+        proxy_protocol_networks: str = "",
         conn_workers: int = 0,
         device=None,
     ) -> None:
@@ -274,6 +285,35 @@ class Server:
         # where every connection's Session runs its coprocessor (None:
         # the card)
         self.device = device
+        # HTTP status/metrics port (reference: server/http_status.go;
+        # port 10080 by default there — here opt-in via status_port).
+        # status_host lets operators keep /metrics on loopback while SQL
+        # listens externally.
+        self.status_port = status_port
+        self.status_host = status_host if status_host is not None else host
+        self._status_server = None
+        # --skip-grant-table: every connection authenticates as an
+        # all-privilege session regardless of credentials (reference:
+        # privileges.SkipWithGrant; the account-lockout escape hatch)
+        self.skip_grant_table = skip_grant_table
+        # TLS (reference: server/server.go:227 LoadTLSCertificates +
+        # auto-tls cert generation in config). ssl_cert/ssl_key load an
+        # operator-provided pair; auto_tls generates an ephemeral
+        # self-signed pair at startup. require_secure_transport rejects
+        # plaintext connections like the MySQL sysvar.
+        self.require_secure_transport = require_secure_transport
+        self.ssl_ctx = self._build_ssl_ctx(ssl_cert, ssl_key, ssl_ca,
+                                           auto_tls)
+        if require_secure_transport and self.ssl_ctx is None:
+            # with no TLS context every connection would be rejected —
+            # an unrecoverable lockout; refuse to start instead
+            raise RuntimeError(
+                "require_secure_transport needs ssl-cert/ssl-key or "
+                "auto-tls")
+        # PROXY protocol (reference: server/server.go:273 wraps the
+        # listener via go-proxyprotocol with an allowed-network list):
+        # comma list of CIDRs/hosts the LB connects from, or "*" for any
+        self.proxy_networks = self._parse_networks(proxy_protocol_networks)
 
         self._listener: Optional[socket.socket] = None
         self._conns: dict[int, ClientConn] = {}
@@ -292,6 +332,79 @@ class Server:
         import os as _os
         return min(8, max(2, (_os.cpu_count() or 4) // 2))
 
+    @staticmethod
+    def _parse_networks(spec: str):
+        if not spec:
+            return None
+        import ipaddress
+        if spec.strip() == "*":
+            return "*"
+        nets = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "/" not in part:
+                # single host: full-length prefix for its address family
+                # (a bare IPv6 with /32 would trust 2^96 hosts)
+                part += f"/{ipaddress.ip_address(part).max_prefixlen}"
+            nets.append(ipaddress.ip_network(part, strict=False))
+        return nets or None
+
+    def proxy_expected(self, peer_ip: str) -> bool:
+        """True when a PROXY header must precede this peer's stream."""
+        if self.proxy_networks is None:
+            return False
+        if self.proxy_networks == "*":
+            return True
+        import ipaddress
+        try:
+            ip = ipaddress.ip_address(peer_ip)
+        except ValueError:
+            return False
+        # dual-stack listeners report IPv4 peers as ::ffff:a.b.c.d
+        mapped = getattr(ip, "ipv4_mapped", None)
+        if mapped is not None:
+            ip = mapped
+        return any(
+            ip in n for n in self.proxy_networks
+            if n.version == ip.version)
+
+    @staticmethod
+    def _build_ssl_ctx(cert: Optional[str], key: Optional[str],
+                       ca: Optional[str], auto_tls: bool):
+        import ssl as _ssl
+        if not cert and not auto_tls:
+            return None
+        ctx = _ssl.SSLContext(_ssl.PROTOCOL_TLS_SERVER)
+        if ca:
+            # security.ssl-ca: verify client certificates against the
+            # operator CA when a client presents one (reference:
+            # util.NewTLSConfig ClientCAs + VerifyClientCertIfGiven)
+            ctx.load_verify_locations(cafile=ca)
+            ctx.verify_mode = _ssl.CERT_OPTIONAL
+        if cert:
+            ctx.load_cert_chain(cert, key or cert)
+            return ctx
+        try:
+            pem = _self_signed_pem()
+        except Exception as e:  # noqa: BLE001 - cryptography unavailable
+            # fail fast: a silent downgrade to plaintext (or, with
+            # require_secure_transport, a server that rejects everyone
+            # with no explanation) is worse than refusing to start
+            raise RuntimeError(
+                f"auto-tls certificate generation failed: {e!r}; "
+                "provide ssl-cert/ssl-key or disable auto-tls") from e
+        import tempfile
+        with tempfile.NamedTemporaryFile(
+                "wb", suffix=".pem", delete=False) as f:
+            f.write(pem)
+            path = f.name
+        ctx.load_cert_chain(path, path)
+        import os
+        os.unlink(path)
+        return ctx
+
     # ---- lifecycle ---------------------------------------------------------
     def start(self) -> None:
         """Bind + start accepting in a background thread; returns once the
@@ -307,14 +420,31 @@ class Server:
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="titpu-mysql-accept", daemon=True)
         self._accept_thread.start()
+        sv = self.storage.sysvars
+        sv.set_config_default("require_secure_transport",
+                              int(self.require_secure_transport))
+        if self.ssl_ctx is not None:
+            # reflect TLS support in the compat sysvars clients probe
+            sv.set_config_default("have_ssl", "YES")
+            sv.set_config_default("have_openssl", "YES")
         # KILL routing: sessions resolve KILL <id> through the storage
         self.storage.kill_router = self.kill
+        # SHOW PROCESSLIST provider (reference: infoschema PROCESSLIST
+        # rows built from the server's client connections)
+        self.storage.processlist = self._processlist
         # KILL ownership lookup (the reference's ER_KILL_DENIED check)
         self.storage.conn_owner = self.conn_owner
         # a serving deployment samples its metrics ring in the
         # background (embedded stores sample on demand); Storage.close()
         # joins the thread
         self.storage.metrics_history.start()
+        if self.status_port is not None:
+            from .status import StatusServer
+            self._status_server = StatusServer(self.status_host,
+                                               self.status_port,
+                                               sql_server=self)
+            self._status_server.start()
+            self.status_port = self._status_server.port
 
     def _accept_loop(self) -> None:
         assert self._listener is not None
@@ -398,10 +528,46 @@ class Server:
         with self._lock:
             return len(self._conns)
 
+    def _processlist(self) -> list[tuple]:
+        """(Id, User, Host, db, Command, Time, State, Info, Mem_max,
+        Spill_count) per live connection; Host prefers the PROXY-header
+        real client address. Mem_max is the LIVE statement tracker's
+        peak while one is registered (so a statement the governor is
+        about to kill shows its weight), else the last statement's —
+        the after-the-fact explainability the governor kill policy
+        needs (reference: infoschema PROCESSLIST's MEM column)."""
+        with self._lock:
+            conns = list(self._conns.values())
+        rows = []
+        for c in conns:
+            s = c.session
+            host = c.client_addr
+            if host is None:
+                try:
+                    host = "%s:%s" % c.sock.getpeername()[:2]
+                except OSError:
+                    host = ""
+            info = s.in_flight_sql
+            t = int(time.time() - s.in_flight_since) \
+                if info and s.in_flight_since else 0
+            live = getattr(s, "_live_mem", None)
+            mem = int(live.peak_footprint()) if live is not None \
+                else int(getattr(s, "last_mem_peak", 0))
+            spills = int(live.spill_count) if live is not None \
+                else int(getattr(s, "last_spill_count", 0))
+            rows.append((c.conn_id, c.user or s.user or "", host,
+                         s.current_db, "Query" if info else "Sleep", t,
+                         "" if info is None else "executing", info,
+                         mem, spills))
+        return rows
+
     def close(self, drain_timeout: float = 5.0) -> None:
         """Graceful shutdown: stop accepting, then drain/kill connections
         (reference: server/server.go:605 graceful down + :621 KillAll)."""
         self._shutdown.set()
+        if self._status_server is not None:
+            self._status_server.close()
+            self._status_server = None
         if self._listener is not None:
             try:
                 # shutdown wakes the accept loop's blocked accept() (a
@@ -428,3 +594,35 @@ class Server:
             self._pool.close()
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=1.0)
+
+
+def _self_signed_pem() -> bytes:
+    """Ephemeral self-signed cert+key PEM for auto-TLS (the analog of the
+    reference's auto-tls generated certificates)."""
+    import datetime
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+    from cryptography.x509.oid import NameOID
+
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([
+        x509.NameAttribute(NameOID.COMMON_NAME, "TiDB-TPU auto TLS")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (
+        x509.CertificateBuilder()
+        .subject_name(name).issuer_name(name)
+        .public_key(key.public_key())
+        .serial_number(x509.random_serial_number())
+        .not_valid_before(now - datetime.timedelta(minutes=5))
+        .not_valid_after(now + datetime.timedelta(days=365))
+        .sign(key, hashes.SHA256())
+    )
+    return (
+        key.private_bytes(
+            serialization.Encoding.PEM,
+            serialization.PrivateFormat.TraditionalOpenSSL,
+            serialization.NoEncryption())
+        + cert.public_bytes(serialization.Encoding.PEM)
+    )

@@ -80,9 +80,12 @@ CURTIME, UNIX_TIMESTAMP()) binds to literals before planning, and the
 GET_LOCK family takes the storage's named locks (`UserLocks`), released
 when the connection closes (`rollback_if_active`).
 
-Raise `NotInSlice`: every other statement kind by its kind; SHOW
-PROCESSLIST as "SHOW PROCESSLIST"; the information_schema tables of
-planes the port does not have by their names (`catalog/infoschema.py`).
+SHOW PROCESSLIST reads the serving `Server`'s rows (`storage.processlist`)
+behind the PROCESS gate, or this session's own row in an embedded store.
+
+Raise `NotInSlice`: every other statement kind by its kind; the
+information_schema tables of planes the port does not have by their
+names (`catalog/infoschema.py`).
 
 A partitioned table's DML loops over its partitions
 (`_partition_children`): INSERT (and LOAD DATA) routes each row by the
@@ -90,8 +93,8 @@ partition column, UPDATE buffers rows that move to another partition
 until every partition has been scanned, and DELETE, FOR UPDATE, ANALYZE,
 CHECKSUM and ADMIN CHECK visit each partition's store.
 
-Left out of the reference's statement path, with their planes: the
-processlist, replica routing and the shard-skew warnings of the mesh.
+Left out of the reference's statement path, with their planes: replica
+routing and the shard-skew warnings of the mesh.
 """
 
 from __future__ import annotations
@@ -163,10 +166,6 @@ _NILADIC_FUNCS = frozenset({
 _DML = (ast.InsertStmt, ast.UpdateStmt, ast.DeleteStmt)
 # statements whose affected count is ROW_COUNT()
 _ROW_COUNT_STMTS = _DML + (ast.LoadDataStmt,)
-
-# SHOW kinds whose planes are not ported (the processlist, with the
-# server process)
-_NOT_IN_SLICE_SHOW = frozenset({"PROCESSLIST"})
 
 _EXPLAIN_ANALYZE_COLS = ["plan", "actRows", "time_ms", "engine", "stages",
                          "mesh", "wait_profile"]
@@ -271,9 +270,11 @@ class Session:
         # (INSERT..SELECT must not buy a second execution token and
         # deadlock itself at token-limit 1)
         self._live_mem = None
-        # the running statement's text (the governor's kill label and
-        # the admission shed's event)
+        # the running statement's text and start (the governor's kill
+        # label, the admission shed's event, SHOW PROCESSLIST's Info and
+        # Time columns)
         self.in_flight_sql: Optional[str] = None
+        self.in_flight_since: Optional[float] = None
         self._governor_killed = False
         self._admission_depth = 0
         # serializes the governor's kill callback against the
@@ -407,6 +408,7 @@ class Session:
         if not preserves_warnings:
             self.warnings = []
         self.in_flight_sql = sql[:256]
+        self.in_flight_since = time.time()
         self._stmt_auto_id = None
         # route @@time_zone to the scalar-function layer for the
         # statement's duration: FROM_UNIXTIME formats in the session
@@ -1444,17 +1446,20 @@ class Session:
 
     # ==================== information_schema ====================
     # the served tables whose rows depend on the reader (the reference's
-    # processlist and cluster_processlist are not served)
-    _VIEWER_SENSITIVE_IS = frozenset({"user_privileges", "profiling"})
+    # cluster_processlist is not served)
+    _VIEWER_SENSITIVE_IS = frozenset({"processlist", "user_privileges",
+                                      "profiling"})
 
     def _refresh_infoschema(self, stmt) -> None:
         """Rebuild any information_schema tables this statement touches
         from the live catalog (reference: infoschema memtables are served
         from the InfoSchema snapshot, executor/infoschema_reader.go).
 
-        Viewer-sensitive tables (USER_PRIVILEGES scope) materialize
-        per-viewer content into the SHARED store, so refresh+scan must be
-        exclusive: the statement holds storage.infoschema_lock until it
+        Viewer-sensitive tables (PROCESSLIST visibility, USER_PRIVILEGES
+        scope) materialize per-viewer content into the SHARED store, so
+        refresh+scan must be exclusive: another session's refresh
+        between ours and our scan would serve us its view (or ours to
+        it). The statement holds storage.infoschema_lock until it
         finishes (_execute_observed releases)."""
         from ..catalog import infoschema as I
         from ..catalog import metrics_schema as MS
@@ -3188,8 +3193,6 @@ class Session:
         return ResultSet(["operation", "start_ms", "duration_ms"], rows)
 
     def _exec_show(self, stmt: ast.ShowStmt) -> ResultSet:
-        if stmt.kind in _NOT_IN_SLICE_SHOW:
-            raise NotInSlice(f"SHOW {stmt.kind}")
         if stmt.kind == "TABLES":
             schema = self.catalog.schema(self.current_db)
             names = sorted(t.name for t in schema.tables.values()
@@ -3334,6 +3337,32 @@ class Session:
                 [(r["original_sql"], r["bind_sql"], r["default_db"],
                   r["status"], r["create_time"], r["update_time"],
                   "utf8mb4", "utf8mb4_bin", "manual") for r in recs])
+        if stmt.kind == "PROCESSLIST":
+            provider = getattr(self.storage, "processlist", None)
+            if provider is not None:
+                # the provider's rows carry (.., mem_max, spill_count)
+                # tails for information_schema.processlist; the SHOW
+                # surface keeps MySQL's classic eight columns
+                rows = [tuple(r[:8]) for r in provider()]
+                # MySQL: without the PROCESS privilege, only your own
+                # connections' rows are visible
+                if self.user is not None and not (
+                        self.storage.privileges.check(
+                            self.user, "PROCESS", "*", "*",
+                            roles=self.active_roles)):
+                    rows = [r for r in rows if r[1] == self.user]
+            else:
+                # embedded session: no wire server; list this session
+                info = self.in_flight_sql
+                t = int(time.time() - self.in_flight_since) \
+                    if info and self.in_flight_since else 0
+                rows = [(getattr(self, "conn_id", 0),
+                         self.user or "root", "localhost",
+                         self.current_db, "Query", t, "executing",
+                         info)]
+            return ResultSet(
+                ["Id", "User", "Host", "db", "Command", "Time",
+                 "State", "Info"], rows)
         if stmt.kind == "PROFILES":
             # the @@profiling ring (MySQL SHOW PROFILES; entries
             # recorded by the per-statement sampling profiler)

@@ -37,6 +37,10 @@ fsync-stall hook, checkpoints and group commits record into),
 configured), `metrics_history` (its sampler thread started by the
 server and joined by `close`), `diagnostics` (`obs_inspect.py`) and
 `history` (`obs_history.py`, persisted under `<path>/history/`).
+`maintenance` is the background worker (`store/daemon.py`: lock TTL, GC
+at the safepoint under `gc_owner`, compaction, auto-analyze, checkpoint),
+started by the server process and joined by `close`. `processlist` is
+set by a serving `Server` (its live connections' rows).
 
 A partitioned table is one `TableStore` per partition, each under its own
 table id and region (`child_table_info`); the partitions share the first
@@ -219,10 +223,15 @@ class Storage:
         # worker resumes pending jobs with their reorg checkpoints
         self.ddl_jobs: list = []
         self.ddl_history: list = []
-        # owner election: DDL jobs run on the owner only (the mock for an
-        # in-memory store, an flock for processes sharing this directory)
+        # owner election: DDL jobs and background GC run on the owner
+        # only (the mock for an in-memory store, an flock for processes
+        # sharing this directory)
         from ..owner import owner_manager
         self.ddl_owner = owner_manager(path, "ddl")
+        self.gc_owner = owner_manager(path, "gc")
+        # the background worker (GC / lock TTL / auto-analyze /
+        # checkpoint), made at first use of `maintenance`
+        self._maintenance = None
         # sequence cursors: values handed out, ahead of the persisted
         # high-water only by the cache batch
         self._seq_cursors: dict[int, int] = {}
@@ -697,18 +706,35 @@ class Storage:
         if max_wait_us is not None:
             syncer.group_max_wait_us = max(int(max_wait_us), 0)
 
+    @property
+    def maintenance(self):
+        """The storage's background worker (GC / lock-TTL / auto-analyze /
+        checkpoint); created lazily, started by the server process or
+        tests (reference: gcworker started by the tikv store,
+        gc_worker.go:95)."""
+        if self._maintenance is None:
+            from .daemon import MaintenanceWorker
+            self._maintenance = MaintenanceWorker(self, self.catalog)
+        return self._maintenance
+
     def close(self) -> None:
-        """Clean shutdown: join the metrics-history sampler and persist
-        the live workload-history window, then checkpoint (epochs + KV
-        snapshot, WAL truncated, sequence cursors) and release the
-        engine's files and the owner lock."""
+        """Clean shutdown: join the metrics-history sampler and the
+        maintenance worker and persist the live workload-history window,
+        then checkpoint (epochs + KV snapshot, WAL truncated, sequence
+        cursors) and release the engine's files and the owner locks. An
+        error that ended the maintenance loop is re-raised after the
+        store is closed."""
         self.metrics_history.stop()
         self.history.flush()
-        if self.path is None:
-            return
-        self.checkpoint()
-        self.kv.kv.close()
-        self.ddl_owner.close()
+        try:
+            if self._maintenance is not None:
+                self._maintenance.stop()
+        finally:
+            self.ddl_owner.close()
+            self.gc_owner.close()
+            if self.path is not None:
+                self.checkpoint()
+                self.kv.kv.close()
 
     # ---- snapshot registry (compaction safepoint) ---------------------------
     def acquire_snapshot_ts(self) -> int:

@@ -25,6 +25,8 @@ parsed at import, so points arm inside child server processes. Values:
 
 The port wires the reference's sites in the planes it has:
 
+    daemon/before-gc             store/daemon.py, the GC safepoint taken,
+                                 no version dropped yet
     ddl/before-step              ddl/ddl.py, between two persisted job steps
     governor/mem-pressure        util/governor.py, a number there is the
                                  server's memory usage (the synthetic
@@ -43,10 +45,10 @@ The port wires the reference's sites in the planes it has:
     twopc/before-commit-primary
     twopc/after-primary-commit
 
-The sites of planes not yet ported (daemon, rpc, net, diag,
-range, replica, mesh) wait with them, and so do the reference's
-declared-site registry and hit counts (read by its static analysis and
-its status port).
+The sites of planes not yet ported (rpc, net, diag, range, replica,
+mesh) wait with them, and so does the reference's declared-site registry
+(read by its static analysis). Armed points and their hit counts are
+listed on the status port at /debug/failpoints (`snapshot()`).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from typing import Any, Iterator, Optional
 
 _lock = threading.Lock()
 _active: dict[str, Any] = {}
+_hits: dict[str, int] = {}
 
 
 def enable(name: str, value: Any = True) -> None:
@@ -73,11 +76,32 @@ def disable(name: str) -> None:
 def disable_all() -> None:
     with _lock:
         _active.clear()
+        _hits.clear()
 
 
 def is_enabled(name: str) -> bool:
     with _lock:
         return name in _active
+
+
+def hits(name: str) -> int:
+    with _lock:
+        return _hits.get(name, 0)
+
+
+def snapshot() -> dict[str, dict]:
+    """Armed points + lifetime hit counts (for /debug/failpoints).
+    Points hit after being disarmed keep their counts until
+    disable_all(), so a chaos run can still read what fired."""
+    with _lock:
+        out: dict[str, dict] = {}
+        for name in set(_active) | set(_hits):
+            out[name] = {
+                "armed": name in _active,
+                "value": repr(_active.get(name)),
+                "hits": _hits.get(name, 0),
+            }
+        return out
 
 
 def inject(name: str) -> Optional[Any]:
@@ -87,6 +111,7 @@ def inject(name: str) -> Optional[Any]:
         if name not in _active:
             return None
         value = _active[name]
+        _hits[name] = _hits.get(name, 0) + 1
     if isinstance(value, BaseException):
         raise value
     if isinstance(value, type) and issubclass(value, BaseException):
@@ -175,5 +200,5 @@ def arm_from_env(spec: Optional[str] = None) -> list[str]:
 arm_from_env()
 
 
-__all__ = ["enable", "disable", "is_enabled", "inject", "failpoint",
-           "arm_from_env"]
+__all__ = ["enable", "disable", "disable_all", "is_enabled", "inject",
+           "hits", "snapshot", "failpoint", "arm_from_env"]
