@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-n, each with the launch counters set to 0 just before it and read
+   a-o, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
    a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
       reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
@@ -112,8 +112,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           tpch_refresh.py`: 0.3 x SF x 1,500 new orders, `G1_RF_SHARE`,
           and their 1-7 lineitems from the generator's distributions,
           as autocommit 1,000-row INSERTs, orders first; each must take
-          the `point` fast path) and RF2 (as many seeded orders and their
-          lineitems deleted by DELETE ... IN, lineitem first, each
+          the `point` fast path) and RF2 (0.25 x SF x 1,500 seeded orders,
+          `G1_RF2_SHARE`, and their lineitems deleted by DELETE ... IN,
+          lineitem first, each
           statement below 8,192 rows: a commit of N >= 8,192 mutations
           costs the reference's commit path N^2 delta visits); Q6, Q3,
           Q5 and Q12 as SQL after RF2 (Q18 there overflows to the host
@@ -140,7 +141,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       g2. the reference's HTAP mix (`bench.py` flight_htap_mixed), in
           this process (not over the MySQL wire; the store is in memory,
           not durable): sbtest (id bigint primary key, k bigint, c
-          varchar(64)) with 20,000 rows by 2,000-row INSERTs and
+          varchar(64)) with 10,000 rows by 2,000-row INSERTs and
           lineitem at SF1 bulk-loaded in one Storage; the point SELECT
           and UPDATE must take the `point` fast path; then 2 s with 4
           point readers and 1 writer, and 2 s with 4 readers, 8 writers
@@ -155,8 +156,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       h1. the reference's HTAP mix as `bench.py` flight_htap_mixed runs
           it: `Storage(<tmp>, sync_log="commit")`, whose KV engine must be
           the port's NativeOrderedKV (`csrc/kvstore.cpp`, built with g++),
-          sbtest's 20,000 rows (the reference's 100,000 until part j) by
-          2,000-row INSERTs, lineitem, orders and
+          sbtest's 10,000 rows (the reference's 100,000 until part j,
+          20,000 until part o) by 2,000-row INSERTs, lineitem, orders and
           customer at SF1 bulk-loaded (their epoch files written), ANALYZE,
           `checkpoint()`, then `Server(storage, port=0,
           max_connections=256)` driven with `tests/mysql_client.py` (loaded
@@ -202,9 +203,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       i2. the same on g1''s SF1 card and CPU sessions (every statement's
           outcome and tags equal between the two; Q3 takes the host tier
           over orders' overlay there, as in g1'), plus CREATE UNIQUE INDEX
-          o_ck ON orders (o_custkey, o_orderkey) (~75 reorg batches; ADMIN
-          SHOW DDL JOBS must show it done, SHOW INDEX list it; i1 ran it
-          over SF10's 15M orders until part j), CREATE UNIQUE INDEX
+          c_nk ON customer (c_nationkey, c_custkey) (8 reorg batches; ADMIN
+          SHOW DDL JOBS must show it done, SHOW INDEX list it; until part
+          o o_ck ON orders (o_custkey, o_orderkey), ~75 batches, and i1
+          ran that over SF10's 15M orders until part j), CREATE UNIQUE INDEX
           l_pk ON lineitem (l_orderkey, l_linenumber) (~300 batches) and
           an INSERT of an existing key (1062), a view over lineitem x
           orders read twice, a sequence feeding an INSERT, RENAME TABLE and
@@ -246,7 +248,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           `Session(device="cpu")` with lineitem `PARTITION BY RANGE
           (l_orderkey)` (four equal key ranges and MAXVALUE) beside orders
           and customer; every statement's outcome and tags equal between
-          the two: TPC-H RF1 and RF2 (g1''s share) as routed INSERTs and
+          the two: TPC-H RF1 and RF2 (half of g1''s share, `J2_RF_SHARE`)
+          as routed INSERTs and
           DELETEs, an UPDATE of l_orderkey moving p0's last 2,000 keys
           into p1, an INSERT of a new l_shipmode value into p0 read
           through LIKE and IN from the other partitions (exact counts),
@@ -356,7 +359,7 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           k's server started its store's sampler: part k stops it).
    n. the server process as an operator starts it (`server_launches`),
       after i3 on h3's durable store (SF1 lineitem, orders and customer,
-      sbtest's 20,000 rows, `sync_log="commit"`), the launch counters set
+      sbtest's 10,000 rows, `sync_log="commit"`), the launch counters set
       to 0 before it: a child `python -m tidb_tpu_torch.server --config
       n.toml --path <store> -P 0 --status <free port> --token-limit 16`
       (n.toml: the status port, Top SQL, the wait profile, a 1 s metrics
@@ -391,6 +394,45 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           many of part n's own it kept depends on whether the clock has
           caught up with the reopened TSO's persisted lease, up to 120 s
           ahead of it), Q18 exact, launching streamseg.
+   o. the cluster (`cluster_launches`), after part n closed its reopen
+      of h3's store and before j3, the launch counters set to 0 before
+      it:
+      o1. the leader: `Storage(<store>, shared=True, rpc_listen=
+          "127.0.0.1:0", sync_log="commit")` on the card (its engine must
+          be the shared-WAL `PyOrderedKV`; the reopen timed) with a
+          `Server`; a socket follower: a child `python -m
+          tidb_tpu_torch.server --config o.toml --path <private dir> -P 0
+          --status <free port>` (o.toml: `[transport] remote` the
+          leader's address, `election-timeout-ms = 0`, a 3 s backoff
+          budget), on the card, the time to its listening line; while it
+          starts, a shared-directory sibling `Storage(<store>,
+          shared=True)` with a card `Session` in this process;
+      o2. on the leader, `o_li` (lineitem's columns) filled by INSERT ...
+          SELECT of the orders below l_orderkey 2,000 in two statements
+          of fewer than 8,192 rows, ANALYZE, and 300 seeded sbtest
+          UPDATEs; over the wire the follower's sum(k), count(*) of
+          sbtest and GROUP BY l_orderkey HAVING sum(l_quantity) > 150
+          over o_li equal to the leader's and the numpy answer; its
+          /metrics: requests by engine (a device engine must have served)
+          and streamseg's library lookups;
+      o3. Q18 on the sibling (the shared lineitem epoch, the WAL
+          refreshed), exact with h1's answer, launching streamseg (counted
+          in this process); ALTER TABLE sbtest ADD COLUMN on the sibling,
+          read on the leader and over the wire on the follower;
+      o4. a follower transaction that buffered an UPDATE before the
+          leader's ALTER aborts at commit with 8028 and the row keeps its
+          value; KILL QUERY from the leader ends SLEEP(20) on the
+          follower (the RPC kill mailbox), and from the sibling's session
+          one on the leader (the shared-directory mailbox), each with
+          1317;
+      o5. on the leader, information_schema.cluster_info with the
+          reference's columns lists the follower, cluster_load carries
+          its device rows (the bytes it uploaded > 0); the follower's
+          /status carries its `transport` section;
+      o6. the leader closed: the follower's next read answers the last
+          replicated state, its next write 9001 within o.toml's budget;
+          SIGTERM: `shutting down...` and rc 0; the sibling closed. Each
+          step's time and the part's lap.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the wall time of 1 warm run
@@ -1297,14 +1339,21 @@ RF2_ROWS = 8191
 # 60M-row lineitem epoch instead of 18 (7-14 s each), for the time limit
 # on slower hosts (0.4 before part j); g1' at SF1 sends the whole refresh
 G1_RF_SHARE = 0.3
+# RF2's share at SF10: 3,750 orders (3,750 + RF1's 4,500 still pass the
+# 8,192-delta threshold, so orders folds once in RF2) and ~15,000
+# lineitems, two DELETE statements that fold lineitem where the 4,500
+# orders' ~18,000 took three (one fewer 60M-row fold, 14-17 s), for part
+# o; g1' at SF1 sends the whole refresh, RF2 as many orders as RF1
+G1_RF2_SHARE = 0.25
 RANK = "streamseg.rank_sums"
 # g2's phases: 1 s, a sixth of the reference's 6 s (3 s before part l, 2 s
 # before part m; each phase's scanner still runs one Q6 and one Q1),
-# and its sbtest 20,000 rows, a fifth of the reference's 100,000 (part h
+# and its sbtest 10,000 rows, a tenth of the reference's 100,000 (part h
 # runs the same mix over the wire on a durable store), for the script's
 # time limit
 G2_SECONDS = 1.0
-G2_ROWS = 20_000
+# (20,000 before part o)
+G2_ROWS = 10_000
 
 
 def _stores(s, names=("orders", "lineitem")) -> dict:
@@ -1392,10 +1441,11 @@ def _g_reads(sessions, phase: str, data, hits: list,
 
 
 def _part_g1(args, sessions, data, sf: float, label: str,
-             reads: tuple) -> tuple:
+             reads: tuple, rf2_sf=None) -> tuple:
     """Part g1 (SF10, `sessions` = [f1's card session]) or g1' (SF1, [a
-    card session, a CPU session]) (module docstring); the refresh sends
-    `sf` x 1,500 orders. -> (the reads that
+    card session, a CPU session]) (module docstring); RF1 sends `sf` x
+    1,500 orders and RF2 deletes `rf2_sf` (default `sf`) x 1,500. ->
+    (the reads that
     launched streamseg over a lineitem epoch that compaction rebuilt, the
     arrays as RF2 left them)."""
     card = sessions[0]
@@ -1403,7 +1453,8 @@ def _part_g1(args, sessions, data, sf: float, label: str,
     ins = RF.rf1_statements(new, 1000)
     n_ord = -(-len(new["orders"]["o_orderkey"]) // 1000)
     mid = n_ord + 4
-    keys = RF.rf2_keys(data, sf, args.seed + 102)
+    keys = RF.rf2_keys(data, sf if rf2_sf is None else rf2_sf,
+                       args.seed + 102)
     times: dict = {}
     hits: list = []
     print(f"  {label}: RF1 {len(new['orders']['o_orderkey'])} orders, "
@@ -1607,7 +1658,8 @@ H_SCANS = ("q6", "q1")
 # before part l): a Q1
 # scan over the wire takes ~3-6 s, so the scanner still finishes at least
 # one
-H1_ROWS = 20_000
+# (20,000 before part o)
+H1_ROWS = 10_000
 H_WRITE_SECONDS = 1.0
 H_MIX_SECONDS = 4.0
 H_READS = ("q6", "q1", "q18")
@@ -1982,9 +2034,9 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
 
 
 def _part_h(args, d1, tags: dict) -> tuple:
-    """Part h, then parts i3 and n on h3's store and part j3 in the same
-    temporary directory (module docstring). -> streamseg's launches in
-    h2, in i3, in j3 and in n."""
+    """Part h, then parts i3, n and o on h3's store and part j3 in the
+    same temporary directory (module docstring). -> streamseg's launches
+    in h2, in i3, in j3, in n and in o."""
     import shutil
     import tempfile
 
@@ -2015,13 +2067,22 @@ def _part_h(args, d1, tags: dict) -> tuple:
         _kernels.reset_launches()
         n = _part_n(args, tmp, path, mc, h1)
         print(f"  [part n took {time.perf_counter() - t0:.1f}s]")
+        print(f"  -- o. the cluster: a leader, a shared-directory sibling "
+              f"and a socket follower of h3's store ({_mem()} held before "
+              f"it)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _kernels.reset_launches()
+        o = _part_o(args, tmp, path, mc, h1, d1)
+        print(f"  [part o took {time.perf_counter() - t0:.1f}s]")
         print(f"  -- j3. a partitioned table on a durable store, killed "
               f"mid-checkpoint ({_mem()} held before it)")
         t0 = time.perf_counter()
         _kernels.reset_launches()
         j3 = _part_j3(args, tmp, d1)
         print(f"  [part j3 took {time.perf_counter() - t0:.1f}s]")
-        return launched, i3, j3, n
+        return launched, i3, j3, n, o
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2364,6 +2425,365 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
     return {"child": lookups, "reopen": launched}
 
 
+# ---- part o: the cluster on the card ----
+# the follower's config file (`--config`): its leader, failover off
+# (election-timeout-ms > 0 arms the reference's failover, item 5b of
+# ROADMAP queue 1), and the backoff budget a degraded read or write pays
+O_CONFIG = """host = "127.0.0.1"
+[status]
+report-status = true
+status-host = "127.0.0.1"
+[transport]
+remote = "{remote}"
+election-timeout-ms = 0
+connect-timeout-ms = 1000
+backoff-budget-ms = {budget}
+lease-ms = 2000
+"""
+O_BUDGET_MS = 3000
+# o_li's rows through the KV: lineitem's first orders by l_orderkey, in
+# statements of fewer than 8,192 rows each (ROADMAP queue 3: a commit of
+# N >= 8,192 mutations to one table costs N^2 delta visits); the key
+# range stays inside the dense group space, so the follower's GROUP BY
+# takes a device path over the rows it folded
+O_BANDS = ((0, 1000), (1000, 2000))
+O_UPDATES = 300
+O_HAVING = ("select l_orderkey, sum(l_quantity) from o_li group by "
+            "l_orderkey having sum(l_quantity) > 150 order by l_orderkey")
+# the reference's cluster_info columns
+O_CLUSTER_INFO = ["instance", "type", "server_id", "version", "pid",
+                  "start_time", "uptime_s", "applied_ts", "apply_lag_ms",
+                  "serving", "range_id", "range_leader", "range_term",
+                  "range_closed_ts", "range_read_rows", "range_read_bytes",
+                  "range_write_rows", "range_write_bytes", "error"]
+
+
+def _o_having_oracle(li) -> list:
+    """O_HAVING's rows over O_BANDS of lineitem, as the wire renders
+    them (l_quantity in hundredths)."""
+    key = np.asarray(li["l_orderkey"])
+    qty = np.asarray(li["l_quantity"]).astype(np.int64)
+    sel = np.zeros(len(key), bool)
+    for lo, hi in O_BANDS:
+        sel |= (key >= lo) & (key < hi)
+    keys, inv = np.unique(key[sel], return_inverse=True)
+    sums = np.bincount(inv, weights=qty[sel]).astype(np.int64)
+    return [(str(int(k)), f"{int(v) // 100}.{int(v) % 100:02d}")
+            for k, v in zip(keys, sums) if v > 15000]
+
+
+def _o_metrics(port: int) -> tuple:
+    """(`tidb_copr_requests_total` by engine, streamseg's library
+    lookups) from the follower's /metrics."""
+    code, body = _http(port, "/metrics")
+    if code != 200:
+        raise SystemExit(f"o: the follower's /metrics answered {code}")
+    text = body.decode()
+    reqs = {m[0]: int(float(m[1])) for m in re.findall(
+        r'^tidb_copr_requests_total\{engine="([^"]*)"\} (\S+)$', text,
+        re.M)}
+    lookups = _metric(text, "tidb_copr_jit_cache_total", 'result="hit"') + \
+        _metric(text, "tidb_copr_jit_cache_total", 'result="miss"')
+    return reqs, int(lookups)
+
+
+def _o_sleep_killed(mc, client, killer, label: str) -> float:
+    """SLEEP(20) on `client`'s connection, ended by `killer(conn_id)`:
+    -> seconds from the KILL to the statement's end (errno 1317)."""
+    (conn_id,) = client.query("select connection_id()")[0]
+    errs: list = []
+
+    def sleeper():
+        try:
+            client.query("select sleep(20)")
+        except mc.MySQLError as e:
+            errs.append(e)
+
+    t = threading.Thread(target=sleeper)
+    t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    killer(int(conn_id))
+    t.join(timeout=20)
+    dt = time.perf_counter() - t0
+    if t.is_alive() or not errs or errs[0].code != 1317:
+        raise SystemExit(f"{label}: SLEEP(20) on connection {conn_id} "
+                         f"outlived the KILL ({errs})")
+    return dt
+
+
+def _part_o(args, tmp: str, path: str, mc, h1: dict, d1) -> dict:
+    """Part o (module docstring), on h3's store after part n closed its
+    reopen. -> {"sibling": streamseg's launches by the sibling's Q18,
+    "follower_lookups": the follower's streamseg library lookups}."""
+    import json as _json
+    import os
+    import signal
+    import socket
+
+    from tidb_tpu_torch.kv.mvcc import PyOrderedKV
+    from tidb_tpu_torch.server import Server
+    from tidb_tpu_torch.store.storage import Storage
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    step = {}
+    t_step = time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_step
+        now = time.perf_counter()
+        step[name] = now - t_step
+        t_step = now
+
+    # o1. the leader, the follower's start, the sibling meanwhile
+    t0 = time.perf_counter()
+    leader = Storage(path, shared=True, rpc_listen="127.0.0.1:0",
+                     sync_log="commit")
+    t_open = time.perf_counter() - t0
+    eng = leader.kv.kv
+    if type(eng) is not PyOrderedKV or not eng._shared:
+        raise SystemExit(f"o1: the leader's engine is {type(eng)}, not the "
+                         "shared PyOrderedKV")
+    server = Server(leader, port=0)
+    server.start()
+    sl = Session(leader)
+    sibling = follower = None
+    cfg = os.path.join(tmp, "o.toml")
+    with open(cfg, "w") as f:
+        f.write(O_CONFIG.format(remote=leader.rpc_server.address,
+                                budget=O_BUDGET_MS))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        status = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    follower = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch.server", "--config", cfg,
+         "--path", os.path.join(tmp, "o_follower"), "-P", "0",
+         "--status", str(status)],
+        cwd=root, stdout=subprocess.PIPE, text=True)
+    try:
+        t1 = time.perf_counter()
+        sibling = Storage(path, shared=True)
+        t_sib = time.perf_counter() - t1
+        ss = Session(sibling)
+        line = follower.stdout.readline()
+        if not line.startswith("tidb-tpu-server listening on 127.0.0.1:"):
+            raise SystemExit(f"o1: the follower printed {line!r}")
+        t_listen = time.perf_counter() - t0
+        fport = int(line.rsplit(":", 1)[1])
+        print(f"  o1: leader Storage(<h3's store>, shared=True, "
+              f"rpc_listen={leader.rpc_server.address!r}, sync_log="
+              f"'commit') reopened in {t_open:.2f}s, engine "
+              f"{type(eng).__module__}.{type(eng).__name__} (shared); "
+              f"follower python -m tidb_tpu_torch.server --config o.toml "
+              f"(remote {leader.rpc_server.address}) {line.strip()!r} "
+              f"after {t_listen:.2f}s; sibling Storage(<h3's store>, "
+              f"shared=True) opened meanwhile in {t_sib:.2f}s; node ids: "
+              f"leader {leader.coord.node_id}, sibling "
+              f"{sibling.coord.node_id}")
+        mark("o1")
+        # o2. data through the leader's KV; the follower reads it
+        sl.execute(TD.TPCH_DDL["lineitem"].replace("create table lineitem",
+                                                   "create table o_li"))
+        t0 = time.perf_counter()
+        n_li = 0
+        for lo, hi in O_BANDS:
+            n_li += sl.execute(f"insert into o_li select * from lineitem "
+                               f"where l_orderkey >= {lo} and l_orderkey "
+                               f"< {hi}").affected
+        t_ins = time.perf_counter() - t0
+        sl.execute("analyze table o_li")
+        (k0, cnt) = sl.query("select sum(k), count(*) from sbtest")[0]
+        rng = np.random.default_rng(args.seed + 19)
+        t0 = time.perf_counter()
+        acked = sum(sl.execute(f"update sbtest set k = k + 1 where id = "
+                               f"{int(i)}").affected
+                    for i in rng.integers(0, int(cnt), O_UPDATES))
+        t_upd = time.perf_counter() - t0
+        want_sb = [(str(int(k0) + acked), str(cnt))]
+        want_hv = _o_having_oracle(d1["lineitem"])
+        fc = mc.MiniClient("127.0.0.1", fport)
+        req0, lk0 = _o_metrics(status)
+        t0 = time.perf_counter()
+        got_sb = fc.query("select sum(k), count(*) from sbtest")
+        t_fsb = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_hv = fc.query(O_HAVING)
+        t_fhv = time.perf_counter() - t0
+        req1, lk1 = _o_metrics(status)
+        lead_sb = _wire_text(sl.query("select sum(k), count(*) from "
+                                      "sbtest"))
+        lead_hv = _wire_text(sl.query(O_HAVING))
+        tag = sl.last_engines
+        dreq = {e: n - req0.get(e, 0) for e, n in req1.items()
+                if n - req0.get(e, 0)}
+        if got_sb != lead_sb or got_sb != want_sb or got_hv != lead_hv \
+                or got_hv != want_hv:
+            raise SystemExit(f"o2: the follower read sum(k), count(*) = "
+                             f"{got_sb} (leader {lead_sb}, want {want_sb}) "
+                             f"and {len(got_hv)} HAVING rows (leader "
+                             f"{len(lead_hv)}, oracle {len(want_hv)})")
+        if not sum(n for e, n in req1.items() if e.startswith("device")):
+            raise SystemExit(f"o2: the follower's /metrics counts no device "
+                             f"request: {req1}")
+        print(f"  o2: o_li {n_li} rows by {len(O_BANDS)} INSERT ... SELECTs "
+              f"on the leader in {t_ins:.2f}s (sync_log='commit'), ANALYZE, "
+              f"{acked} of {O_UPDATES} sbtest UPDATEs in {t_upd:.2f}s; over "
+              f"the wire the follower read sum(k), count(*) = {got_sb[0]} in "
+              f"{t_fsb * 1e3:.1f} ms and {len(got_hv)} rows of GROUP BY "
+              f"l_orderkey HAVING in {t_fhv * 1e3:.1f} ms, both equal to the "
+              f"leader's and the numpy answer (leader's tag {tag}); the "
+              f"follower's requests by engine {req1} (+{dreq} across its "
+              f"two reads), streamseg library lookups {lk1}")
+        mark("o2")
+        # o3. Q18 on the sibling over the shared lineitem epoch and the
+        # refreshed WAL; DDL on the sibling seen by the leader and the
+        # follower
+        before = _kernels.LAUNCHES[RANK]
+        t0 = time.perf_counter()
+        q18 = _wire_text(ss.query(TPCH_QUERIES["q18"]))
+        t_q18 = time.perf_counter() - t0
+        q18_tags = list(ss.last_engines)
+        sib_launches = _kernels.LAUNCHES[RANK] - before
+        if q18 != h1["expect"]["q18"] or sib_launches < 1:
+            raise SystemExit(f"o3: the sibling's Q18 exact "
+                             f"{q18 == h1['expect']['q18']}, streamseg "
+                             f"launches {sib_launches}")
+        sib_sb = _wire_text(ss.query("select sum(k), count(*) from sbtest"))
+        t0 = time.perf_counter()
+        ss.execute("alter table sbtest add column o_tag int default 3")
+        t_ddl = time.perf_counter() - t0
+        lead_tag = _wire_text(sl.query("select o_tag, count(*) from sbtest "
+                                       "group by o_tag"))
+        fol_tag = fc.query("select o_tag, count(*) from sbtest group by "
+                           "o_tag")
+        if sib_sb != want_sb or lead_tag != [("3", str(cnt))] or \
+                fol_tag != lead_tag:
+            raise SystemExit(f"o3: sibling sum(k) {sib_sb}; o_tag on the "
+                             f"leader {lead_tag}, on the follower {fol_tag}")
+        print(f"  o3: the sibling's Q18 exact in {t_q18:.2f}s cold "
+              f"(engines {q18_tags}, streamseg_launches="
+              f"{sib_launches}), its sum(k), count(*) = {sib_sb[0]}; ALTER "
+              f"TABLE sbtest ADD COLUMN o_tag INT DEFAULT 3 on the sibling "
+              f"in {t_ddl * 1e3:.1f} ms, read on the leader and over the "
+              f"wire on the follower: {fol_tag}")
+        mark("o3")
+        # o4. the schema fence and the two global KILLs
+        (k7,) = sl.query("select k from sbtest where id = 7")[0]
+        fc.execute("begin")
+        fc.execute("update sbtest set k = k + 100 where id = 7")
+        sl.execute("alter table sbtest add column o_tag2 int")
+        try:
+            fc.execute("commit")
+            raise SystemExit("o4: the follower's commit passed the fence")
+        except mc.MySQLError as e:
+            fence = (e.code, str(e))
+        (k7b,) = sl.query("select k from sbtest where id = 7")[0]
+        got7 = fc.query("select k from sbtest where id = 7")
+        if fence[0] != 8028 or "schema" not in fence[1].lower() or \
+                k7b != k7 or got7 != [(str(k7),)]:
+            raise SystemExit(f"o4: the fenced commit answered {fence}; k of "
+                             f"id 7 {k7} -> {k7b} (follower {got7})")
+        lc = mc.MiniClient("127.0.0.1", server.port)
+        fk = mc.MiniClient("127.0.0.1", fport)
+        t_k1 = _o_sleep_killed(
+            mc, fk, lambda cid: lc.execute(f"kill query {cid}"), "o4")
+        lk = mc.MiniClient("127.0.0.1", server.port)
+        t_k2 = _o_sleep_killed(
+            mc, lk, lambda cid: ss.execute(f"kill query {cid}"), "o4")
+        if fk.query("select 1") != [("1",)] or \
+                lk.query("select 1") != [("1",)]:
+            raise SystemExit("o4: a killed connection did not survive")
+        print(f"  o4: the follower's transaction, buffered before the "
+              f"leader's ALTER, aborted at commit with {fence[0]} "
+              f"{fence[1]!r}, k of id 7 still {k7}; KILL QUERY from the "
+              f"leader ended SLEEP(20) on the follower after {t_k1:.3f}s "
+              f"(RPC mailbox); from the sibling's session, on "
+              f"the leader after {t_k2:.3f}s (shared-directory mailbox)")
+        for c in (lc, fk, lk):
+            c.close()
+        mark("o4")
+        # o5. cluster_info, cluster_load, /status on the follower
+        info = sl.execute("select * from information_schema.cluster_info")
+        roles = {r[1]: r for r in info.rows}
+        if info.column_names != O_CLUSTER_INFO or \
+                set(roles) != {"leader", "follower"} or \
+                any(r[-1] is not None for r in info.rows):
+            raise SystemExit(f"o5: cluster_info {info.column_names} "
+                             f"{info.rows}")
+        fol_addr = roles["follower"][0]
+        # the follower's device rows: the bytes it uploaded, and the
+        # cached buffers (0 while every table it reads is an overlay of
+        # folded deltas: such batches are staged uncached)
+        load = sl.query("select instance, device_type, name, value from "
+                        "information_schema.cluster_load where name in "
+                        "('tidb_device_transfer_bytes', "
+                        "'tidb_device_buffer_bytes')")
+        fol_dev = {r[2]: r[3] for r in load
+                   if r[0] == fol_addr and r[1] == "device"}
+        st = _json.loads(_http(status, "/status")[1])
+        if len(fol_dev) != 2 or \
+                not fol_dev["tidb_device_transfer_bytes"] > 0 or \
+                st["transport"]["mode"] != "socket-follower":
+            raise SystemExit(f"o5: cluster_load {load}; the follower's "
+                             f"/status transport {st.get('transport')}")
+        print(f"  o5: cluster_info from the leader: "
+              f"{[(r[0], r[1], r[2], r[7] > 0) for r in info.rows]} with "
+              f"the reference's {len(O_CLUSTER_INFO)} columns; cluster_load "
+              f"of the follower: {fol_dev}; "
+              f"the follower's /status transport mode "
+              f"{st['transport']['mode']}, {len(st['transport']['members'])}"
+              f" members, breaker {st['transport']['breaker']}")
+        mark("o5")
+        # o6. the leader gone: stale reads, 9001 on writes, SIGTERM
+        server.close()
+        leader.close()
+        leader = None
+        t0 = time.perf_counter()
+        stale = fc.query("select sum(k), count(*) from sbtest")
+        t_stale = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            fc.execute("update sbtest set k = k + 1 where id = 1")
+            raise SystemExit("o6: a write on the degraded follower passed")
+        except mc.MySQLError as e:
+            wcode = e.code
+        t_write = time.perf_counter() - t0
+        fc.close()
+        if stale != want_sb or wcode != 9001 or \
+                t_write > O_BUDGET_MS / 1000.0 + 1.0:
+            raise SystemExit(f"o6: with the leader gone the follower read "
+                             f"{stale} (want {want_sb}); its write answered "
+                             f"{wcode} after {t_write:.2f}s")
+        t0 = time.perf_counter()
+        follower.send_signal(signal.SIGTERM)
+        rc = follower.wait(timeout=120)
+        rest = follower.stdout.read().splitlines()
+        t_stop = time.perf_counter() - t0
+        if rc != 0 or rest != ["shutting down..."]:
+            raise SystemExit(f"o6: SIGTERM: rc {rc}, printed {rest}")
+        sibling.close()
+        sibling = None
+        print(f"  o6: leader closed; the follower's read answered the last "
+              f"replicated state {stale[0]} after {t_stale:.2f}s, its write "
+              f"9001 after {t_write:.3f}s (budget {O_BUDGET_MS} ms); "
+              f"SIGTERM -> 'shutting down...', rc 0 after {t_stop:.2f}s; "
+              f"sibling closed")
+        mark("o6")
+    finally:
+        if follower.poll() is None:
+            follower.kill()
+            follower.wait()
+        follower.stdout.close()
+        if leader is not None:
+            server.close()
+        for st_ in (sibling, leader):
+            if st_ is not None:
+                st_.close()
+    print(f"  o: steps (s) {({k: round(v, 2) for k, v in step.items()})}")
+    return {"sibling": sib_launches, "follower_lookups": lk1}
+
+
 # ---- part i: online DDL and the schema surface ----
 I_READS = ("q6", "q3")
 
@@ -2509,9 +2929,12 @@ def _part_i12(args, sessions, data, label: str, want_tags,
                          "lineitem epoch the DDL rewrote")
     if full:
         # o_ck's ~750 reorg batches over SF10 orders (10.7-32.5 s) paid
-        # for part j: i1 runs the failing l_ok, i2 and i3 the unique reorg
+        # for part j, and its ~75 over SF1 orders (5.1 s a session) for
+        # part o: i2 builds the unique index over SF1 customer (150,000
+        # rows, 8 batches), i1 runs the failing l_ok, i3 the unique reorg
         patch, batches = _timed_batches()
-        sql = "CREATE UNIQUE INDEX o_ck ON orders (o_custkey, o_orderkey)"
+        sql = ("CREATE UNIQUE INDEX c_nk ON customer (c_nationkey, "
+               "c_custkey)")
         with patch:
             out = run(sql)
         if out[0] == "error":
@@ -2519,11 +2942,11 @@ def _part_i12(args, sessions, data, label: str, want_tags,
         say(sql, f"; {_batch_line(batches)}")
         job = _top_job(sessions, label, times)
         if job[2:5] != ("add_index", "public", "done"):
-            raise SystemExit(f"{label}: o_ck's job is {job}")
-        out = run("SHOW INDEX FROM orders")
-        if "o_ck" not in {r[2] for r in out[1]}:
-            raise SystemExit(f"{label}: SHOW INDEX FROM orders lists no "
-                             "o_ck")
+            raise SystemExit(f"{label}: c_nk's job is {job}")
+        out = run("SHOW INDEX FROM customer")
+        if "c_nk" not in {r[2] for r in out[1]}:
+            raise SystemExit(f"{label}: SHOW INDEX FROM customer lists no "
+                             "c_nk")
     sql = "CREATE UNIQUE INDEX l_ok ON lineitem (l_orderkey)"
     patch, batches = _timed_batches()
     with patch:
@@ -2539,11 +2962,11 @@ def _part_i12(args, sessions, data, label: str, want_tags,
             for ix in card.catalog.table("test", "lineitem").indices):
         raise SystemExit(f"{label}: l_ok's job is {job}, or l_ok is left")
     if full:
-        print(f"  {label}: ADMIN SHOW DDL JOBS: o_ck done, l_ok rolled "
-              f"back; SHOW INDEX FROM orders lists o_ck")
+        print(f"  {label}: ADMIN SHOW DDL JOBS: c_nk done, l_ok rolled "
+              f"back; SHOW INDEX FROM customer lists c_nk")
         _part_i2_surface(sessions, label, times, launches)
-        run("DROP INDEX o_ck ON orders")
-        say("DROP INDEX o_ck ON orders")
+        run("DROP INDEX c_nk ON customer")
+        say("DROP INDEX c_nk ON customer")
     else:
         print(f"  {label}: ADMIN SHOW DDL JOBS: l_ok rolled back")
     sql = "ALTER TABLE lineitem DROP COLUMN l_tag"
@@ -2761,6 +3184,10 @@ HOVERCRAFT = "HOVERCRAFT"
 # cold Q1 took 29.9-32.6 s at SF10, ~2.3 s at SF1 in j2); the four runs
 # of each read fit part j's 120 s only this small
 J1_ROOT_SF = 0.1
+# j2's refresh: half of g1''s share (750 orders, ~3,000 lineitems in 5
+# routed INSERTs where the whole refresh took 9), for part o; no
+# partition reaches the fold threshold either way
+J2_RF_SHARE = 0.5
 
 
 def _j_range_by(li) -> tuple:
@@ -2938,7 +3365,7 @@ def _part_j2(args, d1) -> int:
     times: dict = {}
     launched = 0
     # 1. TPC-H's refresh: RF1's lineitem INSERTs routed, RF2's DELETEs
-    sf = args.q18_sf
+    sf = args.q18_sf * J2_RF_SHARE
     new = RF.rf1_rows(d1, sf, args.seed + 101)
     for sql in RF.rf1_statements(new, 1000):
         _j_exec(sessions, sql, label, times)
@@ -4151,7 +4578,8 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     hits, after10 = _part_g1(args, [s10], d10, args.sf * G1_RF_SHARE,
-                             f"g1 SF{args.sf:g}", G1_READS)
+                             f"g1 SF{args.sf:g}", G1_READS,
+                             rf2_sf=args.sf * G1_RF2_SHARE)
     write_launches["g1"] = _kernels.LAUNCHES[RANK]
     lap("part g1")
     print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg over a "
@@ -4216,9 +4644,9 @@ def main(argv=None) -> int:
     print(f"  -- h. durability and the MySQL wire server ({_mem()} held "
           f"before it; {smi})")
     _kernels.reset_launches()
-    (write_launches["h2"], ddl_launches["i3"],
-     partition_launches["j3"], server_launches) = _part_h(args, d1, f2_tags)
-    lap("parts h, i3, n, j3")
+    (write_launches["h2"], ddl_launches["i3"], partition_launches["j3"],
+     server_launches, cluster_launches) = _part_h(args, d1, f2_tags)
+    lap("parts h, i3, n, o, j3")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")
@@ -4245,7 +4673,8 @@ def main(argv=None) -> int:
             "registry_launches": registry_launches,
             "explain_launches": explain_launches,
             "observe_launches": observe_launches,
-            "server_launches": server_launches}
+            "server_launches": server_launches,
+            "cluster_launches": cluster_launches}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,205 @@
+"""A leader and a socket follower of the port on the card.
+
+`test_leader_and_follower_read_alike_on_the_card`: a leader
+(`Storage(path, shared=True, rpc_listen=...)`) and a socket follower in
+one process, their sessions on the default device (`cuda`). TPC-H
+lineitem at SF0.01 (seed 42) is bulk-loaded on the leader; `o_li` gets
+two bands of its rows through the KV (INSERT ... SELECT, statements of
+fewer than 8,192 rows), which is all a follower replicates. The
+follower's GROUP BY answers equal the leader's and the numpy answer;
+after both stores compact their deltas (`Storage.flush`), the Q18-inner
+shape `GROUP BY l_orderkey HAVING sum(l_quantity) > 150` takes the rank
+path (`device[hc]`) on both and launches streamseg on the follower.
+
+`test_follower_process_runs_on_the_card`: `python -m
+tidb_tpu_torch.server` started as a follower without `--device` (so on
+`cuda`), `election-timeout-ms = 0`, answers over the wire with the
+leader's rows, its `/metrics` counts device requests, and SIGTERM ends
+it with rc 0.
+
+Both need a CUDA device and skip elsewhere; the reference is not
+imported, so they run where JAX is not installed:
+`python -m pytest tests/test_torch_cluster_card.py --noconftest -m gpu`.
+
+`test_follower_without_a_card_fails_to_start` needs no card: with no
+device visible, a follower started without `--device cpu` fails before
+it joins (nothing moves to the CPU on its own).
+"""
+
+import os
+import re
+import signal
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+from mysql_client import MiniClient  # noqa: E402
+
+from tidb_tpu_torch.bench import tpch_data as TD  # noqa: E402
+from tidb_tpu_torch.copr import _kernels  # noqa: E402
+from tidb_tpu_torch.rpc.client import RpcOptions  # noqa: E402
+from tidb_tpu_torch.session import Session  # noqa: E402
+from tidb_tpu_torch.store.storage import Storage  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPTS = RpcOptions(connect_timeout_ms=1000, request_timeout_ms=10000,
+                  backoff_budget_ms=3000, lock_budget_ms=8000,
+                  lease_ms=2000)
+BANDS = ((0, 1000), (10000, 11000))
+HAVING = ("select l_orderkey, sum(l_quantity) from o_li group by "
+          "l_orderkey having sum(l_quantity) > 150 order by l_orderkey")
+FLAGS = ("select l_returnflag, count(*), sum(l_quantity) from o_li "
+         "group by l_returnflag order by l_returnflag")
+
+
+def _load_o_li(s) -> dict:
+    """lineitem bulk-loaded, o_li written through the KV -> lineitem's
+    numpy columns."""
+    data = TD.generate_tpch(0.01, 42)
+    TD.load_table(s, "lineitem", data["lineitem"])
+    s.execute(TD.TPCH_DDL["lineitem"].replace("create table lineitem",
+                                              "create table o_li"))
+    for lo, hi in BANDS:
+        s.execute(f"insert into o_li select * from lineitem where "
+                  f"l_orderkey >= {lo} and l_orderkey < {hi}")
+    return data["lineitem"]
+
+
+def _having_oracle(li) -> list:
+    key = np.asarray(li["l_orderkey"])
+    qty = np.asarray(li["l_quantity"]).astype(np.int64)  # cents
+    sel = np.zeros(len(key), bool)
+    for lo, hi in BANDS:
+        sel |= (key >= lo) & (key < hi)
+    keys, inv = np.unique(key[sel], return_inverse=True)
+    sums = np.bincount(inv, weights=qty[sel]).astype(np.int64)
+    return [(int(k), int(v)) for k, v in zip(keys, sums) if v > 15000]
+
+
+def _cents(rows) -> list:
+    return [(int(k), int(round(float(str(v)) * 100))) for k, v in rows]
+
+
+@pytest.mark.gpu
+def test_leader_and_follower_read_alike_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    try:
+        sl = Session(leader)
+        li = _load_o_li(sl)
+        follower = Storage(str(tmp_path / "follower"),
+                           remote=f"127.0.0.1:{leader.rpc_server.port}",
+                           rpc_options=OPTS)
+        try:
+            sf = Session(follower)
+            for q in (FLAGS, HAVING):
+                assert sf.execute(q).rows == sl.execute(q).rows, q
+            assert _cents(sf.execute(HAVING).rows) == _having_oracle(li)
+            leader.flush()
+            follower.flush()
+            want = sl.execute(HAVING).rows
+            assert sl.last_engines == ["device[hc]"]
+            before = _kernels.LAUNCHES["streamseg.rank_sums"]
+            assert sf.execute(HAVING).rows == want
+            assert sf.last_engines == ["device[hc]"]
+            assert _kernels.LAUNCHES["streamseg.rank_sums"] > before
+        finally:
+            follower.close()
+    finally:
+        leader.close()
+
+
+FOLLOWER_TOML = """host = "127.0.0.1"
+[status]
+report-status = true
+status-host = "127.0.0.1"
+[transport]
+remote = "{remote}"
+election-timeout-ms = 0
+backoff-budget-ms = 3000
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metric_sum(text: str, family: str, label_re: str) -> float:
+    return sum(float(v) for v in re.findall(
+        rf'^{family}\{{{label_re}\}} (\S+)$', text, re.M))
+
+
+@pytest.mark.gpu
+def test_follower_process_runs_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import urllib.request
+
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    try:
+        sl = Session(leader)
+        sl.execute("create table t (id bigint primary key, v bigint)")
+        sl.execute("insert into t values " + ",".join(
+            f"({i}, {i % 7})" for i in range(2000)))
+        cfg = tmp_path / "f.toml"
+        cfg.write_text(FOLLOWER_TOML.format(
+            remote=f"127.0.0.1:{leader.rpc_server.port}"))
+        status = _free_port()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "tidb_tpu_torch.server", "--config",
+             str(cfg), "--path", str(tmp_path / "follower"), "-P", "0",
+             "--status", str(status)],
+            cwd=REPO, stdout=subprocess.PIPE, text=True)
+        try:
+            line = child.stdout.readline()
+            assert line.startswith("tidb-tpu-server listening on"), line
+            c = MiniClient("127.0.0.1", int(line.rsplit(":", 1)[1]))
+            got = c.query("select count(*), sum(v) from t")
+            assert got == [("2000", str(sum(i % 7 for i in range(2000))))]
+            c.close()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{status}/metrics", timeout=60) as r:
+                text = r.read().decode()
+            assert _metric_sum(text, "tidb_copr_requests_total",
+                               'engine="device[^"]*"') > 0
+            child.send_signal(signal.SIGTERM)
+            assert child.wait(timeout=120) == 0
+            assert child.stdout.read().splitlines()[-1] == \
+                "shutting down..."
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            child.stdout.close()
+    finally:
+        leader.close()
+
+
+def test_follower_without_a_card_fails_to_start(tmp_path):
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    try:
+        cfg = tmp_path / "f.toml"
+        cfg.write_text(FOLLOWER_TOML.format(
+            remote=f"127.0.0.1:{leader.rpc_server.port}"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "tidb_tpu_torch.server", "--config",
+             str(cfg), "--path", str(tmp_path / "follower"), "-P", "0"],
+            cwd=REPO, capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert proc.returncode != 0
+        assert "listening" not in proc.stdout
+        assert "CUDA device requested" in proc.stderr
+        assert leader.rpc_server.client_count() == 0
+    finally:
+        leader.close()

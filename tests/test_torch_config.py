@@ -302,24 +302,28 @@ group-commit-max-batch = 7
 
 
 @pytest.mark.parametrize("text,seed,item", [
-    ("[heatmap]\nenabled = true\n", "seed_heatmap", 5),
-    ("[replica-read]\nprefer-follower = true\n", "seed_replica_read", 5),
-    ("[ranges]\ncount = 8\n", "seed_ranges", 5),
-    ("[diagnostics]\nheartbeat-stale-ms = 5\n", "seed_diagnostics", 5),
+    ("[heatmap]\nenabled = true\n", "seed_heatmap", "5c"),
+    ("[replica-read]\nprefer-follower = true\n", "seed_replica_read",
+     "5b"),
+    ("[ranges]\ncount = 8\n", "seed_ranges", "5c"),
+    ("[diagnostics]\nclosed-ts-stall-ms = 5\n", "seed_diagnostics", "5c"),
     ("[diagnostics]\nskew-min-dispatches = 5\n", "seed_diagnostics", 8),
     ("[mesh]\naxis-size = 2\n", "seed_mesh", 8),
-    ("[transport]\nremote = '127.0.0.1:1'\n", "main", 5),
-    ("path = 'x'\n[transport]\nlisten = '127.0.0.1:0'\n", "main", 5),
-    ("[transport]\nelection-timeout-ms = 0\n", "main", 5),
-    ("[transport]\npromote-listen = '127.0.0.1:9'\n", "main", 5),
-    ("[transport]\nlease-ms = 1000\n", "main", 5),
+    ("[transport]\nremote = '127.0.0.1:1'\n", "main", "5b"),
+    ("[transport]\nremote = '127.0.0.1:1'\nelection-timeout-ms = 5\n",
+     "main", "5b"),
+    ("[replica-read]\nrange-aware = true\n", "seed_replica_read", "5b"),
+    ("[diagnostics]\nrange-flap-threshold = 2\n", "seed_diagnostics",
+     "5c"),
+    ("[diagnostics]\nsplit-flap-window-s = 5\n", "seed_diagnostics", "5c"),
     ("[analysis]\nlock-check = true\n", "main", 6),
 ])
 def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
-    """The knob loads as in the reference; its seed (or, for the
-    multi-process modes and the lock checker, the entry point before the
-    store opens) does nothing at the defaults and raises NotInSlice,
-    naming the queue item, otherwise."""
+    """The knob loads as in the reference; its seed (or, for failover on
+    a follower — `election-timeout-ms` above 0, its default — and the
+    lock checker, the entry point before the store opens) does nothing
+    at the defaults and raises NotInSlice, naming the queue item,
+    otherwise."""
     path = _write(tmp_path, text)
     _same_fields(RC.Config.load(path), PC.Config.load(path))
     if seed == "main":

@@ -233,12 +233,13 @@ def test_show_create_table_text(surface):
 # and rows are held to the reference in test_torch_statement_plane.py)
 # served tables whose rows are the observability planes' (timings,
 # process telemetry): their columns are compared below, their rows in
-# the planes' own tests
+# the planes' own tests (the cluster_* fan-outs in
+# test_torch_cluster_obs.py)
 OBS_SERVED = frozenset({
     "statements_summary", "slow_query", "tidb_top_sql", "tidb_wait_profile",
     "tidb_events", "statements_summary_history", "tidb_plan_history",
     "inspection_result", "inspection_summary", "metrics_summary",
-    "profiling"})
+    "profiling"} | {t for t in I.SERVED if t.startswith("cluster_")})
 
 
 @pytest.mark.parametrize("table", sorted(I.SERVED - OBS_SERVED))

@@ -14,7 +14,8 @@ process) with every acknowledged row. Both reject a bad file with the
 same `invalid configuration:` line and exit 1, and print the same
 example config. The
 port alone: without a card and without `--device cpu` it fails (no
-listening line), and `--shared` raises `NotInSlice`. Every child is
+listening line), and a follower whose `election-timeout-ms` arms
+failover raises `NotInSlice`. Every child is
 terminated and waited for. Tolerance: none.
 """
 
@@ -175,7 +176,7 @@ def test_entry_points_side_by_side(tmp_path):
         assert statuses["port"]["admission"] == \
             statuses["ref"]["admission"]
         assert set(statuses["port"]) == \
-            set(statuses["ref"]) - {"transport", "mesh", "ranges"}
+            set(statuses["ref"]) - {"mesh", "ranges"}
         # SIGHUP: the reloadable knobs the flags did not pin
         cfg.write_text(RELOADED)
         for child in children.values():
@@ -234,11 +235,13 @@ def test_print_example_config_byte_equal():
 
 @pytest.mark.parametrize("args,needle", [
     (["-P", "0"], "CUDA device requested"),
-    (["-P", "0", "--device", "cpu", "--shared"], "NotInSlice"),
+    (["-P", "0", "--device", "cpu", "--shared", "--transport-remote",
+      "127.0.0.1:1"], "NotInSlice"),
 ], ids=["no-card", "shared"])
 def test_port_refuses_to_start(args, needle):
     """Without a card the default device fails the start (nothing moves
-    to the CPU on its own); a multi-process mode is not in this slice."""
+    to the CPU on its own); a follower whose election timeout keeps its
+    default (10000 ms, which arms failover) is not in this slice."""
     cmd = [sys.executable, "-m", "tidb_tpu_torch.server", *args]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=120,

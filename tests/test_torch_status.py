@@ -7,7 +7,7 @@ history); the same statements go to both over the wire (Q6, Q1, Q18, a
 TRACE). Then every route is read from both: `/metrics` (the same
 families, but the reference's that the port does not register,
 `metrics_schema.UNPORTED_FAMILIES`), `/status` (the reference's sections
-but those of unported planes: transport and mesh; each section's keys),
+but those of unported planes: ranges and mesh; each section's keys),
 `/slow-query`, `/statements-summary` (the same digests), the TRACE tree
 of `/debug/trace/<conn>` (the same span names), and each `/debug/*`
 route's keys; `/debug/failpoints` equal. The routes of unported planes
@@ -185,7 +185,7 @@ def test_metrics_families(pair):
 
 def test_status_sections(pair):
     got = [_json(pair[n], "/status") for n in ("ref", "port")]
-    assert set(got[1]) == set(got[0]) - {"transport", "mesh", "ranges"}
+    assert set(got[1]) == set(got[0]) - {"mesh", "ranges"}
     for section in got[1]:
         assert _keys(got[1][section]) == _keys(got[0][section]), section
     assert got[1]["version"] == got[0]["version"]

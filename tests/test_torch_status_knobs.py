@@ -173,8 +173,7 @@ def test_inspection_state_mirrors_config_section():
             assert f.default == state[f.name].default, f.name
         else:
             unported.add(f.name)
-    assert unported == {"skew_min_dispatches", "heartbeat_stale_ms",
-                        "apply_lag_warn_ms", "range_flap_threshold",
+    assert unported == {"skew_min_dispatches", "range_flap_threshold",
                         "split_flap_threshold", "split_flap_window_s",
                         "closed_ts_stall_ms"}
 

@@ -20,10 +20,14 @@ inspection_result and inspection_summary (one rule run when a statement
 reads both; a critical finding also lands in SHOW WARNINGS); from the
 metrics history, metrics_summary; and from the reading session's
 @@profiling ring, profiling; from the serving server's connections (or
-the reading session alone, embedded), processlist. A statement that
-touches one of the others (the mesh recorder's tidb_mesh_shards and
-tidb_mesh_storage, tidb_hot_ranges and every cluster_* table) raises
-`NotInSlice(<table>)`: they read planes the port does not have yet.
+the reading session alone, embedded), processlist; from the diagnostics
+fan-out over the cluster's members (`rpc/diag.cluster_rows`, a member
+that does not answer degrading to an error row and a warning), the
+cluster_* tables over ported planes. A statement that touches one of the
+others (the mesh recorder's tidb_mesh_shards, tidb_mesh_storage and
+their cluster_* twins, item 8; tidb_hot_ranges and cluster_hot_ranges,
+item 5c) raises `NotInSlice(<table>)`: they read planes the port does
+not have yet.
 """
 
 from __future__ import annotations
@@ -491,6 +495,10 @@ SERVED = frozenset({
     "tidb_wait_profile", "tidb_events", "statements_summary_history",
     "tidb_plan_history", "inspection_result", "inspection_summary",
     "metrics_summary", "profiling", "processlist",
+    "cluster_info", "cluster_processlist", "cluster_slow_query",
+    "cluster_statements_summary", "cluster_statements_summary_history",
+    "cluster_plan_history", "cluster_top_sql", "cluster_tidb_wait_profile",
+    "cluster_inspection_result", "cluster_load",
 })
 
 
@@ -702,6 +710,10 @@ def _rows_for(storage, catalog: Catalog, tname: str,
         for name, st in sorted(hist.summary(extra=now).items()):
             rows.append([name, st["samples"], st["min"], st["avg"],
                          st["max"], st["last"]])
+    elif tname.startswith("cluster_"):
+        from ..rpc import diag as _diag
+        rows = _diag.cluster_rows(storage, tname,
+                                  len(_DEFS[tname]), viewer)
     elif tname == "profiling":
         for p in (getattr(viewer, "_profiles", None) or []):
             prof = p["profile"]

@@ -34,11 +34,9 @@ from .schema import Catalog, ColumnInfo, SchemaInfo, TableInfo
 DB_NAME = "metrics_schema"
 
 # the reference's families that the port does not register, with the
-# planes they wait for: the follower read tier, the keyspace heat plane,
-# the mesh plane, the range plane and the RPC circuit breaker
+# planes they wait for: the keyspace heat plane and the range plane
+# (item 5c), the mesh plane (item 8)
 UNPORTED_FAMILIES = frozenset({
-    # follower read tier
-    "tidb_replica_reads_total", "tidb_follower_apply_lag_seconds",
     # keyspace heat plane (obs_heat.py)
     "tidb_hot_range_ratio", "tidb_range_read_bytes_total",
     "tidb_range_read_rows_total", "tidb_range_write_bytes_total",
@@ -51,8 +49,6 @@ UNPORTED_FAMILIES = frozenset({
     # range-sharded write leadership
     "tidb_range_leaders", "tidb_range_transfers_total",
     "tidb_range_orphan_resolutions_total", "tidb_range_splits_total",
-    # RPC circuit breaker
-    "tidb_rpc_breaker_trips_total", "tidb_rpc_breaker_fast_failures_total",
 })
 
 _COLS = [

@@ -17,12 +17,12 @@ Some knobs belong to planes the port does not have yet. They load and
 validate as in the reference, and at their defaults they do nothing; set
 to anything else, the seed that would apply them raises `NotInSlice`
 naming the queue item that ports the plane: `[heatmap]`,
-`[replica-read]`, `[ranges]` and the diagnostics thresholds of the
-RPC, replica and range planes (item 5), `[mesh]` and
-`diagnostics.skew-min-dispatches` (item 8). The entry point checks
-`[transport]` (item 5) and `[analysis] lock-check` (item 6) before it
-opens the store. The RPC tier's options object (`rpc_options`) comes
-with that tier.
+`[replica-read]` routing (`prefer-follower`, `range-aware`), `[ranges]`
+and the diagnostics thresholds of the range plane (items 5b and 5c),
+`[mesh]` and `diagnostics.skew-min-dispatches` (item 8). The entry point
+checks `transport.election-timeout-ms` on a follower (failover, item 5b)
+and `[analysis] lock-check` (item 6) before it opens the store.
+`rpc_options` hands the `[transport]` knobs to the RPC tier.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class ConfigError(Exception):
     pass
 
 
-def _not_in_slice(what: str, item: int) -> NotInSlice:
+def _not_in_slice(what: str, item) -> NotInSlice:
     return NotInSlice(f"{what} (ROADMAP queue 1 item {item})")
 
 
@@ -837,6 +837,24 @@ class Config:
             fh._titpu_slow_sink = True  # type: ignore[attr-defined]
             slow.addHandler(fh)
 
+    def rpc_options(self):
+        """The transport knobs as the RPC tier's options object."""
+        from .rpc.client import RpcOptions
+        t = self.transport
+        return RpcOptions(
+            connect_timeout_ms=t.connect_timeout_ms,
+            request_timeout_ms=t.request_timeout_ms,
+            backoff_budget_ms=t.backoff_budget_ms,
+            lock_budget_ms=t.lock_budget_ms,
+            lease_ms=t.lease_ms,
+            stale_reads=t.stale_reads,
+            diag_listen=t.diag_listen,
+            election_timeout_ms=t.election_timeout_ms,
+            promote_listen=t.promote_listen,
+            breaker_threshold=t.breaker_threshold,
+            breaker_cooldown_ms=t.breaker_cooldown_ms,
+        )
+
     def effective_max_connections(self) -> int:
         """The connection-gate cap: max-server-connections when set,
         else the legacy max-connections knob."""
@@ -881,10 +899,11 @@ class Config:
         # the thresholds of rules over planes the port does not have:
         # the defaults are what those rules would read, any other value
         # raises
-        unported = {"skew_min_dispatches": 8, "heartbeat_stale_ms": 5,
-                    "apply_lag_warn_ms": 5, "range_flap_threshold": 5,
-                    "split_flap_threshold": 5, "split_flap_window_s": 5,
-                    "closed_ts_stall_ms": 5}
+        unported = {"skew_min_dispatches": "8",
+                    "range_flap_threshold": "5c",
+                    "split_flap_threshold": "5c",
+                    "split_flap_window_s": "5c",
+                    "closed_ts_stall_ms": "5c"}
         for knob, item in unported.items():
             if getattr(d, knob) != getattr(DiagnosticsConfig, knob):
                 raise _not_in_slice(
@@ -898,6 +917,8 @@ class Config:
         st.admission_shed_threshold = d.admission_shed_threshold
         st.row_eval_threshold = d.row_eval_threshold
         st.dominant_wait_threshold = d.dominant_wait_threshold
+        st.heartbeat_stale_ms = d.heartbeat_stale_ms
+        st.apply_lag_warn_ms = d.apply_lag_warn_ms
         # the /status counts must reflect the new thresholds now, not
         # after the cache TTL
         st._status_cache = None
@@ -917,20 +938,31 @@ class Config:
         plane is not ported, so the defaults (off) arm nothing and any
         other value raises."""
         if self.heatmap != HeatmapConfig():
-            raise _not_in_slice("[heatmap]: the keyspace heat plane", 5)
+            raise _not_in_slice("[heatmap]: the keyspace heat plane", "5c")
 
-    def seed_replica_read(self, storage) -> None:  # noqa: ARG002
-        """Arm the follower read tier from the [replica-read] knobs: an
-        embedded store has no follower to route to, so the defaults arm
-        nothing and any other value raises."""
-        if self.replica_read != ReplicaReadConfig():
-            raise _not_in_slice("[replica-read]: the follower read tier", 5)
+    def seed_replica_read(self, storage) -> None:
+        """Arm the follower's apply engine from the [replica-read] knobs
+        (startup and SIGHUP hot reload): `enabled` and
+        `apply-interval-ms`. The router's knobs (`max-staleness-ms`,
+        `prefer-follower`, `range-aware`) are item 5b and raise away from
+        their defaults."""
+        r = self.replica_read
+        d = ReplicaReadConfig()
+        if (r.max_staleness_ms, r.prefer_follower, r.range_aware) != \
+                (d.max_staleness_ms, d.prefer_follower, d.range_aware):
+            raise _not_in_slice(
+                "[replica-read] max-staleness-ms/prefer-follower/"
+                "range-aware: replica read routing", "5b")
+        st = storage.replica_read
+        st.enabled = r.enabled
+        st.apply_interval_ms = r.apply_interval_ms
+        storage.arm_replica_read()
 
     def seed_ranges(self, storage) -> None:  # noqa: ARG002
         """Arm the range plane from the [ranges] knobs: the defaults
         (disabled) arm nothing, any other value raises."""
         if self.ranges != RangesConfig():
-            raise _not_in_slice("[ranges]: the range plane", 5)
+            raise _not_in_slice("[ranges]: the range plane", "5c")
 
     def seed_group_commit(self, storage) -> None:
         """Apply the [storage] group-commit batching knobs to the

@@ -16,8 +16,13 @@ snapshot files and the sync-log policy (`SyncPolicy`, group commit), and
 `MVCCStore` with reads, percolator writes, pessimistic locks, lock
 resolution, range destruction, the recovery scans and version GC (`gc`,
 driven by the maintenance worker, `store/daemon.py`). The shared-directory
-refresh and the coordinator belong to the multi-process plane: not
-ported, so every mutation section is the store mutex alone.
+refresh lives here too: `PyOrderedKV(path, shared=True)` tails a WAL that
+sibling processes append to (position-based, queueing every applied
+record on `pending_refresh` for the storage's columnar fold), and a
+store with a coordinator (`store/coordinator.py`, `rpc/remote.py`) runs
+every mutation section inside the coordinator's section with the WAL
+caught up. The range split's raw scans belong to the range plane (item
+5c).
 """
 
 from __future__ import annotations
@@ -352,12 +357,20 @@ class PyOrderedKV:
     record layout in kvstore.cpp write_rec), so either engine can reopen
     a directory the other wrote."""
 
-    def __init__(self, path=None, sync_log: str = "off",
+    def __init__(self, path=None, shared: bool = False,
+                 sync_log: str = "off",
                  sync_interval_ms: int = 100) -> None:
         self._maps: list[dict[bytes, bytes]] = [{}, {}, {}]
         self._keys: list[list[bytes]] = [[], [], []]
         self._dir = None
         self._wal = None
+        self._shared = shared
+        self._applied_off = 0
+        # bumped whenever checkpoint() rotates (truncates) the WAL — the
+        # closed-ts protocol brackets its lock-free size stats on it
+        # (shared-mode engines never rotate, so a socket leader's
+        # generation is constant)
+        self.wal_generation = 0
         # durability policy (storage.sync-log): 'off' flushes to the OS
         # only (a machine crash can lose acked commits), 'commit' fsyncs
         # at every commit boundary, 'interval' group-commits — at most
@@ -366,21 +379,28 @@ class PyOrderedKV:
         self.sync_interval_ms = sync_interval_ms
         self._syncer = SyncPolicy(sync_log, sync_interval_ms,
                                   self._fsync_wal)
-        # cross-commit group fsync: the commit-boundary fsync leaves the
-        # mutation section (the commit path's rendezvous in commit_sync
-        # runs after it drops its locks)
-        self._syncer.defer_commit = True
+        # cross-commit group fsync: single-process stores defer the
+        # commit-boundary fsync out of the mutation section (the commit
+        # path's rendezvous in commit_sync runs after it drops its
+        # locks). Shared-dir stores keep the in-section fsync: the flock
+        # contract is durability BEFORE visibility to sibling processes,
+        # and the flock serializes committers anyway.
+        self._syncer.defer_commit = not shared
+        # records applied by refresh() that the storage has not yet
+        # folded into columnar epochs / catalog (shared mode only)
+        self.pending_refresh: list[tuple[int, int, bytes, bytes]] = []
         if path is not None:
             os.makedirs(path, exist_ok=True)
             self._dir = str(path)
             self._replay(os.path.join(self._dir, "snapshot.kv"))
             wal_path = os.path.join(self._dir, "wal.log")
             valid = self._replay(wal_path)
-            if valid >= 0:
+            if valid >= 0 and not shared:
                 # drop a torn tail (crash mid-append): appending after the
                 # garbage would hide every later record from the next replay
                 with open(wal_path, "ab") as f:
                     f.truncate(valid)
+            self._applied_off = max(valid, 0)
             self._wal = open(wal_path, "ab")
 
     # ---- durability --------------------------------------------------------
@@ -429,9 +449,72 @@ class PyOrderedKV:
                 self._wal.write(rec)
             self._wal.flush()
             self._syncer.mark_dirty()
+            # shared mode: our own appends are already in memory — advance
+            # the tail cursor so refresh() skips them. Writes happen only
+            # inside the coordinator section after refresh(), so the
+            # cursor was at EOF when this append started.
+            self._applied_off += len(rec)
+
+    def refresh(self) -> int:
+        """Apply records other processes appended past our cursor
+        (shared mode); applied records are also queued on
+        `pending_refresh` for the storage layer's columnar fold. Returns
+        the number of records applied."""
+        if self._dir is None or not self._shared:
+            return 0
+        path = os.path.join(self._dir, "wal.log")
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            return 0
+        if size <= self._applied_off:
+            return 0
+        n = 0
+        with open(path, "rb") as f:
+            f.seek(self._applied_off)
+            while True:
+                hdr = f.read(10)
+                if len(hdr) < 10:
+                    break
+                op, cf = hdr[0], hdr[1]
+                klen, vlen = struct.unpack_from("<II", hdr, 2)
+                if cf >= 3 or op not in (1, 2):
+                    break  # torn tail; tail_clean truncates under flock
+                key = f.read(klen)
+                val = f.read(vlen)
+                if len(key) < klen or len(val) < vlen:
+                    break
+                if op == 1:
+                    self._apply_put(cf, key, val)
+                else:
+                    self._apply_delete(cf, key)
+                self.pending_refresh.append((op, cf, key, val))
+                self._applied_off = f.tell()
+                n += 1
+        return n
+
+    def tail_clean(self) -> None:
+        """Truncate a torn tail left by a writer that crashed mid-append.
+        Callers must hold the coordinator flock (nobody else can be
+        appending) and have refresh()ed to the valid prefix."""
+        if self._dir is None or not self._shared:
+            return
+        path = os.path.join(self._dir, "wal.log")
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            return
+        if size > self._applied_off:
+            with open(path, "r+b") as f:
+                f.truncate(self._applied_off)
 
     def checkpoint(self) -> None:
         if self._dir is None or self._wal is None:
+            return
+        if self._shared:
+            # snapshot+truncate would destroy sibling processes' WAL
+            # cursors and any records we have not refreshed yet; shared
+            # dirs compact only via a dedicated offline pass
             return
         tmp = os.path.join(self._dir, "snapshot.tmp")
         with open(tmp, "wb") as f:
@@ -449,6 +532,7 @@ class PyOrderedKV:
         fsync_dir(self._dir)
         self._wal.close()
         self._wal = open(os.path.join(self._dir, "wal.log"), "wb")
+        self.wal_generation += 1
         self._syncer.clean()  # the fsync'd snapshot covers everything
 
     def _fsync_wal(self) -> None:
@@ -588,12 +672,30 @@ class Mutation:
 
 
 class MVCCStore:
-    def __init__(self, engine=None) -> None:
+    def __init__(self, engine=None, coord=None) -> None:
         self.kv = engine if engine is not None else PyOrderedKV()
         self._mu = threading.RLock()
+        # the coordinator of a multi-process deployment: every mutation
+        # runs inside its section with the WAL tail caught up, so
+        # percolator lock/write records from sibling processes are always
+        # visible to conflict checks (store/coordinator.py)
+        self.coord = coord
 
     def _mutate(self):
         return _MutationSection(self)
+
+    def refresh(self) -> int:
+        """Locked WAL catch-up (shared mode): serializes with in-process
+        mutators so the tail cursor never moves backwards under a
+        concurrent append."""
+        with self._mu:
+            return self.kv.refresh()
+
+    def drain_pending(self) -> list:
+        with self._mu:
+            out = self.kv.pending_refresh
+            self.kv.pending_refresh = []
+            return out
 
     def commit_sync(self) -> None:
         """Commit-ack durability rendezvous (see SyncPolicy.commit_sync).
@@ -969,30 +1071,48 @@ class MVCCStore:
 
 
 class _MutationSection:
-    """Mutation critical section: the store mutex, with the engine's
+    """Mutation critical section: the coordinator's section (when
+    present) plus the store mutex, entered with the shared WAL caught up
+    so conflict checks see every sibling process's records; the engine's
     sync-log boundary at its exit."""
 
-    __slots__ = ("store",)
+    __slots__ = ("store", "_coord")
 
     def __init__(self, store: MVCCStore) -> None:
         self.store = store
+        self._coord = None
 
     def __enter__(self):
+        c = self._coord = self.store.coord
+        if c is not None:
+            c.acquire()
+            self.store.kv.refresh()
+            self.store.kv.tail_clean()
         self.store._mu.acquire()
         return self
 
     def __exit__(self, *exc) -> None:
-        # the section's records fsync per the sync-log policy (under
-        # sync-log=commit the engine defers that to the commit path's
-        # group rendezvous, and maybe_sync only fences them). A FAILED
-        # fsync must not strand the mutex, but it must still FAIL the
-        # section: acking a commit whose durability call errored would
-        # void the sync-log contract
+        # durability BEFORE visibility to siblings: the section's
+        # records fsync per the sync-log policy while the coordinator's
+        # section is still held (single-process stores defer the
+        # commit-mode fsync to the commit path's group rendezvous, and
+        # maybe_sync only fences them). A FAILED fsync must not strand
+        # the locks, but it must still FAIL the section: acking a commit
+        # whose durability call errored would void the sync-log contract
+        c = self._coord
         sync_err: Optional[OSError] = None
         try:
             self.store.kv.maybe_sync()
         except OSError as e:
             sync_err = e
+        # coordinator release NEXT, while the store mutex is still held:
+        # a remote coordinator publishes (or reverts) the section's
+        # buffered records in release(), and doing that outside the
+        # mutex would let a concurrent local reader observe a commit
+        # that a fenced flush then reverts
+        try:
+            if c is not None:
+                c.release()
         finally:
             self.store._mu.release()
         if sync_err is not None and exc == (None, None, None):

@@ -158,8 +158,14 @@ class TwoPhaseCommitter:
 
     def _commit_phase(self, state, start_ts: int) -> int:
         mutations, primary, resolver = state
+        # the commit ts comes from the oracle's COMMIT allocator when it
+        # has one (RemoteTSO.commit_ts): the leader's pending-commit
+        # ledger must know this ts may stamp records that are not
+        # published yet, or a follower's closed ts could pass an
+        # in-flight remote commit. Local oracles have no ledger.
+        alloc = getattr(self.tso, "commit_ts", None) or self.tso.ts
         with obs.wait("tso_wait"):
-            commit_ts = self.tso.ts()
+            commit_ts = alloc()
         # commit the primary synchronously — the txn is durable
         # once this lands (reference: 2pc.go:741)
         failpoint.inject("twopc/before-commit-primary")

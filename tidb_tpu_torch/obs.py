@@ -83,10 +83,15 @@ What the device families mean on the port:
   column and mask caches, each tensor counted by its storage's
   `untyped_storage().nbytes()` once per storage pointer.
 
-Left out, with the planes they belong to: the remote and graft span
-helpers (the RPC plane), the replica families (the follower read tier),
-the RPC breaker, range and mesh families, and the per-device label of
-the buffer gauge (one device).
+The RPC plane's pieces live here as in the reference: the Dapper-style
+trace identity of a collector (`trace_id`, `alloc_span_id`), the remote
+span helpers (`run_remote_traced` on the serving side,
+`stitch_remote_rows` on the calling side, `graft_collector` for the
+cluster fan-out's worker threads), the RPC breaker counters and the
+follower read tier's families (`replica_reads`, `apply_lag`).
+
+Left out, with the planes they belong to: the range and mesh families,
+and the per-device label of the buffer gauge (one device).
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ import logging
 import os
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Optional
 
@@ -896,6 +902,18 @@ class Observability:
             "commits made durable through the group rendezvous; "
             "divided by tidb_group_commit_fsyncs_total this is the "
             "amortization factor")
+        # follower read tier (rpc/apply.py): routed-read outcomes on
+        # the router's server, apply lag on the replica's (leaders
+        # report 0 lag)
+        self.replica_reads = self.metrics.counter(
+            "tidb_replica_reads_total",
+            "snapshot reads routed to follower replicas, by outcome "
+            "(served / stale_fallback / unreachable_fallback)")
+        self.apply_lag = self.metrics.gauge(
+            "tidb_follower_apply_lag_seconds",
+            "age of this follower's applied/closed timestamp (how far "
+            "behind the leader the serving replica runs; feeds the "
+            "follower-apply-lag inspection rule)")
         self._slow_log: deque = deque(maxlen=SLOW_LOG_MAX)
         self._slow_lock = threading.Lock()
         self.statements = StatementsSummary()
@@ -992,6 +1010,15 @@ REGISTRY_ROW_EVALS = PROCESS_METRICS.counter(
     "(copr/funcs.py), by function — nonzero means an expression left "
     "the vectorized path (the registry-row-eval inspection rule reads "
     "this)")
+# rpc circuit breaker (rpc/client.py): process-wide like the copr
+# counters — every RpcClient in this process reports here, and the
+# breaker state itself is per-client on /status transport_health
+RPC_BREAKER_TRIPS = PROCESS_METRICS.counter(
+    "tidb_rpc_breaker_trips_total",
+    "circuit-breaker opens after consecutive transport failures")
+RPC_BREAKER_FAST_FAILS = PROCESS_METRICS.counter(
+    "tidb_rpc_breaker_fast_failures_total",
+    "calls failed fast by an open rpc circuit breaker")
 
 # the wait-state plane: process-wide, as the Backoffer and the sync
 # policy have no Storage in reach. The histogram carries the
@@ -1209,6 +1236,16 @@ class SpanCollector:
         self.count = 1
         self.dropped = 0
         self._lock = threading.Lock()
+        # Dapper-style identity: every RPC issued under this collector
+        # carries (trace_id, parent_span_id) so the remote side's spans
+        # come back attributable to this tree (rpc/frame.py trace ctx)
+        self.trace_id = uuid.uuid4().hex
+        self._next_span_id = 1
+
+    def alloc_span_id(self) -> int:
+        with self._lock:
+            self._next_span_id += 1
+            return self._next_span_id
 
     def _admit(self) -> bool:
         with self._lock:
@@ -1275,7 +1312,74 @@ def span(name: str) -> _SpanCtx:
 
 
 def active_collector() -> Optional[SpanCollector]:
+    """The thread's live TRACE collector, if any (the RPC client reads
+    this to decide whether to propagate trace context)."""
     return getattr(_span_tls, "coll", None)
+
+
+def run_remote_traced(tc, name: str, fn):
+    """Server side of cross-process trace propagation: when the request
+    carried a trace context, run the handler under its own SpanCollector
+    and hand the span rows back for the caller to stitch. Returns
+    (result, rows-or-None)."""
+    if not isinstance(tc, dict):
+        return fn(), None
+    with SpanCollector(name) as coll:
+        coll.trace_id = str(tc.get("trace_id") or coll.trace_id)
+        coll.root.note = (f"trace_id={coll.trace_id[:16]} "
+                          f"parent_span_id={tc.get('parent_span_id')}")
+        result = fn()
+    return result, coll.rows()
+
+
+def graft_collector(parent: SpanCollector, into: Span,
+                    child: SpanCollector) -> None:
+    """Merge a worker thread's child collector into the caller's tree
+    (re-based by the collectors' perf_counter origins): the span stack
+    is thread-local, so parallel fan-out workers each run under their
+    own collector, and the tree stays what sequential execution would
+    have produced."""
+    offset = child.t0 - parent.t0
+
+    def walk(src: Span, dst_children: list) -> bool:
+        if not parent._admit():
+            return False
+        sp = Span(src.name, src.start + offset)
+        sp.end = src.end + offset
+        sp.note = src.note
+        dst_children.append(sp)
+        for c in src.children:
+            if not walk(c, sp.children):
+                return False
+        return True
+
+    for c in child.root.children:
+        if not walk(c, into.children):
+            break
+
+
+def stitch_remote_rows(coll: SpanCollector, parent: Span, rows) -> None:
+    """Client side: graft a peer's span rows (indented-label form, ms
+    offsets relative to the remote handler start) under the local RPC
+    span, re-based onto this collector's clock. Remote spans count
+    against the collector's cap like local ones."""
+    base = parent.start
+    stack: list[tuple[int, Span]] = [(-1, parent)]
+    for r in rows:
+        try:
+            label, start_ms, dur_ms = str(r[0]), float(r[1]), float(r[2])
+        except (TypeError, ValueError, IndexError):
+            continue  # a malformed peer row must not kill the trace
+        name = label.lstrip(" ")
+        depth = (len(label) - len(name)) // 2
+        if not coll._admit():
+            break
+        sp = Span(name, base + start_ms / 1e3)
+        sp.end = sp.start + dur_ms / 1e3
+        while len(stack) > 1 and stack[-1][0] >= depth:
+            stack.pop()
+        stack[-1][1].children.append(sp)
+        stack.append((depth, sp))
 
 
 # ---- dispatch-stage accounting ----------------------------------------------

@@ -11,6 +11,7 @@ and the server's state, surfaced as INFORMATION_SCHEMA.INSPECTION_RESULT
     checkpoint stalls, plan changes)
   * Top SQL and the wait profile
   * the governor's and the admission gate's state
+  * the storage's transport health and cluster membership
   * the workload history's regression findings
 
 Every rule is registered with a name, a default severity and reference
@@ -23,17 +24,15 @@ Every rule of the reference is registered under its own name, severity
 and reference text. The rules over planes the port does not have return
 no finding, which is what the reference returns with that plane off:
 mesh-shard-skew, mesh-recompile-storm and mesh-hbm-watermark (no mesh
-client), rpc-breaker-open, follower-heartbeat-stale, follower-apply-lag
-and config-sync-log (an embedded store: no transport, no members),
-range-leader-flap, range-split-flap and range-closed-ts-stall (no range
+client), range-leader-flap, range-split-flap and range-closed-ts-stall (no range
 plane), hot-range and range-split-advisory (the heat plane off) and
 lock-order-inversion (the lock checker disabled). Evaluating them
 imports nothing.
 
 Surfaces: information_schema.inspection_result / inspection_summary and
 an edge-triggered `inspection_finding` event the first time a rule
-crosses severity=critical for an item. The cluster_ variant waits for
-the diagnostics RPC plane. The status port reads `status_section` (the
+crosses severity=critical for an item; the cluster_inspection_result
+fan-out runs them on every member. The status port reads `status_section` (the
 /status `inspection` counts, cached for 5 s) and `debug_payload`
 (/debug/inspection).
 """
@@ -73,6 +72,10 @@ class DiagnosticsState:
     # wall blocked in backoff.* or lease_wait is a finding (needs
     # performance.wait-profile-enabled for the data to exist)
     dominant_wait_threshold: float = 0.5
+    heartbeat_stale_ms: int = 10000      # member hb age past this
+    # follower-apply-lag: a serving follower whose applied/closed ts is
+    # more than this far behind leader time (0 disables the rule)
+    apply_lag_warn_ms: int = 2000
     # (rule, item) pairs already reported critical: inspection_finding
     # events fire on NEW members only (edge-triggered, not level)
     seen_critical: set = field(default_factory=set)
@@ -181,6 +184,7 @@ class InspectionContext:
         self.governor = gov.stats() if gov is not None else {}
         gate = getattr(storage, "admission", None)
         self.admission = gate.stats() if gate is not None else {}
+        self.transport = storage.transport_health()
         # workload-history regression findings, computed ONCE per
         # snapshot (both history rules read this list; an absent or
         # disabled history plane contributes nothing)
@@ -222,6 +226,10 @@ class InspectionContext:
         cutoff = self.now - self.window_s
         return [e for e in self.events
                 if e["kind"] == kind and e.get("unix", 0.0) >= cutoff]
+
+    def members(self) -> list[dict]:
+        return [m for m in self.transport.get("members", [])
+                if isinstance(m, dict)]
 
 
 # ---- the shipped rules ------------------------------------------------------
@@ -314,16 +322,45 @@ def _r_admission_shed(ctx: InspectionContext) -> list[Finding]:
       "the leader is unreachable and calls fail fast "
       "(/status transport breaker)")
 def _r_breaker_open(ctx: InspectionContext) -> list[Finding]:
-    # an embedded store: no RPC client, the breaker stays closed
-    return []
+    state = str(ctx.transport.get("breaker", "closed"))
+    if state == "closed":
+        return []
+    sev = "critical" if state == "open" else "warning"
+    return [Finding(
+        "rpc-breaker-open", str(ctx.transport.get("peer", "leader")),
+        sev, state,
+        f"circuit breaker {state} after "
+        f"{ctx.transport.get('breaker_fail_streak', 0)} consecutive "
+        f"budget-exhausted calls; last contact "
+        f"{ctx.transport.get('last_contact_age_s')}s ago")]
 
 
 @rule("follower-heartbeat-stale", "warning",
       "transport.lease-ms — a member's heartbeat is stale or down; "
       "check the peer process/network (/status transport members)")
 def _r_heartbeat_stale(ctx: InspectionContext) -> list[Finding]:
-    # an embedded store: no members
-    return []
+    out = []
+    thr_s = ctx.cfg.heartbeat_stale_ms / 1000.0
+    for m in ctx.members():
+        inst = str(m.get("addr") or m.get("role") or "?")
+        down = m.get("down")
+        if down:
+            out.append(Finding(
+                "follower-heartbeat-stale", inst, "critical",
+                "down", f"member unreachable: {down}"))
+            continue
+        age = m.get("hb_age_s")
+        if age is None or thr_s <= 0:
+            continue
+        if float(age) >= thr_s:
+            sev = "critical" if float(age) >= 3 * thr_s else "warning"
+            out.append(Finding(
+                "follower-heartbeat-stale", inst, sev,
+                f"{float(age):.1f}s",
+                f"{m.get('role', 'member')} heartbeat age "
+                f"{float(age):.1f}s >= "
+                f"diagnostics.heartbeat-stale-ms {thr_s * 1000:.0f}ms"))
+    return out
 
 
 @rule("follower-apply-lag", "warning",
@@ -333,8 +370,28 @@ def _r_heartbeat_stale(ctx: InspectionContext) -> list[Finding]:
       "routed read falls back to the leader (/debug/replicas, "
       "tidb_follower_apply_lag_seconds)")
 def _r_follower_apply_lag(ctx: InspectionContext) -> list[Finding]:
-    # an embedded store: no serving replica
-    return []
+    thr = float(ctx.cfg.apply_lag_warn_ms)
+    if thr <= 0:
+        return []
+    out = []
+    for m in ctx.members():
+        if m.get("role") != "follower" or not m.get("serving"):
+            continue
+        lag = m.get("apply_lag_ms")
+        if lag is None or float(lag) < thr:
+            continue
+        lag = float(lag)
+        inst = str(m.get("addr") or "?")
+        sev = "critical" if lag >= 3 * thr else "warning"
+        out.append(Finding(
+            "follower-apply-lag", inst, sev, f"{lag:.0f}ms",
+            f"serving replica's applied ts is {lag:.0f}ms behind the "
+            f"leader (warn threshold "
+            f"{ctx.cfg.apply_lag_warn_ms}ms"
+            + ("; the replica has stopped advancing — routed reads "
+               "are falling back to the leader" if sev == "critical"
+               else "") + ")"))
+    return out
 
 
 @rule("range-leader-flap", "warning",
@@ -528,8 +585,19 @@ def _r_stmt_perf_regression(ctx: InspectionContext) -> list[Finding]:
       "storage.sync-log — off on a leader with live followers: acked "
       "commits can die with the machine while replicas follow them")
 def _r_config_sync_log(ctx: InspectionContext) -> list[Finding]:
-    # an embedded store: no socket leader, no followers
-    return []
+    if ctx.storage.sync_log != "off":
+        return []
+    if ctx.transport.get("mode") != "socket-leader":
+        return []
+    followers = [m for m in ctx.members()
+                 if m.get("role") == "follower"]
+    if not followers:
+        return []
+    return [Finding(
+        "config-sync-log", "storage.sync-log", "warning", "off",
+        f"leader runs sync-log=off with {len(followers)} live "
+        "follower(s); a power loss can drop acked commits that "
+        "followers already replicated")]
 
 
 @rule("hot-range", "warning",

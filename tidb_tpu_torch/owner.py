@@ -9,8 +9,8 @@ Port of `tidb_tpu/owner.py`, with its two managers:
   holder dies, so ownership fails over without a lease.
 
 `owner_manager(path, key)` chooses between them as the reference does.
-The remote owner (a follower campaigning through the leader) waits for the
-RPC plane.
+A socket follower campaigns through the leader instead
+(`rpc/remote.RemoteOwnerManager`).
 """
 
 from __future__ import annotations

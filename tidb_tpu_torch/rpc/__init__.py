@@ -1,0 +1,37 @@
+"""Socket RPC tier for the multi-process plane.
+
+Port of `tidb_tpu/rpc/`. The shared-directory deployment is the fast
+local mode; this package carries the same coordination services — TSO
+allocation, WAL append/tail, the KILL mailbox — over a length-prefixed
+frame protocol on TCP or unix sockets, so a second server can join a
+cluster WITHOUT sharing a disk.
+
+Layers (as in the reference):
+
+* frame.py  — wire format: u32 length-prefixed frames carrying a
+  tagged binary encoding (None/bool/int/float/bytes/str/list/dict).
+* errors.py — the typed error surface (CodedError subclasses, so
+  exhaustion and lease loss reach MySQL clients with real errnos).
+* server.py — CoordRPCServer: embedded in the store-owning process,
+  granting leases on the SAME flocks the shared-dir mode uses.
+* client.py — RpcClient: per-request Backoffer (BO_RPC), timeouts,
+  reconnect, heartbeat, circuit breaker, failpoint sites at each edge.
+* remote.py — the follower's adapters (RemoteKV, RemoteCoordinator,
+  RemoteOwnerManager) that plug the client into the storage.
+* diag.py   — per-server diagnostics endpoints + the cluster_* fan-out.
+* apply.py  — the follower's apply engine: the continuous mirror fold
+  and the closed timestamp advertised on every heartbeat.
+* replica.py — of the follower read tier, the per-storage settings
+  (`ReplicaReadState`) only.
+
+Left out, with their items of ROADMAP queue 1: replica routing and
+serving, failover and the network fault plane (5b), the range plane
+(5c).
+
+Unlike the reference, the serving loops here survive only the errors
+they are meant to survive: the port's own RPC, KV, transaction and
+coded errors, and socket errors (`errors.SURVIVABLE`). Any other
+exception — a torch or CUDA error among them — is kept on the listener
+or engine that hit it and re-raised by its `close()`; the peer sees only
+a dropped connection, that is, a transport error.
+"""

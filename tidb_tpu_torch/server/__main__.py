@@ -5,10 +5,18 @@ Port of `tidb_tpu/server/__main__.py`: the same flags, precedence
 kept across SIGHUP), seeds, stdout lines and signals. One flag more,
 `--device` (default `cuda`): where every connection's coprocessor runs,
 as `Server(device=)` takes it. The process does not move to the CPU on
-its own: without a card it fails unless `--device cpu` is given. Knobs of
-planes the port does not have (`--shared`, any `[transport]` knob or
-its flag, `[analysis] lock-check`, `[mesh]`, `[heatmap]`, `[replica-read]`,
-`[ranges]` away from their defaults) raise `NotInSlice` at startup.
+its own: without a card it fails unless `--device cpu` is given, a
+follower and a sibling as much as a leader. The mode follows the
+reference: `[transport] remote` (or `--transport-remote`) makes a socket
+follower with `--path` as its private working dir, `[transport] listen`
+(or `--transport-listen`) a leader that also serves the coordination
+RPC tier, `--shared` a sibling over a shared `--path`. Knobs of planes
+the port does not have raise `NotInSlice` at startup: `election-timeout-ms`
+above 0 on a follower (it arms failover, item 5b; its default is 10000,
+so a follower's config sets it to 0), `[analysis] lock-check` (item 6),
+`[mesh]` (item 8), `[heatmap]`, `[replica-read]` routing and `[ranges]`
+away from their defaults (items 5b and 5c). `promote-listen` is inert
+without failover.
 
 Counterpart of the reference's tidb-server binary (reference:
 tidb-server/main.go:160 — flag parsing :76-151, config load + flag
@@ -26,7 +34,7 @@ import threading
 
 import torch
 
-from ..config import Config, ConfigError, TransportConfig
+from ..config import Config, ConfigError
 from ..errors import NotInSlice
 from ..store.storage import Storage
 from .server import Server
@@ -200,10 +208,11 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg.apply_log_level()
     # the knobs of planes the port does not have fail before the store
-    # opens: the multi-process modes, the lock-order checker, the mesh
-    if args.shared or cfg.transport != TransportConfig():
-        raise NotInSlice("--shared, [transport] away from its defaults: "
-                         "the multi-process plane (ROADMAP queue 1 item 5)")
+    # opens: failover, the lock-order checker, the mesh
+    if cfg.transport.remote and cfg.transport.election_timeout_ms > 0:
+        raise NotInSlice("transport.election-timeout-ms > 0 on a "
+                         "follower: leader failover (ROADMAP queue 1 "
+                         "item 5b)")
     if cfg.analysis.lock_check:
         raise NotInSlice("[analysis] lock-check: the concurrency analysis "
                          "plane (ROADMAP queue 1 item 6)")
@@ -213,9 +222,21 @@ def main(argv: list[str] | None = None) -> int:
     # a card that cannot take a tensor fails the start, not the first
     # query
     torch.empty(0, device=device)
-    storage = Storage(cfg.path or None,
-                      sync_log=cfg.storage.sync_log,
-                      sync_interval_ms=cfg.storage.sync_interval_ms)
+    # transport selection: a follower joins a leader over the socket; a
+    # leader also serves the coordination RPC tier; otherwise the local
+    # and shared-directory modes (reference: main.go:263 creates the
+    # store from the store-type flag the same way)
+    sync_kw = {"sync_log": cfg.storage.sync_log,
+               "sync_interval_ms": cfg.storage.sync_interval_ms}
+    if cfg.transport.remote:
+        storage = Storage(cfg.path or None, remote=cfg.transport.remote,
+                          rpc_options=cfg.rpc_options(), **sync_kw)
+    elif cfg.transport.listen:
+        storage = Storage(cfg.path or None, shared=True,
+                          rpc_listen=cfg.transport.listen,
+                          rpc_options=cfg.rpc_options(), **sync_kw)
+    else:
+        storage = Storage(cfg.path or None, shared=args.shared, **sync_kw)
     try:
         cfg.seed_sysvars(storage)
         # arm the attribution/event plane (Top SQL, event ring, metrics
@@ -256,6 +277,9 @@ def main(argv: list[str] | None = None) -> int:
     storage.maintenance.start()
     print(f"tidb-tpu-server listening on {cfg.host}:{srv.port}",
           flush=True)
+    if storage.rpc_server is not None:
+        print(f"coordination rpc on {storage.rpc_server.address}",
+              flush=True)
 
     done = threading.Event()
 

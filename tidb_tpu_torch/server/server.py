@@ -7,8 +7,11 @@ status server (`server/status.py`), the graceful close and the start of
 the storage's metrics-history sampler (the thread
 `titpu-metrics-history`, joined by `Storage.close`, not by the server:
 the store outlives a server restart). `device` (None: the card) is
-handed to every connection's `Session`. Left out: the multi-process kill
-mailbox (the coordinator's plane).
+handed to every connection's `Session`. Over a shared or remote store
+the connection ids are global (the node id in the top byte, the
+reference's layout), the server registers with the coordinator, and a
+thread (`titpu-kill-mailbox`, joined by `close`) polls the coordinator's
+mailbox for the KILLs other servers address to this one.
 
 Counterpart of the reference's server package (reference: server/server.go —
 NewServer, Run accept loop :308, onConn :411, Kill :548, graceful drain
@@ -321,6 +324,7 @@ class Server:
         self._next_conn_id = 1
         self._shutdown = threading.Event()
         self._accept_thread: Optional[threading.Thread] = None
+        self._kill_thread: Optional[threading.Thread] = None
         # thread-light conn plane: worker-pool idle reserve
         # (performance.conn-worker-threads; 0 = auto)
         self.conn_workers = conn_workers or self.auto_conn_workers()
@@ -434,6 +438,13 @@ class Server:
         self.storage.processlist = self._processlist
         # KILL ownership lookup (the reference's ER_KILL_DENIED check)
         self.storage.conn_owner = self.conn_owner
+        coord = self.storage.coord
+        if coord is not None:
+            coord.register_server(self.port, self.status_port)
+            self._kill_thread = threading.Thread(
+                target=self._kill_mailbox_loop, name="titpu-kill-mailbox",
+                daemon=True)
+            self._kill_thread.start()
         # a serving deployment samples its metrics ring in the
         # background (embedded stores sample on demand); Storage.close()
         # joins the thread
@@ -459,6 +470,12 @@ class Server:
                 else:
                     conn_id = self._next_conn_id
                     self._next_conn_id += 1
+                    coord = self.storage.coord
+                    if coord is not None:
+                        # server-id-carrying global ids (reference:
+                        # util/globalconn GCID; tests/globalkilltest)
+                        conn_id = coord.global_conn_id(coord.node_id,
+                                                       conn_id)
                     conn = ClientConn(self, sock, conn_id)
                     self.storage.obs.connections.inc()
                     self._conns[conn_id] = conn
@@ -523,6 +540,20 @@ class Server:
         if conn is None:
             return None
         return conn.session.user or conn.user or ""
+
+    def _kill_mailbox_loop(self) -> None:
+        """Poll the coordinator's kill mailbox for requests addressed to
+        this server (a socket follower's poll is an RPC that answers []
+        while the leader is unreachable)."""
+        coord = self.storage.coord
+        while not self._shutdown.is_set():
+            try:
+                for local, query_only in coord.poll_kills():
+                    self.kill(coord.global_conn_id(coord.node_id, local),
+                              query_only)
+            except OSError:
+                pass
+            self._shutdown.wait(0.1)
 
     def connection_count(self) -> int:
         with self._lock:
@@ -594,6 +625,9 @@ class Server:
             self._pool.close()
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=1.0)
+        if self._kill_thread is not None:
+            self._kill_thread.join()
+            self._kill_thread = None
 
 
 def _self_signed_pem() -> bytes:

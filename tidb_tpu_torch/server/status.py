@@ -26,9 +26,10 @@ Routes:
 
 The routes of planes the port does not have answer 501 with a JSON body
 naming the ROADMAP queue item that ports them: /debug/mesh (item 8),
-/debug/replicas and /debug/keyviz (item 5), /debug/lockgraph (item 6).
-The /status sections of those planes (`transport`, `ranges`, `mesh`) are
-left out. Where the reference's handlers catch every exception around a
+/debug/replicas (item 5b), /debug/keyviz (item 5c), /debug/lockgraph
+(item 6). The /status sections of those planes (`ranges`, `mesh`) are
+left out; `transport` (the storage's `transport_health`: mode, peer,
+breaker, members) is served. Where the reference's handlers catch every exception around a
 reader (the mesh section, the inspection section and payload, the
 history payload), the port does not: a reader's fault fails that request
 with its traceback instead of answering with an error payload.
@@ -49,8 +50,8 @@ from .. import obs
 # (plane, ROADMAP queue 1 item)
 UNPORTED_ROUTES = {
     "/debug/mesh": ("the multi-device plane", 8),
-    "/debug/replicas": ("the follower read tier", 5),
-    "/debug/keyviz": ("the keyspace heat plane", 5),
+    "/debug/replicas": ("the follower read tier", "5b"),
+    "/debug/keyviz": ("the keyspace heat plane", "5c"),
     "/debug/lockgraph": ("the concurrency analysis plane", 6),
 }
 
@@ -184,7 +185,7 @@ class StatusServer:
 
     def status(self, server_obs) -> dict:
         """The /status JSON: the reference's sections but those of the
-        planes the port does not have (transport, ranges, mesh)."""
+        planes the port does not have (ranges, mesh)."""
         from . import conn as _conn
         srv = self.sql_server
         status = {
@@ -192,6 +193,9 @@ class StatusServer:
             "connections": srv.connection_count() if srv else 0,
         }
         if srv is not None:
+            # multi-process transport health: mode, peer, degraded flag,
+            # retry counters, the rpc circuit-breaker state, members
+            status["transport"] = srv.storage.transport_health()
             # overload-protection plane: admission gate occupancy/sheds
             # + governor limit/usage/kills
             status["admission"] = srv.storage.admission.stats()

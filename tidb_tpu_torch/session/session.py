@@ -171,6 +171,16 @@ _EXPLAIN_ANALYZE_COLS = ["plan", "actRows", "time_ms", "engine", "stages",
                          "mesh", "wait_profile"]
 
 
+def _refuse_replica_routing(name: str, value, default) -> None:
+    """Follower reads and bounded staleness route SELECTs to replicas:
+    the router is not ported, so their variables keep the leader
+    default."""
+    if name in ("tidb_replica_read", "tidb_read_staleness") and \
+            str(value).strip().lower() != str(default):
+        raise NotInSlice(f"SET {name} = {value!r}: replica read routing "
+                         "(ROADMAP queue 1 item 5b)")
+
+
 class SQLError(CodedError):
     """Session-layer error; raise sites attach specific errnos."""
 
@@ -299,6 +309,11 @@ class Session:
     def execute(self, sql: str) -> ResultSet:
         """Execute one or more ;-separated statements; returns the last
         statement's result."""
+        if self.storage.shared:
+            # multi-process deployments: catch up with the other
+            # servers' commits and schema changes before planning (the
+            # per-statement domain reload; Storage.refresh)
+            self.storage.refresh()
         t_parse = time.perf_counter()
         try:
             stmts = parse_sql(sql)
@@ -812,6 +827,7 @@ class Session:
                     raise SQLError(
                         f"Variable '{name}' is a SESSION variable and "
                         "can't be used with SET GLOBAL")
+                _refuse_replica_routing(name, value, sv.default)
                 # cluster-wide durable state: superuser only (reference:
                 # SUPER/SYSTEM_VARIABLES_ADMIN requirement)
                 self._require_super()
@@ -821,6 +837,7 @@ class Session:
                     raise SQLError(
                         f"Variable '{name}' is a GLOBAL variable and "
                         "should be set with SET GLOBAL")
+                _refuse_replica_routing(name, value, sv.default)
                 self.vars[name] = value
         return ResultSet([], [])
 
@@ -1562,6 +1579,14 @@ class Session:
                 raise SQLError(
                     f"You are not owner of thread {stmt.conn_id}",
                     errno=ER_KILL_DENIED)
+        coord = storage.coord
+        if coord is not None:
+            # a global id carries its server's node id: another
+            # server's connection is killed through the mailbox
+            nid, _local = coord.split_conn_id(stmt.conn_id)
+            if nid != coord.node_id:
+                coord.post_kill(stmt.conn_id, stmt.query_only)
+                return
         router = getattr(storage, "kill_router", None)
         if router is None or not router(stmt.conn_id, stmt.query_only):
             raise SQLError(f"Unknown thread id: {stmt.conn_id}")

@@ -16,9 +16,9 @@ safepoint service + the MinStartTS reports.
 
 One difference from the reference, kept on purpose: the reference's loop
 swallows every exception of a tick. Here the loop goes on only past the
-port's own KV and transaction errors (`WOUNDED`: a lock owner racing the
-resolver, a conflict with a live writer), which are the wounded pass the
-reference means. Any other exception, a torch or CUDA error among them,
+port's own KV, transaction and RPC errors (`WOUNDED`: a lock owner
+racing the resolver, a conflict with a live writer, a follower's leader
+out of reach), which are the wounded pass the reference means. Any other exception, a torch or CUDA error among them,
 ends the loop and is kept on the worker; `stop()` re-raises it, so a
 server's shutdown fails with it instead of hiding it.
 """
@@ -34,10 +34,12 @@ from ..kv.backoff import BackoffExhausted
 from ..kv.mvcc import KVError
 from ..kv.region import RegionError
 from ..kv.twopc import CommitError
+from ..rpc.errors import RPCError
 from ..util import failpoint
 
 # the errors of a wounded maintenance pass: the next tick sweeps again
-WOUNDED = (KVError, RegionError, CommitError, BackoffExhausted)
+# (RPCError: a socket follower's leader unreachable for this pass)
+WOUNDED = (KVError, RegionError, CommitError, BackoffExhausted, RPCError)
 
 
 def parse_duration(s: str, default_s: float = 600.0) -> float:

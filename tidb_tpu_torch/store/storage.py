@@ -21,12 +21,29 @@ persisted high-water (`sequence_next`, `sequence_set`), flushed exactly at
 a checkpoint. `user_locks` is the table of GET_LOCK's named locks
 (`UserLocks`), shared by every session over the storage.
 
-Left out, with the planes they belong to: the multi-process and RPC
-planes (`shared`, `remote`, `rpc_listen`, ranges, replica reads, the
-coordinator, `refresh`, the remote owner), the
-maintenance daemon and its GC owner, the lock-order checker around
-`infoschema_lock`, the epoch listeners of the mesh plane, the diagnostics
-service and the keyspace heat plane. GLOBAL plan bindings (`bindings`,
+The three multi-process modes of the reference are here too:
+`Storage(path, shared=True)` — processes sharing one directory, through
+`store/coordinator.py` (the flock'd mutation section, the kill mailbox),
+`kv/tso.SharedTSO` and the shared-WAL `PyOrderedKV`; with
+`rpc_listen='host:port'` the same leader also serves the coordination
+RPC tier (`rpc/server.py`); `Storage(path, remote='host:port')` (or
+`path='rpc://host:port'`) is a socket follower with a private working
+directory, mirroring the leader's WAL over RPC (`rpc/remote.py`),
+allocating timestamps from the leader (`kv/tso.RemoteTSO`), folding in
+the background (`rpc/apply.py`) and answering diagnostics on its own
+listener (`rpc/diag.py`). `refresh` folds other processes' commits into
+this process's columnar epochs and reloads the catalog when it moved;
+`_check_schema_fence` aborts a transaction that buffered against a
+superseded layout. A follower's private `path` has no epoch files, so,
+as in the reference, it reads no rows of a table the leader
+bulk-loaded (`TableStore.bulk_load` bypasses the KV). `close()` joins
+every thread a mode starts and re-raises an error a serving thread
+kept (`rpc/server.py`, `rpc/apply.py`).
+
+Left out, with the planes they belong to: failover, replica routing and
+serving (item 5b), the range plane and the keyspace heat plane (item
+5c), the lock-order checker around `infoschema_lock` (item 6) and the
+epoch listeners of the mesh plane (item 8). GLOBAL plan bindings (`bindings`,
 `session/bindinfo.py`) ride the meta keyspace.
 
 The observability planes live here as in the reference: `obs` (the
@@ -55,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import struct
 import threading
 import time
 import weakref
@@ -64,6 +82,7 @@ from typing import Any, Optional
 import numpy as np
 
 from ..catalog.schema import Catalog, TableInfo
+from ..errors import NotInSlice
 from ..chunk.column import Dictionary
 from ..errno import (ER_SCHEMA_CHANGED, ER_TXN_TOO_LARGE,
                      ER_WRITE_CONFLICT, CodedError)
@@ -120,7 +139,10 @@ _TSO_LEASE_MS = 120_000
 
 
 class Storage:
-    def __init__(self, path: Optional[str] = None, sync_log: str = "off",
+    def __init__(self, path: Optional[str] = None,
+                 shared: bool = False, remote=None,
+                 rpc_listen=None, rpc_options=None,
+                 sync_log: str = "off",
                  sync_interval_ms: int = 100) -> None:
         """`path=None`: ephemeral in-memory store (tests, benches).
         `path=dir`: durable — KV WAL+snapshot under dir/kv, columnar epoch
@@ -132,19 +154,102 @@ class Storage:
         'commit' fsyncs at every commit boundary (no acked commit can
         die with the machine), 'interval' group-commits at most one
         fsync per `sync_interval_ms`, 'off' leaves flushing to the OS
-        (process death loses nothing, power loss may)."""
+        (process death loses nothing, power loss may).
+
+        `shared=True` (requires path): several server processes over one
+        directory. `rpc_listen='host:port'|'unix:/path'` (with shared):
+        also serve the coordination RPC tier, so followers join without
+        sharing the disk. `remote='host:port'`: a socket follower, `path`
+        its PRIVATE working dir; `path='rpc://host:port'` selects this
+        mode with a throwaway working dir."""
         from ..session.privileges import PrivilegeManager
         from ..session.sysvars import SysVarManager
 
         if sync_log not in ("off", "commit", "interval"):
             raise ValueError(
                 f"sync_log must be off|commit|interval, got {sync_log!r}")
+        if isinstance(path, str) and path.startswith("rpc://"):
+            remote, path = path[len("rpc://"):], None
+        self._owns_tmp_dir = remote is not None and path is None
+        if self._owns_tmp_dir:
+            import tempfile
+            path = tempfile.mkdtemp(prefix="titpu-follower-")
         self.path = path
+        self.remote = remote is not None
+        self.shared = bool((shared or self.remote) and path is not None)
         self.sync_log = sync_log
         self.sync_interval_ms = sync_interval_ms
+        self.coord = None
+        self.rpc_server = None
+        self._rpc_client = None
+        self._rpc_options = rpc_options
+        self._start_time = time.time()
+        self.diag_listener = None
+        # diag fan-out state, owned here so concurrent first queries
+        # never race a lazy init (rpc/diag.py uses these)
+        self._diag_clients: dict = {}
+        self._diag_clients_lock = threading.Lock()
+        self._last_members = None
+        self._last_members_ts = -1e9
+        # follower read tier: the settings and the socket follower's
+        # apply engine (started at the end of __init__)
+        from ..rpc.replica import ReplicaReadState
+        self.replica_read = ReplicaReadState()
+        self.apply_engine = None
+        if self.remote:
+            from ..rpc.client import RpcClient, RpcOptions
+            from ..rpc.diag import DiagListener
+            from ..rpc.errors import RPCError
+            from ..rpc.remote import RemoteCoordinator
+            opts = self._rpc_options = rpc_options or RpcOptions()
+            if (opts.election_timeout_ms or 0) > 0:
+                # it arms the reference's automatic failover
+                raise NotInSlice(
+                    "transport.election-timeout-ms > 0 on a follower: "
+                    "leader failover (ROADMAP queue 1 item 5b)")
+            self._rpc_client = RpcClient(remote, opts)
+            try:
+                self._rpc_client.call("hello")  # fail fast on a dead leader
+                # the diagnostics endpoint peers query for cluster_* rows;
+                # registered with the leader now and re-announced on
+                # every heartbeat (a restarted leader relearns the shape)
+                self.diag_listener = DiagListener(self, opts.diag_listen)
+                self._rpc_client.ping_params = {
+                    "diag_addr": self.diag_listener.address,
+                    "role": "follower"}
+                try:
+                    self._rpc_client.call(
+                        "diag_register",
+                        addr=self.diag_listener.address,
+                        role="follower", _budget_ms=1000)
+                except RPCError:
+                    pass  # the next heartbeat re-registers
+                self._rpc_client.start_heartbeat()
+                self.coord = RemoteCoordinator(self._rpc_client, opts)
+                # heartbeats carry our node id too, so a leader that
+                # restarted rebuilds an id-accurate registry from beats
+                self._rpc_client.ping_params["node_id"] = \
+                    self.coord.node_id
+            except BaseException:
+                # a failed join leaks no accept thread, bound socket or
+                # connected client (callers have no Storage to close)
+                if self.diag_listener is not None:
+                    self.diag_listener.close()
+                self._rpc_client.close()
+                raise
+        elif self.shared:
+            from .coordinator import SharedDirCoordinator
+            self.coord = SharedDirCoordinator(path)
         self.catalog = Catalog()
         # per-storage metrics, slow log and statement digests
         self.obs = Observability()
+        # the diagnostics service (the diag_* RPC plane answers from it;
+        # local stores query it directly for the cluster_* tables)
+        from ..rpc.diag import DiagService
+        if self.diag_listener is not None:
+            self.diag = self.diag_listener.service
+        else:
+            self.diag = DiagService(self)
         # server-wide overload protection (util/governor.py): the global
         # memory ledger + kill policy and the execution admission gate,
         # both off by default (limit 0 / tokens 0); their metrics ride
@@ -185,18 +290,61 @@ class Storage:
         self.stats = StatsHandle()
         self.tables: dict[int, TableStore] = {}
         # the transactional KV truth: percolator MVCC over regions
-        engine = _make_engine(
-            os.path.join(path, "kv") if path is not None else None,
-            sync_log=sync_log, sync_interval_ms=sync_interval_ms)
-        self.kv = MVCCStore(engine=engine)
-        if path is not None and self._tso_lease == 0:
+        if self.remote:
+            # socket follower: the engine mirrors the leader's WAL over
+            # RPC; its appends publish through the leased mutation
+            # section (rpc/remote.py), with a byte mirror under the
+            # private dir
+            from ..rpc.remote import RemoteKV
+            engine = RemoteKV(self._rpc_client,
+                              mirror_dir=os.path.join(path, "kv"),
+                              sync_log=sync_log,
+                              sync_interval_ms=sync_interval_ms)
+            try:
+                engine.bootstrap()
+            except BaseException:
+                engine.close()
+                self.diag_listener.close()
+                self._rpc_client.close()
+                raise
+            self.coord.engine = engine
+        elif self.shared:
+            # the shared-WAL refresh protocol lives in the Python engine;
+            # the flock'd sections make its appends safe cross-process
+            engine = PyOrderedKV(os.path.join(path, "kv"), shared=True,
+                                 sync_log=sync_log,
+                                 sync_interval_ms=sync_interval_ms)
+        else:
+            engine = _make_engine(
+                os.path.join(path, "kv") if path is not None else None,
+                sync_log=sync_log, sync_interval_ms=sync_interval_ms)
+        self.kv = MVCCStore(engine=engine, coord=self.coord)
+        if path is not None and self._tso_lease == 0 and not self.remote:
             # lease file missing/corrupt: floor from the largest commit ts
             # in the reopened KV so timestamps still never repeat
             self._tso_lease = self.kv.max_commit_ts()
-        self.tso = TimestampOracle(floor=self._tso_lease)
+        if self.remote:
+            # leader-allocated timestamps (the PD-client role); floor the
+            # stale-read fallback at the newest replicated commit, so a
+            # leader lost right after bootstrap degrades to "last
+            # replicated state", not to an empty ts-0 snapshot
+            from ..kv.tso import RemoteTSO
+            self.tso = RemoteTSO(
+                self._rpc_client,
+                allow_stale=self._rpc_client.options.stale_reads)
+            self.tso.observe(self.kv.max_commit_ts())
+        elif self.shared:
+            # ONE allocator for every process on this directory: strict
+            # SI across servers
+            from ..kv.tso import SharedTSO
+            self.tso = SharedTSO(path, floor=self._tso_lease)
+        else:
+            self.tso = TimestampOracle(floor=self._tso_lease)
         self.rm = RegionManager(self.kv)
         self.committer = TwoPhaseCommitter(self.rm, self.tso,
                                            events=self.obs.events)
+        if self._rpc_client is not None:
+            self._rpc_client.events = self.obs.events
         # group-commit event throttle (_note_group_commit)
         self._gc_lock = threading.Lock()
         self._gc_event_last = 0.0
@@ -225,10 +373,16 @@ class Storage:
         self.ddl_history: list = []
         # owner election: DDL jobs and background GC run on the owner
         # only (the mock for an in-memory store, an flock for processes
-        # sharing this directory)
-        from ..owner import owner_manager
-        self.ddl_owner = owner_manager(path, "ddl")
-        self.gc_owner = owner_manager(path, "gc")
+        # sharing this directory; a follower campaigns through the
+        # leader, since a local flock would elect everybody)
+        if self.remote:
+            from ..rpc.remote import RemoteOwnerManager
+            self.ddl_owner = RemoteOwnerManager(self._rpc_client, "ddl")
+            self.gc_owner = RemoteOwnerManager(self._rpc_client, "gc")
+        else:
+            from ..owner import owner_manager
+            self.ddl_owner = owner_manager(path, "ddl")
+            self.gc_owner = owner_manager(path, "gc")
         # the background worker (GC / lock TTL / auto-analyze /
         # checkpoint), made at first use of `maintenance`
         self._maintenance = None
@@ -257,9 +411,28 @@ class Storage:
         self._cache_clients_lock = threading.Lock()
         if path is not None:
             self._recover()
-            self._extend_tso_lease()
+            if not self.remote:
+                self._extend_tso_lease()
             # persist schema on every catalog version bump from here on
             self.catalog.on_change = lambda: self.persist_catalog()
+        if rpc_listen is not None:
+            # leader: serve TSO/WAL/KILL coordination over the socket so
+            # followers can join without sharing this directory
+            if not self.shared or self.remote:
+                raise ValueError(
+                    "rpc_listen needs shared=True on the store-owning "
+                    "server (a follower cannot re-serve the store)")
+            from ..rpc.client import RpcOptions
+            from ..rpc.server import CoordRPCServer
+            opts = self._rpc_options = rpc_options or RpcOptions()
+            self.rpc_server = CoordRPCServer(self, listen=rpc_listen,
+                                             lease_ms=opts.lease_ms,
+                                             tail_chunk=opts.tail_chunk)
+        if self.remote:
+            # follower read tier: fold the mirror continuously and
+            # advertise the closed/applied ts on every heartbeat
+            # (rpc/apply.py)
+            self.arm_replica_read()
 
     # ---- schema ------------------------------------------------------------
     def register_table(self, info: TableInfo) -> TableStore:
@@ -420,6 +593,8 @@ class Storage:
         self._tso_lease = lease
 
     def _maybe_extend_lease(self) -> None:
+        if self.remote:
+            return  # the leader persists the TSO horizon
         if self.path is not None and \
                 self.tso.current() >= self._tso_lease - (
                     (_TSO_LEASE_MS // 2) << 18):
@@ -555,7 +730,11 @@ class Storage:
         raw = self.get_meta(b"catalog")
         if raw is None:
             return  # fresh directory
-        self._resolve_orphans()
+        if not self.remote:
+            # a JOINING follower must not touch locks: siblings may have
+            # live transactions (the leader resolved true orphans at its
+            # own startup)
+            self._resolve_orphans()
         state = pickle.loads(raw)
         self.catalog.schemas = state["schemas"]
         self.catalog._next_id = state["next_id"]
@@ -717,24 +896,151 @@ class Storage:
             self._maintenance = MaintenanceWorker(self, self.catalog)
         return self._maintenance
 
+    @property
+    def diag_address(self) -> str:
+        """Where THIS server's diag service answers: the leader serves
+        it on the coordination port, a follower on its diag listener."""
+        if self.rpc_server is not None:
+            return self.rpc_server.address
+        if self.diag_listener is not None:
+            return self.diag_listener.address
+        return ""
+
+    def transport_health(self) -> dict:
+        """Multi-process transport state for the status port. Socket
+        modes include the membership view — peer id, diag address,
+        role, last-heartbeat age — the registry the cluster_* tables fan
+        out over."""
+        if self.remote:
+            h = self._rpc_client.health()
+            h["mode"] = "socket-follower"
+            h["node_id"] = self.coord.node_id
+            h["diag_address"] = self.diag_address
+            h["term"] = self._rpc_client.term
+            if self.apply_engine is not None:
+                h["replica_apply"] = self.apply_engine.info()
+            from ..rpc.diag import cluster_members
+            h["members"] = cluster_members(self, budget_ms=500)
+            return h
+        if self.rpc_server is not None:
+            return {"mode": "socket-leader",
+                    "address": self.rpc_server.address,
+                    "term": self.rpc_server.term,
+                    "clients": self.rpc_server.client_count(),
+                    "members": self.rpc_server.members()}
+        if self.shared:
+            return {"mode": "shared-dir", "node_id": self.coord.node_id}
+        return {"mode": "local"}
+
+    def arm_replica_read(self) -> None:
+        """Start or stop the continuous apply engine to match the
+        replica-read settings (called from __init__ and from
+        Config.seed_replica_read). Leaders and local stores never run
+        one — the engine folds a MIRROR."""
+        if not self.remote:
+            return
+        from ..rpc.apply import ApplyEngine
+        if self.replica_read.enabled and self.apply_engine is None:
+            self.apply_engine = ApplyEngine(
+                self, interval_ms=self.replica_read.apply_interval_ms)
+        elif self.replica_read.enabled:
+            # a reseed with a new cadence adjusts the running engine
+            self.apply_engine.interval_ms = max(
+                10, int(self.replica_read.apply_interval_ms))
+        elif self.apply_engine is not None:
+            eng, self.apply_engine = self.apply_engine, None
+            client = self._rpc_client
+            # the heartbeat must stop advertising a serving replica
+            # (atomic dict REPLACEMENT — the heartbeat thread unpacks
+            # ping_params concurrently)
+            client.ping_params = {**client.ping_params,
+                                  "serving": False, "applied_ts": 0,
+                                  "apply_lag_ms": 0.0}
+            eng.close()
+
+    def _tso_commit_done(self) -> None:
+        """Retire this storage's pending-commit ledger entry (socket
+        followers; rpc/server.py closed_info). No-op on local oracles.
+        Called OUTSIDE the commit lock — it is an RPC, and best effort
+        (the leader also retires the entry at the next commit)."""
+        done = getattr(self.tso, "commit_done", None)
+        if done is not None:
+            done()
+
     def close(self) -> None:
-        """Clean shutdown: join the metrics-history sampler and the
-        maintenance worker and persist the live workload-history window,
-        then checkpoint (epochs + KV snapshot, WAL truncated, sequence
-        cursors) and release the engine's files and the owner locks. An
-        error that ended the maintenance loop is re-raised after the
-        store is closed."""
+        """Clean shutdown of every mode. A follower stops its apply
+        engine, deregisters and closes its diag listener, then its RPC
+        client (and the heartbeat); a leader closes its RPC server.
+        Every thread they started is joined. Then: the metrics-history
+        sampler and the maintenance worker are joined, the live
+        workload-history window persisted, the store checkpointed
+        (epochs + KV snapshot, WAL truncated, sequence cursors; a shared
+        WAL is never truncated) and the engine's files, the TSO and the
+        owner locks released. An error a serving thread kept (the apply
+        loop, an RPC handler) or that ended the maintenance loop is
+        re-raised after the store is closed."""
+        from ..rpc.diag import close_peer_clients
+        from ..rpc.errors import RPCError
+        errors: list = []
+
+        def keep(fn) -> None:
+            try:
+                fn()
+            except BaseException as e:
+                errors.append(e)
+
+        # the apply engine first: its tick path runs RPC + fold against
+        # the structures torn down below
+        if self.apply_engine is not None:
+            eng, self.apply_engine = self.apply_engine, None
+            keep(eng.close)
         self.metrics_history.stop()
         self.history.flush()
+        if self.diag_listener is not None:
+            # stop announcing BEFORE deregistering: a heartbeat firing
+            # between the unregister and the client teardown would
+            # re-register the closed address for a lease horizon
+            self._rpc_client.ping_params = {}
+            try:
+                # best-effort, so peers stop fanning out to the closed
+                # address until the lease horizon passes
+                self._rpc_client.call("diag_unregister", _budget_ms=500)
+            except RPCError:
+                pass
+            keep(self.diag_listener.close)
+        close_peer_clients(self)
         try:
             if self._maintenance is not None:
-                self._maintenance.stop()
+                keep(self._maintenance.stop)
         finally:
+            if self.rpc_server is not None:
+                keep(self.rpc_server.close)
             self.ddl_owner.close()
             self.gc_owner.close()
             if self.path is not None:
-                self.checkpoint()
+                if self.remote:
+                    # a follower's checkpoint writes through the leader;
+                    # a dead leader must not turn shutdown into a hang
+                    try:
+                        self.checkpoint()
+                    except RPCError:
+                        pass
+                    self._rpc_client.close()
+                else:
+                    self.checkpoint()
                 self.kv.kv.close()
+                close_tso = getattr(self.tso, "close", None)
+                if close_tso is not None:
+                    close_tso()
+                if self.coord is not None and \
+                        hasattr(self.coord, "close"):
+                    self.coord.close()
+                if self._owns_tmp_dir:
+                    # rpc:// shorthand: the throwaway scratch dir is ours
+                    import shutil
+                    shutil.rmtree(self.path, ignore_errors=True)
+        if errors:
+            raise errors[0]
 
     # ---- snapshot registry (compaction safepoint) ---------------------------
     def acquire_snapshot_ts(self) -> int:
@@ -760,8 +1066,22 @@ class Storage:
 
     # ---- transactions ------------------------------------------------------
     def begin(self, pessimistic: bool = False) -> "Transaction":
-        return Transaction(self, self.acquire_snapshot_ts(),
-                           pessimistic=pessimistic)
+        txn = Transaction(self, self.acquire_snapshot_ts(),
+                          pessimistic=pessimistic)
+        # a snapshot ts at/below the oracle's stale watermark was
+        # re-issued while the leader was unreachable: reads are fine
+        # (bounded staleness), writes must fail typed (_check_writable)
+        wm = getattr(self.tso, "stale_watermark", None)
+        txn.degraded = wm is not None and txn.start_ts <= wm
+        return txn
+
+    def _check_writable(self, txn: "Transaction") -> None:
+        if txn.degraded:
+            from ..rpc.errors import LeaderUnavailable
+            raise LeaderUnavailable(
+                "store leader unreachable: this server is serving "
+                "stale reads only; writes are rejected until the "
+                "leader lease is renewed")
 
     class DeadlockError(CodedError):
         errno = 1213  # ER_LOCK_DEADLOCK
@@ -782,6 +1102,7 @@ class Storage:
         fresh for_update_ts (adapter.go:623)."""
         if not keys:
             return False
+        self._check_writable(txn)
         keys = sorted(keys)
         if txn.pessimistic_primary is None:
             txn.pessimistic_primary = keys[0]
@@ -839,6 +1160,8 @@ class Storage:
         region tier -> columnar fold. One source of truth (the KV write
         records), one fold (the epochs the coprocessor reads)."""
         mutations = txn.memdb.mutations()
+        if mutations:
+            self._check_writable(txn)
         if not mutations:
             if txn.locked_keys:
                 # lock-only txn (SELECT FOR UPDATE with no writes): the
@@ -899,25 +1222,39 @@ class Storage:
         except (KVError, CommitError) as e:
             self._best_effort_rollback(kv_muts, txn.start_ts)
             raise WriteConflictError(f"commit failed: {e}") from None
-        with self._commit_lock, self._fold_section():
-            try:
-                self._check_schema_fence(txn)
-            except WriteConflictError:
-                self._best_effort_rollback(kv_muts, txn.start_ts)
-                raise
-            try:
-                commit_ts = self.committer.commit_phase(state, txn.start_ts)
-            except (KVError, CommitError) as e:
-                self._best_effort_rollback(kv_muts, txn.start_ts)
-                raise WriteConflictError(f"commit failed: {e}") from None
-            # columnar fold of the committed mutations (the coprocessor's
-            # read view) — inside the lock so no snapshot can observe the
-            # KV commit without the fold
-            failpoint.inject("storage/before-fold")
-            for (table_id, handle), row in mutations.items():
-                store = self.tables.get(table_id)
-                if store is not None:
-                    store.apply_commit(commit_ts, handle, row)
+        try:
+            with self._commit_lock, self._fold_section():
+                if self.shared:
+                    # fold sibling commits observed during prewrite and
+                    # adopt any schema change BEFORE the authoritative
+                    # fence check
+                    self.kv.refresh()
+                    self._drain_refresh()
+                try:
+                    self._check_schema_fence(txn)
+                except WriteConflictError:
+                    self._best_effort_rollback(kv_muts, txn.start_ts)
+                    raise
+                try:
+                    commit_ts = self.committer.commit_phase(
+                        state, txn.start_ts)
+                except (KVError, CommitError) as e:
+                    self._best_effort_rollback(kv_muts, txn.start_ts)
+                    raise WriteConflictError(
+                        f"commit failed: {e}") from None
+                # columnar fold of the committed mutations (the
+                # coprocessor's read view) — inside the lock so no
+                # snapshot can observe the KV commit without the fold
+                failpoint.inject("storage/before-fold")
+                for (table_id, handle), row in mutations.items():
+                    store = self.tables.get(table_id)
+                    if store is not None:
+                        store.apply_commit(commit_ts, handle, row)
+        finally:
+            # pending-commit ledger retire (socket followers): by now
+            # the commit records are published or never will be, so the
+            # leader's closed ts may advance past our commit_ts
+            self._tso_commit_done()
         # durability BEFORE the ack, AFTER the commit lock: under
         # sync-log=commit the engine deferred the boundary fsync out of
         # the mutation sections, so concurrent committers rendezvous
@@ -1029,16 +1366,162 @@ class Storage:
         if dirty:
             self.persist_catalog()
 
+    # ---- multi-process refresh (shared and remote modes) ----------------
+    def refresh(self) -> None:
+        """Catch up with the other processes of the cluster: tail the
+        WAL, fold their committed rows into this process's columnar
+        epochs, and reload the catalog when the meta plane moved (the
+        reference's domain reload, domain/domain.go:352, on demand:
+        sessions call it per statement, and every mutation section
+        refreshes the KV implicitly)."""
+        if not self.shared:
+            return
+        from .. import obs
+        with obs.span("domain.refresh"):
+            self.kv.refresh()
+            self._drain_refresh()
+        # a sibling's CREATE/DROP BINDING lands in the meta plane; drop
+        # the cache so the next match reloads
+        self.bindings.invalidate()
+
+    def _drain_refresh(self) -> None:
+        """Fold the records the last WAL tail applied: each committed
+        row write lands in its table's columnar epoch at its commit ts;
+        a write of the catalog key reloads the catalog. The whole drain,
+        the catalog reload included, runs under the commit lock and
+        inside a fold section: a socket follower's apply engine drains
+        from its own thread, and a statement whose refresh found nothing
+        left to drain must still wait for that fold to end. (The
+        reference drains before it takes the lock and reloads the
+        catalog after it, so a statement there can plan against a table
+        whose store the reload has registered but not yet refolded:
+        ROADMAP queue 3.)"""
+        from ..kv.mvcc import (CF_DATA, CF_WRITE, _dkey, _split_vkey,
+                               _write_dec)
+        eng = self.kv.kv
+        meta_catalog = tablecodec.meta_key(b"catalog")
+        catalog_moved = False
+        with self._commit_lock:
+            pending = self.kv.drain_pending()
+            if not pending:
+                return
+            with self._fold_section():
+                for op, cf, key, val in pending:
+                    if cf != CF_WRITE or op != 1:
+                        continue
+                    ukey, commit_ts = _split_vkey(key)
+                    self.tso.observe(commit_ts)
+                    if ukey == meta_catalog:
+                        catalog_moved = True
+                        continue
+                    try:
+                        table_id, handle = \
+                            tablecodec.decode_record_key(ukey)
+                    except (ValueError, struct.error):
+                        continue  # meta, stats and index planes
+                    store = self.tables.get(table_id)
+                    if store is None:
+                        continue
+                    start_ts, kind = _write_dec(val)
+                    if kind == OP_DEL:
+                        store.apply_commit(commit_ts, handle, TOMBSTONE)
+                    elif kind == OP_PUT:
+                        data = eng.get(CF_DATA, _dkey(ukey, start_ts))
+                        if data is not None:
+                            store.apply_commit(commit_ts, handle,
+                                               self._fold_row(
+                                                   store,
+                                                   codec.decode_key(data)))
+                if catalog_moved:
+                    self._reload_catalog()
+
+    def _reload_catalog(self) -> None:
+        """Adopt a sibling's schema change: rebuild the stores of tables
+        whose definition moved (their schema_token changes, so in-flight
+        local transactions abort at the fence — the reference's schema
+        validator, domain/schema_validator.go) and register new tables.
+        Unchanged tables keep their stores and epochs."""
+        raw = self.get_meta(b"catalog")
+        if raw is None:
+            return
+        state = pickle.loads(raw)
+        if state["version"] == self.catalog.version:
+            return
+        old_infos = {}
+        for schema in self.catalog.schemas.values():
+            for info in schema.tables.values():
+                old_infos[info.id] = pickle.dumps(info)
+        self.catalog.schemas = state["schemas"]
+        self.catalog._next_id = max(self.catalog._next_id,
+                                    state["next_id"])
+        self.catalog.version = state["version"]
+        for schema in self.catalog.schemas.values():
+            for info in schema.tables.values():
+                part = getattr(info, "partition", None)
+                ids = [d.id for d in part.defs] if part is not None \
+                    else [info.id]
+                changed = pickle.dumps(info) != old_infos.get(info.id)
+                if info.id in old_infos and not changed and \
+                        all(tid in self.tables for tid in ids):
+                    continue
+                old_tokens = {tid: self.tables[tid].schema_token
+                              for tid in ids if tid in self.tables}
+                self.register_table(info)
+                for tid in ids:
+                    # a rebuilt store presents a NEW schema token so
+                    # in-flight local transactions that buffered against
+                    # the old layout abort at the commit fence
+                    self.tables[tid].schema_token = \
+                        old_tokens.get(tid, 0) + 1
+                    self._refold_table(self.tables[tid])
+                if part is not None:
+                    # the first partition's store allocates handles for
+                    # the whole table, as after a reopen (`_recover`)
+                    first = self.tables[ids[0]]
+                    first._next_handle = max(
+                        self.tables[tid]._next_handle for tid in ids)
+        live = set()
+        for schema in self.catalog.schemas.values():
+            for info in schema.tables.values():
+                part = getattr(info, "partition", None)
+                live.update(d.id for d in part.defs) \
+                    if part is not None else live.add(info.id)
+        for tid in [t for t in self.tables if t not in live]:
+            del self.tables[tid]
+
+    def _refold_table(self, store: TableStore) -> None:
+        """Rebuild a store's rows from the KV truth (epoch snapshot when
+        current, committed deltas above its fold), raising its handle
+        allocator over every handle it folds (a partitioned table's
+        allocator, its first partition's store, is raised over all of
+        them by `_reload_catalog`)."""
+        self._load_epoch(store)
+        lo, hi = tablecodec.record_range(store.table.id)
+        folds = []
+        for key, commit_ts, kind, val in self.kv.scan_latest(lo, hi):
+            if commit_ts <= store.epoch.fold_ts:
+                continue
+            _, handle = tablecodec.decode_record_key(key)
+            if kind == OP_DEL:
+                folds.append((commit_ts, handle, TOMBSTONE))
+            else:
+                folds.append((commit_ts, handle, self._fold_row(
+                    store, codec.decode_key(val))))
+        for commit_ts, handle, row in folds:
+            store.apply_commit(commit_ts, handle, row)
+            store._next_handle = max(store._next_handle, handle + 1)
+
     # ---- meta KV (catalog, stats, sysvar and account persistence) ---------
     @contextmanager
     def ddl_section(self):
         """Critical section for direct catalog DDL (CREATE/DROP TABLE
         and friends), gated on the DDL owner — the same lock ALTER-family
         jobs take in `DDL.run_job`. The whole-catalog persist is
-        last-writer-wins, so {mutate -> persist} must not interleave with
-        a sibling's DDL. (The reference also folds a sibling process's
-        catalog in here, `refresh`: that waits with the shared plane.)"""
+        last-writer-wins, so {fold the sibling catalog -> mutate ->
+        persist} must be atomic against a sibling's DDL. The lock order
+        everywhere is owner -> mutation/coordinator."""
         with self.ddl_owner:
+            self.refresh()  # adopt sibling catalog inside the gate
             yield
 
     def put_meta(self, name: bytes, value: bytes) -> None:
@@ -1052,11 +1535,17 @@ class Storage:
         retriable = name != b"catalog"
         bo = Backoffer(budget_ms=2000)
         while True:
+            # .ts() is the STRICT allocator interface: on a degraded
+            # follower it raises typed instead of re-issuing a stale
+            # timestamp that a WRITE would then carry
             start_ts = self.tso.ts()
             try:
-                with self._commit_lock:
-                    self.committer.commit(
-                        [Mutation(OP_PUT, key, value)], start_ts)
+                try:
+                    with self._commit_lock:
+                        self.committer.commit(
+                            [Mutation(OP_PUT, key, value)], start_ts)
+                finally:
+                    self._tso_commit_done()
                 # meta writes are acked durable like row commits: join
                 # the group-fsync rendezvous outside the commit lock
                 try:
@@ -1070,6 +1559,8 @@ class Storage:
             except KVWriteConflict:
                 if not retriable:
                     raise
+                if self.shared:
+                    self.kv.refresh()
                 try:
                     bo.sleep(BO_META)
                 except BackoffExhausted as e:
@@ -1183,6 +1674,9 @@ class Transaction:
         # read latest; plain SELECT keeps the start_ts snapshot)
         self.stmt_read_ts: Optional[int] = None
         self._heartbeat_stop: Optional[threading.Event] = None
+        # set by Storage.begin: the snapshot ts was re-issued by a
+        # degraded follower's oracle (reads only)
+        self.degraded = False
 
     def start_heartbeat(self) -> None:
         """TTL keepalive for the pessimistic primary lock (reference:
