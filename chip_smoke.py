@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tidb_tpu_torch on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py     # TPC-H at SF10 (Q1 at SF5, Q18's blocks at SF1)
+    python3 chip_smoke.py     # TPC-H at SF10 (Q1 at SF2, Q18's blocks at SF1)
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
@@ -21,11 +21,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    same function (`index_add_` and `segment_reduce`), and the bound from
    bytes moved / operations done over the H100's published peaks;
 4. the main path through the port's entry points on the card, in parts
-   a-o, each with the launch counters set to 0 just before it and read
+   a-p, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
-   a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF5; at SF10 the
-      reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
-      Q1's sum_charge to its host path) through `CopClient.execute`, and
+   a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF2, SF5 before
+      part p; at SF10 the reference's int64-accumulator gate, |bound| *
+      rows >= 2^62, sends Q1's sum_charge to its host path) through
+      `CopClient.execute`, and
       Q18's inner GROUP BY ... HAVING (SF1; at SF10 its ~150k passing
       groups overflow the reference's 65,536-group HAVING buffer) through
       `execute_fragment`;
@@ -375,8 +376,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           requests must grow across the query);
       n4. every ported status route answers 200 with the reference's
           keys; /debug/topsql holds Q18's digest with device time;
-          /debug/trace/<conn> the tree of a TRACE; /debug/mesh,
-          /debug/replicas, /debug/keyviz and /debug/lockgraph 501;
+          /debug/trace/<conn> the tree of a TRACE; /debug/replicas the
+          router's knobs and outcome counters; /debug/mesh,
+          /debug/keyviz and /debug/lockgraph 501;
       n5. SHOW PROCESSLIST from a second connection (PROXY v2) while the
           first runs SLEEP(2): the proxied hosts and the sleeping
           statement; information_schema.processlist agreeing; a user
@@ -408,8 +410,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           starts, a shared-directory sibling `Storage(<store>,
           shared=True)` with a card `Session` in this process;
       o2. on the leader, `o_li` (lineitem's columns) filled by INSERT ...
-          SELECT of the orders below l_orderkey 2,000 in two statements
-          of fewer than 8,192 rows, ANALYZE, and 300 seeded sbtest
+          SELECT of the orders below l_orderkey 1,000 in one statement
+          of fewer than 8,192 rows (2,000 in two before part p),
+          ANALYZE, and 300 seeded sbtest
           UPDATEs; over the wire the follower's sum(k), count(*) of
           sbtest and GROUP BY l_orderkey HAVING sum(l_quantity) > 150
           over o_li equal to the leader's and the numpy answer; its
@@ -433,6 +436,48 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           replicated state, its next write 9001 within o.toml's budget;
           SIGTERM: `shutting down...` and rc 0; the sibling closed. Each
           step's time and the part's lap.
+   p. follower reads and automatic failover (`failover_launches`), after
+      part o in this process (no child process), the launch counters set
+      to 0 before it:
+      p0. a fresh leader `Storage(<tmp>/p_leader, shared=True,
+          rpc_listen="127.0.0.1:0", sync_log="commit")` and two socket
+          followers in this process (`election_timeout_ms` 1,500,
+          `promote_listen` 127.0.0.1:0), every session on the card;
+          sysbench's sbtest (id, k, c CHAR(120), pad CHAR(60), index
+          k_1) with 10,000 seeded rows by 2,000-row INSERTs on the
+          leader, timed; then the wait (60 s at most, timed) until the
+          leader's registry shows both followers serving and applied
+          past a leader timestamp taken after the last INSERT: a routed
+          read needs a follower that covers its read ts, or one whose
+          fold catches up within the serving side's bounded wait
+          (~0.65 s), which a host slower than the fold does not give;
+      p1. with `tidb_replica_read = 'follower'` on a leader session, sum(k),
+          count(*) and a GROUP BY k HAVING count(*) > 12, twice each: each
+          routed (`replica@host:port`), equal to the leader's local answer
+          and the oracle of acknowledged writes, `served` +1 and the
+          process's `device` / `device-fragment` requests up, the serving
+          follower's pooled session on `cuda` with a `device` tag; each
+          routed read's ms beside the leader's warm local ms; a
+          `tidb_read_staleness = -1` read routed and exact; EXPLAIN
+          ANALYZE's first row `replica@...`, stage `replica_read:<s>`;
+      p2. under `replica/apply-stall` (after an UPDATE) the read falls
+          back `stale_fallback` with a Note, exact; once both followers
+          have caught up again (as in p0), under `net/partition` toward
+          both followers' diag addresses, `unreachable_fallback` with a
+          Note, exact;
+      p3. the leader's RPC server closed without ceremony: the follower
+          with the longest replicated WAL (ties to the lowest node id)
+          promotes to term 2 and the other repoints, both timed from the
+          close; an INSERT and an UPDATE through each (one answered 9001
+          in the moments after the repoint, while a call that exhausted
+          its budget against the dead leader has the survivor marked
+          degraded, is retried within 5 s and counted); every acknowledged
+          row (`id, k` in order), the sum and the HAVING read back on both
+          on the card; an old-term `wal_append` refused with
+          `StaleTermError`; device memory before and after the promotion;
+          streamseg's launches over the two nodes' reads;
+      p4. every store closed (followers first), no new `titpu-*` thread
+          left. Each step's time.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the wall time of 1 warm run
@@ -2034,9 +2079,9 @@ def _part_h3(args, path: str, mc, h1: dict, d1):
 
 
 def _part_h(args, d1, tags: dict) -> tuple:
-    """Part h, then parts i3, n and o on h3's store and part j3 in the
-    same temporary directory (module docstring). -> streamseg's launches
-    in h2, in i3, in j3, in n and in o."""
+    """Part h, then parts i3, n and o on h3's store, part p and part j3
+    in the same temporary directory (module docstring). -> streamseg's
+    launches in h2, in i3, in j3, in n, in o and in p."""
     import shutil
     import tempfile
 
@@ -2076,13 +2121,22 @@ def _part_h(args, d1, tags: dict) -> tuple:
         _kernels.reset_launches()
         o = _part_o(args, tmp, path, mc, h1, d1)
         print(f"  [part o took {time.perf_counter() - t0:.1f}s]")
+        print(f"  -- p. follower reads and automatic failover: a fresh "
+              f"leader and two socket followers in this process "
+              f"({_mem()} held before it)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _kernels.reset_launches()
+        p = _part_p(args, tmp)
+        print(f"  [part p took {time.perf_counter() - t0:.1f}s]")
         print(f"  -- j3. a partitioned table on a durable store, killed "
               f"mid-checkpoint ({_mem()} held before it)")
         t0 = time.perf_counter()
         _kernels.reset_launches()
         j3 = _part_j3(args, tmp, d1)
         print(f"  [part j3 took {time.perf_counter() - t0:.1f}s]")
-        return launched, i3, j3, n, o
+        return launched, i3, j3, n, o, p
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2129,12 +2183,13 @@ N_ROUTES = {
                        "regression_ratio", "dir", "records", "live",
                        "window_start", "regressions"},
     "/debug/failpoints": set(),
+    "/debug/replicas": {"enabled", "prefer_follower", "max_staleness_ms",
+                        "range_aware", "term", "members", "reads"},
     "/debug/profile?seconds=0.2&hz=97": {"hz", "duration_s",
                                          "total_samples", "hot_frames",
                                          "tree"},
 }
-N_UNPORTED = ("/debug/mesh", "/debug/replicas", "/debug/keyviz",
-              "/debug/lockgraph")
+N_UNPORTED = ("/debug/mesh", "/debug/keyviz", "/debug/lockgraph")
 
 
 def _proxy_v1(src: str) -> bytes:
@@ -2445,8 +2500,9 @@ O_BUDGET_MS = 3000
 # statements of fewer than 8,192 rows each (ROADMAP queue 3: a commit of
 # N >= 8,192 mutations to one table costs N^2 delta visits); the key
 # range stays inside the dense group space, so the follower's GROUP BY
-# takes a device path over the rows it folded
-O_BANDS = ((0, 1000), (1000, 2000))
+# takes a device path over the rows it folded. One band since part p
+# (two before): each row is an fsync under sync_log="commit"
+O_BANDS = ((0, 1000),)
 O_UPDATES = 300
 O_HAVING = ("select l_orderkey, sum(l_quantity) from o_li group by "
             "l_orderkey having sum(l_quantity) > 150 order by l_orderkey")
@@ -2784,6 +2840,371 @@ def _part_o(args, tmp: str, path: str, mc, h1: dict, d1) -> dict:
     return {"sibling": sib_launches, "follower_lookups": lk1}
 
 
+# ---- part p: follower reads and automatic failover ----
+# sysbench's oltp table (src/lua/oltp_common.lua: id, k, c CHAR(120),
+# pad CHAR(60), the secondary index on k), its rows written through the
+# leader's KV in statements of fewer than 8,192 rows (a socket follower
+# replicates the WAL, never a bulk load: ROADMAP queue 3)
+P_DDL = ("create table sbtest (id bigint primary key, k bigint not null "
+         "default 0, c char(120) not null default '', pad char(60) not "
+         "null default '', key k_1 (k))")
+P_ROWS = 10_000
+P_BATCH = 2_000
+P_ELECTION_MS = 1500
+P_SUM = "select sum(k), count(*) from sbtest"
+P_HAVING = ("select k, count(*), sum(id) from sbtest group by k "
+            "having count(*) > 12 order by k")
+P_ALL = "select id, k from sbtest order by id"
+# where the followers' serving sessions must run
+P_DEVICE = "cuda"
+
+
+def _p_rows(seed: int) -> tuple:
+    """sbtest's seeded rows: k uniform in [1, 1000] (sysbench draws it
+    from the table size; a narrower range makes groups for the HAVING
+    read), c and pad digit strings of sysbench's lengths."""
+    rng = np.random.default_rng(seed + 23)
+    k = rng.integers(1, 1001, P_ROWS)
+    digits = rng.integers(0, 10, (P_ROWS, 180)).astype(np.uint8) + 48
+    c = [bytes(r[:120]).decode() for r in digits]
+    pad = [bytes(r[120:]).decode() for r in digits]
+    return k, c, pad
+
+
+def _p_oracle(ids, ks) -> dict:
+    """The three reads' answers over the acknowledged rows."""
+    ids, ks = np.asarray(ids), np.asarray(ks)
+    groups = {}
+    for i, k in zip(ids.tolist(), ks.tolist()):
+        n, sid = groups.get(k, (0, 0))
+        groups[k] = (n + 1, sid + i)
+    having = [(k, n, sid) for k, (n, sid) in sorted(groups.items())
+              if n > 12]
+    return {P_SUM: [(int(ks.sum()), len(ks))], P_HAVING: having,
+            P_ALL: sorted(zip(ids.tolist(), ks.tolist()))}
+
+
+def _p_copr() -> float:
+    return sum(obs.COPR_REQUESTS.get(engine=e)
+               for e in ("device", "device-fragment"))
+
+
+def _part_p(args, tmp: str) -> dict:
+    """Part p (module docstring): a fresh leader and two in-process
+    socket followers on the card. -> {"launches": streamseg's launches
+    in the part, "steps": each step's seconds}."""
+    import os
+
+    from tidb_tpu_torch.rpc import netfault
+    from tidb_tpu_torch.rpc.client import RpcClient, RpcOptions
+    from tidb_tpu_torch.rpc.errors import LeaderUnavailable, StaleTermError
+    from tidb_tpu_torch.store.storage import Storage
+
+    step = {}
+    t_step = time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_step
+        now = time.perf_counter()
+        step[name] = now - t_step
+        t_step = now
+
+    def titpu() -> set:
+        return {t for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith("titpu-")}
+
+    def caught_up(label: str) -> float:
+        # both followers serving and applied past a leader timestamp
+        # taken now, as the leader's registry (the router's view) shows
+        ts = int(leader.tso.current())
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while True:
+            ms = [m for m in leader.rpc_server.members()
+                  if m["role"] == "follower"]
+            if len(ms) == 2 and all(m.get("serving") and
+                                    int(m["applied_ts"]) >= ts
+                                    for m in ms):
+                return time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise SystemExit(f"{label}: the followers did not apply "
+                                 f"ts {ts} within 60 s: {ms}")
+            time.sleep(0.05)
+
+    def why_local() -> str:
+        # what the router saw, for a read that was not routed
+        fallbacks = {o: reads.get(outcome=o)
+                     for o in ("stale_fallback", "unreachable_fallback")}
+        state = [(f.remote, f.apply_engine and f.apply_engine.info(),
+                  f.failover and f.failover.describe()) for f in followers]
+        return (f"; fallbacks {fallbacks}, notes "
+                f"{[w[2][:200] for w in sl.warnings]}, members "
+                f"{leader.rpc_server.members()}, followers {state}")
+
+    threads0 = titpu()
+    launches0 = _kernels.LAUNCHES[RANK]
+    base = dict(connect_timeout_ms=500, request_timeout_ms=2000,
+                backoff_budget_ms=1500, lock_budget_ms=8000, lease_ms=1000)
+    leader = Storage(os.path.join(tmp, "p_leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", sync_log="commit",
+                     rpc_options=RpcOptions(**base))
+    followers = []
+    try:
+        # p0. the cluster and the data
+        for i in range(2):
+            followers.append(Storage(
+                os.path.join(tmp, f"p_f{i}"),
+                remote=leader.rpc_server.address, sync_log="commit",
+                rpc_options=RpcOptions(**base,
+                                       election_timeout_ms=P_ELECTION_MS,
+                                       promote_listen="127.0.0.1:0")))
+        sl = Session(leader)
+        sl.execute(P_DDL)
+        k, c, pad = _p_rows(args.seed)
+        t0 = time.perf_counter()
+        for lo in range(0, P_ROWS, P_BATCH):
+            sl.execute("insert into sbtest values " + ",".join(
+                f"({i},{int(k[i])},'{c[i]}','{pad[i]}')"
+                for i in range(lo, lo + P_BATCH)))
+        t_load = time.perf_counter() - t0
+        t_rows = time.monotonic()
+        acked = {i: int(k[i]) for i in range(P_ROWS)}
+        want = _p_oracle(list(acked), list(acked.values()))
+        t_catch = caught_up("p0")
+        by_addr = {f.diag_address: f for f in followers}
+        print(f"  p0: leader Storage(shared=True, rpc_listen="
+              f"{leader.rpc_server.address!r}, sync_log='commit') and two "
+              f"socket followers (election-timeout-ms {P_ELECTION_MS}, "
+              f"promote-listen 127.0.0.1:0), all on "
+              f"{torch.cuda.get_device_name(0)}; sbtest (sysbench's "
+              f"schema) {P_ROWS} rows by {P_BATCH}-row INSERTs on the "
+              f"leader in {t_load:.2f}s; both followers serving and "
+              f"applied past the last INSERT {t_catch:.2f}s later")
+        mark("p0")
+        # p1. routed reads: each equal to the leader's local answer and
+        # the oracle; served +1 and the serving follower's device
+        # requests up, per read
+        reads = leader.obs.replica_reads
+        local = {}
+        for q in (P_SUM, P_HAVING):
+            sl.query(q)  # cold
+            t0 = time.perf_counter()
+            local[q] = sl.query(q)
+            local[q + "#ms"] = (time.perf_counter() - t0) * 1e3
+            if local[q] != want[q]:
+                raise SystemExit(f"p1: the leader's {q!r} differs from the "
+                                 f"oracle")
+        sl.execute("set tidb_replica_read = 'follower'")
+        routed = []
+        for q in (P_SUM, P_HAVING, P_SUM, P_HAVING):
+            served0, dev0 = reads.get(outcome="served"), _p_copr()
+            t0 = time.perf_counter()
+            rows = sl.query(q)
+            dt = (time.perf_counter() - t0) * 1e3
+            tag = sl.last_engines[0]
+            f = by_addr.get(tag.split("@", 1)[-1])
+            fs = f._replica_pool[-1] if f is not None else None
+            if rows != local[q] or not tag.startswith("replica@") or \
+                    reads.get(outcome="served") != served0 + 1 or \
+                    _p_copr() <= dev0 or fs is None or \
+                    fs._cop.device.type != P_DEVICE or \
+                    not fs.last_engines[0].startswith("device"):
+                raise SystemExit(
+                    f"p1: routed {q!r}: exact {rows == local[q]}, tag {tag}, "
+                    f"served {served0} -> {reads.get(outcome='served')}, "
+                    f"device requests {dev0} -> {_p_copr()}, serving "
+                    f"session {fs and fs.last_engines}" + why_local())
+            routed.append((q, tag, fs.last_engines[0], dt))
+        for q, tag, ftag, dt in routed:
+            print(f"  p1: {q[:40]!r}... routed to {tag} in {dt:.1f} ms "
+                  f"(leader-local warm {local[q + '#ms']:.1f} ms), exact, "
+                  f"the follower's engine {ftag} on {P_DEVICE}")
+        # bounded staleness: rows older than the 1 s horizon
+        time.sleep(max(0.0, t_rows + 1.1 - time.monotonic()))
+        sl.execute("set tidb_replica_read = 'leader'")
+        sl.execute("set tidb_read_staleness = -1")
+        served0 = reads.get(outcome="served")
+        t0 = time.perf_counter()
+        rows = sl.query(P_SUM)
+        t_stale = (time.perf_counter() - t0) * 1e3
+        stale_tag = sl.last_engines[0]
+        if rows != want[P_SUM] or not sl.last_engines[0].startswith(
+                "replica@") or reads.get(outcome="served") != served0 + 1:
+            raise SystemExit(f"p1: the bounded-staleness read {rows} "
+                             f"{sl.last_engines}" + why_local())
+        sl.execute("set tidb_read_staleness = 0")
+        sl.execute("set tidb_replica_read = 'follower'")
+        ea = sl.execute(f"explain analyze {P_SUM}")
+        if not ea.rows[0][3].startswith("replica@") or \
+                not ea.rows[0][4].startswith("replica_read:"):
+            raise SystemExit(f"p1: EXPLAIN ANALYZE {ea.rows[0]}")
+        print(f"  p1: tidb_read_staleness = -1: {P_SUM!r} routed to "
+              f"{stale_tag} in {t_stale:.1f} ms, exact; EXPLAIN ANALYZE row "
+              f"{ea.rows[0][0]!r} engine {ea.rows[0][3]} stages "
+              f"{ea.rows[0][4]}; served {reads.get(outcome='served'):g}")
+        mark("p1")
+        # p2. typed fallbacks, exact: the followers' apply stalled, then
+        # the wire toward both followers cut
+        fb0 = {o: reads.get(outcome=o)
+               for o in ("stale_fallback", "unreachable_fallback")}
+        with failpoint.failpoint("replica/apply-stall", True):
+            sl.execute("update sbtest set k = k + 1 where id = 0")
+            acked[0] += 1
+            want = _p_oracle(list(acked), list(acked.values()))
+            t0 = time.perf_counter()
+            rows = sl.query(P_SUM)
+            t_st = (time.perf_counter() - t0) * 1e3
+            note_st = [w for w in sl.warnings if "fell back" in w[2]]
+        t_catch2 = caught_up("p2")
+        for a in by_addr:
+            netfault.arm("net/partition", peer=a, side="peer", dir="send")
+        try:
+            t0 = time.perf_counter()
+            rows2 = sl.query(P_SUM)
+            t_un = (time.perf_counter() - t0) * 1e3
+            note_un = [w for w in sl.warnings if "fell back" in w[2]]
+        finally:
+            netfault.heal()
+        fb1 = {o: reads.get(outcome=o) for o in fb0}
+        if rows != want[P_SUM] or rows2 != want[P_SUM] or \
+                fb1["stale_fallback"] != fb0["stale_fallback"] + 1 or \
+                fb1["unreachable_fallback"] != \
+                fb0["unreachable_fallback"] + 1 or \
+                not note_st or "(stale_fallback)" not in note_st[0][2] or \
+                not note_un or \
+                "(unreachable_fallback)" not in note_un[0][2]:
+            raise SystemExit(f"p2: fallbacks {fb0} -> {fb1}, rows {rows} "
+                             f"{rows2} (want {want[P_SUM]}), notes "
+                             f"{note_st} {note_un}")
+        print(f"  p2: replica/apply-stall: {P_SUM!r} fell back "
+              f"(stale_fallback, Note {note_st[0][1]}) in {t_st:.1f} ms, "
+              f"exact; both followers caught up {t_catch2:.2f}s after the "
+              f"stall; net/partition toward both followers: fell back "
+              f"(unreachable_fallback) in {t_un:.1f} ms, exact")
+        mark("p2")
+        # p3. the leader dies: one follower promotes (term 2), the other
+        # repoints, writes go on through both, and every acknowledged
+        # write reads back on both, on the card
+        _sync()
+        mem0 = torch.cuda.memory_allocated()
+        time.sleep(1.2)  # a failover tick refreshes the voter roll
+        votes = {f.diag_address: (f.kv.kv._applied_off, f.coord.node_id)
+                 for f in followers}
+        t0 = time.perf_counter()
+        leader.rpc_server.close()
+        deadline = time.monotonic() + 60
+        while not any(not f.remote for f in followers):
+            if time.monotonic() > deadline:
+                raise SystemExit("p3: no follower promoted within 60 s")
+            time.sleep(0.02)
+        t_prom = time.perf_counter() - t0
+        promoted = next(f for f in followers if not f.remote)
+        survivor = next(f for f in followers if f.remote)
+        while not (survivor._rpc_client.term == 2
+                   and not survivor._rpc_client.degraded):
+            if time.monotonic() > deadline:
+                raise SystemExit("p3: the survivor did not repoint")
+            time.sleep(0.02)
+        t_rep = time.perf_counter() - t0
+        win = max(votes.values(), key=lambda v: (v[0], -v[1]))
+        if promoted.rpc_server.term != 2 or \
+                votes[survivor.diag_address] == win:
+            raise SystemExit(f"p3: term {promoted.rpc_server.term}, votes "
+                             f"{votes}")
+        _sync()
+        mem1 = torch.cuda.memory_allocated()
+        sp, ss = Session(promoted), Session(survivor)
+        retries = 0
+
+        def write(s_, sql: str) -> None:
+            # a follower's call that exhausted its budget against the
+            # dead leader just after the repoint marks it degraded until
+            # its next successful call: such a write fails typed (9001)
+            # and is retried, within 5 s
+            nonlocal retries
+            until = time.monotonic() + 5
+            while True:
+                try:
+                    s_.execute(sql)
+                    return
+                except LeaderUnavailable:
+                    if time.monotonic() > until:
+                        raise
+                    retries += 1
+                    time.sleep(0.1)
+
+        for n, s_ in enumerate((sp, ss)):
+            i = P_ROWS + n
+            write(s_, f"insert into sbtest values ({i}, 7, 'p3', 'p3')")
+            acked[i] = 7
+            write(s_, f"update sbtest set k = k + 2 where id = {n + 1}")
+            acked[n + 1] += 2
+        want = _p_oracle(list(acked), list(acked.values()))
+        launches_f = _kernels.LAUNCHES[RANK]
+        seen = {}
+        for name, s_ in (("promoted", sp), ("survivor", ss)):
+            deadline = time.monotonic() + 30
+            while (rows := s_.query(P_ALL)) != want[P_ALL]:
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"p3: the {name} reads "
+                                     f"{len(rows)} rows, not the "
+                                     f"{len(acked)} acknowledged")
+                time.sleep(0.1)
+            for q in (P_SUM, P_HAVING):
+                if s_.query(q) != want[q] or \
+                        not s_.last_engines[0].startswith("device"):
+                    raise SystemExit(f"p3: the {name}'s {q!r}: "
+                                     f"{s_.last_engines}")
+            seen[name] = list(s_.last_engines)
+        launches_f = _kernels.LAUNCHES[RANK] - launches_f
+        zombie = RpcClient(promoted.rpc_server.address, RpcOptions(**base))
+        try:
+            zombie.call("hello")
+            zombie.term = 1
+            try:
+                zombie.call("wal_append", seq=1, expected=0, data=b"x",
+                            token=0, term=1)
+                raise SystemExit("p3: an old-term wal_append passed")
+            except StaleTermError as e:
+                fenced = str(e)
+        finally:
+            zombie.close()
+        print(f"  p3: leader's RPC server closed; node "
+              f"{votes[next(a for a in votes if by_addr[a] is promoted)][1]}"
+              f" (WAL {win[0]} B, votes {sorted(votes.values())}) promoted "
+              f"to term {promoted.rpc_server.term} at "
+              f"{promoted.rpc_server.address} after {t_prom:.3f}s, the "
+              f"survivor repointed after {t_rep:.3f}s; writes on both "
+              f"({retries} retried after a typed 9001); "
+              f"all {len(acked)} acknowledged rows read back on both "
+              f"(engines {seen}); old-term wal_append refused: "
+              f"StaleTermError {fenced!r}; device memory "
+              f"{mem0 / 1e6:.1f} MB before, {mem1 / 1e6:.1f} MB after the "
+              f"promotion; streamseg launches on the promoted leader's and "
+              f"the survivor's reads: {launches_f}")
+        mark("p3")
+    finally:
+        # p4. followers first, then the leader; no titpu-* thread left
+        errors = []
+        for st_ in [*reversed(followers), leader]:
+            try:
+                st_.close()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+        if errors:
+            raise errors[0]
+    deadline = time.monotonic() + 15
+    while (left := titpu() - threads0) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if left:
+        raise SystemExit(f"p4: threads left: {sorted(t.name for t in left)}")
+    mark("p4")
+    print(f"  p4: every store closed, no titpu-* thread left; steps (s) "
+          f"{({k_: round(v, 2) for k_, v in step.items()})}")
+    return {"launches": _kernels.LAUNCHES[RANK] - launches0,
+            "steps": step}
+
+
 # ---- part i: online DDL and the schema surface ----
 I_READS = ("q6", "q3")
 
@@ -2972,9 +3393,13 @@ def _part_i12(args, sessions, data, label: str, want_tags,
     sql = "ALTER TABLE lineitem DROP COLUMN l_tag"
     run(sql)
     say(sql)
+    # i1's last read takes its cold run only since part p: its warm run
+    # was the session's 64th statement and ran the auto-analyze of the
+    # SF10 lineitem (12.7 s of a 23.4 s lap)
     launches["q6 after"], _ = _i_read(
         sessions, "q6", label, data,
-        want_tags("q6") if want_tags is not None else None)
+        want_tags("q6") if want_tags is not None else None,
+        warm=WARM_RUNS if full else 0)
     total = _kernels.LAUNCHES[RANK]
     print(f"  {label}: streamseg launches {total} ({launches}); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} "
@@ -4499,7 +4924,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--sf", type=float, default=10.0,
                     help="scale factor of Q6 and of the kernel phase")
-    ap.add_argument("--q1-sf", type=float, default=5.0)
+    # SF2 since part p (SF5 before: its generation alone took ~18 s)
+    ap.add_argument("--q1-sf", type=float, default=2.0)
     ap.add_argument("--q18-sf", type=float, default=1.0)
     args = ap.parse_args(argv)
 
@@ -4645,8 +5071,9 @@ def main(argv=None) -> int:
           f"before it; {smi})")
     _kernels.reset_launches()
     (write_launches["h2"], ddl_launches["i3"], partition_launches["j3"],
-     server_launches, cluster_launches) = _part_h(args, d1, f2_tags)
-    lap("parts h, i3, n, o, j3")
+     server_launches, cluster_launches, failover) = _part_h(args, d1,
+                                                            f2_tags)
+    lap("parts h, i3, n, o, p, j3")
     if not hits:
         raise SystemExit("g1: no request launched streamseg over a "
                          "lineitem epoch that compaction rebuilt")
@@ -4674,7 +5101,8 @@ def main(argv=None) -> int:
             "explain_launches": explain_launches,
             "observe_launches": observe_launches,
             "server_launches": server_launches,
-            "cluster_launches": cluster_launches}
+            "cluster_launches": cluster_launches,
+            "failover_launches": failover["launches"]}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

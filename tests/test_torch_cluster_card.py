@@ -21,6 +21,20 @@ Both need a CUDA device and skip elsewhere; the reference is not
 imported, so they run where JAX is not installed:
 `python -m pytest tests/test_torch_cluster_card.py --noconftest -m gpu`.
 
+`test_routed_read_served_on_a_cuda_follower`: a leader session with
+`tidb_replica_read = 'follower'` sends its SELECTs (a sum and a GROUP BY
+HAVING over 2,000 rows written through the KV) to the follower: the
+rows equal the leader's own, the engine is `replica@...`, `served`
+rises by one per read, and the follower's pooled serving session runs
+on `cuda` with the `device` tags, the process's device request counter
+rising.
+
+`test_promotion_on_the_card`: a leader and two followers with a 1.5 s
+election timeout, all on `cuda`; the leader's RPC server closes, one
+follower promotes itself to term 2 and the other repoints, writes go
+on through both, and every acknowledged write reads back on both on
+the card.
+
 `test_follower_without_a_card_fails_to_start` needs no card: with no
 device visible, a follower started without `--device cpu` fails before
 it joins (nothing moves to the CPU on its own).
@@ -32,6 +46,7 @@ import signal
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -40,9 +55,11 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 from mysql_client import MiniClient  # noqa: E402
 
+from tidb_tpu_torch import obs  # noqa: E402
 from tidb_tpu_torch.bench import tpch_data as TD  # noqa: E402
 from tidb_tpu_torch.copr import _kernels  # noqa: E402
 from tidb_tpu_torch.rpc.client import RpcOptions  # noqa: E402
+from tidb_tpu_torch.rpc.errors import LeaderUnavailable  # noqa: E402
 from tidb_tpu_torch.session import Session  # noqa: E402
 from tidb_tpu_torch.store.storage import Storage  # noqa: E402
 
@@ -182,6 +199,119 @@ def test_follower_process_runs_on_the_card(tmp_path):
                 child.wait()
             child.stdout.close()
     finally:
+        leader.close()
+
+
+def _wait_serving(leader, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not any(m.get("serving") for m in leader.rpc_server.members()
+                  if m["role"] == "follower"):
+        assert time.monotonic() < deadline, leader.rpc_server.members()
+        time.sleep(0.05)
+
+
+@pytest.mark.gpu
+def test_routed_read_served_on_a_cuda_follower(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    try:
+        sl = Session(leader)
+        sl.execute("create table t (id bigint primary key, k bigint, "
+                   "g bigint)")
+        sl.execute("insert into t values " + ",".join(
+            f"({i}, {i * 3 % 101}, {i % 13})" for i in range(2000)))
+        follower = Storage(str(tmp_path / "follower"),
+                           remote=f"127.0.0.1:{leader.rpc_server.port}",
+                           rpc_options=OPTS)
+        try:
+            assert follower.device is None  # the card
+            _wait_serving(leader)
+            queries = ["select sum(k), count(*) from t",
+                       "select g, sum(k), count(*) from t group by g "
+                       "having sum(k) > 7000 order by g"]
+            want = [sl.execute(q).rows for q in queries]
+            sl.execute("set tidb_replica_read = 'follower'")
+            for i, q in enumerate(queries):
+                dev = sum(obs.COPR_REQUESTS.get(engine=e)
+                          for e in ("device", "device-fragment"))
+                assert sl.execute(q).rows == want[i], q
+                assert sl.last_engines[0].startswith("replica@")
+                assert leader.obs.replica_reads.get(
+                    outcome="served") == i + 1
+                sess = follower._replica_pool[-1]
+                assert sess._device is None and sess._cop is not None
+                assert sess._cop.device.type == "cuda"
+                assert sess.last_engines[0].startswith("device")
+                assert sum(obs.COPR_REQUESTS.get(engine=e)
+                           for e in ("device", "device-fragment")) > dev
+        finally:
+            follower.close()
+    finally:
+        leader.close()
+
+
+@pytest.mark.gpu
+def test_promotion_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    fopts = RpcOptions(**{**OPTS.__dict__, "election_timeout_ms": 1500,
+                          "lease_ms": 1000})
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    followers = []
+    try:
+        for i in range(2):
+            followers.append(Storage(
+                str(tmp_path / f"f{i}"),
+                remote=f"127.0.0.1:{leader.rpc_server.port}",
+                rpc_options=fopts))
+        sl = Session(leader)
+        sl.execute("create table t (id bigint primary key, v bigint)")
+        sl.execute("insert into t values " + ",".join(
+            f"({i}, {i % 7})" for i in range(1000)))
+        acked = set(range(1000))
+        sess = [Session(f) for f in followers]
+        for s in sess:
+            assert s.execute("select count(*) from t").rows == [(1000,)]
+        time.sleep(1.2)  # a failover tick refreshes the voter roll
+        leader.rpc_server.close()
+        deadline = time.monotonic() + 60
+        while not any(not f.remote for f in followers):
+            assert time.monotonic() < deadline, "no promotion"
+            time.sleep(0.1)
+        promoted = next(f for f in followers if not f.remote)
+        survivor = next(f for f in followers if f.remote)
+        assert promoted.rpc_server.term == 2
+        while not (survivor._rpc_client.term == 2
+                   and not survivor._rpc_client.degraded):
+            assert time.monotonic() < deadline, "no repoint"
+            time.sleep(0.1)
+        for k, f in enumerate((promoted, survivor)):
+            s, until = Session(f), time.monotonic() + 5
+            while True:  # a 9001 just after the repoint is retried
+                try:
+                    s.execute(f"insert into t values ({2000 + k}, 1)")
+                    break
+                except LeaderUnavailable:
+                    assert time.monotonic() < until
+                    time.sleep(0.1)
+            acked.add(2000 + k)
+        want = sorted(acked)
+        for f in (promoted, survivor):
+            s = Session(f)
+            deadline = time.monotonic() + 30
+            while [r[0] for r in s.execute(
+                    "select id from t order by id").rows] != want:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+            assert s.execute("select count(*), sum(v) from t").rows == \
+                [(1002, sum(i % 7 for i in range(1000)) + 2)]
+            assert s.last_engines[0].startswith("device")
+    finally:
+        for f in reversed(followers):
+            f.close()
         leader.close()
 
 

@@ -266,6 +266,11 @@ enabled = true
 window-seconds = 9
 [storage]
 group-commit-max-batch = 7
+[replica-read]
+max-staleness-ms = 700
+apply-interval-ms = 50
+prefer-follower = true
+range-aware = true
 """)
     states = []
     for C, S in ((RC, RefStorage), (PC, Storage)):
@@ -274,7 +279,7 @@ group-commit-max-batch = 7
         try:
             for seed in ("seed_observability", "seed_overload_protection",
                          "seed_diagnostics", "seed_history",
-                         "seed_group_commit"):
+                         "seed_group_commit", "seed_replica_read"):
                 getattr(cfg, seed)(st)
             o = st.obs
             states.append({
@@ -293,6 +298,7 @@ group-commit-max-batch = 7
                          st.diagnostics._status_cache),
                 "hist": (st.history.enabled, st.history.window_seconds),
                 "group": st.kv.kv._syncer.group_max_batch,
+                "replica": dataclasses.asdict(st.replica_read),
             })
         finally:
             st.metrics_history.stop()
@@ -303,26 +309,24 @@ group-commit-max-batch = 7
 
 @pytest.mark.parametrize("text,seed,item", [
     ("[heatmap]\nenabled = true\n", "seed_heatmap", "5c"),
-    ("[replica-read]\nprefer-follower = true\n", "seed_replica_read",
-     "5b"),
+    ("[heatmap]\nhot-ratio = 4.0\n", "seed_heatmap", "5c"),
     ("[ranges]\ncount = 8\n", "seed_ranges", "5c"),
     ("[diagnostics]\nclosed-ts-stall-ms = 5\n", "seed_diagnostics", "5c"),
     ("[diagnostics]\nskew-min-dispatches = 5\n", "seed_diagnostics", 8),
     ("[mesh]\naxis-size = 2\n", "seed_mesh", 8),
-    ("[transport]\nremote = '127.0.0.1:1'\n", "main", "5b"),
-    ("[transport]\nremote = '127.0.0.1:1'\nelection-timeout-ms = 5\n",
-     "main", "5b"),
-    ("[replica-read]\nrange-aware = true\n", "seed_replica_read", "5b"),
+    ("[mesh]\nshard-threshold-rows = 16\n", "seed_mesh", 8),
+    ("[ranges]\nenabled = true\n", "seed_ranges", "5c"),
+    ("[diagnostics]\nsplit-flap-threshold = 2\n", "seed_diagnostics",
+     "5c"),
     ("[diagnostics]\nrange-flap-threshold = 2\n", "seed_diagnostics",
      "5c"),
     ("[diagnostics]\nsplit-flap-window-s = 5\n", "seed_diagnostics", "5c"),
     ("[analysis]\nlock-check = true\n", "main", 6),
 ])
 def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
-    """The knob loads as in the reference; its seed (or, for failover on
-    a follower — `election-timeout-ms` above 0, its default — and the
-    lock checker, the entry point before the store opens) does nothing
-    at the defaults and raises NotInSlice, naming the queue item,
+    """The knob loads as in the reference; its seed (or, for the lock
+    checker, the entry point before the store opens) does nothing at
+    the defaults and raises NotInSlice, naming the queue item,
     otherwise."""
     path = _write(tmp_path, text)
     _same_fields(RC.Config.load(path), PC.Config.load(path))

@@ -25,6 +25,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -261,15 +262,42 @@ def test_auto_analyze_via_maintenance_tick():
         assert st is not None and st.row_count == 2000
     assert outs[0] == outs[1]
     assert "aa" in outs[1]["auto_analyzed"]
-    # the stats lease paces the next pass (performance.stats-lease)
+    # the stats lease paces the next pass (performance.stats-lease).
+    # The last pass is set one lease back on the monotonic clock: a
+    # fresh worker's is 0.0, the clock's own zero (boot on Linux), so
+    # without it the paced pass would run only on a host up for more
+    # than an hour (test_first_paced_analyze_counts_from_the_clocks_zero)
     for side in sides:
         side.st.maintenance.stats_lease_s = 3600.0
+        side.st.maintenance._last_analyze = time.monotonic() - 3600.0
         side.q(f"insert into aa values {rows}")
         assert side.st.maintenance.run_auto_analyze() == ["aa"]
         side.q(f"insert into aa values {rows}")
         assert side.st.maintenance.run_auto_analyze() == []
     assert _both(sides, "select count(*), sum(b) from aa") == \
         [(6000, 17985)]
+
+
+@pytest.mark.parametrize("clock_s", [828.0, 7200.0],
+                         ids=["below the lease", "above the lease"])
+def test_first_paced_analyze_counts_from_the_clocks_zero(clock_s,
+                                                         monkeypatch):
+    """Both packages' workers start with `_last_analyze = 0.0` and pace
+    auto-analyze on `time.monotonic()`, which counts from boot: with
+    the clock below the stats lease the first paced pass is skipped,
+    above it the pass runs (the reference's behaviour, carried)."""
+    clock = types.SimpleNamespace(monotonic=lambda: clock_s)
+    for mod in (RD, PD):
+        monkeypatch.setattr(mod, "time", clock)
+    sides = _sides()
+    outs = []
+    for side in sides:
+        side.q("create table fp (a int, b int)")
+        side.q("insert into fp values " + ",".join(
+            f"({i},{i % 5})" for i in range(1000)))
+        side.st.maintenance.stats_lease_s = 3600.0
+        outs.append(side.st.maintenance.run_auto_analyze())
+    assert outs[0] == outs[1] == ([] if clock_s < 3600.0 else ["fp"])
 
 
 def test_maintenance_thread_lifecycle():

@@ -24,6 +24,7 @@ fixture fails a test that leaves a live `titpu-*` thread behind.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import socket
@@ -61,7 +62,8 @@ REF = {"name": "ref", "Storage": RefStorage, "Session": RefSession,
        "client": ref_client, "errors": ref_errors, "fp": ref_fp,
        "Server": ref_server.Server, "CodedError": ref_errno.CodedError,
        "BackoffExhausted": ref_backoff.BackoffExhausted, "kw": {}}
-PORT = {"name": "port", "Storage": PortStorage,
+PORT = {"name": "port",
+        "Storage": functools.partial(PortStorage, device="cpu"),
         "Session": lambda st: PortSession(st, device="cpu"),
         "client": port_client, "errors": port_errors, "fp": port_fp,
         "Server": port_server.Server, "CodedError": port_errno.CodedError,
@@ -602,17 +604,54 @@ def test_foreign_error_in_rpc_handler_is_kept_not_answered(tmp_path,
     "set tidb_read_staleness = -5",
     "set global tidb_read_staleness = -5",
 ])
-def test_replica_read_variables_wait_for_routing(stmt):
-    """Follower reads and bounded staleness route SELECTs to replicas:
-    the router is item 5b, so the port refuses these settings where the
-    reference accepts them; the leader defaults stay accepted."""
-    from tidb_tpu_torch.errors import NotInSlice
+def test_replica_read_variables_wait_for_routing(stmt, tmp_path):
+    """Follower reads and bounded staleness route SELECTs to a serving
+    follower: after the SET, the leader's SELECT is served by the
+    follower (engine `replica@...`, one `served`) with the leader's own
+    answer, on both packages. The staleness cap is lowered to 1.5 s so
+    a -5 s read sees rows written 1.6 s before it (a later commit keeps
+    the follower's closed timestamp fresh); the leader defaults route
+    nothing."""
+    def run(P, d):
+        with cluster(P, d) as (leader, follower):
+            leader.replica_read.max_staleness_ms = 1500
+            sl = P["Session"](leader)
+            sl.execute("create table rr (id bigint primary key, v bigint)")
+            sl.execute("create table bump (id bigint primary key)")
+            sl.execute("insert into rr values (1, 5), (2, 7)")
+            t_rows = time.monotonic()
+            sl.execute("set tidb_replica_read = 'leader'")
+            sl.execute("set tidb_read_staleness = 0")
+            local = sl.execute("select sum(v), count(*) from rr").rows
+            assert not sl.last_engines[0].startswith("replica@")
+            # the rows older than the staleness horizon
+            time.sleep(max(0.0, t_rows + 1.6 - time.monotonic()))
+            # a later commit moves the closed timestamp: the follower
+            # covers it once its apply engine has folded it
+            sl.execute("insert into bump values (1)")
+            bump_ts = leader.tso.current()
+            deadline = time.monotonic() + 10
+            while not any(m.get("serving") and m["applied_ts"] >= bump_ts
+                          for m in leader.rpc_server.members()
+                          if m["role"] == "follower"):
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            sl.execute(stmt)
+            # a GLOBAL value reaches the sessions opened after it
+            sr = P["Session"](leader) if "global" in stmt else sl
+            got = sr.execute("select sum(v), count(*) from rr").rows
+            out = (local, got,
+                   [e.split("@")[0] for e in sr.last_engines],
+                   leader.obs.replica_reads.get(outcome="served"),
+                   sr.execute("select @@tidb_replica_read, "
+                              "@@tidb_read_staleness").rows,
+                   sr.warnings)
+            if "global" in stmt:
+                sl.execute("set global tidb_read_staleness = 0")
+            return out
 
-    RefSession().execute(stmt)
-    s = PortSession(PortStorage(), device="cpu")
-    with pytest.raises(NotInSlice, match="item 5b"):
-        s.execute(stmt)
-    s.execute("set tidb_replica_read = 'leader'")
-    s.execute("set tidb_read_staleness = 0")
-    assert s.execute("select @@tidb_replica_read, @@tidb_read_staleness"
-                     ).rows == [("leader", 0)]
+    local, got, engines, served, vars_, warnings = both(run, tmp_path)
+    assert got == local == [(12, 2)]
+    assert engines == ["replica"] and served == 1.0 and warnings == []
+    assert vars_ == ([("follower", 0)] if "replica_read" in stmt
+                     else [("leader", -5)])

@@ -14,9 +14,9 @@ process) with every acknowledged row. Both reject a bad file with the
 same `invalid configuration:` line and exit 1, and print the same
 example config. The
 port alone: without a card and without `--device cpu` it fails (no
-listening line), and a follower whose `election-timeout-ms` arms
-failover raises `NotInSlice`. Every child is
-terminated and waited for. Tolerance: none.
+listening line), and a knob of a plane not ported (the lock-order
+checker) raises `NotInSlice`. Every child is terminated and waited
+for. Tolerance: none.
 """
 
 from __future__ import annotations
@@ -233,15 +233,20 @@ def test_print_example_config_byte_equal():
         assert out["port"] == out["ref"] == f.read()
 
 
-@pytest.mark.parametrize("args,needle", [
-    (["-P", "0"], "CUDA device requested"),
-    (["-P", "0", "--device", "cpu", "--shared", "--transport-remote",
-      "127.0.0.1:1"], "NotInSlice"),
+@pytest.mark.parametrize("args,config,needle", [
+    (["-P", "0"], None, "CUDA device requested"),
+    (["-P", "0", "--device", "cpu", "--shared"],
+     "[analysis]\nlock-check = true\n", "NotInSlice"),
 ], ids=["no-card", "shared"])
-def test_port_refuses_to_start(args, needle):
+def test_port_refuses_to_start(args, config, needle, tmp_path):
     """Without a card the default device fails the start (nothing moves
-    to the CPU on its own); a follower whose election timeout keeps its
-    default (10000 ms, which arms failover) is not in this slice."""
+    to the CPU on its own); a shared sibling with the lock-order checker
+    on (the concurrency analysis plane, item 6) is not in this slice."""
+    if config is not None:
+        path = tmp_path / "c.toml"
+        path.write_text(config)
+        args = [*args, "--config", str(path), "--path",
+                str(tmp_path / "db")]
     cmd = [sys.executable, "-m", "tidb_tpu_torch.server", *args]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=120,

@@ -235,7 +235,7 @@ def test_trace_route(pair):
 @pytest.mark.parametrize("route", [
     "/debug/metrics/history", "/debug/topsql", "/debug/waitprofile",
     "/debug/events", "/debug/inspection", "/debug/history",
-    "/debug/profile?seconds=0.05&hz=200",
+    "/debug/profile?seconds=0.05&hz=200", "/debug/replicas",
 ])
 def test_debug_route_keys(pair, route):
     got = [_json(pair[n], route) for n in ("ref", "port")]
@@ -260,6 +260,12 @@ def test_debug_route_keys(pair, route):
         assert got[1]["rules"] == got[0]["rules"]
         assert [f["rule"] for f in got[1]["findings"]] == \
             [f["rule"] for f in got[0]["findings"]]
+    if route == "/debug/replicas":
+        # a local store: the router's knobs at their defaults, one
+        # member, no routed read
+        assert got[1] == got[0]
+        assert got[1]["reads"] == {"served": 0.0, "stale_fallback": 0.0,
+                                   "unreachable_fallback": 0.0}
     if route == "/debug/history":
         # each store's own directory (none: in memory)
         assert got[0]["dir"] == got[1]["dir"] is None

@@ -16,12 +16,13 @@ loudly at startup instead of silently running with defaults.
 Some knobs belong to planes the port does not have yet. They load and
 validate as in the reference, and at their defaults they do nothing; set
 to anything else, the seed that would apply them raises `NotInSlice`
-naming the queue item that ports the plane: `[heatmap]`,
-`[replica-read]` routing (`prefer-follower`, `range-aware`), `[ranges]`
-and the diagnostics thresholds of the range plane (items 5b and 5c),
-`[mesh]` and `diagnostics.skew-min-dispatches` (item 8). The entry point
-checks `transport.election-timeout-ms` on a follower (failover, item 5b)
-and `[analysis] lock-check` (item 6) before it opens the store.
+naming the queue item that ports the plane: `[heatmap]`, `[ranges]`
+and the diagnostics thresholds of the range plane (item 5c), `[mesh]`
+and `diagnostics.skew-min-dispatches` (item 8). The entry point checks
+`[analysis] lock-check` (item 6) before it opens the store.
+`[replica-read]` is seeded whole: `range-aware` is accepted and, with no
+range plane, gates nothing, as the reference's does with `[ranges]`
+off.
 `rpc_options` hands the `[transport]` knobs to the RPC tier.
 """
 
@@ -941,21 +942,17 @@ class Config:
             raise _not_in_slice("[heatmap]: the keyspace heat plane", "5c")
 
     def seed_replica_read(self, storage) -> None:
-        """Arm the follower's apply engine from the [replica-read] knobs
-        (startup and SIGHUP hot reload): `enabled` and
-        `apply-interval-ms`. The router's knobs (`max-staleness-ms`,
-        `prefer-follower`, `range-aware`) are item 5b and raise away from
-        their defaults."""
+        """Arm the follower read tier from the [replica-read] knobs
+        (startup and SIGHUP hot reload both call this): copy the
+        routing/staleness settings onto the storage's state and
+        start/stop the follower apply engine to match."""
         r = self.replica_read
-        d = ReplicaReadConfig()
-        if (r.max_staleness_ms, r.prefer_follower, r.range_aware) != \
-                (d.max_staleness_ms, d.prefer_follower, d.range_aware):
-            raise _not_in_slice(
-                "[replica-read] max-staleness-ms/prefer-follower/"
-                "range-aware: replica read routing", "5b")
         st = storage.replica_read
         st.enabled = r.enabled
+        st.max_staleness_ms = r.max_staleness_ms
         st.apply_interval_ms = r.apply_interval_ms
+        st.prefer_follower = r.prefer_follower
+        st.range_aware = r.range_aware
         storage.arm_replica_read()
 
     def seed_ranges(self, storage) -> None:  # noqa: ARG002

@@ -21,12 +21,14 @@ Layers (as in the reference):
 * diag.py   — per-server diagnostics endpoints + the cluster_* fan-out.
 * apply.py  — the follower's apply engine: the continuous mirror fold
   and the closed timestamp advertised on every heartbeat.
-* replica.py — of the follower read tier, the per-storage settings
-  (`ReplicaReadState`) only.
+* replica.py — the follower read tier: the router (`try_route`), the
+  serving side (`serve_replica_read`), the row codec and the settings.
+* failover.py — the follower's leader-loss watcher: the deterministic
+  election and the fenced in-place promotion it drives.
+* netfault.py — the network fault plane (`net/*` failpoints) hooked
+  into frame.py's send/recv.
 
-Left out, with their items of ROADMAP queue 1: replica routing and
-serving, failover and the network fault plane (5b), the range plane
-(5c).
+Left out, with its item of ROADMAP queue 1: the range plane (5c).
 
 Unlike the reference, the serving loops here survive only the errors
 they are meant to survive: the port's own RPC, KV, transaction and

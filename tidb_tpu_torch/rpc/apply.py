@@ -2,8 +2,8 @@
 
 Port of `tidb_tpu/rpc/apply.py`. A socket follower runs it by default
 (`ReplicaReadState.enabled`); the read routing that consumes its closed
-timestamp (`rpc/replica.py` `try_route`, `serve_replica_read`) comes with
-item 5b of ROADMAP queue 1. One difference, kept on purpose: the loop
+timestamp is `rpc/replica.py` (`try_route`, `serve_replica_read`). One
+difference, kept on purpose: the loop
 survives only `errors.survivable()` — a leader hiccup, a fenced or
 conflicting fold. Any other error in a tick (the fold runs the
 storage's columnar apply, a torch or CUDA error among the possible
@@ -28,8 +28,10 @@ at:
   * The tick then tails/folds the mirror to at least wal_size and
     adopts closed_ts as this replica's `applied_ts` — the fence the
     read router checks before sending a snapshot read here.
-  * (With item 5b's serving side) a read whose read_ts is above
-    applied_ts waits for the advance, the ReadIndex analog.
+  * A read whose read_ts is above applied_ts WAITS (wait_for, the
+    ReadIndex analog: kick a tick, block on the advance condition) up
+    to a small bound instead of failing — a healthy replica closes a
+    fresh leader timestamp within one round-trip.
 
 Every heartbeat ping advertises (applied_ts, apply_lag_ms, serving,
 load, term) so the leader's membership registry — and through it the
@@ -60,8 +62,15 @@ from .errors import survivable
 
 def ts_physical_ms(ts: int) -> int:
     """Physical milliseconds of a hybrid timestamp (the PD layout
-    kv/tso.py owns)."""
+    kv/tso.py owns; this module and rpc/replica.py convert through
+    these two helpers only)."""
     return int(ts) >> _LOGICAL_BITS
+
+
+def ts_at_physical_ms(ms: int) -> int:
+    """The smallest hybrid timestamp at physical time `ms` (inverse of
+    ts_physical_ms; the bounded-staleness read point)."""
+    return max(0, int(ms)) << _LOGICAL_BITS
 
 
 class ApplyEngine:
@@ -201,6 +210,21 @@ class ApplyEngine:
             "last_error": self.last_error,
         }
 
+    def wait_for(self, read_ts: int, timeout_s: float) -> bool:
+        """Block until applied_ts covers read_ts (the ReadIndex analog:
+        kick an immediate tick, then wait on the advance condition).
+        Returns False when the bound expires — the caller answers with
+        a typed staleness rejection and the router falls back."""
+        deadline = time.monotonic() + timeout_s
+        with self._cv:
+            while self.applied_ts < read_ts:
+                remain = deadline - time.monotonic()
+                if remain <= 0 or self._stop.is_set():
+                    return False
+                self._kick.set()
+                self._cv.wait(min(remain, 0.05))
+        return True
+
     def close(self) -> None:
         self._stop.set()
         self._kick.set()
@@ -212,4 +236,4 @@ class ApplyEngine:
             raise err
 
 
-__all__ = ["ApplyEngine", "ts_physical_ms"]
+__all__ = ["ApplyEngine", "ts_physical_ms", "ts_at_physical_ms"]

@@ -1,7 +1,8 @@
 """RPC client: typed retries, timeouts, reconnect, failpoint edges.
 
-Port of `tidb_tpu/rpc/client.py`, but for `repoint` (a follower's move to
-a promoted leader, with failover: item 5b of ROADMAP queue 1).
+Port of `tidb_tpu/rpc/client.py`, but for one race the reference has: a
+heartbeat ping that was aimed at the old leader and fails after
+`repoint` does not mark the client degraded.
 Counterpart of the reference's RPC client + retry plumbing (reference:
 store/tikv/client.go sendRequest, region_request.go sendReqToRegion —
 every send runs under a Backoffer, transport errors reconnect and
@@ -407,6 +408,12 @@ class RpcClient:
         def beat() -> None:
             while not self._hb_stop.wait(interval):
                 try:
+                    if hb.addr != self.addr:
+                        # the parent repointed to a promoted leader:
+                        # the keepalive must follow or the lease renews
+                        # against the corpse
+                        hb.addr = self.addr
+                        hb._drop_conn()
                     hb.term = max(hb.term, self.term)
                     hb.call("ping", _budget_ms=min(
                         self.options.backoff_budget_ms, 500),
@@ -416,13 +423,32 @@ class RpcClient:
                     self.last_contact = time.monotonic()
                 except RPCError:
                     # covers StaleTermError too: a deposed leader's
-                    # pings must read as leader loss, not liveness
-                    self.degraded = True
+                    # pings must read as leader loss, not liveness. A
+                    # ping aimed at a leader the parent has repointed
+                    # away from meanwhile says nothing about the new
+                    # one: it leaves the flag alone (the reference
+                    # flips it, and writes right after a repoint fail)
+                    if hb.addr == self.addr:
+                        self.degraded = True
             hb.close()
 
         self._hb_thread = threading.Thread(
             target=beat, name="titpu-rpc-heartbeat", daemon=True)
         self._hb_thread.start()
+
+    def repoint(self, addr, term: int = 0) -> None:
+        """Re-resolve this client to a newly promoted leader: swap the
+        address, adopt the new term, drop the dead connection, and clear
+        the degraded latch so the next call goes straight through."""
+        with self._mu:
+            self.addr = addr
+            if term:
+                self.term = max(self.term, int(term))
+            self._drop_conn()
+        # a fresh leader deserves a closed breaker: the open state was
+        # earned by the corpse this client just stopped talking to
+        self._breaker_reset()
+        self.degraded = False
 
     def health(self) -> dict:
         return {

@@ -2,10 +2,10 @@
 
 Port of `tidb_tpu/rpc/diag.py`. The methods over planes the port does
 not have answer `NotInSlice` naming their item of ROADMAP queue 1:
-`diag_replica_read` and `diag_election` (5b), `diag_hot_ranges` (5c),
-`diag_mesh_shards` and `diag_mesh_storage` (8). The fan-out degrades a
-member to an error row only for `errors.survivable()` errors; any other
-error in a worker is re-raised in the querying thread after the join.
+`diag_hot_ranges` (5c), `diag_mesh_shards` and `diag_mesh_storage` (8).
+The fan-out degrades a member to an error row only for
+`errors.survivable()` errors; any other error in a worker is re-raised
+in the querying thread after the join.
 
 Counterpart of the reference's cluster memtables (reference: TiDB 4.0
 infoschema/cluster.go + executor/memtable_reader.go — every server
@@ -123,11 +123,16 @@ class DiagService:
         cur = int(tso.current()) if tso is not None else 0
         return [cur, 0.0, 0]
 
-    def diag_replica_read(self, **_params) -> dict:
-        """A routed snapshot SELECT served from this follower's engine
-        (the reference's serve_replica_read): item 5b."""
-        raise NotInSlice("diag_replica_read: replica read serving "
-                         "(ROADMAP queue 1 item 5b)")
+    def diag_replica_read(self, sql: str = "", db: str = "",
+                          read_ts: int = 0, term: int = 0,
+                          time_zone: str = "SYSTEM") -> dict:
+        """A routed snapshot SELECT served from this follower's local
+        engine at exactly read_ts (rpc/replica.py serve_replica_read:
+        term fence, bounded closed-ts wait, SELECT-only)."""
+        from .replica import serve_replica_read
+        return serve_replica_read(self.storage, sql=sql, db=db,
+                                  read_ts=read_ts, term=term,
+                                  time_zone=time_zone)
 
     def diag_processlist(self) -> dict:
         provider = getattr(self.storage, "processlist", None)
@@ -233,10 +238,35 @@ class DiagService:
         return {"rows": rows}
 
     def diag_election(self) -> dict:
-        """This server's candidacy state for leader elections: failover
-        is item 5b."""
-        raise NotInSlice("diag_election: leader failover "
-                         "(ROADMAP queue 1 item 5b)")
+        """This server's candidacy state for leader elections (polled by
+        peers' FailoverManagers over the diag port): node id, replicated
+        WAL position, known term, and — once anyone has promoted or
+        repointed — where the CURRENT leader answers coordination RPC.
+        Leaders answer too, so a partitioned follower that regains this
+        endpoint immediately learns who rules."""
+        st = self.storage
+        rpc_server = getattr(st, "rpc_server", None)
+        if rpc_server is not None:
+            return {"node_id": int(getattr(st.coord, "node_id", 0) or 0),
+                    "wal_pos": rpc_server._wal_size(),
+                    "term": rpc_server.term,
+                    "role": "leader",
+                    "leader_addr": rpc_server.address}
+        if getattr(st, "_promoting", False):
+            # mid-promotion: neither follower nor leader yet. Voters
+            # must HOLD their election open — treating this window as
+            # "not an elector" elected a second leader (split brain)
+            return {"node_id": int(getattr(st.coord, "node_id", 0) or 0),
+                    "wal_pos": 0, "term": 0,
+                    "role": "promoting", "leader_addr": ""}
+        client = getattr(st, "_rpc_client", None)
+        engine = getattr(st.kv, "kv", None)
+        return {"node_id": int(getattr(st.coord, "node_id", 0) or 0),
+                "wal_pos": int(getattr(engine, "_applied_off", 0)),
+                "term": int(getattr(client, "term", 0) or 0),
+                "role": self._role(),
+                "leader_addr": str(getattr(client, "addr", "") or "")
+                if client is not None and not client.degraded else ""}
 
     def handle(self, method: str, **params) -> dict:
         fn = getattr(self, method, None)

@@ -84,7 +84,7 @@ class ResultUndetermined(RPCError):
 
 class ReplicaStaleError(RPCError):
     """A routed replica read could not be served at the requested
-    timestamp (the follower read tier's routing, item 5b)."""
+    timestamp (rpc/replica.py: the router falls back to the leader)."""
 
 
 class WalOffsetMismatch(RPCError):

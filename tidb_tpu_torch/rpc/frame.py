@@ -8,9 +8,9 @@ WAL records are raw byte strings that JSON would force through base64.
 
 Supported values: None, bool, int (arbitrary precision — timestamps are
 physical_ms<<18), float, bytes, str, list, dict (any supported value as
-key). The network fault plane's hooks in `send_frame`/`recv_frame`
-(`rpc/netfault.py`) and the range routing context come with items 5b
-and 5c of ROADMAP queue 1.
+key). The network fault plane (`rpc/netfault.py`) hooks `send_frame` and
+`recv_frame`; the range routing context comes with item 5c of ROADMAP
+queue 1.
 """
 
 from __future__ import annotations
@@ -122,10 +122,23 @@ def decode(buf: bytes) -> Any:
 
 
 # ---- framing ---------------------------------------------------------------
+# The network fault plane (rpc/netfault.py) hooks exactly here: every
+# framed byte in the system crosses these two functions, so per-peer
+# delay/drop/dup/partition schedules need no other seam. Unarmed cost
+# is one module-attribute read per operation (netfault.ACTIVE).
+from . import netfault  # noqa: E402 — after the codec it instruments
+
+
 def send_frame(sock: socket.socket, payload: bytes) -> None:
     if len(payload) > MAX_FRAME:
         raise FrameError(f"frame too large: {len(payload)}")
-    sock.sendall(struct.pack("<I", len(payload)) + payload)
+    data = struct.pack("<I", len(payload)) + payload
+    if netfault.ACTIVE:
+        copies = netfault.on_send(sock, len(data))
+        for _ in range(copies):  # 0 = net/drop, 2 = net/dup
+            sock.sendall(data)
+        return
+    sock.sendall(data)
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
@@ -142,11 +155,15 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
 def recv_frame(sock: socket.socket) -> bytes:
     """One payload; raises ConnectionError on clean EOF between frames
     too — callers treat any tear identically (reconnect + retry)."""
-    hdr = _recv_exact(sock, 4)
-    n = struct.unpack("<I", hdr)[0]
-    if n > MAX_FRAME:
-        raise FrameError(f"frame length {n} exceeds cap")
-    return _recv_exact(sock, n)
+    while True:
+        hdr = _recv_exact(sock, 4)
+        n = struct.unpack("<I", hdr)[0]
+        if n > MAX_FRAME:
+            raise FrameError(f"frame length {n} exceeds cap")
+        payload = _recv_exact(sock, n)
+        if netfault.ACTIVE and netfault.on_recv(sock, n):
+            continue  # net/drop on the inbound path: frame vanishes
+        return payload
 
 
 # ---- trace context ---------------------------------------------------------

@@ -247,7 +247,8 @@ class CoordRPCServer(FrameListener):
 
     def __init__(self, storage, listen="127.0.0.1:0",
                  lease_ms: int = 3000,
-                 tail_chunk: int = TAIL_CHUNK) -> None:
+                 tail_chunk: int = TAIL_CHUNK,
+                 term: Optional[int] = None) -> None:
         if storage.path is None:
             raise ValueError("RPC coordination needs a durable store dir")
         self.storage = storage
@@ -266,12 +267,13 @@ class CoordRPCServer(FrameListener):
         os.makedirs(os.path.join(self.path, "kv"), exist_ok=True)
         # the cluster fencing TERM, persisted beside the WAL it fences:
         # a fresh leader starts at 1, a clean restart resumes the stored
-        # term (a promoted follower's term+1 comes with failover, item
-        # 5b). Mutating requests carrying a lower term are rejected
-        # (StaleTermError) — the raft-term analog that stops a deposed
-        # leader's clients from split-braining the log.
+        # term, and a PROMOTED follower passes term=stored+1. Mutating
+        # requests carrying a lower term are rejected (StaleTermError) —
+        # the raft-term analog that stops a deposed leader's clients
+        # from split-braining the log.
         self._term_path = os.path.join(self.path, "kv", "term")
-        self.term = max(1, read_term(self._term_path))
+        self.term = int(term) if term is not None else \
+            max(1, read_term(self._term_path))
         write_term(self._term_path, self.term)
         # O_APPEND handle for remote records: interleaves safely with
         # the leader engine's own appends (both under the mutation flock)

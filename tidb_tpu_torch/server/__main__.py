@@ -10,13 +10,14 @@ follower and a sibling as much as a leader. The mode follows the
 reference: `[transport] remote` (or `--transport-remote`) makes a socket
 follower with `--path` as its private working dir, `[transport] listen`
 (or `--transport-listen`) a leader that also serves the coordination
-RPC tier, `--shared` a sibling over a shared `--path`. Knobs of planes
-the port does not have raise `NotInSlice` at startup: `election-timeout-ms`
-above 0 on a follower (it arms failover, item 5b; its default is 10000,
-so a follower's config sets it to 0), `[analysis] lock-check` (item 6),
-`[mesh]` (item 8), `[heatmap]`, `[replica-read]` routing and `[ranges]`
-away from their defaults (items 5b and 5c). `promote-listen` is inert
-without failover.
+RPC tier, `--shared` a sibling over a shared `--path`. A follower with
+`election-timeout-ms` above 0 (the default, 10000) runs the failover
+watcher and, when it wins an election, serves coordination RPC on
+`promote-listen`; `--device` also places the sessions a follower serves
+routed replica reads on. Knobs of planes the port does not have raise
+`NotInSlice` at startup: `[analysis] lock-check` (item 6), `[mesh]`
+(item 8), `[heatmap]` and `[ranges]` away from their defaults (item
+5c).
 
 Counterpart of the reference's tidb-server binary (reference:
 tidb-server/main.go:160 — flag parsing :76-151, config load + flag
@@ -208,11 +209,7 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg.apply_log_level()
     # the knobs of planes the port does not have fail before the store
-    # opens: failover, the lock-order checker, the mesh
-    if cfg.transport.remote and cfg.transport.election_timeout_ms > 0:
-        raise NotInSlice("transport.election-timeout-ms > 0 on a "
-                         "follower: leader failover (ROADMAP queue 1 "
-                         "item 5b)")
+    # opens: the lock-order checker, the mesh
     if cfg.analysis.lock_check:
         raise NotInSlice("[analysis] lock-check: the concurrency analysis "
                          "plane (ROADMAP queue 1 item 6)")
@@ -227,7 +224,8 @@ def main(argv: list[str] | None = None) -> int:
     # and shared-directory modes (reference: main.go:263 creates the
     # store from the store-type flag the same way)
     sync_kw = {"sync_log": cfg.storage.sync_log,
-               "sync_interval_ms": cfg.storage.sync_interval_ms}
+               "sync_interval_ms": cfg.storage.sync_interval_ms,
+               "device": device}
     if cfg.transport.remote:
         storage = Storage(cfg.path or None, remote=cfg.transport.remote,
                           rpc_options=cfg.rpc_options(), **sync_kw)

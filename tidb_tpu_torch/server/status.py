@@ -23,16 +23,20 @@ Routes:
   /debug/inspection  every inspection rule over the live telemetry:
       findings + per-rule summary (JSON)
   /debug/history  the workload-history plane (JSON)
+  /debug/replicas  the follower read tier: router knobs, per-member
+    serving/closed-timestamp state, the local apply engine, and the
+    routed-read outcome counters (JSON)
 
 The routes of planes the port does not have answer 501 with a JSON body
 naming the ROADMAP queue item that ports them: /debug/mesh (item 8),
-/debug/replicas (item 5b), /debug/keyviz (item 5c), /debug/lockgraph
-(item 6). The /status sections of those planes (`ranges`, `mesh`) are
-left out; `transport` (the storage's `transport_health`: mode, peer,
-breaker, members) is served. Where the reference's handlers catch every exception around a
-reader (the mesh section, the inspection section and payload, the
-history payload), the port does not: a reader's fault fails that request
-with its traceback instead of answering with an error payload.
+/debug/keyviz (item 5c), /debug/lockgraph (item 6). The /status
+sections of those planes (`ranges`, `mesh`) are left out; `transport`
+(the storage's `transport_health`: mode, peer, breaker, members,
+failover, replica apply) is served. Where the reference's handlers catch
+every exception around a reader (the mesh section, the inspection
+section and payload, the history payload, the replicas payload), the
+port does not: a reader's fault fails that request with its traceback
+instead of answering with an error payload.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ from .. import obs
 # (plane, ROADMAP queue 1 item)
 UNPORTED_ROUTES = {
     "/debug/mesh": ("the multi-device plane", 8),
-    "/debug/replicas": ("the follower read tier", "5b"),
     "/debug/keyviz": ("the keyspace heat plane", "5c"),
     "/debug/lockgraph": ("the concurrency analysis plane", 6),
 }
@@ -162,6 +165,17 @@ class StatusServer:
                         return
                     body = json.dumps(outer.sql_server.storage.history
                                       .debug_payload()).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/debug/replicas"):
+                    if outer.sql_server is None:
+                        self._bare(404)
+                        return
+                    # follower read tier: router knobs, per-member
+                    # serving/closed-ts state, the local apply engine,
+                    # and the routed-read outcome counters
+                    from ..rpc import replica as _replica
+                    body = json.dumps(_replica.debug_payload(
+                        outer.sql_server.storage)).encode()
                     ctype = "application/json"
                 elif self.path.startswith("/debug/failpoints"):
                     from ..util import failpoint

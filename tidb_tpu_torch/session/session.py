@@ -93,8 +93,16 @@ partition column, UPDATE buffers rows that move to another partition
 until every partition has been scanned, and DELETE, FOR UPDATE, ANALYZE,
 CHECKSUM and ADMIN CHECK visit each partition's store.
 
-Left out of the reference's statement path, with their planes: replica
-routing and the shard-skew warnings of the mesh.
+An eligible autocommit SELECT of a session whose `tidb_replica_read` is
+`follower` (or with `tidb_read_staleness` below 0, or the storage's
+`prefer_follower`) is routed to a follower that covers its read ts
+(`rpc/replica.py` `try_route`), after the privilege check and before
+admission; any staleness, term or transport trouble falls back to the
+local path with a Note. EXPLAIN ANALYZE of a routed read shows one row
+per plan line with the engine `replica@host:port` on the first.
+
+Left out of the reference's statement path, with its plane: the
+shard-skew warnings of the mesh.
 """
 
 from __future__ import annotations
@@ -169,16 +177,6 @@ _ROW_COUNT_STMTS = _DML + (ast.LoadDataStmt,)
 
 _EXPLAIN_ANALYZE_COLS = ["plan", "actRows", "time_ms", "engine", "stages",
                          "mesh", "wait_profile"]
-
-
-def _refuse_replica_routing(name: str, value, default) -> None:
-    """Follower reads and bounded staleness route SELECTs to replicas:
-    the router is not ported, so their variables keep the leader
-    default."""
-    if name in ("tidb_replica_read", "tidb_read_staleness") and \
-            str(value).strip().lower() != str(default):
-        raise NotInSlice(f"SET {name} = {value!r}: replica read routing "
-                         "(ROADMAP queue 1 item 5b)")
 
 
 class SQLError(CodedError):
@@ -262,6 +260,9 @@ class Session:
         self._lpfb_next = 0
         # the single statement's own text (EXPLAIN's binding match)
         self._raw_sql: Optional[str] = None
+        # single top-level SELECT text, the only shape the replica-read
+        # router may forward (rpc/replica.py)
+        self._route_sql: Optional[str] = None
         # set by the @@max_execution_time timer before it interrupts
         self._deadline_expired = False
         # the last statement's operator stage split, operator transfer
@@ -337,6 +338,12 @@ class Session:
                 is_select or (single and isinstance(stmt, _DML))) else None
             self._binding_match_sql = sql if is_select else None
             self._raw_sql = sql if single else None
+            # the replica-read router forwards SQL TEXT, so it only
+            # ever routes a statement that IS its own text: a single
+            # top-level SELECT (INSERT..SELECT re-enters _exec_select
+            # with this unset; prepared statements carry bound ASTs,
+            # not reproducible text)
+            self._route_sql = sql if is_select else None
             try:
                 # batch members are not digested: the batch label is no
                 # statement's own text
@@ -346,6 +353,7 @@ class Session:
                 self._plan_cache_key = None
                 self._binding_match_sql = None
                 self._raw_sql = None
+                self._route_sql = None
         # delta-driven auto-analyze at statement boundaries (the
         # reference's stats owner loop, checked inline every 64
         # statements as the reference's single-process session does)
@@ -827,7 +835,6 @@ class Session:
                     raise SQLError(
                         f"Variable '{name}' is a SESSION variable and "
                         "can't be used with SET GLOBAL")
-                _refuse_replica_routing(name, value, sv.default)
                 # cluster-wide durable state: superuser only (reference:
                 # SUPER/SYSTEM_VARIABLES_ADMIN requirement)
                 self._require_super()
@@ -837,7 +844,6 @@ class Session:
                     raise SQLError(
                         f"Variable '{name}' is a GLOBAL variable and "
                         "should be set with SET GLOBAL")
-                _refuse_replica_routing(name, value, sv.default)
                 self.vars[name] = value
         return ResultSet([], [])
 
@@ -1705,6 +1711,25 @@ class Session:
                                span_name="planner.optimize"):
                     plan = self._plan_cached(stmt, uncacheable=has_vars)
                 self._check_column_privs(plan)
+                # follower read tier: an eligible snapshot read may be
+                # served by a replica whose closed ts covers our
+                # read_ts (rpc/replica.py). Routed BEFORE admission —
+                # the gate bounds LOCAL execution, and an offloaded
+                # read must not consume a leader token. Privileges were
+                # checked above; on any staleness/term/transport
+                # trouble try_route returns None and the unchanged
+                # local path below answers.
+                from ..rpc import replica as _replica
+                routed = _replica.try_route(
+                    self, stmt, self._route_sql, has_vars,
+                    expect_cols=len(plan.schema.fields))
+                if routed is not None:
+                    names = [f.name for f in plan.schema.fields]
+                    ftypes = [f.ftype for f in plan.schema.fields]
+                    self._found_rows = len(routed.rows)
+                    self.vars["last_plan_from_binding"] = self._lpfb_next
+                    return ResultSet(names, routed.rows,
+                                     column_types=ftypes)
                 # execution admission: priority from the planner's
                 # estimate; a no-op when already admitted above
                 with self._admission(plan_priority(plan)):
@@ -1857,6 +1882,8 @@ class Session:
             try:
                 if str(self._sysvar_value("tidb_replica_read")
                        or "leader").lower() != "leader":
+                    # the operator asked reads to offload to followers;
+                    # routing preference beats the local bypass
                     return False
             except SQLError:
                 pass
@@ -3100,6 +3127,30 @@ class Session:
                              [(line,) for line in explain_plan(plan)])
         # EXPLAIN ANALYZE: run the plan with per-node runtime stats
         from ..plan.physical import explain_nodes
+
+        # follower read tier: when the router would serve this read
+        # from a replica, EXPLAIN ANALYZE executes THAT — the routing
+        # decision is the plan (engine column `replica@host:port`);
+        # per-node device stats belong to the serving replica's own
+        # surfaces (its slow log / Top SQL / EXPLAIN ANALYZE)
+        from ..rpc import replica as _replica
+        routed = _replica.try_route(
+            self, stmt.target, m.group(1) if m else None,
+            self._has_var_reads(stmt.target),
+            expect_cols=len(plan.schema.fields))
+        if routed is not None:
+            self._commit_implicit()  # release the routing read ts
+            rows = []
+            for i, line in enumerate(explain_plan(plan)):
+                rows.append((
+                    line,
+                    len(routed.rows) if i == 0 else None,
+                    round(routed.wall_ms, 2) if i == 0 else None,
+                    f"replica@{routed.addr}" if i == 0 else "",
+                    f"replica_read:{routed.wall_ms / 1e3:.3f}"
+                    if i == 0 else "", "",
+                    self._wait_profile_cell() if i == 0 else ""))
+            return ResultSet(list(_EXPLAIN_ANALYZE_COLS), rows)
 
         coll = obs.RuntimeStatsColl()
 

@@ -38,11 +38,17 @@ superseded layout. A follower's private `path` has no epoch files, so,
 as in the reference, it reads no rows of a table the leader
 bulk-loaded (`TableStore.bulk_load` bypasses the KV). `close()` joins
 every thread a mode starts and re-raises an error a serving thread
-kept (`rpc/server.py`, `rpc/apply.py`).
+kept (`rpc/server.py`, `rpc/apply.py`, `rpc/failover.py`).
 
-Left out, with the planes they belong to: failover, replica routing and
-serving (item 5b), the range plane and the keyspace heat plane (item
-5c), the lock-order checker around `infoschema_lock` (item 6) and the
+A socket follower with `election_timeout_ms > 0` runs the failover
+watcher (`rpc/failover.py`): on leader loss it elects, and the winner
+`promote_to_leader`s in place over its WAL mirror while the others
+`repoint_leader`. A follower serves routed snapshot reads
+(`rpc/replica.py`) on pooled internal sessions on `device` (None: the
+card), holding the read's timestamp with `pin_snapshot_ts`.
+
+Left out, with the planes they belong to: the range plane and the
+keyspace heat plane (item 5c), the lock-order checker around `infoschema_lock` (item 6) and the
 epoch listeners of the mesh plane (item 8). GLOBAL plan bindings (`bindings`,
 `session/bindinfo.py`) ride the meta keyspace.
 
@@ -82,7 +88,6 @@ from typing import Any, Optional
 import numpy as np
 
 from ..catalog.schema import Catalog, TableInfo
-from ..errors import NotInSlice
 from ..chunk.column import Dictionary
 from ..errno import (ER_SCHEMA_CHANGED, ER_TXN_TOO_LARGE,
                      ER_WRITE_CONFLICT, CodedError)
@@ -143,7 +148,8 @@ class Storage:
                  shared: bool = False, remote=None,
                  rpc_listen=None, rpc_options=None,
                  sync_log: str = "off",
-                 sync_interval_ms: int = 100) -> None:
+                 sync_interval_ms: int = 100,
+                 device=None) -> None:
         """`path=None`: ephemeral in-memory store (tests, benches).
         `path=dir`: durable — KV WAL+snapshot under dir/kv, columnar epoch
         snapshots under dir/epochs, catalog/stats state in the meta
@@ -161,7 +167,10 @@ class Storage:
         also serve the coordination RPC tier, so followers join without
         sharing the disk. `remote='host:port'`: a socket follower, `path`
         its PRIVATE working dir; `path='rpc://host:port'` selects this
-        mode with a throwaway working dir."""
+        mode with a throwaway working dir.
+
+        `device`: where the sessions this storage makes itself run (a
+        follower's replica-read serving sessions); None is the card."""
         from ..session.privileges import PrivilegeManager
         from ..session.sysvars import SysVarManager
 
@@ -185,28 +194,35 @@ class Storage:
         self._rpc_options = rpc_options
         self._start_time = time.time()
         self.diag_listener = None
+        self.device = device
+        self.failover = None
+        # True while promote_to_leader is mid-flight: diag_election
+        # reports the transitional role so peer voters HOLD their
+        # election open instead of dropping us from the electorate
+        # (dropping the winner mid-promotion elects a second leader)
+        self._promoting = False
         # diag fan-out state, owned here so concurrent first queries
         # never race a lazy init (rpc/diag.py uses these)
         self._diag_clients: dict = {}
         self._diag_clients_lock = threading.Lock()
         self._last_members = None
         self._last_members_ts = -1e9
-        # follower read tier: the settings and the socket follower's
-        # apply engine (started at the end of __init__)
+        # follower read tier (rpc/apply.py + rpc/replica.py): per-
+        # storage routing/serving knobs, the follower's continuous
+        # apply engine (started at the end of __init__ for socket
+        # followers; arm_replica_read re-evaluates after config seeds),
+        # and the pooled internal sessions replica reads execute on
         from ..rpc.replica import ReplicaReadState
         self.replica_read = ReplicaReadState()
         self.apply_engine = None
+        self._replica_pool: list = []
+        self._replica_pool_lock = threading.Lock()
         if self.remote:
             from ..rpc.client import RpcClient, RpcOptions
             from ..rpc.diag import DiagListener
             from ..rpc.errors import RPCError
             from ..rpc.remote import RemoteCoordinator
             opts = self._rpc_options = rpc_options or RpcOptions()
-            if (opts.election_timeout_ms or 0) > 0:
-                # it arms the reference's automatic failover
-                raise NotInSlice(
-                    "transport.election-timeout-ms > 0 on a follower: "
-                    "leader failover (ROADMAP queue 1 item 5b)")
             self._rpc_client = RpcClient(remote, opts)
             try:
                 self._rpc_client.call("hello")  # fail fast on a dead leader
@@ -428,10 +444,37 @@ class Storage:
             self.rpc_server = CoordRPCServer(self, listen=rpc_listen,
                                              lease_ms=opts.lease_ms,
                                              tail_chunk=opts.tail_chunk)
+        if self.remote and \
+                (self._rpc_options.election_timeout_ms or 0) > 0:
+            # automatic failover: watch the heartbeat, elect on leader
+            # loss, promote or repoint (rpc/failover.py). The voter
+            # roll is seeded NOW: a leader that dies before the first
+            # healthy-tick refresh must not leave this follower with an
+            # empty electorate (it would elect itself unopposed while
+            # its unseen peers do the same — split brain)
+            from ..rpc.diag import cluster_members
+            from ..rpc.errors import survivable
+            from ..rpc.failover import FailoverManager
+            try:
+                cluster_members(self, budget_ms=1000)
+            except survivable():
+                pass  # seeding is best-effort
+            self.failover = FailoverManager(self, self._rpc_options)
+            self.failover.start()
         if self.remote:
             # follower read tier: fold the mirror continuously and
             # advertise the closed/applied ts on every heartbeat
-            # (rpc/apply.py)
+            # (rpc/apply.py). Env knobs cover embedded/test stores the
+            # config seeds never reach.
+            interval = os.environ.get("TIDB_TPU_REPLICA_APPLY_MS")
+            if interval:
+                try:
+                    self.replica_read.apply_interval_ms = int(interval)
+                except ValueError:
+                    pass
+            if os.environ.get("TIDB_TPU_REPLICA_READ", "").lower() \
+                    in ("0", "false", "off"):
+                self.replica_read.enabled = False
             self.arm_replica_read()
 
     # ---- schema ------------------------------------------------------------
@@ -917,6 +960,8 @@ class Storage:
             h["node_id"] = self.coord.node_id
             h["diag_address"] = self.diag_address
             h["term"] = self._rpc_client.term
+            if self.failover is not None:
+                h["failover"] = self.failover.describe()
             if self.apply_engine is not None:
                 h["replica_apply"] = self.apply_engine.info()
             from ..rpc.diag import cluster_members
@@ -958,6 +1003,137 @@ class Storage:
                                   "apply_lag_ms": 0.0}
             eng.close()
 
+    def pin_snapshot_ts(self, ts: int) -> None:
+        """Register an EXTERNALLY chosen snapshot ts (a routed replica
+        read at the router's read_ts) with the compaction safepoint;
+        released through release_snapshot_ts like any acquired one."""
+        with self._snap_lock:
+            self._active_snapshots[ts] = \
+                self._active_snapshots.get(ts, 0) + 1
+
+    # ---- leader failover (rpc/failover.py drives these) ---------------------
+    def promote_to_leader(self, listen: str = "127.0.0.1:0") -> str:
+        """Promote this socket FOLLOWER to the cluster leader in place.
+
+        The on-disk WAL mirror (rpc/remote.py RemoteKV) is a byte-prefix
+        of the dead leader's (snapshot, WAL) pair, so it re-opens as the
+        authoritative store and surviving followers keep tailing from
+        their own offsets. The fencing term bumps and persists BEFORE
+        the new coordination server answers anything, so a zombie of
+        the old epoch is rejected from the first request (reference
+        analog: raft term bump on election, Ongaro & Ousterhout §5.2).
+        Returns the new coordination address."""
+        if not self.remote:
+            return self.rpc_server.address if self.rpc_server else ""
+        from ..rpc.client import RpcOptions
+
+        client = self._rpc_client
+        opts = self._rpc_options or RpcOptions()
+        new_term = int(client.term) + 1
+        # the transitional flag keeps peer voters from dropping us from
+        # the electorate mid-promotion (they hold their election open
+        # until we answer as a leader)
+        self._promoting = True
+        try:
+            # the apply engine folds the mirror this promotion is about
+            # to re-open as the authoritative engine: stop it first
+            if self.apply_engine is not None:
+                eng, self.apply_engine = self.apply_engine, None
+                eng.close()
+            addr = self._promote_locked(client, opts, new_term, listen)
+            self.obs.events.record(
+                "leader_promoted", severity="warn",
+                detail=f"promoted in place at {addr} "
+                       f"(fencing term {new_term})")
+            return addr
+        finally:
+            self._promoting = False
+
+    def _promote_locked(self, client, opts, new_term: int,
+                        listen: str) -> str:
+        from ..kv.tso import SharedTSO
+        from ..owner import owner_manager
+        from ..rpc.server import CoordRPCServer, write_term
+        from .coordinator import SharedDirCoordinator
+
+        with self._commit_lock:
+            # records the last tail applied to the mirror engine but no
+            # fold has taken yet: fold them before the engine goes
+            self._drain_refresh()
+            old_engine = self.kv.kv
+            mirror_dir = getattr(old_engine, "mirror_dir", None) or \
+                os.path.join(self.path, "kv")
+            # 1. seal the mirror: everything replicated is on disk
+            mw = getattr(old_engine, "_mirror_wal", None)
+            if mw is not None:
+                mw.flush()
+                os.fsync(mw.fileno())
+            old_engine.close()
+            # 2. the bumped fencing term, durable beside the WAL
+            write_term(os.path.join(mirror_dir, "term"), new_term)
+            # 3. the mirror becomes the authoritative engine (replayed
+            #    exactly like a leader restart; shared mode so local and
+            #    remote mutators coexist through the flock)
+            engine = PyOrderedKV(mirror_dir, shared=True,
+                                 sync_log=self.sync_log,
+                                 sync_interval_ms=self.sync_interval_ms)
+            self.kv.kv = engine
+            self._wire_fsync_stall()
+            # 4. coordination over OUR directory now
+            self.coord = SharedDirCoordinator(self.path)
+            self.kv.coord = self.coord
+            # 5. ONE timestamp allocator, floored a full lease horizon
+            #    above anything witnessed: the dead leader may have
+            #    issued timestamps nobody replicated, and a commit_ts
+            #    reuse would corrupt MVCC visibility
+            floor = max(self.tso.current(), self.kv.max_commit_ts()) \
+                + (_TSO_LEASE_MS << 18)
+            self.tso = SharedTSO(self.path, floor=floor)
+            self.committer = TwoPhaseCommitter(self.rm, self.tso,
+                                               events=self.obs.events)
+            # 6. owner elections are kernel flocks on our dir
+            self.ddl_owner = owner_manager(self.path, "ddl")
+            self.gc_owner = owner_manager(self.path, "gc")
+            # 7. identity flip BEFORE serving: diag answers as leader
+            self.remote = False
+            self.shared = True
+            self._rpc_client = None
+            # 8. the old client (and its heartbeat thread) dies with the
+            #    old epoch; stragglers re-resolve via diag_election
+            client.ping_params = {}
+            client.close()
+            self.rpc_server = CoordRPCServer(
+                self, listen=listen, lease_ms=opts.lease_ms,
+                tail_chunk=opts.tail_chunk, term=new_term)
+            self._extend_tso_lease()
+            # 9. the dead leader's in-flight prewrites replicated as
+            #    orphan locks; resolve them exactly like a restart does
+            self._resolve_orphans()
+        return self.rpc_server.address
+
+    def repoint_leader(self, addr: str, term: int = 0) -> None:
+        """Re-resolve this follower to a newly promoted leader: swap
+        the client's address, adopt the bumped term, and re-register
+        the diag endpoint so the new membership registry fills without
+        waiting a heartbeat interval. The WAL tail position carries
+        over unchanged — the new leader's log is a byte-superset of
+        ours (it won the election on length)."""
+        client = self._rpc_client
+        if client is None:
+            return
+        client.repoint(addr, int(term))
+        self.obs.events.record(
+            "leader_repointed",
+            detail=f"following new leader at {addr} (term {term})")
+        from ..rpc.errors import RPCError
+        try:
+            if self.diag_listener is not None:
+                client.call("diag_register",
+                            addr=self.diag_listener.address,
+                            role="follower", _budget_ms=1000)
+        except RPCError:
+            pass  # the next heartbeat re-registers
+
     def _tso_commit_done(self) -> None:
         """Retire this storage's pending-commit ledger entry (socket
         followers; rpc/server.py closed_info). No-op on local oracles.
@@ -968,8 +1144,9 @@ class Storage:
             done()
 
     def close(self) -> None:
-        """Clean shutdown of every mode. A follower stops its apply
-        engine, deregisters and closes its diag listener, then its RPC
+        """Clean shutdown of every mode. A follower stops its failover
+        watcher (a leader-loss election must not fire, or promote,
+        halfway through the teardown) and its apply engine, deregisters and closes its diag listener, then its RPC
         client (and the heartbeat); a leader closes its RPC server.
         Every thread they started is joined. Then: the metrics-history
         sampler and the maintenance worker are joined, the live
@@ -989,7 +1166,12 @@ class Storage:
             except BaseException as e:
                 errors.append(e)
 
-        # the apply engine first: its tick path runs RPC + fold against
+        # the failover watcher first: a leader-loss election must not
+        # fire (or promote!) halfway through our own teardown
+        if self.failover is not None:
+            fo, self.failover = self.failover, None
+            keep(fo.close)
+        # the apply engine next: its tick path runs RPC + fold against
         # the structures torn down below
         if self.apply_engine is not None:
             eng, self.apply_engine = self.apply_engine, None
@@ -997,16 +1179,19 @@ class Storage:
         self.metrics_history.stop()
         self.history.flush()
         if self.diag_listener is not None:
-            # stop announcing BEFORE deregistering: a heartbeat firing
-            # between the unregister and the client teardown would
-            # re-register the closed address for a lease horizon
-            self._rpc_client.ping_params = {}
-            try:
-                # best-effort, so peers stop fanning out to the closed
-                # address until the lease horizon passes
-                self._rpc_client.call("diag_unregister", _budget_ms=500)
-            except RPCError:
-                pass
+            if self._rpc_client is not None:
+                # stop announcing BEFORE deregistering: a heartbeat
+                # firing between the unregister and the client teardown
+                # would re-register the closed address for a lease
+                # horizon
+                self._rpc_client.ping_params = {}
+                try:
+                    # best-effort, so peers stop fanning out to the
+                    # closed address until the lease horizon passes
+                    self._rpc_client.call("diag_unregister",
+                                          _budget_ms=500)
+                except RPCError:
+                    pass
             keep(self.diag_listener.close)
         close_peer_clients(self)
         try:
@@ -1035,7 +1220,7 @@ class Storage:
                 if self.coord is not None and \
                         hasattr(self.coord, "close"):
                     self.coord.close()
-                if self._owns_tmp_dir:
+                if self._owns_tmp_dir and self.remote:
                     # rpc:// shorthand: the throwaway scratch dir is ours
                     import shutil
                     shutil.rmtree(self.path, ignore_errors=True)

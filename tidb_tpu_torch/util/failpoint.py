@@ -36,6 +36,9 @@ The port wires the reference's sites in the planes it has:
                                  yet fsynced (the leader of the batch)
     kv/wal-torn-append           kv/mvcc.py, half a WAL record written
                                  (the pure-Python engine only)
+    net/delay, net/drop,         rpc/netfault.py, the per-peer schedules
+    net/dup, net/partition       of the network fault plane, read by
+                                 the frame hooks of rpc/frame.py
     storage/mid-checkpoint       store/storage.py, after each epoch file
                                  a checkpoint persists
     storage/before-fold          store/storage.py, KV committed, the
@@ -45,9 +48,12 @@ The port wires the reference's sites in the planes it has:
     twopc/before-commit-primary
     twopc/after-primary-commit
 
-The sites of planes not yet ported (rpc, net, diag, range, replica,
-mesh) wait with them, and so does the reference's declared-site registry
-(read by its static analysis). Armed points and their hit counts are
+and the rpc, diag and replica sites of the socket tier (`rpc/client.py`,
+`rpc/diag.py`, `rpc/apply.py`). The sites of planes not yet ported
+(range, mesh) wait with them, and so does the reference's declared-site
+registry (read by its static analysis). Arming-change listeners
+(`on_change`) run after every enable or disable: the network fault plane
+keeps its one hot-path flag with them. Armed points and their hit counts are
 listed on the status port at /debug/failpoints (`snapshot()`).
 """
 
@@ -62,21 +68,40 @@ _lock = threading.Lock()
 _active: dict[str, Any] = {}
 _hits: dict[str, int] = {}
 
+# Arming-change listeners (rpc/netfault.py): called OUTSIDE _lock after
+# any enable/disable so hot paths can cache "is anything armed" in a
+# plain module flag instead of taking _lock per operation.
+_listeners: list = []
+
+
+def on_change(cb) -> None:
+    with _lock:
+        if cb not in _listeners:
+            _listeners.append(cb)
+
+
+def _notify() -> None:
+    for cb in list(_listeners):
+        cb()
+
 
 def enable(name: str, value: Any = True) -> None:
     with _lock:
         _active[name] = value
+    _notify()
 
 
 def disable(name: str) -> None:
     with _lock:
         _active.pop(name, None)
+    _notify()
 
 
 def disable_all() -> None:
     with _lock:
         _active.clear()
         _hits.clear()
+    _notify()
 
 
 def is_enabled(name: str) -> bool:
@@ -201,4 +226,4 @@ arm_from_env()
 
 
 __all__ = ["enable", "disable", "disable_all", "is_enabled", "inject",
-           "hits", "snapshot", "failpoint", "arm_from_env"]
+           "hits", "snapshot", "failpoint", "arm_from_env", "on_change"]
