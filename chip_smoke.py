@@ -23,9 +23,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 4. the main path through the port's entry points on the card, in parts
    a-p, each with the launch counters set to 0 just before it and read
    just after (every kernel must have launched in each of parts a-d):
-   a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF2, SF5 before
-      part p; at SF10 the reference's int64-accumulator gate, |bound| *
-      rows >= 2^62, sends Q1's sum_charge to its host path) through
+   a. single-table requests: TPC-H Q6 (SF10) and Q1 (SF1, Q18's
+      lineitem; SF2 before part q, SF5 before part p; at SF10 the
+      reference's int64-accumulator gate, |bound| * rows >= 2^62, sends
+      Q1's sum_charge to its host path) through
       `CopClient.execute`, and
       Q18's inner GROUP BY ... HAVING (SF1; at SF10 its ~150k passing
       groups overflow the reference's 65,536-group HAVING buffer) through
@@ -126,8 +127,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           exact against the
           numpy answer over the arrays as modified, with its tags,
           streamseg's launches, cold run, warm p50 (3 runs; a host-tier
-          read, seconds of numpy at this scale, only its cold run),
-          device-busy share; then one explicit
+          read, seconds of numpy at this scale, only its cold run; the
+          device-busy share in g1' only since part q); then one explicit
           transaction (BEGIN, 1,000 lineitem INSERTs, Q6 must see them,
           ROLLBACK, Q6 as before); per statement kind (INSERT, DELETE,
           commits that compacted) p50 and max ms, the device memory held
@@ -377,8 +378,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       n4. every ported status route answers 200 with the reference's
           keys; /debug/topsql holds Q18's digest with device time;
           /debug/trace/<conn> the tree of a TRACE; /debug/replicas the
-          router's knobs and outcome counters; /debug/mesh,
-          /debug/keyviz and /debug/lockgraph 501;
+          router's knobs and outcome counters; /debug/keyviz the heat
+          plane's knobs; /debug/mesh and /debug/lockgraph 501;
       n5. SHOW PROCESSLIST from a second connection (PROXY v2) while the
           first runs SLEEP(2): the proxied hosts and the sleeping
           statement; information_schema.processlist agreeing; a user
@@ -476,21 +477,60 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           on the card; an old-term `wal_append` refused with
           `StaleTermError`; device memory before and after the promotion;
           streamseg's launches over the two nodes' reads;
+      q. the range plane on the same leader (`range_launches`), after p2
+         and before p3:
+      q0. `Config.seed_heatmap` and `Config.seed_ranges` from a TOML
+          ([ranges] enabled, count 4, lease-ms 1000, resolve-ttl-ms
+          3000; [heatmap] enabled, bucket-seconds 1), the range table
+          bootstrapped first at sbtest's record keys of ids 2,500, 5,000
+          and 7,500; the time until the range server hosts 4 ranges;
+      q1. p1's three reads on a leader session, 500 seeded point
+          SELECTs, 300 UPDATEs of c (sysbench's non-index update) of ids
+          in [5000, 7500), paced over 4 s: tidb_hot_ranges' read rows and
+          bytes of each scan split over the 4 ranges by the reference's
+          rule, the same bytes noted by a cuda and a cpu session's scan,
+          the point reads by range, sbtest's written keys all in the hot
+          range, a `hot_range` event, a `range-split-advisory` finding in
+          information_schema.inspection_result with its key strictly
+          inside the hot range, /debug/keyviz's matrix and /status's
+          `ranges` from an in-process status server;
+      q4a. `[ranges] auto-split = true` by a reseed while the advisory
+          fires (UPDATEs go on): the actuator splits the hot range inside
+          its bounds, `tidb_range_splits_total{trigger="auto"}` +1, the
+          parent's heat retired; auto-split off again;
+      q2. 200 cross-range 2PC transactions through
+          `leader.ranges.committer(leader.tso)` (keys in 2-3 ranges),
+          read back through the router; `closed_over` covering the newest
+          commit ts; transactions per second;
+      q3. `[replica-read] range-aware = true` by `Config.seed_replica_read`:
+          a covered sum(k), count(*) served by a follower on `cuda`; a
+          wedge prewrite (ttl 60 s) in sbtest's span: `stale_fallback`
+          with the `uncovered ... range#` Note, exact on the leader's
+          card; rolled back, routed again within 8 s;
+      q4b. a manual `split_range` between routed reads (every answer
+          exact, `trigger="manual"` +1; the split's, `export_range`'s and
+          `discard_range`'s times); a peer `RangeServer` over the
+          leader's root and `range/lease-drop` for one range: the
+          transfer counter moves, the term rises, an old-term request
+          answers `StaleTermError`, the other ranges keep owner and term;
+          the peer closed;
+      q5. device memory before and after, streamseg's launches in q;
       p4. every store closed (followers first), no new `titpu-*` thread
-          left. Each step's time.
+          left (the range plane's lease thread included). Each step's
+          time.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the wall time of 1 warm run
    (`WARM_RUNS`: the p50 of 5 before part h, 3 before part l, 2 before
    part n; parts i and j read as many), each ending in
-   torch.cuda.synchronize(), and the
-   device-busy share of
-   one more warm run under torch.profiler (traced kernel and copy time
-   over its wall time; in parts c and d also the 8 kernels that took the
-   most of it). A `host(...)` request takes its cold run only (seconds
-   of numpy; 2 warm runs before part g needed the room, as part f2's
-   queries went from 3 warm runs to 1); a `ranged` one takes 2 warm
-   runs, the second of them the profiled one;
+   torch.cuda.synchronize(), and the device-busy share of one more warm
+   run under torch.profiler (traced kernel and copy time over its wall
+   time; in parts c and d also the 8 kernels that took the most of it;
+   in part e since part q only ANALYZE's and the ranged reads'). A
+   `host(...)` request takes its cold run only (seconds of numpy; 2 warm
+   runs before part g needed the room, as part f2's queries went from 3
+   warm runs to 1); a `ranged` one takes 2 warm runs, the second of them
+   the profiled one;
 5. one JSON line of per-kernel numbers, the nvidia-smi line, and last the
    line {"ok": true, "device": {...}}.
 
@@ -500,6 +540,7 @@ Data comes from the port's seeded TPC-H generator (`--seed`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -764,28 +805,113 @@ def _timing(first: float, times: list) -> str:
             f"runs_ms={[round(t * 1e3, 2) for t in times]}")
 
 
+# where parts e and g1 spend their time (seconds by kind, summed by
+# `_sublap` and printed with the part's lap by `_sublap_line`): the cold
+# runs, the oracle checks, the warm and the profiled runs, and the part's
+# own host work (snapshots, ANALYZE's host twin, statements, folds, the
+# CPU twin, refresh data)
+SUBLAPS: dict = {}
+
+
+@contextlib.contextmanager
+def _sublap(kind: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SUBLAPS[kind] = SUBLAPS.get(kind, 0.0) + time.perf_counter() - t0
+
+
+def _sublap_line(label: str, lap_s: float) -> None:
+    got = sorted(SUBLAPS.items(), key=lambda kv: -kv[1])
+    SUBLAPS.clear()
+    rest = lap_s - sum(v for _, v in got)
+    print(f"  sub-laps of {label} ({lap_s:.1f}s): "
+          + ", ".join(f"{k} {v:.2f}s" for k, v in got)
+          + f", other {rest:.2f}s")
+
+
+def _arg_key(v):
+    """An oracle argument as a cache key: dicts (tables, columns) and
+    tuples (a string column's (vocabulary, codes)) by their items, every
+    other object (arrays, a vocabulary's list) by identity."""
+    if isinstance(v, dict):
+        return ("d",) + tuple((k, _arg_key(x)) for k, x in v.items())
+    if isinstance(v, tuple):
+        return ("t",) + tuple(_arg_key(x) for x in v)
+    if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return v
+    return ("id", id(v))
+
+
+@contextlib.contextmanager
+def _oracle_memo():
+    """Each numpy oracle of `bench/tpch_requests.py` computed once for the
+    same arrays while this is open: parts a-d, e and f1 check requests
+    over the same SF10 arrays (part f1's seven SQL queries are parts a-d's
+    requests), and so do g1 after RF2 and i1. An entry keeps its
+    arguments alive, so an id is never reused while the cache holds
+    it."""
+    cache: dict = {}
+    names = [n for n in dir(TR) if n.endswith("_oracle")
+             and n != "sql_oracle" and callable(getattr(TR, n))]
+    plain = {n: getattr(TR, n) for n in names}
+    saved = []
+
+    def memo(name):
+        fn = plain[name]
+
+        def run(*a, **kw):
+            key = (name, _arg_key(a), _arg_key(kw))
+            hit = cache.get(key)
+            if hit is None:
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                hit = cache[key] = (out, time.perf_counter() - t0, a, kw)
+            else:
+                saved.append((name, hit[1]))
+            return hit[0]
+        return run
+
+    for n in names:
+        setattr(TR, n, memo(n))
+    try:
+        yield
+    finally:
+        for n, fn in plain.items():
+            setattr(TR, n, fn)
+        cache.clear()
+        # the time each hit did not spend: its first computation's
+        print(f"  oracle memo: {len(saved)} hits, "
+              f"{sum(t for _, t in saved):.2f}s not spent again "
+              f"({', '.join(f'{n} {t:.2f}s' for n, t in saved)})")
+
+
 def _drive(label: str, queries: list, top: int = 0,
-           every_kernel: bool = True) -> dict:
+           every_kernel: bool = True, profile: bool = True) -> dict:
     """One checked run of each query, with the launch counters set to 0
     just before this part of the main path and read just after, then the
-    p50 of WARM_RUNS warm runs and one profiled run (with its `top` costliest CUDA
-    kernels). A `host(...)` request takes its cold run only (seconds of
-    numpy, which the profiler does not trace), a `ranged` one 2 warm
-    runs, the second of them profiled. queries: [(name, scale, tag, rows
-    in, run, check, kernels this query must launch itself)].
-    `every_kernel`: each kernel must launch in this part. -> the launch
-    counts."""
+    p50 of WARM_RUNS warm runs and, with `profile`, one profiled run
+    (with its `top` costliest CUDA kernels). A `host(...)` request takes
+    its cold run only (seconds of numpy, which the profiler does not
+    trace), a `ranged` one 2 warm runs, the second of them profiled.
+    queries: [(name, scale, tag, rows in, run, check, kernels this query
+    must launch itself)]. `every_kernel`: each kernel must launch in this
+    part. -> the launch counts."""
     _kernels.reset_launches()
     firsts, results = [], []
     for name, sf, tag, n_in, run, check, must in queries:
         before = dict(_kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        r = run()
-        torch.cuda.synchronize()
-        firsts.append(time.perf_counter() - t0)
+        with _sublap("cold runs"):
+            t0 = time.perf_counter()
+            r = run()
+            torch.cuda.synchronize()
+            firsts.append(time.perf_counter() - t0)
         if r.engine != tag:
             raise SystemExit(f"{name}: engine {r.engine!r}, want {tag!r}")
-        if not check(r):
+        with _sublap("oracle checks"):
+            ok = check(r)
+        if not ok:
             raise SystemExit(f"{name}: result differs from the oracle")
         for k in must:
             if _kernels.LAUNCHES[k] == before[k]:
@@ -804,12 +930,16 @@ def _drive(label: str, queries: list, top: int = 0,
             busy = "device busy: not measured (host tier, cold run only)"
         else:
             times = []
-            for _ in range(1 if host else WARM_RUNS):
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            busy, wall = _device_busy(run, top)
+            with _sublap("warm runs"):
+                for _ in range(1 if host else WARM_RUNS):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            busy = "device busy: not measured (no profiled run here)"
+            if profile or host:
+                with _sublap("profiled runs"):
+                    busy, wall = _device_busy(run, top)
             if host:
                 times.append(wall / 1e3)
         nrows = sum(c.num_rows for c in r.chunks)
@@ -829,7 +959,10 @@ def _main_path(args, cop, at_sf, at_q18_sf) -> tuple[dict, dict]:
     d10, t10, s10 = at_sf
     d1, t1, s1 = at_q18_sf
     li10, li1 = d10["lineitem"], d1["lineitem"]
-    d5, t5, s5 = _load(args.q1_sf, args.seed, ("lineitem",), 21)
+    # Q1 at --q18-sf (the default) reads that scale's lineitem, which is
+    # already loaded: no second generation
+    d5, t5, s5 = (at_q18_sf if args.q1_sf == args.q18_sf else
+                  _load(args.q1_sf, args.seed, ("lineitem",), 21))
     li5 = d5["lineitem"]
     sf10, sf1 = f"SF{args.sf:g}", f"SF{args.q18_sf:g}"
 
@@ -992,39 +1125,43 @@ def _analyze(cop, snap, label: str) -> None:
     def run():
         return AN.device_column_stats(cop, snap, offsets)
 
-    t0 = time.perf_counter()
-    stats = run()
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    tiles = cop._stage_tiles(CopDAG(scan=DAGScan(snap.table.id, offsets)),
-                             snap)
-    n = snap.epoch.num_rows
-    for off in offsets:
-        col = snap.epoch.columns[off]
-        regs = None
-        for cols, vis, _ in tiles:
-            (d, v), = widen32([cols[off]])
-            r = AN._column_partials(d, v & vis)["regs"].cpu().numpy()
-            regs = r if regs is None else np.maximum(regs, r)
-        vals = _distinct(col)
-        want = AN.hll_group_registers_host(
-            AN.hll_hash_src_int(vals), np.ones(len(vals), bool),
-            np.zeros(len(vals), np.int64), 1)[0]
-        cnt, mn, mx, ndv = stats[off]
-        ok = (cnt == n and int(mn) == int(col.min())
-              and int(mx) == int(col.max())
-              and np.array_equal(regs, want)
-              and ndv == AN.hll_ndv(want, float(n)))
-        if not ok:
-            raise SystemExit(f"ANALYZE column {off}: {stats[off]} differs "
-                             f"from the host twin")
-    times = []
-    for _ in range(M_CUT_WARM_RUNS):
+    with _sublap("cold runs"):
         t0 = time.perf_counter()
-        run()
+        stats = run()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    busy, _ = _device_busy(run)
+        first = time.perf_counter() - t0
+    with _sublap("ANALYZE twin check"):
+        tiles = cop._stage_tiles(
+            CopDAG(scan=DAGScan(snap.table.id, offsets)), snap)
+        n = snap.epoch.num_rows
+        for off in offsets:
+            col = snap.epoch.columns[off]
+            regs = None
+            for cols, vis, _ in tiles:
+                (d, v), = widen32([cols[off]])
+                r = AN._column_partials(d, v & vis)["regs"].cpu().numpy()
+                regs = r if regs is None else np.maximum(regs, r)
+            vals = _distinct(col)
+            want = AN.hll_group_registers_host(
+                AN.hll_hash_src_int(vals), np.ones(len(vals), bool),
+                np.zeros(len(vals), np.int64), 1)[0]
+            cnt, mn, mx, ndv = stats[off]
+            ok = (cnt == n and int(mn) == int(col.min())
+                  and int(mx) == int(col.max())
+                  and np.array_equal(regs, want)
+                  and ndv == AN.hll_ndv(want, float(n)))
+            if not ok:
+                raise SystemExit(f"ANALYZE column {off}: {stats[off]} "
+                                 f"differs from the host twin")
+    times = []
+    with _sublap("warm runs"):
+        for _ in range(M_CUT_WARM_RUNS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    with _sublap("profiled runs"):
+        busy, _ = _device_busy(run)
     print(f"  ANALYZE {label}: {len(stats)} columns exact (count, min, max, "
           f"256 registers, NDV) first_ms={first*1e3:.1f} "
           f"p50_ms={statistics.median(times)*1e3:.2f} "
@@ -1044,17 +1181,41 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
     sf10, sf1 = f"SF{args.sf:g}", f"SF{args.q18_sf:g}"
     n_li = len(li10["l_orderkey"])
     t0 = time.perf_counter()
-    l_ov, l_vis, l_rows = TR.overlay_snapshot(s10[lt.id], li10, args.seed)
-    o_ov, _, o_rows = TR.overlay_snapshot(s10[ot.id], o10, args.seed + 1)
+    with _sublap("overlay snapshots"):
+        l_ov, l_vis, l_rows = TR.overlay_snapshot(s10[lt.id], li10,
+                                                  args.seed)
+        o_ov, _, o_rows = TR.overlay_snapshot(s10[ot.id], o10,
+                                              args.seed + 1)
     print(f"  overlay snapshots of lineitem and orders: "
           f"{len(l_ov.overlay_handles)} overlay rows of 8192 deltas each "
           f"({time.perf_counter() - t0:.1f}s)")
     cols6 = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
              "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode")
 
+    built = {}
+    saved = []
+
+    def once(key, build):
+        # built once; a later call's saving is the build's time
+        if key in built:
+            saved.append(built[key][1])
+        else:
+            t0 = time.perf_counter()
+            out = build()
+            built[key] = (out, time.perf_counter() - t0)
+        return built[key][0]
+
     def li_base():
-        """The visible base rows of the lineitem overlay snapshot."""
-        return TR.rows_of({c: li10[c] for c in cols6}, l_vis)
+        """The visible base rows of the lineitem overlay snapshot (built
+        once: two checks read them)."""
+        return once("li_base", lambda: TR.rows_of(
+            {c: li10[c] for c in cols6}, l_vis))
+
+    def seen_orders(snap, ov=None):
+        """The rows an orders snapshot shows (built once a snapshot: the
+        build-overlay Q12 and both ranged reads check against them)."""
+        return once((id(snap), id(ov)),
+                    lambda: TR.visible_rows(snap, o10, ov))
 
     def agg_check(oracle):
         return lambda r: TR.partial_rows(r.chunks) == oracle()
@@ -1092,7 +1253,7 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
                                              ot.id: o_ov}),
          agg_check(lambda: TR.q12_oracle({
              "lineitem": li10,
-             "orders": TR.visible_rows(o_ov, o10, o_rows)[0]})), ()),
+             "orders": seen_orders(o_ov, o_rows)[0]})), ()),
     ]
     host = [
         ("Q1", sf10, "host(sum magnitude exceeds int64 accumulator)", n_li,
@@ -1112,10 +1273,12 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
     ranged = []
     for label, snap, ov in (("", s10[ot.id], None),
                             (" overlay", o_ov, o_rows)):
+        base = snap
         snap = dataclasses.replace(snap, table=ot_idx)
 
-        def seen(snap=snap, ov=ov):
-            return TR.visible_rows(snap, o10, ov)
+        def seen(base=base, ov=ov):
+            # the index changes the table, not the rows it shows
+            return seen_orders(base, ov)
 
         points = TR.ranged_points_dag({"orders": ot_idx}, custs)
         month = TR.ranged_interval_dag({"orders": ot_idx})
@@ -1145,7 +1308,10 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
             ("e4. index-ranged scans", "ranged part", ranged)):
         torch.cuda.reset_peak_memory_stats()
         print(f"  -- {title}")
-        for k, n in _drive(label, queries, every_kernel=False).items():
+        # since part q part e profiles only ANALYZE and the ranged reads
+        # (whose profiled run is their second warm run): a depth cut
+        for k, n in _drive(label, queries, every_kernel=False,
+                           profile=queries is ranged).items():
             launches[k] += n
         if queries is hll:
             _analyze(cop, s10[lt.id], f"lineitem {sf10}")
@@ -1163,8 +1329,8 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(SE, "seg_sum_partials", recorded):
-        for k, n in _drive("einsum part", einsum,
-                           every_kernel=False).items():
+        for k, n in _drive("einsum part", einsum, every_kernel=False,
+                           profile=False).items():
             launches[k] += n
     strategies = sorted(set((seg, strat) for seg, strat, _ in seen_calls))
     if strategies != [(5408, "einsum")]:
@@ -1175,7 +1341,8 @@ def _part_e(args, cop, at_sf, at_q18_sf) -> dict:
           f"longer builds: {max(rows for _, _, rows in seen_calls) * 5408 * 4 / 1e9:.1f} GB a tile); "
           f"peak device memory during the part: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    print(f"  launches on part e: {launches}")
+    print(f"  launches on part e: {launches}; visible rows built once: "
+          f"{len(saved)} reuses, {sum(saved):.2f}s not spent again")
     return launches
 
 
@@ -1401,6 +1568,25 @@ G2_SECONDS = 1.0
 G2_ROWS = 10_000
 
 
+# the columns each oracle reads, for the reads that check only these: a
+# refresh applied to the arrays for such a read copies no other column
+ORACLE_COLUMNS = {"q6": {"lineitem": ("l_shipdate", "l_discount",
+                                      "l_quantity", "l_extendedprice")}}
+
+
+def _oracle_view(data: dict, queries) -> dict:
+    """`data` cut to the columns the oracles of `queries` read, when every
+    one of them is in ORACLE_COLUMNS; else `data` itself."""
+    if not all(q in ORACLE_COLUMNS for q in queries):
+        return data
+    keep: dict = {}
+    for q in queries:
+        for t, cols in ORACLE_COLUMNS[q].items():
+            keep.setdefault(t, set()).update(cols)
+    return {t: {c: v for c, v in cols.items() if c in keep.get(t, ())}
+            for t, cols in data.items()}
+
+
 def _stores(s, names=("orders", "lineitem")) -> dict:
     return {n: s.storage.table_store(s.catalog.table(s.current_db, n).id)
             for n in names}
@@ -1422,11 +1608,16 @@ def _g_exec(sessions, stmts, kind: str, times: dict, label: str) -> None:
         t0 = time.perf_counter()
         rs = card.execute(sql)
         dt = time.perf_counter() - t0
+        folds = any(st.epoch.epoch_id != before[n]
+                    for n, st in stores.items())
+        kind_s = "compacting commits" if folds else "write statements"
+        SUBLAPS[kind_s] = SUBLAPS.get(kind_s, 0.0) + dt
         tags = list(card.last_engines)
         if kind == "INSERT" and tags != ["point"]:
             raise SystemExit(f"{label}: INSERT tags {tags}, want ['point']")
         for other in sessions[1:]:
-            r2 = other.execute(sql)
+            with _sublap("CPU twin"):
+                r2 = other.execute(sql)
             if r2.affected != rs.affected or other.last_engines != tags:
                 raise SystemExit(
                     f"{label}: {kind} affected/tags {r2.affected} "
@@ -1444,25 +1635,30 @@ def _g_exec(sessions, stmts, kind: str, times: dict, label: str) -> None:
 
 
 def _g_reads(sessions, phase: str, data, hits: list,
-             queries=G_QUERIES) -> None:
+             queries=G_QUERIES, profile: bool = True) -> None:
     """`queries` as SQL on the card (and the CPU twin's): rows exact
     against the numpy answer over the arrays as modified (and the twin's
     rows and tags equal), streamseg's launches, the cold run, the warm
-    time of M_CUT_WARM_RUNS warm runs and the device-busy share (a
-    host-tier read, seconds of numpy at SF10: its cold run only)."""
+    time of M_CUT_WARM_RUNS warm runs and, with `profile`, the
+    device-busy share (a host-tier read, seconds of numpy at SF10: its
+    cold run only)."""
     card = sessions[0]
     li = _stores(card)["lineitem"]
     for q in queries:
         sql = TPCH_QUERIES[q]
         before = _kernels.LAUNCHES[RANK]
-        rows, first = _sql_run(card, sql)
+        with _sublap("cold runs"):
+            rows, first = _sql_run(card, sql)
         launched = _kernels.LAUNCHES[RANK] - before
         tags = list(card.last_engines)
-        if TR.sql_cells(rows) != TR.sql_oracle(q, data):
+        with _sublap("oracle checks"):
+            ok = TR.sql_cells(rows) == TR.sql_oracle(q, data)
+        if not ok:
             raise SystemExit(f"{phase} {q}: SQL rows differ from the oracle")
         cpu = ""
         for other in sessions[1:]:
-            want, cpu_s = _sql_run(other, sql)
+            with _sublap("CPU twin"):
+                want, cpu_s = _sql_run(other, sql)
             if other.last_engines != tags or not _rows_equal(q, rows, want):
                 raise SystemExit(f"{phase} {q}: card rows/tags {tags} "
                                  f"differ from the CPU's "
@@ -1475,9 +1671,13 @@ def _g_reads(sessions, phase: str, data, hits: list,
             times = []
             busy = "device busy: not measured (host tier, cold run only)"
         else:
-            times = [_sql_run(card, sql)[1]
-                     for _ in range(M_CUT_WARM_RUNS)]
-            busy, _ = _device_busy(lambda: card.query(sql))
+            with _sublap("warm runs"):
+                times = [_sql_run(card, sql)[1]
+                         for _ in range(M_CUT_WARM_RUNS)]
+            busy = "device busy: not measured (no profiled run here)"
+            if profile:
+                with _sublap("profiled runs"):
+                    busy, _ = _device_busy(lambda: card.query(sql))
         print(f"  {phase} {q.upper()}: engines={tags} rows={len(rows)} "
               f"exact=True streamseg_launches={launched} "
               f"lineitem_epoch_rebuilt={rebuilt} (deltas "
@@ -1486,7 +1686,7 @@ def _g_reads(sessions, phase: str, data, hits: list,
 
 
 def _part_g1(args, sessions, data, sf: float, label: str,
-             reads: tuple, rf2_sf=None) -> tuple:
+             reads: tuple, rf2_sf=None, profile: bool = True) -> tuple:
     """Part g1 (SF10, `sessions` = [f1's card session]) or g1' (SF1, [a
     card session, a CPU session]) (module docstring); RF1 sends `sf` x
     1,500 orders and RF2 deletes `rf2_sf` (default `sf`) x 1,500. ->
@@ -1494,12 +1694,13 @@ def _part_g1(args, sessions, data, sf: float, label: str,
     launched streamseg over a lineitem epoch that compaction rebuilt, the
     arrays as RF2 left them)."""
     card = sessions[0]
-    new = RF.rf1_rows(data, sf, args.seed + 101)
-    ins = RF.rf1_statements(new, 1000)
-    n_ord = -(-len(new["orders"]["o_orderkey"]) // 1000)
-    mid = n_ord + 4
-    keys = RF.rf2_keys(data, sf if rf2_sf is None else rf2_sf,
-                       args.seed + 102)
+    with _sublap("refresh data"):
+        new = RF.rf1_rows(data, sf, args.seed + 101)
+        ins = RF.rf1_statements(new, 1000)
+        n_ord = -(-len(new["orders"]["o_orderkey"]) // 1000)
+        mid = n_ord + 4
+        keys = RF.rf2_keys(data, sf if rf2_sf is None else rf2_sf,
+                           args.seed + 102)
     times: dict = {}
     hits: list = []
     print(f"  {label}: RF1 {len(new['orders']['o_orderkey'])} orders, "
@@ -1510,34 +1711,44 @@ def _part_g1(args, sessions, data, sf: float, label: str,
     if not 0 < len(li.deltas) < li.COMPACT_THRESHOLD:
         raise SystemExit(f"{label}: mid-RF1 lineitem holds "
                          f"{len(li.deltas)} deltas")
-    _g_reads(sessions, f"{label} mid-RF1", RF.apply_rf1(
-        data, RF.rf1_prefix(new, (mid - n_ord) * 1000)), hits, reads[0])
+    with _sublap("refresh data"):
+        mid1 = RF.apply_rf1(_oracle_view(data, reads[0]),
+                            RF.rf1_prefix(new, (mid - n_ord) * 1000))
+    _g_reads(sessions, f"{label} mid-RF1", mid1, hits, reads[0], profile)
+    del mid1
     _g_exec(sessions, ins[mid:], "INSERT", times, label)
-    after1 = RF.apply_rf1(data, new)
-    _g_reads(sessions, f"{label} after RF1", after1, hits, reads[1])
-    _g_exec(sessions, RF.rf2_statements(
-        keys, RF.lines_per_order(after1, keys), RF2_ROWS), "DELETE", times,
-        label)
-    after2 = RF.apply_rf2(after1, keys)
-    _g_reads(sessions, f"{label} after RF2", after2, hits, reads[2])
+    with _sublap("refresh data"):
+        after1 = RF.apply_rf1(data, new)
+    _g_reads(sessions, f"{label} after RF1", after1, hits, reads[1],
+             profile)
+    with _sublap("refresh data"):
+        rf2 = RF.rf2_statements(keys, RF.lines_per_order(after1, keys),
+                                RF2_ROWS)
+    _g_exec(sessions, rf2, "DELETE", times, label)
+    with _sublap("refresh data"):
+        after2 = RF.apply_rf2(after1, keys)
+    _g_reads(sessions, f"{label} after RF2", after2, hits, reads[2],
+             profile)
     # one explicit transaction: its Q6 reads its own buffer, the rollback
     # leaves the value before
-    extra = RF.rf1_rows(after2, sf, args.seed + 103)["lineitem"]
-    extra = {c: RF._take(v, np.arange(len(extra["l_orderkey"])) < 1000)
-             for c, v in extra.items()}
-    txn_data = RF.apply_rf1(after2, {"lineitem": extra})
-    for s in sessions:
-        s.execute("begin")
-        s.execute(RF.insert_statements("lineitem", extra, 1000)[0])
-        got = s.query(TPCH_QUERIES["q6"])
-        if TR.sql_cells(got) != TR.sql_oracle("q6", txn_data):
-            raise SystemExit(f"{label}: Q6 in the transaction does not see "
-                             "its own buffer")
-        tags = list(s.last_engines)
-        s.execute("rollback")
-        if TR.sql_cells(s.query(TPCH_QUERIES["q6"])) != \
-                TR.sql_oracle("q6", after2):
-            raise SystemExit(f"{label}: Q6 after ROLLBACK differs")
+    with _sublap("transaction check"):
+        extra = RF.rf1_rows(after2, sf, args.seed + 103)["lineitem"]
+        extra = {c: RF._take(v, np.arange(len(extra["l_orderkey"])) < 1000)
+                 for c, v in extra.items()}
+        txn_data = RF.apply_rf1(_oracle_view(after2, ("q6",)),
+                                {"lineitem": extra})
+        for s in sessions:
+            s.execute("begin")
+            s.execute(RF.insert_statements("lineitem", extra, 1000)[0])
+            got = s.query(TPCH_QUERIES["q6"])
+            if TR.sql_cells(got) != TR.sql_oracle("q6", txn_data):
+                raise SystemExit(f"{label}: Q6 in the transaction does "
+                                 "not see its own buffer")
+            tags = list(s.last_engines)
+            s.execute("rollback")
+            if TR.sql_cells(s.query(TPCH_QUERIES["q6"])) != \
+                    TR.sql_oracle("q6", after2):
+                raise SystemExit(f"{label}: Q6 after ROLLBACK differs")
     print(f"  {label} txn: BEGIN, INSERT 1000 lineitems, Q6 {tags} sees "
           f"them (exact), ROLLBACK, Q6 exact as before")
     for kind, ts in times.items():
@@ -2188,8 +2399,11 @@ N_ROUTES = {
     "/debug/profile?seconds=0.2&hz=97": {"hz", "duration_s",
                                          "total_samples", "hot_frames",
                                          "tree"},
+    # the keyspace heat plane: its knobs while [heatmap] is off
+    "/debug/keyviz": {"enabled", "bucket_seconds", "ring_buckets",
+                      "hot_ratio", "sustained_buckets", "key_sample_cap"},
 }
-N_UNPORTED = ("/debug/mesh", "/debug/keyviz", "/debug/lockgraph")
+N_UNPORTED = ("/debug/mesh", "/debug/lockgraph")
 
 
 def _proxy_v1(src: str) -> bytes:
@@ -3082,6 +3296,13 @@ def _part_p(args, tmp: str) -> dict:
               f"stall; net/partition toward both followers: fell back "
               f"(unreachable_fallback) in {t_un:.1f} ms, exact")
         mark("p2")
+        # part q on this cluster: the range plane on the leader
+        print(f"  -- q. the range plane on p's leader ({_mem()} held "
+              f"before it)")
+        t_q = time.perf_counter()
+        q_out = _part_q(args, tmp, leader, sl, want, by_addr, caught_up)
+        print(f"  [part q took {time.perf_counter() - t_q:.1f}s]")
+        mark("q")
         # p3. the leader dies: one follower promotes (term 2), the other
         # repoints, writes go on through both, and every acknowledged
         # write reads back on both, on the card
@@ -3201,8 +3422,554 @@ def _part_p(args, tmp: str) -> dict:
     mark("p4")
     print(f"  p4: every store closed, no titpu-* thread left; steps (s) "
           f"{({k_: round(v, 2) for k_, v in step.items()})}")
-    return {"launches": _kernels.LAUNCHES[RANK] - launches0,
-            "steps": step}
+    return {"launches": _kernels.LAUNCHES[RANK] - launches0
+            - q_out["launches"], "steps": step, "q": q_out}
+
+
+# ---- part q: the range plane on part p's leader ----
+# [ranges] as the reference's defaults but enabled with its default count
+# of 4 (split at sbtest's record keys of ids 2,500, 5,000 and 7,500; the
+# TOML's split-points are utf-8 strings and a record key is not, so the
+# table is bootstrapped with the byte keys and the seed adopts it, first
+# writer wins); [heatmap] on with 1 s buckets (a depth cut from 10 s: the
+# detector closes its buckets within the part's few seconds)
+Q_CONFIG = """[ranges]
+enabled = true
+count = 4
+lease-ms = 1000
+resolve-ttl-ms = 3000
+auto-split = {auto}
+
+[heatmap]
+enabled = true
+bucket-seconds = 1
+
+[replica-read]
+range-aware = true
+"""
+Q_SPLIT_IDS = (2500, 5000, 7500)
+Q_POINTS = 500
+Q_UPDATES = 300
+# the hot quarter: sbtest ids [5000, 7500), the third range
+Q_HOT = (5000, 7500)
+# the UPDATEs are paced over at least this long: the detector needs
+# `sustained-buckets` (2) closed hot buckets of 1 s and one more rotation
+Q_UPDATE_S = 4.0
+Q_TXNS = 200
+Q_MANUAL_SPLIT_ID = 1250
+
+
+def _q_range_of(specs, key: bytes) -> int:
+    return next(s.id for s in specs if s.contains(key))
+
+
+def _part_q(args, tmp: str, leader, sl, want: dict, by_addr: dict,
+            caught_up) -> dict:
+    """Part q (module docstring) on part p's leader `leader`, its session
+    `sl` and its followers (`by_addr`), after p2. -> {"launches":
+    streamseg's launches in the part, "steps": each step's seconds}."""
+    import os
+    from unittest import mock
+
+    from tidb_tpu_torch.config import Config
+    from tidb_tpu_torch.kv import tablecodec
+    from tidb_tpu_torch.kv.mvcc import OP_PUT, MVCCStore, Mutation
+    from tidb_tpu_torch.kv.rangemeta import split_keyspace, table_gaps
+    from tidb_tpu_torch.kv.twopc import Snapshot
+    from tidb_tpu_torch.rpc.client import RpcClient, RpcOptions
+    from tidb_tpu_torch.rpc.errors import NotLeaderError, StaleTermError
+    from tidb_tpu_torch.rpc.frame import make_range_ctx
+    from tidb_tpu_torch.rpc.ranged import RangeDirectory, RangeServer
+    from tidb_tpu_torch.server import Server
+
+    step = {}
+    t_step = time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_step
+        now = time.perf_counter()
+        step[name] = now - t_step
+        t_step = now
+
+    def config(auto: bool):
+        path = os.path.join(tmp, f"q_{int(auto)}.toml")
+        with open(path, "w") as f:
+            f.write(Q_CONFIG.format(auto=str(auto).lower()))
+        return Config.load(path)
+
+    launches0 = _kernels.LAUNCHES[RANK]
+    _sync()
+    mem0 = torch.cuda.memory_allocated()
+    heat = leader.heat
+    reads = leader.obs.replica_reads
+    tid = leader.catalog.table("test", "sbtest").id
+    # q0. arm the heat plane and the range plane as the server process
+    # does at startup
+    t0 = time.perf_counter()
+    cfg = config(auto=False)
+    RangeDirectory(leader.path).bootstrap(split_keyspace(
+        cfg.ranges.count,
+        [tablecodec.record_key(tid, i) for i in Q_SPLIT_IDS]))
+    cfg.seed_heatmap(leader)
+    cfg.seed_ranges(leader)
+    plane = leader.ranges
+    srv = plane.server
+    deadline = time.monotonic() + 30
+    while len(srv.hosted_ids()) < 4:
+        if time.monotonic() > deadline:
+            raise SystemExit(f"q0: the range server hosts "
+                             f"{srv.hosted_ids()} after 30 s")
+        time.sleep(0.02)
+    t_arm = time.perf_counter() - t0
+    specs = sorted(srv.specs, key=lambda s_: s_.start_key)
+    if len(specs) != 4 or table_gaps(specs) or not heat.enabled or \
+            heat.bucket_seconds != 1:
+        raise SystemExit(f"q0: table {specs}, heat {heat.enabled} "
+                         f"{heat.bucket_seconds}")
+    print(f"  q0: Config.seed_heatmap and Config.seed_ranges on p's leader "
+          f"([ranges] count {cfg.ranges.count}, lease-ms "
+          f"{cfg.ranges.lease_ms}, resolve-ttl-ms "
+          f"{cfg.ranges.resolve_ttl_ms}; [heatmap] bucket-seconds "
+          f"{cfg.heatmap.bucket_seconds}): the range server at "
+          f"{srv.address} hosts ranges {srv.hosted_ids()} after "
+          f"{t_arm:.3f}s")
+    mark("q0")
+
+    # q1. heat on the card: p1's three reads on the leader, 500 point
+    # SELECTs, 300 UPDATEs in the hot quarter
+    def rows_by_range() -> dict:
+        return {r[0]: list(r[3:7]) for r in heat.table_rows()}
+
+    noted = []
+    orig_note = heat.note_scan
+
+    def note_scan(table_id, rows, nbytes):
+        noted.append((table_id, rows, nbytes))
+        return orig_note(table_id, rows, nbytes)
+
+    sl.execute("set tidb_replica_read = 'leader'")
+    cpu = Session(leader, device="cpu")
+    h0 = rows_by_range()
+    with mock.patch.object(heat, "note_scan", note_scan):
+        for q in (P_SUM, P_HAVING, P_ALL):
+            if sl.query(q) != want[q] or not \
+                    sl.last_engines[0].startswith("device"):
+                raise SystemExit(f"q1: {q!r} on the leader: "
+                                 f"{sl.last_engines}")
+        card_notes = list(noted)
+        h1 = rows_by_range()
+        del noted[:]
+        if cpu.query(P_SUM) != want[P_SUM]:
+            raise SystemExit("q1: the CPU session's sum differs")
+        cpu_notes = list(noted)
+        h2 = rows_by_range()
+        del noted[:]
+        if sl.query(P_SUM) != want[P_SUM]:
+            raise SystemExit("q1: the card session's sum differs")
+        card_sum = list(noted)
+        h3 = rows_by_range()
+    rids = [s_.id for s_ in specs]
+
+    def split(total: int) -> dict:
+        # the reference's rule: an even share a range, the remainder on
+        # the first range the table's record span overlaps
+        share, rem = divmod(total, len(rids))
+        return {rid: share + (rem if i == 0 else 0)
+                for i, rid in enumerate(rids)}
+
+    def delta(after: dict, before: dict, col: int) -> dict:
+        return {rid: after[rid][col] - before.get(rid, [0] * 4)[col]
+                for rid in after}
+
+    want_rows = {rid: 0 for rid in rids}
+    want_bytes = dict(want_rows)
+    for table_id, n, nb in card_notes:
+        if table_id != tid:
+            raise SystemExit(f"q1: a scan of table {table_id} noted")
+        for rid, v in split(n).items():
+            want_rows[rid] += v
+        for rid, v in split(nb).items():
+            want_bytes[rid] += v
+    if not card_notes or delta(h1, h0, 0) != want_rows or \
+            delta(h1, h0, 1) != want_bytes:
+        raise SystemExit(f"q1: scans noted {card_notes}; read rows "
+                         f"{delta(h1, h0, 0)} bytes {delta(h1, h0, 1)}, "
+                         f"want {want_rows} {want_bytes}")
+    if card_sum != cpu_notes or delta(h3, h2, 1) != delta(h2, h1, 1) or \
+            delta(h3, h2, 0) != delta(h2, h1, 0):
+        raise SystemExit(f"q1: the card's scan noted {card_sum} "
+                         f"{delta(h3, h2, 1)}, the CPU's {cpu_notes} "
+                         f"{delta(h2, h1, 1)}")
+    rng = np.random.default_rng(args.seed + 31)
+    ids = rng.integers(0, P_ROWS, Q_POINTS)
+    t0 = time.perf_counter()
+    for i in ids.tolist():
+        if sl.query(f"select k from sbtest where id = {i}") != \
+                [(want[P_ALL][i][1],)] or sl.last_engines != ["point"]:
+            raise SystemExit(f"q1: point SELECT of id {i}: "
+                             f"{sl.last_engines}")
+    t_points = time.perf_counter() - t0
+    h4 = rows_by_range()
+    want_pts = {rid: 0 for rid in rids}
+    for i in ids.tolist():
+        want_pts[_q_range_of(specs, tablecodec.record_key(tid, i))] += 1
+    if delta(h4, h3, 0) != want_pts or \
+            delta(h4, h3, 1) != {r: 32 * n for r, n in want_pts.items()}:
+        raise SystemExit(f"q1: point reads {delta(h4, h3, 0)} "
+                         f"{delta(h4, h3, 1)}, want {want_pts}")
+    hot_rid = _q_range_of(specs, tablecodec.record_key(tid, Q_HOT[0]))
+    hot_ids = rng.integers(Q_HOT[0], Q_HOT[1], Q_UPDATES * 10).tolist()
+    cs = rng.integers(0, 10, (Q_UPDATES * 10, 120)).astype(np.uint8) + 48
+
+    n_upd = 0
+
+    def update() -> None:
+        # sysbench's oltp_update_non_index: c changes, k (indexed) not,
+        # so each commit writes one record key
+        nonlocal n_upd
+        i = hot_ids[n_upd]
+        sl.execute(f"update sbtest set c = '{bytes(cs[n_upd]).decode()}' "
+                   f"where id = {i}")
+        n_upd += 1
+
+    advisory = found = None
+    written = []
+    orig_write = heat.note_write
+
+    def note_write(items):
+        written.extend(items)
+        return orig_write(items)
+
+    heat.note_write = note_write
+    t0 = time.perf_counter()
+    for u in range(Q_UPDATES):
+        while time.perf_counter() < t0 + Q_UPDATE_S * u / Q_UPDATES:
+            time.sleep(0.002)
+        update()
+        if advisory is None and u % 10 == 9:
+            fs = [f for f in heat.findings()
+                  if f["rule"] == "range-split-advisory"]
+            if fs:
+                found = sl.query(
+                    "select rule, item, value from "
+                    "information_schema.inspection_result where rule = "
+                    "'range-split-advisory'")
+                advisory = heat.split_advisory(hot_rid)
+    t_upd = time.perf_counter() - t0
+    del heat.note_write
+    h5 = rows_by_range()
+    w_rows = delta(h5, h4, 2)
+    # sbtest's record keys written (the other keys: the catalog's and
+    # statistics' meta keys of the auto-analyze, which routes to r1)
+    rec_lo, rec_hi = tablecodec.record_range(tid)
+    rec = [k_ for k_, _ in written if rec_lo <= k_ < rec_hi]
+    other = len(written) - len(rec)
+    hot_evs = [e for e in leader.obs.events.snapshot()
+               if e["kind"] == "hot_range"]
+    spec = next(s_ for s_ in specs if s_.id == hot_rid)
+    if len(rec) != Q_UPDATES or \
+            {_q_range_of(specs, k_) for k_ in rec} != {hot_rid} or \
+            w_rows[hot_rid] != Q_UPDATES or \
+            sum(w_rows.values()) != Q_UPDATES + other or \
+            delta(h5, h4, 3)[hot_rid] <= 0:
+        raise SystemExit(f"q1: write rows {w_rows}, bytes "
+                         f"{delta(h5, h4, 3)}, {len(rec)} sbtest keys, "
+                         f"{other} others")
+    if not hot_evs or not hot_evs[-1]["detail"].startswith(f"r{hot_rid} "):
+        raise SystemExit(f"q1: hot_range events {hot_evs}")
+    if not found or found[0][1] != f"r{hot_rid}" or advisory is None or \
+            not (spec.start_key < advisory < spec.end_key) or \
+            found[0][2] != advisory.hex()[:48]:
+        raise SystemExit(f"q1: inspection_result {found}, advisory "
+                         f"{advisory!r} in {spec}")
+    server = Server(leader, port=0, status_port=0,
+                    status_host="127.0.0.1")
+    server.start()
+    try:
+        code, body = _http(server.status_port, "/debug/keyviz")
+        kv = json.loads(body) if code == 200 else {}
+        code2, body2 = _http(server.status_port, "/status")
+        st_ranges = json.loads(body2).get("ranges") if code2 == 200 \
+            else None
+    finally:
+        server.close()
+    if not kv.get("buckets") or len(kv.get("heatmap", ())) != 4 or \
+            kv["totals"][str(hot_rid)][2] < Q_UPDATES or not st_ranges \
+            or len(st_ranges["hosted"]) != 4:
+        raise SystemExit(f"q1: /debug/keyviz {code} "
+                         f"{sorted(kv)}, /status ranges {st_ranges}")
+    sql_rows = sl.query("select range_id, read_rows, write_rows, hot from "
+                        "information_schema.tidb_hot_ranges")
+    print(f"  q1: p1's three reads on the leader's card: {len(card_notes)} "
+          f"scans noted, read rows {delta(h1, h0, 0)} and bytes "
+          f"{delta(h1, h0, 1)} by range, the reference's split; the same "
+          f"sum on a cuda and a cpu session noted {card_sum} and "
+          f"{cpu_notes}; {Q_POINTS} point SELECTs in {t_points:.2f}s "
+          f"({delta(h4, h3, 0)} by range); {Q_UPDATES} UPDATEs of ids in "
+          f"[{Q_HOT[0]}, {Q_HOT[1]}) in {t_upd:.2f}s: write rows {w_rows} "
+          f"({other} of them meta keys); "
+          f"hot_range event {hot_evs[-1]['detail']!r}; inspection_result "
+          f"{found[0]}; /debug/keyviz {len(kv['buckets'])} buckets, "
+          f"heatmap {kv['heatmap']}; tidb_hot_ranges {sql_rows}")
+    mark("q1")
+
+    # q4a. auto-split by a reseed while the advisory fires
+    splits0 = {t: obs.RANGE_SPLITS.get(trigger=t) for t in ("auto",
+                                                             "manual")}
+    hot_before = heat.range_totals(hot_rid)
+    config(auto=True).seed_ranges(leader)
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 20
+    while obs.RANGE_SPLITS.get(trigger="auto") == splits0["auto"]:
+        if time.monotonic() > deadline or n_upd >= len(hot_ids):
+            raise SystemExit(f"q4: no auto split after {n_upd} UPDATEs; "
+                             f"findings {heat.findings()}")
+        update()
+        time.sleep(max(0.0, Q_UPDATE_S / Q_UPDATES - 0.002))
+    t_auto = time.perf_counter() - t0
+    # the lease thread bumps its count just after the split lands
+    while srv._auto_splits == 0 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    config(auto=False).seed_ranges(leader)
+    specs2 = sorted(srv.directory.load_specs(), key=lambda s_: s_.start_key)
+    left = next(s_ for s_ in specs2 if s_.id == hot_rid)
+    child = next(s_ for s_ in specs2 if s_.start_key == left.end_key)
+    if len(specs2) != 5 or table_gaps(specs2) or \
+            not (spec.start_key < left.end_key < spec.end_key) or \
+            srv._auto_splits != 1 or \
+            srv._auto_splits > srv.max_auto_splits or \
+            heat.range_totals(hot_rid)[2] >= hot_before[2]:
+        raise SystemExit(f"q4: table {specs2}, auto splits "
+                         f"{srv._auto_splits}, r{hot_rid} heat "
+                         f"{hot_before} -> {heat.range_totals(hot_rid)}")
+    print(f"  q4a: [ranges] auto-split = true by a reseed: the actuator "
+          f"split r{hot_rid} at {left.end_key.hex()} (the advisory "
+          f"{advisory.hex()} at q1) into r{left.id}+r{child.id} (epoch "
+          f"{left.epoch}) after {t_auto:.3f}s and {n_upd - Q_UPDATES} more "
+          f"UPDATEs; tidb_range_splits_total{{trigger=\"auto\"}} "
+          f"{splits0['auto']:g} -> "
+          f"{obs.RANGE_SPLITS.get(trigger='auto'):g}; r{hot_rid}'s heat "
+          f"{hot_before} retired to {heat.range_totals(hot_rid)}; "
+          f"auto-split off again")
+    mark("q4a")
+
+    # q2. cross-range 2PC through the range plane's committer
+    committer = plane.committer(leader.tso)
+    router = committer.rm
+    keys = []
+    t0 = time.perf_counter()
+    commits = []
+    try:
+        for j in range(Q_TXNS):
+            ks = [tablecodec.record_key(tid, 100 + j),
+                  tablecodec.record_key(tid, 3000 + j)]
+            if j % 2 == 0:
+                ks.append(tablecodec.record_key(tid, 9000 + j))
+            muts = [Mutation(OP_PUT, k_, b"q2-%d" % j) for k_ in ks]
+            commits.append(committer.commit(muts, leader.tso.ts()))
+            keys += [(k_, b"q2-%d" % j) for k_ in ks]
+        t_txn = time.perf_counter() - t0
+        spans = {len({_q_range_of(specs2, k_) for k_ in
+                      (tablecodec.record_key(tid, 100 + j),
+                       tablecodec.record_key(tid, 3000 + j))})
+                 for j in range(Q_TXNS)}
+        snap = Snapshot(router, leader.tso, leader.tso.ts())
+        bad = [k_ for k_, v in keys if snap.get(k_) != v]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 15
+        while min(ts for _, ts in plane.closed_over(b"", b"")) < \
+                max(commits):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"q2: closed_over "
+                                 f"{plane.closed_over(b'', b'')} below "
+                                 f"{max(commits)}")
+            time.sleep(0.05)
+        t_cov = time.perf_counter() - t0
+    finally:
+        router.close()
+    if bad or spans != {2}:
+        raise SystemExit(f"q2: {len(bad)} keys read back wrong, ranges "
+                         f"a txn spans {spans}")
+    print(f"  q2: {Q_TXNS} cross-range 2PC transactions ({len(keys)} keys, "
+          f"each over 2-3 ranges, sync_log='commit') in {t_txn:.2f}s "
+          f"({Q_TXNS / t_txn:.1f} txn/s); every key read back through the "
+          f"router; closed_over covers the newest commit ts "
+          f"{t_cov:.3f}s after the last commit")
+    mark("q2")
+
+    # q3. range-aware routed reads
+    cfg.seed_replica_read(leader)
+    if not leader.replica_read.range_aware:
+        raise SystemExit("q3: range-aware is off after the seed")
+    caught_up("q3")
+    sl.execute("set tidb_replica_read = 'follower'")
+
+    def routed(label: str) -> tuple:
+        served0, dev0 = reads.get(outcome="served"), _p_copr()
+        t0 = time.perf_counter()
+        rows = sl.query(P_SUM)
+        dt = (time.perf_counter() - t0) * 1e3
+        tag = next((e for e in sl.last_engines if e.startswith("replica@")),
+                   None)
+        f = by_addr.get(tag.split("@", 1)[-1]) if tag else None
+        fs = f._replica_pool[-1] if f is not None else None
+        if rows != want[P_SUM] or tag is None or \
+                reads.get(outcome="served") != served0 + 1 or \
+                _p_copr() <= dev0 or fs._cop.device.type != P_DEVICE:
+            raise SystemExit(f"{label}: {rows} {sl.last_engines} served "
+                             f"{served0} -> {reads.get(outcome='served')}")
+        return tag, dt
+
+    tag, t_cov_read = routed("q3")
+    start, _end = tablecodec.table_range(tid)
+    wedge = start + b"\x00wedge"
+    wedge_ts = leader.tso.ts()
+    router = plane.router()
+    try:
+        h = router.locate(wedge)
+        router.prewrite(h, [Mutation(OP_PUT, wedge, b"x")], wedge,
+                        wedge_ts, ttl=60_000)
+        time.sleep(0.01)
+        fb0 = reads.get(outcome="stale_fallback")
+        t0 = time.perf_counter()
+        rows = sl.query(P_SUM)
+        t_fb = (time.perf_counter() - t0) * 1e3
+        notes = [w for w in sl.warnings if "uncovered" in w[2]]
+        if rows != want[P_SUM] or \
+                reads.get(outcome="stale_fallback") != fb0 + 1 or \
+                not notes or "range#" not in notes[0][2] or \
+                not any(e.startswith("device") for e in sl.last_engines):
+            raise SystemExit(f"q3: the wedged read {rows} "
+                             f"{sl.last_engines} {sl.warnings}")
+        router.rollback(h, [wedge], wedge_ts)
+    finally:
+        router.close()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 8
+    while True:
+        served0 = reads.get(outcome="served")
+        if sl.query(P_SUM) != want[P_SUM]:
+            raise SystemExit("q3: a read after the rollback differs")
+        if reads.get(outcome="served") > served0:
+            break
+        if time.monotonic() > deadline:
+            raise SystemExit(f"q3: not routed again within 8 s: "
+                             f"{sl.last_engines} {sl.warnings}")
+        time.sleep(0.1)
+    t_back = time.perf_counter() - t0
+    print(f"  q3: [replica-read] range-aware = true by Config."
+          f"seed_replica_read: {P_SUM!r} covered, served by {tag} on "
+          f"{P_DEVICE} in {t_cov_read:.1f} ms; a wedge prewrite (ttl 60 s) "
+          f"in sbtest's span: stale_fallback in {t_fb:.1f} ms, exact on "
+          f"the leader's card, Note {notes[0][2][:160]!r}; rolled back: "
+          f"routed again after {t_back:.3f}s")
+    mark("q3")
+
+    # q4b. a manual split while routed reads run, then a forced transfer
+    timed = {"export_range": 0.0, "discard_range": 0.0}
+
+    def timing(name):
+        orig = getattr(MVCCStore, name)
+
+        def run(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *a, **kw)
+            finally:
+                timed[name] += time.perf_counter() - t0
+        return mock.patch.object(MVCCStore, name, run)
+
+    key = tablecodec.record_key(tid, Q_MANUAL_SPLIT_ID)
+    man_rid = _q_range_of(specs2, key)
+    answers = []
+    with timing("export_range"), timing("discard_range"):
+        for i in range(6):
+            if i == 2:
+                t0 = time.perf_counter()
+                srv.split_range(man_rid, key)
+                t_split = time.perf_counter() - t0
+            rows = sl.query(P_SUM)
+            answers.append(rows == want[P_SUM])
+    specs3 = sorted(srv.directory.load_specs(), key=lambda s_: s_.start_key)
+    if not all(answers) or len(specs3) != 6 or table_gaps(specs3) or \
+            obs.RANGE_SPLITS.get(trigger="manual") != \
+            splits0["manual"] + 1:
+        raise SystemExit(f"q4: answers {answers}, table {specs3}")
+    print(f"  q4b: r{man_rid} split by hand at sbtest id "
+          f"{Q_MANUAL_SPLIT_ID} in {t_split * 1e3:.1f} ms (export_range "
+          f"{timed['export_range'] * 1e3:.1f} ms, discard_range "
+          f"{timed['discard_range'] * 1e3:.1f} ms over the range leader's "
+          f"store) between routed reads: 6 of 6 exact; "
+          f"tidb_range_splits_total{{trigger=\"manual\"}} +1")
+    d = srv.directory
+    drop = 2
+    old = {s_.id: d.read_grant(s_.id) for s_ in specs3}
+    moved0 = obs.RANGE_TRANSFERS.get()
+    peer = RangeServer(leader.path, lease_ms=1000)
+    try:
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 30
+        with failpoint.failpoint("range/lease-drop", drop):
+            while obs.RANGE_TRANSFERS.get() == moved0:
+                if time.monotonic() > deadline:
+                    raise SystemExit("q4: no transfer within 30 s")
+                time.sleep(0.02)
+        t_move = time.perf_counter() - t0
+        while True:
+            g = d.read_grant(drop)
+            if g and float(g["expires_ms"]) > time.time() * 1000 and \
+                    g["term"] > old[drop]["term"]:
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f"q4: range {drop}'s grant {g}")
+            time.sleep(0.02)
+        spec_d = next(s_ for s_ in specs3 if s_.id == drop)
+        cli = RpcClient(g["owner"], RpcOptions(connect_timeout_ms=1000,
+                                               request_timeout_ms=2000),
+                        _heartbeat=False)
+        fenced = None
+        try:
+            while fenced is None:
+                try:
+                    cli.call("range_get", key=spec_d.start_key, read_ts=1,
+                             rc=make_range_ctx(drop, spec_d.epoch,
+                                               old[drop]["term"]))
+                    raise SystemExit("q4: an old-term range_get passed")
+                except StaleTermError as e:
+                    fenced = str(e)
+                except NotLeaderError:
+                    # the grant is written a moment before its new owner
+                    # opens the range
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+        finally:
+            cli.close()
+        kept = {rid: (d.read_grant(rid)["owner"], d.read_grant(rid)["term"])
+                for rid in old if rid != drop}
+        if kept != {rid: (g_["owner"], g_["term"])
+                    for rid, g_ in old.items() if rid != drop}:
+            raise SystemExit(f"q4: other ranges moved: {kept} vs {old}")
+    finally:
+        peer.close()
+    print(f"  q4b: range/lease-drop for r{drop} with a peer RangeServer "
+          f"over the leader's root: transferred after {t_move:.3f}s "
+          f"(tidb_range_transfers_total {moved0:g} -> "
+          f"{obs.RANGE_TRANSFERS.get():g}), term {old[drop]['term']} -> "
+          f"{g['term']} at {g['owner']}; an old-term request: "
+          f"StaleTermError {fenced!r}; the other {len(kept)} ranges kept "
+          f"their owner and term; the peer closed")
+    mark("q4b")
+    _sync()
+    mem1 = torch.cuda.memory_allocated()
+    launched = _kernels.LAUNCHES[RANK] - launches0
+    print(f"  q5: device memory {mem0 / 1e6:.1f} MB before part q, "
+          f"{mem1 / 1e6:.1f} MB after; streamseg launches in part q: "
+          f"{launched}; steps (s) "
+          f"{({k_: round(v, 2) for k_, v in step.items()})}")
+    return {"launches": launched, "steps": step, "arm_s": t_arm,
+            "txn_s": t_txn, "split_s": t_split, "auto_split_s": t_auto,
+            "transfer_s": t_move}
 
 
 # ---- part i: online DDL and the schema surface ----
@@ -4924,8 +5691,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--sf", type=float, default=10.0,
                     help="scale factor of Q6 and of the kernel phase")
-    # SF2 since part p (SF5 before: its generation alone took ~18 s)
-    ap.add_argument("--q1-sf", type=float, default=2.0)
+    # SF1, --q18-sf's lineitem, since part q (SF2 before: its generation
+    # alone took ~6 s; SF5 before part p: ~18 s)
+    ap.add_argument("--q1-sf", type=float, default=1.0)
     ap.add_argument("--q18-sf", type=float, default=1.0)
     args = ap.parse_args(argv)
 
@@ -4973,26 +5741,32 @@ def main(argv=None) -> int:
     print("== 4. main path")
     t_part = time.perf_counter()
 
-    def lap(name: str) -> None:
+    def lap(name: str) -> float:
         nonlocal t_part
         now = time.perf_counter()
-        print(f"  [{name} took {now - t_part:.1f}s]")
+        took = now - t_part
+        print(f"  [{name} took {took:.1f}s]")
         t_part = now
+        return took
 
     cop = CopClient()
-    launches, tags = _main_path(args, cop, (d10, t10, s10), (d1, t1, s1))
-    lap("parts a-d")
-    _part_e(args, cop, (d10, t10, s10), (d1, t1, s1))
-    lap("part e")
-    # part f reuses the generated arrays; the earlier parts' client (and
-    # its device caches) and snapshots go first
-    del cop, t10, s10, t1, s1
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  -- f. the SQL read path (device memory held before it: "
-          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB)")
     sql_launches, write_launches = {}, {}
-    sql_launches["f1"], s10, f1_rows = _part_f1(args, d10, tags)
+    # parts a-d, e and f1 check over the same SF10 arrays
+    with _oracle_memo():
+        launches, tags = _main_path(args, cop, (d10, t10, s10),
+                                    (d1, t1, s1))
+        lap("parts a-d")
+        SUBLAPS.clear()
+        _part_e(args, cop, (d10, t10, s10), (d1, t1, s1))
+        _sublap_line("part e", lap("part e"))
+        # part f reuses the generated arrays; the earlier parts' client
+        # (and its device caches) and snapshots go first
+        del cop, t10, s10, t1, s1
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  -- f. the SQL read path (device memory held before it: "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB)")
+        sql_launches["f1"], s10, f1_rows = _part_f1(args, d10, tags)
     lap("part f1")
     print("  -- l1. EXPLAIN ANALYZE and TRACE on f1's session")
     explain_launches = {"l1": _part_l1(s10, f1_rows, tags)}
@@ -5003,17 +5777,24 @@ def main(argv=None) -> int:
     print(f"  -- g. the write path ({_mem()} held before it)")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
-    hits, after10 = _part_g1(args, [s10], d10, args.sf * G1_RF_SHARE,
-                             f"g1 SF{args.sf:g}", G1_READS,
-                             rf2_sf=args.sf * G1_RF2_SHARE)
-    write_launches["g1"] = _kernels.LAUNCHES[RANK]
-    lap("part g1")
-    print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg over a "
-          f"rebuilt lineitem epoch: {hits}")
-    print(f"  -- i1. online DDL on g1's session ({_mem()} held before it)")
-    ddl_launches = {"i1": _part_i12(
-        args, [s10], after10, f"i1 SF{args.sf:g}",
-        lambda q: [tags[F1_REQUESTS[q]]], full=False)}
+    SUBLAPS.clear()
+    # g1's reads after RF2 and i1's check over the same arrays
+    with _oracle_memo():
+        # g1's reads without their profiled runs since part q (a depth
+        # cut of ~9 s; g1' still profiles its reads)
+        hits, after10 = _part_g1(args, [s10], d10, args.sf * G1_RF_SHARE,
+                                 f"g1 SF{args.sf:g}", G1_READS,
+                                 rf2_sf=args.sf * G1_RF2_SHARE,
+                                 profile=False)
+        write_launches["g1"] = _kernels.LAUNCHES[RANK]
+        _sublap_line("part g1", lap("part g1"))
+        print(f"  launches in g1: {dict(_kernels.LAUNCHES)}; streamseg "
+              f"over a rebuilt lineitem epoch: {hits}")
+        print(f"  -- i1. online DDL on g1's session ({_mem()} held before "
+              f"it)")
+        ddl_launches = {"i1": _part_i12(
+            args, [s10], after10, f"i1 SF{args.sf:g}",
+            lambda q: [tags[F1_REQUESTS[q]]], full=False)}
     lap("part i1")
     del s10, after10
     gc.collect()
@@ -5102,7 +5883,8 @@ def main(argv=None) -> int:
             "observe_launches": observe_launches,
             "server_launches": server_launches,
             "cluster_launches": cluster_launches,
-            "failover_launches": failover["launches"]}
+            "failover_launches": failover["launches"],
+            "range_launches": failover["q"]["launches"]}
     print(json.dumps({"kernels": [kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,18 @@ follower promotes itself to term 2 and the other repoints, writes go
 on through both, and every acknowledged write reads back on both on
 the card.
 
+`test_card_scan_heat_bytes_equal_the_cpu_scan`: the keyspace heat plane
+on a durable store with four ranges (split at the record keys of ids
+500, 1,000 and 1,500 of a 2,000-row table): the same scans through a
+`cuda` session and a `Session(device="cpu")` note the same rows and
+bytes per range on `tidb_hot_ranges`.
+
+`test_range_aware_read_served_on_a_cuda_follower`: with the range plane
+armed and `range-aware` on, a covered read is served by the follower's
+`cuda` session; a wedge prewrite in the table's span makes the next
+read fall back `stale_fallback` with the `uncovered ... range#` Note and
+the leader's exact answer; after its rollback reads route again.
+
 `test_follower_without_a_card_fails_to_start` needs no card: with no
 device visible, a follower started without `--device cpu` fails before
 it joins (nothing moves to the CPU on its own).
@@ -246,6 +258,121 @@ def test_routed_read_served_on_a_cuda_follower(tmp_path):
                 assert sess.last_engines[0].startswith("device")
                 assert sum(obs.COPR_REQUESTS.get(engine=e)
                            for e in ("device", "device-fragment")) > dev
+        finally:
+            follower.close()
+    finally:
+        leader.close()
+
+
+def _range_rows(st) -> dict:
+    """range_id -> (read_rows, read_bytes) of tidb_hot_ranges."""
+    return {r[0]: (r[3], r[4]) for r in st.heat.table_rows()}
+
+
+def _arm_four_ranges(st, tid) -> None:
+    from tidb_tpu_torch.kv import tablecodec
+    st.heat.configure(enabled=True, bucket_seconds=3600)
+    st.arm_ranges(enabled=True, split_points=[
+        tablecodec.record_key(int(tid), h) for h in (500, 1000, 1500)],
+        lease_ms=300)
+
+
+@pytest.mark.gpu
+def test_card_scan_heat_bytes_equal_the_cpu_scan(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    st = Storage(str(tmp_path / "s"))
+    try:
+        card, cpu = Session(st), Session(st, device="cpu")
+        card.execute("create table h (id bigint primary key, k bigint, "
+                     "c varchar(32))")
+        card.execute("insert into h values " + ",".join(
+            f"({i}, {i * 7 % 97}, 'c{i % 50}')" for i in range(2000)))
+        st.flush()
+        _arm_four_ranges(st, st.catalog.table("test", "h").id)
+        queries = ["select sum(k), count(*) from h",
+                   "select k, count(*) from h group by k order by k"]
+        for q in queries:
+            deltas = []
+            for s in (card, cpu):
+                before = _range_rows(st)
+                rows = s.execute(q).rows
+                after = _range_rows(st)
+                deltas.append((rows, {rid: (after[rid][0] - before.get(
+                    rid, (0, 0))[0], after[rid][1] - before.get(
+                        rid, (0, 0))[1]) for rid in after}))
+            assert card.last_engines[0].startswith("device")
+            assert card.cop.device.type == "cuda"
+            assert deltas[0] == deltas[1], q
+            # four ranges overlap the table's record span
+            assert len(deltas[0][1]) == 4
+            assert sum(v[0] for v in deltas[0][1].values()) == 2000
+            assert sum(v[1] for v in deltas[0][1].values()) > 0
+    finally:
+        st.close()
+
+
+@pytest.mark.gpu
+def test_range_aware_read_served_on_a_cuda_follower(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from tidb_tpu_torch.kv.mvcc import OP_PUT, Mutation
+    from tidb_tpu_torch.kv.tablecodec import table_range
+    from tidb_tpu_torch.kv.tso import TimestampOracle
+
+    leader = Storage(str(tmp_path / "leader"), shared=True,
+                     rpc_listen="127.0.0.1:0", rpc_options=OPTS)
+    try:
+        sl = Session(leader)
+        sl.execute("create table w (id bigint primary key, k bigint)")
+        sl.execute("insert into w values " + ",".join(
+            f"({i}, {i % 101})" for i in range(2000)))
+        want = sl.execute("select sum(k), count(*) from w").rows
+        tid = leader.catalog.table("test", "w").id
+        follower = Storage(str(tmp_path / "follower"),
+                           remote=f"127.0.0.1:{leader.rpc_server.port}",
+                           rpc_options=OPTS)
+        try:
+            _arm_four_ranges(leader, tid)
+            leader.replica_read.range_aware = True
+            _wait_serving(leader)
+            sl.execute("set tidb_replica_read = 'follower'")
+            reads = leader.obs.replica_reads
+            assert sl.execute("select sum(k), count(*) from w").rows \
+                == want
+            # a `ranges@covered(...)` tag leads when the gate waited
+            assert any(e.startswith("replica@") for e in sl.last_engines)
+            assert reads.get(outcome="served") == 1.0
+            sess = follower._replica_pool[-1]
+            assert sess._cop.device.type == "cuda"
+            assert sess.last_engines[0].startswith("device")
+            start, _end = table_range(int(tid))
+            key = start + b"\x00wedge"
+            wedge_ts = TimestampOracle().ts()
+            router = leader.ranges.router(options=OPTS)
+            try:
+                h = router.locate(key)
+                router.prewrite(h, [Mutation(OP_PUT, key, b"x")], key,
+                                wedge_ts, ttl=60_000)
+                time.sleep(0.01)
+                assert sl.execute(
+                    "select sum(k), count(*) from w").rows == want
+                assert reads.get(outcome="served") == 1.0
+                assert reads.get(outcome="stale_fallback") >= 1.0
+                assert any(e.startswith("range#")
+                           for e in sl.last_engines)
+                assert any(e.startswith("device") for e in sl.last_engines)
+                notes = [w for w in sl.warnings if "uncovered" in w[2]]
+                assert notes and "range#" in notes[0][2]
+                router.rollback(h, [key], wedge_ts)
+            finally:
+                router.close()
+            deadline = time.monotonic() + 8.0
+            while reads.get(outcome="served") < 2.0:
+                assert time.monotonic() < deadline
+                assert sl.execute(
+                    "select sum(k), count(*) from w").rows == want
+                time.sleep(0.1)
         finally:
             follower.close()
     finally:

@@ -324,12 +324,27 @@ range-aware = true
     ("[analysis]\nlock-check = true\n", "main", 6),
 ])
 def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
-    """The knob loads as in the reference; its seed (or, for the lock
-    checker, the entry point before the store opens) does nothing at
-    the defaults and raises NotInSlice, naming the queue item,
-    otherwise."""
+    """The knob loads as in the reference. For a plane the port does not
+    have, its seed (or, for the lock checker, the entry point before the
+    store opens) does nothing at the defaults and raises NotInSlice,
+    naming the queue item, otherwise. The knobs of the range and heat
+    planes (item 5c, ported since) seed both packages' durable stores
+    alike: the heat plane's knobs, the range thresholds and the armed
+    range plane (its table, knobs and hosted ranges) compared."""
     path = _write(tmp_path, text)
     _same_fields(RC.Config.load(path), PC.Config.load(path))
+    if item == "5c":
+        states = []
+        for C, S in ((RC, RefStorage),
+                     (PC, lambda p: Storage(p, device="cpu"))):
+            st = S(str(tmp_path / C.__name__))
+            try:
+                getattr(C.Config.load(path), seed)(st)
+                states.append(_plane_state(st))
+            finally:
+                st.close()
+        assert states[1] == states[0]
+        return
     if seed == "main":
         with pytest.raises(NotInSlice) as e:
             PM.main(["--config", path, "--device", "cpu"])
@@ -339,6 +354,22 @@ def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
         with pytest.raises(NotInSlice) as e:
             getattr(PC.Config.load(path), seed)(*args)
     assert f"item {item})" in e.value.reason
+
+
+def _plane_state(st) -> dict:
+    """What the [heatmap], [ranges] and range-threshold seeds set."""
+    h, d = st.heat, st.diagnostics
+    plane = None
+    if st.ranges is not None:
+        plane = {k: v for k, v in st.ranges.status().items()
+                 if k not in ("listen", "hosted")}
+        plane["hosted"] = [(r["range_id"], r["term"], r["epoch"])
+                           for r in st.ranges.status()["hosted"]]
+    return {"heat": (h.enabled, h.bucket_seconds, h.ring_buckets,
+                     h.hot_ratio, h.sustained_buckets, h.key_sample_cap),
+            "diag": (d.range_flap_threshold, d.split_flap_threshold,
+                     d.split_flap_window_s, d.closed_ts_stall_ms),
+            "ranges": plane}
 
 
 def test_malformed_toml(tmp_path):

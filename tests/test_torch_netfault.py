@@ -5,8 +5,13 @@ plane (the fault engine at the socket: the zero-work contract, the
 delay/drop/dup/partition schedules, peer matching and asymmetric
 partitions), each run over both packages' `rpc/netfault.py` and
 `rpc/frame.py` through real socketpairs: the frames received, the
-errors raised and the `WORK` pin compared. The reference's chaos
-harness over the range plane waits for it (ROADMAP queue 1 item 5c).
+errors raised and the `WORK` pin compared. The five range cases of
+that file (transfers across partition and heal cycles, the ledger held
+until `txn_done`, the hold TTL, the successor's closed-ts floor, the
+split's ledger handoff) run through `torch_twins`: the reference's case
+on each package, its range tables, terms, caught errors, events and
+range counters compared (the partition and heal cycles' counters, terms
+and events are the host's timing, and left out).
 
 Also here: the arming-change listeners that keep `netfault.ACTIVE`
 (`util/failpoint.on_change`), and a routed replica read whose follower
@@ -18,7 +23,9 @@ packages.
 from __future__ import annotations
 
 import functools
+import os
 import socket
+import sys
 import threading
 import time
 
@@ -295,3 +302,27 @@ def test_partitioned_follower_read_falls_back_typed(tmp_path,
                       "unreachable_fallback": 1.0}
     assert not [t for t in threading.enumerate()
                 if t.is_alive() and t.name == "titpu-failover"]
+
+
+# ---- the range plane under network faults (twins) --------------------------
+
+sys.path.insert(0, os.path.dirname(__file__))
+
+import torch_twins  # noqa: E402
+
+_NC_REF, _NC_PORT = torch_twins.load("test_net_chaos.py")
+
+# the partition and heal cycles run against the wall clock: how often
+# leases lapse and leadership moves (the counters, the terms, the lease
+# events) is the host's timing on either package; the range table, the
+# caught errors and the case's own assertions are compared
+_NC_TIMED = {"test_transfers_survive_partition_heal_cycles":
+             ("metrics", "disk.terms", "events")}
+
+for _name in ("test_transfers_survive_partition_heal_cycles",
+              "test_cross_range_commit_holds_ledger_until_txn_done",
+              "test_lost_txn_done_self_retires_after_hold_ttl",
+              "test_leader_transfer_floors_successor_closed_ts",
+              "test_split_hands_ledger_floor_to_children"):
+    globals()[_name] = torch_twins.twin(_NC_REF, _NC_PORT, _name,
+                                        exclude=_NC_TIMED.get(_name, ()))

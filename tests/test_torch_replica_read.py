@@ -11,8 +11,9 @@ classes and messages, terms, the cluster_info serving columns, the
 assertions and time bounds on both packages. The reference's three
 range-aware cases (`test_range_aware_gate_serves_covered_reads`,
 `test_range_gate_blocks_uncovered_read_and_recovers`,
-`test_split_during_routed_read_never_wrong`) arm the range plane and
-wait for it (ROADMAP queue 1 item 5c).
+`test_split_during_routed_read_never_wrong`) arm the range plane and run
+through `torch_twins`: the reference's case on each package, its range
+tables, terms, hosted ranges, events and range counters compared.
 
 The port's own rules: a follower's serving sessions run on the
 storage's `device`, and an error in serving that the RPC plane does not
@@ -313,8 +314,8 @@ def test_cluster_info_carries_serving_columns(tmp_path):
 
 def test_range_aware_without_a_range_plane_gates_nothing(tmp_path):
     """`range_aware` with no range plane armed: the gate answers None
-    and routing behaves as without it, in both packages (the port has
-    no range plane: ROADMAP queue 1 item 5c)."""
+    and routing behaves as without it, in both packages (the cases
+    with a plane armed are the range twins at the end of this file)."""
     def run(P, d):
         with cluster(P, d) as (leader, _follower):
             sl = P["Session"](leader)
@@ -708,3 +709,15 @@ def test_foreign_error_in_serving_is_kept_not_answered(tmp_path,
         with pytest.raises(RuntimeError, match="illegal memory access"):
             follower.close()
         follower.close = lambda: None  # closed above
+
+
+# ---- the range-aware gate (twins) ------------------------------------------
+
+import torch_twins  # noqa: E402
+
+_RR_REF, _RR_PORT = torch_twins.load("test_replica_read.py")
+
+for _name in ("test_range_aware_gate_serves_covered_reads",
+              "test_range_gate_blocks_uncovered_read_and_recovers",
+              "test_split_during_routed_read_never_wrong"):
+    globals()[_name] = torch_twins.twin(_RR_REF, _RR_PORT, _name)

@@ -239,7 +239,8 @@ OBS_SERVED = frozenset({
     "statements_summary", "slow_query", "tidb_top_sql", "tidb_wait_profile",
     "tidb_events", "statements_summary_history", "tidb_plan_history",
     "inspection_result", "inspection_summary", "metrics_summary",
-    "profiling"} | {t for t in I.SERVED if t.startswith("cluster_")})
+    "profiling", "tidb_hot_ranges"}
+    | {t for t in I.SERVED if t.startswith("cluster_")})
 
 
 @pytest.mark.parametrize("table", sorted(I.SERVED - OBS_SERVED))

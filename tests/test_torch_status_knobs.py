@@ -162,9 +162,9 @@ def test_slow_log_file_rotation(tmp_path, max_size, files):
 
 def test_inspection_state_mirrors_config_section():
     """Every [diagnostics] knob the port's rules read exists on its
-    DiagnosticsState with the config's default; the others are the
-    thresholds of rules over unported planes, which seed_diagnostics
-    accepts only at their defaults."""
+    DiagnosticsState with the config's default; the other is the
+    threshold of the rule over the unported mesh plane, which
+    seed_diagnostics accepts only at its default."""
     state = {f.name: f for f in
              dataclasses.fields(obs_inspect.DiagnosticsState)}
     unported = set()
@@ -173,9 +173,7 @@ def test_inspection_state_mirrors_config_section():
             assert f.default == state[f.name].default, f.name
         else:
             unported.add(f.name)
-    assert unported == {"skew_min_dispatches", "range_flap_threshold",
-                        "split_flap_threshold", "split_flap_window_s",
-                        "closed_ts_stall_ms"}
+    assert unported == {"skew_min_dispatches"}
 
 
 def test_seed_diagnostics_applies_and_keeps_edge_memory():

@@ -23,11 +23,11 @@ metrics history, metrics_summary; and from the reading session's
 the reading session alone, embedded), processlist; from the diagnostics
 fan-out over the cluster's members (`rpc/diag.cluster_rows`, a member
 that does not answer degrading to an error row and a warning), the
-cluster_* tables over ported planes. A statement that touches one of the
-others (the mesh recorder's tidb_mesh_shards, tidb_mesh_storage and
-their cluster_* twins, item 8; tidb_hot_ranges and cluster_hot_ranges,
-item 5c) raises `NotInSlice(<table>)`: they read planes the port does
-not have yet.
+cluster_* tables over ported planes; from the keyspace heat plane
+(`obs_heat.py`), tidb_hot_ranges and cluster_hot_ranges. A statement
+that touches one of the others (the mesh recorder's tidb_mesh_shards,
+tidb_mesh_storage and their cluster_* twins, item 8) raises
+`NotInSlice(<table>)`: they read a plane the port does not have yet.
 """
 
 from __future__ import annotations
@@ -499,6 +499,7 @@ SERVED = frozenset({
     "cluster_statements_summary", "cluster_statements_summary_history",
     "cluster_plan_history", "cluster_top_sql", "cluster_tidb_wait_profile",
     "cluster_inspection_result", "cluster_load",
+    "tidb_hot_ranges", "cluster_hot_ranges",
 })
 
 
@@ -689,6 +690,10 @@ def _rows_for(storage, catalog: Catalog, tname: str,
         for e in storage.obs.events.snapshot():
             rows.append([int(e["id"]), e["ts"], e["kind"], e["severity"],
                          int(e["conn_id"]), e["digest"], e["detail"]])
+    elif tname == "tidb_hot_ranges":
+        # the producer of diag_hot_ranges (the cluster fan-out adds
+        # instance/error)
+        rows = storage.heat.table_rows()
     elif tname == "statements_summary_history":
         h = storage.history
         rows = h.table_rows() if h.enabled else []

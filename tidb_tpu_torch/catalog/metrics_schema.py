@@ -34,21 +34,13 @@ from .schema import Catalog, ColumnInfo, SchemaInfo, TableInfo
 DB_NAME = "metrics_schema"
 
 # the reference's families that the port does not register, with the
-# planes they wait for: the keyspace heat plane and the range plane
-# (item 5c), the mesh plane (item 8)
+# plane they wait for: the mesh plane (item 8)
 UNPORTED_FAMILIES = frozenset({
-    # keyspace heat plane (obs_heat.py)
-    "tidb_hot_range_ratio", "tidb_range_read_bytes_total",
-    "tidb_range_read_rows_total", "tidb_range_write_bytes_total",
-    "tidb_range_write_rows_total",
     # mesh plane and its flight recorder
     "tidb_mesh_devices", "tidb_mesh_reshard_bytes_total",
     "tidb_mesh_skew_ratio", "tidb_mesh_skew_warnings_total",
     "tidb_mesh_compiles_total", "tidb_mesh_compile_seconds_total",
     "tidb_mesh_recompile_storms_total", "tidb_mesh_hbm_watermark_total",
-    # range-sharded write leadership
-    "tidb_range_leaders", "tidb_range_transfers_total",
-    "tidb_range_orphan_resolutions_total", "tidb_range_splits_total",
 })
 
 _COLS = [

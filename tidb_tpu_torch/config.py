@@ -16,13 +16,11 @@ loudly at startup instead of silently running with defaults.
 Some knobs belong to planes the port does not have yet. They load and
 validate as in the reference, and at their defaults they do nothing; set
 to anything else, the seed that would apply them raises `NotInSlice`
-naming the queue item that ports the plane: `[heatmap]`, `[ranges]`
-and the diagnostics thresholds of the range plane (item 5c), `[mesh]`
-and `diagnostics.skew-min-dispatches` (item 8). The entry point checks
+naming the queue item that ports the plane: `[mesh]` and
+`diagnostics.skew-min-dispatches` (item 8). The entry point checks
 `[analysis] lock-check` (item 6) before it opens the store.
-`[replica-read]` is seeded whole: `range-aware` is accepted and, with no
-range plane, gates nothing, as the reference's does with `[ranges]`
-off.
+`[heatmap]`, `[ranges]` (through `Storage.arm_ranges`), `[replica-read]`
+and the range plane's diagnostics thresholds are seeded whole.
 `rpc_options` hands the `[transport]` knobs to the RPC tier.
 """
 
@@ -900,11 +898,7 @@ class Config:
         # the thresholds of rules over planes the port does not have:
         # the defaults are what those rules would read, any other value
         # raises
-        unported = {"skew_min_dispatches": "8",
-                    "range_flap_threshold": "5c",
-                    "split_flap_threshold": "5c",
-                    "split_flap_window_s": "5c",
-                    "closed_ts_stall_ms": "5c"}
+        unported = {"skew_min_dispatches": "8"}
         for knob, item in unported.items():
             if getattr(d, knob) != getattr(DiagnosticsConfig, knob):
                 raise _not_in_slice(
@@ -920,6 +914,10 @@ class Config:
         st.dominant_wait_threshold = d.dominant_wait_threshold
         st.heartbeat_stale_ms = d.heartbeat_stale_ms
         st.apply_lag_warn_ms = d.apply_lag_warn_ms
+        st.range_flap_threshold = d.range_flap_threshold
+        st.split_flap_threshold = d.split_flap_threshold
+        st.split_flap_window_s = d.split_flap_window_s
+        st.closed_ts_stall_ms = d.closed_ts_stall_ms
         # the /status counts must reflect the new thresholds now, not
         # after the cache TTL
         st._status_cache = None
@@ -934,12 +932,17 @@ class Config:
             history_cap=h.history_cap,
             regression_ratio=h.regression_ratio)
 
-    def seed_heatmap(self, storage) -> None:  # noqa: ARG002
-        """Arm the keyspace heat plane from the [heatmap] knobs: the
-        plane is not ported, so the defaults (off) arm nothing and any
-        other value raises."""
-        if self.heatmap != HeatmapConfig():
-            raise _not_in_slice("[heatmap]: the keyspace heat plane", "5c")
+    def seed_heatmap(self, storage) -> None:
+        """Arm the keyspace heat plane from the [heatmap] knobs
+        (startup and SIGHUP hot reload both call this)."""
+        hm = self.heatmap
+        storage.heat.configure(
+            enabled=hm.enabled,
+            bucket_seconds=hm.bucket_seconds,
+            ring_buckets=hm.ring_buckets,
+            hot_ratio=hm.hot_ratio,
+            sustained_buckets=hm.sustained_buckets,
+            key_sample_cap=hm.key_sample_cap)
 
     def seed_replica_read(self, storage) -> None:
         """Arm the follower read tier from the [replica-read] knobs
@@ -955,11 +958,19 @@ class Config:
         st.range_aware = r.range_aware
         storage.arm_replica_read()
 
-    def seed_ranges(self, storage) -> None:  # noqa: ARG002
-        """Arm the range plane from the [ranges] knobs: the defaults
-        (disabled) arm nothing, any other value raises."""
-        if self.ranges != RangesConfig():
-            raise _not_in_slice("[ranges]: the range plane", "5c")
+    def seed_ranges(self, storage) -> None:
+        """Arm the range plane from the [ranges] knobs (startup and
+        SIGHUP hot reload both call this; arm_ranges only applies the
+        reloadable subset to an already-armed plane)."""
+        rg = self.ranges
+        points = [p.strip() for p in rg.split_points.split(",")
+                  if p.strip()]
+        storage.arm_ranges(
+            enabled=rg.enabled, count=rg.count, split_points=points,
+            lease_ms=rg.lease_ms, resolve_ttl_ms=rg.resolve_ttl_ms,
+            listen=rg.listen, auto_split=rg.auto_split,
+            split_cooldown_ms=rg.split_cooldown_ms,
+            max_auto_splits=rg.max_auto_splits)
 
     def seed_group_commit(self, storage) -> None:
         """Apply the [storage] group-commit batching knobs to the

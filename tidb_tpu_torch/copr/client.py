@@ -33,6 +33,11 @@ What stays as in the reference:
   ships per-group HLL registers (`analyze.py`), merged across tiles by
   max.
 
+Every `execute` first notes its scan on the keyspace heatmap (`heat`, the
+storage's `RangeHeatRecorder`, attached by the session; rows and the
+epoch columns' host bytes, as the reference counts them) when the plane
+is on, before any engine is chosen.
+
 Dispatch stages and spans sit at the reference's sites (`obs.stage`,
 `obs.span`; the stages' meanings on the port are in `obs.py`): `ranged`,
 `prepare`, `host_fallback`, `staging` with `transfer` inside it, `kernel`
@@ -165,6 +170,12 @@ class CopResult:
     engine: str = "device"
 
 
+def _obj_nbytes(o) -> int:
+    if isinstance(o, (tuple, list)):
+        return sum(_obj_nbytes(x) for x in o)
+    return int(getattr(o, "nbytes", 0) or 0)
+
+
 def _note_transfer(nbytes: int) -> None:
     """Host-to-device staging accounting: the process gauge and the
     statement's active operator (Top SQL, the slow log)."""
@@ -190,6 +201,11 @@ class CopClient:
         # and rank-metadata facts keyed by (epoch_id, tag, offsets)
         self._stats: dict = {}
         self._lock = threading.RLock()
+        # keyspace heat recorder (obs_heat.RangeHeatRecorder), attached
+        # by the session from the owning storage: every coprocessor
+        # scan accounts its table's record span on the heatmap. None on
+        # bare clients; one gated attribute test per execute() when off
+        self.heat = None
         _LIVE_CLIENTS.add(self)
 
     def _evict_stale(self, table_id: int, epoch_id: int) -> None:
@@ -239,6 +255,15 @@ class CopClient:
     # ==================== public entry ====================
     def execute(self, dag: CopDAG, snap: TableSnapshot) -> CopResult:
         with obs.span(f"copr.execute(t{dag.scan.table_id})") as sp:
+            heat = self.heat
+            if heat is not None and heat.enabled:
+                # one scan note per coprocessor dispatch, split across
+                # the ranges overlapping the table's record span —
+                # regardless of which engine ends up serving it
+                heat.note_scan(
+                    dag.scan.table_id,
+                    rows=snap.epoch.num_rows + len(snap.overlay_handles),
+                    nbytes=_obj_nbytes(snap.epoch.columns))
             return self._execute(dag, snap, sp)
 
     def _execute(self, dag: CopDAG, snap: TableSnapshot, sp) -> CopResult:

@@ -21,8 +21,8 @@ sibling processes append to (position-based, queueing every applied
 record on `pending_refresh` for the storage's columnar fold), and a
 store with a coordinator (`store/coordinator.py`, `rpc/remote.py`) runs
 every mutation section inside the coordinator's section with the WAL
-caught up. The range split's raw scans belong to the range plane (item
-5c).
+caught up. A range split (`rpc/ranged.py`) partitions a store through
+`export_range` and `discard_range`, bounded on decoded user keys.
 """
 
 from __future__ import annotations
@@ -1028,6 +1028,50 @@ class MVCCStore:
                 # end bound still covers them (suffix sorts below end)
                 for k in doomed:
                     self.kv.delete(cf, k)
+
+    # ---- range splits (rpc/ranged.py split protocol) ------------------------
+    @staticmethod
+    def _user_key(cf: int, raw: bytes) -> bytes:
+        """The USER key a raw CF key encodes: lock CF keys are plain,
+        data/write CF keys carry the \\x00+ts version suffix. Range
+        bounds compare user keys — a raw-bound scan at a split point
+        K would misfile versions of any user key that is a strict
+        prefix of K (u < K but u+\\x00+ts can sort above K)."""
+        return raw if cf == CF_LOCK else _split_vkey(raw)[0]
+
+    def export_range(self, start: bytes,
+                     end: bytes) -> list[tuple[int, bytes, bytes]]:
+        """Every raw (cf, key, value) whose decoded USER key falls in
+        [start, end) — the read half of a range split's WAL partition
+        (the child's store is rebuilt from these verbatim: locks,
+        write records and values keep their exact encoding, so the
+        child replays and resolves orphans identically)."""
+        with self._mu:
+            out: list[tuple[int, bytes, bytes]] = []
+            for cf in (CF_LOCK, CF_WRITE, CF_DATA):
+                for k, v in self.kv.scan(cf, b"", b""):
+                    u = self._user_key(cf, k)
+                    if u >= start and (not end or u < end):
+                        out.append((cf, k, v))
+            return out
+
+    def discard_range(self, start: bytes, end: bytes) -> int:
+        """Physically drop every version, lock and value whose decoded
+        USER key falls in [start, end) — the parent-retire half of a
+        range split (the child now owns those keys). Differs from
+        unsafe_destroy_range by bounding on DECODED keys, which is
+        the correct comparison at a split point that some user key
+        prefixes. Returns the raw record count removed; idempotent."""
+        with self._mutate():
+            removed = 0
+            for cf in (CF_LOCK, CF_WRITE, CF_DATA):
+                doomed = [k for k, _ in self.kv.scan(cf, b"", b"")
+                          if (u := self._user_key(cf, k)) >= start
+                          and (not end or u < end)]
+                for k in doomed:
+                    self.kv.delete(cf, k)
+                removed += len(doomed)
+            return removed
 
     # ---- GC ----------------------------------------------------------------
     def gc(self, safepoint: int) -> int:

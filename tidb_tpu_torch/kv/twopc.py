@@ -15,9 +15,9 @@ reference's four failpoint sites (`twopc/before-prewrite`,
 `twopc.commit`, `twopc.commit_primary`, `twopc.commit_secondary`), its
 typed waits (`prewrite`, `tso_wait`, `commit_primary`,
 `commit_secondary`, `resolve_lock`, `backoff.txnLock`) and the
-`orphan_resolved` event. The keyspace heatmap and the range tier's
-cross-range commit fan-out have no port yet: their hooks are left out,
-and the control flow between them is the reference's.
+`orphan_resolved` event, the keyspace heat hook (`heat`, the storage's
+committer over local regions only) and the range tier's cross-range
+commit fan-out (`RangeRouter.txn_done`, `kv/rangeclient.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Optional
 
 from .. import obs
 from ..util import failpoint
+from ..rpc.errors import RPCError
 from .mvcc import OP_LOCK, KeyIsLockedError, KVError, Mutation
 from .region import Region, RegionError, RegionManager
 
@@ -86,13 +87,15 @@ class LockResolver:
                 return False  # lock holder still alive; caller backs off
             self.rm.resolve_lock(lock.key, lock.start_ts, commit_ts)
         if self.events is not None:
+            # the resolution's stitched trace, when one is active
+            coll = obs.active_collector()
             action = "roll-forward" if commit_ts else "roll-back"
             self.events.record(
                 "orphan_resolved",
                 detail=f"{action} key={lock.key!r} "
                        f"primary={lock.primary!r} "
                        f"start_ts={lock.start_ts} commit_ts={commit_ts} "
-                       "trace_id=")
+                       f"trace_id={coll.trace_id if coll else ''}")
         return True
 
 
@@ -110,6 +113,11 @@ class TwoPhaseCommitter:
     # structured EventLog sink for orphan resolutions (the storage
     # passes its obs.events; bare committers audit nothing)
     events: Optional[object] = None
+    # keyspace heat recorder (obs_heat.RangeHeatRecorder). ONLY the
+    # storage's committer over LOCAL regions carries it — the range
+    # tier's per-worker committers leave it None so a routed write is
+    # counted once, by the range leader's apply (rpc/ranged.py)
+    heat: Optional[object] = None
 
     def commit(self, mutations: list[Mutation], start_ts: int) -> int:
         """Run 2PC; returns commit_ts (reference: 2pc.go execute :1050)."""
@@ -166,6 +174,27 @@ class TwoPhaseCommitter:
         alloc = getattr(self.tso, "commit_ts", None) or self.tso.ts
         with obs.wait("tso_wait"):
             commit_ts = alloc()
+
+        # over the RANGE tier (RangeRouter exposes txn_done), a
+        # cross-range transaction must hold the pending-commit ledger
+        # open on EVERY participant range until its secondaries are
+        # durable — commits carry done=False and the fan-out below
+        # releases the holds. Single-range traffic (and the in-process
+        # region tier) keeps the retire-on-commit fast path.
+        fanout = getattr(self.rm, "txn_done", None)
+        cross = False
+        if fanout is not None:
+            try:
+                cross = len({self.rm.locate(m.key).id
+                             for m in mutations}) > 1
+            except (RegionError, RPCError):
+                cross = True  # routing unsettled: hold conservatively
+
+        def commit_call(region, keys):
+            if fanout is not None:
+                return self.rm.commit(region, keys, start_ts,
+                                      commit_ts, done=not cross)
+            return self.rm.commit(region, keys, start_ts, commit_ts)
         # commit the primary synchronously — the txn is durable
         # once this lands (reference: 2pc.go:741)
         failpoint.inject("twopc/before-commit-primary")
@@ -173,12 +202,16 @@ class TwoPhaseCommitter:
                       span_name="twopc.commit_primary"):
             self._retry_region(
                 primary, resolver,
-                lambda region: self.rm.commit(region, [primary], start_ts,
-                                              commit_ts))
+                lambda region: commit_call(region, [primary]))
         # crash here = committed txn with secondary locks left behind:
         # the resolver must roll them FORWARD from the primary's write
         # record (reference failpoint site: 2pc.go:1027)
         failpoint.inject("twopc/after-primary-commit")
+        # the txn is durable: account it on the keyspace heatmap (keys
+        # route to range cells; OP_LOCK values are empty — 0 bytes)
+        if self.heat is not None and self.heat.enabled:
+            self.heat.note_write(
+                [(m.key, len(m.value or b"")) for m in mutations])
         # secondaries may commit lazily; do them inline (the reference
         # fires a goroutine — same semantics, resolver covers crashes).
         # IMPORTANT: the txn is already durable — a secondary failure must
@@ -192,11 +225,26 @@ class TwoPhaseCommitter:
                     try:
                         self._retry_region(
                             key, resolver,
-                            lambda region, k=key: self.rm.commit(
-                                region, [k], start_ts, commit_ts))
+                            lambda region, k=key: commit_call(
+                                region, [k]))
                     except (CommitError, KVError):
                         # resolver recovers from the primary's record
                         pass
+        if cross:
+            # every participant's secondaries were driven durable
+            # above: release the ledger holds so each range's
+            # closed_ts may pass commit_ts. Best-effort — a lost
+            # txn_done costs hold-TTL latency, never correctness.
+            done_rids: set = set()
+            for m in mutations:
+                try:
+                    region = self.rm.locate(m.key)
+                except (RegionError, RPCError):
+                    continue
+                if region.id in done_rids:
+                    continue
+                done_rids.add(region.id)
+                fanout(region, start_ts)
         return commit_ts
 
     def rollback(self, mutations: list[Mutation], start_ts: int) -> None:

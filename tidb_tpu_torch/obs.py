@@ -88,10 +88,13 @@ trace identity of a collector (`trace_id`, `alloc_span_id`), the remote
 span helpers (`run_remote_traced` on the serving side,
 `stitch_remote_rows` on the calling side, `graft_collector` for the
 cluster fan-out's worker threads), the RPC breaker counters and the
-follower read tier's families (`replica_reads`, `apply_lag`).
+follower read tier's families (`replica_reads`, `apply_lag`) and the
+range plane's (`RANGE_LEADERS`, `RANGE_TRANSFERS`,
+`RANGE_ORPHAN_RESOLUTIONS`, `RANGE_SPLITS`; the heat families are the
+storage's, `obs_heat.py`).
 
-Left out, with the planes they belong to: the range and mesh families,
-and the per-device label of the buffer gauge (one device).
+Left out, with the plane it belongs to: the mesh families, and the
+per-device label of the buffer gauge (one device).
 """
 
 from __future__ import annotations
@@ -1019,6 +1022,25 @@ RPC_BREAKER_TRIPS = PROCESS_METRICS.counter(
 RPC_BREAKER_FAST_FAILS = PROCESS_METRICS.counter(
     "tidb_rpc_breaker_fast_failures_total",
     "calls failed fast by an open rpc circuit breaker")
+
+# range-sharded write leadership (rpc/ranged.py): process-wide like the
+# breaker counters — a process may host several RangeServers (tests do),
+# so the gauge moves by inc/dec per leadership open/drop rather than set
+RANGE_LEADERS = PROCESS_METRICS.gauge(
+    "tidb_range_leaders",
+    "ranges whose write leadership this process currently holds")
+RANGE_TRANSFERS = PROCESS_METRICS.counter(
+    "tidb_range_transfers_total",
+    "range leadership acquisitions that deposed a different owner "
+    "(term bumps; steady renewal never counts)")
+RANGE_ORPHAN_RESOLUTIONS = PROCESS_METRICS.counter(
+    "tidb_range_orphan_resolutions_total",
+    "orphan percolator locks rolled forward or back via primary-status "
+    "check after a coordinator crash")
+RANGE_SPLITS = PROCESS_METRICS.counter(
+    "tidb_range_splits_total",
+    "online range splits completed, by trigger (manual = operator "
+    "range_split RPC, auto = heat-advisory actuator)")
 
 # the wait-state plane: process-wide, as the Backoffer and the sync
 # policy have no Storage in reach. The histogram carries the

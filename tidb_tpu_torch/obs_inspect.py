@@ -24,10 +24,11 @@ Every rule of the reference is registered under its own name, severity
 and reference text. The rules over planes the port does not have return
 no finding, which is what the reference returns with that plane off:
 mesh-shard-skew, mesh-recompile-storm and mesh-hbm-watermark (no mesh
-client), range-leader-flap, range-split-flap and range-closed-ts-stall (no range
-plane), hot-range and range-split-advisory (the heat plane off) and
-lock-order-inversion (the lock checker disabled). Evaluating them
-imports nothing.
+client) and lock-order-inversion (the lock checker disabled). The range
+rules (range-leader-flap, range-split-flap, range-closed-ts-stall) read
+the range plane's events and hosted ranges, and the heat rules
+(hot-range, range-split-advisory) the keyspace heat plane's findings,
+as the reference's do.
 
 Surfaces: information_schema.inspection_result / inspection_summary and
 an edge-triggered `inspection_finding` event the first time a rule
@@ -55,8 +56,8 @@ _SEV_ORDER = {s: i for i, s in enumerate(SEVERITIES)}
 class DiagnosticsState:
     """Per-storage diagnostics settings + the edge-trigger memory.
     Field names/defaults mirror the reference's config.DiagnosticsConfig
-    for the rules the port evaluates; the thresholds of the rules whose
-    plane the port lacks come with that plane. Config.seed_diagnostics
+    for the rules the port evaluates; the threshold of the rule whose
+    plane the port lacks (mesh skew) comes with that plane. Config.seed_diagnostics
     copies the knobs in; embedded callers set them directly."""
 
     enabled: bool = True
@@ -76,6 +77,27 @@ class DiagnosticsState:
     # follower-apply-lag: a serving follower whose applied/closed ts is
     # more than this far behind leader time (0 disables the rule)
     apply_lag_warn_ms: int = 2000
+    # one range changing write leadership this many times in the
+    # window is flapping (a clean failover is ONE transfer)
+    range_flap_threshold: int = 3
+    # one range SPLITTING this many times inside split-flap-window-s
+    # is flapping: the advisory keeps firing without draining the
+    # heat — the salted/monotonic hot-key symptom splits cannot fix
+    split_flap_threshold: int = 3
+    # seconds of range_split history the split-flap rule considers
+    # (its own window, not history-windows: splits are rare and
+    # cooldown-paced, so the shared window is usually too short)
+    split_flap_window_s: int = 300
+    # a range whose published closed_ts has not advanced for this long
+    # WHILE its write counters moved is range-closed-ts-stall
+    # (warning; critical at 3x — every range-aware replica read over
+    # it is falling back to the leader); 0 disables the rule
+    closed_ts_stall_ms: int = 10000
+    # range-closed-ts-stall memory: range_id -> (closed_ts, wall_ms
+    # first seen at that value, write mark) — the rule needs history
+    # to tell "static" from "just observed" (edge memory like
+    # seen_critical, surviving reseeds)
+    closed_progress: dict = field(default_factory=dict)
     # (rule, item) pairs already reported critical: inspection_finding
     # events fire on NEW members only (edge-triggered, not level)
     seen_critical: set = field(default_factory=set)
@@ -191,6 +213,17 @@ class InspectionContext:
         hist = getattr(storage, "history", None)
         self.history_findings = hist.regression_findings() \
             if hist is not None and hist.enabled else []
+        # keyspace heat findings, computed ONCE per snapshot (both heat
+        # rules read this list; a disabled heat plane contributes
+        # nothing — the [heatmap] zero-work contract)
+        heat = getattr(storage, "heat", None)
+        self.heat_findings = heat.findings() \
+            if heat is not None and heat.enabled else []
+        # hosted range rows (closed_ts / max_commit_ts / traffic), one
+        # snapshot per inspection; no range plane armed = no rows = the
+        # range rules stay silent on a healthy single-range server
+        plane = getattr(storage, "ranges", None)
+        self.ranges = plane.server.describe() if plane is not None else []
 
     # ---- helpers rules share -------------------------------------------
     def metric(self, labeled_name: str) -> float:
@@ -401,8 +434,25 @@ def _r_follower_apply_lag(ctx: InspectionContext) -> list[Finding]:
       "against renewal latency and crash-looping hosts "
       "(tidb_events kind=range_transfer, tidb_range_transfers_total)")
 def _r_range_leader_flap(ctx: InspectionContext) -> list[Finding]:
-    # no range plane: no range_transfer event
-    return []
+    moves = ctx.window_events("range_transfer")
+    if len(moves) < ctx.cfg.range_flap_threshold:
+        return []
+    # every range_transfer detail leads with "r<id> " (rpc/ranged.py)
+    per: dict = {}
+    for e in moves:
+        rid = str(e.get("detail", "")).split(" ", 1)[0] or "?"
+        per.setdefault(rid, []).append(e)
+    out = []
+    for rid, evs in sorted(per.items()):
+        if len(evs) < ctx.cfg.range_flap_threshold:
+            continue
+        out.append(Finding(
+            "range-leader-flap", rid, "warning", str(len(evs)),
+            f"range {rid} changed write leadership {len(evs)} times "
+            f"inside {ctx.window_s:.0f}s (threshold "
+            f"{ctx.cfg.range_flap_threshold}); last: "
+            f"{evs[-1]['detail'][:200]}"))
+    return out
 
 
 @rule("range-split-flap", "warning",
@@ -413,8 +463,32 @@ def _r_range_leader_flap(ctx: InspectionContext) -> list[Finding]:
       "fix the key design or raise ranges.split-cooldown-ms "
       "(tidb_events kind=range_split, tidb_range_splits_total)")
 def _r_range_split_flap(ctx: InspectionContext) -> list[Finding]:
-    # no range plane: no range_split event
-    return []
+    thr = int(ctx.cfg.split_flap_threshold)
+    if thr <= 0:
+        return []
+    # splits are cooldown-paced, so the rule carries its OWN window
+    # (split-flap-window-s) instead of the shared history window
+    win = float(ctx.cfg.split_flap_window_s) or ctx.window_s
+    cutoff = ctx.now - win
+    splits = [e for e in ctx.events
+              if e["kind"] == "range_split"
+              and e.get("unix", 0.0) >= cutoff]
+    if len(splits) < thr:
+        return []
+    # every range_split detail leads with "r<parent> " (rpc/ranged.py)
+    per: dict = {}
+    for e in splits:
+        rid = str(e.get("detail", "")).split(" ", 1)[0] or "?"
+        per.setdefault(rid, []).append(e)
+    out = []
+    for rid, evs in sorted(per.items()):
+        if len(evs) < thr:
+            continue
+        out.append(Finding(
+            "range-split-flap", rid, "warning", str(len(evs)),
+            f"range {rid} split {len(evs)} times inside {win:.0f}s "
+            f"(threshold {thr}); last: {evs[-1]['detail'][:200]}"))
+    return out
 
 
 @rule("range-closed-ts-stall", "warning",
@@ -426,8 +500,45 @@ def _r_range_split_flap(ctx: InspectionContext) -> list[Finding]:
       "/debug/ranges; tidb_events kind=orphan_resolved shows the "
       "resolver working the backlog)")
 def _r_range_closed_ts_stall(ctx: InspectionContext) -> list[Finding]:
-    # no range plane: no hosted ranges
-    return []
+    thr = float(ctx.cfg.closed_ts_stall_ms)
+    if thr <= 0 or not ctx.ranges:
+        return []
+    mem = ctx.cfg.closed_progress
+    now_ms = ctx.now * 1000.0
+    out = []
+    live = set()
+    for row in ctx.ranges:
+        rid = str(row.get("range_id", "?"))
+        live.add(rid)
+        closed = int(row.get("closed_ts") or 0)
+        # write progress independent of closed_ts: the commit floor
+        # (always present) plus heat traffic (when armed). An IDLE
+        # range with a static closed_ts is not a stall — there is
+        # nothing to close past.
+        mark = (int(row.get("max_commit_ts") or 0),
+                int(row.get("write_rows") or 0))
+        prev = mem.get(rid)
+        if prev is None or closed != prev[0]:
+            mem[rid] = (closed, now_ms, mark)
+            continue
+        stalled_ms = now_ms - float(prev[1])
+        if mark == prev[2] or stalled_ms < thr:
+            continue
+        sev = "critical" if stalled_ms >= 3 * thr else "warning"
+        out.append(Finding(
+            "range-closed-ts-stall", rid, sev, f"{stalled_ms:.0f}ms",
+            f"range {rid} closed_ts {closed} static for "
+            f"{stalled_ms:.0f}ms while writes advanced "
+            f"(commit floor {prev[2][0]} -> {mark[0]}, threshold "
+            f"{ctx.cfg.closed_ts_stall_ms}ms"
+            + ("; the range cannot close any newer timestamp — "
+               "range-aware replica reads over it are all falling "
+               "back to the leader" if sev == "critical" else "")
+            + "); check for an orphaned lock or a lost txn_done "
+            f"({row.get('pending', 0)} ledger entries pending)"))
+    for rid in [r for r in mem if r not in live]:
+        del mem[rid]
+    return out
 
 
 @rule("top-sql-host-fallback", "warning",
@@ -607,8 +718,12 @@ def _r_config_sync_log(ctx: InspectionContext) -> list[Finding]:
       "(information_schema.tidb_hot_ranges has the per-range matrix; "
       "/debug/keyviz renders it)")
 def _r_hot_range(ctx: InspectionContext) -> list[Finding]:
-    # the heat plane is off
-    return []
+    out = []
+    for f in ctx.heat_findings:
+        if f["rule"] == "hot-range":
+            out.append(Finding("hot-range", f["item"],
+                               f["severity"], f["value"], f["details"]))
+    return out
 
 
 @rule("range-split-advisory", "info",
@@ -617,8 +732,12 @@ def _r_hot_range(ctx: InspectionContext) -> list[Finding]:
       "sampled key); advisory only — add it to ranges.split-points "
       "to act on it")
 def _r_range_split_advisory(ctx: InspectionContext) -> list[Finding]:
-    # the heat plane is off
-    return []
+    out = []
+    for f in ctx.heat_findings:
+        if f["rule"] == "range-split-advisory":
+            out.append(Finding("range-split-advisory", f["item"],
+                               f["severity"], f["value"], f["details"]))
+    return out
 
 
 # ---- the engine -------------------------------------------------------------

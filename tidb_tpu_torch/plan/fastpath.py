@@ -20,9 +20,10 @@ understand (partitions, views, unique secondary indexes on INSERT,
 expressions beyond simple row-local arithmetic, bindings in force)
 returns None and the unchanged slow path answers.
 
-Port of `tidb_tpu/plan/fastpath.py`. The reference also runs point reads
-under the execution admission gate and the keyspace heatmap; the port
-has neither plane, so execution goes straight to the transaction.
+Port of `tidb_tpu/plan/fastpath.py`. A point read that finds its row is
+noted on the keyspace heatmap (`storage.heat.note_read`), as in the
+reference. The reference also runs point reads under the execution
+admission gate; the port's execution goes straight to the transaction.
 """
 
 from __future__ import annotations
@@ -492,6 +493,14 @@ def _exec_get(session, fp: FastPlan):
 
     txn = session._ensure_txn()
     handle, row = _lookup_row(session, fp, txn)
+    heat = getattr(session.storage, "heat", None)
+    if heat is not None and heat.enabled and row is not None:
+        # OLTP point reads land on the keyspace heatmap by record key
+        # (bytes ~ column count: physical width is not rematerialized
+        # on this path, and the heat plane wants relative skew)
+        from ..kv import tablecodec
+        heat.note_read(tablecodec.record_key(fp.info.id, int(handle)),
+                       rows=1, nbytes=8 * fp.info.num_columns)
     rows: list[tuple] = []
     if row is not None:
         store = session.storage.table_store(fp.info.id)

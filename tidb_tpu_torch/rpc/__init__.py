@@ -28,7 +28,11 @@ Layers (as in the reference):
 * netfault.py — the network fault plane (`net/*` failpoints) hooked
   into frame.py's send/recv.
 
-Left out, with its item of ROADMAP queue 1: the range plane (5c).
+* ranged.py — range-sharded write leadership: the range directory
+  (table, grants, terms, the split journal), per-range leaders with
+  their own WALs and closed timestamps, the RangeServer's `range_*`
+  percolator handlers behind a fencing gate, online splits, the
+  heat-driven auto-split actuator, and the RangePlane a Storage arms.
 
 Unlike the reference, the serving loops here survive only the errors
 they are meant to survive: the port's own RPC, KV, transaction and

@@ -1,8 +1,9 @@
 """Cluster diagnostics plane: per-server diag endpoints + RPC fan-out.
 
-Port of `tidb_tpu/rpc/diag.py`. The methods over planes the port does
-not have answer `NotInSlice` naming their item of ROADMAP queue 1:
-`diag_hot_ranges` (5c), `diag_mesh_shards` and `diag_mesh_storage` (8).
+Port of `tidb_tpu/rpc/diag.py`, with the range plane's `type='range'`
+rows of cluster_info and `diag_hot_ranges`. The methods over the plane
+the port does not have answer `NotInSlice` naming its item of ROADMAP
+queue 1: `diag_mesh_shards` and `diag_mesh_storage` (8).
 The fan-out degrades a member to an error row only for
 `errors.survivable()` errors; any other error in a worker is re-raised
 in the querying thread after the join.
@@ -100,8 +101,21 @@ class DiagService:
             *self._replica_cols(),
             None, None, None, None, None, None, None, None,
         ]]
-        # the reference adds one type='range' row per range this member
-        # leads: the range plane (item 5c) is not ported, so none
+        # one type='range' row per range whose write leadership this
+        # member currently holds ([ranges] disabled adds nothing);
+        # the trailing four are the keyspace heat plane's lifetime
+        # traffic columns (zeros while [heatmap] is disabled)
+        plane = getattr(self.storage, "ranges", None)
+        if plane is not None:
+            for d in plane.server.describe():
+                rows.append(["range", None, None, None, None, None,
+                             None, None, None,
+                             int(d["range_id"]), str(d["leader"]),
+                             int(d["term"]), int(d["closed_ts"]),
+                             int(d.get("read_rows", 0)),
+                             int(d.get("read_bytes", 0)),
+                             int(d.get("write_rows", 0)),
+                             int(d.get("write_bytes", 0))])
         return {"rows": rows}
 
     def _replica_cols(self) -> list:
@@ -170,9 +184,11 @@ class DiagService:
         return {"rows": self.storage.obs.waitprofile.table_rows()}
 
     def diag_hot_ranges(self) -> dict:
-        """This server's keyspace heat matrix: item 5c."""
-        raise NotInSlice("diag_hot_ranges: the keyspace heat plane "
-                         "(ROADMAP queue 1 item 5c)")
+        """This server's keyspace heat matrix, row-shaped for
+        information_schema.tidb_hot_ranges (the cluster_hot_ranges
+        fan-out adds instance/error). Empty — with zero recorder
+        work — while [heatmap] is disabled."""
+        return {"rows": self.storage.heat.table_rows()}
 
     def diag_mesh_shards(self) -> dict:
         """This server's mesh dispatch ring: item 8."""

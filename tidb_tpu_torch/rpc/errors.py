@@ -60,7 +60,7 @@ class StaleTermError(RPCError):
 
 class NotLeaderError(RPCError):
     """The addressed server does not (or no longer) lead the range the
-    request named (the range plane, item 5c)."""
+    request named (the range plane, `rpc/ranged.py`)."""
 
     errno = ER_WRITE_CONFLICT
     sqlstate = "40001"
@@ -68,7 +68,7 @@ class NotLeaderError(RPCError):
 
 class EpochNotMatchError(RPCError):
     """The request's range epoch is older than the server's routing
-    table (the range plane, item 5c)."""
+    table (the range plane, `rpc/ranged.py`)."""
 
     errno = ER_WRITE_CONFLICT
     sqlstate = "40001"

@@ -9,8 +9,8 @@ WAL records are raw byte strings that JSON would force through base64.
 Supported values: None, bool, int (arbitrary precision — timestamps are
 physical_ms<<18), float, bytes, str, list, dict (any supported value as
 key). The network fault plane (`rpc/netfault.py`) hooks `send_frame` and
-`recv_frame`; the range routing context comes with item 5c of ROADMAP
-queue 1.
+`recv_frame`. Every range-addressed request carries the range routing
+context (`RANGE_KEY`, `make_range_ctx`, `get_range_ctx`).
 """
 
 from __future__ import annotations
@@ -203,6 +203,33 @@ def parse_addr(addr) -> tuple[int, Any]:
     return socket.AF_INET, (host or "127.0.0.1", int(port))
 
 
+# ---- range routing context --------------------------------------------------
+# Every range-addressed request carries this key: the client's cached
+# view of (range id, routing-table epoch, leadership term). The server
+# gates on it BEFORE touching data — a mismatch answers typed
+# (EpochNotMatchError / NotLeaderError / StaleTermError) so stale
+# routing can never produce a silently wrong result (reference: the
+# kvrpcpb.Context every TiKV request carries — region_id, region_epoch,
+# peer — checked by raftstore before proposing).
+RANGE_KEY = "rc"
+
+
+def make_range_ctx(range_id: int, epoch: int, term: int) -> dict:
+    return {"range_id": int(range_id), "epoch": int(epoch),
+            "term": int(term)}
+
+
+def get_range_ctx(params) -> Any:
+    """The request's range context, or None when absent/malformed."""
+    if not isinstance(params, dict):
+        return None
+    rc = params.get(RANGE_KEY)
+    if isinstance(rc, dict) and "range_id" in rc:
+        return rc
+    return None
+
+
 __all__ = ["FrameError", "encode", "decode", "send_frame", "recv_frame",
            "parse_addr", "MAX_FRAME", "TRACE_KEY", "make_trace_ctx",
-           "get_trace_ctx"]
+           "get_trace_ctx", "RANGE_KEY", "make_range_ctx",
+           "get_range_ctx"]

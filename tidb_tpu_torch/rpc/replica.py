@@ -41,7 +41,8 @@ reference catches every exception (the membership read of
 or CUDA error in serving is not answered over the wire: the diag
 listener keeps it and its `close()` re-raises it, and the router sees a
 dropped connection. The range gate (`_range_spans`, `_range_gate`) is
-the reference's: without a range plane (item 5c of ROADMAP queue 1) it
+the reference's: it reads the range plane's published closed
+timestamps (`RangePlane.closed_over`), and without a plane armed it
 returns None, as the reference's does with `[ranges]` off.
 
 Routing is observable end to end: the decision lands in the statement's

@@ -14,10 +14,10 @@ RPC tier, `--shared` a sibling over a shared `--path`. A follower with
 `election-timeout-ms` above 0 (the default, 10000) runs the failover
 watcher and, when it wins an election, serves coordination RPC on
 `promote-listen`; `--device` also places the sessions a follower serves
-routed replica reads on. Knobs of planes the port does not have raise
-`NotInSlice` at startup: `[analysis] lock-check` (item 6), `[mesh]`
-(item 8), `[heatmap]` and `[ranges]` away from their defaults (item
-5c).
+routed replica reads on. Startup and SIGHUP seed `[heatmap]` and
+`[ranges]` as the reference does. Knobs of planes the port does not have
+raise `NotInSlice` at startup: `[analysis] lock-check` (item 6) and
+`[mesh]` (item 8).
 
 Counterpart of the reference's tidb-server binary (reference:
 tidb-server/main.go:160 — flag parsing :76-151, config load + flag

@@ -23,18 +23,24 @@ Routes:
   /debug/inspection  every inspection rule over the live telemetry:
       findings + per-rule summary (JSON)
   /debug/history  the workload-history plane (JSON)
+  /debug/keyviz  the keyspace heat plane ([heatmap] knobs): the time x
+      range traffic matrix, per-range totals, an ASCII heatmap and the
+      current hot-range / split-advisory findings (JSON; knobs only
+      while heatmap.enabled is false)
   /debug/replicas  the follower read tier: router knobs, per-member
     serving/closed-timestamp state, the local apply engine, and the
     routed-read outcome counters (JSON)
 
 The routes of planes the port does not have answer 501 with a JSON body
 naming the ROADMAP queue item that ports them: /debug/mesh (item 8),
-/debug/keyviz (item 5c), /debug/lockgraph (item 6). The /status
-sections of those planes (`ranges`, `mesh`) are left out; `transport`
+/debug/lockgraph (item 6). The /status section of the mesh plane is
+left out; `ranges` (the range table and the hosted ranges, while
+[ranges] is armed) and `transport`
 (the storage's `transport_health`: mode, peer, breaker, members,
 failover, replica apply) is served. Where the reference's handlers catch
 every exception around a reader (the mesh section, the inspection
-section and payload, the history payload, the replicas payload), the
+section and payload, the history payload, the replicas payload, the
+keyviz payload), the
 port does not: a reader's fault fails that request with its traceback
 instead of answering with an error payload.
 """
@@ -54,7 +60,6 @@ from .. import obs
 # (plane, ROADMAP queue 1 item)
 UNPORTED_ROUTES = {
     "/debug/mesh": ("the multi-device plane", 8),
-    "/debug/keyviz": ("the keyspace heat plane", "5c"),
     "/debug/lockgraph": ("the concurrency analysis plane", 6),
 }
 
@@ -166,6 +171,17 @@ class StatusServer:
                     body = json.dumps(outer.sql_server.storage.history
                                       .debug_payload()).encode()
                     ctype = "application/json"
+                elif self.path.startswith("/debug/keyviz"):
+                    if outer.sql_server is None:
+                        self._bare(404)
+                        return
+                    # keyspace heat plane: knobs, the time x range
+                    # traffic matrix, per-range totals, the ASCII
+                    # heatmap rendering, and the current hot-range /
+                    # split-advisory findings
+                    body = json.dumps(outer.sql_server.storage.heat
+                                      .debug_payload()).encode()
+                    ctype = "application/json"
                 elif self.path.startswith("/debug/replicas"):
                     if outer.sql_server is None:
                         self._bare(404)
@@ -198,8 +214,8 @@ class StatusServer:
         self._thread: Optional[threading.Thread] = None
 
     def status(self, server_obs) -> dict:
-        """The /status JSON: the reference's sections but those of the
-        planes the port does not have (ranges, mesh)."""
+        """The /status JSON: the reference's sections but the mesh
+        plane's."""
         from . import conn as _conn
         srv = self.sql_server
         status = {
@@ -214,6 +230,12 @@ class StatusServer:
             # + governor limit/usage/kills
             status["admission"] = srv.storage.admission.stats()
             status["governor"] = srv.storage.governor.stats()
+            # range-sharded write leadership: the range table plus every
+            # range this process leads (id, term, closed_ts) — absent
+            # while [ranges] is disabled
+            plane = srv.storage.ranges
+            if plane is not None:
+                status["ranges"] = plane.status()
         # top digests by device time from the continuous attribution
         # plane (empty while topsql disabled)
         status["top_sql"] = {

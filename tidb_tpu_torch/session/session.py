@@ -299,6 +299,8 @@ class Session:
         `mesh.client_for`; the port has one device)."""
         if self._cop is None:
             self._cop = CopClient(self._device)
+            # the keyspace heat recorder: scans account per-range traffic
+            self._cop.heat = getattr(self.storage, "heat", None)
             self.storage.add_cache_client(self._cop)
         return self._cop
 

@@ -47,9 +47,15 @@ watcher (`rpc/failover.py`): on leader loss it elects, and the winner
 (`rpc/replica.py`) on pooled internal sessions on `device` (None: the
 card), holding the read's timestamp with `pin_snapshot_ts`.
 
-Left out, with the planes they belong to: the range plane and the
-keyspace heat plane (item 5c), the lock-order checker around `infoschema_lock` (item 6) and the
-epoch listeners of the mesh plane (item 8). GLOBAL plan bindings (`bindings`,
+The keyspace heat plane (`heat`, `obs_heat.RangeHeatRecorder`, off until
+configured) is fed by the committer over local regions, the coprocessor
+clients of the sessions and the point fast path; `arm_ranges` starts the
+range plane (`ranges`, `rpc/ranged.RangePlane`) on a durable local store,
+and `close()` closes it, re-raising an error its lease loop kept.
+
+Left out, with the planes they belong to: the lock-order checker around
+`infoschema_lock` (item 6) and the epoch listeners of the mesh plane
+(item 8). GLOBAL plan bindings (`bindings`,
 `session/bindinfo.py`) ride the meta keyspace.
 
 The observability planes live here as in the reference: `obs` (the
@@ -196,6 +202,10 @@ class Storage:
         self.diag_listener = None
         self.device = device
         self.failover = None
+        # range-sharded write leadership (rpc/ranged.py RangePlane);
+        # None until [ranges] arms it — the statement path never reads
+        # this attribute, so disabled costs exactly nothing
+        self.ranges = None
         # True while promote_to_leader is mid-flight: diag_election
         # reports the transitional role so peer voters HOLD their
         # election open instead of dropping us from the electorate
@@ -292,6 +302,13 @@ class Storage:
         self.history = WorkloadHistory(path=path,
                                        metrics=self.obs.metrics,
                                        events=self.obs.events)
+        # keyspace heat plane (obs_heat.py): per-range traffic matrix +
+        # hot-range detection + split advisories. Same zero-work-while-
+        # disabled contract as Top SQL / history; [heatmap] config or
+        # embedded callers arm it via heat.configure(enabled=True).
+        from ..obs_heat import RangeHeatRecorder
+        self.heat = RangeHeatRecorder(metrics=self.obs.metrics,
+                                      events=self.obs.events)
         # commit-time cap over a txn's ENCODED mutation bytes
         # (performance.txn-total-size-limit; 0 disables) — enforced in
         # commit() with ER_TXN_TOO_LARGE
@@ -358,7 +375,8 @@ class Storage:
             self.tso = TimestampOracle(floor=self._tso_lease)
         self.rm = RegionManager(self.kv)
         self.committer = TwoPhaseCommitter(self.rm, self.tso,
-                                           events=self.obs.events)
+                                           events=self.obs.events,
+                                           heat=self.heat)
         if self._rpc_client is not None:
             self._rpc_client.events = self.obs.events
         # group-commit event throttle (_note_group_commit)
@@ -977,6 +995,44 @@ class Storage:
             return {"mode": "shared-dir", "node_id": self.coord.node_id}
         return {"mode": "local"}
 
+    # ---- range-sharded write leadership (rpc/ranged.py) ---------------------
+    def arm_ranges(self, enabled: bool = False, count: int = 1,
+                   split_points=(), lease_ms: int = 1000,
+                   resolve_ttl_ms: int = 3000,
+                   listen: str = "127.0.0.1:0",
+                   auto_split: bool = False,
+                   split_cooldown_ms: int = 10000,
+                   max_auto_splits: int = 4) -> None:
+        """Start the range plane to match the [ranges] settings (called
+        from Config.seed_ranges on startup/SIGHUP). lease-ms,
+        resolve-ttl-ms and the auto-split actuator knobs reload live;
+        enabling/disabling or reshaping the table needs a restart (the
+        table is durable, first writer wins). Only a durable local
+        store can host range leaders — followers and in-memory stores
+        route to one that does."""
+        if self.ranges is not None:
+            if enabled:
+                self.ranges.set_knobs(
+                    lease_ms=lease_ms, resolve_ttl_ms=resolve_ttl_ms,
+                    auto_split=auto_split,
+                    split_cooldown_ms=split_cooldown_ms,
+                    max_auto_splits=max_auto_splits)
+            return
+        if not enabled or self.remote or self.path is None:
+            return
+        from ..rpc.ranged import RangePlane
+        self.ranges = RangePlane(self, count=count,
+                                 split_points=split_points,
+                                 lease_ms=lease_ms,
+                                 resolve_ttl_ms=resolve_ttl_ms,
+                                 listen=listen,
+                                 auto_split=auto_split,
+                                 split_cooldown_ms=split_cooldown_ms,
+                                 max_auto_splits=max_auto_splits)
+        # the heat matrix resolves against the authoritative table the
+        # plane just bootstrapped (first writer wins; re-seed adopts)
+        self.heat.set_specs(self.ranges.server.specs)
+
     def arm_replica_read(self) -> None:
         """Start or stop the continuous apply engine to match the
         replica-read settings (called from __init__ and from
@@ -1090,7 +1146,8 @@ class Storage:
                 + (_TSO_LEASE_MS << 18)
             self.tso = SharedTSO(self.path, floor=floor)
             self.committer = TwoPhaseCommitter(self.rm, self.tso,
-                                               events=self.obs.events)
+                                               events=self.obs.events,
+                                               heat=self.heat)
             # 6. owner elections are kernel flocks on our dir
             self.ddl_owner = owner_manager(self.path, "ddl")
             self.gc_owner = owner_manager(self.path, "gc")
@@ -1149,13 +1206,15 @@ class Storage:
         halfway through the teardown) and its apply engine, deregisters and closes its diag listener, then its RPC
         client (and the heartbeat); a leader closes its RPC server.
         Every thread they started is joined. Then: the metrics-history
-        sampler and the maintenance worker are joined, the live
+        sampler, the maintenance worker and the range plane (its lease
+        loop, listener and range leaders) are closed and joined, the live
         workload-history window persisted, the store checkpointed
         (epochs + KV snapshot, WAL truncated, sequence cursors; a shared
         WAL is never truncated) and the engine's files, the TSO and the
         owner locks released. An error a serving thread kept (the apply
         loop, an RPC handler) or that ended the maintenance loop is
-        re-raised after the store is closed."""
+        re-raised after the store is closed, as is one the range plane's
+        lease loop kept."""
         from ..rpc.diag import close_peer_clients
         from ..rpc.errors import RPCError
         errors: list = []
@@ -1197,6 +1256,9 @@ class Storage:
         try:
             if self._maintenance is not None:
                 keep(self._maintenance.stop)
+            if self.ranges is not None:
+                rp, self.ranges = self.ranges, None
+                keep(rp.close)
         finally:
             if self.rpc_server is not None:
                 keep(self.rpc_server.close)

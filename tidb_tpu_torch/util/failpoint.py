@@ -39,6 +39,19 @@ The port wires the reference's sites in the planes it has:
     net/delay, net/drop,         rpc/netfault.py, the per-peer schedules
     net/dup, net/partition       of the network fault plane, read by
                                  the frame hooks of rpc/frame.py
+    range/before-prewrite-ack    rpc/ranged.py, a prewrite applied, its
+                                 ack not sent (a leader-kill site)
+    range/before-commit-ack      rpc/ranged.py, a commit applied, its ack
+                                 not sent
+    range/lease-drop             rpc/ranged.py, a forced lease release
+                                 (value: a range id, or true for all)
+    range/auto-split             rpc/ranged.py, the actuator about to run
+                                 an advised split
+    range/split-before-meta-commit   the split journal written, the
+                                     range table not yet
+    range/split-after-meta-commit    the table committed, the child empty
+    range/split-mid-wal-partition    the child's WAL half written
+    range/split-before-parent-retire the child ready, the parent whole
     storage/mid-checkpoint       store/storage.py, after each epoch file
                                  a checkpoint persists
     storage/before-fold          store/storage.py, KV committed, the
@@ -49,10 +62,9 @@ The port wires the reference's sites in the planes it has:
     twopc/after-primary-commit
 
 and the rpc, diag and replica sites of the socket tier (`rpc/client.py`,
-`rpc/diag.py`, `rpc/apply.py`). The sites of planes not yet ported
-(range, mesh) wait with them, and so does the reference's declared-site
-registry (read by its static analysis). Arming-change listeners
-(`on_change`) run after every enable or disable: the network fault plane
+`rpc/diag.py`, `rpc/apply.py`). The site of the plane not yet ported
+(mesh) waits with it; `DECLARED` lists every site the port has.
+Arming-change listeners (`on_change`) run after every enable or disable: the network fault plane
 keeps its one hot-path flag with them. Armed points and their hit counts are
 listed on the status port at /debug/failpoints (`snapshot()`).
 """
@@ -83,6 +95,52 @@ def on_change(cb) -> None:
 def _notify() -> None:
     for cb in list(_listeners):
         cb()
+
+
+# The declared registry: every inject() site in tidb_tpu_torch/ names one
+# of these, and every name a test arms (context manager, enable(), or a
+# TIDB_TPU_FAILPOINTS env spec) must exist here — an armed point whose
+# inject() site was renamed away silently never fires. The reference's
+# mesh site (mesh/skew) waits with its plane (ROADMAP queue 1 item 8),
+# and the static rule that checks both directions with the analysis
+# plane (item 6).
+DECLARED = frozenset({
+    "daemon/before-gc",            # store/daemon.py GC tick
+    "ddl/before-step",             # ddl/ddl.py job-step boundary
+    "diag/peer-down",              # rpc/diag.py fan-out peer failure
+    "diag/slow-peer",              # rpc/diag.py fan-out latency
+    "governor/mem-pressure",       # util/governor.py synthetic RSS
+    "kv/group-fsync",              # kv/mvcc.py pre-fsync crash site
+    "kv/wal-torn-append",          # kv/mvcc.py torn WAL record
+    "net/delay",                   # rpc/netfault.py per-peer frame
+                                   # delay schedule
+    "net/drop",                    # rpc/netfault.py silent frame loss
+    "net/dup",                     # rpc/netfault.py frame duplication
+    "net/partition",               # rpc/netfault.py sym/asym partition
+    "range/before-commit-ack",     # rpc/ranged.py commit applied,
+                                   # ack not sent (leader-kill site)
+    "range/before-prewrite-ack",   # rpc/ranged.py prewrite applied,
+                                   # ack not sent (leader-kill site)
+    "range/lease-drop",            # rpc/ranged.py forced lease release
+                                   # (value: range id, or true = all)
+    "range/auto-split",            # rpc/ranged.py actuator about to
+                                   # execute an advised split
+    "range/split-before-meta-commit",   # journal written, table not
+    "range/split-after-meta-commit",    # table committed, child empty
+    "range/split-mid-wal-partition",    # child WAL half-written
+    "range/split-before-parent-retire", # child ready, parent whole
+    "replica/apply-stall",         # rpc/apply.py frozen apply loop
+    "rpc/conn-drop",               # rpc/client.py transport chaos
+    "rpc/delay",
+    "rpc/partial-write",
+    "rpc/stale-response",
+    "storage/before-fold",         # store/storage.py commit fold
+    "storage/mid-checkpoint",      # store/storage.py checkpoint crash
+    "twopc/after-prewrite",        # kv/twopc.py percolator phases
+    "twopc/after-primary-commit",
+    "twopc/before-commit-primary",
+    "twopc/before-prewrite",
+})
 
 
 def enable(name: str, value: Any = True) -> None:
@@ -225,5 +283,6 @@ def arm_from_env(spec: Optional[str] = None) -> list[str]:
 arm_from_env()
 
 
-__all__ = ["enable", "disable", "disable_all", "is_enabled", "inject",
-           "hits", "snapshot", "failpoint", "arm_from_env", "on_change"]
+__all__ = ["DECLARED", "enable", "disable", "disable_all", "is_enabled",
+           "inject", "hits", "snapshot", "failpoint", "arm_from_env",
+           "on_change"]
