@@ -367,7 +367,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       (n.toml: the status port, Top SQL, the wait profile, a 1 s metrics
       history, a token limit of 64, the workload history, diagnostics,
       the maintenance worker ticking every second, TLS from the test pair
-      under tests/data/ and PROXY headers required from 127.0.0.1):
+      under tests/data/, PROXY headers required from 127.0.0.1 and the
+      lock-order checker armed from start-up):
       n1. the time to its listening line (the store's reopen and CUDA's
           start-up);
       n2. over TLS with a PROXY v1 header, Q6, Q1 and Q18 equal to h1's
@@ -379,7 +380,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           keys; /debug/topsql holds Q18's digest with device time;
           /debug/trace/<conn> the tree of a TRACE; /debug/replicas the
           router's knobs and outcome counters; /debug/keyviz the heat
-          plane's knobs; /debug/mesh and /debug/lockgraph 501;
+          plane's knobs; /debug/lockgraph the lock-order checker's graph
+          (n.toml arms it: `[analysis] lock-check`); /debug/mesh 501;
       n5. SHOW PROCESSLIST from a second connection (PROXY v2) while the
           first runs SLEEP(2): the proxied hosts and the sleeping
           statement; information_schema.processlist agreeing; a user
@@ -388,6 +390,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           login refused with 3159;
       n7. 300 seeded sbtest UPDATEs, SET GLOBAL tidb_gc_life_time = '1s',
           2.5 s of ticks: sum(k), count(*) and Q6 exact after the GC;
+          then the child's lock-order checker: /debug/lockgraph enabled,
+          the hot locks `Storage._commit_lock`, `Storage.infoschema_lock`,
+          `MVCCStore._mu` (and `NativeOrderedKV._mu` on the native
+          engine) registered, no cycle, no blocking call under a hot
+          lock, no `lock-order-inversion` row in inspection_result; the
+          lock, edge and cycle counts;
       n8. the config rewritten, SIGHUP: the reference's `config reloaded:
           [...]` line, Top SQL off, the flag's token limit kept;
       n9. SIGTERM: `shutting down...` and rc 0; the store reopened in this
@@ -407,7 +415,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           tidb_tpu_torch.server --config o.toml --path <private dir> -P 0
           --status <free port>` (o.toml: `[transport] remote` the
           leader's address, `election-timeout-ms = 0`, a 3 s backoff
-          budget), on the card, the time to its listening line; while it
+          budget, `[analysis] lock-check` armed), on the card, the time to
+          its listening line; while it
           starts, a shared-directory sibling `Storage(<store>,
           shared=True)` with a card `Session` in this process;
       o2. on the leader, `o_li` (lineitem's columns) filled by INSERT ...
@@ -432,7 +441,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       o5. on the leader, information_schema.cluster_info with the
           reference's columns lists the follower, cluster_load carries
           its device rows (the bytes it uploaded > 0); the follower's
-          /status carries its `transport` section;
+          /status carries its `transport` section; the follower's
+          lock-order checker as n7 reads the child's;
       o6. the leader closed: the follower's next read answers the last
           replicated state, its next write 9001 within o.toml's budget;
           SIGTERM: `shutting down...` and rc 0; the sibling closed. Each
@@ -2375,6 +2385,8 @@ run-interval = "1s"
 ssl-cert = "{cert}"
 ssl-key = "{key}"
 proxy-protocol-networks = "127.0.0.1"
+[analysis]
+lock-check = true
 """
 N_TOKENS = 16  # --token-limit: beats the file's 64, kept at the SIGHUP
 N_V1 = "203.0.113.7"
@@ -2402,8 +2414,17 @@ N_ROUTES = {
     # the keyspace heat plane: its knobs while [heatmap] is off
     "/debug/keyviz": {"enabled", "bucket_seconds", "ring_buckets",
                       "hot_ratio", "sustained_buckets", "key_sample_cap"},
+    # the lock-order checker, armed by [analysis] lock-check
+    "/debug/lockgraph": {"enabled", "locks", "edges", "cycles", "blocking",
+                         "held"},
 }
-N_UNPORTED = ("/debug/mesh", "/debug/lockgraph")
+N_UNPORTED = ("/debug/mesh",)
+# the hot locks every armed server child creates (the native engine's
+# store mutex too, where the store runs on it)
+LOCK_HOT = ("Storage._commit_lock", "Storage.infoschema_lock",
+            "MVCCStore._mu")
+LOCK_INVERSION_SQL = ("select * from information_schema.inspection_result "
+                      "where rule = 'lock-order-inversion'")
 
 
 def _proxy_v1(src: str) -> bytes:
@@ -2452,6 +2473,32 @@ def _n_counts(port: int) -> tuple:
     return int(lookups), int(frag)
 
 
+def _lockgraph(label: str, status: int, conn, hot: tuple) -> None:
+    """An armed child's lock-order checker, read after its reads and
+    writes: /debug/lockgraph enabled, `hot` registered as hot locks, no
+    cycle and no blocking call under a hot lock, and no
+    lock-order-inversion row in inspection_result over `conn`; prints
+    the lock, edge and cycle counts."""
+    import json as _json
+    code, body = _http(status, "/debug/lockgraph")
+    g = _json.loads(body) if code == 200 else {}
+    locks = {x["name"]: x["hot"] for x in g.get("locks", ())}
+    missing = [n for n in hot if locks.get(n) is not True]
+    rows = conn.query(LOCK_INVERSION_SQL)
+    if code != 200 or g["enabled"] is not True or missing or \
+            g["cycles"] or g["blocking"] or rows:
+        raise SystemExit(f"{label}: /debug/lockgraph answered {code}, "
+                         f"enabled {g.get('enabled')}, hot locks missing "
+                         f"{missing}, cycles {g.get('cycles')}, blocking "
+                         f"{g.get('blocking')}; lock-order-inversion rows "
+                         f"{rows}")
+    hot_now = sorted(n for n, h in locks.items() if h)
+    print(f"  {label}: /debug/lockgraph armed: {len(locks)} locks "
+          f"({len(hot_now)} hot: {hot_now}), {len(g['edges'])} edges "
+          f"{[(e['held'], e['acquired'], e['count']) for e in g['edges']]}"
+          f", 0 cycles, 0 blocking events; no lock-order-inversion row")
+
+
 def _n_connect(mc, port: int, preamble: bytes, **kw):
     return mc.MiniClient("127.0.0.1", port, use_ssl=True, preamble=preamble,
                          **kw)
@@ -2467,6 +2514,7 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
 
     from tidb_tpu_torch.kv import mvcc as MV
     from tidb_tpu_torch.kv import tablecodec as TC
+    from tidb_tpu_torch.kv.native import native_available
     from tidb_tpu_torch.obs import StatementsSummary
     from tidb_tpu_torch.store.storage import Storage
 
@@ -2621,6 +2669,9 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
         print(f"  n7: {acked} UPDATEs acknowledged, then "
               f"tidb_gc_life_time = '1s' and 2.5 s of 1 s ticks; sum(k), "
               f"count(*) = {got} and Q6 exact after the GC's fold")
+        # the child's lock-order checker after its reads and writes
+        _lockgraph("n7", status, a, LOCK_HOT + (
+            ("NativeOrderedKV._mu",) if native_available() else ()))
         root_c.close()
         lookups, _ = _n_counts(status)
         # 8. SIGHUP: the reloadable knobs the flag did not pin
@@ -2708,6 +2759,8 @@ election-timeout-ms = 0
 connect-timeout-ms = 1000
 backoff-budget-ms = {budget}
 lease-ms = 2000
+[analysis]
+lock-check = true
 """
 O_BUDGET_MS = 3000
 # o_li's rows through the KV: lineitem's first orders by l_orderkey, in
@@ -3004,6 +3057,9 @@ def _part_o(args, tmp: str, path: str, mc, h1: dict, d1) -> dict:
               f"the follower's /status transport mode "
               f"{st['transport']['mode']}, {len(st['transport']['members'])}"
               f" members, breaker {st['transport']['breaker']}")
+        # the follower's lock-order checker after its reads, the fenced
+        # commit and the KILL
+        _lockgraph("o5", status, fc, LOCK_HOT)
         mark("o5")
         # o6. the leader gone: stale reads, 9001 on writes, SIGTERM
         server.close()

@@ -7,7 +7,8 @@ same precedence and CLI pins, hot-reloads the same subset and seeds the
 same sysvars. `EXAMPLE` and `--print-example-config` are byte-equal to
 `config.toml.example`. Then the port's own rule: a knob of a plane the
 port does not have loads as in the reference, does nothing at its
-default and raises `NotInSlice` naming its queue item otherwise.
+default and raises `NotInSlice` naming its queue item otherwise; the
+knobs of planes ported since act as the reference's do.
 Tolerance: none.
 """
 
@@ -325,12 +326,13 @@ range-aware = true
 ])
 def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
     """The knob loads as in the reference. For a plane the port does not
-    have, its seed (or, for the lock checker, the entry point before the
-    store opens) does nothing at the defaults and raises NotInSlice,
+    have, its seed does nothing at the defaults and raises NotInSlice,
     naming the queue item, otherwise. The knobs of the range and heat
     planes (item 5c, ported since) seed both packages' durable stores
     alike: the heat plane's knobs, the range thresholds and the armed
-    range plane (its table, knobs and hosted ranges) compared."""
+    range plane (its table, knobs and hosted ranges) compared. The lock
+    checker's knob (item 6, ported since) arms each package's checker
+    in its entry point before the store opens."""
     path = _write(tmp_path, text)
     _same_fields(RC.Config.load(path), PC.Config.load(path))
     if item == "5c":
@@ -346,14 +348,45 @@ def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
         assert states[1] == states[0]
         return
     if seed == "main":
-        with pytest.raises(NotInSlice) as e:
-            PM.main(["--config", path, "--device", "cpu"])
-    else:
-        args = () if seed == "seed_mesh" else (Storage(),)
-        getattr(PC.Config(), seed)(*args)
-        with pytest.raises(NotInSlice) as e:
-            getattr(PC.Config.load(path), seed)(*args)
+        assert _armed_before_the_store_opens(RM, path) is True
+        assert _armed_before_the_store_opens(
+            PM, path, "--device", "cpu") is True
+        return
+    args = () if seed == "seed_mesh" else (Storage(),)
+    getattr(PC.Config(), seed)(*args)
+    with pytest.raises(NotInSlice) as e:
+        getattr(PC.Config.load(path), seed)(*args)
     assert f"item {item})" in e.value.reason
+
+
+class _StoreOpened(Exception):
+    pass
+
+
+def _armed_before_the_store_opens(main_mod, path, *flags):
+    """Whether the entry point had armed its package's lock checker when
+    it constructed the store (the stand-in store stops the start)."""
+    lockcheck = __import__(
+        main_mod.__name__.rsplit(".", 2)[0] + ".analysis.lockcheck",
+        fromlist=["lockcheck"])
+    was = lockcheck.enabled()
+    seen = []
+
+    def store(*a, **kw):
+        seen.append(lockcheck.enabled())
+        raise _StoreOpened()
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(main_mod, "Storage", store)
+    try:
+        with pytest.raises(_StoreOpened):
+            main_mod.main(["--config", path, "-P", "0", *flags])
+    finally:
+        mp.undo()
+        if not was:
+            lockcheck.disable()
+            lockcheck.reset()
+    return seen[0]
 
 
 def _plane_state(st) -> dict:

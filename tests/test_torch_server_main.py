@@ -14,8 +14,8 @@ process) with every acknowledged row. Both reject a bad file with the
 same `invalid configuration:` line and exit 1, and print the same
 example config. The
 port alone: without a card and without `--device cpu` it fails (no
-listening line), and a knob of a plane not ported (the lock-order
-checker) raises `NotInSlice`. Every child is terminated and waited
+listening line), and a knob of a plane not ported (the mesh) raises
+`NotInSlice`. Every child is terminated and waited
 for. Tolerance: none.
 """
 
@@ -236,12 +236,12 @@ def test_print_example_config_byte_equal():
 @pytest.mark.parametrize("args,config,needle", [
     (["-P", "0"], None, "CUDA device requested"),
     (["-P", "0", "--device", "cpu", "--shared"],
-     "[analysis]\nlock-check = true\n", "NotInSlice"),
+     "[mesh]\naxis-size = 2\n", "NotInSlice"),
 ], ids=["no-card", "shared"])
 def test_port_refuses_to_start(args, config, needle, tmp_path):
     """Without a card the default device fails the start (nothing moves
-    to the CPU on its own); a shared sibling with the lock-order checker
-    on (the concurrency analysis plane, item 6) is not in this slice."""
+    to the CPU on its own); a shared sibling with the mesh knobs set (the
+    multi-device plane, item 8) is not in this slice."""
     if config is not None:
         path = tmp_path / "c.toml"
         path.write_text(config)

@@ -33,7 +33,15 @@ the obs-backed information_schema tables but `statements_summary` and
 `slow_query`, `metrics_schema`.
 """
 
-from .device import resolve_device
 from .errors import NotInSlice
 
 __all__ = ["NotInSlice", "resolve_device"]
+
+
+def __getattr__(name):
+    # lazy: importing the package (the analysis CLI, the config loader)
+    # must not import torch; `resolve_device` loads it at first use
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

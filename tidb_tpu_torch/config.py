@@ -17,8 +17,9 @@ Some knobs belong to planes the port does not have yet. They load and
 validate as in the reference, and at their defaults they do nothing; set
 to anything else, the seed that would apply them raises `NotInSlice`
 naming the queue item that ports the plane: `[mesh]` and
-`diagnostics.skew-min-dispatches` (item 8). The entry point checks
-`[analysis] lock-check` (item 6) before it opens the store.
+`diagnostics.skew-min-dispatches` (item 8). The entry point arms
+`[analysis] lock-check` (the lock-order checker) before it opens the
+store.
 `[heatmap]`, `[ranges]` (through `Storage.arm_ranges`), `[replica-read]`
 and the range plane's diagnostics thresholds are seeded whole.
 `rpc_options` hands the `[transport]` knobs to the RPC tier.
@@ -335,9 +336,10 @@ class RangesConfig:
 
 @dataclass
 class AnalysisConfig:
-    """The `[analysis]` TOML section: the concurrency-analysis plane (the
-    reference's analysis/, not ported). Its static half runs offline and
-    needs no config; this section arms the DYNAMIC half."""
+    """The `[analysis]` TOML section: the concurrency-analysis plane
+    (tidb_tpu_torch/analysis/). Its static half runs offline
+    (`python -m tidb_tpu_torch.analysis`) and needs no config; this
+    section arms the DYNAMIC half."""
 
     # instrument long-lived subsystem locks at creation and feed the
     # process-wide lock-order graph (cycles -> the lock-order-inversion

@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 from .. import obs
+from ..analysis import lockcheck
 from ..util import failpoint
 from .codec import encode_uint_desc
 
@@ -109,7 +110,7 @@ class SyncPolicy:
         self.policy = policy
         self.interval_ms = interval_ms
         self._fsync = fsync
-        self._lock = threading.Lock()
+        self._lock = lockcheck.lock("SyncPolicy._lock")
         self._last = 0.0
         self._dirty = False
         self._timer = None
@@ -216,6 +217,10 @@ class SyncPolicy:
         """The sink's fsync as the typed `fsync_wait` (and the
         `wal.fsync` span under TRACE); one slower than `stall_ms`
         reports to `on_stall`."""
+        # dynamic twin of the blocking-call-under-hot-lock rule: a
+        # disk barrier with a hot lock held is a typed finding (one
+        # module-global bool probe when the checker is off)
+        lockcheck.note_blocking("fsync", "SyncPolicy WAL fsync")
         t0 = time.perf_counter()
         with obs.wait("fsync_wait", span_name="wal.fsync"):
             self._fsync()
@@ -455,6 +460,10 @@ class PyOrderedKV:
             # cursor was at EOF when this append started.
             self._applied_off += len(rec)
 
+    def sync_mirror(self) -> None:
+        """The on-disk mirror's deferred fsync of a socket follower's
+        engine (rpc/remote.py); this engine keeps no mirror."""
+
     def refresh(self) -> int:
         """Apply records other processes appended past our cursor
         (shared mode); applied records are also queued on
@@ -674,7 +683,7 @@ class Mutation:
 class MVCCStore:
     def __init__(self, engine=None, coord=None) -> None:
         self.kv = engine if engine is not None else PyOrderedKV()
-        self._mu = threading.RLock()
+        self._mu = lockcheck.rlock("MVCCStore._mu", hot=True)
         # the coordinator of a multi-process deployment: every mutation
         # runs inside its section with the WAL tail caught up, so
         # percolator lock/write records from sibling processes are always

@@ -5,7 +5,9 @@ first use into `build/native/libtidbkv.so` at the root of the checkout
 (a plain C ABI, no pybind11), from the port's own copy of the engine's
 source. `NativeOrderedKV` is interface-identical to mvcc.PyOrderedKV, so
 `MVCCStore(NativeOrderedKV())` swaps the substrate without touching
-percolator logic. The reference's ASan build mode is not ported.
+percolator logic. With `TIDB_TPU_NATIVE_SANITIZE=1` the engine loads its
+ASan/UBSan build instead (`build/native/libtidbkv_asan.so`, the same
+source under `SAN_FLAGS`), which needs libasan preloaded into the process.
 """
 
 from __future__ import annotations
@@ -17,11 +19,24 @@ import threading
 from pathlib import Path
 from typing import Iterator, Optional
 
+from ..analysis import lockcheck
+
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc" / "kvstore.cpp"
 BUILD_DIR = _PKG.parent / "build" / "native"
 _SO = BUILD_DIR / "libtidbkv.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
+# TIDB_TPU_NATIVE_SANITIZE=1: load the ASan/UBSan instrumented build
+# instead. gcc links libasan dynamically into the shared object, so the
+# process must have the runtime preloaded (LD_PRELOAD) — dlopen'ing an
+# ASan object into a clean interpreter fails ("runtime does not come
+# first"); the slow-marked torture test in tests/test_torch_analysis.py
+# spawns a child with the right environment
+SANITIZE_ENV = "TIDB_TPU_NATIVE_SANITIZE"
+_SO_ASAN = BUILD_DIR / "libtidbkv_asan.so"
+SAN_FLAGS = ["-O1", "-g", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+             "-shared", "-fsanitize=address,undefined",
+             "-fno-omit-frame-pointer", "-fno-sanitize-recover=undefined"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -31,18 +46,35 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def _build() -> None:
-    """g++ into a private temporary name, then an atomic rename: processes
-    that build at once (test workers) never load a half-written library."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libtidbkv.{os.getpid()}.{threading.get_ident()}.so"
+def _sanitize_requested() -> bool:
+    # same falsy spellings as lockcheck's env parsing
+    return os.environ.get(SANITIZE_ENV, "") not in ("", "0", "false",
+                                                    "off")
+
+
+def _asan_preloaded() -> bool:
     try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _SO)
+        with open("/proc/self/maps") as f:
+            return "libasan" in f.read()
+    except OSError:
+        return False
+
+
+def _build(so: Optional[Path] = None, flags: Optional[list] = None) -> None:
+    """g++ into a private temporary name, then an atomic rename: processes
+    that build at once (test workers) never load a half-written library.
+    Without arguments, the plain build."""
+    if so is None:
+        so, flags = _SO, CXX_FLAGS
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{so.stem}.{os.getpid()}.{threading.get_ident()}.so"
+    try:
+        subprocess.run(["g++", *flags, "-o", str(tmp), str(_SRC)],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so)
     except (subprocess.CalledProcessError, subprocess.TimeoutExpired,
             OSError) as e:
-        raise NativeUnavailable(f"cannot build {_SO}: {e}") from e
+        raise NativeUnavailable(f"cannot build {so}: {e}") from e
     finally:
         tmp.unlink(missing_ok=True)
 
@@ -52,12 +84,24 @@ def _load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            _build()
+        sanitize = _sanitize_requested()
+        so = _SO_ASAN if sanitize else _SO
+        # an ASan object dlopen'ed without the runtime preloaded ends
+        # the process instead of failing the load: refuse it up front
+        if sanitize and not _asan_preloaded():
+            raise NativeUnavailable(
+                f"cannot load {so.name}: libasan is not loaded — the "
+                "ASan runtime must be preloaded (LD_PRELOAD=$(gcc "
+                "-print-file-name=libasan.so))")
+        if not so.exists() or so.stat().st_mtime < _SRC.stat().st_mtime:
+            if sanitize:
+                _build(_SO_ASAN, SAN_FLAGS)
+            else:
+                _build()
         try:
-            lib = ctypes.CDLL(str(_SO))
+            lib = ctypes.CDLL(str(so))
         except OSError as e:
-            raise NativeUnavailable(f"cannot load {_SO}: {e}") from e
+            raise NativeUnavailable(f"cannot load {so}: {e}") from e
         c = ctypes.c_char_p
         vp = ctypes.c_void_p
         sz = ctypes.c_size_t
@@ -119,9 +163,9 @@ class NativeOrderedKV:
                 raise NativeUnavailable(f"cannot open WAL dir {path}")
         else:
             self._h = self._lib.kv_open()
-        self._mu = threading.Lock()
+        self._mu = lockcheck.lock("NativeOrderedKV._mu", hot=True)
         # fsync-vs-close fence (see _fsync_native); writers never take it
-        self._sync_mu = threading.Lock()
+        self._sync_mu = lockcheck.lock("NativeOrderedKV._sync_mu")
         self._durable = path is not None
         # the same storage.sync-log policy the Python twin honors, via the
         # same evaluator (mvcc.SyncPolicy); the C++ engine exposes one
@@ -147,8 +191,13 @@ class NativeOrderedKV:
         with self._sync_mu:
             with self._mu:
                 h = self._h
-            if h and self._lib.kv_sync(h) != 0:
-                raise OSError("kv_sync: fsync failed")
+            if h:
+                # dynamic blocking probe: fires only if a caller holds
+                # a HOT lock (the store mutex) into this fsync — the
+                # deliberately-held _sync_mu close fence is not hot
+                lockcheck.note_blocking("fsync", "native kv_sync")
+                if self._lib.kv_sync(h) != 0:
+                    raise OSError("kv_sync: fsync failed")
 
     def checkpoint(self) -> None:
         # _sync_mu: kv_checkpoint rotates the C++ WAL FILE*, and the

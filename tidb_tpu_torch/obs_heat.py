@@ -54,19 +54,18 @@ tidb_hot_range_ratio metrics, the hot-range / range-split-advisory
 inspection rules (obs_inspect.py), and heat columns on the /status
 ranges block + cluster_info type='range' rows.
 
-Port of `tidb_tpu/obs_heat.py`, whole. The recorder's lock, which the
-reference declares hot for its lock-order checker (ROADMAP queue 1
-item 6), is a plain `threading.Lock` here. Buckets rotate on
-`time.time()`, as in the reference.
+Port of `tidb_tpu/obs_heat.py`, whole. The recorder's lock is declared
+hot for the lock-order checker (analysis/registry.py HOT_LOCKS). Buckets
+rotate on `time.time()`, as in the reference.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Optional
 
+from .analysis import lockcheck
 from .kv.rangemeta import RangeSpec, locate_spec, split_keyspace
 
 # cell layout: one list per (bucket, range) — indexed, not a dataclass,
@@ -103,9 +102,8 @@ class RangeHeatRecorder:
         self.key_sample_cap = int(self.DEFAULT_KEY_SAMPLE_CAP)
         self.events = events
         # guards ring/totals/samples; every section is pure arithmetic
-        # (HOT_LOCKS-declared in the reference: the commit path holds it
-        # per note; a plain lock until the port's checker, item 6)
-        self._mu = threading.Lock()
+        # (HOT_LOCKS-declared: the commit path holds it per note)
+        self._mu = lockcheck.lock("RangeHeatRecorder._mu", hot=True)
         # the range table the router notes resolve against; a store
         # without an armed range plane is one whole-keyspace range
         self._specs: list[RangeSpec] = split_keyspace(1)

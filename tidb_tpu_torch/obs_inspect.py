@@ -24,7 +24,8 @@ Every rule of the reference is registered under its own name, severity
 and reference text. The rules over planes the port does not have return
 no finding, which is what the reference returns with that plane off:
 mesh-shard-skew, mesh-recompile-storm and mesh-hbm-watermark (no mesh
-client) and lock-order-inversion (the lock checker disabled). The range
+client). lock-order-inversion reads the lock-order checker
+(`analysis/lockcheck.py`) and returns nothing while it is off. The range
 rules (range-leader-flap, range-split-flap, range-closed-ts-stall) read
 the range plane's events and hosted ranges, and the heat rules
 (hot-range, range-split-advisory) the keyspace heat plane's findings,
@@ -659,8 +660,29 @@ def _r_metric_lint(ctx: InspectionContext) -> list[Finding]:
       "or a blocking syscall under a hot lock; /debug/lockgraph has "
       "the edges and sample stacks")
 def _r_lock_order_inversion(ctx: InspectionContext) -> list[Finding]:
-    # the lock-order checker is not ported: disabled
-    return []
+    # reads the PROCESS-wide lock graph, not the snapshot: the checker
+    # is opt-in instrumentation (zero overhead when off), and its
+    # findings are cumulative facts about this process's execution —
+    # exactly what an inspection read should surface
+    from .analysis import lockcheck
+    if not lockcheck.enabled():
+        return []
+    out = []
+    for f in lockcheck.findings():
+        if f["kind"] == "lock-order-inversion":
+            out.append(Finding(
+                "lock-order-inversion", f["item"], "critical", "cycle",
+                f"lock-order cycle observed at runtime: {f['item']} — "
+                f"two threads acquiring these locks in opposite "
+                f"orders can deadlock"))
+        else:  # blocking-under-hot-lock
+            out.append(Finding(
+                "lock-order-inversion", f["item"], "warning",
+                str(f.get("count", 1)),
+                f"blocking syscall with a hot lock held "
+                f"({f['item']}, x{f.get('count', 1)}): every peer of "
+                f"that lock serializes behind the syscall"))
+    return out
 
 
 @rule("plan-regression", "warning",

@@ -105,7 +105,7 @@ class ApplyEngine:
                 # a leader hiccup: the next tick retries
                 self.errors += 1
                 self.last_error = f"{type(e).__name__}: {str(e)[:200]}"
-            except BaseException as e:
+            except Exception as e:
                 self.errors += 1
                 self.last_error = f"{type(e).__name__}: {str(e)[:200]}"
                 self.error = e
@@ -139,6 +139,7 @@ class ApplyEngine:
                 storage.kv.refresh()
                 storage._drain_refresh()
                 eng = storage.kv.kv
+                eng.sync_mirror()
                 off = int(getattr(eng, "_applied_off", 0))
                 if off >= target and closed > self.applied_ts:
                     with self._cv:

@@ -504,7 +504,7 @@ def cluster_rows(storage, tname: str, ncols: int,
             # a member's transport or engine failure degrades to an
             # error row, never fails the query
             results[i] = (None, f"{type(e).__name__}: {e}"[:250])
-        except BaseException as e:
+        except Exception as e:
             kept.append(e)
 
     if len(members) <= 1:

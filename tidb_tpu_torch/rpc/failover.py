@@ -144,7 +144,7 @@ class FailoverManager:
                     self._degraded_since = None
             except survivable() as e:  # the next tick retries
                 self.last_result = f"election error: {e}"[:200]
-            except BaseException as e:
+            except Exception as e:
                 self.last_result = f"election error: {e}"[:200]
                 self.state = "failed"
                 self.error = e

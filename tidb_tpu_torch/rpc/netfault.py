@@ -182,9 +182,20 @@ def _nth_fires(kind: str, idx: int, nth: int) -> bool:
         return n % nth == 0
 
 
+# one literal inject site per kind: the failpoint-registry rule maps
+# DECLARED <-> inject sites textually, and these are the read points the
+# frame hooks below evaluate on every armed operation
+_INJECT = {
+    "net/partition": lambda: failpoint.inject("net/partition"),
+    "net/delay": lambda: failpoint.inject("net/delay"),
+    "net/drop": lambda: failpoint.inject("net/drop"),
+    "net/dup": lambda: failpoint.inject("net/dup"),
+}
+
+
 def _schedule(kind: str) -> list[dict]:
     try:
-        return _rules_of(failpoint.inject(kind))
+        return _rules_of(_INJECT[kind]())
     except Exception:
         # a non-schedule value (exception-armed by mistake) must not
         # corrupt the transport with an unexpected error type

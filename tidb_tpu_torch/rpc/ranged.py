@@ -56,9 +56,8 @@ this tick). Any other error ends the loop and is kept as `error`;
 `RangeServer.close()` re-raises it (after the teardown), and with it
 `RangePlane.close()` and `Storage.close()`. A split that fails before its
 table commits still rolls back and re-raises whatever the error, as the
-reference's does. The locks the reference declares hot for its lock-order
-checker (`RangeServer._mu`, `RangeHeatRecorder._mu`; ROADMAP queue 1
-item 6) are plain `threading` locks here. The close joins the lease
+reference's does. `RangeServer._mu` is declared hot for the lock-order
+checker (analysis/registry.py HOT_LOCKS). The close joins the lease
 thread and, through the listener, every connection thread.
 """
 
@@ -74,6 +73,7 @@ from contextlib import contextmanager
 from typing import Optional
 
 from .. import obs
+from ..analysis import lockcheck
 from ..kv.mvcc import (KVError, KeyIsLockedError, MVCCStore, Mutation,
                        PyOrderedKV, TxnNotFoundError, WriteConflictError,
                        fsync_dir)
@@ -590,10 +590,8 @@ class RangeServer(FrameListener):
         # carry no recorder — see kv/twopc.py)
         self.heat = heat
         # guards the hosted-leader map only — every critical section is
-        # a dict op. The reference declares it in HOT_LOCKS (it sits on
-        # the 2PC data path); the port has no lock-order checker yet
-        # (ROADMAP queue 1 item 6), so it is a plain lock
-        self._mu = threading.Lock()
+        # a dict op; declared in HOT_LOCKS (it sits on the 2PC data path)
+        self._mu = lockcheck.lock("RangeServer._mu", hot=True)
         self._leaders: dict[int, RangeLeader] = {}
         self._closed = False
         fam, target = self._start_listener(listen)
@@ -622,7 +620,7 @@ class RangeServer(FrameListener):
                 if self.events is not None:
                     self.events.record("range_lease_error", str(e),
                                        severity="warning")
-            except BaseException as e:
+            except Exception as e:
                 # not an error the plane survives: keep it for close()
                 with self._conns_mu:
                     if self.error is None:

@@ -66,6 +66,12 @@ class RemoteKV(PyOrderedKV):
         from ..kv.mvcc import SyncPolicy
         self._mirror_sync = SyncPolicy(sync_log, sync_interval_ms,
                                        self._fsync_mirror)
+        # sync-log=commit: appended mirror bytes wait for sync_mirror(),
+        # which the storage runs once the store mutex and the commit lock
+        # are released and before the refresh or commit that appended
+        # them returns (an fsync under either lock would stall every
+        # reader and writer of this follower behind the disk barrier)
+        self._mirror_pending = False
         if mirror_dir is not None:
             import os
             os.makedirs(mirror_dir, exist_ok=True)
@@ -125,6 +131,7 @@ class RemoteKV(PyOrderedKV):
         self._applied_off = 0
         self.refresh()  # the log itself streams via chunked tailing
         self.pending_refresh.clear()  # nothing folded yet; _recover scans
+        self.sync_mirror()
 
     def _replay_bytes(self, data: bytes, queue: bool = True
                       ) -> tuple[int, int]:
@@ -225,6 +232,9 @@ class RemoteKV(PyOrderedKV):
         self._mirror_wal.write(data)
         self._mirror_wal.flush()
         self._mirror_sync.mark_dirty()
+        if self._mirror_sync.policy == "commit":
+            self._mirror_pending = True
+            return
         # mirror durability is promotion-quality, not the ack path
         # (the leader's fsync is) — a failed mirror fsync must not
         # fail replication
@@ -233,7 +243,24 @@ class RemoteKV(PyOrderedKV):
         except OSError:
             pass
 
+    def sync_mirror(self) -> None:
+        """fsync the mirror bytes appended since the last one (commit
+        mode), outside the hot locks. A failed mirror fsync must not
+        fail replication."""
+        if not self._mirror_pending:
+            return
+        self._mirror_pending = False
+        try:
+            self._mirror_sync.flush()
+        except OSError:
+            pass
+
+    def commit_sync(self) -> None:
+        super().commit_sync()
+        self.sync_mirror()
+
     def close(self) -> None:
+        self.sync_mirror()
         self._mirror_sync.close()
         super().close()
         if self._mirror_wal is not None:

@@ -38,6 +38,7 @@ import threading
 import time
 from typing import Any, Optional
 
+from ..analysis import lockcheck
 from ..errno import CodedError
 from .errors import RPCError, StaleLeaseError, StaleTermError, \
     WalOffsetMismatch, traced_response, wire_error
@@ -179,7 +180,7 @@ class FrameListener:
                     return  # torn stream: client reconnects
                 try:
                     resp = self._dispatch(req)
-                except BaseException as e:
+                except Exception as e:
                     # not an error the RPC plane survives: keep it for
                     # close(), drop this connection
                     with self._conns_mu:
@@ -257,7 +258,7 @@ class CoordRPCServer(FrameListener):
         # the server owns the chunk size; clients drive the tail loop
         # off the response's `more` flag, never off their own constant
         self.tail_chunk = tail_chunk
-        self._mu = threading.Lock()
+        self._mu = lockcheck.lock("CoordRPCServer._mu")
         self._clients: dict[str, _Client] = {}
         self._grants: dict[str, _Grant] = {}   # lock name -> grant
         self._lock_fds: dict[str, int] = {}    # lock name -> flock fd

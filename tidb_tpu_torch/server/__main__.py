@@ -15,9 +15,10 @@ RPC tier, `--shared` a sibling over a shared `--path`. A follower with
 watcher and, when it wins an election, serves coordination RPC on
 `promote-listen`; `--device` also places the sessions a follower serves
 routed replica reads on. Startup and SIGHUP seed `[heatmap]` and
-`[ranges]` as the reference does. Knobs of planes the port does not have
-raise `NotInSlice` at startup: `[analysis] lock-check` (item 6) and
-`[mesh]` (item 8).
+`[ranges]` as the reference does. `[analysis] lock-check` arms the
+lock-order checker before the store opens. The knobs of the mesh plane,
+which the port does not have, raise `NotInSlice` at startup (`[mesh]`,
+ROADMAP item 8).
 
 Counterpart of the reference's tidb-server binary (reference:
 tidb-server/main.go:160 — flag parsing :76-151, config load + flag
@@ -208,11 +209,13 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     cfg.apply_log_level()
-    # the knobs of planes the port does not have fail before the store
-    # opens: the lock-order checker, the mesh
+    # [analysis] lock-check arms the dynamic lock-order checker BEFORE
+    # any storage/lock creation — only locks created after enable()
+    # are instrumented (env TIDB_TPU_LOCK_CHECK is the no-config path)
     if cfg.analysis.lock_check:
-        raise NotInSlice("[analysis] lock-check: the concurrency analysis "
-                         "plane (ROADMAP queue 1 item 6)")
+        from ..analysis import lockcheck
+        lockcheck.enable()
+    # the mesh plane's knobs fail before the store opens (not ported)
     cfg.seed_mesh()
     from ..device import resolve_device
     device = resolve_device(args.device)

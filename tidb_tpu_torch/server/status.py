@@ -16,6 +16,8 @@ Routes:
       profile: hot frames + flamegraph-style call tree (JSON)
   /debug/metrics/history  the MetricsHistory ring (JSON)
   /debug/failpoints  armed fault-injection points + hit counts (JSON)
+  /debug/lockgraph  the lock-order checker: instrumented locks, edges,
+    cycles, blocking-under-hot-lock events, held locks (JSON)
   /debug/topsql  the Top SQL attribution windows (JSON)
   /debug/waitprofile  typed wait-state attribution windows, with the
       dominant state of each entry (JSON)
@@ -32,8 +34,10 @@ Routes:
     routed-read outcome counters (JSON)
 
 The routes of planes the port does not have answer 501 with a JSON body
-naming the ROADMAP queue item that ports them: /debug/mesh (item 8),
-/debug/lockgraph (item 6). The /status section of the mesh plane is
+naming the ROADMAP queue item that ports them: /debug/mesh (item 8).
+/debug/lockgraph serves the lock-order checker's graph
+(`analysis.lockcheck.debug_payload()`: enabled, locks, edges, cycles,
+blocking, held). The /status section of the mesh plane is
 left out; `ranges` (the range table and the hosted ranges, while
 [ranges] is armed) and `transport`
 (the storage's `transport_health`: mode, peer, breaker, members,
@@ -60,7 +64,6 @@ from .. import obs
 # (plane, ROADMAP queue 1 item)
 UNPORTED_ROUTES = {
     "/debug/mesh": ("the multi-device plane", 8),
-    "/debug/lockgraph": ("the concurrency analysis plane", 6),
 }
 
 
@@ -196,6 +199,13 @@ class StatusServer:
                 elif self.path.startswith("/debug/failpoints"):
                     from ..util import failpoint
                     body = json.dumps(failpoint.snapshot()).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/debug/lockgraph"):
+                    # the dynamic lock-order checker's graph: enabled
+                    # flag, instrumented locks, observed edges, cycles,
+                    # blocking-under-hot-lock events, held mirror
+                    from ..analysis import lockcheck
+                    body = json.dumps(lockcheck.debug_payload()).encode()
                     ctype = "application/json"
                 elif self.path.startswith("/debug/profile"):
                     q = parse_qs(urlparse(self.path).query)

@@ -187,7 +187,7 @@ class MaintenanceWorker:
                     # a wounded maintenance pass must not kill the loop
                     # (reference: gc_worker logs and continues)
                     continue
-                except BaseException as e:  # noqa: BLE001 — kept for stop()
+                except Exception as e:  # noqa: BLE001 — kept for stop()
                     self._error = e
                     return
 

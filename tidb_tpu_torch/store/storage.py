@@ -53,9 +53,10 @@ clients of the sessions and the point fast path; `arm_ranges` starts the
 range plane (`ranges`, `rpc/ranged.RangePlane`) on a durable local store,
 and `close()` closes it, re-raising an error its lease loop kept.
 
-Left out, with the planes they belong to: the lock-order checker around
-`infoschema_lock` (item 6) and the epoch listeners of the mesh plane
-(item 8). GLOBAL plan bindings (`bindings`,
+The long-lived locks (`_commit_lock`, `infoschema_lock`, `_lease_lock`)
+come from the lock-order checker's factories (`analysis/lockcheck.py`).
+Left out, with the plane it belongs to: the epoch listeners of the mesh
+plane (item 8). GLOBAL plan bindings (`bindings`,
 `session/bindinfo.py`) ride the meta keyspace.
 
 The observability planes live here as in the reference: `obs` (the
@@ -93,6 +94,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from ..analysis import lockcheck
 from ..catalog.schema import Catalog, TableInfo
 from ..chunk.column import Dictionary
 from ..errno import (ER_SCHEMA_CHANGED, ER_TXN_TOO_LARGE,
@@ -316,7 +318,7 @@ class Storage:
         self._tso_lease = 0
         # serializes lease-file persistence: concurrent committers both
         # crossing the extension threshold would race the SAME tmp+rename
-        self._lease_lock = threading.Lock()
+        self._lease_lock = lockcheck.lock("Storage._lease_lock")
         if path is not None:
             os.makedirs(os.path.join(path, "epochs"), exist_ok=True)
             self._tso_lease = self._read_tso_lease()
@@ -399,7 +401,8 @@ class Storage:
         self.bindings = BindingManager(self)
         # viewer-sensitive information_schema refresh+scan exclusion
         # (Session._refresh_infoschema holds this for the statement)
-        self.infoschema_lock = threading.RLock()
+        self.infoschema_lock = lockcheck.rlock(
+            "Storage.infoschema_lock", hot=True)
         # DDL job queue + history (the meta-KV DDLJobList analog,
         # reference meta/meta.go:571) — lives on storage so a replacement
         # worker resumes pending jobs with their reorg checkpoints
@@ -424,7 +427,8 @@ class Storage:
         # high-water only by the cache batch
         self._seq_cursors: dict[int, int] = {}
         self._seq_lock = threading.Lock()
-        self._commit_lock = threading.RLock()
+        self._commit_lock = lockcheck.rlock(
+            "Storage._commit_lock", hot=True)
         # seqlock generation for snapshot/fold consistency: odd while a
         # commit fold is in flight inside _commit_lock, even when
         # quiescent. Readers snapshot lock-free and retry on movement;
@@ -1222,7 +1226,7 @@ class Storage:
         def keep(fn) -> None:
             try:
                 fn()
-            except BaseException as e:
+            except Exception as e:
                 errors.append(e)
 
         # the failover watcher first: a leader-loss election must not
@@ -1627,6 +1631,8 @@ class Storage:
         with obs.span("domain.refresh"):
             self.kv.refresh()
             self._drain_refresh()
+            # a socket follower's mirror fsync, out of the hot locks
+            self.kv.kv.sync_mirror()
         # a sibling's CREATE/DROP BINDING lands in the meta plane; drop
         # the cache so the next match reloads
         self.bindings.invalidate()

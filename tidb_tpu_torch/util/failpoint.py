@@ -101,9 +101,9 @@ def _notify() -> None:
 # of these, and every name a test arms (context manager, enable(), or a
 # TIDB_TPU_FAILPOINTS env spec) must exist here — an armed point whose
 # inject() site was renamed away silently never fires. The reference's
-# mesh site (mesh/skew) waits with its plane (ROADMAP queue 1 item 8),
-# and the static rule that checks both directions with the analysis
-# plane (item 6).
+# mesh site (mesh/skew) waits with its plane (ROADMAP queue 1 item 8).
+# The failpoint-registry rule (analysis/rules.py) checks both
+# directions.
 DECLARED = frozenset({
     "daemon/before-gc",            # store/daemon.py GC tick
     "ddl/before-step",             # ddl/ddl.py job-step boundary
