@@ -381,7 +381,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
           /debug/trace/<conn> the tree of a TRACE; /debug/replicas the
           router's knobs and outcome counters; /debug/keyviz the heat
           plane's knobs; /debug/lockgraph the lock-order checker's graph
-          (n.toml arms it: `[analysis] lock-check`); /debug/mesh 501;
+          (n.toml arms it: `[analysis] lock-check`); /debug/mesh the
+          mesh plane's status (inactive: no `[mesh]` slots on one card);
       n5. SHOW PROCESSLIST from a second connection (PROXY v2) while the
           first runs SLEEP(2): the proxied hosts and the sleeping
           statement; information_schema.processlist agreeing; a user
@@ -528,6 +529,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
       p4. every store closed (followers first), no new `titpu-*` thread
           left (the range plane's lease thread included). Each step's
           time.
+   r. the mesh plane (`mesh_launches`), right after part m1 on f1's SF10
+      session: the process plane configured as a server's `[mesh]
+      axis-size = 8` configures it on one card, 8 shard slots on `cuda:0`
+      with the default thresholds (lineitem's 60M and orders' 15M rows
+      past `shard-threshold-rows`, so lineitem shards and orders is the
+      partitioned build); a `Session(storage, cop=plane.client_for(
+      storage))` runs Q3, Q5, Q10, Q12, Q7, Q8, Q6, a TopN and a rows
+      statement cut from tests/test_mesh.py's (`R_TOPN`, `R_ROWS`: the
+      reasons by them): every answer equal to the plain
+      card session's, every coprocessor read tagged `device...@mesh8`
+      with a `mesh` cell and no `host_fallback` stage (EXPLAIN ANALYZE);
+      the cold run and the p50 of 2 warm runs beside the plain session's
+      (its answers and times taken first, then its cached tensors freed:
+      8 slots' exchange buffers need the room, and g1 stages again);
+      the partitioned orders build in the cache; the placement report,
+      `tidb_mesh_reshard_bytes_total` (the reference's count: the probe
+      payload of each routed fragment) beside the payload the port's
+      exchanges were handed, and `tidb_mesh_shards` (8 slots;
+      Q6's input rows summing to lineitem's); one UPDATE of an orders row
+      to its own value and a flush fold a new orders epoch:
+      `tidb_mesh_storage`'s bytes before and after; /debug/mesh from an
+      in-process status server; streamseg launches (0 expected: the rank
+      path is single-device); the peak device memory; every table
+      forgotten by the mesh client and the memory handed back, the plane
+      reset to the defaults (inactive on one card). Q1 (at SF10 the
+      reference's int64 gate sends it to the host tier) runs meshed on
+      f2's SF1 session after part m2 (r2), equal to that session's rows.
    Each result of parts a-e is checked exactly against its numpy oracle
    (row results column by column, in order) with the reference's engine
    tag; then the first (cold) run and the wall time of 1 warm run
@@ -2417,8 +2445,9 @@ N_ROUTES = {
     # the lock-order checker, armed by [analysis] lock-check
     "/debug/lockgraph": {"enabled", "locks", "edges", "cycles", "blocking",
                          "held"},
+    # the mesh plane (inactive in a child over one card: no [mesh] slots)
+    "/debug/mesh": {"status", "dispatches", "compiles", "storage"},
 }
-N_UNPORTED = ("/debug/mesh",)
 # the hot locks every armed server child creates (the native engine's
 # store mutex too, where the store runs on it)
 LOCK_HOT = ("Storage._commit_lock", "Storage.infoschema_lock",
@@ -2568,7 +2597,7 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
                   f"exact first_ms={dt * 1e3:.1f}; in the child "
                   f"streamseg_launches={lk - lk0} device-fragment requests "
                   f"+{fr - fr0}")
-        # 4. the routes: 200 with the reference's keys, the unported 501
+        # 4. the routes: 200 with the reference's keys
         digest, _ = StatementsSummary.digest(TPCH_QUERIES["q18"])
         (conn_id,) = a.query("select connection_id()")[0]
         a.query("trace select count(*) from orders")
@@ -2593,10 +2622,6 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
         spans = _json.loads(body)["spans"] if code == 200 else []
         if not spans or spans[0][0] != "session.run":
             raise SystemExit(f"n4: /debug/trace/{conn_id} answered {code}")
-        for route in N_UNPORTED:
-            code, body = _http(status, route)
-            if code != 501 or "roadmap_item" not in _json.loads(body):
-                raise SystemExit(f"n4: {route} answered {code}, not 501")
         if seen["/status"]["admission"]["token_limit"] != N_TOKENS:
             raise SystemExit(f"n4: token limit "
                              f"{seen['/status']['admission']}")
@@ -2606,8 +2631,7 @@ def _part_n(args, tmp: str, path: str, mc, h1: dict) -> dict:
               f"digest in /debug/topsql with device time "
               f"{dev * 1e3:.3f} ms of {q18['sum_wall_s'] * 1e3:.1f} ms; "
               f"/status top_sql by device: "
-              f"{[e['digest'][:8] for e in by_device]}; "
-              f"{', '.join(N_UNPORTED)} 501")
+              f"{[e['digest'][:8] for e in by_device]}")
         # 5. SHOW PROCESSLIST from a second connection (PROXY v2) while
         # the first sleeps; a user without PROCESS sees only its own row
         root_c = _n_connect(mc, port, _proxy_v2(N_V2))
@@ -5597,6 +5621,246 @@ def _part_m1(s, tags: dict) -> int:
     return launched
 
 
+# part r: the statements of the mesh lint set and tests/test_mesh.py, with
+# the plain card session's answers as their oracle. tests/test_mesh.py's
+# TopN orders by (l_extendedprice DESC, l_orderkey), a composite too wide
+# for int32 over this generator's lineitem (the reference's gate sends it
+# to the host tier); its rows statement returns ~8% of lineitem, 4.8M rows
+# of host projection and root sort at SF10. Part r keeps the first key of
+# the TopN and bounds the rows statement to the first 100,000 orders.
+R_QUERIES = ("q3", "q5", "q10", "q12", "q7", "q8", "q6")
+R_TOPN = ("SELECT l_orderkey, l_extendedprice FROM lineitem "
+          "ORDER BY l_extendedprice DESC LIMIT 7")
+R_ROWS = ("SELECT l_orderkey, l_quantity FROM lineitem "
+          "WHERE l_quantity < 5.00 AND l_orderkey <= 100000 "
+          "ORDER BY l_orderkey, l_quantity")
+R_WARM = 2
+
+
+def _r_mesh_session(storage):
+    """The process mesh plane as `[mesh] axis-size = 8` configures it on
+    one card, and a session over `storage` on its shared client."""
+    from tidb_tpu_torch.copr import mesh as M
+    plane = M.configure(enabled=True, axis_size=8)
+    slots = plane.mesh.devices
+    if slots != [torch.device("cuda", 0)] * 8 or not plane.active:
+        raise SystemExit(f"r: mesh slots {slots}, active {plane.active}")
+    return plane, Session(storage, cop=plane.client_for(storage))
+
+
+def _r_release(plane, ms, label: str) -> None:
+    """Forget every table in the mesh client, reset the process plane to
+    the defaults (inactive on one card) and print what was handed back."""
+    from tidb_tpu_torch.copr import mesh as M
+    M.configure()
+    back = _r_forget(ms.cop, ms.storage.tables)
+    plane.mesh.close()
+    print(f"  {label}: the mesh client's tables forgotten, "
+          f"{back / 1e9:.3f} GB handed back "
+          f"({torch.cuda.memory_allocated() / 1e9:.3f} GB held after)")
+
+
+def _r_plain(plain, reads) -> dict:
+    """Each statement on the plain card session first: -> label -> (its
+    rows, the p50 of R_WARM warm runs)."""
+    out = {}
+    for label, sql, _ in reads:
+        want, _ = _sql_run(plain, sql)
+        base = [_sql_run(plain, sql)[1] for _ in range(R_WARM)]
+        out[label] = (want, statistics.median(base))
+    return out
+
+
+def _r_read(ms, label: str, sql: str, ordered: bool, want) -> tuple:
+    """`sql` on the mesh session: the plain session's rows `want`, every
+    read `device...@mesh8` with a mesh cell and no host_fallback stage.
+    -> (cold s, p50 s, engines, mesh cells, streamseg launches)."""
+    n0 = _kernels.LAUNCHES[RANK]
+    got, cold = _sql_run(ms, sql)
+    a, b = TR.sql_cells(got), TR.sql_cells(want)
+    if not ordered:
+        a, b = sorted(a, key=repr), sorted(b, key=repr)
+    if a != b:
+        raise SystemExit(f"{label}: mesh rows differ from the plain card "
+                         f"session's")
+    rows = ms.execute("EXPLAIN ANALYZE " + sql).rows
+    engines = [r[3] for r in rows if r[3]]
+    cells = [r[5] for r in rows if r[3]]
+    stages = " ".join(str(r[4]) for r in rows if r[4])
+    if not engines or not all(e.startswith("device") and "@mesh8" in e
+                              for e in engines) or not all(cells) or \
+            "host_fallback" in stages:
+        raise SystemExit(f"{label}: mesh engines {engines}, cells {cells}, "
+                         f"stages {stages[:200]}")
+    warm = [_sql_run(ms, sql)[1] for _ in range(R_WARM)]
+    # the exchanges' buffers go back between statements
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cold, statistics.median(warm), engines, cells, \
+        _kernels.LAUNCHES[RANK] - n0
+
+
+def _r_forget(cop, tables) -> int:
+    """Free every table's tensors in `cop`: -> the bytes handed back."""
+    held = torch.cuda.memory_allocated()
+    for tid in list(tables):
+        cop.forget_table(tid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return held - torch.cuda.memory_allocated()
+
+
+def _r_runner_cost(plane) -> str:
+    """The slot runner's own cost: the wall time of one dispatch of a
+    program that sums one int32 a slot and psums it (8 slot threads
+    handed the program, the baton passed around twice, every slot done),
+    and of the same body on the calling thread alone."""
+    from tidb_tpu_torch.parallel import dist as PD
+    one = torch.ones(8, dtype=torch.int32, device="cuda")
+
+    def body(x):
+        return PD.psum(x.sum(), PD.AXIS)
+
+    prog = PD.shard_map(body, plane.mesh, (PD.P(PD.AXIS),), PD.P())
+    for _ in range(3):
+        prog(one)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        prog(one)
+    _sync()
+    mesh_ms = (time.perf_counter() - t0) / 50 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(50):
+        one.sum()
+    _sync()
+    plain_ms = (time.perf_counter() - t0) / 50 * 1e3
+    return (f"a dispatch of an 8-slot psum program {mesh_ms:.3f} ms, the "
+            f"body alone on one thread {plain_ms:.4f} ms")
+
+
+def _part_r(s) -> int:
+    """Part r (module docstring) on f1's SF10 session after m1. ->
+    streamseg's launches during it."""
+    from tidb_tpu_torch.copr import mesh as M
+    from tidb_tpu_torch.parallel.dist import routed_payload_bytes
+    from tidb_tpu_torch.server.status import StatusServer
+    t0 = time.perf_counter()
+    reads = [(q.upper(), TPCH_QUERIES[q],
+              "order by" in TPCH_QUERIES[q].lower()) for q in R_QUERIES]
+    reads += [("topn", R_TOPN, True), ("rows", R_ROWS, True)]
+    plain = _r_plain(s, reads)
+    # the plain session's 13 GB of cached tensors go first: 8 slots'
+    # exchange buffers of Q3/Q10 need the room (g1 stages them again)
+    back = _r_forget(s.cop, s.storage.tables)
+    print(f"  r: plain answers taken; the plain session's tensors freed "
+          f"({back / 1e9:.3f} GB handed back)")
+    torch.cuda.reset_peak_memory_stats()
+    reshard0 = obs.MESH_RESHARD_BYTES.get()
+    payload0 = routed_payload_bytes()
+    plane, ms = _r_mesh_session(s.storage)
+    launched = 0
+    for label, sql, ordered in reads:
+        want, base = plain[label]
+        cold, p50, engines, cells, n = _r_read(
+            ms, f"r {label}", sql, ordered, want)
+        launched += n
+        print(f"  r {label}: engines={engines} exact=True "
+              f"first_ms={cold * 1e3:.1f} p50_ms={p50 * 1e3:.2f} "
+              f"plain_p50_ms={base * 1e3:.2f} mesh={cells[0]}")
+    print(f"  r runner: {_r_runner_cost(plane)}")
+    with ms.cop._lock:
+        partb = [k for k in ms.cop._col_cache if "partb" in str(k)]
+    if not partb:
+        raise SystemExit("r: no partitioned build staged at SF10")
+    print(f"  r partitioned builds: {len(partb)} cache entries, e.g. "
+          f"{partb[0][:5]}; placement {M.placement_report(ms.cop)}")
+    # the counter counts the reference's probe payload of a routed
+    # fragment; the port's exchanges were handed the second number
+    print(f"  r tidb_mesh_reshard_bytes_total "
+          f"+{obs.MESH_RESHARD_BYTES.get() - reshard0:.0f}; exchange "
+          f"payload handed to route_rows "
+          f"+{routed_payload_bytes() - payload0}")
+    li = next(st for st in s.storage.tables.values()
+              if st.table.name == "lineitem")
+    n_li = int(li.snapshot(s.storage.safe_ts()).base_visible.sum())
+    shards = ms.query("select digest, kind, operator, dispatches, shards, "
+                      "last_shard_rows, max_skew, in_rows, out_rows, "
+                      "routed_bytes from information_schema.tidb_mesh_shards")
+    for r in shards:
+        print(f"  r tidb_mesh_shards: {r}")
+    # Q6 dispatches once per lineitem tile: its input rows sum to the
+    # epoch's visible rows on every run
+    tiles = -(-li.epoch.num_rows // CopClient.TILE_ROWS)
+    q6 = [r for r in shards if r[1] == "agg" and r[7] * tiles == r[3] * n_li]
+    if not q6 or any(r[4] != 8 for r in shards):
+        raise SystemExit(f"r: no 8-slot agg dispatch over lineitem's {n_li} "
+                         f"rows in tidb_mesh_shards")
+
+    def ledger():
+        return ms.query("select device, table_name, kind, bytes from "
+                        "information_schema.tidb_mesh_storage")
+
+    def storage_bytes():
+        return {r[0]: r[3] for r in ledger() if r[2] == "total"}
+
+    def table_bytes(name):
+        return sum(r[3] for r in ledger() if r[1] == name)
+
+    before, o_before = storage_bytes(), table_bytes("orders")
+    ms.execute("update orders set o_comment = o_comment "
+               "where o_orderkey = 1")
+    t_fold = time.perf_counter()
+    s.storage.flush()
+    fold_s = time.perf_counter() - t_fold
+    after, o_after = storage_bytes(), table_bytes("orders")
+    if len(before) != 8 or o_before == 0 or o_after != 0 or \
+            sum(after.values()) >= sum(before.values()):
+        raise SystemExit(f"r: the orders fold left tidb_mesh_storage at "
+                         f"{after} (before {before}; orders {o_before} -> "
+                         f"{o_after})")
+    print(f"  r fold of a new orders epoch ({fold_s:.2f}s): "
+          f"tidb_mesh_storage bytes per slot {sorted(before.values())} -> "
+          f"{sorted(after.values())} (orders {o_before} -> {o_after})")
+    st = StatusServer("127.0.0.1", 0)
+    st.start()
+    try:
+        code, body = _http(st.port, "/debug/mesh")
+    finally:
+        st.close()
+    payload = json.loads(body)
+    if code != 200 or not payload["dispatches"] or \
+            payload["status"]["devices"] != 8:
+        raise SystemExit(f"r: /debug/mesh answered {code}: {body[:200]}")
+    print(f"  r /debug/mesh: status {payload['status']}; "
+          f"{len(payload['dispatches'])} dispatch entries, "
+          f"{len(payload['compiles'])} program signatures, "
+          f"{len(payload['storage'])} ledgers")
+    if launched:
+        raise SystemExit(f"r: streamseg launched {launched} times on the "
+                         f"mesh (the rank path is single-device)")
+    print(f"  r: streamseg launches {launched} (as expected); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    _r_release(plane, ms, "r")
+    print(f"  r took {time.perf_counter() - t0:.1f}s")
+    return launched
+
+
+def _part_r2(card) -> int:
+    """Q1 over a meshed session of f2's SF1 card session: the plain
+    session's rows, `device@mesh8`. -> streamseg's launches."""
+    sql = TPCH_QUERIES["q1"]
+    want, base = _r_plain(card, [("Q1", sql, True)])["Q1"]
+    plane, ms = _r_mesh_session(card.storage)
+    cold, p50, engines, cells, launched = _r_read(ms, "r2 Q1", sql, True,
+                                                  want)
+    print(f"  r2 Q1: engines={engines} exact=True first_ms={cold * 1e3:.1f}"
+          f" p50_ms={p50 * 1e3:.2f} plain_p50_ms={base * 1e3:.2f} "
+          f"mesh={cells[0]}")
+    _r_release(plane, ms, "r2")
+    return launched
+
+
 def _m_jit() -> str:
     return (f"hit {obs.JIT_CACHE.get(result='hit'):g} miss "
             f"{obs.JIT_CACHE.get(result='miss'):g}, "
@@ -5830,6 +6094,10 @@ def main(argv=None) -> int:
     print("  -- m1. the observability planes on f1's session")
     observe_launches = {"m1": _part_m1(s10, tags)}
     lap("part m1")
+    print(f"  -- r. the mesh plane: 8 shard slots on the card, on f1's "
+          f"session ({_mem()} held before it)")
+    mesh_launches = {"r": _part_r(s10)}
+    lap("part r")
     print(f"  -- g. the write path ({_mem()} held before it)")
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
@@ -5888,6 +6156,10 @@ def main(argv=None) -> int:
           f"sessions, card == CPU ({_mem()} held before it)")
     observe_launches["m2"] = _part_m2(card1, cpu1, after1)
     lap("part m2")
+    print(f"  -- r2. Q1 on the mesh plane over f2's SF{args.q18_sf:g} card "
+          f"session ({_mem()} held before it)")
+    mesh_launches["r2"] = _part_r2(card1)
+    lap("part r2")
     del card1, cpu1, after1
     gc.collect()
     torch.cuda.empty_cache()
@@ -5937,6 +6209,7 @@ def main(argv=None) -> int:
             "registry_launches": registry_launches,
             "explain_launches": explain_launches,
             "observe_launches": observe_launches,
+            "mesh_launches": mesh_launches,
             "server_launches": server_launches,
             "cluster_launches": cluster_launches,
             "failover_launches": failover["launches"],

@@ -543,7 +543,7 @@ def _get_json(port: int, route: str) -> tuple:
 def test_lockgraph_route_on_an_armed_cpu_server(checker, tmp_path):
     """A server over a store made with the checker armed: /debug/lockgraph
     answers 200 with the reference's keys and the store's hot locks;
-    /debug/mesh still answers 501."""
+    /debug/mesh answers 200 (the mesh plane is ported)."""
     from mysql_client import MiniClient
     from tidb_tpu_torch.server.server import Server
     from tidb_tpu_torch.store.storage import Storage
@@ -569,7 +569,7 @@ def test_lockgraph_route_on_an_armed_cpu_server(checker, tmp_path):
                 "MVCCStore._mu"} <= hot
         assert payload["cycles"] == [] and payload["blocking"] == []
         assert payload["edges"]
-        assert _get_json(srv.status_port, "/debug/mesh")[0] == 501
+        assert _get_json(srv.status_port, "/debug/mesh")[0] == 200
     finally:
         srv.close()
         st.close()

@@ -8,7 +8,8 @@ same sysvars. `EXAMPLE` and `--print-example-config` are byte-equal to
 `config.toml.example`. Then the port's own rule: a knob of a plane the
 port does not have loads as in the reference, does nothing at its
 default and raises `NotInSlice` naming its queue item otherwise; the
-knobs of planes ported since act as the reference's do.
+knobs of planes ported since (every plane now) act as the reference's
+do.
 Tolerance: none.
 """
 
@@ -352,11 +353,40 @@ def test_unported_knobs_raise_not_in_slice(tmp_path, text, seed, item):
         assert _armed_before_the_store_opens(
             PM, path, "--device", "cpu") is True
         return
+    if item == 8:
+        # the mesh plane (item 8, ported since): [mesh] configures each
+        # package's process plane alike, skew-min-dispatches arms each
+        # storage's mesh-shard-skew rule alike
+        assert _mesh_seed_state(RC, path, seed) == \
+            _mesh_seed_state(PC, path, seed)
+        return
     args = () if seed == "seed_mesh" else (Storage(),)
     getattr(PC.Config(), seed)(*args)
     with pytest.raises(NotInSlice) as e:
         getattr(PC.Config.load(path), seed)(*args)
     assert f"item {item})" in e.value.reason
+
+
+def _mesh_seed_state(C, path, seed) -> dict:
+    """What one package's seed of `path` sets: the process mesh plane's
+    config (restored afterwards), or a fresh storage's diagnostics."""
+    pkg = C.__name__.rsplit(".", 1)[0]
+    M = __import__(pkg + ".copr.mesh", fromlist=["mesh"])
+    if seed == "seed_mesh":
+        old = M.get_plane().cfg
+        try:
+            C.Config.load(path).seed_mesh()
+            return dataclasses.asdict(M.get_plane().cfg)
+        finally:
+            M.configure(**dataclasses.asdict(old))
+    S = __import__(pkg + ".store.storage", fromlist=["Storage"]).Storage
+    st = S() if C is RC else S(device="cpu")
+    try:
+        C.Config.load(path).seed_diagnostics(st)
+        return {"skew_min_dispatches":
+                st.diagnostics.skew_min_dispatches}
+    finally:
+        st.close()
 
 
 class _StoreOpened(Exception):

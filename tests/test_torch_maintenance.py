@@ -99,6 +99,11 @@ def _both(sides, sql: str) -> list:
 
 @pytest.fixture(autouse=True)
 def _clean_failpoints():
+    # before as well: a test file that ran earlier in this process (the
+    # reference's mesh tests arm `mesh/skew` on one package only) may
+    # have left hit counts that the registry test compares
+    rfp.disable_all()
+    pfp.disable_all()
     yield
     rfp.disable_all()
     pfp.disable_all()

@@ -6,9 +6,9 @@ Twins of every case of tests/test_metric_lint.py: each runs over each
 package's registries (the port's live ones after an exercised store on
 `device="cpu"`), and the lint findings are compared. The live registries
 pass clean in both, with the port's families the reference's less
-`metrics_schema.UNPORTED_FAMILIES`. The default device-label cap is the
-reference's floor of 8: the port has one device and no mesh, where the
-reference's default follows the live mesh width (at least 8).
+`metrics_schema.UNPORTED_FAMILIES` (none since the mesh plane's port).
+The default device-label cap follows the live mesh width, at least 8,
+in both.
 """
 
 from __future__ import annotations

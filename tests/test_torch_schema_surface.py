@@ -234,12 +234,15 @@ def test_show_create_table_text(surface):
 # served tables whose rows are the observability planes' (timings,
 # process telemetry): their columns are compared below, their rows in
 # the planes' own tests (the cluster_* fan-outs in
-# test_torch_cluster_obs.py)
+# test_torch_cluster_obs.py; the mesh recorder's, whose rows follow the
+# client a session gets from its package's process plane, in
+# test_torch_mesh_obs.py)
 OBS_SERVED = frozenset({
     "statements_summary", "slow_query", "tidb_top_sql", "tidb_wait_profile",
     "tidb_events", "statements_summary_history", "tidb_plan_history",
     "inspection_result", "inspection_summary", "metrics_summary",
-    "profiling", "tidb_hot_ranges"}
+    "profiling", "tidb_hot_ranges", "tidb_mesh_shards",
+    "tidb_mesh_storage"}
     | {t for t in I.SERVED if t.startswith("cluster_")})
 
 

@@ -14,8 +14,8 @@ process) with every acknowledged row. Both reject a bad file with the
 same `invalid configuration:` line and exit 1, and print the same
 example config. The
 port alone: without a card and without `--device cpu` it fails (no
-listening line), and a knob of a plane not ported (the mesh) raises
-`NotInSlice`. Every child is terminated and waited
+listening line), and an invalid mesh knob fails validation. Every child
+is terminated and waited
 for. Tolerance: none.
 """
 
@@ -176,7 +176,7 @@ def test_entry_points_side_by_side(tmp_path):
         assert statuses["port"]["admission"] == \
             statuses["ref"]["admission"]
         assert set(statuses["port"]) == \
-            set(statuses["ref"]) - {"mesh", "ranges"}
+            set(statuses["ref"]) - {"ranges"}
         # SIGHUP: the reloadable knobs the flags did not pin
         cfg.write_text(RELOADED)
         for child in children.values():
@@ -236,12 +236,13 @@ def test_print_example_config_byte_equal():
 @pytest.mark.parametrize("args,config,needle", [
     (["-P", "0"], None, "CUDA device requested"),
     (["-P", "0", "--device", "cpu", "--shared"],
-     "[mesh]\naxis-size = 2\n", "NotInSlice"),
+     "[mesh]\naxis-size = -1\n", "mesh.axis-size must be >= 0"),
 ], ids=["no-card", "shared"])
 def test_port_refuses_to_start(args, config, needle, tmp_path):
     """Without a card the default device fails the start (nothing moves
-    to the CPU on its own); a shared sibling with the mesh knobs set (the
-    multi-device plane, item 8) is not in this slice."""
+    to the CPU on its own); a shared sibling with an invalid mesh knob
+    fails validation, as the reference's does (the mesh plane, item 8,
+    is ported: valid knobs start it)."""
     if config is not None:
         path = tmp_path / "c.toml"
         path.write_text(config)

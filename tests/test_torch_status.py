@@ -6,12 +6,14 @@ seeds (Top SQL, the wait profile, the workload history, a 1 s metrics
 history); the same statements go to both over the wire (Q6, Q1, Q18, a
 TRACE). Then every route is read from both: `/metrics` (the same
 families, but the reference's that the port does not register,
-`metrics_schema.UNPORTED_FAMILIES`), `/status` (the reference's sections
-but those of unported planes: ranges and mesh; each section's keys),
+`metrics_schema.UNPORTED_FAMILIES`, now none), `/status` (the
+reference's sections but the unarmed range plane's; each section's keys,
+the mesh section's top level only: its per-device maps name each
+package's devices, none on the port's plane without a card),
 `/slow-query`, `/statements-summary` (the same digests), the TRACE tree
 of `/debug/trace/<conn>` (the same span names), and each `/debug/*`
 route's keys; `/debug/failpoints` equal. The routes of unported planes
-answer 501 with the queue item on the port. The status-port cases of
+(none now) would answer 501 with the queue item on the port. The status-port cases of
 tests/test_observability.py, test_topsql.py, test_history.py,
 test_inspection.py and test_trace.py read the same surfaces. Tolerance:
 none on keys, digests, span names and codes (times are each process's).
@@ -73,11 +75,10 @@ def _json(srv, route: str):
     return json.loads(body)
 
 
-# keys one side has by its backend or plane alone: the first-compile
-# stage (the reference's XLA compile of a new program; the port compiles
-# no program on the CPU) and Top SQL's per-operator mesh skew (the
-# multi-device plane, ROADMAP queue 1 item 8)
-_OWN_KEYS = {"compile", "op_mesh"}
+# keys one side has by its backend alone: the first-compile stage (the
+# reference's XLA compile of a new program; the port compiles no program
+# on the CPU)
+_OWN_KEYS = {"compile"}
 
 
 def _keys(v):
@@ -185,8 +186,13 @@ def test_metrics_families(pair):
 
 def test_status_sections(pair):
     got = [_json(pair[n], "/status") for n in ("ref", "port")]
-    assert set(got[1]) == set(got[0]) - {"mesh", "ranges"}
+    assert set(got[1]) == set(got[0]) - {"ranges"}
     for section in got[1]:
+        if section == "mesh":
+            # the same keys; the per-device maps name each package's own
+            # devices (the port's inactive plane has no slot here)
+            assert set(got[1]["mesh"]) == set(got[0]["mesh"])
+            continue
         assert _keys(got[1][section]) == _keys(got[0][section]), section
     assert got[1]["version"] == got[0]["version"]
     assert got[1]["connections"] == got[0]["connections"] == 0
@@ -210,9 +216,9 @@ def test_statements_summary_and_slow_query(pair):
     assert len(slow[0]) == len(slow[1]) == 4
     assert [e["sql"] for e in slow[0]] == [e["sql"] for e in slow[1]]
     for a, b in zip(slow[0], slow[1]):
-        # the mesh skew of an entry comes with the multi-device plane
-        # (ROADMAP queue 1 item 8)
-        assert set(b) == set(a) - {"mesh_skew"}
+        # the mesh skew of an entry: 0 on both (no sharded dispatch)
+        assert set(b) == set(a)
+        assert b["mesh_skew"] == a["mesh_skew"] == 0.0
 
 
 def test_trace_route(pair):
@@ -298,7 +304,8 @@ def test_failpoints_route(pair):
 # routes that answered 501 before their plane was ported: now served
 # and compared with the reference's
 SERVED_SINCE = {"/debug/keyviz": "the keyspace heat plane",
-                "/debug/lockgraph": "the concurrency analysis plane"}
+                "/debug/lockgraph": "the concurrency analysis plane",
+                "/debug/mesh": "the mesh plane"}
 
 
 @pytest.mark.parametrize("route", sorted(set(UNPORTED_ROUTES)
@@ -316,6 +323,14 @@ def test_unported_routes_answer_501(pair, route):
             "blocking", "cycles", "edges", "enabled", "held", "locks"]
         assert got[1]["enabled"] is got[0]["enabled"] is False
         assert got[1]["cycles"] == got[0]["cycles"] == []
+        return
+    if route == "/debug/mesh":
+        # the same keys; the reference's process plane holds its 8
+        # virtual devices' clients, the port's has no card here
+        got = [_json(pair[n], route) for n in ("ref", "port")]
+        assert sorted(got[1]) == sorted(got[0]) == [
+            "compiles", "dispatches", "status", "storage"]
+        assert set(got[1]["status"]) <= set(got[0]["status"])
         return
     if route in SERVED_SINCE:
         heats = [pair[n].storage.heat for n in ("ref", "port")]

@@ -24,10 +24,10 @@ the reading session alone, embedded), processlist; from the diagnostics
 fan-out over the cluster's members (`rpc/diag.cluster_rows`, a member
 that does not answer degrading to an error row and a warning), the
 cluster_* tables over ported planes; from the keyspace heat plane
-(`obs_heat.py`), tidb_hot_ranges and cluster_hot_ranges. A statement
-that touches one of the others (the mesh recorder's tidb_mesh_shards,
-tidb_mesh_storage and their cluster_* twins, item 8) raises
-`NotInSlice(<table>)`: they read a plane the port does not have yet.
+(`obs_heat.py`), tidb_hot_ranges and cluster_hot_ranges; from the mesh
+flight recorder (`copr/mesh.py`), tidb_mesh_shards, tidb_mesh_storage
+and their cluster_* twins. `SERVED` names every table of `_DEFS`; a table
+outside it would raise `NotInSlice(<table>)`.
 """
 
 from __future__ import annotations
@@ -500,6 +500,8 @@ SERVED = frozenset({
     "cluster_plan_history", "cluster_top_sql", "cluster_tidb_wait_profile",
     "cluster_inspection_result", "cluster_load",
     "tidb_hot_ranges", "cluster_hot_ranges",
+    "tidb_mesh_shards", "tidb_mesh_storage",
+    "cluster_mesh_shards", "cluster_mesh_storage",
 })
 
 
@@ -680,12 +682,16 @@ def _rows_for(storage, catalog: Catalog, tname: str,
                          obs.fmt_stages_ms(e["stages"]),
                          int(e["mem_max"]), int(e["spill_count"]),
                          obs.fmt_ops_ms(e["operators"]),
-                         0.0,
+                         float(e["mesh_skew"]),
                          obs.fmt_waits_ms(e["waits"])])
     elif tname == "tidb_top_sql":
         rows = storage.obs.topsql.table_rows()
     elif tname == "tidb_wait_profile":
         rows = storage.obs.waitprofile.table_rows()
+    elif tname == "tidb_mesh_shards":
+        rows = storage.diag.diag_mesh_shards()["rows"]
+    elif tname == "tidb_mesh_storage":
+        rows = storage.diag.diag_mesh_storage()["rows"]
     elif tname == "tidb_events":
         for e in storage.obs.events.snapshot():
             rows.append([int(e["id"]), e["ts"], e["kind"], e["severity"],

@@ -1,8 +1,8 @@
 """metrics_schema: every registered metric family as a SQL memtable.
 
 Port of `tidb_tpu/catalog/metrics_schema.py`, whole; its tables are the
-families the port registers, which are the reference's less those of the
-planes it does not have (`UNPORTED_FAMILIES`). Counterpart of the reference's metrics schema (reference: TiDB 4.0's
+families the port registers, which are the reference's
+(`UNPORTED_FAMILIES` is empty). Counterpart of the reference's metrics schema (reference: TiDB 4.0's
 infoschema/metrics_schema.go — a `metrics_schema` database with one
 virtual table per metric, each reading the Prometheus time series so
 operators and the inspection rules share ONE query surface). The
@@ -33,15 +33,9 @@ from .schema import Catalog, ColumnInfo, SchemaInfo, TableInfo
 
 DB_NAME = "metrics_schema"
 
-# the reference's families that the port does not register, with the
-# plane they wait for: the mesh plane (item 8)
-UNPORTED_FAMILIES = frozenset({
-    # mesh plane and its flight recorder
-    "tidb_mesh_devices", "tidb_mesh_reshard_bytes_total",
-    "tidb_mesh_skew_ratio", "tidb_mesh_skew_warnings_total",
-    "tidb_mesh_compiles_total", "tidb_mesh_compile_seconds_total",
-    "tidb_mesh_recompile_storms_total", "tidb_mesh_hbm_watermark_total",
-})
+# the reference's families that the port does not register: none since
+# the mesh plane was ported (kept, empty, as the tests' set difference)
+UNPORTED_FAMILIES: frozenset = frozenset()
 
 _COLS = [
     ("time", FieldType(TypeKind.VARCHAR, flen=20)),

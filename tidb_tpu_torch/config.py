@@ -13,13 +13,12 @@ Precedence matches the reference: defaults < config file < CLI flags.
 Unknown keys in the file are an error (strict decode) so typos fail
 loudly at startup instead of silently running with defaults.
 
-Some knobs belong to planes the port does not have yet. They load and
-validate as in the reference, and at their defaults they do nothing; set
-to anything else, the seed that would apply them raises `NotInSlice`
-naming the queue item that ports the plane: `[mesh]` and
-`diagnostics.skew-min-dispatches` (item 8). The entry point arms
-`[analysis] lock-check` (the lock-order checker) before it opens the
-store.
+`[mesh]` configures the process-wide mesh plane (`seed_mesh`, at server
+start; its slots run on the first card, so `axis-size = N` above 1 is an
+N-slot mesh on it and 0 leaves the plane inactive) and
+`diagnostics.skew-min-dispatches` arms the mesh-shard-skew rule. The
+entry point arms `[analysis] lock-check` (the lock-order checker) before
+it opens the store.
 `[heatmap]`, `[ranges]` (through `Storage.arm_ranges`), `[replica-read]`
 and the range plane's diagnostics thresholds are seeded whole.
 `rpc_options` hands the `[transport]` knobs to the RPC tier.
@@ -30,15 +29,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 
-from .errors import NotInSlice
 
 
 class ConfigError(Exception):
     pass
-
-
-def _not_in_slice(what: str, item) -> NotInSlice:
-    return NotInSlice(f"{what} (ROADMAP queue 1 item {item})")
 
 
 @dataclass
@@ -152,10 +146,9 @@ class StorageConfig:
 
 @dataclass
 class MeshSection:
-    """The `[mesh]` TOML section: field names and defaults mirror the
-    reference's copr/mesh.MeshConfig (the placement policy's runtime
-    owner there). The port has no mesh plane: `seed_mesh` accepts only
-    these defaults."""
+    """The `[mesh]` TOML section: field names and defaults mirror
+    copr/mesh.MeshConfig (the placement policy's runtime owner), kept
+    torch-free so config parsing never pulls the device stack."""
 
     enabled: bool = True
     axis_size: int = 0                    # devices in the mesh; 0 = all
@@ -886,10 +879,19 @@ class Config:
 
     def seed_mesh(self) -> None:
         """Configure the PROCESS-wide device-mesh plane from the [mesh]
-        knobs (server startup). The port has one device and no mesh
-        plane: the defaults configure nothing, any other value raises."""
-        if self.mesh != MeshSection():
-            raise _not_in_slice("[mesh]: the multi-device plane", 8)
+        knobs (server startup; the plane is per-process, not
+        per-storage). Not hot-reloadable: resharding resident epochs
+        under live queries is not worth a SIGHUP."""
+        from .copr import mesh as _mesh
+        m = self.mesh
+        _mesh.configure(
+            enabled=m.enabled, axis_size=m.axis_size,
+            shard_threshold_rows=m.shard_threshold_rows,
+            replicate_threshold_bytes=m.replicate_threshold_bytes,
+            skew_warn_ratio=m.skew_warn_ratio,
+            hbm_watermark_fraction=m.hbm_watermark_fraction,
+            hbm_bytes=m.hbm_bytes,
+            shard_ring_cap=m.shard_ring_cap)
 
     def seed_diagnostics(self, storage) -> None:
         """Arm the storage's inspection engine from the [diagnostics]
@@ -897,17 +899,10 @@ class Config:
         edge-trigger memory survives a reseed — a reload must not
         re-fire every known critical finding."""
         d = self.diagnostics
-        # the thresholds of rules over planes the port does not have:
-        # the defaults are what those rules would read, any other value
-        # raises
-        unported = {"skew_min_dispatches": "8"}
-        for knob, item in unported.items():
-            if getattr(d, knob) != getattr(DiagnosticsConfig, knob):
-                raise _not_in_slice(
-                    f"diagnostics.{knob.replace('_', '-')}", item)
         st = storage.diagnostics
         st.enabled = d.enabled
         st.history_windows = d.history_windows
+        st.skew_min_dispatches = d.skew_min_dispatches
         st.fsync_stall_threshold = d.fsync_stall_threshold
         st.host_fallback_fraction = d.host_fallback_fraction
         st.governor_kill_threshold = d.governor_kill_threshold

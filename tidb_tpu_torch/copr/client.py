@@ -1,9 +1,19 @@
 """CopClient: the coprocessor — executes CopDAG requests as PyTorch programs.
 
-Port of the single-table paths of `tidb_tpu/copr/client.py` (aggregation;
-rows: scan, selection, projection, limit; TopN), and of the staging the
-fragment executor (`copr/fragment.py`) uses for its build tables
-(`_stage_build_table`, `_place_build_array`, one device).
+Port of `tidb_tpu/copr/client.py`: the single-table paths (aggregation;
+rows: scan, selection, projection, limit; TopN), the staging the fragment
+executor (`copr/fragment.py`) uses for its build tables, and the hooks the
+distributed client overrides (`parallel/dist.py`, `copr/mesh.py`): the
+placement of staged columns and masks (`_place_cols`, `_place_mask`,
+`_bucket_size`, `_stage_key_suffix`), the program of each dispatch
+(`_kernel`, `_build_agg_kernel`, `_build_rowmask_kernel`,
+`_build_topn_kernel`, `_frag_jit`), the fragment's build placement and
+exchanges (`_stage_build_table`, `_place_build_array`,
+`_stage_partitioned_build`, `_partition_build`, `_hc_exchange_fn`,
+`_join_exchange_fn`, `frag_axis`, `hc_exchange_blocks`) and the flight
+recorder's statement hooks (`placement_scope`, `take_mesh_note`,
+`drain_mesh_warnings`, `discard_mesh_pending`), each a no-op or the
+single-device answer here.
 What stays as in the reference:
 
 * the host-side resolution (`_prepare`): string constants to dictionary
@@ -45,8 +55,9 @@ Dispatch stages and spans sit at the reference's sites (`obs.stage`,
 host) and `merge`; spans `copr.execute(t<id>)`, `copr.fragment`,
 `device.batch(base|overlay)`, `device.dispatch` and `device.fetch`.
 
-What differs: the programs run eagerly on `self.device` (no jit cache),
-and staged columns are cached per epoch as device tensors. The host tier
+What differs: the programs run eagerly on `self.device` (no jit cache, so
+`_kernel` builds the program of every dispatch), and staged columns are
+cached per epoch as device tensors. The host tier
 is the reference's own answer for those requests, not a fallback from a
 device error: no torch or CUDA error is caught.
 """
@@ -110,6 +121,27 @@ def _bucket(n: int) -> int:
             return b + b // 2
         b *= 2
     return b
+
+
+class _VersionedDict(dict):
+    """Staging-cache dict that counts mutations, so telemetry walks (the
+    mesh flight recorder's ledger) memoize per cache generation instead
+    of re-walking every cached tensor on each scrape. Mutations only flow
+    through item assignment and deletion."""
+
+    __slots__ = ("version",)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.version = 0
+
+    def __setitem__(self, k, v) -> None:
+        self.version += 1
+        super().__setitem__(k, v)
+
+    def __delitem__(self, k) -> None:
+        self.version += 1
+        super().__delitem__(k)
 
 
 # ---- device telemetry -------------------------------------------------------
@@ -191,10 +223,15 @@ class CopClient:
     def __init__(self, device: Optional[Union[str, torch.device]] = None
                  ) -> None:
         self.device = resolve_device(device)
-        # (epoch_id, offset, bucket) and ("tile", ...) -> (data, valid)
-        self._col_cache: dict = {}
+        # per-thread placement state (the mesh client keeps its current
+        # shard/single mode and build-staging flag here; a client is
+        # shared by every session of a storage, so this must be TLS)
+        self._tls = threading.local()
+        # (epoch_id, offset, bucket) and ("tile", ...) -> (data, valid);
+        # mutation-versioned so telemetry walks memoize per generation
+        self._col_cache: _VersionedDict = _VersionedDict()
         # (epoch_id, bucket, digest) and ("tile", ...) -> visibility mask
-        self._mask_cache: dict = {}
+        self._mask_cache: _VersionedDict = _VersionedDict()
         # table_id -> last seen epoch_id, for cache eviction
         self._live_epochs: dict[int, int] = {}
         # (epoch_id, offset) -> integer (lo, hi) or None; also run-order
@@ -240,17 +277,56 @@ class CopClient:
         for k in [k for k in self._stats if k[0] == old]:
             del self._stats[k]
 
-    # ---- placement hooks of the executor (one device: no-ops) -----------
+    # ---- placement plane (overridden by the mesh client) ---------------
     def placement_scope(self, snap):
-        """Context the executor opens around each dispatch; the
-        reference's mesh client pins a shard placement here, one device
-        has nothing to pin."""
+        """Context the executor opens around each dispatch, pinning this
+        thread's placement decision (the mesh client decides shard or
+        single from the probe epoch here); nothing to pin on one
+        device."""
         return nullcontext()
 
+    def _device_engine(self) -> str:
+        """EXPLAIN ANALYZE engine tag for single-table device paths."""
+        return "device"
+
+    # mesh flight-recorder hooks (overridden by the mesh client): the
+    # single-device statement path pays one no-op method call per plan
+    # node or statement and allocates nothing
     def take_mesh_note(self):
-        """Per-shard dispatch accounting of the reference's mesh client;
-        None on one device."""
+        """Collect and return this thread's pending per-shard dispatch
+        accounting (None on the single-device client)."""
         return None
+
+    def drain_mesh_warnings(self) -> tuple:
+        """Pop this thread's pending mesh skew warnings (none on the
+        single-device client)."""
+        return ()
+
+    def discard_mesh_pending(self) -> None:
+        """Drop per-shard accounting queued by a failed statement (no-op
+        on the single-device client)."""
+        return None
+
+    def _partition_build(self, snap: TableSnapshot) -> bool:
+        """True when a join build side is too large to replicate and
+        should shard by key (the hash-partition vs broadcast exchange
+        election; the mesh client also gates on bytes)."""
+        thr = self.partition_join_threshold
+        return thr is not None and snap.epoch.num_rows > thr
+
+    def _stage_key_suffix(self) -> tuple:
+        """Placement tag appended to staging cache keys: the distributed
+        client returns ("rep",) while staging a broadcast build, so one
+        epoch can be both a sharded probe and a replicated build."""
+        return ()
+
+    def _kernel(self, kind: str, ident, build, *shape):
+        """The program of one dispatch: `build()` (the port's programs are
+        eager closures, so nothing is cached). The mesh client overrides
+        it to observe each program signature's first dispatch; `ident`
+        is a zero-argument callable giving the plan identity it keys
+        on, and `shape` the bucket and placement facts."""
+        return build()
 
     # ==================== public entry ====================
     def execute(self, dag: CopDAG, snap: TableSnapshot) -> CopResult:
@@ -316,7 +392,7 @@ class CopClient:
         if not chunks:
             chunks = [self._empty_chunk(dag, snap)]
         return CopResult(chunks, is_partial_agg=dag.agg is not None,
-                         engine="device")
+                         engine=self._device_engine())
 
     def _run_batch(self, dag: CopDAG, snap: TableSnapshot,
                    prepared: dict[Any, Any], overlay: bool) -> list[Chunk]:
@@ -736,16 +812,35 @@ class CopClient:
         return cards, offsets
 
     # ==================== staging ====================
+    def _bucket_size(self, n: int) -> int:
+        return _bucket(n)
+
     def _place(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _upload(self, arrs, note: bool = True):
-        """Place staged scan arrays as the `transfer` stage; `note`
-        attributes their bytes to the statement's active operator."""
+    # placement hooks: EVERY staged scan column and mask is created
+    # through these, and the placed tensors are what the caches hold, so
+    # the distributed client's row-sharded epochs stay resident across
+    # queries (host numpy in, device tensors out)
+    def _place_cols(self, data, valid):
+        return self._place(data), self._place(valid)
+
+    def _place_mask(self, mask):
+        return self._place(mask)
+
+    def _upload_cols(self, data: np.ndarray, valid: np.ndarray):
+        """Place one staged (data, valid) pair as the `transfer` stage
+        and attribute its bytes to the statement's active operator."""
         with obs.stage("transfer"):
-            out = tuple(self._place(a) for a in arrs)
+            out = self._place_cols(data, valid)
+        _note_transfer(data.nbytes + valid.nbytes)
+        return out
+
+    def _upload_mask(self, mask: np.ndarray, note: bool = True):
+        with obs.stage("transfer"):
+            out = self._place_mask(mask)
         if note:
-            _note_transfer(sum(a.nbytes for a in arrs))
+            _note_transfer(mask.nbytes)
         return out
 
     def _stage_tiles(self, dag: CopDAG, snap: TableSnapshot):
@@ -760,7 +855,7 @@ class CopClient:
             cols, vis, _, _ = self._stage_inputs(dag, snap, overlay=False)
             return [(cols, vis, n)]
         T = self.TILE_ROWS
-        b = _bucket(T)
+        b = self._bucket_size(T)
         with self._lock:
             cacheable = self._live_epochs.get(dag.scan.table_id) \
                 == epoch.epoch_id
@@ -786,10 +881,10 @@ class CopClient:
                     valid = epoch.valids[off]
                     vslice = np.ones(cnt, bool) if valid is None \
                         else valid[lo:lo + cnt]
-                    cached = self._upload((
+                    cached = self._upload_cols(
                         _pad(_narrow_stats(data, self._col_stats(snap, off)),
                              b),
-                        _pad_bool(vslice, b)))
+                        _pad_bool(vslice, b))
                     if cacheable:
                         with self._lock:
                             self._col_cache[key] = cached
@@ -800,8 +895,8 @@ class CopClient:
             with self._lock:
                 vis = self._mask_cache.get(vkey)
             if vis is None:
-                vis, = self._upload(
-                    (_pad_bool(snap.base_visible[lo:lo + cnt], b),))
+                vis = self._upload_mask(
+                    _pad_bool(snap.base_visible[lo:lo + cnt], b))
                 if cacheable:
                     with self._lock:
                         self._mask_cache[vkey] = vis
@@ -817,39 +912,40 @@ class CopClient:
         and the host row mask."""
         if overlay:
             n = len(snap.overlay_handles)
-            b = _bucket(n)
+            b = self._bucket_size(n)
             host_cols, dev_cols = [], []
             for off in dag.scan.col_offsets:
                 data = snap.overlay_columns[off]
                 valid = snap.overlay_valids[off]
                 vfull = np.ones(n, bool) if valid is None else valid
                 host_cols.append((data, vfull))
-                dev_cols.append(self._upload(
-                    (_pad(_narrow(data), b), _pad_bool(vfull, b))))
+                dev_cols.append(self._upload_cols(
+                    _pad(_narrow(data), b), _pad_bool(vfull, b)))
             mask = np.zeros(b, bool)
             mask[:n] = True
-            dev_mask, = self._upload((mask,), note=False)
+            dev_mask = self._upload_mask(mask, note=False)
             return dev_cols, dev_mask, host_cols, mask[:n]
         epoch = snap.epoch
         n = epoch.num_rows
-        b = _bucket(n)
+        b = self._bucket_size(n)
         with self._lock:
             cacheable = self._live_epochs.get(dag.scan.table_id) \
                 == epoch.epoch_id
         dev_cols = []
         host_cols = []
+        sfx = self._stage_key_suffix()
         for off in dag.scan.col_offsets:
-            key = (epoch.epoch_id, off, b)
+            key = (epoch.epoch_id, off, b) + sfx
             valid = epoch.valids[off]
             vfull = np.ones(n, bool) if valid is None else valid
             with self._lock:
                 cached = self._col_cache.get(key)
             if cached is None:
                 obs.COL_CACHE.inc(result="miss")
-                cached = self._upload((
+                cached = self._upload_cols(
                     _pad(_narrow_stats(epoch.columns[off],
                                        self._col_stats(snap, off)), b),
-                    _pad_bool(vfull, b)))
+                    _pad_bool(vfull, b))
                 if cacheable:
                     with self._lock:
                         self._col_cache[key] = cached
@@ -858,13 +954,15 @@ class CopClient:
             dev_cols.append(cached)
             host_cols.append((epoch.columns[off], vfull))
         vis_digest = snap.visible_digest
-        vis_key = (epoch.epoch_id, b, vis_digest)
+        vis_key = (epoch.epoch_id, b, vis_digest) + sfx
         with self._lock:
             vis = self._mask_cache.get(vis_key)
         if vis is None:
-            vis, = self._upload((_pad_bool(snap.base_visible, b),))
+            vis = self._upload_mask(_pad_bool(snap.base_visible, b))
             if cacheable:
                 with self._lock:
+                    # one live digest per (epoch, bucket); both placements
+                    # of the current digest stay live
                     for k in [k for k in self._mask_cache
                               if k[:2] == (epoch.epoch_id, b)
                               and k[2] != vis_digest]:
@@ -872,13 +970,37 @@ class CopClient:
                     self._mask_cache[vis_key] = vis
         return dev_cols, vis, host_cols, snap.base_visible
 
-    # ---- fragment placement hooks: a single device stages every build
-    # table whole and places its arrays as they are ----
+    # ---- fragment placement hooks (the distributed client overrides
+    # these: probe shards over the mesh, build tables replicate or
+    # partition by key) ----
+    hc_exchange_blocks = 1  # candidate partitions in hc outputs
+    # builds never partition on a single device (everything is local)
+    partition_join_threshold = None
+    frag_axis = None
+
+    def _hc_exchange_fn(self, frag, prepared):
+        """Group-partition exchange for the hc path; None on a single
+        device (every group is already local)."""
+        return None
+
+    def _join_exchange_fn(self, frag, prepared, spans):
+        return None
+
+    def _stage_partitioned_build(self, t, snap, lo, span, j):
+        raise NotImplementedError(
+            "partitioned builds require the distributed client")
+
     def _stage_build_table(self, facade: CopDAG, snap: TableSnapshot):
         return self._stage_inputs(facade, snap, overlay=False)
 
-    def _place_build_array(self, arr: torch.Tensor) -> torch.Tensor:
+    def _place_build_array(self, arr: torch.Tensor, key=None
+                           ) -> torch.Tensor:
         return arr
+
+    def _frag_jit(self, kernel, mode: str, prepared):
+        """The fragment program as dispatched: the body itself on one
+        device (the distributed client wraps it as a slot program)."""
+        return kernel
 
     def _frag_engine(self, mode: str) -> str:
         return f"device[{mode}]"
@@ -890,13 +1012,16 @@ class CopClient:
         segments = 1
         for c in cards:
             segments *= max(c, 1)
-        body = self._agg_kernel_body(dag, prepared, cards, segments)
+        kern = self._kernel(
+            "agg", lambda: _dag_key(dag), lambda: self._build_agg_kernel(
+                dag, prepared, cards, segments),
+            tiles[0][1].shape[0], tuple(cards))
         # launches are asynchronous; ONE fetch brings every tile's
         # partials to the host
         with obs.stage("kernel", span_name="device.dispatch") as sp:
             if sp:
                 sp.note = f"{len(tiles)} tile(s)"
-            devs = [body(cols, vis) for cols, vis, _ in tiles]
+            devs = [kern(cols, vis) for cols, vis, _ in tiles]
         with obs.stage("device_get", span_name="device.fetch"):
             outs = fetch(devs)
         with obs.stage("merge"):
@@ -911,9 +1036,14 @@ class CopClient:
             dag.output_types[len(agg.group_by):])
         return [] if chunk is None else [chunk]
 
+    def _build_agg_kernel(self, dag, prepared, cards, segments):
+        return self._agg_kernel_body(dag, prepared, cards, segments)
+
     def _agg_kernel_body(self, dag, prepared, cards, segments):
         """(cols, row_mask) -> {partials}. All leaves are int32 (exact limb
-        partials, sentinel min/max) or f32 (block float sums)."""
+        partials, sentinel min/max) or f32 (block float sums); the
+        distributed client runs it per shard slot and merges with
+        psum / pmin / pmax (parallel/dist.py)."""
         agg = dag.agg
         sel = dag.selection
 
@@ -936,9 +1066,12 @@ class CopClient:
         if dag.selection is None:
             idx = np.nonzero(host_mask)[0]
         else:
-            body = self._rowmask_body(dag, prepared)
+            kern = self._kernel(
+                "rows", lambda: _dag_key(dag),
+                lambda: self._build_rowmask_kernel(dag, prepared),
+                tiles[0][1].shape[0])
             with obs.stage("kernel", span_name="device.dispatch"):
-                devs = [body(cols, vis) for cols, vis, _ in tiles]
+                devs = [kern(cols, vis) for cols, vis, _ in tiles]
             with obs.stage("device_get", span_name="device.fetch"):
                 packs = [p.cpu().numpy() for p in devs]
             parts = [np.unpackbits(p)[:cnt].astype(bool)
@@ -947,6 +1080,9 @@ class CopClient:
         if dag.limit is not None and len(idx) > dag.limit.n:
             idx = idx[: dag.limit.n]
         return self._host_rows(dag, snap, host_cols, idx)
+
+    def _build_rowmask_kernel(self, dag, prepared):
+        return self._rowmask_body(dag, prepared)
 
     def _rowmask_body(self, dag, prepared):
         sel = dag.selection
@@ -991,9 +1127,12 @@ class CopClient:
     def _run_topn(self, dag, snap, prepared, tiles) -> list[Chunk]:
         """Per-tile top-n candidates; the host Sort/Limit above merge the
         tiles' chunks exactly."""
-        body = self._topn_body(dag, prepared)
+        kern = self._kernel(
+            "topn", lambda: _dag_key(dag),
+            lambda: self._build_topn_kernel(dag, prepared),
+            tiles[0][1].shape[0])
         with obs.stage("kernel", span_name="device.dispatch"):
-            devs = [body(cols, vis) for cols, vis, _ in tiles]
+            devs = [kern(cols, vis) for cols, vis, _ in tiles]
         with obs.stage("device_get", span_name="device.fetch"):
             outs = fetch(devs)
         chunks = (self._topn_decode(dag, snap, out) for out in outs)
@@ -1010,6 +1149,9 @@ class CopClient:
                  for e, ft in zip(self._out_exprs(dag), dag.output_types)]
         columns = TP.top_columns(out, dag.output_types, dicts)
         return Chunk(columns) if columns else None
+
+    def _build_topn_kernel(self, dag, prepared):
+        return self._topn_body(dag, prepared)
 
     def _topn_body(self, dag, prepared):
         sel = dag.selection
@@ -1347,6 +1489,23 @@ def _lex_runs_ordered(snap, offsets) -> bool:
                 return False
             tie = tie & (a == b)
     return True
+
+
+def _dag_key(dag: CopDAG) -> str:
+    """Structural and constant identity of a CopDAG's program (the
+    reference adds its resolved-payload signature, which the port does
+    not build)."""
+    parts = [dag.describe()]
+    if dag.selection:
+        parts.append(repr(dag.selection.conditions))
+    if dag.projections:
+        parts.append(repr(dag.projections))
+    if dag.agg:
+        parts.append(repr(dag.agg.group_by))
+        parts.append(repr(dag.agg.aggs))
+    if dag.topn:
+        parts.append(repr(dag.topn.items))
+    return "|".join(parts)
 
 
 def _subst_proj_cols(e: PlanExpr, projections: list[PlanExpr]) -> PlanExpr:

@@ -1,6 +1,6 @@
-"""Fragment executor: gather-join trees as PyTorch programs on one device.
+"""Fragment executor: gather-join trees as PyTorch programs.
 
-Port of the single-device half of `tidb_tpu/copr/fragment.py`:
+Port of `tidb_tpu/copr/fragment.py`; on one device:
 
 * build (dimension) tables are staged whole on the device, beside an int32
   permutation table perm[key - lo] -> epoch row (-1 = absent) that the host
@@ -44,6 +44,18 @@ run as a second batch through the same program, gathering per query; an
 overlay on a build or semi table, or on a group-space request (a group
 split across batches would break the candidate buffer's guarantee), goes
 to the host as in the reference.
+
+On the mesh (a client with a `frag_axis`, `parallel/dist.py`) the probe
+epoch is staged whole and sharded over the slots, the program runs once
+per slot (`cop._frag_jit`), builds replicate or, for the largest build
+past the client's threshold (`_partition_build`: the partitioned-join
+election of an agg/hc fragment whose join key is a probe column), shard
+by key with probe rows routed to their key's slot before the gathers;
+the hc modes route joined rows by group-key hash before the candidate
+aggregation, and the decode checks each slot's candidate block. The
+run-ordered (streamseg) path, tiling and aligned build columns stay
+single-device, as in the reference. An exchange overflow takes the
+reference's typed route to the host tier (`exchange-overflow`).
 
 Gates decide exactly as the reference's: where the reference raises its
 `_Fallback(reason)`, the fragment runs on the port's host interpreter
@@ -106,22 +118,26 @@ class _Fallback(Exception):
 def execute_fragment(cop: CopClient, frag: FragmentDAG, snaps: dict
                      ) -> CopResult:
     """snaps: table_id -> TableSnapshot for every fragment table."""
-    try:
-        with obs.span("copr.fragment") as sp:
-            if sp:
-                sp.note = f"{len(frag.tables)} tables"
-            r = _device_fragment(cop, frag, snaps)
-        obs.COPR_REQUESTS.inc(engine="device-fragment")
+    # placement is decided by the PROBE (fact) epoch: a sharded probe
+    # makes this a mesh fragment (builds replicate or key-partition), a
+    # small probe keeps the whole tree on the single-device path
+    with cop.placement_scope(snaps[frag.tables[0].table.id]):
+        try:
+            with obs.span("copr.fragment") as sp:
+                if sp:
+                    sp.note = f"{len(frag.tables)} tables"
+                r = _device_fragment(cop, frag, snaps)
+            obs.COPR_REQUESTS.inc(engine="device-fragment")
+            return r
+        except (_Fallback, CompileError) as e:
+            reason = getattr(e, "reason", None) or "compile"
+        obs.COPR_REQUESTS.inc(engine="host-fragment")
+        obs.FRAG_FALLBACKS.inc(reason=reason)
+        # the host interpreter's time is join work
+        with obs.operator("join"):
+            r = _host_fragment(frag, snaps)
+        r.engine = f"host(fragment:{reason})"
         return r
-    except (_Fallback, CompileError) as e:
-        reason = getattr(e, "reason", None) or "compile"
-    obs.COPR_REQUESTS.inc(engine="host-fragment")
-    obs.FRAG_FALLBACKS.inc(reason=reason)
-    # the host interpreter's time is join work
-    with obs.operator("join"):
-        r = _host_fragment(frag, snaps)
-    r.engine = f"host(fragment:{reason})"
-    return r
 
 
 # ==================== device path ====================
@@ -148,7 +164,8 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     comb_bounds = [x for b in tab_bounds for x in b]
     comb_dicts = [d for ds in tab_dicts for d in ds]
 
-    prepared: dict[Any, Any] = {"__col_bounds__": comb_bounds}
+    prepared: dict[Any, Any] = {"__col_bounds__": comb_bounds,
+                                "__frag__": frag}
 
     # per-table filters resolve against their own dictionaries
     for ti, t in enumerate(frag.tables):
@@ -202,6 +219,7 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
             raise _Fallback("key-span")
         semi_spans.append((lo, span))
     prepared["__semi_spans__"] = semi_spans
+    prepared["__n_semis__"] = len(frag.semis)
 
     mode = "agg" if frag.agg is not None else "rows"
     if mode == "rows" and frag.topn is not None:
@@ -219,6 +237,34 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
             TP.stage_rank_tables(specs, prepared, cop.device)
             prepared["__topn_pack__"] = specs
             mode = "topn"
+
+    # ---- partitioned (non-broadcast) join election ----
+    # a build too large to replicate is sharded by key; probe rows route
+    # to the owning slot before the gathers (the MPP hash-partition
+    # exchange mode vs broadcast, planner/core/fragment.go:45). One
+    # partitioned join per fragment; output must be merge-safe partials
+    # (agg/hc), since routed rows lose probe-row identity.
+    part_ji = None
+    if frag.agg is not None and cop.frag_axis is not None:
+        n_probe_cols = len(frag.tables[0].col_offsets)
+
+        def probe_prefix_only(e) -> bool:
+            # the exchange routes BEFORE any gathers, so the routing key
+            # must be computable from the probe table's own columns
+            if isinstance(e, Col):
+                return e.idx < n_probe_cols
+            return all(probe_prefix_only(a) for a in getattr(e, "args", ()))
+
+        # a build too large to replicate, by row count or by bytes (the
+        # mesh client's replicate-threshold-bytes): the client decides
+        big = [(snaps[frag.tables[j.build].table.id].epoch.num_rows, ji)
+               for ji, j in enumerate(frag.joins)
+               if cop._partition_build(snaps[frag.tables[j.build].table.id])
+               and probe_prefix_only(j.probe_key)]
+        if big:
+            part_ji = max(big)[1]
+    prepared["__part_join__"] = part_ji
+    prepared["__n_joins__"] = len(frag.joins)
 
     if frag.agg is not None:
         n_rows = psnap.epoch.num_rows + len(psnap.overlay_handles)
@@ -245,11 +291,14 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     if mode == "hc":
         # run-ordered fast path: storage order already groups the segment
         # keys, so segment boundaries are raw key-change points and
-        # filtered-out rows contribute zeros
+        # filtered-out rows contribute zeros. Exchanges (group hash or a
+        # partitioned join) re-order rows across slots, so the path is
+        # single-device only.
         segcols = prepared.get("__hc_segcols__")
         has_mm = any(s["kind"] in ("min", "max")
                      for s in prepared["__hc_sched__"])
-        if segcols is not None and not has_mm and \
+        if segcols is not None and part_ji is None and not has_mm and \
+                cop.frag_axis is None and \
                 cop._runs_ordered(psnap, segcols):
             prepared["__hc_runordered__"] = True
             # streamseg eligibility: K value arrays within the kernel's
@@ -271,13 +320,19 @@ def _device_fragment(cop, frag, snaps) -> CopResult:
     builds = []
     with obs.operator("join"), \
             obs.stage("staging", span_name="copr.staging"):
-        for j, (lo, span) in zip(frag.joins, spans):
+        for ji, (j, (lo, span)) in enumerate(zip(frag.joins, spans)):
             t = frag.tables[j.build]
             snap = snaps[t.table.id]
+            if ji == part_ji:
+                builds.append(cop._stage_partitioned_build(
+                    t, snap, lo, span, j))
+                continue
             cols, vis, _, _ = cop._stage_build_table(_facade_dag(t), snap)
             key_off = t.col_offsets[j.build_key_local]
             perm = cop._place_build_array(
-                _perm_array(cop, snap, key_off, lo, span))
+                _perm_array(cop, snap, key_off, lo, span),
+                key=(snap.epoch.epoch_id, "perm-rep", key_off, lo, span,
+                     snap.visible_digest))
             builds.append({"cols": cols, "vis": vis, "perm": perm})
         # membership bitmaps ride behind the join builds; their host-side
         # (has_null, empty) facts decide the NOT IN gates' form
@@ -455,7 +510,9 @@ def _stage_semi_bitmap(cop, sm, snap, lo: int, span: int) -> dict:
     idx = np.nonzero(ok)[0]
     if len(idx):
         bm[kd[idx].astype(np.int64) - lo] = True
-    entry = {"bm": cop._place_build_array(cop._place(bm)),
+    entry = {"bm": cop._place_build_array(
+        cop._place(bm), key=(snap.epoch.epoch_id, "semibm-rep", key_off, lo,
+                             span, snap.visible_digest, repr(t.filters))),
              "has_null": has_null, "empty": not bool(keep.any())}
     _note_transfer(bm.nbytes)
     if cacheable:
@@ -475,6 +532,8 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode,
     # the hc paths stage the whole epoch (a group must not split across
     # tiles; rank metadata and key runs are per epoch)
     if mode in ("agg", "rows", "topn") and not overlay and \
+            cop.frag_axis is None and \
+            prepared.get("__part_join__") is None and \
             psnap.epoch.num_rows > cop.TILE_ROWS:
         return _run_frag_tiled(cop, frag, snaps, prepared, spans, builds,
                                mode)
@@ -487,7 +546,8 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode,
     # read the cached aligned build columns (membership bitmaps follow)
     kern_builds = builds
     nj = len(frag.joins)
-    if not overlay and nj:
+    if not overlay and nj and cop.frag_axis is None and \
+            prepared.get("__part_join__") is None:
         with obs.operator("join"), \
                 obs.stage("staging", span_name="copr.staging"):
             kern_builds = _stage_aligned(cop, frag, snaps, spans,
@@ -495,13 +555,17 @@ def _run_frag_batch(cop, frag, snaps, prepared, spans, builds, mode,
     aux = None
     if mode == "hc" and prepared.get("__rank_meta__") is not None:
         aux = _stage_rank_aux(cop, psnap, prepared)
-    kernel = _build_frag_kernel(frag, prepared, spans, mode)
+    kernel = _frag_program(cop, frag, prepared, spans, mode,
+                           pcols[0][0].shape[0] if pcols else 0)
     with obs.operator(_mode_op(frag, mode)):
         with obs.stage("kernel", span_name="device.dispatch"):
-            dev = kernel(pcols, pvis, kern_builds, aux)
+            dev = kernel(pcols, pvis, kern_builds) if aux is None \
+                else kernel(pcols, pvis, kern_builds, aux)
         with obs.stage("device_get", span_name="device.fetch"):
             out = fetch([dev])[0]
     if mode == "hc":
+        # candidate blocks = exchange partitions (1 on a single device)
+        prepared["__hc_blocks__"] = cop.hc_exchange_blocks
         chunk = _decode_hc(frag, snaps, prepared, out)
         return [] if chunk is None else [chunk]
     if mode == "agg":
@@ -528,7 +592,8 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
     with obs.operator("scan"), \
             obs.stage("staging", span_name="copr.staging"):
         tiles = cop._stage_tiles(_facade_dag(probe), psnap)
-    kernel = _build_frag_kernel(frag, prepared, spans, mode)
+    kernel = _frag_program(cop, frag, prepared, spans, mode,
+                           tiles[0][0][0][0].shape[0] if tiles[0][0] else 0)
     devs = []
     nj = len(frag.joins)
     kop = _mode_op(frag, mode)
@@ -560,6 +625,38 @@ def _run_frag_tiled(cop, frag, snaps, prepared, spans, builds, mode
             idx_parts.append(local + ti * T)
     idx = np.concatenate(idx_parts) if idx_parts else np.zeros(0, np.int64)
     return _host_rows_for(frag, snaps, idx, overlay=False)
+
+
+def _frag_program(cop, frag, prepared, spans, mode, bucket):
+    """The fragment program of one dispatch, as the client runs it (the
+    body itself on one device, a slot program on the mesh)."""
+    return cop._kernel(
+        "frag", lambda: _frag_key(frag),
+        lambda: cop._frag_jit(
+            _build_frag_kernel(frag, prepared, spans, mode, cop=cop),
+            mode, prepared),
+        mode, bucket)
+
+
+def _frag_key(frag: FragmentDAG) -> str:
+    """Structural and full-expression identity of a fragment (filters and
+    selections of different queries can share shapes)."""
+    parts = [frag.describe()]
+    for t in frag.tables:
+        parts.append(repr(t.filters))
+    for sm in frag.semis:
+        parts.append(f"{sm.kind}|{repr(sm.table.filters)}")
+    parts.append(repr(frag.selection))
+    if frag.agg is not None:
+        parts.append(repr(frag.agg.group_by))
+        parts.append(repr(frag.agg.aggs))
+    if frag.out_map is not None:
+        parts.append(repr(frag.out_map))
+    if frag.topn is not None:
+        parts.append(f"topn{frag.topn.n}|{frag.topn.items!r}")
+    if frag.hc is not None:
+        parts.append(f"hc{frag.hc.k}|{frag.hc.items!r}")
+    return "|".join(parts)
 
 
 def _mode_op(frag, mode: str) -> str:
@@ -639,6 +736,8 @@ def _stage_aligned(cop, frag, snaps, spans, builds, pcols, tag=None):
 
 def _decode_frag_agg(frag, snaps, prepared, out) -> list[Chunk]:
     """Fetched dense-agg partials -> partial-layout chunks."""
+    if np.any(np.asarray(out.pop("overflow", 0)) > 0):
+        raise _Fallback("exchange-overflow")  # join bucket skew
     cards = prepared["__dense_cards__"]
     comb_dicts = []
     for t in frag.tables:
@@ -862,15 +961,34 @@ def _prepare_hc(frag, comb_bounds, prepared, n_rows) -> bool:
     return True
 
 
-def _build_frag_kernel(frag, prepared, spans, mode):
+def _build_frag_kernel(frag, prepared, spans, mode, cop=None):
     """(probe cols, visibility, builds[, rank aux]) -> device outputs:
-    agg partials, hc candidates, or {"bits": packed row mask}."""
+    agg partials, hc candidates, or {"bits": packed row mask}. On the
+    mesh the body runs once per shard slot: the join exchange routes
+    probe rows to the slot owning their key of a partitioned build before
+    the gathers, the hc exchange routes joined rows by group-key hash
+    after them."""
     agg = frag.agg
     if mode == "agg":
         cards = prepared["__dense_cards__"]
         segments = 1
         for c in cards:
             segments *= max(c, 1)
+    # group-partition exchange: the distributed client routes joined rows
+    # by group-key hash so each slot owns whole groups
+    hc_exchange = None
+    if mode == "hc" and cop is not None:
+        hc_exchange = cop._hc_exchange_fn(frag, prepared)
+    # partitioned-join exchange: probe rows route by join key to the slot
+    # holding that key of the interleaved build shard
+    part_ji = prepared.get("__part_join__")
+    join_exchange = None
+    if part_ji is not None and cop is not None:
+        join_exchange = cop._join_exchange_fn(frag, prepared, spans)
+        part_axis = cop.frag_axis
+        part_span = spans[part_ji][1]
+        part_n_dev = cop.mesh.size
+        part_per_dev = -(-part_span // part_n_dev)
     semi_spans = prepared.get("__semi_spans__", ())
     semi_flags = prepared.get("__semi_flags__", ())
 
@@ -882,7 +1000,11 @@ def _build_frag_kernel(frag, prepared, spans, mode):
             # before any gather
             mask = selection_mask(frag.tables[0].filters, cols, prepared,
                                   mask)
-        for j, (lo, span), b in zip(frag.joins, spans, builds):
+        overflow_j = None
+        if join_exchange is not None:
+            cols, mask, overflow_j = join_exchange(cols, mask)
+        for ji, (j, (lo, span), b) in enumerate(
+                zip(frag.joins, spans, builds)):
             t = frag.tables[j.build]
             if "acols" in b:
                 # aligned join: the columns already sit in probe-row
@@ -897,6 +1019,25 @@ def _build_frag_kernel(frag, prepared, spans, mode):
                 continue
             key_v, key_vl = eval_expr(j.probe_key, cols, prepared)
             k = key_v.to(torch.int32) - lo
+            if ji == part_ji:
+                # rows were routed here by k % n (interleaved build
+                # ownership): gather against the LOCAL slice, whose index
+                # for key k is k // n
+                from ..parallel.dist import axis_index
+                slot = axis_index(part_axis)
+                local = torch.div(k, part_n_dev, rounding_mode="floor")
+                inrange = (k >= 0) & (k < span) & (k % part_n_dev == slot)
+                gidx = torch.clamp(local, 0, part_per_dev - 1)
+                bmask = b["present"]
+                if t.filters:
+                    bmask = selection_mask(t.filters, widen32(b["bykey"]),
+                                           prepared, bmask)
+                found = inrange & key_vl & torch.index_select(bmask, 0, gidx)
+                for d, v in widen32(b["bykey"]):
+                    cols.append((torch.index_select(d, 0, gidx),
+                                 torch.index_select(v, 0, gidx) & found))
+                mask = mask & found
+                continue
             ridx = torch.index_select(b["perm"], 0,
                                       torch.clamp(k, 0, span - 1))
             found = (k >= 0) & (k < span) & (ridx >= 0) & key_vl
@@ -939,9 +1080,21 @@ def _build_frag_kernel(frag, prepared, spans, mode):
         if frag.selection:
             mask = selection_mask(frag.selection, cols, prepared, mask)
         if mode == "agg":
-            return agg_partials(agg, prepared, cards, segments, cols, mask)
+            out = agg_partials(agg, prepared, cards, segments, cols, mask)
+            if overflow_j is not None:
+                out["overflow"] = overflow_j
+            return out
         if mode == "hc":
-            return _hc_body(frag, prepared, cols, mask, aux)
+            if hc_exchange is not None:
+                cols, mask, overflow = hc_exchange(cols, mask)
+                res = _hc_body(frag, prepared, cols, mask)
+                res["overflow"] = overflow if overflow_j is None \
+                    else overflow + overflow_j
+                return res
+            res = _hc_body(frag, prepared, cols, mask, aux)
+            if overflow_j is not None:
+                res["overflow"] = overflow_j
+            return res
         if mode == "topn":
             return _topn_rows(frag, prepared, cols, mask)
         return {"bits": packbits(mask)}
@@ -1364,17 +1517,25 @@ def _decode_hc(frag, snaps, prepared, out) -> Optional[Chunk]:
     widened HAVING, every group in all-groups mode, or the TopN
     candidates (the final k after the fused cut); the host HashAgg(final)
     + Sort + Limit above rank them exactly."""
+    if np.any(np.asarray(out.pop("overflow", 0)) > 0):
+        raise _Fallback("exchange-overflow")  # adversarial skew
     picked = out["picked"].astype(bool)
     if not picked.any():
         return None
+    blocks = max(1, int(prepared.get("__hc_blocks__", 1)))
     if frag.hc is None:
-        # sound iff the candidate buffer was not exhausted (every passing
-        # group fit it)
-        if picked.all():
-            raise _Fallback("group-overflow")
+        # sound iff no candidate BLOCK was exhausted (every passing group
+        # of that exchange partition fit its buffer); blocks are per
+        # slot on the mesh, one on a single device
+        kb = len(picked) // blocks
+        for b in range(blocks):
+            if picked[b * kb:(b + 1) * kb].all():
+                raise _Fallback("group-overflow")
         return _decode_hc_rows(frag, snaps, prepared, out, picked)
-    # one candidate block on a single device
-    if not HC.candidate_blocks_sound(picked, out["score"], frag.hc.k, 1):
+    # candidate blocks are per exchange partition (disjoint group spaces):
+    # each partition's buffer is verified on its own
+    if not HC.candidate_blocks_sound(picked, out["score"], frag.hc.k,
+                                     blocks):
         raise _Fallback("hc-boundary")
     if prepared.get("__hc_fused__"):
         return _decode_fat(frag, snaps, prepared, out)
@@ -1382,21 +1543,25 @@ def _decode_hc(frag, snaps, prepared, out) -> Optional[Chunk]:
 
 
 def _decode_fat(frag, snaps, prepared, out) -> Optional[Chunk]:
-    """Fused-cut candidates -> the final k groups.
+    """Fused-cut candidates -> the final k groups per candidate block.
 
-    The program shipped the candidates in EXACT final order with the heavy
-    arrays cut to k+1 rows; take the first min(picked, k) rows and check
+    The program shipped each block's candidates in EXACT final order with
+    the heavy arrays cut to k+1 rows; take the first min(picked, k) rows
+    of each block and check
     the cut boundary is tie-free on every ORDER BY item (row k-1 must
     differ from row k): an all-key tie is ambiguous against the host's
     stable sort, and the reference concedes it to its host interpreter."""
     k = frag.hc.k
-    npicked = int(out["picked"].astype(bool).sum())
+    blocks = max(1, int(prepared.get("__hc_blocks__", 1)))
+    picked_full = out["picked"].astype(bool)
+    cap = len(picked_full) // blocks
     probe = out.get("gk0")
     if probe is None:
         probe = out.get("cnt0")
-    kcut = probe.shape[-1]
+    kcut = probe.shape[-1] // blocks
 
-    def row_key(p: int) -> tuple:
+    def row_key(block: int, pos: int) -> tuple:
+        p = block * kcut + pos
         vals: list = []
         for kind, idx, _desc in frag.hc.items:
             if kind == "group":
@@ -1426,13 +1591,16 @@ def _decode_fat(frag, snaps, prepared, out) -> Optional[Chunk]:
             vals.append((cnt == 0, v))  # NULL flag + exact value
         return tuple(vals)
 
-    if npicked > k and kcut > k and row_key(k - 1) == row_key(k):
-        raise _Fallback("fat-boundary")
-    take = min(npicked, k, kcut)
-    if take == 0:
+    sel = np.zeros(blocks * kcut, dtype=bool)
+    for b in range(blocks):
+        npicked = int(picked_full[b * cap:(b + 1) * cap].sum())
+        take = min(npicked, k, kcut)
+        if npicked > k and kcut > k and \
+                row_key(b, k - 1) == row_key(b, k):
+            raise _Fallback("fat-boundary")
+        sel[b * kcut: b * kcut + take] = True
+    if not sel.any():
         return None
-    sel = np.zeros(kcut, dtype=bool)
-    sel[:take] = True
     heavy = {name: v for name, v in out.items()
              if name not in ("picked", "score")}
     return _decode_hc_rows(frag, snaps, prepared, heavy, sel)

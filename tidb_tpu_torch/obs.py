@@ -93,8 +93,10 @@ range plane's (`RANGE_LEADERS`, `RANGE_TRANSFERS`,
 `RANGE_ORPHAN_RESOLUTIONS`, `RANGE_SPLITS`; the heat families are the
 storage's, `obs_heat.py`).
 
-Left out, with the plane it belongs to: the mesh families, and the
-per-device label of the buffer gauge (one device).
+The mesh families (`MESH_*`) and the per-slot `{device}` label of the
+buffer gauge are fed by the mesh plane (`copr/mesh.py`). Their help
+texts are the reference's, "XLA kernel compiles" included: on the port
+a "compile" is the first dispatch of a slot program signature.
 """
 
 from __future__ import annotations
@@ -500,13 +502,14 @@ class TopSQL:
                 "sum_wall_s": 0.0, "max_wall_s": 0.0, "sum_rows": 0,
                 "sheds": 0, "kills": 0,
                 "stages": {}, "op_wall": {}, "op_stages": {},
-                "op_bytes": {}, "waits": {}}
+                "op_bytes": {}, "op_mesh": {}, "waits": {}}
 
     def record(self, digest: str, digest_text: str, db: str,
                wall_s: float, stages: Optional[dict] = None,
                op_wall: Optional[dict] = None,
                op_stages: Optional[dict] = None,
                op_bytes: Optional[dict] = None,
+               op_mesh: Optional[dict] = None,
                rows: int = 0, failed: bool = False, shed: bool = False,
                killed: bool = False,
                waits: Optional[dict] = None,
@@ -552,6 +555,12 @@ class TopSQL:
                 ob = ent["op_bytes"]
                 for k, v in op_bytes.items():
                     ob[k] = ob.get(k, 0) + int(v)
+            if op_mesh:
+                # per-operator max-shard share of sharded dispatches:
+                # the worst share seen for the digest
+                om = ent.setdefault("op_mesh", {})
+                for k, v in op_mesh.items():
+                    om[k] = max(om.get(k, 0.0), float(v))
             if waits:
                 # typed wait-state split — what makes a window
                 # attributable to its dominant wait state
@@ -593,6 +602,7 @@ class TopSQL:
                 ents.append(b["other"])
             for e in ents:
                 attributed = self.attributed_seconds(e)
+                mesh = e.get("op_mesh") or {}
                 # dominant wait state of the digest's window: which
                 # typed wait (if any) owned the wall — 'state:frac'
                 dst, dfrac = WaitProfile.dominant(e)
@@ -604,7 +614,7 @@ class TopSQL:
                     sum(e["op_bytes"].values()),
                     fmt_stages(e["stages"])[:256], e["sum_rows"],
                     e["sheds"], e["kills"],
-                    0.0, dom])
+                    round(max(mesh.values(), default=0.0), 4), dom])
                 ops = dict(e["op_wall"])
                 sess = e["op_stages"].get(self.SESSION_OP)
                 if sess:
@@ -617,7 +627,7 @@ class TopSQL:
                         e["op_bytes"].get(op, 0),
                         fmt_stages(e["op_stages"].get(op))[:256],
                         e["sum_rows"], e["sheds"], e["kills"],
-                        0.0, ""])
+                        round(mesh.get(op, 0.0), 4), ""])
         return rows
 
     def top_by_device(self, n: int = 5) -> list[dict]:
@@ -935,10 +945,12 @@ class Observability:
                     stages: Optional[dict[str, float]] = None,
                     mem_peak: int = 0, spill_count: int = 0,
                     op_wall: Optional[dict[str, float]] = None,
+                    mesh_skew: float = 0.0,
                     waits: Optional[dict[str, float]] = None) -> None:
-        """One slow-log entry, in the reference's shape less the shard
-        skew (no mesh here): digest, stages, operator walls, working-set
-        peak and spills, and the typed waits (ms)."""
+        """One slow-log entry in the reference's shape: digest, stages,
+        operator walls, working-set peak and spills, the worst shard skew
+        of the statement's sharded dispatches (0 = none) and the typed
+        waits (ms)."""
         self.slow_counter.inc()
         ent = {
             "ts": time.strftime("%Y-%m-%d %H:%M:%S"),
@@ -952,6 +964,7 @@ class Observability:
                           for k, v in (op_wall or {}).items()},
             "mem_max": int(mem_peak),
             "spill_count": int(spill_count),
+            "mesh_skew": round(float(mesh_skew), 2),
             "waits": {k: round(v * 1e3, 3)
                       for k, v in (waits or {}).items()},
         }
@@ -984,6 +997,10 @@ class Observability:
     def render(self) -> str:
         return self.metrics.render()
 
+
+# the observability of a status server that serves no SQL server (the
+# reference's module-level DEFAULT)
+DEFAULT = Observability()
 
 # process-global metrics (one device per process), in their own registry
 # so a server's exposition can concatenate both without duplicates
@@ -1080,6 +1097,47 @@ JIT_CACHE_ENTRIES = PROCESS_METRICS.gauge(
     "compiled kernels resident in the jit cache")
 PROCESS_RSS_BYTES = PROCESS_METRICS.gauge(
     "tidb_process_rss_bytes", "resident set size of this process")
+
+# mesh plane telemetry (copr/mesh.py): ONE mesh of shard slots per
+# process. The devices gauge reports the active mesh width (1 = the
+# single-device path); per-slot buffer bytes ride
+# tidb_device_buffer_bytes with a {device} label (the unlabeled sample
+# stays the process-wide total); reshard bytes count replication
+# broadcasts, partitioned-build staging and exchange routing
+MESH_DEVICES = PROCESS_METRICS.gauge(
+    "tidb_mesh_devices",
+    "devices in the process-wide coprocessor mesh (1 = single-device)")
+MESH_RESHARD_BYTES = PROCESS_METRICS.counter(
+    "tidb_mesh_reshard_bytes_total",
+    "bytes moved across mesh devices by build replication, partitioned "
+    "build staging and exchange routing")
+# mesh flight recorder (copr/mesh.py MeshFlightRecorder): per-dispatch
+# per-shard balance, program-build churn and the memory watermark.
+# Label cardinality is bounded: `kind` is a small fixed set, `device`
+# the mesh width (lint_metrics enforces the device/shard cap)
+MESH_SKEW_RATIO = PROCESS_METRICS.gauge(
+    "tidb_mesh_skew_ratio",
+    "last observed max/mean shard-row ratio of a sharded dispatch "
+    "(1.0 = perfectly balanced)")
+MESH_SKEW_WARNINGS = PROCESS_METRICS.counter(
+    "tidb_mesh_skew_warnings_total",
+    "sharded dispatches whose shard-row skew crossed "
+    "mesh.skew-warn-ratio")
+MESH_COMPILES = PROCESS_METRICS.counter(
+    "tidb_mesh_compiles_total",
+    "XLA kernel compiles observed by the mesh plane, by kernel kind")
+MESH_COMPILE_SECONDS = PROCESS_METRICS.counter(
+    "tidb_mesh_compile_seconds_total",
+    "wall seconds spent in XLA kernel compiles observed by the mesh "
+    "plane")
+MESH_RECOMPILE_STORMS = PROCESS_METRICS.counter(
+    "tidb_mesh_recompile_storms_total",
+    "kernel signatures that re-entered compile repeatedly "
+    "(bucket/placement-mode churn)")
+MESH_HBM_WATERMARK = PROCESS_METRICS.counter(
+    "tidb_mesh_hbm_watermark_total",
+    "devices whose live buffer bytes crossed "
+    "mesh.hbm-watermark-fraction of capacity, by device")
 
 # probes recomputing the sampled gauges from live state, run by
 # MetricsHistory.sample_now() so the gauges are current at read time
@@ -1456,6 +1514,10 @@ def operator(label: str) -> _OpCtx:
     return _OpCtx(label)
 
 
+def active_operator() -> Optional[str]:
+    return getattr(_op_tls, "label", None)
+
+
 def note_op_bytes(nbytes: int) -> None:
     """Attribute host-to-device transfer bytes to the active operator on
     the statement's recorder (a no-op without one)."""
@@ -1474,7 +1536,7 @@ class StageRecorder:
     coprocessor read, in call order."""
 
     __slots__ = ("totals", "counts", "op_wall", "ops", "op_bytes",
-                 "engines")
+                 "op_mesh", "engines")
 
     def __init__(self) -> None:
         self.totals: dict[str, float] = {}
@@ -1482,6 +1544,9 @@ class StageRecorder:
         self.op_wall: dict[str, float] = {}
         self.ops: dict[str, dict[str, float]] = {}
         self.op_bytes: dict[str, int] = {}
+        # per-operator mesh balance from the flight recorder:
+        # op -> [max shard share (max_shard/total), max skew ratio]
+        self.op_mesh: dict[str, list] = {}
         self.engines: list[str] = []
 
     def add(self, name: str, seconds: float) -> None:
@@ -1490,6 +1555,17 @@ class StageRecorder:
 
     def add_op_wall(self, op: str, seconds: float) -> None:
         self.op_wall[op] = self.op_wall.get(op, 0.0) + seconds
+
+    def note_mesh(self, op: str, share: float, skew: float) -> None:
+        """Record one sharded dispatch's balance under the operator that
+        issued it (fed by the mesh flight recorder at collect time):
+        max-shard share of the rows and max/mean skew ratio."""
+        m = self.op_mesh.get(op)
+        if m is None:
+            self.op_mesh[op] = [float(share), float(skew)]
+        else:
+            m[0] = max(m[0], float(share))
+            m[1] = max(m[1], float(skew))
 
     def add_op_stage(self, op: str, stage: str, seconds: float) -> None:
         d = self.ops.get(op)
@@ -1741,8 +1817,9 @@ def fmt_ops_ms(ops_ms: Optional[dict[str, float]]) -> str:
 
 
 def fmt_mesh(note: Optional[dict]) -> str:
-    """A sharded dispatch's note -> the EXPLAIN ANALYZE `mesh` cell; ""
-    on one device, where no dispatch leaves a note."""
+    """Mesh flight-recorder note -> the EXPLAIN ANALYZE `mesh` cell:
+    'shards=8 skew=1.25 rows=[..per-shard rows..] [routed=NNN]'; "" on
+    the single-device path, where no dispatch leaves a note."""
     if not note:
         return ""
     rows = note.get("rows") or note.get("in") or []
@@ -1782,7 +1859,17 @@ class RuntimeStatsColl:
             for k, v in stages.items():
                 st[k] = st.get(k, 0.0) + v
         if mesh:
-            ent["mesh"] = dict(mesh)
+            # keep the latest per-shard rows and the worst skew across
+            # loops; routed bytes accumulate
+            m = ent["mesh"]
+            if m is None:
+                ent["mesh"] = dict(mesh)
+            else:
+                m["skew"] = max(m.get("skew", 0.0),
+                                mesh.get("skew", 0.0))
+                m["rows"] = mesh.get("rows") or m.get("rows")
+                m["in"] = mesh.get("in") or m.get("in")
+                m["routed"] = m.get("routed", 0) + mesh.get("routed", 0)
 
     def for_plan(self, plan) -> Optional[dict]:
         return self.nodes.get(id(plan))
@@ -1951,8 +2038,9 @@ def lint_metrics(registries, device_label_cap: Optional[int] = None
     text; names are tidb_-prefixed snake_case; no family is registered
     in more than one of the given registries (their /metrics outputs
     concatenate); `device`/`shard` label families stay bounded by the
-    mesh size (`device_label_cap`, default 8) so per-device telemetry
-    cannot turn into unbounded cardinality; and the rendered Prometheus
+    mesh size (`device_label_cap`, default the live mesh width, at least
+    8) so per-device telemetry cannot turn into unbounded cardinality;
+    and the rendered Prometheus
     text exposition is well-formed (HELP/TYPE precede samples, label
     syntax and values parse, histogram buckets are cumulative and
     _count-consistent), so a metric added later cannot silently break
@@ -1962,9 +2050,7 @@ def lint_metrics(registries, device_label_cap: Optional[int] = None
     if _METRIC_NAME_RE is None:
         _METRIC_NAME_RE = re.compile(r"^tidb_[a-z0-9_]+$")
     if device_label_cap is None:
-        # one device: the reference's floor of 8 (its default is the
-        # live mesh width, at least 8)
-        device_label_cap = 8
+        device_label_cap = max(int(MESH_DEVICES.get()), 8)
     findings: list[str] = []
     seen: dict[str, int] = {}
     label_vals: dict[tuple[str, str], set] = {}

@@ -271,6 +271,7 @@ class WorkloadHistory:
                 wall_s: float, engines=None,
                 stages: Optional[dict] = None, rows: int = 0,
                 failed: bool = False,
+                op_mesh: Optional[dict] = None,
                 now: Optional[float] = None) -> None:
         """One completed statement. The session gates on `.enabled`
         before computing the digest, so this is never reached while
@@ -344,6 +345,11 @@ class WorkloadHistory:
                 st = ent["stages_ms"]
                 for k, v in stages.items():
                     st[k] = round(st.get(k, 0.0) + v * 1e3, 3)
+            if op_mesh:
+                for share, skew in op_mesh.values():
+                    ent["max_shard_share"] = max(ent["max_shard_share"],
+                                                 float(share))
+                    ent["max_skew"] = max(ent["max_skew"], float(skew))
         if persist is not None:
             self._persist(*persist)
         if change is not None:

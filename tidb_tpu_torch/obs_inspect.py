@@ -21,10 +21,10 @@ across rules. `DiagnosticsState.enabled = False` short-circuits before
 the snapshot is built, so a read does zero inspection work.
 
 Every rule of the reference is registered under its own name, severity
-and reference text. The rules over planes the port does not have return
-no finding, which is what the reference returns with that plane off:
-mesh-shard-skew, mesh-recompile-storm and mesh-hbm-watermark (no mesh
-client). lock-order-inversion reads the lock-order checker
+and reference text. The mesh rules (mesh-shard-skew, mesh-recompile-
+storm, mesh-hbm-watermark) read the storage's existing mesh client
+(`copr/mesh.client_of`) and return nothing without one; the watermark
+is per physical device (`MeshPlane.physical_bytes`). lock-order-inversion reads the lock-order checker
 (`analysis/lockcheck.py`) and returns nothing while it is off. The range
 rules (range-leader-flap, range-split-flap, range-closed-ts-stall) read
 the range plane's events and hosted ranges, and the heat rules
@@ -56,15 +56,18 @@ _SEV_ORDER = {s: i for i, s in enumerate(SEVERITIES)}
 @dataclass
 class DiagnosticsState:
     """Per-storage diagnostics settings + the edge-trigger memory.
-    Field names/defaults mirror the reference's config.DiagnosticsConfig
-    for the rules the port evaluates; the threshold of the rule whose
-    plane the port lacks (mesh skew) comes with that plane. Config.seed_diagnostics
-    copies the knobs in; embedded callers set them directly."""
+    Field names/defaults mirror the reference's config.DiagnosticsConfig.
+    Config.seed_diagnostics copies the knobs in; embedded callers set
+    them directly."""
 
     enabled: bool = True
     # how many MetricsHistory samples a windowed rule considers (the
     # window in SECONDS is this times metrics-history-interval)
     history_windows: int = 8
+    # mesh skew must persist this many dispatches before it is a
+    # finding: one skewed dispatch is noise, a sustained one is a
+    # placement problem
+    skew_min_dispatches: int = 2
     fsync_stall_threshold: int = 3       # stalls in the window
     host_fallback_fraction: float = 0.5  # of a digest's stage split
     governor_kill_threshold: int = 1     # kills in the window
@@ -208,6 +211,11 @@ class InspectionContext:
         gate = getattr(storage, "admission", None)
         self.admission = gate.stats() if gate is not None else {}
         self.transport = storage.transport_health()
+        from .copr import mesh as _mesh
+        client = _mesh.client_of(storage)
+        self.mesh_client = client
+        self.mesh = client.recorder.snapshot() if client is not None \
+            else {"dispatches": [], "compiles": []}
         # workload-history regression findings, computed ONCE per
         # snapshot (both history rules read this list; an absent or
         # disabled history plane contributes nothing)
@@ -280,16 +288,47 @@ def _labels_of(name: str) -> str:
       "the hot range or lower shard-threshold-rows "
       "(information_schema.tidb_mesh_shards)")
 def _r_mesh_skew(ctx: InspectionContext) -> list[Finding]:
-    # no mesh client on one device
-    return []
+    client = ctx.mesh_client
+    if client is None:
+        return []
+    thr = float(client.recorder.plane.cfg.skew_warn_ratio)
+    if thr <= 0:
+        return []
+    cutoff = ctx.now - ctx.window_s
+    out = []
+    for e in ctx.mesh["dispatches"]:
+        # sustained AND current: count and grade only the dispatches
+        # that INDIVIDUALLY crossed the warn ratio INSIDE the window
+        # (the recorder's (ts, skew) crossing ledger)
+        recent = [s for (t, s) in e.get("skew_hits", ())
+                  if t >= cutoff]
+        if len(recent) < ctx.cfg.skew_min_dispatches:
+            continue
+        worst = max(recent)
+        sev = "critical" if worst >= 2 * thr else "warning"
+        out.append(Finding(
+            "mesh-shard-skew", e["digest"], sev, f"{worst:.2f}",
+            f"{e['kind']} dispatch ({e['op'] or 'scan'}) max/mean "
+            f"shard rows reached {worst:.2f} >= {thr:g} on "
+            f"{len(recent)} of {e['dispatches']} dispatches in the "
+            f"window; last rows={e['last_rows']}"))
+    return out
 
 
 @rule("mesh-recompile-storm", "warning",
       "kernel signature re-entering XLA compile (bucket/placement-mode "
       "churn); pin tile sizes or placement (/debug/mesh compile ring)")
 def _r_recompile_storm(ctx: InspectionContext) -> list[Finding]:
-    # no mesh flight recorder on one device
-    return []
+    out = []
+    for e in ctx.mesh["compiles"]:
+        if not e.get("storm"):
+            continue
+        out.append(Finding(
+            "mesh-recompile-storm", e["signature"], "warning",
+            str(e["count"]),
+            f"{e['kind']} kernel compiled {e['count']}x "
+            f"({e['total_s']:.2f}s total); last key {e['last_key']}"))
+    return out
 
 
 @rule("mesh-hbm-watermark", "critical",
@@ -297,9 +336,39 @@ def _r_recompile_storm(ctx: InspectionContext) -> list[Finding]:
       "resident epochs or raise mesh.hbm-bytes "
       "(information_schema.tidb_mesh_storage)")
 def _r_hbm_watermark(ctx: InspectionContext) -> list[Finding]:
-    # no mesh plane: no device watermark ledger and no
-    # mesh_hbm_watermark event
-    return []
+    out = []
+    seen = set()
+    # live level check first: a device that has sat above the watermark
+    # since before the window emitted its (edge-triggered) event long
+    # ago, but it is still the problem NOW
+    client = ctx.mesh_client
+    if client is not None:
+        plane = client.recorder.plane
+        if plane.mesh_built:
+            for dev, b in sorted(plane.physical_bytes().items()):
+                cap = plane.device_capacity_bytes(dev)
+                if cap <= 0:
+                    continue
+                thr = cap * float(plane.cfg.hbm_watermark_fraction)
+                if b < thr:
+                    continue
+                seen.add(f"device {dev}")
+                out.append(Finding(
+                    "mesh-hbm-watermark", f"device {dev}",
+                    "critical", str(int(b)),
+                    f"{int(b)} live buffer bytes >= "
+                    f"{plane.cfg.hbm_watermark_fraction:.0%} of "
+                    f"{cap}-byte capacity"))
+    # plus devices that crossed inside the window and have since dropped
+    # (the recorder's edge-triggered event names them)
+    for e in reversed(ctx.window_events("mesh_hbm_watermark")):
+        item = e["detail"].split(":", 1)[0][:64] or "(device)"
+        if item in seen:
+            continue
+        seen.add(item)
+        out.append(Finding("mesh-hbm-watermark", item, "critical",
+                           "", e["detail"]))
+    return out
 
 
 @rule("wal-fsync-stall", "warning",

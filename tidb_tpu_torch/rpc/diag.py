@@ -1,9 +1,8 @@
 """Cluster diagnostics plane: per-server diag endpoints + RPC fan-out.
 
-Port of `tidb_tpu/rpc/diag.py`, with the range plane's `type='range'`
-rows of cluster_info and `diag_hot_ranges`. The methods over the plane
-the port does not have answer `NotInSlice` naming its item of ROADMAP
-queue 1: `diag_mesh_shards` and `diag_mesh_storage` (8).
+Port of `tidb_tpu/rpc/diag.py`, whole, with the range plane's
+`type='range'` rows of cluster_info, `diag_hot_ranges`, and the mesh
+flight recorder's `diag_mesh_shards` and `diag_mesh_storage`.
 The fan-out degrades a member to an error row only for
 `errors.survivable()` errors; any other error in a worker is re-raised
 in the querying thread after the join.
@@ -46,7 +45,6 @@ import time
 from typing import Any
 
 from .. import obs
-from ..errors import NotInSlice
 from ..util import failpoint
 from .errors import RPCError, survivable, traced_response, wire_error
 from .frame import get_trace_ctx
@@ -191,14 +189,16 @@ class DiagService:
         return {"rows": self.storage.heat.table_rows()}
 
     def diag_mesh_shards(self) -> dict:
-        """This server's mesh dispatch ring: item 8."""
-        raise NotInSlice("diag_mesh_shards: the multi-device plane "
-                         "(ROADMAP queue 1 item 8)")
+        """This server's mesh flight-recorder dispatch ring (empty while
+        the storage has no mesh client). Reads the EXISTING client: a
+        diag scrape never builds a mesh."""
+        from ..copr import mesh as _mesh
+        return {"rows": _mesh.shard_rows(self.storage)}
 
     def diag_mesh_storage(self) -> dict:
-        """This server's per-device HBM ledger: item 8."""
-        raise NotInSlice("diag_mesh_storage: the multi-device plane "
-                         "(ROADMAP queue 1 item 8)")
+        """This server's per-slot memory provenance ledger."""
+        from ..copr import mesh as _mesh
+        return {"rows": _mesh.storage_rows(self.storage)}
 
     def diag_events(self) -> dict:
         """The structured server event ring, newest last."""

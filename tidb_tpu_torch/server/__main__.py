@@ -16,9 +16,10 @@ watcher and, when it wins an election, serves coordination RPC on
 `promote-listen`; `--device` also places the sessions a follower serves
 routed replica reads on. Startup and SIGHUP seed `[heatmap]` and
 `[ranges]` as the reference does. `[analysis] lock-check` arms the
-lock-order checker before the store opens. The knobs of the mesh plane,
-which the port does not have, raise `NotInSlice` at startup (`[mesh]`,
-ROADMAP item 8).
+lock-order checker before the store opens. `[mesh]` configures the
+process-wide mesh plane before the store opens; its slots run on the
+first card, so an `axis-size` above 1 is what makes a mesh (that many
+slots on the card).
 
 Counterpart of the reference's tidb-server binary (reference:
 tidb-server/main.go:160 — flag parsing :76-151, config load + flag
@@ -215,7 +216,8 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.analysis.lock_check:
         from ..analysis import lockcheck
         lockcheck.enable()
-    # the mesh plane's knobs fail before the store opens (not ported)
+    # the process-wide mesh plane: configured before any session
+    # resolves its coprocessor client
     cfg.seed_mesh()
     from ..device import resolve_device
     device = resolve_device(args.device)

@@ -16,6 +16,9 @@ Routes:
       profile: hot frames + flamegraph-style call tree (JSON)
   /debug/metrics/history  the MetricsHistory ring (JSON)
   /debug/failpoints  armed fault-injection points + hit counts (JSON)
+  /debug/mesh  the mesh flight recorder: plane status, per-digest
+      dispatch ring, program-build ring, per-slot memory ledger (JSON;
+      never builds a mesh)
   /debug/lockgraph  the lock-order checker: instrumented locks, edges,
     cycles, blocking-under-hot-lock events, held locks (JSON)
   /debug/topsql  the Top SQL attribution windows (JSON)
@@ -33,13 +36,13 @@ Routes:
     serving/closed-timestamp state, the local apply engine, and the
     routed-read outcome counters (JSON)
 
-The routes of planes the port does not have answer 501 with a JSON body
-naming the ROADMAP queue item that ports them: /debug/mesh (item 8).
+Every route of the reference is served (`UNPORTED_ROUTES`, the routes
+that would answer 501 with the ROADMAP item porting them, is empty).
 /debug/lockgraph serves the lock-order checker's graph
 (`analysis.lockcheck.debug_payload()`: enabled, locks, edges, cycles,
-blocking, held). The /status section of the mesh plane is
-left out; `ranges` (the range table and the hosted ranges, while
-[ranges] is armed) and `transport`
+blocking, held). The /status sections `mesh` (`copr/mesh.status()`),
+`ranges` (the range table and the hosted ranges, while [ranges] is
+armed) and `transport`
 (the storage's `transport_health`: mode, peer, breaker, members,
 failover, replica apply) is served. Where the reference's handlers catch
 every exception around a reader (the mesh section, the inspection
@@ -61,10 +64,8 @@ from urllib.parse import parse_qs, urlparse
 from .. import obs
 
 # the reference's routes whose planes are not ported: route prefix ->
-# (plane, ROADMAP queue 1 item)
-UNPORTED_ROUTES = {
-    "/debug/mesh": ("the multi-device plane", 8),
-}
+# (plane, ROADMAP queue 1 item); none since the mesh plane was ported
+UNPORTED_ROUTES: dict = {}
 
 
 class StatusServer:
@@ -200,6 +201,12 @@ class StatusServer:
                     from ..util import failpoint
                     body = json.dumps(failpoint.snapshot()).encode()
                     ctype = "application/json"
+                elif self.path.startswith("/debug/mesh"):
+                    # flight recorder + per-slot ledger; never builds a
+                    # mesh as a scrape side effect
+                    from ..copr import mesh as _mesh
+                    body = json.dumps(_mesh.debug_payload()).encode()
+                    ctype = "application/json"
                 elif self.path.startswith("/debug/lockgraph"):
                     # the dynamic lock-order checker's graph: enabled
                     # flag, instrumented locks, observed edges, cycles,
@@ -224,8 +231,7 @@ class StatusServer:
         self._thread: Optional[threading.Thread] = None
 
     def status(self, server_obs) -> dict:
-        """The /status JSON: the reference's sections but the mesh
-        plane's."""
+        """The /status JSON: the reference's sections."""
         from . import conn as _conn
         srv = self.sql_server
         status = {
@@ -246,6 +252,10 @@ class StatusServer:
             plane = srv.storage.ranges
             if plane is not None:
                 status["ranges"] = plane.status()
+        # mesh data plane: slot count + per-slot sharded-epoch bytes
+        # (never builds a mesh as a scrape side effect)
+        from ..copr import mesh as _mesh
+        status["mesh"] = _mesh.status()
         # top digests by device time from the continuous attribution
         # plane (empty while topsql disabled)
         status["top_sql"] = {

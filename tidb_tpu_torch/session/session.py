@@ -101,8 +101,9 @@ admission; any staleness, term or transport trouble falls back to the
 local path with a Note. EXPLAIN ANALYZE of a routed read shows one row
 per plan line with the engine `replica@host:port` on the first.
 
-Left out of the reference's statement path, with its plane: the
-shard-skew warnings of the mesh.
+The mesh flight recorder's shard-skew warnings become SHOW WARNINGS
+entries at the end of each statement, and its worst skew rides the slow
+log, Top SQL and the workload history.
 """
 
 from __future__ import annotations
@@ -269,6 +270,9 @@ class Session:
         # bytes and typed waits (Top SQL's feed, readable by callers)
         self.last_op_stages: dict[str, dict[str, float]] = {}
         self.last_op_bytes: dict[str, int] = {}
+        # per-operator mesh balance ([max shard share, max skew]) from the
+        # flight recorder; empty on single-device statements
+        self.last_op_mesh: dict[str, list] = {}
         self.last_waits: dict[str, float] = {}
         # @@profiling ring: per-statement sampling profiles served by
         # SHOW PROFILES / SHOW PROFILE / information_schema.profiling
@@ -295,10 +299,14 @@ class Session:
 
     @property
     def cop(self) -> CopClient:
-        """Coprocessor client, built on first use (the reference's
-        `mesh.client_for`; the port has one device)."""
+        """Coprocessor client, resolved on first use: the storage's
+        SHARED mesh client when the process mesh plane is active and its
+        slots are of this session's device type, so sharded epochs stay
+        resident across sessions; else a plain CopClient of the session's
+        device."""
         if self._cop is None:
-            self._cop = CopClient(self._device)
+            from ..copr import mesh as _mesh
+            self._cop = _mesh.client_for(self.storage, self._device)
             # the keyspace heat recorder: scans account per-range traffic
             self._cop.heat = getattr(self.storage, "heat", None)
             self.storage.add_cache_client(self._cop)
@@ -516,8 +524,27 @@ class Session:
             self.last_op_wall = rec.op_wall
             self.last_op_stages = rec.ops
             self.last_op_bytes = rec.op_bytes
+            self.last_op_mesh = rec.op_mesh
             self.last_engines = rec.engines
             self.last_waits = led.totals if led is not None else {}
+            # worst shard skew of the statement's sharded dispatches
+            # (0 = none); surfaces in the slow log and Top SQL
+            mesh_skew = 0.0
+            if rec.op_mesh:
+                mesh_skew = max(v[1] for v in rec.op_mesh.values())
+            # mesh skew warnings raised by the flight recorder during
+            # this statement become SHOW WARNINGS entries (self._cop,
+            # not self.cop: the property would build a client on
+            # statements that never dispatched)
+            c = self._cop
+            if c is not None:
+                if failed:
+                    # a failed statement leaves queued per-shard stats
+                    # uncollected; drop them so they do not fold into
+                    # the next statement's mesh accounting
+                    c.discard_mesh_pending()
+                for w in c.drain_mesh_warnings():
+                    self.add_warning(w)
             if digest_sql is not None:
                 o.statements.record(digest_sql, self.current_db, dt,
                                     rows_out, failed,
@@ -547,7 +574,8 @@ class Session:
                     history.observe(
                         digest, norm[:512], self.current_db, dt,
                         engines=rec.engines, stages=rec.totals,
-                        rows=rows_out, failed=failed)
+                        rows=rows_out, failed=failed,
+                        op_mesh=rec.op_mesh)
                 if wp_on:
                     o.waitprofile.record(digest, norm[:512],
                                          self.current_db, dt,
@@ -559,6 +587,8 @@ class Session:
                         op_stages=rec.ops, op_bytes=rec.op_bytes,
                         rows=rows_out, failed=failed, shed=shed,
                         killed=self._governor_killed,
+                        op_mesh={k: v[0] for k, v in
+                                 rec.op_mesh.items()} or None,
                         waits=led.totals if led is not None else None)
                 if slow:
                     o.record_slow(sql, self.current_db, dt,
@@ -567,6 +597,7 @@ class Session:
                                   mem_peak=self.last_mem_peak,
                                   spill_count=self.last_spill_count,
                                   op_wall=rec.op_wall,
+                                  mesh_skew=mesh_skew,
                                   waits=dict(led.totals)
                                   if led is not None else None)
 

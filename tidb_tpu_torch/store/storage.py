@@ -55,8 +55,9 @@ and `close()` closes it, re-raising an error its lease loop kept.
 
 The long-lived locks (`_commit_lock`, `infoschema_lock`, `_lease_lock`)
 come from the lock-order checker's factories (`analysis/lockcheck.py`).
-Left out, with the plane it belongs to: the epoch listeners of the mesh
-plane (item 8). GLOBAL plan bindings (`bindings`,
+The mesh plane's epoch listeners (`add_epoch_listener`) fire after every
+base-epoch replacement and free a folded epoch's sharded tensors. GLOBAL
+plan bindings (`bindings`,
 `session/bindinfo.py`) ride the meta keyspace.
 
 The observability planes live here as in the reference: `obs` (the
@@ -447,6 +448,9 @@ class Storage:
         # tensors in every one (each wire connection has its own client)
         self._cache_clients: weakref.WeakSet = weakref.WeakSet()
         self._cache_clients_lock = threading.Lock()
+        # fn(store) after every base-epoch replacement of every table
+        # (the mesh plane's eager eviction; add_epoch_listener)
+        self._epoch_listeners: list = []
         if path is not None:
             self._recover()
             if not self.remote:
@@ -539,12 +543,28 @@ class Storage:
         return first
 
     def adopt_table_store(self, store: TableStore) -> None:
-        """Wire a TableStore into this storage's epoch plumbing (the
-        durable-snapshot hook). Every TableStore that lands in
-        self.tables passes through here: register_table, partition
-        registration, TRUNCATE PARTITION's fresh store."""
+        """Wire a TableStore into this storage's epoch plumbing: the
+        durable-snapshot hook and the eager-eviction listeners. Every
+        TableStore that lands in self.tables passes through here:
+        register_table, partition registration, TRUNCATE PARTITION's
+        fresh store (or the mesh plane would never see that table's epoch
+        folds)."""
         if self.path is not None:
             store.on_epoch = self._on_epoch_changed
+        for fn in self._epoch_listeners:
+            if fn not in store.evict_hooks:
+                store.evict_hooks.append(fn)
+
+    def add_epoch_listener(self, fn) -> None:
+        """Attach `fn(store)` to fire after every base-epoch replacement
+        of every table (current and future); idempotent per listener.
+        The mesh plane's eager device-tensor eviction."""
+        if fn in self._epoch_listeners:
+            return
+        self._epoch_listeners.append(fn)
+        for store in list(self.tables.values()):
+            if fn not in store.evict_hooks:
+                store.evict_hooks.append(fn)
 
     @staticmethod
     def child_table_info(info: TableInfo, d) -> TableInfo:

@@ -289,10 +289,17 @@ class TableStore:
         # committing session on an O(table) file write
         self.on_epoch = None
         self.epoch_dirty = False
+        # eager-eviction hooks: fired on every base-epoch replacement so
+        # device-resident caches (the mesh plane's sharded epochs) free
+        # the superseded epoch's tensors now, not on the next dispatch
+        # (Storage.add_epoch_listener attaches)
+        self.evict_hooks: list = []
 
     def _epoch_changed(self, required: bool = True) -> None:
         if self.on_epoch is not None:
             self.on_epoch(self, required)
+        for fn in list(self.evict_hooks):
+            fn(self)
 
     def restore_epoch(self, epoch: ColumnEpoch,
                       dictionaries: list[Optional[Dictionary]],

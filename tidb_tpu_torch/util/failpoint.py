@@ -62,8 +62,8 @@ The port wires the reference's sites in the planes it has:
     twopc/after-primary-commit
 
 and the rpc, diag and replica sites of the socket tier (`rpc/client.py`,
-`rpc/diag.py`, `rpc/apply.py`). The site of the plane not yet ported
-(mesh) waits with it; `DECLARED` lists every site the port has.
+`rpc/diag.py`, `rpc/apply.py`) and the mesh flight recorder's synthetic
+skew (`mesh/skew`, `copr/mesh.py`); `DECLARED` lists every site.
 Arming-change listeners (`on_change`) run after every enable or disable: the network fault plane
 keeps its one hot-path flag with them. Armed points and their hit counts are
 listed on the status port at /debug/failpoints (`snapshot()`).
@@ -100,8 +100,7 @@ def _notify() -> None:
 # The declared registry: every inject() site in tidb_tpu_torch/ names one
 # of these, and every name a test arms (context manager, enable(), or a
 # TIDB_TPU_FAILPOINTS env spec) must exist here — an armed point whose
-# inject() site was renamed away silently never fires. The reference's
-# mesh site (mesh/skew) waits with its plane (ROADMAP queue 1 item 8).
+# inject() site was renamed away silently never fires.
 # The failpoint-registry rule (analysis/rules.py) checks both
 # directions.
 DECLARED = frozenset({
@@ -112,6 +111,7 @@ DECLARED = frozenset({
     "governor/mem-pressure",       # util/governor.py synthetic RSS
     "kv/group-fsync",              # kv/mvcc.py pre-fsync crash site
     "kv/wal-torn-append",          # kv/mvcc.py torn WAL record
+    "mesh/skew",                   # copr/mesh.py synthetic shard skew
     "net/delay",                   # rpc/netfault.py per-peer frame
                                    # delay schedule
     "net/drop",                    # rpc/netfault.py silent frame loss
